@@ -4,7 +4,7 @@ export PYTHONPATH := src$(if $(PYTHONPATH),:$(PYTHONPATH))
 
 .PHONY: test test-fast test-conformance test-kernels test-alloc \
     test-scheduling test-http test-prefix test-precision test-retrace \
-    test-swap test-ci lint docs-check dev serve bench
+    test-swap test-ci test-torch lint docs-check dev serve bench
 
 test:
 	$(PYTHON) -m pytest -x -q
@@ -101,6 +101,11 @@ test-kernels:
 # the workflow deselect the files its fast-signal steps already ran.
 test-ci:
 	$(PYTHON) -m pytest -q tests/ $(PYTEST_ARGS)
+
+# the PyTorch/CUDA port (src/repro_torch) against the JAX package, on the
+# CPU: kernels take their plain PyTorch versions, tests marked `gpu` skip
+test-torch:
+	$(PYTHON) -m pytest -q tests/test_torch_*.py
 
 dev:
 	$(PYTHON) -m pip install -r requirements-dev.txt

@@ -1,0 +1,368 @@
+"""Mixed-precision quantized KV cache (port of `repro.core.kvcache`, mixed
+layout, lockstep path).
+
+  MixedKVCache
+    ├── hi : TokenStore   — salient tokens at high_bits   (capacity S_hi)
+    ├── lo : TokenStore   — regular tokens at low_bits    (capacity S_lo)
+    ├── window            — raw staging buffer for freshly decoded tokens,
+    │                       folded into hi/lo every `recompress_interval`
+    │                       steps (paper Alg. 3)
+    └── saliency state    — per-slot accumulated probe mass `acc` and probe
+                            counts `nnz` (Eq. 8 numerator / denominator)
+
+Token layout inside a store: (batch, kv_heads, slots, head_dim); pos, acc
+and nnz are per (batch, slot).  Empty slots carry pos == -1.  Functions
+return new caches and never write into their inputs, like the reference.
+
+Only the saliency policies (zipcache, mikv) are ported; the baselines'
+branches raise.  `use_kernel` routes the CST quantization of V through the
+`cst_quant` kernel wrapper instead of `core.quant.quantize_cst`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.core import packing, quant
+from repro_torch.core import saliency as sal
+from repro_torch.core.policy import CompressionConfig
+
+NEG_INF = -1e30
+_SALIENCY_METHODS = ("zipcache", "mikv")
+
+
+def _ported(cfg: CompressionConfig) -> None:
+    if cfg.method not in _SALIENCY_METHODS:
+        raise NotImplementedError(
+            f"policy {cfg.method!r} is not ported yet (ported: {_SALIENCY_METHODS})")
+
+
+# ---------------------------------------------------------------------------
+# TokenStore
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class TokenStore:
+    """Fixed-capacity store of quantized (K, V) tokens + saliency state."""
+
+    k: quant.QuantizedTensor     # (b, h_kv, S, d) logical
+    v: quant.QuantizedTensor
+    pos: torch.Tensor            # (b, S) int32 absolute positions, -1 = empty
+    acc: torch.Tensor            # (b, S) f32 accumulated probe attention
+    nnz: torch.Tensor            # (b, S) f32 probe counts
+
+    @property
+    def capacity(self) -> int:
+        return self.pos.shape[-1]
+
+    @property
+    def valid(self) -> torch.Tensor:
+        return self.pos >= 0
+
+    def dequantize(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.k.dequantize(), self.v.dequantize()
+
+
+def _empty_quant(x: torch.Tensor, bits: int) -> quant.QuantizedTensor:
+    """Zero-capacity store: no reductions over the empty token axis."""
+    pf = packing.pack_factor(min(bits, 8))
+    codes = torch.zeros((*x.shape[:-1], x.shape[-1] // pf), dtype=torch.int8, device=x.device)
+    scale = torch.ones((*x.shape[:-2], 0, 1), dtype=torch.float32, device=x.device)
+    zero = torch.zeros((*x.shape[:-2], 0, 1), dtype=torch.float32, device=x.device)
+    return quant.QuantizedTensor(codes, scale, zero, None, min(bits, 8), tuple(x.shape))
+
+
+def _quantize_kv(k: torch.Tensor, v: torch.Tensor, bits: int, cfg: CompressionConfig,
+                 use_kernel: bool = False):
+    """Quantize gathered K/V token blocks per the policy's schemes."""
+    if k.shape[-2] == 0:
+        return _empty_quant(k, bits), _empty_quant(v, bits)
+    if bits >= 16:
+        return quant.quantize_raw16(k), quant.quantize_raw16(v)
+    kw_k = {"group_size": min(cfg.group_size, k.shape[-1])} if cfg.key_scheme == "groupwise" else {}
+    kw_v = {"group_size": min(cfg.group_size, v.shape[-1])} if cfg.value_scheme == "groupwise" else {}
+    qk = quant.quantize(k, bits, cfg.key_scheme, **kw_k)
+    if use_kernel and cfg.value_scheme == "cst":
+        from repro_torch.kernels.cst_quant import ops as cst_ops
+        qv = cst_ops.quantize_cst(v, bits)
+    else:
+        qv = quant.quantize(v, bits, cfg.value_scheme, **kw_v)
+    return qk, qv
+
+
+def build_store(k, v, pos, acc, nnz, bits: int, cfg: CompressionConfig,
+                use_kernel: bool = False) -> TokenStore:
+    qk, qv = _quantize_kv(k, v, bits, cfg, use_kernel=use_kernel)
+    return TokenStore(qk, qv, pos.to(torch.int32), acc.float(), nnz.float())
+
+
+def empty_store(b: int, h_kv: int, capacity: int, d: int, bits: int, cfg: CompressionConfig,
+                dtype=torch.bfloat16, d_v: Optional[int] = None, device=None) -> TokenStore:
+    k = torch.zeros((b, h_kv, capacity, d), dtype=dtype, device=device)
+    v = torch.zeros((b, h_kv, capacity, d_v if d_v is not None else d), dtype=dtype, device=device)
+    pos = torch.full((b, capacity), -1, dtype=torch.int32, device=device)
+    acc = torch.zeros((b, capacity), dtype=torch.float32, device=device)
+    return build_store(k, v, pos, acc, acc.clone(), bits, cfg)
+
+
+# ---------------------------------------------------------------------------
+# MixedKVCache
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class MixedKVCache:
+    hi: TokenStore
+    lo: TokenStore
+    k_win: torch.Tensor        # (b, h_kv, W, d) raw staging window
+    v_win: torch.Tensor
+    win_pos: torch.Tensor      # (b, W) int32, -1 empty
+    win_acc: torch.Tensor      # (b, W) f32
+    win_nnz: torch.Tensor      # (b, W) f32
+    length: torch.Tensor       # (b,) int32: tokens seen (next position)
+    win_fill: torch.Tensor     # (b,) int32: occupied window slots per row
+
+    @property
+    def window(self) -> int:
+        return self.win_pos.shape[-1]
+
+    @property
+    def capacity(self) -> int:
+        return self.hi.capacity + self.lo.capacity + self.window
+
+
+SLOT_ALIGN = 128  # store capacities align to this for caches of >= 2048 tokens
+
+
+def _align(n: int, a: int, up: bool = False) -> int:
+    return ((n + (a - 1 if up else a // 2)) // a) * a
+
+
+def capacities(cfg: CompressionConfig, max_len: int) -> Tuple[int, int, int]:
+    """Static (S_hi, S_lo, W) slot capacities for a max sequence length."""
+    a = SLOT_ALIGN if max_len >= 2048 else 1
+    w = max(cfg.recompress_interval, 8)
+    if cfg.method == "kivi":
+        w = w + cfg.fp_window
+    w = _align(w, a, up=True) if w else 0
+    if cfg.method == "fp16":
+        return max_len, 0, w
+    if cfg.method == "h2o":
+        return max(_align(cfg.n_salient(max_len), a), a), 0, w
+    if cfg.method in ("gear", "kivi"):
+        return 0, max_len, w
+    s_hi = min(max(_align(cfg.n_salient(max_len), a), a), max_len)
+    return s_hi, max_len - s_hi, w
+
+
+def _window(b, h_kv, w, d, dv, dtype, device) -> dict:
+    return dict(
+        k_win=torch.zeros((b, h_kv, w, d), dtype=dtype, device=device),
+        v_win=torch.zeros((b, h_kv, w, dv), dtype=dtype, device=device),
+        win_pos=torch.full((b, w), -1, dtype=torch.int32, device=device),
+        win_acc=torch.zeros((b, w), dtype=torch.float32, device=device),
+        win_nnz=torch.zeros((b, w), dtype=torch.float32, device=device),
+        win_fill=torch.zeros((b,), dtype=torch.int32, device=device))
+
+
+def init_cache(cfg: CompressionConfig, b: int, h_kv: int, d: int, max_len: int,
+               dtype=torch.bfloat16, d_v: Optional[int] = None, device=None) -> MixedKVCache:
+    _ported(cfg)
+    dv = d_v if d_v is not None else d
+    s_hi, s_lo, w = capacities(cfg, max_len)
+    return MixedKVCache(
+        hi=empty_store(b, h_kv, s_hi, d, cfg.high_bits, cfg, dtype, d_v=dv, device=device),
+        lo=empty_store(b, h_kv, s_lo, d, cfg.low_bits, cfg, dtype, d_v=dv, device=device),
+        length=torch.zeros((b,), dtype=torch.int32, device=device),
+        **_window(b, h_kv, w, d, dv, dtype, device))
+
+
+# ---------------------------------------------------------------------------
+# Prefill compression (paper Alg. 2)
+# ---------------------------------------------------------------------------
+
+def _gather_tokens(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x: (b, h, l, d); idx: (b, n) -> (b, h, n, d)."""
+    b, h, _, d = x.shape
+    return torch.gather(x, 2, idx.long()[:, None, :, None].expand(b, h, idx.shape[1], d))
+
+
+def _gather_slots(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x: (b, l); idx: (b, n) -> (b, n)."""
+    return torch.gather(x, 1, idx.long())
+
+
+def _pad_tokens(k, v, pos, acc, nnz, capacity: int):
+    """Right-pad token blocks (b,h,n,d)/(b,n) to a static capacity."""
+    n = k.shape[2]
+    if n > capacity:
+        raise ValueError(f"{n} tokens exceed store capacity {capacity}")
+    if n == capacity:
+        return k, v, pos, acc, nnz
+    pad = capacity - n
+    F = torch.nn.functional
+    return (F.pad(k, (0, 0, 0, pad)), F.pad(v, (0, 0, 0, pad)),
+            F.pad(pos, (0, pad), value=-1), F.pad(acc, (0, pad)), F.pad(nnz, (0, pad)))
+
+
+def compress_prefill(cfg: CompressionConfig, k: torch.Tensor, v: torch.Tensor,
+                     token_saliency: torch.Tensor, max_len: int,
+                     probe_nnz: Optional[torch.Tensor] = None, dtype=torch.bfloat16,
+                     use_kernel: bool = False) -> MixedKVCache:
+    """Compress prefill K/V (b, h_kv, l, d) into a MixedKVCache sized max_len.
+
+    token_saliency: (b, l) normalized probe saliency; probe_nnz: (b, l) its
+    Eq. 8 denominators.  `acc` stores the raw mass: saliency * max(nnz, 1).
+    """
+    _ported(cfg)
+    if token_saliency is None:
+        raise ValueError(f"{cfg.method} needs token saliency")
+    b, h_kv, l, d = k.shape
+    s_hi, s_lo, w = capacities(cfg, max_len)
+    dev = k.device
+    positions = torch.arange(l, dtype=torch.int32, device=dev).expand(b, l)
+    nnz = probe_nnz.float() if probe_nnz is not None else torch.ones((b, l), device=dev)
+    acc = token_saliency.float() * nnz.clamp_min(1.0)
+
+    n_hi = min(cfg.n_salient(l), s_hi)
+    salient_idx, regular_idx = sal.salient_split(token_saliency, n_hi)
+
+    def store(idx, capacity, bits):
+        parts = _pad_tokens(_gather_tokens(k, idx), _gather_tokens(v, idx),
+                            _gather_slots(positions, idx), _gather_slots(acc, idx),
+                            _gather_slots(nnz, idx), capacity)
+        return build_store(*parts, bits, cfg, use_kernel=use_kernel)
+
+    return MixedKVCache(
+        hi=store(salient_idx, s_hi, cfg.high_bits),
+        lo=store(regular_idx, s_lo, cfg.low_bits),
+        length=torch.full((b,), l, dtype=torch.int32, device=dev),
+        **_window(b, h_kv, w, d, v.shape[-1], dtype, dev))
+
+
+# ---------------------------------------------------------------------------
+# Decode: attend over the cache, append new token, update probe state
+# ---------------------------------------------------------------------------
+
+class DecodeAttnOut(NamedTuple):
+    out: torch.Tensor                     # (b, h_q, dv)
+    slot_weights: Optional[torch.Tensor]  # (b, S_total) head-pooled, or None
+
+
+def cache_keys_values(cache: MixedKVCache):
+    """Dequantize + concat all segments. Returns (k, v, valid, positions)."""
+    k_hi, v_hi = cache.hi.dequantize()
+    k_lo, v_lo = cache.lo.dequantize()
+    k = torch.cat([k_hi, k_lo, cache.k_win], dim=2)
+    v = torch.cat([v_hi, v_lo, cache.v_win], dim=2)
+    pos = torch.cat([cache.hi.pos, cache.lo.pos, cache.win_pos], dim=1)
+    return k, v, pos >= 0, pos
+
+
+def attend_decode(q: torch.Tensor, cache: MixedKVCache,
+                  scale: Optional[float] = None) -> DecodeAttnOut:
+    """One-token decode attention over the mixed cache (exact softmax, with
+    head-pooled slot weights).  q: (b, h_q, d)."""
+    k, v, valid, _ = cache_keys_values(cache)
+    b, h_kv, _, d = k.shape
+    h_q = q.shape[1]
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    qg = q.reshape(b, h_kv, h_q // h_kv, d).float() * scale
+    logits = torch.einsum("bhgd,bhsd->bhgs", qg, k.float())
+    logits = logits.masked_fill(~valid[:, None, None, :], NEG_INF)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgs,bhsd->bhgd", w, v.float()).reshape(b, h_q, -1).to(q.dtype)
+    return DecodeAttnOut(out, w.mean(dim=(1, 2)))
+
+
+def update_probe_state(cache: MixedKVCache, slot_weights: torch.Tensor,
+                       is_probe: bool) -> MixedKVCache:
+    """Fold a probe row's slot weights (hi/lo/window order) into the
+    saliency state.  `is_probe` is the step's host-side flag: a non-probe
+    step leaves the state as it is (the reference adds 0 * weights)."""
+    if not is_probe:
+        return cache
+    s_hi, s_lo = cache.hi.capacity, cache.lo.capacity
+    hi = dataclasses.replace(cache.hi, acc=cache.hi.acc + slot_weights[:, :s_hi],
+                             nnz=cache.hi.nnz + cache.hi.valid.float())
+    lo = dataclasses.replace(cache.lo, acc=cache.lo.acc + slot_weights[:, s_hi:s_hi + s_lo],
+                             nnz=cache.lo.nnz + cache.lo.valid.float())
+    return dataclasses.replace(
+        cache, hi=hi, lo=lo, win_acc=cache.win_acc + slot_weights[:, s_hi + s_lo:],
+        win_nnz=cache.win_nnz + (cache.win_pos >= 0).float())
+
+
+def append_token(cache: MixedKVCache, k_t: torch.Tensor, v_t: torch.Tensor) -> MixedKVCache:
+    """Append one decoded token's K/V (b, h_kv, d) at each row's window
+    cursor.  A row whose window is full drops the write (the reference's
+    out-of-bounds `mode="drop"`) but still advances its counters."""
+    b, w = cache.win_pos.shape
+    bidx = torch.arange(b, device=k_t.device)
+    fits = cache.win_fill < w
+    slot = cache.win_fill.clamp(max=w - 1).long()
+
+    k_win = cache.k_win.clone()
+    v_win = cache.v_win.clone()
+    win_pos = cache.win_pos.clone()
+    k_win[bidx, :, slot] = torch.where(fits[:, None, None], k_t.to(k_win.dtype), k_win[bidx, :, slot])
+    v_win[bidx, :, slot] = torch.where(fits[:, None, None], v_t.to(v_win.dtype), v_win[bidx, :, slot])
+    win_pos[bidx, slot] = torch.where(fits, cache.length, win_pos[bidx, slot])
+    return dataclasses.replace(cache, k_win=k_win, v_win=v_win, win_pos=win_pos,
+                               length=cache.length + 1, win_fill=cache.win_fill + 1)
+
+
+# ---------------------------------------------------------------------------
+# Streaming recompression (paper Alg. 3)
+# ---------------------------------------------------------------------------
+
+def recompress(cfg: CompressionConfig, cache: MixedKVCache, use_kernel: bool = False) -> MixedKVCache:
+    """Fold the staging window back into the quantized stores: re-rank every
+    valid token by its current saliency (acc / nnz for 'normalized', acc for
+    'accumulated'), rebuild hi/lo, empty the window."""
+    return _recompress_all(cfg, cache, use_kernel=use_kernel)
+
+
+def _valid_first(idx: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Order gathered slot indices so VALID tokens form a contiguous prefix
+    (valid in ascending index order, then invalid ones likewise)."""
+    s_total = valid.shape[-1]
+    key = torch.where(_gather_slots(valid, idx), idx, idx + s_total)
+    return (torch.sort(key, dim=-1).values % s_total).to(torch.int32)
+
+
+def _recompress_all(cfg: CompressionConfig, cache: MixedKVCache,
+                    use_kernel: bool = False) -> MixedKVCache:
+    _ported(cfg)
+    k, v, valid, pos = cache_keys_values(cache)
+    # zero the payload of invalid slots first: channel scales reduce over the
+    # whole token axis, so stale payload would leak into live tokens' scales
+    zero = torch.zeros((), dtype=k.dtype, device=k.device)
+    k = torch.where(valid[:, None, :, None], k, zero)
+    v = torch.where(valid[:, None, :, None], v, zero)
+    acc = torch.cat([cache.hi.acc, cache.lo.acc, cache.win_acc], dim=1)
+    nnz = torch.cat([cache.hi.nnz, cache.lo.nnz, cache.win_nnz], dim=1)
+    scores = acc / nnz.clamp_min(1.0) if cfg.saliency_metric == "normalized" else acc
+    scores = scores.masked_fill(~valid, NEG_INF)
+
+    s_hi, s_lo = cache.hi.capacity, cache.lo.capacity
+    idx = torch.sort(scores, dim=-1, descending=True, stable=True).indices[:, :s_hi + s_lo]
+    idx = idx.to(torch.int32)
+
+    def store(idx_, bits):
+        return build_store(_gather_tokens(k, idx_), _gather_tokens(v, idx_),
+                           _gather_slots(pos, idx_), _gather_slots(acc, idx_),
+                           _gather_slots(nnz, idx_), bits, cfg, use_kernel=use_kernel)
+
+    hi = store(_valid_first(idx[:, :s_hi], valid), cfg.high_bits)
+    lo = store(_valid_first(idx[:, s_hi:], valid), cfg.low_bits)
+    return _emptied_window(dataclasses.replace(cache, hi=hi, lo=lo))
+
+
+def _emptied_window(cache: MixedKVCache) -> MixedKVCache:
+    return dataclasses.replace(
+        cache,
+        k_win=torch.zeros_like(cache.k_win), v_win=torch.zeros_like(cache.v_win),
+        win_pos=torch.full_like(cache.win_pos, -1), win_acc=torch.zeros_like(cache.win_acc),
+        win_nnz=torch.zeros_like(cache.win_nnz), win_fill=torch.zeros_like(cache.win_fill))

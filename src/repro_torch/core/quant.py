@@ -1,0 +1,171 @@
+"""Quantization primitives for KV cache compression (port of `repro.core.quant`).
+
+Tokenwise, channelwise, groupwise and channel-separable tokenwise (CSTQuant,
+paper Alg. 1) uniform quantization with one API: quantize -> QuantizedTensor
+-> dequantize.  All quantizers work on the LAST two axes as (tokens,
+channels).  Every step repeats the reference's float32 arithmetic in the
+same order (divide, round half to even, clip), so the packed codes are
+bit-identical to the JAX package's for the same inputs.
+
+Effective-bit ceilings (`eff`, precision maps) are not ported yet: passing
+one raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.core import packing
+
+_EPS = 1e-8
+
+
+@dataclasses.dataclass
+class QuantizedTensor:
+    """Bit-packed uniform-quantized tensor plus its quantization parameters.
+
+    codes: int8 packed codes (..., T, C // pack_factor); bits == 16 holds the
+        raw values instead.
+    scale/zero: broadcastable to (..., T, C) (grouped: (..., T, C/g)).
+    channel_scale: CSTQuant's per-channel normalizer c, (..., 1, C).
+    shape: logical unpacked shape (..., T, C).
+    """
+
+    codes: torch.Tensor
+    scale: Optional[torch.Tensor]
+    zero: Optional[torch.Tensor]
+    channel_scale: Optional[torch.Tensor]
+    bits: int
+    shape: tuple
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.codes.dtype if self.scale is None else self.scale.dtype
+
+    def dequantize(self) -> torch.Tensor:
+        """Dequantized values, ending with the cast to the store dtype."""
+        if self.bits == 16:
+            return self.codes.reshape(self.shape)
+        x = packing.unpack(self.codes, self.bits, out_dtype=torch.float32)
+        c = self.shape[-1]
+        if self.scale.shape[-1] not in (1, c):
+            g = c // self.scale.shape[-1]
+            xg = x.reshape(*x.shape[:-1], c // g, g)
+            xg = (xg - self.zero.float()[..., None]) * self.scale.float()[..., None]
+            x = xg.reshape(*x.shape[:-1], c)
+        else:
+            x = (x - self.zero.float()) * self.scale.float()
+        if self.channel_scale is not None:
+            x = x * self.channel_scale.float()
+        return x.reshape(self.shape).to(self.dtype)
+
+
+def _no_eff(eff) -> None:
+    if eff is not None:
+        raise NotImplementedError("effective-bit precision maps are not ported yet")
+
+
+def true_div(x: torch.Tensor, n: float) -> torch.Tensor:
+    """x / n with one IEEE rounding.  On CUDA, PyTorch divides by a Python
+    number as a multiply by its reciprocal, which is off by an ulp at
+    times; a tensor divisor takes the true division, as the reference and
+    the kernels compute it."""
+    return x / torch.full((), n, dtype=x.dtype, device=x.device)
+
+
+def _minmax_params(x: torch.Tensor, bits: int, dim: int):
+    """Uniform asymmetric min/max quantization parameters (paper Eq. 5)."""
+    qmax = 2**bits - 1
+    xmin = x.amin(dim=dim, keepdim=True)
+    xmax = x.amax(dim=dim, keepdim=True)
+    scale = true_div(xmax - xmin, qmax).clamp_min(_EPS)
+    zero = torch.round(-xmin / scale)
+    return scale, zero
+
+
+def _encode(x: torch.Tensor, scale, zero, bits: int) -> torch.Tensor:
+    q = torch.clamp(torch.round(x / scale + zero), 0, 2**bits - 1)
+    return packing.pack(q.to(torch.uint8), bits)
+
+
+def quantize_tokenwise(x: torch.Tensor, bits: int, eff=None) -> QuantizedTensor:
+    """Per-token (channel-reduced) uniform quantization. x: (..., T, C)."""
+    _no_eff(eff)
+    xf = x.float()
+    scale, zero = _minmax_params(xf, bits, dim=-1)
+    codes = _encode(xf, scale, zero, bits)
+    return QuantizedTensor(codes, scale.to(x.dtype), zero.to(x.dtype), None, bits, tuple(x.shape))
+
+
+def quantize_channelwise(x: torch.Tensor, bits: int, eff=None) -> QuantizedTensor:
+    """Per-channel uniform quantization (token-reduced): the KEY scheme (§4.1)."""
+    _no_eff(eff)
+    xf = x.float()
+    scale, zero = _minmax_params(xf, bits, dim=-2)
+    codes = _encode(xf, scale, zero, bits)
+    return QuantizedTensor(codes, scale.to(x.dtype), zero.to(x.dtype), None, bits, tuple(x.shape))
+
+
+def quantize_groupwise(x: torch.Tensor, bits: int, group_size: int = 32, eff=None) -> QuantizedTensor:
+    """KIVI-style groupwise quantization along channels; params (..., T, C/g)."""
+    _no_eff(eff)
+    *lead, t, c = x.shape
+    if c % group_size:
+        raise ValueError(f"channels {c} not divisible by group size {group_size}")
+    xg = x.float().reshape(*lead, t, c // group_size, group_size)
+    scale, zero = _minmax_params(xg, bits, dim=-1)
+    q = torch.clamp(torch.round(xg / scale + zero), 0, 2**bits - 1).reshape(*lead, t, c)
+    codes = packing.pack(q.to(torch.uint8), bits)
+    return QuantizedTensor(codes, scale[..., 0].to(x.dtype), zero[..., 0].to(x.dtype),
+                           None, bits, tuple(x.shape))
+
+
+def quantize_raw16(x: torch.Tensor) -> QuantizedTensor:
+    """Identity 'quantization': raw storage wrapped in the same API."""
+    return QuantizedTensor(x, None, None, None, 16, tuple(x.shape))
+
+
+def channel_norm_scale(x: torch.Tensor) -> torch.Tensor:
+    """CSTQuant channel normalizer c_i = sqrt(max|X_i|) (paper Eq. 6)."""
+    amax = x.float().abs().amax(dim=-2, keepdim=True)
+    return correctly_rounded_sqrt(amax.clamp_min(_EPS))
+
+
+def correctly_rounded_sqrt(x: torch.Tensor) -> torch.Tensor:
+    """f32 sqrt rounded to nearest, as the reference computes it.  The CPU's
+    vectorized f32 sqrt is off by an ulp at times; a float64 sqrt rounded
+    once to f32 is exact."""
+    return torch.sqrt(x.double()).float()
+
+
+def quantize_cst(x: torch.Tensor, bits: int, channel_scale: Optional[torch.Tensor] = None,
+                 eff=None) -> QuantizedTensor:
+    """Channel-separable tokenwise quantization (paper Alg. 1): normalize each
+    channel by c, tokenwise-quantize, and multiply c back at dequantization."""
+    _no_eff(eff)
+    xf = x.float()
+    c = channel_norm_scale(xf) if channel_scale is None else channel_scale.float()
+    xn = xf / c
+    scale, zero = _minmax_params(xn, bits, dim=-1)
+    codes = _encode(xn, scale, zero, bits)
+    return QuantizedTensor(codes, scale.to(x.dtype), zero.to(x.dtype), c.to(x.dtype),
+                           bits, tuple(x.shape))
+
+
+_SCHEMES = {
+    "tokenwise": quantize_tokenwise,
+    "channelwise": quantize_channelwise,
+    "groupwise": quantize_groupwise,
+    "cst": quantize_cst,
+}
+
+
+def quantize(x: torch.Tensor, bits: int, scheme: str, **kw) -> QuantizedTensor:
+    try:
+        fn = _SCHEMES[scheme]
+    except KeyError:
+        raise ValueError(f"unknown scheme {scheme!r}; one of {sorted(_SCHEMES)}") from None
+    return fn(x, bits, **kw)

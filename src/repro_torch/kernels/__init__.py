@@ -1,0 +1,8 @@
+"""Hand-written Hopper (sm_90a) kernels of the port, one directory each.
+
+Each directory keeps the reference's triple: `kernel.py` (the launch
+wrapper and its launch counter), `ref.py` (the plain PyTorch version) and
+`ops.py` (shape handling), plus `csrc/<name>.cu`.  A wrapper takes the plain
+version only for tensors on the CPU; for CUDA tensors it launches its kernel
+or raises.
+"""

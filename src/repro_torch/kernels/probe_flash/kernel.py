@@ -1,0 +1,73 @@
+"""Launch wrappers of the probe-flash kernels (`csrc/probe_flash.cu`).
+
+`flash_fwd` replaces `src/repro/kernels/probe_flash/kernel.py::flash_fwd`
+and `probe_colsum` replaces `::probe_colsum`.  Bound on the H100:
+operations (attention at prefill widths).  Both compute in f32 on the CUDA
+cores; `probe_colsum` gives each CTA sole ownership of its key columns for
+one kv head, and a second small kernel adds the kv heads in order, so the
+sums are deterministic without atomics.  See the source for the design.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.probe_flash import ref
+
+LIB = build.CudaLibrary("probe_flash")
+FLASH = build.CudaKernel(LIB, "flash_fwd_launch",
+                         [build.P] * 5 + [build.I] * 7 + [build.F, build.I, build.P])
+COLSUM = build.CudaKernel(LIB, "probe_colsum_launch",
+                          [build.P] * 6 + [build.I] * 8 + [build.F, build.I, build.P])
+HEAD_DIMS = (16, 32, 64, 128)
+
+
+def _check(name: str, dtype: torch.dtype, d: int, *ts: torch.Tensor) -> None:
+    if dtype not in (torch.bfloat16, torch.float32) or d not in HEAD_DIMS:
+        raise ValueError(f"{name}: dtype {dtype} / head dim {d} not supported "
+                         f"(bf16 or f32, d in {HEAD_DIMS})")
+    for t in ts:
+        if t.device != ts[0].device:
+            raise ValueError(f"{name}: tensors on different devices")
+
+
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True):
+    """q (b,h,lq,d), k/v (b,hk,lkv,d) -> (out (b,h,lq,d) in q's dtype,
+    lse (b,h,lq) f32).  CPU tensors take `ref.flash_fwd_ref`."""
+    if q.device.type == "cpu":
+        return ref.flash_fwd_ref(q, k, v, causal=causal)
+    b, h, lq, d = q.shape
+    hk, lkv = k.shape[1], k.shape[2]
+    _check("flash_fwd", q.dtype, d, q, k, v)
+    if k.dtype != q.dtype or v.dtype != q.dtype or v.shape[-1] != d or h % hk:
+        raise ValueError("flash_fwd: q/k/v must share dtype and head dim, h % hk == 0")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+    FLASH(build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out), build.ptr(lse),
+          b, h, hk, lq, lkv, d, int(causal), 1.0 / (d ** 0.5),
+          int(q.dtype == torch.bfloat16), build.stream_of(q))
+    return out, lse
+
+
+def probe_colsum(qp: torch.Tensor, lse_p: torch.Tensor, pos: torch.Tensor, k: torch.Tensor,
+                 causal: bool = True, lq: int = None) -> torch.Tensor:
+    """qp (b,h,np,d), lse_p (b,h,np) f32, pos (b,np) int32 (< 0 = padding),
+    k (b,hk,lkv,d) -> (b,lkv) f32.  CPU tensors take `ref.probe_colsum_ref`."""
+    if qp.device.type == "cpu":
+        return ref.probe_colsum_ref(qp, lse_p, pos, k, causal=causal, lq=lq)
+    b, h, n_p, d = qp.shape
+    hk, lkv = k.shape[1], k.shape[2]
+    lq = lkv if lq is None else lq
+    _check("probe_colsum", qp.dtype, d, qp, lse_p, pos, k)
+    if k.dtype != qp.dtype or lse_p.dtype != torch.float32 or pos.dtype != torch.int32 or h % hk:
+        raise ValueError("probe_colsum: qp/k share a dtype, lse_p f32, pos int32, h % hk == 0")
+    qp, lse_p, pos, k = qp.contiguous(), lse_p.contiguous(), pos.contiguous(), k.contiguous()
+    partial = torch.empty((b, hk, lkv), dtype=torch.float32, device=qp.device)
+    colsum = torch.empty((b, lkv), dtype=torch.float32, device=qp.device)
+    COLSUM(build.ptr(qp), build.ptr(lse_p), build.ptr(pos), build.ptr(k), build.ptr(partial),
+           build.ptr(colsum),
+           b, h, hk, n_p, lq, lkv, d, int(causal), 1.0 / (d ** 0.5),
+           int(qp.dtype == torch.bfloat16), build.stream_of(qp))
+    return colsum

@@ -1,0 +1,151 @@
+"""GQA attention (port of the GQA half of `repro.models.attention`).
+
+Prefill runs blocked causal attention with the ZipCache probe side-output:
+the per-column sum of softmax probabilities over probe rows, averaged over
+heads (paper Eq. 9).  `blocked_attention` is the reference's jnp path in
+PyTorch; with `use_kernel` it routes to `kernels.probe_flash`.
+Shapes: activations (b, l, e); heads (b, h, l, d).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import quant
+from repro_torch.core import saliency as sal
+from repro_torch.models import common
+from repro_torch.models.common import ParamDef
+
+NEG_INF = -1e30
+
+
+def gqa_schema(cfg: ArchConfig) -> dict:
+    e, h, hk, d = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    s = {
+        "wq": ParamDef((e, h, d)),
+        "wk": ParamDef((e, hk, d)),
+        "wv": ParamDef((e, hk, d)),
+        "wo": ParamDef((h, d, e)),
+    }
+    if cfg.qkv_bias:
+        s["bq"] = ParamDef((h, d), init="zeros")
+        s["bk"] = ParamDef((hk, d), init="zeros")
+        s["bv"] = ParamDef((hk, d), init="zeros")
+    return s
+
+
+class AttnAux(NamedTuple):
+    k: torch.Tensor                      # (b, h_kv, l, d) post-rotary keys
+    v: torch.Tensor                      # (b, h_kv, l, d)
+    saliency: Optional[torch.Tensor]     # (b, l) normalized probe saliency
+    probe_nnz: Optional[torch.Tensor]    # (b, l) Eq. 8 denominators
+
+
+def _probe_row_mask(probe: Optional[sal.ProbeSpec], lq: int, device) -> Optional[torch.Tensor]:
+    """(lq,) f32 with 1.0 on probe rows: a repeated position counts once."""
+    if probe is None:
+        return None
+    mask = torch.zeros((lq,), dtype=torch.float32, device=device)
+    mask[probe.positions.to(device).long()] = 1.0
+    return mask
+
+
+def blocked_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+    q_block: int = 512, probe: Optional[sal.ProbeSpec] = None, use_kernel: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """q (b,h,lq,d), k/v (b,h_kv,lkv,d) -> (out, probe_colsum (b, lkv) | None).
+
+    A loop over q blocks; every block sees the full K/V, so each row's
+    softmax closes inside its block (float32 scores and probabilities).
+    """
+    if use_kernel:
+        from repro_torch.kernels.probe_flash import ops as pf_ops
+        return pf_ops.probe_flash_attention(q, k, v, causal=causal, probe=probe)
+
+    b, h, lq, d = q.shape
+    hk, lkv = k.shape[1], k.shape[2]
+    g = h // hk
+    scale = 1.0 / (d ** 0.5)
+    nb = -(-lq // q_block)
+    pad = nb * q_block - lq
+    qp = F.pad(q, (0, 0, 0, pad)) if pad else q
+    qp = qp.reshape(b, hk, g, nb, q_block, d)
+    probe_rows = _probe_row_mask(probe, lq, q.device)
+    if probe_rows is not None and pad:
+        probe_rows = F.pad(probe_rows, (0, pad))
+
+    kf, vf = k.float(), v.float()
+    col = torch.arange(lkv, device=q.device)
+    colsum = torch.zeros((b, lkv), dtype=torch.float32, device=q.device)
+    outs = []
+    for i in range(nb):
+        row = i * q_block + torch.arange(q_block, device=q.device)
+        logits = torch.einsum("bhgqd,bhkd->bhgqk", qp[:, :, :, i].float() * scale, kf)
+        if causal:
+            logits = logits.masked_fill(row[:, None] < col[None, :], NEG_INF)
+        probs = torch.softmax(logits, dim=-1)
+        outs.append(torch.einsum("bhgqk,bhkd->bhgqd", probs, vf).to(q.dtype))
+        if probe_rows is not None:
+            pr = probe_rows[i * q_block:(i + 1) * q_block]
+            colsum = colsum + quant.true_div(torch.einsum("bhgqk,q->bk", probs, pr), h)
+    dv = outs[0].shape[-1]
+    out = torch.stack(outs, dim=3).reshape(b, h, nb * q_block, dv)[:, :, :lq]
+    return out, (colsum if probe_rows is not None else None)
+
+
+def probe_saliency_from_colsum(colsum: torch.Tensor, probe: sal.ProbeSpec, lkv: int,
+                               causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Normalize probe column sums into Eq. 8 saliency + its denominators
+    (nnz counts every probe position, repeats included, as the reference)."""
+    pos = probe.positions.to(colsum.device)
+    if causal:
+        col = torch.arange(lkv, device=colsum.device)
+        nnz = (pos[:, None] >= col[None, :]).float().sum(dim=0)
+    else:
+        nnz = torch.full((lkv,), float(pos.shape[0]), device=colsum.device)
+    return colsum / nnz.clamp_min(1.0), nnz.expand_as(colsum)
+
+
+def _qkv(params: dict, x: torch.Tensor, eq: str):
+    q = common.einsum(eq, x, params["wq"])
+    k = common.einsum(eq, x, params["wk"])
+    v = common.einsum(eq, x, params["wv"])
+    return q, k, v
+
+
+def gqa_forward(params: dict, x: torch.Tensor, cfg: ArchConfig, *, causal: bool = True,
+                probe: Optional[sal.ProbeSpec] = None, q_block: int = 512,
+                use_kernel: bool = False) -> Tuple[torch.Tensor, AttnAux]:
+    """Full-sequence GQA self-attention (prefill), with the probe saliency."""
+    b, l, e = x.shape
+    q, k, v = _qkv(params, x, "ble,ehd->bhld")
+    if cfg.qkv_bias:
+        q = q + params["bq"][None, :, None, :]
+        k = k + params["bk"][None, :, None, :]
+        v = v + params["bv"][None, :, None, :]
+    cos, sin = common.rotary_cos_sin(torch.arange(l, device=x.device), cfg.hd, cfg.rope_theta)
+    q = common.apply_rotary(q, cos[None, None], sin[None, None])
+    k = common.apply_rotary(k, cos[None, None], sin[None, None])
+    out, colsum = blocked_attention(q, k, v, causal=causal, q_block=q_block, probe=probe,
+                                    use_kernel=use_kernel)
+    y = common.einsum("bhld,hde->ble", out, params["wo"])
+    saliency = nnz = None
+    if probe is not None and colsum is not None:
+        saliency, nnz = probe_saliency_from_colsum(colsum, probe, l, causal=causal)
+    return y, AttnAux(k=k, v=v, saliency=saliency, probe_nnz=nnz)
+
+
+def gqa_decode_qkv(params: dict, x_t: torch.Tensor, cfg: ArchConfig, position: torch.Tensor):
+    """x_t: (b, e), position: (b,) -> q_t (b,h,d), k_t/v_t (b,hk,d)."""
+    q, k, v = _qkv(params, x_t, "be,ehd->bhd")
+    if cfg.qkv_bias:
+        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+    cos, sin = common.rotary_cos_sin(position, cfg.hd, cfg.rope_theta)  # (b, d/2)
+    q = common.apply_rotary(q, cos[:, None], sin[:, None])
+    k = common.apply_rotary(k, cos[:, None], sin[:, None])
+    return q, k, v

@@ -1,0 +1,84 @@
+"""Decoder blocks (port of `repro.models.blocks`, attention + dense FFN):
+the run context, and one layer's prefill and decode steps."""
+
+from __future__ import annotations
+
+from typing import Any, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import backend as backend_lib
+from repro_torch.core import saliency as sal
+from repro_torch.core.policy import CompressionConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import common
+from repro_torch.models import mlp as mlp_mod
+from repro_torch.models.common import ParamDef
+
+
+def layer_schema(cfg: ArchConfig) -> dict:
+    e = cfg.d_model
+    s = {"ln1": ParamDef((e,), init="ones"), "attn": attn.gqa_schema(cfg)}
+    if cfg.d_ff:
+        s["ln2"] = ParamDef((e,), init="ones")
+        s["mlp"] = mlp_mod.dense_mlp_schema(cfg)
+    return s
+
+
+def group_schema(cfg: ArchConfig) -> dict:
+    return {"sub0": layer_schema(cfg)}
+
+
+class RunCtx:
+    """Per-call context: compression policy, probes, cache budget, kernels.
+
+    `use_kernels` routes prefill attention through `kernels.probe_flash`;
+    the cache backend carries its own switch for `cst_quant` and
+    `decode_qattn` (`backend_lib.of(ccfg, use_kernels=...)`).
+    """
+
+    def __init__(self, ccfg: Optional[CompressionConfig] = None,
+                 probe: Optional[sal.ProbeSpec] = None, max_cache_len: int = 0,
+                 q_block: int = 512, use_kernels: bool = False,
+                 backend: Optional[backend_lib.MixedKVBackend] = None):
+        self.ccfg = ccfg
+        self.probe = probe
+        self.max_cache_len = max_cache_len
+        self.q_block = q_block
+        self.use_kernels = use_kernels
+        self.backend = backend if backend is not None else backend_lib.of(
+            ccfg, use_kernels=use_kernels)
+
+
+def apply_layer_full(params: dict, x: torch.Tensor, cfg: ArchConfig, ctx: RunCtx,
+                     build_cache: bool) -> Tuple[torch.Tensor, Any]:
+    """One layer over the full sequence. Returns (x, cache element | None)."""
+    h = common.rms_norm(x, params["ln1"], cfg.norm_eps)
+    y, aux = attn.gqa_forward(params["attn"], h, cfg, probe=ctx.probe, q_block=ctx.q_block,
+                              use_kernel=ctx.use_kernels)
+    cache_el = None
+    if build_cache:
+        cache_el = ctx.backend.compress_prefill(aux.k, aux.v, aux.saliency, ctx.max_cache_len,
+                                                probe_nnz=aux.probe_nnz, dtype=x.dtype)
+    x = x + y
+    if cfg.d_ff:
+        x = x + mlp_mod.dense_mlp(params["mlp"], common.rms_norm(x, params["ln2"], cfg.norm_eps))
+    return x, cache_el
+
+
+def apply_layer_decode(params: dict, x_t: torch.Tensor, cfg: ArchConfig, cache_el: Any,
+                       ctx: RunCtx, is_probe: bool) -> Tuple[torch.Tensor, Any]:
+    """One layer, one token: append this token's K/V, attend over the cache
+    (exact on probe steps, the kernel otherwise), fold the probe row."""
+    be = ctx.backend
+    h = common.rms_norm(x_t, params["ln1"], cfg.norm_eps)
+    q_t, k_t, v_t = attn.gqa_decode_qkv(params["attn"], h, cfg, cache_el.length)
+    cache_el = be.append(cache_el, k_t, v_t)
+    dec = be.attend(q_t, cache_el, is_probe)
+    cache_el = be.update_probe(cache_el, dec.slot_weights, is_probe)
+    x_t = x_t + common.einsum("bhd,hde->be", dec.out, params["attn"]["wo"])
+    if cfg.d_ff:
+        x_t = x_t + mlp_mod.dense_mlp(params["mlp"],
+                                      common.rms_norm(x_t, params["ln2"], cfg.norm_eps))
+    return x_t, cache_el

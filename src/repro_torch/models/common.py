@@ -1,0 +1,119 @@
+"""Shared model machinery (port of `repro.models.common`): parameter schema
+and seeded init, norms, rotary embeddings, SwiGLU, embedding lookup."""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    shape: Tuple[int, ...]
+    init: str = "normal"        # normal | zeros | ones | embed
+    scale: float = 1.0
+    dtype: torch.dtype = torch.bfloat16
+
+
+def stack_schema(schema, n: int):
+    """Add a leading stacked (layer) dimension to every leaf."""
+    if isinstance(schema, ParamDef):
+        return dataclasses.replace(schema, shape=(n, *schema.shape))
+    return {k: stack_schema(v, n) for k, v in schema.items()}
+
+
+_CHUNK = 1 << 26  # elements drawn per f32 chunk, to bound the init's transient memory
+
+
+def _trunc_normal_(out: torch.Tensor, std: float, gen: torch.Generator) -> None:
+    """Fill `out` with a standard normal truncated to [-2, 2], times std, by
+    inverting the CDF of a uniform draw (row chunks along axis 0)."""
+    lo, hi = (0.5 * (1.0 + math.erf(t / math.sqrt(2.0))) for t in (-2.0, 2.0))
+    flat = out.view(out.shape[0], -1) if out.dim() > 1 else out.view(1, -1)
+    rows = max(1, _CHUNK // max(flat.shape[1], 1))
+    for r in range(0, flat.shape[0], rows):
+        u = torch.rand(flat[r:r + rows].shape, generator=gen, device=out.device)
+        x = torch.erfinv(2.0 * (lo + u * (hi - lo)) - 1.0) * math.sqrt(2.0)
+        flat[r:r + rows] = (x.clamp_(-2.0, 2.0) * std).to(out.dtype)
+
+
+def _init_leaf(p: ParamDef, gen: torch.Generator, device) -> torch.Tensor:
+    if p.init == "zeros":
+        return torch.zeros(p.shape, dtype=p.dtype, device=device)
+    if p.init == "ones":
+        return torch.ones(p.shape, dtype=p.dtype, device=device)
+    # the reference's rule: fan-in is the leaf's leading axis (for stacked
+    # layer weights that is the layer count), std = 1/sqrt(fan_in)
+    std = 1.0 if p.init == "embed" else 1.0 / math.sqrt(max(p.shape[0] if p.shape else 1, 1))
+    out = torch.empty(p.shape, dtype=p.dtype, device=device)
+    _trunc_normal_(out, std * p.scale, gen)
+    return out
+
+
+def materialize(schema, seed: int = 0, device="cuda"):
+    """Seeded parameters at the schema's shapes and dtypes (a torch.Generator
+    on `device`; the values differ from the JAX package's draws)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def walk(node):
+        if isinstance(node, ParamDef):
+            return _init_leaf(node, gen, device)
+        return {k: walk(node[k]) for k in sorted(node)}
+
+    return walk(schema)
+
+
+# ---------------------------------------------------------------------------
+# Numerics
+# ---------------------------------------------------------------------------
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Row gather; equal to the reference's one-hot matmul bit for bit."""
+    return F.embedding(tokens.long(), table)
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * weight
+
+
+def rotary_cos_sin(positions: torch.Tensor, dim: int, theta: float, dtype=torch.float32):
+    """positions: (...,) int -> cos/sin (..., dim/2)."""
+    inv = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                        device=positions.device) / dim))
+    ang = positions.float()[..., None] * inv
+    return torch.cos(ang).to(dtype), torch.sin(ang).to(dtype)
+
+
+def apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x: (..., seq, dim) with cos/sin (..., seq, dim/2) broadcastable."""
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A product of two model tensors: f32 accumulation, one rounding to the
+    operands' dtype, as XLA and cuBLAS compute a bf16 product.  The CPU's
+    bf16 GEMM rounds differently, so on the CPU the operands go up to f32."""
+    if a.device.type == "cpu" and a.dtype == torch.bfloat16:
+        return torch.einsum(eq, a.float(), b.float()).to(a.dtype)
+    return torch.einsum(eq, a, b)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    g = einsum("...e,ef->...f", x, w_gate)
+    u = einsum("...e,ef->...f", x, w_up)
+    return einsum("...f,fe->...e", F.silu(g.float()).to(x.dtype) * u, w_down)
+
+
+def layer_slice(tree, i: int):
+    """Layer i of a tree of stacked (leading layer axis) tensors."""
+    if isinstance(tree, torch.Tensor):
+        return tree[i]
+    return {k: layer_slice(v, i) for k, v in tree.items()}

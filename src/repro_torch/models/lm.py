@@ -1,0 +1,93 @@
+"""Decoder-only LM (port of `repro.models.lm`, dense decoder-only).
+
+Parameters keep the reference's layout: `groups` holds every layer's
+weights stacked on a leading layer axis (`groups.sub0.{ln1, ln2,
+attn.{wq,wk,wv,wo}, mlp.{w_gate,w_up,w_down}}`); a Python loop over the
+layer axis replaces `lax.scan`.  Caches are {"prefix": [], "groups":
+[{"sub0": MixedKVCache} per layer]}.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import blocks, common
+from repro_torch.models.common import ParamDef
+
+
+def padded_vocab(cfg: ArchConfig) -> int:
+    """Vocab rounded up to a 256 multiple; unembed masks the padding."""
+    return -(-cfg.vocab // 256) * 256
+
+
+def lm_schema(cfg: ArchConfig) -> dict:
+    e, v = cfg.d_model, padded_vocab(cfg)
+    s: Dict[str, Any] = {
+        "embed": ParamDef((v, e), init="embed"),
+        "final_norm": ParamDef((e,), init="ones"),
+    }
+    if not cfg.tie_embeddings:
+        s["lm_head"] = ParamDef((e, v))
+    s["groups"] = common.stack_schema(blocks.group_schema(cfg), cfg.n_scan_groups)
+    return s
+
+
+def mask_padded_vocab(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    """-1e30 on the vocab-padding columns."""
+    if logits.shape[-1] == vocab:
+        return logits
+    pad = torch.arange(logits.shape[-1], device=logits.device) >= vocab
+    return logits.masked_fill(pad, -1e30)
+
+
+def unembed(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    x = common.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if cfg.tie_embeddings:
+        logits = common.einsum("...e,ve->...v", x, params["embed"])
+    else:
+        logits = common.einsum("...e,ev->...v", x, params["lm_head"])
+    return mask_padded_vocab(logits, cfg.vocab)
+
+
+def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
+            ctx: blocks.RunCtx) -> Tuple[torch.Tensor, Any]:
+    """Serving prefill: forward + per-layer ZipCache compression (Alg. 2).
+    Returns (logits at the last position (b, vocab), caches)."""
+    x = common.embed_lookup(params["embed"], tokens)
+    groups = []
+    for i in range(cfg.n_scan_groups):
+        x, el = blocks.apply_layer_full(common.layer_slice(params["groups"]["sub0"], i),
+                                        x, cfg, ctx, build_cache=True)
+        groups.append({"sub0": el})
+    return unembed(params, cfg, x[:, -1]), {"prefix": [], "groups": groups}
+
+
+def decode_step(params: dict, token: torch.Tensor, caches: Any, cfg: ArchConfig,
+                ctx: blocks.RunCtx, is_probe: bool) -> Tuple[torch.Tensor, Any]:
+    """One decode step against the quantized caches (paper Alg. 3).
+    `is_probe` is the step's host-side probe flag."""
+    x_t = common.embed_lookup(params["embed"], token)
+    groups = []
+    for i, gc in enumerate(caches["groups"]):
+        x_t, el = blocks.apply_layer_decode(common.layer_slice(params["groups"]["sub0"], i),
+                                            x_t, cfg, gc["sub0"], ctx, is_probe)
+        groups.append({"sub0": el})
+    return unembed(params, cfg, x_t), {"prefix": [], "groups": groups}
+
+
+def recompress_caches(caches: Any, cfg: ArchConfig, ctx: blocks.RunCtx) -> Any:
+    """Streaming recompression across all layers (paper Alg. 3)."""
+    return {"prefix": [],
+            "groups": [{"sub0": ctx.backend.recompress(gc["sub0"])} for gc in caches["groups"]]}
+
+
+def init_caches(cfg: ArchConfig, ctx: blocks.RunCtx, b: int, dtype=torch.bfloat16,
+                device=None) -> Any:
+    """Empty caches for every layer."""
+    return {"prefix": [],
+            "groups": [{"sub0": ctx.backend.init_cache(b, cfg.n_kv_heads, cfg.hd,
+                                                       ctx.max_cache_len, dtype, device=device)}
+                       for _ in range(cfg.n_scan_groups)]}

@@ -15,3 +15,8 @@ collect_ignore = ["fixtures"]
 @pytest.fixture()
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (the port's kernels); skips where torch sees none")
