@@ -13,12 +13,25 @@ continued:
      max error against a stated tolerance, time from CUDA events, the least
      time the card could take (bound), the plain version's time, and, where
      one PyTorch call computes the same function, that call's time;
-  4. the main path: `ServingEngine.generate` on yi-6b at full width (32
-     layers, random bf16 weights from a seeded generator), zipcache
+     paged_qattn runs its three segments (4-bit hi, 2-bit lo, raw bf16
+     window) over a free-list paged cache at the continuous path's shapes
+     (shuffled physical page ids, NULL entries, an empty slot), with and
+     without the slot-weight outputs;
+  4. slice 1's main path: `ServingEngine.generate` on yi-6b at full width
+     (32 layers, random bf16 weights from a seeded generator), zipcache
      defaults, batch 4, prompt 1024, 128 new tokens: prefill, probe steps,
-     decode and one recompression.  Every kernel's launch count must be > 0.
+     decode and one recompression.  Every kernel of the path must launch.
      The prefill logits and the first decode step's logits are held against
      the same model run through the plain versions;
+  4b. slice 2's main path: `ContinuousEngine` over the paged layout with the
+     free-list allocator (4 slots, page 64, pool_fraction 0.75, the page
+     walk on), same model, 8 greedy requests with ragged prompts (200-1024
+     tokens) and budgets (48-128), so slots retire, re-admit and fold on
+     their own cadence.  Every request must end with its budget, the
+     allocator's invariants must hold and every page come back, every
+     kernel of the path must launch and no decode may take the gather path.
+     One admitted slot's first decode-step logits are held against the same
+     engine built with the plain versions;
   5. a `kernels` JSON line, then the last line:
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -120,7 +133,10 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch import configs
+    from repro_torch.core import alloc as alloc_lib
+    from repro_torch.core import backend as backend_lib
     from repro_torch.core import kvcache as kvc
+    from repro_torch.core import paged
     from repro_torch.core import saliency as sal
     from repro_torch.core.policy import CompressionConfig
     from repro_torch.kernels import build
@@ -128,12 +144,17 @@ def main() -> None:
     from repro_torch.kernels.cst_quant import ref as cst_ref
     from repro_torch.kernels.decode_qattn import kernel as dq_kernel
     from repro_torch.kernels.decode_qattn import ref as dq_ref
+    from repro_torch.kernels.paged_qattn import kernel as pq_kernel
+    from repro_torch.kernels.paged_qattn import ops as pq_ops
+    from repro_torch.kernels.paged_qattn import ref as pq_ref
     from repro_torch.kernels.probe_flash import kernel as pf_kernel
     from repro_torch.kernels.probe_flash import ops as pf_ops
     from repro_torch.kernels.probe_flash import ref as pf_ref
     from repro_torch.launch import serve
+    from repro_torch.launch import steps as steps_lib
     from repro_torch.models import attention, registry
-    from repro_torch.serving import ServeConfig, ServingEngine, pack_requests, probe_flag
+    from repro_torch.serving import (ContinuousEngine, Request, ServeConfig, ServingEngine,
+                                     pack_requests, probe_flag)
 
     # ---- 2. the build ----------------------------------------------------
     t0 = time.perf_counter()
@@ -256,6 +277,71 @@ def main() -> None:
     log("decode_qattn: timed at the lo store's shapes (the larger)")
     del q, k, v, out, lse, ref_out, ref_lse, qp, lse_p, cache, kv_k, kv_v
 
+    # paged_qattn: one decode layer's three launches over a free-list cache
+    # at the continuous path's shapes (4 slots, page 64, pool_fraction 0.75)
+    pcache = _freelist_cache(torch, np, backend_lib, alloc_lib, paged, ccfg, dev, gen,
+                             hk, d, max_len, lengths=(1024, 700, 0, 333), n_append=40)
+    segs = [pq_ops._store_operands(qd, pcache.hi), pq_ops._store_operands(qd, pcache.lo),
+            pq_ops._window_operands(qd, pcache)]
+    check([(o["k_bits"], o["v_bits"]) for o in segs] == [(4, 4), (2, 2), (16, 16)],
+          "paged_qattn: segments are not 4-bit hi, 2-bit lo, raw window")
+    check(all(bool((o["table"] == o["k_pages"].shape[0] - 1).any()) for o in segs),
+          "paged_qattn: every segment's table should hold NULL entries")
+    seg_args = []
+    for o in segs:
+        seg_args.append(((qd, o["k_pages"], o["k_scale"], o["k_zero"], o["v_pages"],
+                          o["v_cscale"], o["v_tscale"], o["v_tzero"], o["pos"], o["table"]),
+                         dict(k_bits=o["k_bits"], v_bits=o["v_bits"], scale=1.0 / d ** 0.5,
+                              k_dtype=o["k_dtype"], v_dtype=o["v_dtype"])))
+    # f32 scores and sums in another order: acc, m and l of the live slots
+    # within 1e-4 of the plain version relative to their largest magnitude
+    # (>= 1); the rescaled slot probabilities p * exp(m_run - m) (<= 1)
+    # within 1e-5; the empty slot (2) gives l = 0, acc = 0 and m = -1e30
+    err = tol = 0.0
+    live = torch.tensor([True, True, False, True], device=dev)
+    for (args, kw), name in zip(seg_args, ("hi", "lo", "window")):
+        want = pq_ref.paged_segment_ref(*args, **kw)
+        for weights in (True, False):
+            acc_, m_, l_, p_, mrun_ = pq_kernel.qattn_paged_segment(*args, want_weights=weights,
+                                                                   **kw)
+            torch.cuda.synchronize()
+            got = [acc_, m_, l_] + ([p_ * torch.exp(mrun_ - m_[..., None])] if weights else [])
+            check(bool((l_[2] == 0).all()) and not bool(acc_[2].any())
+                  and torch.equal(m_[2], want[1][2]),
+                  f"paged_qattn {name}: the empty slot must give zeros")
+            for part, a, w in zip(("acc", "m", "l", "p"), got, want):
+                a, w = a[live], w[live]
+                e = (a - w).abs().max().item()
+                t = 1e-5 if part == "p" else 1e-4 * max(w.abs().max().item(), 1.0)
+                check(e <= t, f"paged_qattn {name} {part} (weights {weights}): max abs error "
+                              f"{e:.3g} exceeds {t:.3g}")
+                err, tol = max(err, e), max(tol, t)
+
+    def paged_layer(weights=False):
+        for args, kw in seg_args:
+            pq_kernel.qattn_paged_segment(*args, want_weights=weights, **kw)
+
+    ms = time_ms(torch, paged_layer, iters=50)
+    ms_w = time_ms(torch, lambda: paged_layer(True), iters=50)
+    plain = time_ms(torch, lambda: [pq_ref.paged_segment_ref(*a, **kw) for a, kw in seg_args])
+    moved = flops = 0
+    for args, kw in seg_args:
+        table = args[9]
+        pools = args[1], args[4]
+        n_read = int(torch.unique(table).numel())
+        moved += n_read * sum(nbytes(p) // p.shape[0] for p in pools)
+        moved += nbytes(*[a for a in args if isinstance(a, torch.Tensor)
+                          and a.data_ptr() not in (pools[0].data_ptr(), pools[1].data_ptr())])
+        moved += 4 * b * h * (d + 2)                           # acc, m, l
+        flops += 4.0 * b * h * args[8].shape[1] * d
+    record("paged_qattn", "src/repro_torch/kernels/paged_qattn/csrc/paged_qattn.cu",
+           "src/repro/kernels/paged_qattn/kernel.py:121", err, tol, paged_layer, ms, plain,
+           bound_ms(flops, moved))
+    log(f"paged_qattn: timed per decode layer (three launches: hi {segs[0]['table'].shape[1]}, "
+        f"lo {segs[1]['table'].shape[1]}, window {segs[2]['table'].shape[1]} pages of 64), "
+        f"without slot weights; with them {ms_w:.4f} ms")
+    del pcache, segs, seg_args
+
     # ---- 4. the main path -------------------------------------------------
     t0 = time.perf_counter()
     params = registry.materialize_params(cfg, seed=0, device=dev)
@@ -298,9 +384,12 @@ def main() -> None:
         f"{2 * n_layers}; per non-probe decode step: decode_qattn {2 * n_layers}; per "
         f"recompression: cst_quant {2 * n_layers}")
     for name, n in launches.items():
+        if name not in expected:
+            check(n == 0, f"{name} is not on the lockstep path but launched {n} times")
+            continue
         check(n > 0, f"{name} was never launched on the main path")
         check(n == expected[name], f"{name}: {n} launches, the path implies {expected[name]}")
-        rows[name]["launches"] = n
+    by_path = {"lockstep": launches}
 
     # the same model through the plain versions: logits, then tokens.  The
     # decode step starts from the plain path's cache in both runs, so it
@@ -352,12 +441,155 @@ def main() -> None:
     agree = float((plain_out["tokens"] == tokens).mean())
     log(f"generated tokens equal to the plain path's: {agree:.3f} (not asserted: random "
         f"weights leave near-ties)")
+    yardstick = rel_l2(lf, lp)
+    del engine, plain_engine, plain_out, cp, lk, lp, lf, dk, dp
+
+    # ---- 4b. slice 2's main path: the continuous engine ---------------------
+    cscfg = ServeConfig(batch_size=b, prompt_len=prompt, max_new_tokens=max_new, seed=0,
+                        backend="paged", page_size=64, page_allocator="freelist",
+                        pool_fraction=0.75, paged_kernel=True, scheduler="fifo")
+    rng = np.random.default_rng(1)
+    n_req = 8
+    lengths = rng.integers(200, prompt + 1, size=n_req)
+    budgets = rng.integers(48, max_new + 1, size=n_req)
+    requests = [rng.integers(2, cfg.vocab, size=(int(n),)).astype(np.int32) for n in lengths]
+    log(f"continuous: {n_req} requests, prompt lengths {lengths.tolist()}, budgets "
+        f"{budgets.tolist()}")
+    ceng = ContinuousEngine(cfg, ccfg, cscfg, params, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kern in kernels.values():
+        kern.launches = 0
+    paged.GATHER_DECODES.launches = 0
+    t0 = time.perf_counter()
+    rids = [ceng.submit(Request(tokens=r, max_new_tokens=int(m)))
+            for r, m in zip(requests, budgets)]
+    res = ceng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    claunches = {n: kern.launches for n, kern in kernels.items()}
+    gathers = paged.GATHER_DECODES.launches
+    cpeak = torch.cuda.max_memory_allocated()
+    stats = ceng.pool_stats()
+    n_tok = sum(len(res[r].tokens) for r in rids)
+    log(f"continuous: {n_tok} tokens in {wall:.3f} s ({n_tok / wall:.1f} tok/s over the run), "
+        f"{ceng._step_no} steps, {stats['admissions']} admissions, {stats['deferrals']} "
+        f"deferrals, {stats['folds']} slot folds")
+    for i, r in enumerate(rids):
+        t = res[r].timings
+        log(f"  {r}: prompt {lengths[i]}, {len(res[r].tokens)} tokens, queued "
+            f"{t['queued_s']:.3f} s, first token {t['first_token_s']:.3f} s, prefill "
+            f"{t['prefill_s']:.3f} s, decode {t['tok_per_s']:.1f} tok/s")
+    peaks = {k: f"{v['peak_used']}/{v['pool_pages']}" for k, v in stats.items()
+             if isinstance(v, dict)}
+    log(f"continuous: pages peak used / pool {peaks}")
+    log(f"continuous: kernel launches {claunches}, gather-path decodes {gathers}")
+    log(f"continuous: max memory allocated {cpeak / 2**30:.2f} GiB")
+    for i, r in enumerate(rids):
+        check(res[r].finish_reason == "length" and len(res[r].tokens) == budgets[i],
+              f"{r} ended {res[r].finish_reason} with {len(res[r].tokens)} of {budgets[i]} tokens")
+        check(bool(((res[r].tokens >= 0) & (res[r].tokens < cfg.vocab)).all()),
+              f"{r}: token ids out of range")
+    ceng._alloc.check_invariants()
+    for seg in ("hi", "lo", "win"):
+        check(stats[seg]["used"] == 0 and stats[seg]["free"] == stats[seg]["pool_pages"],
+              f"continuous: {seg} pages not all returned: {stats[seg]}")
+    check(stats["admissions"] == n_req and stats["deferrals"] >= 1 and stats["folds"] >= 1,
+          f"continuous: expected {n_req} admissions, a deferral and a fold: {stats}")
+    check(gathers == 0, f"continuous: {gathers} decodes took the gather path")
+    # per layer: one flash_fwd and one probe_colsum per admission, one
+    # cst_quant per store (hi, lo) per admission and per slot fold, one
+    # paged_qattn per segment (hi, lo, window) per decode step; the mixed
+    # layout's decode_qattn is not on this path
+    cexpected = {"cst_quant": 2 * n_layers * (stats["admissions"] + stats["folds"]),
+                 "flash_fwd": n_layers * stats["admissions"],
+                 "probe_colsum": n_layers * stats["admissions"],
+                 "decode_qattn": 0, "paged_qattn": 3 * n_layers * ceng._step_no}
+    log(f"launches per admission: flash_fwd {n_layers}, probe_colsum {n_layers}, cst_quant "
+        f"{2 * n_layers}; per decode step: paged_qattn {3 * n_layers}; per slot fold: "
+        f"cst_quant {2 * n_layers}")
+    for name, n in claunches.items():
+        check(n == cexpected[name], f"{name}: {n} launches on the continuous path, the path "
+                                    f"implies {cexpected[name]}")
+        check(n > 0 or name == "decode_qattn", f"{name} was never launched on the continuous path")
+    by_path["continuous"] = claunches
+    del ceng, res
+
+    # the first decode step of one admitted slot, from the plain engine's
+    # cache: through the page walk's kernel and through its plain version
+    peng = ContinuousEngine(cfg, ccfg, cscfg, params, device=dev, use_kernels=False)
+    keng = ContinuousEngine(cfg, ccfg, cscfg, params, device=dev)
+    peng.submit(Request(tokens=requests[0], max_new_tokens=int(budgets[0])))
+    check(not probe_flag(0, ccfg.recompress_interval, 0), "decode step 0 should not probe")
+    with torch.inference_mode():
+        peng._admit()   # prefill + insert, without the step's decode
+        peng._alloc.note_append(0)   # the window page the decode writes
+        peng._sync_tables()
+        tok, probes, act = peng._stage({0: (peng.slots[0].generated[-1], False)})
+        before = pq_kernel.KERNEL.launches
+        lpk, _ = steps_lib.continuous_decode(params, peng.caches, tok, probes, act, cfg, keng.ctx)
+        check(pq_kernel.KERNEL.launches - before == 3 * n_layers,
+              "the kernel engine's decode step did not go through paged_qattn")
+        lpp, _ = steps_lib.continuous_decode(params, peng.caches, tok, probes, act, cfg, peng.ctx)
+        check(pq_kernel.KERNEL.launches - before == 3 * n_layers,
+              "the plain engine's decode step launched paged_qattn")
+    check(bool(torch.isfinite(lpk[0]).all()), "continuous first decode logits not finite")
+    r = rel_l2(lpk[0], lpp[0])
+    # paged_qattn and its plain version run the same page walk and merge, so
+    # their f32 outputs differ by summation order only, below one bf16 ulp of
+    # the attention output: the logits agree to that
+    log(f"continuous first decode step logits (slot 0) vs plain: relative L2 {r:.4g} "
+        f"(tolerance 0.2; yardstick of bf16 noise from phase 4: {yardstick:.4g}), argmax equal "
+        f"{bool(lpk[0].argmax() == lpp[0].argmax())}")
+    check(r <= 0.2, "continuous first decode logits differ from the plain path beyond tolerance")
+    del peng, keng
+    for name, row in rows.items():
+        row["launches"] = sum(p.get(name, 0) for p in by_path.values())
+        row["launches_by_path"] = {k: p.get(name, 0) for k, p in by_path.items()}
 
     # ---- 5. the kernels and the contract line ------------------------------
     log("kernels: " + ", ".join(f"{n} ok ({r['launches']} launches)" for n, r in rows.items()))
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
+
+
+def _freelist_cache(torch, np, backend_lib, alloc_lib, paged, ccfg, dev, gen, hk, d, max_len,
+                    lengths, n_append):
+    """A free-list paged cache as the continuous engine builds it: shuffled
+    free lists, one batch-1 prefill per slot at its length (0 leaves the
+    slot empty: an all-invalid row), ungranted pages NULL, then appends."""
+    be = backend_lib.of(ccfg, kind="paged", page_size=64, paged_kernel=True,
+                        page_allocator="freelist", pool_fraction=0.75)
+    b = len(lengths)
+    cache = be.init_cache(b, hk, d, max_len, torch.bfloat16, device=dev)
+    alloc = alloc_lib.FreeListAllocator.from_caches(cache, 64)
+    rng = np.random.default_rng(0)
+    for seg in alloc.segs.values():
+        rng.shuffle(seg.free)
+
+    def sync(c):
+        t = {k: torch.from_numpy(v).to(dev) for k, v in alloc.tables().items()}
+        return paged.with_tables(c, t["hi"], t["lo"], t["win"])
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    for slot, n in enumerate(lengths):
+        if n:
+            sl = be.compress_prefill(randn(1, hk, n, d), randn(1, hk, n, d),
+                                     torch.rand((1, n), generator=gen, device=dev), max_len)
+            alloc.admit(slot, alloc_lib.slice_occupancy(sl), n + max_len - max(lengths), n)
+            cache = be.insert(sync(cache), sl, slot)
+    active = torch.tensor([n > 0 for n in lengths], device=dev)
+    for _ in range(n_append):
+        for slot, n in enumerate(lengths):
+            if n:
+                alloc.note_append(slot)
+        kt = randn(b, hk, d)
+        cache = be.append(sync(cache), kt, kt, active=active)
+    alloc.check_invariants()
+    return cache
 
 
 def _leaves(tree):

@@ -39,4 +39,8 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
     kind: str  # train | prefill | decode
-    cache_backend: str = "mixed"  # "paged" arrives with the paged layout
+    cache_backend: str = "mixed"   # "mixed" | "paged"
+    page_size: int = 64            # tokens per page ("paged" only)
+    paged_kernel: bool = False     # "paged" only: decode attention walks the pages
+    page_allocator: str = "static"  # "paged" only: "static" | "freelist"
+    pool_fraction: float = 1.0     # "freelist" only: pools as a fraction of the worst case

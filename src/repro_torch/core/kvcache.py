@@ -1,5 +1,5 @@
 """Mixed-precision quantized KV cache (port of `repro.core.kvcache`, mixed
-layout, lockstep path).
+layout: the lockstep path and what continuous batching needs of it).
 
   MixedKVCache
     ├── hi : TokenStore   — salient tokens at high_bits   (capacity S_hi)
@@ -13,6 +13,10 @@ layout, lockstep path).
 Token layout inside a store: (batch, kv_heads, slots, head_dim); pos, acc
 and nnz are per (batch, slot).  Empty slots carry pos == -1.  Functions
 return new caches and never write into their inputs, like the reference.
+
+Continuous batching: `append_token(active=)` masks empty slots,
+`update_probe_state` takes per-row probe flags, `insert_slot`/`free_slot`
+write one batch row, and `recompress(rows=)` folds a subset of rows.
 
 Only the saliency policies (zipcache, mikv) are ported; the baselines'
 branches raise.  `use_kernel` routes the CST quantization of V through the
@@ -64,6 +68,35 @@ class TokenStore:
 
     def dequantize(self) -> Tuple[torch.Tensor, torch.Tensor]:
         return self.k.dequantize(), self.v.dequantize()
+
+    def nbytes_packed(self) -> int:
+        return self.k.nbytes_packed() + self.v.nbytes_packed()
+
+
+def tree_map(fn, tree, *rest):
+    """Apply `fn` to every tensor leaf of a cache dataclass tree (and the
+    matching leaves of `rest`).  Non-tensor fields (bits, logical shapes,
+    sink page ids) and None leaves come from `tree` unchanged."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, *rest)
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: tree_map(fn, getattr(tree, f.name), *(getattr(r, f.name) for r in rest))
+            for f in dataclasses.fields(tree)})
+    return tree
+
+
+def tree_leaves(tree):
+    """The tensor leaves of a cache dataclass tree, in field order."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif dataclasses.is_dataclass(tree):
+        for f in dataclasses.fields(tree):
+            yield from tree_leaves(getattr(tree, f.name))
+
+
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
 
 
 def _empty_quant(x: torch.Tensor, bits: int) -> quant.QuantizedTensor:
@@ -131,6 +164,19 @@ class MixedKVCache:
     @property
     def capacity(self) -> int:
         return self.hi.capacity + self.lo.capacity + self.window
+
+    def nbytes_packed(self) -> int:
+        """Bytes of the KV payload: packed hi/lo stores (codes + quantization
+        params) plus the raw staging window."""
+        return (self.hi.nbytes_packed() + self.lo.nbytes_packed()
+                + _nbytes(self.k_win) + _nbytes(self.v_win))
+
+    def nbytes_total(self) -> int:
+        """All leaf bytes, including bookkeeping (pos/acc/nnz/length)."""
+        return _nbytes(self)
+
+    def nbytes_overhead(self) -> int:
+        return self.nbytes_total() - self.nbytes_packed()
 
 
 SLOT_ALIGN = 128  # store capacities align to this for caches of >= 2048 tokens
@@ -277,51 +323,138 @@ def attend_decode(q: torch.Tensor, cache: MixedKVCache,
     return DecodeAttnOut(out, w.mean(dim=(1, 2)))
 
 
-def update_probe_state(cache: MixedKVCache, slot_weights: torch.Tensor,
-                       is_probe: bool) -> MixedKVCache:
+def any_probe(is_probe) -> bool:
+    """Whether any row probes this step: a host bool, or a (b,) tensor that
+    the caller passes only when some row probes."""
+    return is_probe if isinstance(is_probe, bool) else True
+
+
+def update_probe_state(cache: MixedKVCache, slot_weights: Optional[torch.Tensor],
+                       is_probe) -> MixedKVCache:
     """Fold a probe row's slot weights (hi/lo/window order) into the
-    saliency state.  `is_probe` is the step's host-side flag: a non-probe
-    step leaves the state as it is (the reference adds 0 * weights)."""
-    if not is_probe:
-        return cache
+    saliency state.
+
+    is_probe: a host bool for the whole batch, or a (b,) device tensor of
+    per-row flags (continuous batching: each request probes on its own
+    token counter), added as `p[:, None] * w` as the reference does.  A
+    step on which no row probes passes False and leaves the state as it
+    is (the reference adds 0 * weights)."""
+    if isinstance(is_probe, bool):
+        if not is_probe:
+            return cache
+        scaled = lambda x: x  # noqa: E731
+    else:
+        p = is_probe.float()[:, None]
+        scaled = lambda x: p * x  # noqa: E731
     s_hi, s_lo = cache.hi.capacity, cache.lo.capacity
-    hi = dataclasses.replace(cache.hi, acc=cache.hi.acc + slot_weights[:, :s_hi],
-                             nnz=cache.hi.nnz + cache.hi.valid.float())
-    lo = dataclasses.replace(cache.lo, acc=cache.lo.acc + slot_weights[:, s_hi:s_hi + s_lo],
-                             nnz=cache.lo.nnz + cache.lo.valid.float())
+    hi = dataclasses.replace(cache.hi, acc=cache.hi.acc + scaled(slot_weights[:, :s_hi]),
+                             nnz=cache.hi.nnz + scaled(cache.hi.valid.float()))
+    lo = dataclasses.replace(cache.lo, acc=cache.lo.acc + scaled(slot_weights[:, s_hi:s_hi + s_lo]),
+                             nnz=cache.lo.nnz + scaled(cache.lo.valid.float()))
     return dataclasses.replace(
-        cache, hi=hi, lo=lo, win_acc=cache.win_acc + slot_weights[:, s_hi + s_lo:],
-        win_nnz=cache.win_nnz + (cache.win_pos >= 0).float())
+        cache, hi=hi, lo=lo, win_acc=cache.win_acc + scaled(slot_weights[:, s_hi + s_lo:]),
+        win_nnz=cache.win_nnz + scaled((cache.win_pos >= 0).float()))
 
 
-def append_token(cache: MixedKVCache, k_t: torch.Tensor, v_t: torch.Tensor) -> MixedKVCache:
+def _append_cursor(cache, active: Optional[torch.Tensor]):
+    """(write mask, clamped window slot, counter increment) of one append.
+    A row whose window is full, or that `active` masks, drops the write
+    (the reference's out-of-bounds `mode="drop"`); masked rows also keep
+    their counters."""
+    w = cache.window
+    fill = cache.win_fill
+    inc = torch.ones_like(fill)
+    if active is not None:
+        fill = torch.where(active, fill, w)
+        inc = active.to(fill.dtype)
+    return fill < w, fill.clamp(max=w - 1).long(), inc
+
+
+def _advance(cache, inc: torch.Tensor, writes: torch.Tensor, slot: torch.Tensor) -> dict:
+    """The bookkeeping half of an append: window position + counters."""
+    bidx = torch.arange(cache.win_pos.shape[0], device=slot.device)
+    win_pos = cache.win_pos.clone()
+    win_pos[bidx, slot] = torch.where(writes, cache.length, win_pos[bidx, slot])
+    return dict(win_pos=win_pos, length=cache.length + inc, win_fill=cache.win_fill + inc)
+
+
+def append_token(cache: MixedKVCache, k_t: torch.Tensor, v_t: torch.Tensor,
+                 active: Optional[torch.Tensor] = None) -> MixedKVCache:
     """Append one decoded token's K/V (b, h_kv, d) at each row's window
-    cursor.  A row whose window is full drops the write (the reference's
-    out-of-bounds `mode="drop"`) but still advances its counters."""
-    b, w = cache.win_pos.shape
-    bidx = torch.arange(b, device=k_t.device)
-    fits = cache.win_fill < w
-    slot = cache.win_fill.clamp(max=w - 1).long()
-
+    cursor.  A row whose window is full drops the write but still advances
+    its counters; rows where `active` ((b,) bool) is False write nothing
+    and keep their counters (empty or retired slots)."""
+    writes, slot, inc = _append_cursor(cache, active)
+    bidx = torch.arange(k_t.shape[0], device=k_t.device)
     k_win = cache.k_win.clone()
     v_win = cache.v_win.clone()
-    win_pos = cache.win_pos.clone()
-    k_win[bidx, :, slot] = torch.where(fits[:, None, None], k_t.to(k_win.dtype), k_win[bidx, :, slot])
-    v_win[bidx, :, slot] = torch.where(fits[:, None, None], v_t.to(v_win.dtype), v_win[bidx, :, slot])
-    win_pos[bidx, slot] = torch.where(fits, cache.length, win_pos[bidx, slot])
-    return dataclasses.replace(cache, k_win=k_win, v_win=v_win, win_pos=win_pos,
-                               length=cache.length + 1, win_fill=cache.win_fill + 1)
+    for win, x in ((k_win, k_t), (v_win, v_t)):
+        win[bidx, :, slot] = torch.where(writes[:, None, None], x.to(win.dtype),
+                                         win[bidx, :, slot])
+    return dataclasses.replace(cache, k_win=k_win, v_win=v_win,
+                               **_advance(cache, inc, writes, slot))
+
+
+# ---------------------------------------------------------------------------
+# Slot-based batch insertion (continuous batching)
+# ---------------------------------------------------------------------------
+
+def _row_set(t: torch.Tensor, slot: int, value) -> torch.Tensor:
+    out = t.clone()
+    out[slot] = value
+    return out
+
+
+def tree_update_rows(dst, src, slot: int):
+    """Write `src` (batch 1 in every leaf) into batch row `slot` of `dst`.
+    Non-tensor fields (a QuantizedTensor's logical shape) keep dst's."""
+    return tree_map(lambda d, s: _row_set(d, slot, s[0].to(d.dtype)), dst, src)
+
+
+def insert_slot(dst: MixedKVCache, src: MixedKVCache, slot: int) -> MixedKVCache:
+    """Write a 1-request cache slice `src` (batch 1, same capacities) into
+    batch row `slot` of `dst`."""
+    return tree_update_rows(dst, src, slot)
+
+
+def free_slot(cache, slot: int):
+    """Retire batch row `slot`: invalidate its positions and zero its
+    counters.  Stale payload stays in place: validity is pos-driven.
+    Metadata-only, so it applies to the paged layout unchanged."""
+    def store(s):
+        return dataclasses.replace(s, pos=_row_set(s.pos, slot, -1), acc=_row_set(s.acc, slot, 0),
+                                   nnz=_row_set(s.nnz, slot, 0))
+
+    return dataclasses.replace(
+        cache, hi=store(cache.hi), lo=store(cache.lo), win_pos=_row_set(cache.win_pos, slot, -1),
+        win_acc=_row_set(cache.win_acc, slot, 0), win_nnz=_row_set(cache.win_nnz, slot, 0),
+        length=_row_set(cache.length, slot, 0), win_fill=_row_set(cache.win_fill, slot, 0))
+
+
+def tree_select_rows(mask: torch.Tensor, new_tree, old_tree):
+    """Per-row select between two same-shaped trees: rows where `mask`
+    ((b,) bool) is set take `new_tree`."""
+    def sel(n, o):
+        return torch.where(mask.reshape(mask.shape + (1,) * (n.dim() - 1)), n, o)
+
+    return tree_map(sel, new_tree, old_tree)
 
 
 # ---------------------------------------------------------------------------
 # Streaming recompression (paper Alg. 3)
 # ---------------------------------------------------------------------------
 
-def recompress(cfg: CompressionConfig, cache: MixedKVCache, use_kernel: bool = False) -> MixedKVCache:
+def recompress(cfg: CompressionConfig, cache: MixedKVCache, rows: Optional[torch.Tensor] = None,
+               use_kernel: bool = False) -> MixedKVCache:
     """Fold the staging window back into the quantized stores: re-rank every
     valid token by its current saliency (acc / nnz for 'normalized', acc for
-    'accumulated'), rebuild hi/lo, empty the window."""
-    return _recompress_all(cfg, cache, use_kernel=use_kernel)
+    'accumulated'), rebuild hi/lo, empty the window.
+
+    rows: optional (b,) bool: fold only those rows (each slot of a
+    continuous batch folds on its own counter).  Every step is
+    row-independent, so selecting rows afterwards is exact."""
+    new = _recompress_all(cfg, cache, use_kernel=use_kernel)
+    return new if rows is None else tree_select_rows(rows, new, cache)
 
 
 def _valid_first(idx: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:

@@ -62,6 +62,13 @@ class QuantizedTensor:
             x = x * self.channel_scale.float()
         return x.reshape(self.shape).to(self.dtype)
 
+    def nbytes_packed(self) -> int:
+        """Bytes of the packed representation incl. quantization parameters
+        (a paged store's metadata carries codes=None: its codes live in pages)."""
+        return sum(t.numel() * t.element_size()
+                   for t in (self.codes, self.scale, self.zero, self.channel_scale)
+                   if t is not None)
+
 
 def _no_eff(eff) -> None:
     if eff is not None:

@@ -22,7 +22,7 @@ import torch
 
 _KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS_DIR.parents[2] / "build" / "kernels"
-SOURCES = ("cst_quant", "probe_flash", "decode_qattn")
+SOURCES = ("cst_quant", "probe_flash", "decode_qattn", "paged_qattn")
 # IEEE division and sqrt are the defaults; --use_fast_math must never be
 # added: the CST codes are held bit-identical to the reference.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,0 +1,111 @@
+"""Paged decode attention over a `PagedKVCache`, pages read in place (port of
+`repro.kernels.paged_qattn.ops`).
+
+`attend_paged` replaces the paged backend's gather path
+(`kvcache.attend_decode(q, cache.dense_view())`) wherever the stores carry
+channelwise K / CST V codes or raw >= 16-bit values (the ZipCache and fp16
+configurations): the hi store, the lo store and the bf16 staging window each
+go through `kernel.qattn_paged_segment`, and the segments' flash stats merge
+as `ref.merge_segments_weights` does.  With `want_weights` it also rebuilds
+the head-pooled slot weights; the engine asks for them only where it uses
+them (the reference's probe steps take them from the gather path instead).
+
+Rows with no valid slot give zeros, where the dense softmax gives a uniform
+average over garbage; such rows are empty slots, masked by every consumer.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core import kvcache as kvc
+from repro_torch.kernels.paged_qattn import kernel as K
+from repro_torch.kernels.paged_qattn import ref as R
+
+
+def kernel_supported(cache) -> bool:
+    """Static check of the policy's schemes: every non-empty quantized store
+    must be ZipCache's (channelwise K, CST V); raw (bits >= 16) stores always
+    qualify.  Groupwise / tokenwise stores (KIVI, GEAR) take the gather path."""
+    for store in (cache.hi, cache.lo):
+        if store.table.shape[1] == 0:
+            continue
+        km, vm = store.k_meta, store.v_meta
+        if km.bits < 16 and (km.scale is None or km.scale.shape[-2] != 1
+                             or km.channel_scale is not None):
+            return False
+        if vm.bits < 16 and (vm.scale is None or vm.scale.shape[-1] != 1
+                             or vm.channel_scale is None):
+            return False
+    return True
+
+
+def _pad_tokens(x: torch.Tensor, s_pad: int) -> torch.Tensor:
+    """Zero-pad axis -2 (tokens) of (b,hk,S,1) parameters up to S_pad."""
+    return torch.nn.functional.pad(x, (0, 0, 0, s_pad - x.shape[-2]))
+
+
+def _pad_pos(pos: torch.Tensor, s_pad: int) -> torch.Tensor:
+    return torch.nn.functional.pad(pos, (0, s_pad - pos.shape[-1]), value=-1)
+
+
+def _store_operands(q, store) -> dict:
+    """Kernel operands of a quantized or raw `PagedStore` segment.  Raw
+    halves pass no parameters; quantized ones round to their store dtype."""
+    s_pad = store.table.shape[1] * store.k_pages.shape[2]
+    km, vm = store.k_meta, store.v_meta
+    ops = dict(k_pages=store.k_pages, v_pages=store.v_pages, pos=_pad_pos(store.pos, s_pad),
+               table=store.table, k_bits=km.bits, v_bits=vm.bits, s_seg=store.capacity,
+               k_scale=None, k_zero=None, v_cscale=None, v_tscale=None, v_tzero=None,
+               k_dtype=torch.float32, v_dtype=torch.float32)
+    if km.bits < 16:
+        ops.update(k_scale=km.scale, k_zero=km.zero, k_dtype=km.scale.dtype)
+    if vm.bits < 16:
+        ops.update(v_cscale=vm.channel_scale, v_tscale=_pad_tokens(vm.scale, s_pad),
+                   v_tzero=_pad_tokens(vm.zero, s_pad), v_dtype=vm.scale.dtype)
+    return ops
+
+
+def _window_operands(q, cache) -> dict:
+    """Kernel operands of the raw staging-window segment."""
+    s_pad = cache.win_table.shape[1] * cache.page_size
+    return dict(k_pages=cache.win_k_pages, v_pages=cache.win_v_pages,
+                pos=_pad_pos(cache.win_pos, s_pad), table=cache.win_table, k_bits=16, v_bits=16,
+                s_seg=cache.window, k_scale=None, k_zero=None, v_cscale=None, v_tscale=None,
+                v_tzero=None, k_dtype=torch.float32, v_dtype=torch.float32)
+
+
+def _segment_stats(q, ops: dict, scale: float, use_ref: bool, want_weights: bool):
+    """One segment's (acc, m, l, p relative to m or None)."""
+    args = (q, ops["k_pages"], ops["k_scale"], ops["k_zero"], ops["v_pages"], ops["v_cscale"],
+            ops["v_tscale"], ops["v_tzero"], ops["pos"], ops["table"])
+    kw = dict(k_bits=ops["k_bits"], v_bits=ops["v_bits"], scale=scale,
+              k_dtype=ops["k_dtype"], v_dtype=ops["v_dtype"])
+    if use_ref:
+        acc, m, l, p = R.paged_segment_ref(*args, **kw)
+        return acc, m, l, p if want_weights else None
+    acc, m, l, p, m_run = K.qattn_paged_segment(*args, want_weights=want_weights, **kw)
+    return acc, m, l, (p * torch.exp(m_run - m[..., None]) if want_weights else None)
+
+
+def attend_paged(q: torch.Tensor, cache, scale: Optional[float] = None, use_ref: bool = False,
+                 want_weights: bool = True) -> kvc.DecodeAttnOut:
+    """One-token decode attention over a `PagedKVCache`, no dense gather.
+
+    q (b, h, d).  Returns DecodeAttnOut(out (b,h,dv) in q's dtype,
+    slot_weights (b, S_hi+S_lo+W) f32 in hi/lo/window order, or None without
+    `want_weights`).  use_ref=True runs the plain page walk
+    (`ref.paged_segment_ref`) through the same merge."""
+    scale = float(scale) if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
+    segs = [_store_operands(q, s) for s in (cache.hi, cache.lo) if s.table.shape[1]]
+    if cache.win_table.shape[1]:
+        segs.append(_window_operands(q, cache))
+    stats = [_segment_stats(q, ops, scale, use_ref, want_weights) for ops in segs]
+    out, weights = R.merge_segments_weights(stats)
+    slot_w = None
+    if weights is not None:
+        slot_w = torch.cat([w[:, :, :ops["s_seg"]].mean(dim=1) for w, ops in zip(weights, segs)],
+                           dim=-1)
+    return kvc.DecodeAttnOut(out.to(q.dtype), slot_w)

@@ -1,10 +1,15 @@
-"""Serving entry point of the port: lockstep batched generation with ZipCache.
+"""Serving entry point of the port: lockstep or continuous generation with
+ZipCache.
 
-Example (on a CUDA card):
+Examples (on a CUDA card):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke \
       --policy zipcache --batch 4 --prompt-len 64 --max-new 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke \
+      --continuous --requests 8 --backend paged --page-allocator freelist \
+      --pool-fraction 0.75 --paged-kernel on
 
-The flags are the lockstep subset of `repro.launch.serve`, plus --device
+The flags are those of `repro.launch.serve` that the port runs, plus
+--requests (how many requests the continuous engine serves) and --device
 (default cuda; --device cpu runs the plain PyTorch versions of the kernels).
 """
 
@@ -12,6 +17,7 @@ from __future__ import annotations
 
 import argparse
 import subprocess
+import time
 
 import numpy as np
 import torch
@@ -20,12 +26,15 @@ from repro_torch import configs
 from repro_torch.core.policy import CompressionConfig
 from repro_torch.kernels.cst_quant import kernel as cst_kernel
 from repro_torch.kernels.decode_qattn import kernel as dq_kernel
+from repro_torch.kernels.paged_qattn import kernel as pq_kernel
 from repro_torch.kernels.probe_flash import kernel as pf_kernel
 from repro_torch.models import registry
-from repro_torch.serving import ServeConfig, ServingEngine, pack_requests
+from repro_torch.serving import (ContinuousEngine, Request, ServeConfig, ServingEngine,
+                                 pack_requests)
 
 KERNELS = {"cst_quant": cst_kernel.KERNEL, "flash_fwd": pf_kernel.FLASH,
-           "probe_colsum": pf_kernel.COLSUM, "decode_qattn": dq_kernel.KERNEL}
+           "probe_colsum": pf_kernel.COLSUM, "decode_qattn": dq_kernel.KERNEL,
+           "paged_qattn": pq_kernel.KERNEL}
 
 
 def card_name(device: torch.device) -> str:
@@ -36,15 +45,14 @@ def card_name(device: torch.device) -> str:
     return f"{torch.cuda.get_device_name(device)} ({smi.stdout.strip() or 'nvidia-smi n/a'})"
 
 
-def _profiled(engine: ServingEngine, batch, device: torch.device):
-    """One generate under torch.profiler: device time by kernel name, and
-    the summed kernel time over the wall time of the run."""
+def _profiled(run, device: torch.device):
+    """`run()` (which returns its wall seconds) under torch.profiler: device
+    time by kernel name, and the summed kernel time over the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
     with profile(activities=acts) as prof:
-        out = engine.generate(batch)
-    wall = out["timings"]["prefill_s"] + out["timings"]["decode_s"]
+        out, wall = run()
     kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
     busy = sum(e.device_time for e in kernels) / 1e6  # us -> s
     print(f"[serve] profile: {len(kernels)} device kernels, {busy:.3f} s of device time "
@@ -53,8 +61,8 @@ def _profiled(engine: ServingEngine, batch, device: torch.device):
     return out
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+def add_engine_args(ap: argparse.ArgumentParser) -> None:
+    """The engine / `ServeConfig` flags, named as in `repro.launch.serve`."""
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--policy", default="zipcache")
@@ -63,31 +71,137 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--backend", default="mixed", choices=("mixed", "paged"),
+                    help="KV cache layout: mixed = dense per-slot arrays; paged = page pools "
+                         "behind per-slot page tables")
+    ap.add_argument("--page-size", type=int, default=64,
+                    help="tokens per page (also the continuous engine's admission bucket)")
+    ap.add_argument("--paged-kernel", default="off", choices=("on", "off"),
+                    help="--backend paged only: decode attention walks the pages "
+                         "(kernels/paged_qattn); off = gather a dense view each step")
+    ap.add_argument("--page-allocator", default="static", choices=("static", "freelist"),
+                    help="--backend paged only: static = every slot owns its worst case; "
+                         "freelist = pages granted on demand from shared pools, admission "
+                         "deferred when they cannot cover a request's worst case")
+    ap.add_argument("--pool-fraction", type=float, default=1.0,
+                    help="--page-allocator freelist only: pool capacity as a fraction of the "
+                         "static worst case")
+    ap.add_argument("--admit-watermark", type=float, default=0.0,
+                    help="--page-allocator freelist only: fraction of each pool held back "
+                         "as admission headroom")
+    ap.add_argument("--scheduler", default="fifo", choices=("fifo", "priority"),
+                    help="--continuous only: admission policy")
+    ap.add_argument("--preemption", default="off", choices=("off", "recompute"),
+                    help="--scheduler priority only: recompute lets the scheduler evict a "
+                         "running lower-priority slot and re-admit it by replaying its tokens")
+
+
+def validate_engine_args(args, ap: argparse.ArgumentParser) -> None:
+    """Reject flag combinations that would be silently ignored."""
+    if args.paged_kernel == "on" and args.backend != "paged":
+        ap.error("--paged-kernel on requires --backend paged")
+    if args.scheduler != "fifo" and not args.continuous:
+        ap.error("--scheduler requires --continuous")
+    if args.preemption != "off" and args.scheduler != "priority":
+        ap.error(f"--preemption {args.preemption} requires --scheduler priority")
+    if args.page_allocator == "freelist" and args.backend != "paged":
+        ap.error("--page-allocator freelist requires --backend paged")
+    if args.page_allocator == "freelist" and not args.continuous:
+        ap.error("--page-allocator freelist requires --continuous")
+    if args.pool_fraction != 1.0 and args.page_allocator != "freelist":
+        ap.error("--pool-fraction requires --page-allocator freelist")
+    if args.admit_watermark != 0.0 and args.page_allocator != "freelist":
+        ap.error("--admit-watermark requires --page-allocator freelist")
+    if args.requests is not None and not args.continuous:
+        ap.error("--requests requires --continuous")
+
+
+def build_serve_config(args) -> ServeConfig:
+    return ServeConfig(batch_size=args.batch, prompt_len=args.prompt_len,
+                       max_new_tokens=args.max_new, seed=args.seed, backend=args.backend,
+                       page_size=args.page_size, paged_kernel=args.paged_kernel == "on",
+                       page_allocator=args.page_allocator, pool_fraction=args.pool_fraction,
+                       admit_watermark=args.admit_watermark, scheduler=args.scheduler,
+                       preemption=args.preemption)
+
+
+def _serve_continuous(args, cfg, ccfg, scfg, params, device, prompts):
+    eng = ContinuousEngine(cfg, ccfg, scfg, params, device=device)
+
+    def serve_all():
+        # under the priority scheduler, stagger priorities so the policy shows
+        t0 = time.perf_counter()
+        rids = [eng.submit(Request(tokens=p, priority=i % 2 if args.scheduler == "priority"
+                                   else 0)) for i, p in enumerate(prompts)]
+        eng.run()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return rids, time.perf_counter() - t0
+
+    if args.profile:
+        serve_all()   # warm-up: kernel builds, cuBLAS, allocator, every admission bucket
+        for k in KERNELS.values():
+            k.launches = 0
+        rids = _profiled(serve_all, device)
+    else:
+        rids, _ = serve_all()
+    print(f"[serve] device: {card_name(device)}")
+    for rid in rids:
+        out = eng.result(rid)
+        print(f"[serve] {rid}: {len(out.tokens)} tok ({out.timings['tok_per_s']:.1f} tok/s, "
+              f"first tok {out.timings['first_token_s']:.2f}s, "
+              f"{int(out.timings['n_preemptions'])} preemptions) first={out.tokens[:16].tolist()}")
+    ps = eng.pool_stats()
+    if ps is not None:
+        used = {k: f"{v['peak_used']}/{v['pool_pages']}" for k, v in ps.items()
+                if isinstance(v, dict)}
+        print(f"[serve] page pools peak used {used}, {ps['deferrals']} admissions deferred, "
+              f"{ps['preemptions']} slots preempted")
+    print("[serve] kernel launches:", {n: k.launches for n, k in KERNELS.items()})
+    return {rid: eng.result(rid) for rid in rids}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    add_engine_args(ap)
+    ap.add_argument("--continuous", action="store_true",
+                    help="continuous-batching engine (submit/step/result)")
+    ap.add_argument("--requests", type=int, default=None,
+                    help="--continuous only: requests to serve (default: --batch)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--profile", action="store_true",
-                    help="after a warm-up run, trace one generate with torch.profiler and "
-                         "print device time by kernel and the device's busy share")
+                    help="after a warm-up run, trace one run (a generate, or serving every "
+                         "request) with torch.profiler and print device time by kernel and "
+                         "the device's busy share")
     args = ap.parse_args(argv)
+    validate_engine_args(args, ap)
 
     device = torch.device(args.device)
     cfg = configs.get_arch(args.arch, smoke=args.smoke)
     kw = {"saliency_ratio": args.saliency_ratio} if args.policy in ("zipcache", "mikv") else {}
     ccfg = CompressionConfig.preset(args.policy, **kw)
-    scfg = ServeConfig(batch_size=args.batch, prompt_len=args.prompt_len,
-                       max_new_tokens=args.max_new, seed=args.seed)
+    scfg = build_serve_config(args)
     params = registry.materialize_params(cfg, seed=args.seed, device=device)
     rng = np.random.default_rng(args.seed)
+    n_req = args.requests if args.requests is not None else args.batch
     prompts = [rng.integers(2, cfg.vocab, size=(args.prompt_len,)).astype(np.int32)
-               for _ in range(args.batch)]
+               for _ in range(n_req if args.continuous else args.batch)]
+    for k in KERNELS.values():
+        k.launches = 0
+    if args.continuous:
+        return _serve_continuous(args, cfg, ccfg, scfg, params, device, prompts)
 
     engine = ServingEngine(cfg, ccfg, scfg, params, device=device)
     batch = {"tokens": pack_requests(prompts, args.batch, args.prompt_len)}
     if args.profile:
         engine.generate(batch, max_new_tokens=2)  # warm-up: kernel builds, cuBLAS, allocator
-    for k in KERNELS.values():
-        k.launches = 0
-    if args.profile:
-        out = _profiled(engine, batch, device)
+        for k in KERNELS.values():
+            k.launches = 0
+        def generate():
+            out = engine.generate(batch)
+            return out, out["timings"]["prefill_s"] + out["timings"]["decode_s"]
+
+        out = _profiled(generate, device)
     else:
         out = engine.generate(batch)
     print(f"[serve] device: {card_name(device)}")

@@ -34,14 +34,14 @@ class RunCtx:
     """Per-call context: compression policy, probes, cache budget, kernels.
 
     `use_kernels` routes prefill attention through `kernels.probe_flash`;
-    the cache backend carries its own switch for `cst_quant` and
-    `decode_qattn` (`backend_lib.of(ccfg, use_kernels=...)`).
+    the cache backend carries its own switch for `cst_quant`, `decode_qattn`
+    and `paged_qattn` (`backend_lib.of(ccfg, use_kernels=...)`).
     """
 
     def __init__(self, ccfg: Optional[CompressionConfig] = None,
                  probe: Optional[sal.ProbeSpec] = None, max_cache_len: int = 0,
                  q_block: int = 512, use_kernels: bool = False,
-                 backend: Optional[backend_lib.MixedKVBackend] = None):
+                 backend=None):
         self.ccfg = ccfg
         self.probe = probe
         self.max_cache_len = max_cache_len
@@ -68,13 +68,15 @@ def apply_layer_full(params: dict, x: torch.Tensor, cfg: ArchConfig, ctx: RunCtx
 
 
 def apply_layer_decode(params: dict, x_t: torch.Tensor, cfg: ArchConfig, cache_el: Any,
-                       ctx: RunCtx, is_probe: bool) -> Tuple[torch.Tensor, Any]:
+                       ctx: RunCtx, is_probe, active: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, Any]:
     """One layer, one token: append this token's K/V, attend over the cache
-    (exact on probe steps, the kernel otherwise), fold the probe row."""
+    (exact slot weights on probe steps), fold the probe row.  `is_probe` and
+    `active` as in `core.backend`: inactive rows append nothing."""
     be = ctx.backend
     h = common.rms_norm(x_t, params["ln1"], cfg.norm_eps)
     q_t, k_t, v_t = attn.gqa_decode_qkv(params["attn"], h, cfg, cache_el.length)
-    cache_el = be.append(cache_el, k_t, v_t)
+    cache_el = be.append(cache_el, k_t, v_t, active=active)
     dec = be.attend(q_t, cache_el, is_probe)
     cache_el = be.update_probe(cache_el, dec.slot_weights, is_probe)
     x_t = x_t + common.einsum("bhd,hde->be", dec.out, params["attn"]["wo"])

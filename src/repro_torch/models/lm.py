@@ -9,7 +9,7 @@ layer axis replaces `lax.scan`.  Caches are {"prefix": [], "groups":
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -66,22 +66,38 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
 
 
 def decode_step(params: dict, token: torch.Tensor, caches: Any, cfg: ArchConfig,
-                ctx: blocks.RunCtx, is_probe: bool) -> Tuple[torch.Tensor, Any]:
+                ctx: blocks.RunCtx, is_probe, active: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Any]:
     """One decode step against the quantized caches (paper Alg. 3).
-    `is_probe` is the step's host-side probe flag."""
+
+    is_probe: the step's probe flag (host bool), or a (b,) device tensor
+    of per-row flags (each request of a continuous batch probes on its own
+    token counter), passed only when some row probes.  active: optional
+    (b,) bool device tensor of live slots; inactive rows neither append nor
+    advance their counters."""
     x_t = common.embed_lookup(params["embed"], token)
     groups = []
     for i, gc in enumerate(caches["groups"]):
         x_t, el = blocks.apply_layer_decode(common.layer_slice(params["groups"]["sub0"], i),
-                                            x_t, cfg, gc["sub0"], ctx, is_probe)
+                                            x_t, cfg, gc["sub0"], ctx, is_probe, active)
         groups.append({"sub0": el})
     return unembed(params, cfg, x_t), {"prefix": [], "groups": groups}
 
 
-def recompress_caches(caches: Any, cfg: ArchConfig, ctx: blocks.RunCtx) -> Any:
-    """Streaming recompression across all layers (paper Alg. 3)."""
-    return {"prefix": [],
-            "groups": [{"sub0": ctx.backend.recompress(gc["sub0"])} for gc in caches["groups"]]}
+def recompress_caches(caches: Any, cfg: ArchConfig, ctx: blocks.RunCtx,
+                      rows: Optional[torch.Tensor] = None, slot: Optional[int] = None) -> Any:
+    """Streaming recompression across all layers (paper Alg. 3).
+
+    rows: optional (b,) bool device tensor: fold only those slots.  slot:
+    fold exactly one slot through the backend's per-slot recompression
+    (the paged layout's; excludes `rows`)."""
+    assert rows is None or slot is None, "pass rows OR slot, not both"
+    be = ctx.backend
+
+    def fold(el):
+        return be.recompress_slot(el, slot) if slot is not None else be.recompress(el, rows=rows)
+
+    return {"prefix": [], "groups": [{"sub0": fold(gc["sub0"])} for gc in caches["groups"]]}
 
 
 def init_caches(cfg: ArchConfig, ctx: blocks.RunCtx, b: int, dtype=torch.bfloat16,

@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -23,12 +23,44 @@ def prefill(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, ctx: blocks
 
 
 def decode_step(params, token: torch.Tensor, caches: Any, cfg: ArchConfig,
-                ctx: blocks.RunCtx, is_probe: bool):
-    return lm.decode_step(params, token, caches, cfg, ctx, is_probe)
+                ctx: blocks.RunCtx, is_probe, active: Optional[torch.Tensor] = None):
+    """is_probe: a host bool or per-row flags; active: optional (b,) live-slot
+    mask (continuous batching: masked slots neither append nor advance)."""
+    return lm.decode_step(params, token, caches, cfg, ctx, is_probe, active)
 
 
-def recompress(caches: Any, cfg: ArchConfig, ctx: blocks.RunCtx):
-    return lm.recompress_caches(caches, cfg, ctx)
+def recompress(caches: Any, cfg: ArchConfig, ctx: blocks.RunCtx,
+               rows: Optional[torch.Tensor] = None, slot: Optional[int] = None):
+    """rows: fold only those slots; slot: fold one slot through the backend's
+    per-slot recompression (paged layout)."""
+    return lm.recompress_caches(caches, cfg, ctx, rows=rows, slot=slot)
+
+
+def _map_elements(fn, *trees):
+    return {"prefix": [],
+            "groups": [{"sub0": fn(*(t["groups"][i]["sub0"] for t in trees))}
+                       for i in range(len(trees[0]["groups"]))]}
+
+
+def insert_caches(dst: Any, src: Any, slot: int) -> Any:
+    """Insert a 1-request cache slice into batch row `slot` of a decode batch:
+    paged elements scatter onto the slot's pages, mixed ones write rows."""
+    from repro_torch.core import kvcache as kvc
+    from repro_torch.core import paged
+
+    def ins(d, s):
+        if isinstance(d, paged.PagedKVCache):
+            return paged.insert_slot(d, s, slot)
+        return kvc.insert_slot(d, s, slot)
+
+    return _map_elements(ins, dst, src)
+
+
+def free_caches(caches: Any, slot: int) -> Any:
+    """Retire batch row `slot` across the cache tree (metadata row writes; a
+    paged slot's pages stay, validity is pos-driven)."""
+    from repro_torch.core import kvcache as kvc
+    return _map_elements(lambda el: kvc.free_slot(el, slot), caches)
 
 
 def init_caches(cfg: ArchConfig, ctx: blocks.RunCtx, b: int, dtype=torch.bfloat16,

@@ -1,26 +1,52 @@
-"""Lockstep serving engine (port of the lockstep half of
-`repro.serving.engine`): one packed batch prefills together, then decodes
-a fixed number of greedy steps with ZipCache streaming recompression
-(paper Alg. 2/3).
+"""Serving engines with ZipCache streaming compression (port of
+`repro.serving.engine`, paper Alg. 2/3).
 
-The probe flag of each step is a host bool from `probe_flag`; it picks the
-decode path (exact softmax on probe steps, the decode kernel otherwise)
-with no device sync.  Tokens stay on the device until the loop ends.
+  * ``ServingEngine`` — the lockstep path: one packed batch prefills
+    together, then decodes a fixed number of greedy steps.
+  * ``EngineCore`` — continuous batching: a request lifecycle (``submit ->
+    step/run -> result``, ``stream``, ``cancel``) over a fixed number of
+    decode slots, with the scheduling policy injected
+    (`serving.scheduler`).  A new request prefills on its own (batch 1, at a
+    page-aligned ragged bucket of its prompt) and its compressed cache slice
+    is inserted into a free slot of the running batch; a finished request
+    frees its slot.  Inactive slots are masked, never sliced away.  Under
+    the free-list page allocator (`core.alloc`), pages are granted and
+    returned host-side between steps and admission defers when the pools
+    cannot cover a request's worst case.
+  * ``ContinuousEngine`` — `EngineCore` with the scheduler named by
+    `ServeConfig.scheduler`.
+
+Per-request cadence (paper Alg. 3 under continuous batching): each slot
+carries its own token counter; probe rows and window folds fire on it, so a
+request admitted mid-run sees the schedule of a fresh lockstep run.
+Preemption by recompute re-prefills a victim and replays its retained
+tokens through the same decode and fold steps, so its tokens are unchanged.
+
+The probe flags of a step are host values: they pick the decode path
+(exact slot weights on probe steps) with no device sync.  Sampling is
+greedy; temperature > 0, swap, the downshift ladder, shared-prefix dedup
+and precision maps are not ported yet and raise `NotImplementedError`.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import itertools
 import time
-from typing import Dict, Optional, Sequence
+from typing import Callable, Deque, Dict, Iterator, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.core import alloc as alloc_lib
+from repro_torch.core import paged as paged_lib
 from repro_torch.core.policy import CompressionConfig
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import registry
+from repro_torch.serving import events as events_lib
+from repro_torch.serving import scheduler as scheduler_lib
 
 
 def probe_flag(counter: int, interval: int, seed: int = 0) -> bool:
@@ -35,11 +61,89 @@ def probe_flag(counter: int, interval: int, seed: int = 0) -> bool:
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
-    """The fields the lockstep path reads."""
-    batch_size: int                  # rows of the packed batch
-    prompt_len: int                  # static prompt length (left-padded)
+    batch_size: int                  # rows of the packed batch / decode slots
+    prompt_len: int                  # static prompt capacity (left-padded)
     max_new_tokens: int = 128        # decode budget (the cache is sized for it)
     seed: int = 0
+    # KV cache layout: "mixed" (dense per-slot arrays) or "paged" (page
+    # pools behind per-slot page tables); greedy output is token-identical
+    backend: str = "mixed"
+    page_size: int = 64              # tokens per page; also the admission bucket
+    # "paged" only: decode attention walks the pages (kernels/paged_qattn)
+    paged_kernel: bool = False
+    # "paged" only: "static" (every slot owns its worst case) or "freelist"
+    # (shared pools of pool_fraction x that, granted on demand, admission
+    # deferred when the pools cannot cover a request's worst case)
+    page_allocator: str = "static"
+    pool_fraction: float = 1.0
+    # "freelist" only: fraction of each pool held back as admission headroom
+    admit_watermark: float = 0.0
+    # "freelist" only: a head-of-queue request that does not fit is left
+    # queued ("defer", counted in pool_stats) or raises PagePoolExhausted
+    # from step() ("error")
+    backpressure: str = "defer"
+    scheduler: str = "fifo"          # "fifo" | "priority"
+    # "off" never evicts; "recompute" lets the scheduler evict a running
+    # slot and re-admit it later by re-prefill + replay (tokens unchanged)
+    preemption: str = "off"
+    # levers of the reference not ported yet: a non-default value raises
+    prefix_cache: bool = False
+    precision_map: str = ""
+    ladder_watermark: float = 0.0
+    swap_pool_mb: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplingParams:
+    """Per-request sampling: temperature 0 = greedy (the only mode ported)."""
+    temperature: float = 0.0
+    seed: int = 0
+
+
+@dataclasses.dataclass(eq=False)   # identity semantics: queue membership and
+class Request:                     # removal must not compare token arrays
+    """One generation request.
+
+    tokens: (<= prompt_len,) prompt ids; `submit()` copies them.
+    max_new_tokens: per-request budget, capped by ServeConfig.max_new_tokens.
+    stop_tokens: generation stops when one of these is produced.
+    priority: scheduling urgency (higher = sooner; the priority scheduler).
+    deadline_s: wall-clock budget from submit; an expired request is
+        cancelled at the next step boundary (reason "deadline").
+    on_token: optional callback with each fresh `TokenEvent`; a raising
+        callback is detached and surfaced as a `CallbackErrorEvent`.
+    """
+    tokens: np.ndarray
+    id: Optional[str] = None
+    sampling: SamplingParams = dataclasses.field(default_factory=SamplingParams)
+    max_new_tokens: Optional[int] = None
+    stop_tokens: Tuple[int, ...] = ()
+    priority: int = 0
+    deadline_s: Optional[float] = None
+    on_token: Optional[Callable[[events_lib.TokenEvent], None]] = None
+
+
+@dataclasses.dataclass
+class RequestOutput:
+    """Final output of one request.  timings: queued_s, prefill_s (incl.
+    recompute replays), decode_s, tok_per_s (decode-phase tokens only),
+    first_token_s, preempted_s, n_preemptions, n_deferrals."""
+    id: str
+    tokens: np.ndarray               # (n_generated,) int32, stop token included
+    finish_reason: str               # "stop" | "length" | "cancelled"
+    timings: Dict[str, float]
+
+
+@dataclasses.dataclass
+class _Slot:
+    """Engine-internal per-slot decode state."""
+    request: Request
+    generated: List[int]
+    steps: int = 0                   # decode steps done (probe counter)
+    since_rc: int = 0                # tokens since the last fold
+    t_submit: float = 0.0
+    t_admit: float = 0.0
+    prefill_s: float = 0.0
 
 
 def pack_requests(requests: Sequence[np.ndarray], batch_size: int,
@@ -57,10 +161,7 @@ def pack_requests(requests: Sequence[np.ndarray], batch_size: int,
     return out
 
 
-class ServingEngine:
-    """Lockstep batch generation: all requests prefill together and decode
-    the same number of greedy steps."""
-
+class _EngineBase:
     def __init__(self, cfg: ArchConfig, ccfg: CompressionConfig, scfg: ServeConfig, params,
                  device="cuda", use_kernels: bool = True):
         self.cfg = cfg
@@ -68,18 +169,56 @@ class ServingEngine:
         self.scfg = scfg
         self.params = params
         self.device = torch.device(device)
-        shape = ShapeConfig("serve", scfg.prompt_len, scfg.batch_size, "prefill")
-        self.ctx = steps_lib.serve_ctx(cfg, shape, ccfg, decode_budget=scfg.max_new_tokens,
+        self.use_kernels = use_kernels
+        self._shape = ShapeConfig("serve", scfg.prompt_len, scfg.batch_size, "prefill",
+                                  cache_backend=scfg.backend, page_size=scfg.page_size,
+                                  paged_kernel=scfg.paged_kernel,
+                                  page_allocator=scfg.page_allocator,
+                                  pool_fraction=scfg.pool_fraction)
+        self.ctx = steps_lib.serve_ctx(cfg, self._shape, ccfg,
+                                       decode_budget=scfg.max_new_tokens,
                                        q_block=min(512, scfg.prompt_len), device=self.device,
                                        use_kernels=use_kernels)
-        self.last_caches = None
+        self._bucket_ctx: Dict[int, object] = {}
 
-    def _is_probe(self, i: int) -> bool:
-        return probe_flag(i, self.ccfg.recompress_interval, self.scfg.seed)
+    def _bucket_len(self, n_tokens: int) -> int:
+        """Ragged admission bucket: the smallest whole-page length that holds
+        the prompt, capped at the prompt window (ServeConfig.page_size for
+        every backend, so all layouts prefill alike)."""
+        ps = self.scfg.page_size
+        return min(alloc_lib.pages_for(max(n_tokens, 1), ps) * ps, self.scfg.prompt_len)
+
+    def _prefill_ctx(self, bucket_len: int):
+        """The serving context of one admission bucket: its own probes for
+        `seq_len = bucket_len`, and the decode budget extended by the saved
+        prompt tokens, so every cache shape matches the decode batch's."""
+        if bucket_len == self.scfg.prompt_len:
+            return self.ctx
+        ctx = self._bucket_ctx.get(bucket_len)
+        if ctx is None:
+            ctx = steps_lib.serve_ctx(
+                self.cfg, dataclasses.replace(self._shape, seq_len=bucket_len), self.ccfg,
+                decode_budget=self.scfg.max_new_tokens + self.scfg.prompt_len - bucket_len,
+                q_block=min(512, bucket_len), device=self.device, use_kernels=self.use_kernels)
+            self._bucket_ctx[bucket_len] = ctx
+        return ctx
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+
+class ServingEngine(_EngineBase):
+    """Lockstep batch generation: all requests prefill together and decode
+    the same number of greedy steps."""
+
+    def __init__(self, cfg: ArchConfig, ccfg: CompressionConfig, scfg: ServeConfig, params,
+                 device="cuda", use_kernels: bool = True):
+        super().__init__(cfg, ccfg, scfg, params, device=device, use_kernels=use_kernels)
+        self.last_caches = None
+
+    def _is_probe(self, i: int) -> bool:
+        return probe_flag(i, self.ccfg.recompress_interval, self.scfg.seed)
 
     @torch.inference_mode()
     def generate(self, batch: Dict[str, np.ndarray],
@@ -117,3 +256,552 @@ class ServingEngine:
             "timings": {"prefill_s": t_prefill, "decode_s": t_decode,
                         "tok_per_s": n_new * self.scfg.batch_size / max(t_decode, 1e-9)},
         }
+
+
+# rows of the (3, b) int32 matrix a step stages host-side and uploads once
+_ROW_TOK, _ROW_PROBE, _ROW_ACT = range(3)
+
+
+class EngineCore(_EngineBase):
+    """Continuous batching over a fixed slot count, scheduling policy injected.
+
+        eng = ContinuousEngine(cfg, ccfg, scfg, params)
+        rid = eng.submit(Request(tokens=prompt, stop_tokens=(eos,)))
+        for tok in eng.stream(rid):     # drives step() while tokens are pending
+            ...
+        out = eng.result(rid)           # RequestOutput
+
+    Each ``step()`` runs the scheduler's admission plan (and, with
+    ``preemption="recompute"``, evictions), decodes one token for every
+    active slot, retires finished requests, folds staging windows on each
+    slot's own cadence, and returns the typed events it produced.
+    """
+
+    def __init__(self, cfg: ArchConfig, ccfg: CompressionConfig, scfg: ServeConfig, params,
+                 scheduler: scheduler_lib.Scheduler, device="cuda", use_kernels: bool = True):
+        if scfg.backpressure not in ("defer", "error"):
+            raise ValueError(f"ServeConfig.backpressure must be 'defer' or 'error', got "
+                             f"{scfg.backpressure!r}")
+        if scfg.preemption in ("downshift", "swap"):
+            raise NotImplementedError(f"preemption={scfg.preemption!r} is not ported yet "
+                                      "(ported: 'off', 'recompute')")
+        if scfg.preemption not in ("off", "recompute"):
+            raise ValueError(f"ServeConfig.preemption must be 'off' or 'recompute', got "
+                             f"{scfg.preemption!r}")
+        for name, default in (("prefix_cache", False), ("precision_map", ""),
+                              ("ladder_watermark", 0.0), ("swap_pool_mb", 0)):
+            if getattr(scfg, name) != default:
+                raise NotImplementedError(f"ServeConfig.{name} is not ported yet")
+        super().__init__(cfg, ccfg, scfg, params, device=device, use_kernels=use_kernels)
+        # every op on the caches runs in inference mode (`step`, `cancel`), so
+        # they are made in it too: an inference tensor takes no in-place
+        # write outside the mode
+        with torch.inference_mode():
+            self.caches = registry.init_caches(cfg, self.ctx, scfg.batch_size,
+                                               device=self.device)
+        self.scheduler = scheduler
+        self.slots: List[Optional[_Slot]] = [None] * scfg.batch_size
+        self.queue: Deque[Request] = collections.deque()
+        self.results: Dict[str, RequestOutput] = {}
+        self._ids = itertools.count()
+        self._seq = itertools.count()      # arrival stamps (scheduler order)
+        self._step_no = 0
+        self._known: Set[str] = set()
+        self._closed = False
+        self._token_log: Dict[str, List[int]] = {}   # feeds stream()
+        self._events: List[events_lib.Event] = []    # the current step's events
+        self._n_admissions = 0                       # prefills, re-admissions included
+        self._n_folds = 0                            # slot windows folded
+        # per-slot folds where the backend offers them (paged): a batch-1 view
+        self._slot_folds = hasattr(self.ctx.backend, "recompress_slot")
+        self._alloc: Optional[alloc_lib.FreeListAllocator] = None
+        self._last_deferred: Optional[str] = None
+        if getattr(self.ctx.backend, "allocator", "static") == "freelist":
+            self._alloc = alloc_lib.FreeListAllocator.from_caches(
+                self.caches, page_size=self.ctx.backend.page_size,
+                watermark=scfg.admit_watermark)
+            with torch.inference_mode():
+                self._sync_tables()
+
+    # ------------------------------------------------------------------
+    # lifecycle API
+    # ------------------------------------------------------------------
+
+    @property
+    def pending(self) -> bool:
+        """True while a request is queued or decoding, or events are buffered
+        (a between-steps `cancel()` is delivered by the next step)."""
+        return bool(self.queue) or any(s is not None for s in self.slots) or bool(self._events)
+
+    def _request_budget(self, request: Request) -> int:
+        return (request.max_new_tokens if request.max_new_tokens is not None
+                else self.scfg.max_new_tokens)
+
+    def _request_total_tokens(self, request: Request) -> int:
+        """Worst-case cached tokens: the ragged bucket plus the decode budget."""
+        return self._bucket_len(int(request.tokens.shape[-1])) + self._request_budget(request)
+
+    def submit(self, request: Request) -> str:
+        """Validate + enqueue a request; returns its id.
+
+        Raises ValueError on prompts or budgets the engine can never hold,
+        `events.EngineClosedError` after `shutdown()`,
+        `alloc.PoolCapacityError` when the free-list pools can never hold the
+        request's worst case, and NotImplementedError for sampled
+        (temperature > 0) requests."""
+        if self._closed:
+            raise events_lib.EngineClosedError(
+                "engine is shut down: it drains what it has but accepts no new requests")
+        if request.sampling.temperature > 0:
+            raise NotImplementedError("sampling with temperature > 0 is not ported yet "
+                                      "(greedy only)")
+        request.tokens = np.array(request.tokens, dtype=np.int32)
+        n = int(request.tokens.shape[-1])
+        if n > self.scfg.prompt_len:
+            raise ValueError(f"prompt of {n} tokens exceeds engine prompt_len "
+                             f"{self.scfg.prompt_len}")
+        if request.max_new_tokens is not None and not (
+                1 <= request.max_new_tokens <= self.scfg.max_new_tokens):
+            raise ValueError(f"max_new_tokens {request.max_new_tokens} outside the engine's "
+                             f"[1, {self.scfg.max_new_tokens}] decode budget")
+        bucket = self._bucket_len(n)
+        if self._alloc is not None and not self._alloc.fits_ever(
+                self._request_total_tokens(request), bucket):
+            raise alloc_lib.PoolCapacityError(
+                f"request needs "
+                f"{self._alloc.worst_pages(self._request_total_tokens(request), bucket)} pages "
+                f"worst-case, beyond the pool ({self._alloc.stats()}); raise pool_fraction or "
+                "lower the request budget")
+        if request.id is None:
+            rid = f"req-{next(self._ids)}"
+            while rid in self._known:  # user ids may shadow auto ids
+                rid = f"req-{next(self._ids)}"
+            request.id = rid
+        elif request.id in self._known:
+            raise ValueError(f"request id {request.id!r} already submitted; ids must be unique")
+        if request.deadline_s is not None and request.deadline_s <= 0:
+            raise ValueError(f"deadline_s must be positive, got {request.deadline_s}")
+        request._t_submit = time.perf_counter()
+        request._deadline = (None if request.deadline_s is None
+                             else request._t_submit + request.deadline_s)
+        request._seq = next(self._seq)
+        request._t_first_admit = None    # first admission (queued_s)
+        request._t_first = None          # first token (first_token_s)
+        request._prefill_s_acc = 0.0     # carried across preemptions
+        request._decode_s_acc = 0.0
+        request._preempt_s = 0.0
+        request._n_preempts = 0
+        request._n_deferrals = 0
+        self._known.add(request.id)
+        self._token_log[request.id] = []
+        self.queue.append(request)
+        return request.id
+
+    def poll(self, request_id: str) -> str:
+        """'queued' (waiting for a slot or pages, or preempted), 'running' or
+        'done'.  Raises `events.UnknownRequestError` for an unknown id."""
+        if request_id not in self._known:
+            raise events_lib.UnknownRequestError(request_id)
+        if request_id in self.results:
+            return "done"
+        if any(s is not None and s.request.id == request_id for s in self.slots):
+            return "running"
+        return "queued"
+
+    def result(self, request_id: str) -> Optional[RequestOutput]:
+        """The finished request's RequestOutput, or None while it is queued or
+        running."""
+        if request_id not in self._known:
+            raise events_lib.UnknownRequestError(request_id)
+        return self.results.get(request_id)
+
+    def stream(self, request_id: str) -> Iterator[int]:
+        """Yield the request's tokens as they decode (first token included),
+        calling `step()` whenever it has yielded everything decoded so far.
+        The concatenation is `result(request_id).tokens`."""
+        if request_id not in self._known:
+            raise events_lib.UnknownRequestError(request_id)
+        sent = 0
+        while True:
+            out = self.results.get(request_id)
+            log = out.tokens if out is not None else self._token_log.get(request_id, ())
+            while sent < len(log):
+                yield int(log[sent])
+                sent += 1
+            if out is not None:
+                return
+            self.step()
+
+    @torch.inference_mode()
+    def cancel(self, request_id: str, reason: str = "client") -> bool:
+        """Retire a queued or running request early: its slot and pages are
+        returned at once, its result carries the tokens decoded so far with
+        finish_reason "cancelled", and a `CancelledEvent` is delivered by the
+        current or next step.  False if it had already finished."""
+        if request_id not in self._known:
+            raise events_lib.UnknownRequestError(request_id)
+        if request_id in self.results:
+            return False
+        for slot_id, s in enumerate(self.slots):
+            if s is not None and s.request.id == request_id:
+                self._retire(slot_id, "cancelled", cancel_reason=reason)
+                return True
+        req = next(r for r in self.queue if r.id == request_id)
+        self.queue.remove(req)
+        now = time.perf_counter()
+        resume = getattr(req, "_resume_tokens", None)
+        tokens = list(resume) if resume is not None else []
+        preempt_s = req._preempt_s + (now - req._t_preempt if resume is not None else 0.0)
+        dec_tok = max(len(tokens) - 1, 0)
+        self.results[req.id] = RequestOutput(
+            id=req.id, tokens=np.asarray(tokens, np.int32), finish_reason="cancelled",
+            timings={
+                "queued_s": (req._t_first_admit if req._t_first_admit is not None
+                             else now) - req._t_submit,
+                "prefill_s": req._prefill_s_acc,
+                "decode_s": req._decode_s_acc,
+                "tok_per_s": (dec_tok / req._decode_s_acc
+                              if dec_tok and req._decode_s_acc > 0 else 0.0),
+                "first_token_s": (req._t_first if req._t_first is not None
+                                  else now) - req._t_submit,
+                "preempted_s": preempt_s,
+                "n_preemptions": req._n_preempts,
+                "n_deferrals": req._n_deferrals,
+            })
+        self._token_log.pop(req.id, None)
+        if self._last_deferred == req.id:
+            self._last_deferred = None
+        self._events.append(events_lib.CancelledEvent(req.id, self._step_no,
+                                                      n_tokens=len(tokens), reason=reason))
+        return True
+
+    def _sweep_deadlines(self) -> None:
+        """Cancel every queued or running request past its deadline."""
+        now = time.perf_counter()
+        expired = [r.id for r in self.queue
+                   if getattr(r, "_deadline", None) is not None and now > r._deadline]
+        expired += [s.request.id for s in self.slots
+                    if s is not None and getattr(s.request, "_deadline", None) is not None
+                    and now > s.request._deadline]
+        for rid in expired:
+            self.cancel(rid, reason="deadline")
+
+    def shutdown(self) -> None:
+        """Stop accepting new work; queued and running requests drain."""
+        self._closed = True
+
+    def run(self, max_steps: Optional[int] = None) -> Dict[str, RequestOutput]:
+        """Drive the scheduler until every submitted request finished."""
+        steps = 0
+        while self.pending:
+            self.step()
+            steps += 1
+            if max_steps is not None and steps >= max_steps:
+                break
+        return self.results
+
+    # ------------------------------------------------------------------
+    # scheduler internals
+    # ------------------------------------------------------------------
+
+    def _sync_tables(self) -> None:
+        """Install the allocator's page tables onto every layer's cache (each
+        table uploaded once and shared); only when the allocator changed."""
+        if self._alloc is None or not self._alloc.dirty:
+            return
+        t = {k: torch.from_numpy(v).to(self.device) for k, v in self._alloc.tables().items()}
+        self.caches = {"prefix": [], "groups": [
+            {"sub0": paged_lib.with_tables(g["sub0"], t["hi"], t["lo"], t["win"])}
+            for g in self.caches["groups"]]}
+        self._alloc.dirty = False
+
+    def pool_stats(self) -> Optional[Dict]:
+        """Free-list pool telemetry (None for static and mixed layouts):
+        per segment {pool_pages, used, free, peak_used, outstanding}, the
+        cumulative deferral and preemption counts, and the engine's
+        admissions and slot folds."""
+        if self._alloc is None:
+            return None
+        return {**self._alloc.stats(), "admissions": self._n_admissions, "folds": self._n_folds}
+
+    def free(self, slot_id: int) -> None:
+        """Retire a slot: invalidate its batch row and, under the free list,
+        return every page it held."""
+        if self._alloc is not None:
+            self._alloc.free(slot_id)
+            self._sync_tables()
+        self.caches = registry.free_caches(self.caches, slot_id)
+        self.slots[slot_id] = None
+
+    def _retire(self, slot_id: int, reason: str, cancel_reason: Optional[str] = None) -> None:
+        s = self.slots[slot_id]
+        req = s.request
+        now = time.perf_counter()
+        decode_s = max(now - s.t_admit - s.prefill_s, 0.0) + req._decode_s_acc
+        dec_tok = max(len(s.generated) - 1, 0)   # the first token came from the prefill
+        first_admit = req._t_first_admit if req._t_first_admit is not None else s.t_admit
+        self.results[req.id] = RequestOutput(
+            id=req.id, tokens=np.asarray(s.generated, np.int32), finish_reason=reason,
+            timings={
+                "queued_s": first_admit - s.t_submit,
+                "prefill_s": s.prefill_s + req._prefill_s_acc,
+                "decode_s": decode_s,
+                "tok_per_s": dec_tok / decode_s if dec_tok and decode_s > 0 else 0.0,
+                "first_token_s": (req._t_first if req._t_first is not None
+                                  else now) - s.t_submit,
+                "preempted_s": req._preempt_s,
+                "n_preemptions": req._n_preempts,
+                "n_deferrals": req._n_deferrals,
+            })
+        if reason == "cancelled":
+            self._events.append(events_lib.CancelledEvent(
+                req.id, self._step_no, n_tokens=len(s.generated),
+                reason=cancel_reason if cancel_reason is not None else "client"))
+        else:
+            self._events.append(events_lib.FinishedEvent(
+                req.id, self._step_no, finish_reason=reason, n_tokens=len(s.generated)))
+        self._token_log.pop(req.id, None)
+        self.scheduler.on_retire(slot_id, req)
+        self.free(slot_id)
+
+    def _maybe_finish(self, slot_id: int) -> bool:
+        s = self.slots[slot_id]
+        if s.generated and s.generated[-1] in s.request.stop_tokens:
+            self._retire(slot_id, "stop")
+            return True
+        if len(s.generated) >= self._request_budget(s.request):
+            self._retire(slot_id, "length")
+            return True
+        return False
+
+    def _emit_token(self, request: Request, token: int, index: int) -> None:
+        """One fresh token: event, stream log, optional push callback (a
+        raising callback is detached and reported, never unwinds the step)."""
+        ev = events_lib.TokenEvent(request.id, self._step_no, token=int(token), index=index)
+        self._events.append(ev)
+        self._token_log[request.id].append(int(token))
+        if request.on_token is not None:
+            try:
+                request.on_token(ev)
+            except Exception as e:  # noqa: BLE001 — any sink failure is contained
+                request.on_token = None
+                self._events.append(events_lib.CallbackErrorEvent(
+                    request.id, self._step_no, error=f"{type(e).__name__}: {e}"))
+
+    def _demand_pages(self, req: Request) -> Dict[str, int]:
+        """Worst-case per-segment page demand of one queued request."""
+        return self._alloc.worst_pages(self._request_total_tokens(req),
+                                       self._bucket_len(int(req.tokens.shape[-1])))
+
+    def _pool_view(self) -> scheduler_lib.PoolView:
+        return scheduler_lib.PoolView(self._alloc,
+                                      self._demand_pages if self._alloc is not None else None)
+
+    def _running_views(self) -> List[scheduler_lib.SlotView]:
+        return [scheduler_lib.SlotView(i, s.request, len(s.generated),
+                                       self._request_budget(s.request))
+                for i, s in enumerate(self.slots) if s is not None]
+
+    def _admit(self) -> None:
+        """Execute the scheduler's admission plan and preemptions.  A request
+        is admitted only when every pool can reserve its worst case on top of
+        the running slots' reservations and the watermark; a blocked plan
+        defers (counted once per request per blocked span) or raises
+        `PagePoolExhausted` under backpressure="error"."""
+        n_evicted = 0
+        while True:
+            free_slots = [i for i in range(self.scfg.batch_size) if self.slots[i] is None]
+            plan = self.scheduler.admit(list(self.queue), free_slots, self._pool_view())
+            for slot_id, req in plan.admissions:
+                self.queue.remove(req)
+                self._admit_one(slot_id, req)
+            if (self.scfg.preemption == "recompute" and self.queue
+                    and n_evicted < self.scfg.batch_size):
+                victim = self.scheduler.select_victim(list(self.queue), self._running_views(),
+                                                      self._pool_view())
+                if victim is not None:
+                    self._preempt(victim)
+                    n_evicted += 1
+                    continue   # re-plan with the freed slot and pages
+            if plan.blocked is not None:
+                if self.scfg.backpressure == "error":
+                    raise alloc_lib.PagePoolExhausted(
+                        f"request {plan.blocked.id!r} needs {self._demand_pages(plan.blocked)} "
+                        f"pages worst-case; pools: {self._alloc.stats()}")
+                if plan.blocked.id != self._last_deferred:
+                    self._alloc.deferrals += 1
+                    plan.blocked._n_deferrals += 1
+                    self._last_deferred = plan.blocked.id
+            else:
+                self._last_deferred = None
+            break
+
+    def _admit_one(self, slot_id: int, req: Request) -> None:
+        """Prefill (batch 1, at the request's bucket), insert the compressed
+        slice into the slot, then take the first token (a fresh request) or
+        replay the retained tokens (recompute re-admission)."""
+        t0 = time.perf_counter()
+        self._n_admissions += 1
+        bucket = self._bucket_len(int(req.tokens.shape[-1]))
+        resume = getattr(req, "_resume_tokens", None)
+        prompt = torch.from_numpy(pack_requests([req.tokens], 1, bucket)).to(self.device)
+        logits, slice_caches = registry.prefill(self.params, {"tokens": prompt}, self.cfg,
+                                                self._prefill_ctx(bucket))
+        if self._alloc is not None:
+            self._alloc.admit(slot_id, alloc_lib.slice_occupancy(slice_caches),
+                              self._request_total_tokens(req), bucket)
+            self._sync_tables()
+        self.caches = steps_lib.insert(self.caches, slice_caches, slot_id)
+        if resume is None:
+            generated = [int(torch.argmax(logits[0]))]
+        else:   # the prefill rebuilt exactly the cache the first token came from
+            req._preempt_s += t0 - req._t_preempt
+            generated = [int(resume[0])]
+        t1 = time.perf_counter()
+        self.slots[slot_id] = _Slot(request=req, generated=generated,
+                                    t_submit=getattr(req, "_t_submit", t0), t_admit=t0,
+                                    prefill_s=t1 - t0)
+        if req._t_first_admit is None:
+            req._t_first_admit = t0
+        if resume is None:
+            req._t_first = t1
+            self._emit_token(req, generated[0], 0)
+        else:
+            del req._resume_tokens
+            self._replay(slot_id, resume)
+            self.slots[slot_id].prefill_s = time.perf_counter() - t0
+        self._maybe_finish(slot_id)
+
+    def _stage(self, rows: Dict[int, Tuple[int, bool]]):
+        """Upload one step's per-slot inputs {slot: (token, probe)} as one
+        (3, b) transfer -> (tokens, probe operand, active mask).  The host
+        matrix is fresh and never written after the upload."""
+        stage = np.zeros((3, self.scfg.batch_size), np.int32)
+        for i, (tok, probe) in rows.items():
+            stage[_ROW_TOK, i], stage[_ROW_PROBE, i], stage[_ROW_ACT, i] = tok, probe, 1
+        dev = torch.from_numpy(stage).to(self.device)
+        probes = dev[_ROW_PROBE] if stage[_ROW_PROBE].any() else False
+        return dev[_ROW_TOK], probes, dev[_ROW_ACT].bool()
+
+    def _replay(self, slot_id: int, tokens: Sequence[int]) -> None:
+        """Recompute a preempted slot's cache: feed its retained tokens back
+        through the same masked decode and fold steps on the slot's own
+        counters.  No TokenEvents fire; the last token is fed by the next
+        regular step."""
+        s = self.slots[slot_id]
+        interval = self.ccfg.recompress_interval
+        for i in range(len(tokens) - 1):
+            if self._alloc is not None:
+                self._alloc.note_append(slot_id)
+                self._sync_tables()
+            tok, probes, act = self._stage(
+                {slot_id: (int(tokens[i]), probe_flag(s.steps, interval, self.scfg.seed))})
+            _, self.caches = steps_lib.continuous_decode(self.params, self.caches, tok, probes,
+                                                         act, self.cfg, self.ctx)
+            s.steps += 1
+            s.since_rc += 1
+            s.generated.append(int(tokens[i + 1]))
+            if s.since_rc >= interval:
+                self._fold([slot_id])
+                s.since_rc = 0
+
+    def _preempt(self, slot_id: int) -> None:
+        """Evict a running slot: return its pages, keep its tokens host-side
+        for recompute, requeue it at its arrival position."""
+        s = self.slots[slot_id]
+        req = s.request
+        now = time.perf_counter()
+        req._resume_tokens = list(s.generated)
+        req._t_preempt = now
+        req._n_preempts += 1
+        req._prefill_s_acc += s.prefill_s
+        req._decode_s_acc += max(now - s.t_admit - s.prefill_s, 0.0)
+        if self._alloc is not None:
+            self._alloc.preemptions += 1
+        self.free(slot_id)
+        pos = next((j for j, r in enumerate(self.queue)
+                    if getattr(r, "_seq", 0) > req._seq), len(self.queue))
+        self.queue.insert(pos, req)
+        self._events.append(events_lib.PreemptedEvent(
+            req.id, self._step_no, n_generated=len(req._resume_tokens)))
+
+    def _fold(self, due_ids: Sequence[int]) -> int:
+        """Fold the due slots' staging windows, with the allocator's grant
+        before and shrink after.  Returns how many window pages came back."""
+        b = self.scfg.batch_size
+        self._n_folds += len(due_ids)
+        if self._alloc is not None:
+            for i in due_ids:
+                self._alloc.fold_grant(int(i))
+            self._sync_tables()
+        # per-slot folds while they save work over one full-batch fold
+        if self._slot_folds and len(due_ids) * 2 <= b:
+            for i in due_ids:
+                self.caches = steps_lib.recompress_slot(self.caches, int(i), self.cfg, self.ctx)
+        else:
+            due = np.zeros(b, bool)
+            due[np.asarray(due_ids, int)] = True
+            self.caches = steps_lib.recompress_rows(
+                self.caches, torch.from_numpy(due).to(self.device), self.cfg, self.ctx)
+        freed = 0
+        if self._alloc is not None:
+            for i in due_ids:
+                freed += self._alloc.fold_shrink(int(i))
+            self._sync_tables()
+        return freed
+
+    @torch.inference_mode()
+    def step(self) -> List[events_lib.Event]:
+        """One scheduler iteration: admission (and preemptions), one token for
+        every active slot, retirements, and the folds due on each slot's own
+        cadence.  Returns the events of this iteration (and any buffered
+        between steps), in order."""
+        self._sweep_deadlines()
+        self._admit()
+        b = self.scfg.batch_size
+        active_ids = [i for i in range(b) if self.slots[i] is not None]
+        if not active_ids:
+            events, self._events = self._events, []
+            return events
+        interval = self.ccfg.recompress_interval
+        if self._alloc is not None:
+            for i in active_ids:
+                self._alloc.note_append(i)
+            self._sync_tables()
+        tok, probes, act = self._stage({
+            i: (self.slots[i].generated[-1],
+                probe_flag(self.slots[i].steps, interval, self.scfg.seed)) for i in active_ids})
+        logits, self.caches = steps_lib.continuous_decode(self.params, self.caches, tok, probes,
+                                                          act, self.cfg, self.ctx)
+        nxt = torch.argmax(logits, dim=-1).cpu().numpy()   # greedy
+
+        due = []
+        for i in active_ids:
+            s = self.slots[i]
+            s.steps += 1
+            s.since_rc += 1
+            s.generated.append(int(nxt[i]))
+            self._emit_token(s.request, int(nxt[i]), len(s.generated) - 1)
+            if self._maybe_finish(i):
+                continue
+            if s.since_rc >= interval:
+                due.append(i)
+        if due:
+            self._fold(due)
+            for i in due:
+                self.slots[i].since_rc = 0
+        self._step_no += 1
+        events, self._events = self._events, []
+        return events
+
+
+class ContinuousEngine(EngineCore):
+    """`EngineCore` with the scheduler built from `ServeConfig.scheduler`
+    ("fifo" or "priority"); pass `scheduler=` to inject one directly."""
+
+    def __init__(self, cfg: ArchConfig, ccfg: CompressionConfig, scfg: ServeConfig, params,
+                 device="cuda", use_kernels: bool = True,
+                 scheduler: Optional[scheduler_lib.Scheduler] = None):
+        super().__init__(cfg, ccfg, scfg, params,
+                         scheduler or scheduler_lib.make_scheduler(scfg.scheduler),
+                         device=device, use_kernels=use_kernels)

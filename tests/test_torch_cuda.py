@@ -13,7 +13,10 @@ import pytest
 import torch
 
 from repro_torch import configs
+from repro_torch.core import alloc as alloc_lib
+from repro_torch.core import backend as backend_lib
 from repro_torch.core import kvcache as kvc
+from repro_torch.core import paged
 from repro_torch.core import saliency as sal
 from repro_torch.core.policy import CompressionConfig
 from repro_torch.kernels import build
@@ -21,11 +24,15 @@ from repro_torch.kernels.cst_quant import kernel as cst_kernel
 from repro_torch.kernels.cst_quant import ref as cst_ref
 from repro_torch.kernels.decode_qattn import kernel as dq_kernel
 from repro_torch.kernels.decode_qattn import ref as dq_ref
+from repro_torch.kernels.paged_qattn import kernel as pq_kernel
+from repro_torch.kernels.paged_qattn import ops as pq_ops
+from repro_torch.kernels.paged_qattn import ref as pq_ref
 from repro_torch.kernels.probe_flash import kernel as pf_kernel
 from repro_torch.kernels.probe_flash import ops as pf_ops
 from repro_torch.kernels.probe_flash import ref as pf_ref
 from repro_torch.models import registry
-from repro_torch.serving import ServeConfig, ServingEngine, pack_requests
+from repro_torch.serving import (ContinuousEngine, Request, ServeConfig, ServingEngine,
+                                 pack_requests)
 
 pytestmark = pytest.mark.gpu
 
@@ -128,3 +135,126 @@ def test_engine_runs_every_kernel(dev):
                              ServingEngine(cfg, ccfg, scfg, params, device=dev,
                                            use_kernels=False).ctx)
     assert (lk.float() - lp.float()).abs().max() <= 2 ** -6 * lp.float().abs().max()
+
+
+def _freelist_cache(dev, gen, dtype, page, lengths, hk=2, d=16, max_len=200, n_append=3):
+    """A free-list paged cache as the engine builds it: shuffled free lists
+    (physical ids in no order), ragged prefills inserted per slot (length 0
+    leaves the slot empty: an all-invalid row), ungranted pages NULL (the
+    sink), then a few appends into the staging windows."""
+    ccfg = dataclasses.replace(CompressionConfig.zipcache(), recompress_interval=16)
+    be = backend_lib.of(ccfg, kind="paged", page_size=page, paged_kernel=True,
+                        page_allocator="freelist", pool_fraction=0.75)
+    b = len(lengths)
+    cache = be.init_cache(b, hk, d, max_len, dtype, device=dev)
+    alloc = alloc_lib.FreeListAllocator.from_caches(cache, page)
+    rng = np.random.default_rng(0)
+    for seg in alloc.segs.values():
+        rng.shuffle(seg.free)
+
+    def sync(c):
+        t = {k: torch.from_numpy(v).to(dev) for k, v in alloc.tables().items()}
+        return paged.with_tables(c, t["hi"], t["lo"], t["win"])
+
+    for slot, n in enumerate(lengths):
+        if n == 0:
+            continue
+        k, v = (_randn(gen, 1, hk, n, d, dtype=dtype, dev=dev) for _ in range(2))
+        s = torch.rand((1, n), generator=gen, device=dev)
+        sl = be.compress_prefill(k, v, s, max_len, dtype=dtype)
+        alloc.admit(slot, alloc_lib.slice_occupancy(sl), n + max_len - max(lengths), n)
+        cache = be.insert(sync(cache), sl, slot)
+    active = torch.tensor([n > 0 for n in lengths], device=dev)
+    for _ in range(n_append):
+        for slot, n in enumerate(lengths):
+            if n:
+                alloc.note_append(slot)
+        cache = sync(cache)
+        kt = _randn(gen, b, hk, d, dtype=dtype, dev=dev)
+        cache = be.append(cache, kt, kt * 0.5, active=active)
+    alloc.check_invariants()
+    return cache
+
+
+@pytest.mark.parametrize("want_weights", [True, False], ids=["weights", "no-weights"])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("page", [16, 64])
+def test_paged_qattn_matches_plain(dev, page, dtype, q_dtype, want_weights):
+    """Each segment (4-bit hi, 2-bit lo, raw window) through free-list tables
+    with shuffled page ids, NULL entries and an all-invalid row: acc, m and l
+    of the live rows within 1e-4 of the plain version relative to their
+    largest magnitude (f32 sums in another order), the rescaled slot
+    weights within 1e-5, zeros on the empty row."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    cache = _freelist_cache(dev, gen, dtype, page, lengths=[150, 0, 37, 90])
+    q = _randn(gen, 4, 8, 16, dtype=q_dtype, dev=dev)
+    scale = 0.25
+    segs = [pq_ops._store_operands(q, cache.hi), pq_ops._store_operands(q, cache.lo),
+            pq_ops._window_operands(q, cache)]
+    assert [(o["k_bits"], o["v_bits"]) for o in segs] == [(4, 4), (2, 2), (16, 16)]
+    assert any((o["table"] == cache.hi.null_page).any() for o in segs[:1])
+    for ops in segs:
+        args = (q, ops["k_pages"], ops["k_scale"], ops["k_zero"], ops["v_pages"],
+                ops["v_cscale"], ops["v_tscale"], ops["v_tzero"], ops["pos"], ops["table"])
+        kw = dict(k_bits=ops["k_bits"], v_bits=ops["v_bits"], scale=scale,
+                  k_dtype=ops["k_dtype"], v_dtype=ops["v_dtype"])
+        acc, m, l, p, m_run = pq_kernel.qattn_paged_segment(*args, want_weights=want_weights,
+                                                            **kw)
+        racc, rm, rl, rp = pq_ref.paged_segment_ref(*args, **kw)
+        live = torch.tensor([True, False, True, True], device=dev)
+        for a, w in ((acc, racc), (m, rm), (l, rl)):
+            a, w = a[live], w[live]
+            torch.testing.assert_close(a, w, atol=1e-4 * max(w.abs().max().item(), 1.0),
+                                       rtol=0)
+        # the empty row: l = 0, acc = 0, m at the mask value
+        assert not l[1].any() and not acc[1].any() and torch.equal(m[1], rm[1])
+        if want_weights:
+            torch.testing.assert_close(p * torch.exp(m_run - m[..., None]), rp, atol=1e-5,
+                                       rtol=1e-5)
+        else:
+            assert p is None and m_run is None
+
+
+def test_paged_attend_matches_gather_path(dev):
+    """The whole page walk (three segments, merged) against the gather path:
+    outputs within 1e-4 on the live rows, zeros on the empty row."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cache = _freelist_cache(dev, gen, torch.bfloat16, 16, lengths=[150, 0, 37, 90])
+    q = _randn(gen, 4, 8, 16, dtype=torch.bfloat16, dev=dev)
+    before = pq_kernel.KERNEL.launches
+    got = pq_ops.attend_paged(q, cache)
+    assert pq_kernel.KERNEL.launches == before + 3
+    want = kvc.attend_decode(q, cache.dense_view())
+    live = torch.tensor([True, False, True, True], device=dev)
+    torch.testing.assert_close(got.out[live].float(), want.out[live].float(), atol=2 ** -7,
+                               rtol=2 ** -7)
+    torch.testing.assert_close(got.slot_weights[live], want.slot_weights[live], atol=1e-5,
+                               rtol=1e-5)
+    assert not got.out[1].float().any()
+
+
+def test_continuous_engine_runs_every_kernel(dev):
+    """Smoke-width continuous run on the card over the free-list paged layout
+    with the paged kernel: every kernel launches, no decode takes the gather
+    path, every request ends with its budget, every page comes back."""
+    cfg = configs.get_arch("yi-6b", smoke=True)
+    ccfg = dataclasses.replace(CompressionConfig.zipcache(), fp_window=8, recompress_interval=8)
+    scfg = ServeConfig(batch_size=2, prompt_len=48, max_new_tokens=12, page_size=8,
+                       backend="paged", paged_kernel=True, page_allocator="freelist",
+                       pool_fraction=0.75)
+    params = registry.materialize_params(cfg, seed=0, device=dev)
+    kernels = (cst_kernel.KERNEL, pf_kernel.FLASH, pf_kernel.COLSUM, pq_kernel.KERNEL)
+    before = [k.launches for k in kernels]
+    gathers = paged.GATHER_DECODES.launches
+    eng = ContinuousEngine(cfg, ccfg, scfg, params, device=dev)
+    rng = np.random.default_rng(0)
+    budgets = (12, 6, 12)
+    rids = [eng.submit(Request(tokens=rng.integers(2, cfg.vocab, size=n).astype(np.int32),
+                               max_new_tokens=m)) for n, m in zip((48, 20, 33), budgets)]
+    res = eng.run()
+    assert [len(res[r].tokens) for r in rids] == list(budgets)
+    assert all(k.launches > n for k, n in zip(kernels, before))
+    assert paged.GATHER_DECODES.launches == gathers
+    eng._alloc.check_invariants()
+    assert all(v["used"] == 0 for k, v in eng.pool_stats().items() if k in ("hi", "lo", "win"))
