@@ -13,10 +13,12 @@ continued:
      max error against a stated tolerance, time from CUDA events, the least
      time the card could take (bound), the plain version's time, and, where
      one PyTorch call computes the same function, that call's time;
-     paged_qattn runs its three segments (4-bit hi, 2-bit lo, raw bf16
-     window) over a free-list paged cache at the continuous path's shapes
-     (shuffled physical page ids, NULL entries, an empty slot), with and
-     without the slot-weight outputs;
+     flash_fwd is timed at batch 1 too (the continuous admission shape),
+     with SDPA beside it; paged_qattn takes one decode layer's three
+     segments (4-bit hi, 2-bit lo, raw bf16 window) in one launch over a
+     free-list paged cache at the continuous path's shapes (shuffled
+     physical page ids, NULL entries, an empty slot), with and without the
+     slot-weight outputs, and each segment alone through the same kernel;
   4. slice 1's main path: `ServingEngine.generate` on yi-6b at full width
      (32 layers, random bf16 weights from a seeded generator), zipcache
      defaults, batch 4, prompt 1024, 128 new tokens: prefill, probe steps,
@@ -229,6 +231,21 @@ def main() -> None:
     record("flash_fwd", "src/repro_torch/kernels/probe_flash/csrc/probe_flash.cu",
            "src/repro/kernels/probe_flash/kernel.py:83", err_out, tol_out, fn, ms, plain,
            bound_ms(4.0 * b * h * pairs * d, nbytes(q, k, v, out, lse)), library)
+    # batch 1: one admission of the continuous path
+    q1, k1, v1 = q[:1].contiguous(), k[:1].contiguous(), v[:1].contiguous()
+    out1, lse1 = pf_kernel.flash_fwd(q1, k1, v1)
+    torch.cuda.synchronize()
+    check(torch.equal(out1, out[:1]) and torch.equal(lse1, lse[:1]),
+          "flash_fwd: batch 1 differs from the batch-4 call's first row")
+    fn1 = lambda: pf_kernel.flash_fwd(q1, k1, v1)  # noqa: E731
+    b1 = {"ms": time_ms(torch, fn1), "device_ms": device_ms(torch, fn1),
+          "library_ms": time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+              q1, k1, v1, is_causal=True, enable_gqa=True)),
+          "bound_ms": bound_ms(4.0 * h * pairs * d, nbytes(q1, k1, v1, out1, lse1))[0]}
+    rows["flash_fwd"]["batch1"] = b1
+    log(f"flash_fwd at batch 1: kernel {b1['ms']:.4f} ms (device {b1['device_ms']:.4f} ms), "
+        f"library {b1['library_ms']:.4f} ms, bound {b1['bound_ms']:.4f} ms")
+    del q1, k1, v1, out1, lse1
 
     # probe_colsum: the probe rows of select_probes(1024), which repeat (102, 99 unique)
     pos = pf_ops.unique_probe_rows(sal.select_probes(prompt).positions.to(dev))
@@ -277,70 +294,85 @@ def main() -> None:
     log("decode_qattn: timed at the lo store's shapes (the larger)")
     del q, k, v, out, lse, ref_out, ref_lse, qp, lse_p, cache, kv_k, kv_v
 
-    # paged_qattn: one decode layer's three launches over a free-list cache
-    # at the continuous path's shapes (4 slots, page 64, pool_fraction 0.75)
+    # paged_qattn: one decode layer (three segments, one launch) over a
+    # free-list cache at the continuous path's shapes (4 slots, page 64,
+    # pool_fraction 0.75)
     pcache = _freelist_cache(torch, np, backend_lib, alloc_lib, paged, ccfg, dev, gen,
                              hk, d, max_len, lengths=(1024, 700, 0, 333), n_append=40)
-    segs = [pq_ops._store_operands(qd, pcache.hi), pq_ops._store_operands(qd, pcache.lo),
-            pq_ops._window_operands(qd, pcache)]
+    segs = pq_ops.layer_segments(pcache)
     check([(o["k_bits"], o["v_bits"]) for o in segs] == [(4, 4), (2, 2), (16, 16)],
           "paged_qattn: segments are not 4-bit hi, 2-bit lo, raw window")
     check(all(bool((o["table"] == o["k_pages"].shape[0] - 1).any()) for o in segs),
           "paged_qattn: every segment's table should hold NULL entries")
-    seg_args = []
-    for o in segs:
-        seg_args.append(((qd, o["k_pages"], o["k_scale"], o["k_zero"], o["v_pages"],
-                          o["v_cscale"], o["v_tscale"], o["v_tzero"], o["pos"], o["table"]),
-                         dict(k_bits=o["k_bits"], v_bits=o["v_bits"], scale=1.0 / d ** 0.5,
-                              k_dtype=o["k_dtype"], v_dtype=o["v_dtype"])))
-    # f32 scores and sums in another order: acc, m and l of the live slots
-    # within 1e-4 of the plain version relative to their largest magnitude
-    # (>= 1); the rescaled slot probabilities p * exp(m_run - m) (<= 1)
-    # within 1e-5; the empty slot (2) gives l = 0, acc = 0 and m = -1e30
+    scale = 1.0 / d ** 0.5
+    # f32 scores and sums in another order: acc (or the output), m and l of
+    # the live slots within 1e-4 of the plain version relative to their
+    # largest magnitude (>= 1), the bf16 output within one bf16 ulp of its
+    # largest magnitude; the rescaled slot probabilities p * exp(m_run - m)
+    # (<= 1) within 1e-5; the empty slot (2) gives l = 0, acc = 0 and m = -1e30
     err = tol = 0.0
     live = torch.tensor([True, True, False, True], device=dev)
-    for (args, kw), name in zip(seg_args, ("hi", "lo", "window")):
+
+    def held(name, got, want, out_tol=None):
+        nonlocal err, tol
+        for part, a, w in zip(("acc", "m", "l", "p"), got, want):
+            a, w = a[live].float(), w[live].float()
+            e = (a - w).abs().max().item()
+            top = max(w.abs().max().item(), 1.0)
+            t = 1e-5 if part == "p" else (out_tol or 1e-4) * top if part == "acc" else 1e-4 * top
+            check(e <= t, f"paged_qattn {name} {part}: max abs error {e:.3g} exceeds {t:.3g}")
+            err, tol = max(err, e), max(tol, t)
+
+    for weights in (True, False):
+        want = pq_ref.paged_layer_ref(qd, segs, scale=scale)
+        before = pq_kernel.KERNEL.launches
+        out_, m_, l_, p_, mrun_ = pq_kernel.qattn_paged_layer(qd, segs, scale=scale,
+                                                              want_weights=weights)
+        torch.cuda.synchronize()
+        check(pq_kernel.KERNEL.launches == before + 1, "paged_qattn: one launch per layer")
+        check(bool((l_[2] == 0).all()) and not bool(out_[2].float().any())
+              and torch.equal(m_[2], want[1][2]), "paged_qattn layer: the empty slot must give "
+                                                  "zeros")
+        got = [out_, m_, l_] + ([p_ * torch.exp(mrun_ - m_[..., None])] if weights else [])
+        held(f"layer (weights {weights})", got, want, out_tol=2 ** -7)
+    # each segment alone (padded operands, unnormalized acc) through the same kernel
+    for o, name in zip(pq_ops.layer_segments(pcache, pad=True), ("hi", "lo", "window")):
+        args = (qd, o["k_pages"], o["k_scale"], o["k_zero"], o["v_pages"], o["v_cscale"],
+                o["v_tscale"], o["v_tzero"], o["pos"], o["table"])
+        kw = dict(k_bits=o["k_bits"], v_bits=o["v_bits"], scale=scale, k_dtype=o["k_dtype"],
+                  v_dtype=o["v_dtype"])
         want = pq_ref.paged_segment_ref(*args, **kw)
-        for weights in (True, False):
-            acc_, m_, l_, p_, mrun_ = pq_kernel.qattn_paged_segment(*args, want_weights=weights,
-                                                                   **kw)
-            torch.cuda.synchronize()
-            got = [acc_, m_, l_] + ([p_ * torch.exp(mrun_ - m_[..., None])] if weights else [])
-            check(bool((l_[2] == 0).all()) and not bool(acc_[2].any())
-                  and torch.equal(m_[2], want[1][2]),
-                  f"paged_qattn {name}: the empty slot must give zeros")
-            for part, a, w in zip(("acc", "m", "l", "p"), got, want):
-                a, w = a[live], w[live]
-                e = (a - w).abs().max().item()
-                t = 1e-5 if part == "p" else 1e-4 * max(w.abs().max().item(), 1.0)
-                check(e <= t, f"paged_qattn {name} {part} (weights {weights}): max abs error "
-                              f"{e:.3g} exceeds {t:.3g}")
-                err, tol = max(err, e), max(tol, t)
+        acc_, m_, l_, p_, mrun_ = pq_kernel.qattn_paged_segment(*args, **kw)
+        torch.cuda.synchronize()
+        check(bool((l_[2] == 0).all()) and not bool(acc_[2].any())
+              and torch.equal(m_[2], want[1][2]), f"paged_qattn {name}: the empty slot must give "
+                                                  "zeros")
+        held(name, [acc_, m_, l_, p_ * torch.exp(mrun_ - m_[..., None])], want)
 
     def paged_layer(weights=False):
-        for args, kw in seg_args:
-            pq_kernel.qattn_paged_segment(*args, want_weights=weights, **kw)
+        pq_kernel.qattn_paged_layer(qd, segs, scale=scale, want_weights=weights)
 
     ms = time_ms(torch, paged_layer, iters=50)
     ms_w = time_ms(torch, lambda: paged_layer(True), iters=50)
-    plain = time_ms(torch, lambda: [pq_ref.paged_segment_ref(*a, **kw) for a, kw in seg_args])
+    dev_w = device_ms(torch, lambda: paged_layer(True))
+    plain = time_ms(torch, lambda: pq_ref.paged_layer_ref(qd, segs, scale=scale))
     moved = flops = 0
-    for args, kw in seg_args:
-        table = args[9]
-        pools = args[1], args[4]
-        n_read = int(torch.unique(table).numel())
+    for o in segs:
+        pools = o["k_pages"], o["v_pages"]
+        n_read = int(torch.unique(o["table"]).numel())
         moved += n_read * sum(nbytes(p) // p.shape[0] for p in pools)
-        moved += nbytes(*[a for a in args if isinstance(a, torch.Tensor)
-                          and a.data_ptr() not in (pools[0].data_ptr(), pools[1].data_ptr())])
-        moved += 4 * b * h * (d + 2)                           # acc, m, l
-        flops += 4.0 * b * h * args[8].shape[1] * d
+        moved += nbytes(*[o[k] for k in ("k_scale", "k_zero", "v_cscale", "v_tscale", "v_tzero",
+                                         "pos", "table") if o[k] is not None])
+        flops += 4.0 * b * h * o["s_seg"] * d
+    moved += 2 * nbytes(qd) + 4 * b * h * 2                      # q; out (q's dtype), m, l
     record("paged_qattn", "src/repro_torch/kernels/paged_qattn/csrc/paged_qattn.cu",
            "src/repro/kernels/paged_qattn/kernel.py:121", err, tol, paged_layer, ms, plain,
            bound_ms(flops, moved))
-    log(f"paged_qattn: timed per decode layer (three launches: hi {segs[0]['table'].shape[1]}, "
+    rows["paged_qattn"].update(ms_weights=ms_w, device_ms_weights=dev_w)
+    log(f"paged_qattn: timed per decode layer (one launch: hi {segs[0]['table'].shape[1]}, "
         f"lo {segs[1]['table'].shape[1]}, window {segs[2]['table'].shape[1]} pages of 64), "
-        f"without slot weights; with them {ms_w:.4f} ms")
-    del pcache, segs, seg_args
+        f"without slot weights; with them {ms_w:.4f} ms (device {dev_w:.4f} ms)")
+    del pcache, segs
 
     # ---- 4. the main path -------------------------------------------------
     t0 = time.perf_counter()
@@ -499,14 +531,14 @@ def main() -> None:
     check(gathers == 0, f"continuous: {gathers} decodes took the gather path")
     # per layer: one flash_fwd and one probe_colsum per admission, one
     # cst_quant per store (hi, lo) per admission and per slot fold, one
-    # paged_qattn per segment (hi, lo, window) per decode step; the mixed
-    # layout's decode_qattn is not on this path
+    # paged_qattn (all three segments) per decode step; the mixed layout's
+    # decode_qattn is not on this path
     cexpected = {"cst_quant": 2 * n_layers * (stats["admissions"] + stats["folds"]),
                  "flash_fwd": n_layers * stats["admissions"],
                  "probe_colsum": n_layers * stats["admissions"],
-                 "decode_qattn": 0, "paged_qattn": 3 * n_layers * ceng._step_no}
+                 "decode_qattn": 0, "paged_qattn": n_layers * ceng._step_no}
     log(f"launches per admission: flash_fwd {n_layers}, probe_colsum {n_layers}, cst_quant "
-        f"{2 * n_layers}; per decode step: paged_qattn {3 * n_layers}; per slot fold: "
+        f"{2 * n_layers}; per decode step: paged_qattn {n_layers}; per slot fold: "
         f"cst_quant {2 * n_layers}")
     for name, n in claunches.items():
         check(n == cexpected[name], f"{name}: {n} launches on the continuous path, the path "
@@ -528,10 +560,10 @@ def main() -> None:
         tok, probes, act = peng._stage({0: (peng.slots[0].generated[-1], False)})
         before = pq_kernel.KERNEL.launches
         lpk, _ = steps_lib.continuous_decode(params, peng.caches, tok, probes, act, cfg, keng.ctx)
-        check(pq_kernel.KERNEL.launches - before == 3 * n_layers,
-              "the kernel engine's decode step did not go through paged_qattn")
+        check(pq_kernel.KERNEL.launches - before == n_layers,
+              "the kernel engine's decode step did not go through paged_qattn once per layer")
         lpp, _ = steps_lib.continuous_decode(params, peng.caches, tok, probes, act, cfg, peng.ctx)
-        check(pq_kernel.KERNEL.launches - before == 3 * n_layers,
+        check(pq_kernel.KERNEL.launches - before == n_layers,
               "the plain engine's decode step launched paged_qattn")
     check(bool(torch.isfinite(lpk[0]).all()), "continuous first decode logits not finite")
     r = rel_l2(lpk[0], lpp[0])

@@ -4,7 +4,9 @@
 Walks a slot's page table, dequantizes each page with the dense per-slot
 parameters (rounding to the store dtype, as `QuantizedTensor.dequantize`
 does) and computes one-token attention stats.  `merge_segments_weights` is
-the flash-decoding combiner both the kernel route and this version feed.
+the flash-decoding combiner of the per-segment path; `paged_layer_ref` is
+the layer kernel's function: every segment of a decode layer, each masked
+at its valid length (no padded operands), merged once.
 Raw segments (bits >= 16: the bf16 staging window, fp16 stores) hold values,
 not codes; their parameters are ignored and may be None.
 """
@@ -100,3 +102,34 @@ def paged_segment_ref(q, k_pages, k_scale, k_zero, v_pages, v_cscale, v_tscale, 
             None if v_tzero is None else v_tzero[:, :, sl], None, None, v_cscale, dtype=v_dtype))
     return segment_stats_ref(q, torch.cat(k_parts, dim=2), torch.cat(v_parts, dim=2), pos >= 0,
                              scale)
+
+
+def paged_layer_ref(q, segments, *, scale: float):
+    """The layer kernel's function over one to three segments in walk order.
+
+    Each segment dict holds the operands of `paged_segment_ref` (keys as its
+    arguments, plus k_bits / v_bits / k_dtype / v_dtype), with pos
+    (b, s_seg) and the V token parameters (b, hk, s_seg, 1) unpadded: the
+    walk reads the first s_seg slots of the table's pages and no further.
+    Returns (out (b,h,dv) in q's dtype, normalized; m (b,h); l (b,h);
+    p (b,h,sum s_seg) relative to m, over the concatenated slots)."""
+    stats = []
+    for sg in segments:
+        s_seg = sg["pos"].shape[-1]
+        k = dequant_page_ref(gather_pages_ref(sg["k_pages"], sg["table"], s_seg), sg["k_bits"],
+                             None, None, sg["k_scale"], sg["k_zero"], None, dtype=sg["k_dtype"])
+        v = dequant_page_ref(gather_pages_ref(sg["v_pages"], sg["table"], s_seg), sg["v_bits"],
+                             sg["v_tscale"], sg["v_tzero"], None, None, sg["v_cscale"],
+                             dtype=sg["v_dtype"])
+        stats.append(segment_stats_ref(q, k, v, sg["pos"] >= 0, scale))
+    m = torch.stack([st[1] for st in stats], 0).amax(dim=0)
+    acc = 0.0
+    l = 0.0
+    ps = []
+    for acc_i, m_i, l_i, p_i in stats:
+        w = torch.exp(m_i - m)
+        acc = acc + acc_i * w[..., None]
+        l = l + l_i * w
+        ps.append(p_i * w[..., None])
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.to(q.dtype), m, l, torch.cat(ps, dim=-1)

@@ -7,19 +7,18 @@
 // pad-row masked, averaged over heads (paper Eq. 9 numerator).
 //
 // Bound on the H100: operations.  At yi-6b prefill widths (d = 128,
-// 1024 tokens) attention does ~128 multiply-adds per byte it reads.  This
-// first version computes in f32 on the CUDA cores (no tensor cores, no TMA):
-// the reference's arithmetic is f32 on bf16 inputs, and exactness of the
-// softmax statistics comes first here.
+// 1024 tokens) attention does ~128 multiply-adds per byte it reads.
 //
-// flash_fwd design: one CTA of 128 threads per (q block of 64 rows, head,
-// batch).  The TPU kernel carried acc/m/l across sequential grid steps in
-// VMEM; here the kv axis is a loop inside the CTA, with acc in registers
-// (each thread owns 4 rows x D/8 columns) and m/l per row reduced across the
-// 8 threads that share a row.  Q is staged once, scaled; each 32-column K
-// (transposed) and V tile goes through shared memory.  GQA reads
-// k[:, h / g]; K/V are never repeated in memory.  Blocks wholly above the
-// causal diagonal are skipped.
+// flash_fwd design, bf16 (the main path): FlashAttention-2 on the tensor
+// cores, mma.sync m16n8k16 with a 2-stage cp.async K/V ring; see
+// flash_fwd_tc_kernel.  The f32 instantiation, which no serving path runs,
+// stays on the CUDA cores: one CTA of 128 threads per (q block of 64 rows,
+// head, batch), the kv axis a loop inside the CTA (the TPU kernel carried
+// acc/m/l across sequential grid steps in VMEM), acc in registers (each
+// thread owns 4 rows x D/8 columns) and m/l per row reduced across the 8
+// threads that share a row; each 32-column K (transposed) and V tile goes
+// through shared memory.  Both read k[:, h / g] for GQA (K/V are never
+// repeated in memory) and skip blocks wholly above the causal diagonal.
 //
 // probe_colsum design: one CTA per (32-column kv block, batch, kv head)
 // stages its K tile once and loops over the g query heads of the group and
@@ -33,6 +32,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr float NEG_INF = -1e30f;
@@ -42,9 +43,6 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // ---------------------------------------------------------------------------
 // flash_fwd
@@ -182,6 +180,253 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
+// ---------------------------------------------------------------------------
+// flash_fwd, bf16 on the tensor cores (the main path's instantiation)
+// ---------------------------------------------------------------------------
+// A CTA of 4 warps takes TC_BQ = 64 query rows of one (batch, head); each
+// warp owns 16 rows, so a row's max and sum stay inside one quad of lanes.
+// S = Q K^T and O += P V run as mma.sync m16n8k16 (bf16 in, f32 out) with
+// fragments from ldmatrix (.trans for V).  Q's fragments stay in registers
+// for the whole KV loop.  K/V tiles of TC_BK = 64 rows go through a 2-stage
+// cp.async ring (16-byte copies, rows past lkv zero-filled), so tile n+1
+// loads while tile n computes.  Shared rows are padded by 16 bytes, which
+// keeps ldmatrix's eight row addresses on distinct banks.
+//
+// Numerics, as the reference: S comes from the unchanged bf16 inputs (the
+// products are exact in f32), the scale multiplies the f32 scores, m and l
+// come from the f32 scores and probabilities, and only the A operand of
+// P V is P rounded to bf16.  The softmax runs in base 2 (scores times
+// scale * log2 e, exp2f), which saves a multiply and a range reduction per
+// element over expf; m converts back to base e for the LSE.  Only tiles that cross the causal diagonal or
+// the lkv edge are masked; tiles wholly above the diagonal are skipped.
+constexpr int TC_BQ = 64;
+constexpr int TC_BK = 64;
+
+template <int D>
+constexpr size_t tc_smem_bytes() {
+  return sizeof(__nv_bfloat16) * (TC_BQ + 4 * TC_BK) * (D + 8);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy; `full` false zero-fills the destination
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(full ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)) : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)) : "memory");
+}
+
+// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+                    float* __restrict__ lse, int h, int hk, int lq, int lkv, int diag,
+                    int causal, float scale) {
+  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+  constexpr int LD = D + 8;        // shared row stride in elements (16-byte pad)
+  constexpr int CPR = D / 8;       // 16-byte chunks per row
+  constexpr int NT = TC_BK / 8;    // score n-tiles per warp
+  constexpr int DT = D / 8;        // output n-tiles per warp
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [TC_BQ][LD]
+  __nv_bfloat16* Ks = Qs + TC_BQ * LD;                              // [2][TC_BK][LD]
+  __nv_bfloat16* Vs = Ks + 2 * TC_BK * LD;                          // [2][TC_BK][LD]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gr = lane >> 2, tg = lane & 3;
+  const int q0 = blockIdx.x * TC_BQ;
+  const int head = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = head / (h / hk);
+  const __nv_bfloat16* qh = q + ((size_t)b * h + head) * lq * D;
+  const __nv_bfloat16* kh = k + ((size_t)b * hk + kvh) * lkv * D;
+  const __nv_bfloat16* vh = v + ((size_t)b * hk + kvh) * lkv * D;
+
+  for (int e = tid; e < TC_BQ * CPR; e += THREADS) {
+    const int r = e / CPR, c = (e % CPR) * 8;
+    const bool in = q0 + r < lq;
+    cp_async16(Qs + r * LD + c, qh + (in ? (size_t)(q0 + r) * D + c : 0), in);
+  }
+  auto load_kv = [&](int tile, int stage) {
+    const int k0 = tile * TC_BK;
+    for (int e = tid; e < TC_BK * CPR; e += THREADS) {
+      const int r = e / CPR, c = (e % CPR) * 8;
+      const bool in = k0 + r < lkv;
+      const size_t off = in ? (size_t)(k0 + r) * D + c : 0;
+      cp_async16(Ks + (stage * TC_BK + r) * LD + c, kh + off, in);
+      cp_async16(Vs + (stage * TC_BK + r) * LD + c, vh + off, in);
+    }
+  };
+  const int kv_end = causal ? min(lkv, q0 + TC_BQ + diag) : lkv;
+  const int n_tiles = (kv_end + TC_BK - 1) / TC_BK;
+  if (n_tiles > 0) load_kv(0, 0);
+  cp_async_commit();
+
+  uint32_t qf[D / 16][4];
+  float o[DT][4];
+#pragma unroll
+  for (int c = 0; c < DT; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[c][e] = 0.f;
+  float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};
+  const int row0 = q0 + warp * 16 + gr;  // this thread's rows: row0, row0 + 8
+  const float sscale = scale * 1.4426950408889634f;  // scores in log2 units
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) load_kv(t + 1, (t + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (t == 0) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        ldmatrix_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+    }
+    const __nv_bfloat16* Kt = Ks + (t & 1) * TC_BK * LD;
+    const __nv_bfloat16* Vt = Vs + (t & 1) * TC_BK * LD;
+
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t kb[4];
+        ldmatrix_x4(kb, Kt + (np * 16 + ((lane >> 4) << 3) + (lane & 7)) * LD + kk * 16 +
+                            ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * np], qf[kk], kb[0], kb[1]);
+        mma_bf16(s[2 * np + 1], qf[kk], kb[2], kb[3]);
+      }
+    }
+
+    const int k0 = t * TC_BK;
+    const bool edge = k0 + TC_BK > lkv || (causal && k0 + TC_BK - 1 > q0 + diag);
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * sscale;
+        if (edge) {
+          const int row = row0 + (e >> 1) * 8, col = k0 + j * 8 + tg * 2 + (e & 1);
+          if (col >= lkv || (causal && col > row + diag)) x = NEG_INF;
+        }
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2], m_new[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      m_new[i] = fmaxf(m_r[i], mx[i]);
+      alpha[i] = exp2f(m_r[i] - m_new[i]);
+      m_r[i] = m_new[i];
+      l_r[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = s[j][e] > 0.5f * NEG_INF ? exp2f(s[j][e] - m_new[e >> 1]) : 0.f;
+        l_r[e >> 1] += p;
+        s[j][e] = p;
+      }
+#pragma unroll
+    for (int c = 0; c < DT; ++c) {
+      o[c][0] *= alpha[0];
+      o[c][1] *= alpha[0];
+      o[c][2] *= alpha[1];
+      o[c][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int kk = 0; kk < TC_BK / 16; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, Vt + (kk * 16 + (lane & 15)) * LD + dp * 16 + (lane >> 4) * 8);
+        mma_bf16(o[2 * dp], pa, vb[0], vb[1]);
+        mma_bf16(o[2 * dp + 1], pa, vb[2], vb[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 1);
+    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + i * 8;
+    if (row >= lq) continue;
+    const float l = fmaxf(l_r[i], 1e-30f);
+    __nv_bfloat16* orow = out + (((size_t)b * h + head) * lq + row) * D;
+#pragma unroll
+    for (int c = 0; c < DT; ++c)
+      *reinterpret_cast<__nv_bfloat162*>(orow + c * 8 + tg * 2) =
+          __floats2bfloat162_rn(o[c][2 * i] / l, o[c][2 * i + 1] / l);
+    if (tg == 0) lse[((size_t)b * h + head) * lq + row] = m_r[i] * 0.6931471805599453f + logf(l);
+  }
+}
+
+template <int D>
+cudaError_t flash_tc_launch(const void* q, const void* k, const void* v, void* out, void* lse,
+                            int b, int h, int hk, int lq, int lkv, int causal, float scale,
+                            cudaStream_t stream) {
+  const size_t smem = tc_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_tc_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((lq + TC_BQ - 1) / TC_BQ, h, b);
+  flash_fwd_tc_kernel<D><<<grid, THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(lse), h, hk, lq, lkv, causal ? lkv - lq : 0, causal, scale);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t flash_launch_t(const void* q, const void* k, const void* v, void* out, void* lse,
                            int b, int h, int hk, int lq, int lkv, int causal, float scale,
@@ -202,12 +447,22 @@ template <typename T>
 cudaError_t flash_launch_d(int d, const void* q, const void* k, const void* v, void* out,
                            void* lse, int b, int h, int hk, int lq, int lkv, int causal,
                            float scale, cudaStream_t s) {
-  switch (d) {
-    case 16: return flash_launch_t<T, 16>(q, k, v, out, lse, b, h, hk, lq, lkv, causal, scale, s);
-    case 32: return flash_launch_t<T, 32>(q, k, v, out, lse, b, h, hk, lq, lkv, causal, scale, s);
-    case 64: return flash_launch_t<T, 64>(q, k, v, out, lse, b, h, hk, lq, lkv, causal, scale, s);
-    case 128: return flash_launch_t<T, 128>(q, k, v, out, lse, b, h, hk, lq, lkv, causal, scale, s);
-    default: return cudaErrorInvalidValue;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    switch (d) {
+      case 16: return flash_tc_launch<16>(q, k, v, out, lse, b, h, hk, lq, lkv, causal, scale, s);
+      case 32: return flash_tc_launch<32>(q, k, v, out, lse, b, h, hk, lq, lkv, causal, scale, s);
+      case 64: return flash_tc_launch<64>(q, k, v, out, lse, b, h, hk, lq, lkv, causal, scale, s);
+      case 128: return flash_tc_launch<128>(q, k, v, out, lse, b, h, hk, lq, lkv, causal, scale, s);
+      default: return cudaErrorInvalidValue;
+    }
+  } else {
+    switch (d) {
+      case 16: return flash_launch_t<T, 16>(q, k, v, out, lse, b, h, hk, lq, lkv, causal, scale, s);
+      case 32: return flash_launch_t<T, 32>(q, k, v, out, lse, b, h, hk, lq, lkv, causal, scale, s);
+      case 64: return flash_launch_t<T, 64>(q, k, v, out, lse, b, h, hk, lq, lkv, causal, scale, s);
+      case 128: return flash_launch_t<T, 128>(q, k, v, out, lse, b, h, hk, lq, lkv, causal, scale, s);
+      default: return cudaErrorInvalidValue;
+    }
   }
 }
 

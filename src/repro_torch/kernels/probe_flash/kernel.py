@@ -2,11 +2,13 @@
 
 `flash_fwd` replaces `src/repro/kernels/probe_flash/kernel.py::flash_fwd`
 and `probe_colsum` replaces `::probe_colsum`.  Bound on the H100:
-operations (attention at prefill widths).  Both compute in f32 on the CUDA
-cores; `probe_colsum` gives each CTA sole ownership of its key columns for
-one kv head, and a second small kernel adds the kv heads in order, so the
-sums are deterministic without atomics.  See the source for the design.
-"""
+operations (attention at prefill widths).  `flash_fwd` in bf16, the main
+path's type, runs FlashAttention-2 on the tensor cores (`mma.sync` with
+`cp.async`-staged K/V tiles); in f32 it computes on the CUDA cores.
+`probe_colsum` computes in f32 on the CUDA cores, gives each CTA sole
+ownership of its key columns for one kv head, and a second small kernel
+adds the kv heads in order, so the sums are deterministic without atomics.
+See the source for the design."""
 
 from __future__ import annotations
 

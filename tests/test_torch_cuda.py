@@ -78,6 +78,22 @@ def test_flash_fwd_matches_plain(dev, dtype, b, h, hk, lq, lkv, d, causal):
     torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("b,h,hk,lq,lkv,d", [(4, 8, 2, 130, 130, 128), (4, 4, 4, 70, 200, 64),
+                                            (1, 32, 4, 1024, 1024, 128), (1, 8, 8, 1, 77, 16)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_fwd_tensor_cores_matches_plain(dev, b, h, hk, lq, lkv, d, causal):
+    """The bf16 (tensor-core) kernel at ragged lq (not a multiple of 64), a
+    diagonal offset (lkv > lq), d 16 / 64 / 128, batch 1 and 4, the
+    continuous admission shape; out within one bf16 ulp of 1, LSE 1e-5."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    q, k, v = (_randn(gen, b, n, l, d, dtype=torch.bfloat16)
+               for n, l in ((h, lq), (hk, lkv), (hk, lkv)))
+    out, lse = pf_kernel.flash_fwd(q, k, v, causal=causal)
+    ref_out, ref_lse = pf_ref.flash_fwd_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=2 ** -7, rtol=2 ** -7)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=1e-5)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_probe_colsum_matches_plain(dev, dtype):
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -190,8 +206,7 @@ def test_paged_qattn_matches_plain(dev, page, dtype, q_dtype, want_weights):
     cache = _freelist_cache(dev, gen, dtype, page, lengths=[150, 0, 37, 90])
     q = _randn(gen, 4, 8, 16, dtype=q_dtype, dev=dev)
     scale = 0.25
-    segs = [pq_ops._store_operands(q, cache.hi), pq_ops._store_operands(q, cache.lo),
-            pq_ops._window_operands(q, cache)]
+    segs = pq_ops.layer_segments(cache, pad=True)
     assert [(o["k_bits"], o["v_bits"]) for o in segs] == [(4, 4), (2, 2), (16, 16)]
     assert any((o["table"] == cache.hi.null_page).any() for o in segs[:1])
     for ops in segs:
@@ -216,6 +231,48 @@ def test_paged_qattn_matches_plain(dev, page, dtype, q_dtype, want_weights):
             assert p is None and m_run is None
 
 
+@pytest.mark.parametrize("want_weights", [True, False], ids=["weights", "no-weights"])
+@pytest.mark.parametrize("hi", ["live", "all-empty", "absent"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("page", [16, 64])
+def test_paged_layer_matches_plain(dev, page, dtype, hi, want_weights):
+    """One `qattn_paged_layer` launch over a layer's segments (4-bit hi,
+    2-bit lo, raw window) through free-list tables with shuffled page ids,
+    NULL entries and an empty slot, unpadded operands, against the layer
+    plain version: out within 1e-4 of its largest magnitude (>= 1) relative
+    (f32 sums in another order; for bf16, then a cast that may land one
+    ulp of the largest |out| away), m and l of the live slots within 1e-4 relative, the rebuilt
+    softmax row within 1e-5, exact zeros on the empty slot.  The hi segment
+    also comes with no valid slot at all, and not at all."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    cache = _freelist_cache(dev, gen, dtype, page, lengths=[150, 0, 37, 90])
+    q = _randn(gen, 4, 8, 16, dtype=dtype, dev=dev)
+    segs = pq_ops.layer_segments(cache)
+    assert [(o["k_bits"], o["v_bits"]) for o in segs] == [(4, 4), (2, 2), (16, 16)]
+    if hi == "all-empty":
+        segs[0] = dict(segs[0], pos=torch.full_like(segs[0]["pos"], -1))
+    elif hi == "absent":
+        segs = segs[1:]
+    before = pq_kernel.KERNEL.launches
+    out, m, l, p, m_run = pq_kernel.qattn_paged_layer(q, segs, scale=0.25,
+                                                      want_weights=want_weights)
+    assert pq_kernel.KERNEL.launches == before + 1
+    rout, rm, rl, rp = pq_ref.paged_layer_ref(q, segs, scale=0.25)
+    live = torch.tensor([True, False, True, True], device=dev)
+    assert out.dtype == q.dtype
+    tol_out = 2 ** -7 if q.dtype == torch.bfloat16 else 1e-4
+    for a, w, t in ((out.float(), rout.float(), tol_out), (m, rm, 1e-4), (l, rl, 1e-4)):
+        a, w = a[live], w[live]
+        torch.testing.assert_close(a, w, atol=t * max(w.abs().max().item(), 1.0), rtol=0)
+    assert not l[1].any() and not out[1].float().any() and torch.equal(m[1], rm[1])
+    if want_weights:
+        assert p.shape == rp.shape
+        torch.testing.assert_close(p * torch.exp(m_run - m[..., None]), rp, atol=1e-5,
+                                   rtol=1e-5)
+    else:
+        assert p is None and m_run is None
+
+
 def test_paged_attend_matches_gather_path(dev):
     """The whole page walk (three segments, merged) against the gather path:
     outputs within 1e-4 on the live rows, zeros on the empty row."""
@@ -224,7 +281,7 @@ def test_paged_attend_matches_gather_path(dev):
     q = _randn(gen, 4, 8, 16, dtype=torch.bfloat16, dev=dev)
     before = pq_kernel.KERNEL.launches
     got = pq_ops.attend_paged(q, cache)
-    assert pq_kernel.KERNEL.launches == before + 3
+    assert pq_kernel.KERNEL.launches == before + 1  # one launch per decode layer
     want = kvc.attend_decode(q, cache.dense_view())
     live = torch.tensor([True, False, True, True], device=dev)
     torch.testing.assert_close(got.out[live].float(), want.out[live].float(), atol=2 ** -7,

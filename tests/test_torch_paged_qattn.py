@@ -3,8 +3,11 @@ JAX package: the plain page walk `ref.paged_segment_ref` against JAX's
 `ref.paged_segment_ref` and the Pallas kernel in interpret mode, over
 shuffled free-list tables with NULL (sink) entries; `ops.attend_paged`
 against JAX's `attend_paged(use_ref=True)` on caches built by the same op
-sequence; the `kernel_supported` verdicts per policy; and probe-step slot
-weights taken bitwise from the gather path.
+sequence; the `kernel_supported` verdicts per policy; probe-step slot weights taken
+bitwise from the gather path; and the layer-level plain version
+`ref.paged_layer_ref` (the one-launch-per-layer kernel's function) against
+the per-segment path plus `merge_segments_weights`, unpadded against padded
+operands.
 
 Tolerance 1e-5 on acc / m / l and on the rescaled slot probabilities
 p * exp(m_run - m) (float32 sums in another order), as
@@ -24,6 +27,7 @@ from repro.core.policy import CompressionConfig as JCompression
 from repro.kernels.paged_qattn import kernel as jpq_kernel
 from repro.kernels.paged_qattn import ops as jpq_ops
 from repro.kernels.paged_qattn import ref as jpq_ref
+from repro_torch.core import alloc as alloc_lib
 from repro_torch.core import backend as backend_lib
 from repro_torch.core import kvcache as kvc
 from repro_torch.core import paged
@@ -200,3 +204,116 @@ def test_probe_step_weights_bitwise_gather_path(rng):
     jw = jbackend.of(_ccfgs()[0], kind="paged", page_size=8).attend(jnp.asarray(q.numpy()),
                                                                       jcache).slot_weights
     np.testing.assert_allclose(to_np(dec.slot_weights), to_np(jw), atol=1e-6)
+
+
+def _freelist_cache(rng, lengths, dtype=torch.float32, page=8, hk=2, d=16, max_len=60,
+                    n_append=3):
+    """A torch-only free-list paged cache as the engine builds it: shuffled
+    free lists, ragged batch-1 prefills per slot (0 leaves the slot empty),
+    ungranted table entries NULL (the sink), then appends to the windows."""
+    _, tc = _ccfgs(saliency_ratio=0.4)
+    be = backend_lib.of(tc, kind="paged", page_size=page, paged_kernel=True,
+                        page_allocator="freelist", pool_fraction=0.75)
+    b = len(lengths)
+    cache = be.init_cache(b, hk, d, max_len, dtype, device="cpu")
+    alloc = alloc_lib.FreeListAllocator.from_caches(cache, page)
+    for seg in alloc.segs.values():
+        rng.shuffle(seg.free)
+
+    def sync(c):
+        t = {k: torch.from_numpy(v) for k, v in alloc.tables().items()}
+        return paged.with_tables(c, t["hi"], t["lo"], t["win"])
+
+    for slot, n in enumerate(lengths):
+        if n:
+            k, v = (torch.from_numpy(rng.normal(size=(1, hk, n, d)).astype(np.float32))
+                    for _ in range(2))
+            s = torch.from_numpy(rng.uniform(size=(1, n)).astype(np.float32))
+            sl = be.compress_prefill(k, v, s, max_len, dtype=dtype)
+            alloc.admit(slot, alloc_lib.slice_occupancy(sl), n + max_len - max(lengths), n)
+            cache = be.insert(sync(cache), sl, slot)
+    active = torch.tensor([n > 0 for n in lengths])
+    for _ in range(n_append):
+        for slot, n in enumerate(lengths):
+            if n:
+                alloc.note_append(slot)
+        kt = torch.from_numpy(rng.normal(size=(b, hk, d)).astype(np.float32))
+        cache = be.append(sync(cache), kt, kt * 0.5, active=active)
+    alloc.check_invariants()
+    return cache
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("page", [8, 16])
+def test_layer_ref_matches_segment_path_and_merge(page, dtype, rng):
+    """One layer-level plain call (every segment unpadded, masked at s_seg,
+    one merge) equals the per-segment plain path on padded operands merged by
+    `merge_segments_weights`: output, and the slot weights p / l over the
+    concatenated slots; m is the segments' max and l their rescaled sum."""
+    cache = _freelist_cache(rng, [40, 0, 17, 33], dtype=dtype, page=page)
+    q = torch.from_numpy(rng.normal(size=(4, 4, 16)).astype(np.float32)).to(dtype)
+    segs = pq_ops.layer_segments(cache)
+    assert [(sg["k_bits"], sg["v_bits"]) for sg in segs] == [(4, 4), (2, 2), (16, 16)]
+    assert all(bool((sg["table"] == sg["k_pages"].shape[0] - 1).any()) for sg in segs)
+    padded = pq_ops.layer_segments(cache, pad=True)
+    stats = [pq_ops._segment_stats_ref(q, sg, 0.25, True) for sg in padded]
+    want_out, want_w = pq_ref.merge_segments_weights(stats)
+    out, m, l, p = pq_ref.paged_layer_ref(q, segs, scale=0.25)
+    assert out.dtype == dtype and p.shape[-1] == sum(sg["s_seg"] for sg in segs)
+    np.testing.assert_allclose(to_np(out), to_np(want_out.to(dtype)), atol=TOL, rtol=TOL)
+    m_seg = torch.stack([st[1] for st in stats])
+    assert torch.equal(m, m_seg.amax(0))
+    l_want = sum(st[2] * torch.exp(st[1] - m) for st in stats)
+    np.testing.assert_allclose(to_np(l), to_np(l_want), atol=TOL, rtol=TOL)
+    w = torch.cat([wi[:, :, :sg["s_seg"]] for wi, sg in zip(want_w, padded)], dim=-1)
+    np.testing.assert_allclose(to_np(p / l.clamp_min(1e-30)[..., None]), to_np(w), atol=1e-6)
+    assert not to_np(out)[1].any() and not to_np(l)[1].any()  # the empty slot
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_layer_ref_unpadded_equals_padded(dtype, rng):
+    """The walk masked at s_seg (pos and V token parameters of the stores'
+    own length) gives the stats of operands padded to npp * page; the padded
+    walk's extra slots carry p = 0."""
+    cache = _freelist_cache(rng, [37, 21, 0, 50], dtype=dtype, page=16)
+    q = torch.from_numpy(rng.normal(size=(4, 4, 16)).astype(np.float32))
+    segs, padded = pq_ops.layer_segments(cache), pq_ops.layer_segments(cache, pad=True)
+    assert any(sp["pos"].shape[-1] > sg["pos"].shape[-1] for sg, sp in zip(segs, padded))
+    got = pq_ref.paged_layer_ref(q, segs, scale=0.25)
+    want = pq_ref.paged_layer_ref(q, padded, scale=0.25)
+    for a, w in zip(got[:3], want[:3]):
+        np.testing.assert_allclose(to_np(a), to_np(w), atol=1e-6, rtol=1e-6)
+    at = 0
+    parts = []
+    for sg, sp in zip(segs, padded):
+        n, n_pad = sg["pos"].shape[-1], sp["pos"].shape[-1]
+        parts.append(want[3][..., at:at + n])
+        assert not to_np(want[3][..., at + n:at + n_pad]).any()
+        at += n_pad
+    np.testing.assert_allclose(to_np(got[3]), to_np(torch.cat(parts, -1)), atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("want_weights", [True, False], ids=["weights", "no-weights"])
+def test_qattn_paged_layer_cpu_and_attend_paths(want_weights, rng):
+    """The layer wrapper on CPU tensors is the layer plain version (p
+    relative to m_run = m, or no weights at all), and `attend_paged`'s
+    kernel route equals its per-segment plain route."""
+    cache = _freelist_cache(rng, [44, 9, 0, 30], page=8)
+    q = torch.from_numpy(rng.normal(size=(4, 4, 16)).astype(np.float32))
+    segs = pq_ops.layer_segments(cache)
+    out, m, l, p, m_run = pq_kernel.qattn_paged_layer(q, segs, scale=0.25,
+                                                      want_weights=want_weights)
+    rout, rm, rl, rp = pq_ref.paged_layer_ref(q, segs, scale=0.25)
+    for a, w in ((out, rout), (m, rm), (l, rl)):
+        assert torch.equal(a, w)
+    if want_weights:
+        assert torch.equal(p * torch.exp(m_run - m[..., None]), rp)
+    else:
+        assert p is None and m_run is None
+    got = pq_ops.attend_paged(q, cache, want_weights=want_weights)
+    want = pq_ops.attend_paged(q, cache, use_ref=True, want_weights=want_weights)
+    np.testing.assert_allclose(to_np(got.out), to_np(want.out), atol=TOL, rtol=TOL)
+    if want_weights:
+        np.testing.assert_allclose(to_np(got.slot_weights), to_np(want.slot_weights), atol=1e-6)
+    else:
+        assert got.slot_weights is None and want.slot_weights is None
