@@ -2,8 +2,10 @@
 
 Each `csrc/<name>.cu` compiles on its own into a shared library with a
 plain C interface (`nvcc -gencode arch=compute_90a,code=sm_90a -shared`).
-Libraries land in `build/kernels/` at the repository root, named by a hash
-of their source and flags, so an edited source never loads a stale build.
+Sources may include the shared headers of `csrc/` (the decode-attention walk
+of `paged_qattn` and `decode_qattn`).  Libraries land in `build/kernels/`
+at the repository root, named by a hash of their source, the shared headers
+and the flags, so an edited source or header never loads a stale build.
 `build_all` starts one nvcc per source, all at once.
 """
 
@@ -41,8 +43,16 @@ def source(name: str) -> Path:
     return _KERNELS_DIR / name / "csrc" / f"{name}.cu"
 
 
+def headers() -> List[Path]:
+    """The shared headers every source may include."""
+    return sorted((_KERNELS_DIR / "csrc").glob("*.cuh"))
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(source(name).read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(source(name).read_bytes())
+    for hdr in headers():
+        digest.update(hdr.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

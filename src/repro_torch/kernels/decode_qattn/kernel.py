@@ -1,28 +1,76 @@
-"""Launch wrapper of the packed-store decode attention kernel
+"""Launch wrappers of the mixed-cache decode attention kernel
 (`csrc/decode_qattn.cu`).
 
 Replaces `src/repro/kernels/decode_qattn/kernel.py::qattn_segment`, with
 the store-dtype rounding of dequantized K/V that the reference's live path
 (`QuantizedTensor.dequantize`) applies.  Bound on the H100: bytes (every
-packed code is read once per step).  A store has only b * hk (batch, kv
-head) pairs, so the slot axis is split over CTAs too (about two CTAs per
-SM in all); each unpacks its 32-slot blocks into shared memory once for all
-g query rows, and a second small kernel merges the splits' partial stats.
+packed code is read once per step), so the kernel is set by latency.  One
+launch takes a whole decode layer (`qattn_mixed_layer`): the 4-bit hi
+store, the 2-bit lo store and the raw bf16 window, walked as one sequence
+of 32-slot blocks split over CTAs on the whole layer, four lanes per slot
+reading 16-byte runs of its code row, and a second small kernel that
+merges the CTAs' partial stats in segment-then-split order (deterministic,
+no atomics) into the normalized output.  The walk is `paged_qattn`'s
+(`csrc/qattn_walk.cuh`, host side `kernels.qattn_walk`) with contiguous
+addressing: each segment is one (b, hk, S, c) tensor and no table is read.
+`qattn_segment`, the TPU kernel's counterpart, is the one-segment call of
+the same kernel.
 """
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import qattn_walk as walk
 from repro_torch.kernels.decode_qattn import ref
 
 LIB = build.CudaLibrary("decode_qattn")
-KERNEL = build.CudaKernel(LIB, "decode_qattn_launch",
-                          [build.P] * 15 + [build.I] * 7 + [build.F] + [build.I] * 3 + [build.P])
-HEAD_DIMS = (16, 32, 64, 128)
-SLOT_BLOCK = 32      # slots per block of the kernel
-TARGET_CTAS = 264    # two per SM of an H100
+KERNEL = build.CudaKernel(LIB, "decode_qattn_launch", walk.ARGTYPES)
+TARGET_CTAS = 528      # four per SM of an H100, as paged_qattn's walk
+_PARAM_KEYS = ("k_scale", "k_zero", "v_cscale", "v_tscale", "v_tzero")
+
+
+def _describe(q: torch.Tensor, seg: dict):
+    """Check one segment's operands; (SegDesc, the tensors it points at)."""
+    kc, vc, pos = seg["k_codes"], seg["v_codes"], seg["pos"]
+    if kc.dim() != 4 or vc.dim() != 4 or kc.shape[0] != q.shape[0] \
+            or tuple(vc.shape[:3]) != tuple(kc.shape[:3]) or pos.shape[-1] != kc.shape[2]:
+        raise ValueError(f"decode_qattn: payloads (b, hk, S, c) and pos (b, S); got K "
+                         f"{tuple(kc.shape)}, V {tuple(vc.shape)}, pos {tuple(pos.shape)}")
+    return walk.describe("decode_qattn", q, kc, vc, tuple(seg.get(k) for k in _PARAM_KEYS), pos,
+                         seg["k_bits"], seg["v_bits"], kc.shape[1])
+
+
+def _launch(q: torch.Tensor, segments: Sequence[dict], normalized: bool):
+    if not segments:
+        raise ValueError("decode_qattn: one to three segments")
+    hk = segments[0]["k_codes"].shape[1]
+    if any(s["k_codes"].shape[1] != hk for s in segments):
+        raise ValueError("decode_qattn: every segment has the same kv heads")
+    descs, _operands = zip(*(_describe(q, s) for s in segments))  # alive through the launch
+    return walk.launch(KERNEL, "decode_qattn", q, descs, hk, 1.0 / (q.shape[-1] ** 0.5),
+                       TARGET_CTAS, want_weights=False, normalized=normalized)
+
+
+def qattn_mixed_layer(q: torch.Tensor, segments: Sequence[dict]) -> torch.Tensor:
+    """One-token attention over a decode layer's mixed-cache segments, one launch.
+
+    q (b,h,d) | segments: one to three dicts in walk order (hi, lo,
+    window), each with k_codes / v_codes (b,hk,S,c): int8 codes, or raw
+    bf16 / f32 values where k_bits / v_bits >= 16; k_scale / k_zero /
+    v_cscale (b,hk,1,d) and v_tscale / v_tzero (b,hk,S,1) of a quantized
+    segment, in its store dtype (absent or None for a raw one); pos (b,S)
+    int32 (< 0 = empty).  Scale d^-1/2.
+
+    Returns out (b,h,d) in q's dtype, normalized over every segment.  CPU
+    tensors take `ref.mixed_layer_ref`.
+    """
+    if q.device.type == "cpu":
+        return ref.mixed_layer_ref(q, segments)
+    return _launch(q, segments, normalized=True)[0]
 
 
 def qattn_segment(q, k_codes, k_scale, k_zero, v_codes, v_cscale, v_tscale, v_tzero, pos,
@@ -31,35 +79,15 @@ def qattn_segment(q, k_codes, k_scale, k_zero, v_codes, v_cscale, v_tscale, v_tz
 
     q (b,h,d) | k_codes (b,hk,S,d/pf) int8 | k params (b,hk,1,d)
     v_codes (b,hk,S,d/pf) int8 | v_cscale (b,hk,1,d) | v_t* (b,hk,S,1)
-    pos (b,S) int32.  q and the parameters share the store dtype.
+    pos (b,S) int32.  The parameters share the store dtype.
     Returns (acc (b,h,d) f32, m (b,h) f32, l (b,h) f32).
     CPU tensors take `ref.qattn_segment_ref`.
     """
     if q.device.type == "cpu":
         return ref.qattn_segment_ref(q, k_codes, k_scale, k_zero, v_codes, v_cscale, v_tscale,
                                      v_tzero, pos, k_bits, v_bits)
-    b, h, d = q.shape
-    hk, s_len = k_codes.shape[1], k_codes.shape[2]
-    params = (k_scale, k_zero, v_cscale, v_tscale, v_tzero)
-    if q.dtype not in (torch.bfloat16, torch.float32) or any(p.dtype != q.dtype for p in params):
-        raise ValueError("decode_qattn: q and the store parameters must share bf16 or f32")
-    if k_codes.dtype != torch.int8 or v_codes.dtype != torch.int8 or pos.dtype != torch.int32:
-        raise ValueError("decode_qattn: codes int8, pos int32")
-    if d not in HEAD_DIMS or v_cscale.shape[-1] != d or h % hk or s_len == 0:
-        raise ValueError(f"decode_qattn: head dim {d} (K and V alike) in {HEAD_DIMS}, "
-                         f"h % hk == 0, a non-empty store")
-    if k_codes.shape[-1] * (8 // k_bits) != d or v_codes.shape[-1] * (8 // v_bits) != d:
-        raise ValueError("decode_qattn: shapes disagree with the bit widths")
-    n_blocks = -(-s_len // SLOT_BLOCK)
-    per_split = max(1, -(-n_blocks * b * hk // TARGET_CTAS))
-    n_split = -(-n_blocks // per_split)
-    ts = [t.contiguous() for t in (q, k_codes, k_scale, k_zero, v_codes, v_cscale, v_tscale,
-                                   v_tzero, pos)]
-    f32 = dict(dtype=torch.float32, device=q.device)
-    scratch = (torch.empty((b, h, n_split, d), **f32), torch.empty((b, h, n_split), **f32),
-               torch.empty((b, h, n_split), **f32))
-    acc, m, l = torch.empty((b, h, d), **f32), torch.empty((b, h), **f32), torch.empty((b, h), **f32)
-    KERNEL(*(build.ptr(t) for t in (*ts, *scratch, acc, m, l)),
-           b, h, hk, s_len, d, k_bits, v_bits, 1.0 / (d ** 0.5), per_split, n_split,
-           int(q.dtype == torch.bfloat16), build.stream_of(q))
+    seg = dict(k_codes=k_codes, k_scale=k_scale, k_zero=k_zero, v_codes=v_codes,
+               v_cscale=v_cscale, v_tscale=v_tscale, v_tzero=v_tzero, pos=pos, k_bits=k_bits,
+               v_bits=v_bits)
+    acc, m, l, _, _ = _launch(q, [seg], normalized=False)
     return acc, m, l

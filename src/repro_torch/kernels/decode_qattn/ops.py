@@ -1,10 +1,10 @@
-"""Decode attention over the mixed cache through the packed-store kernel.
+"""Decode attention over the mixed cache through the layer kernel.
 
-`decode_attend_mixed` runs the hi and lo stores through `qattn_segment`,
-the raw bf16 window through the plain segment function, and merges the
-segments flash-decoding style.  It needs the ZipCache layout (channelwise
-K, CST V) and yields no slot weights: probe steps take
-`core.kvcache.attend_decode` instead.
+`decode_attend_mixed` hands the hi store, the lo store and the raw bf16
+window to one `qattn_mixed_layer` call, which walks the three segments and
+merges them flash-decoding style.  It needs the ZipCache layout (channelwise
+K, CST V; raw >= 16-bit stores pass their values through) and yields no
+slot weights: probe steps take `core.kvcache.attend_decode` instead.
 """
 
 from __future__ import annotations
@@ -12,25 +12,28 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.decode_qattn import kernel as K
-from repro_torch.kernels.decode_qattn import ref as R
 
 
-def decode_attend_mixed(q: torch.Tensor, cache) -> torch.Tensor:
-    """q (b, h, d) over a `MixedKVCache` -> out (b, h, dv) in q's dtype."""
-    scale = 1.0 / (q.shape[-1] ** 0.5)
-    stats = []
+def mixed_segments(cache) -> list:
+    """The non-empty segments of a `MixedKVCache` in walk order (hi, lo,
+    window), as `kernel.qattn_mixed_layer` takes them."""
+    segs = []
     for store in (cache.hi, cache.lo):
         if store.capacity == 0:
             continue
         kq, vq = store.k, store.v
-        if kq.bits >= 16:
-            stats.append(R.segment_attend_ref(q, kq.dequantize().float(), vq.dequantize().float(),
-                                              store.valid, scale))
-        else:
-            stats.append(K.qattn_segment(q, kq.codes, kq.scale, kq.zero, vq.codes,
-                                         vq.channel_scale, vq.scale, vq.zero, store.pos,
-                                         kq.bits, vq.bits))
+        seg = dict(k_codes=kq.codes, v_codes=vq.codes, pos=store.pos, k_bits=kq.bits,
+                   v_bits=vq.bits)
+        if kq.bits < 16:
+            seg.update(k_scale=kq.scale, k_zero=kq.zero, v_cscale=vq.channel_scale,
+                       v_tscale=vq.scale, v_tzero=vq.zero)
+        segs.append(seg)
     if cache.window:
-        stats.append(R.segment_attend_ref(q, cache.k_win.float(), cache.v_win.float(),
-                                          cache.win_pos >= 0, scale))
-    return R.merge_segments_ref(stats).to(q.dtype)
+        segs.append(dict(k_codes=cache.k_win, v_codes=cache.v_win, pos=cache.win_pos,
+                         k_bits=16, v_bits=16))
+    return segs
+
+
+def decode_attend_mixed(q: torch.Tensor, cache) -> torch.Tensor:
+    """q (b, h, d) over a `MixedKVCache` -> out (b, h, dv) in q's dtype."""
+    return K.qattn_mixed_layer(q, mixed_segments(cache))

@@ -3,6 +3,8 @@
 Dequantizes a packed store segment (rounding to the store dtype, as
 `QuantizedTensor.dequantize` does) and runs one-token attention, returning
 flash-decoding merge stats (acc, m, l) so segments combine as the kernel's do.
+`mixed_layer_ref` is the layer kernel's function: every segment of a decode
+layer (hi, lo, raw window) merged once into the normalized output.
 """
 
 from __future__ import annotations
@@ -67,3 +69,21 @@ def qattn_segment_ref(q, k_codes, k_scale, k_zero, v_codes, v_cscale, v_tscale, 
     k = dequant_k_ref(k_codes, k_scale, k_zero, k_bits)
     v = dequant_v_ref(v_codes, v_cscale, v_tscale, v_tzero, v_bits)
     return segment_attend_ref(q, k, v, pos >= 0, 1.0 / (q.shape[-1] ** 0.5))
+
+
+def mixed_layer_ref(q: torch.Tensor, segments) -> torch.Tensor:
+    """The layer kernel's function over one to three segments in walk order
+    (the operands of `kernel.qattn_mixed_layer`): raw segments (bits >= 16)
+    pass their values through, quantized ones dequantize as the store does.
+    Returns out (b, h, dv) in q's dtype."""
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    stats = []
+    for sg in segments:
+        if sg["k_bits"] >= 16:
+            k, v = sg["k_codes"].float(), sg["v_codes"].float()
+        else:
+            k = dequant_k_ref(sg["k_codes"], sg["k_scale"], sg["k_zero"], sg["k_bits"])
+            v = dequant_v_ref(sg["v_codes"], sg["v_cscale"], sg["v_tscale"], sg["v_tzero"],
+                              sg["v_bits"])
+        stats.append(segment_attend_ref(q, k, v, sg["pos"] >= 0, scale))
+    return merge_segments_ref(stats).to(q.dtype)

@@ -20,13 +20,18 @@
 // through shared memory.  Both read k[:, h / g] for GQA (K/V are never
 // repeated in memory) and skip blocks wholly above the causal diagonal.
 //
-// probe_colsum design: one CTA per (32-column kv block, batch, kv head)
-// stages its K tile once and loops over the g query heads of the group and
-// the 32-row probe blocks inside (per head and probe block: column sum,
-// / heads, accumulate), writing one partial column sum per kv head.  A
-// second small kernel adds the kv heads' partials in order.  Every value
-// has one writer and there are no float atomics, so the sums, and the
-// saliency ties they decide, are deterministic.
+// probe_colsum design, bf16 (the main path): on the tensor cores, one CTA
+// of 4 warps per (64-column kv block, hpc query heads of one kv group,
+// batch row), the host choosing hpc so the grid keeps about four CTAs per
+// SM (a batch-1 admission at a 1024-token prompt launches 512 CTAs of one
+// head each); see probe_colsum_tc_kernel.  Each CTA writes one partial
+// column sum for its heads, and a second small kernel adds the partials in
+// head order and divides by h.  The f32 instantiation, which no serving path
+// runs, stays on the CUDA cores: one CTA per (32-column kv block, batch, kv
+// head) stages its K tile once and loops over the g query heads of the
+// group and the 32-row probe blocks inside, writing one partial per kv
+// head.  Every value has one writer and there are no float atomics, so the
+// sums, and the saliency ties they decide, are deterministic.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -40,7 +45,6 @@ constexpr float NEG_INF = -1e30f;
 constexpr int THREADS = 128;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 
@@ -467,7 +471,7 @@ cudaError_t flash_launch_d(int d, const void* q, const void* k, const void* v, v
 }
 
 // ---------------------------------------------------------------------------
-// probe_colsum
+// probe_colsum, f32 on the CUDA cores
 // ---------------------------------------------------------------------------
 constexpr int PC_BK = 32;
 constexpr int PC_BP = 32;
@@ -553,7 +557,7 @@ probe_colsum_kernel(const T* __restrict__ qp, const float* __restrict__ lse_p,
       if (tid < PC_BK) {
         float s = 0.f;
         for (int r = 0; r < PC_BP; ++r) s += Ps[r * (PC_BK + 1) + tid];
-        col_acc += s / static_cast<float>(h);
+        col_acc += s;
       }
     }
   }
@@ -561,15 +565,216 @@ probe_colsum_kernel(const T* __restrict__ qp, const float* __restrict__ lse_p,
     partial[((size_t)b * hk + kvh) * lkv + k0 + tid] = col_acc;
 }
 
-// colsum[b, col] = sum over kv heads, in order, of the partial column sums
+// probe_colsum on the tensor cores (bf16).  A CTA of 4 warps owns PT_BK =
+// 64 key columns of one batch row for hpc query heads of one kv group (the
+// host picks hpc; 1 gives the most CTAs): it loads that K tile once with
+// cp.async and streams the probe rows of its heads through a 2-stage
+// cp.async ring of PT_BP = 64-row Q tiles, one 16-row slice per warp.
+// S = Q K^T runs as mma.sync m16n8k16 (bf16 in, f32 accumulate) with
+// ldmatrix fragments, as in flash_fwd_tc_kernel; p = exp(s * scale - lse)
+// runs in base 2 on the f32 fragments, with scale * log2 e and lse * log2 e
+// folded into one FMA.
+//
+// Causal skipping: before the loop, the warps scan the Q tiles (one tile a
+// warp at a time) for those whose largest row position reaches the CTA's
+// first column (max pos + diag >= k0), and one thread lists them in order;
+// the ring streams only those, head after head.  A warp also skips
+// its 16-row slice when no row of it reaches k0.  Neither test relies on
+// the rows being sorted.  Elements of a live slice are masked one by one
+// (pad rows pos < 0, the causal diagonal, columns past lkv).
+//
+// Determinism: each thread sums its probabilities over its heads and tiles
+// in order (its columns j * 8 + 2 tg, + 1 of rows gr and gr + 8); the 8 row
+// groups of a warp are combined by a fixed __shfl_xor butterfly, the 4
+// warps in warp order through shared memory, and the CTAs' partials (one
+// per hpc heads) by the merge kernel in head order.  No float atomics: two
+// calls give bitwise-equal sums.
+constexpr int PT_BK = 64;   // key columns per CTA
+constexpr int PT_BP = 64;   // probe rows per Q tile: 16 per warp
+
+template <int D>
+constexpr size_t colsum_tc_smem_bytes(int n_tiles) {
+  return sizeof(__nv_bfloat16) * (PT_BK + 2 * PT_BP) * (D + 8) +
+         sizeof(float) * (THREADS / 32) * PT_BK + sizeof(int) * (2 * n_tiles + 1);
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+probe_colsum_tc_kernel(const __nv_bfloat16* __restrict__ qp, const float* __restrict__ lse_p,
+                       const int* __restrict__ pos, const __nv_bfloat16* __restrict__ k,
+                       float* __restrict__ partial, int h, int hk, int hpc, int np, int lkv,
+                       int diag, int causal, float scale) {
+  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+  constexpr int LD = D + 8;        // shared row stride in elements (16-byte pad)
+  constexpr int CPR = D / 8;       // 16-byte chunks per row
+  constexpr int NT = PT_BK / 8;    // score n-tiles per warp
+  constexpr float LOG2E = 1.4426950408889634f;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [PT_BK][LD]
+  __nv_bfloat16* Qs = Ks + PT_BK * LD;                              // [2][PT_BP][LD]
+  float* red = reinterpret_cast<float*>(Qs + 2 * PT_BP * LD);       // [WARPS][PT_BK]
+  int* live = reinterpret_cast<int*>(red + (THREADS / 32) * PT_BK);  // count, then tiles
+  const int n_tiles = (np + PT_BP - 1) / PT_BP;
+  int* flag = live + 1 + n_tiles;                                      // [n_tiles]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gr = lane >> 2, tg = lane & 3;
+  const int k0 = blockIdx.x * PT_BK;
+  const int head0 = blockIdx.y * hpc;  // this CTA's heads: head0 .. head0 + hpc - 1
+  const int b = blockIdx.z;
+  const int kvh = head0 / (h / hk);
+  const __nv_bfloat16* kh = k + ((size_t)b * hk + kvh) * lkv * D;
+  const int* pb = pos + (size_t)b * np;
+
+  for (int e = tid; e < PT_BK * CPR; e += THREADS) {
+    const int r = e / CPR, c = (e % CPR) * 8;
+    const bool in = k0 + r < lkv;
+    cp_async16(Ks + r * LD + c, kh + (in ? (size_t)(k0 + r) * D + c : 0), in);
+  }
+  for (int t = warp; t < n_tiles; t += THREADS / 32) {  // which Q tiles reach k0
+    int mx = -1;
+    for (int r = t * PT_BP + lane; r < min(np, (t + 1) * PT_BP); r += 32)
+      mx = max(mx, __ldg(pb + r));
+#pragma unroll
+    for (int o = 16; o; o >>= 1) mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    if (lane == 0) flag[t] = mx >= 0 && (!causal || mx + diag >= k0);
+  }
+  __syncthreads();
+  if (tid == 0) {  // the live tiles, in order
+    int n = 0;
+    for (int t = 0; t < n_tiles; ++t)
+      if (flag[t]) live[1 + n++] = t;
+    live[0] = n;
+  }
+  __syncthreads();
+  const int n_live = live[0], n_items = hpc * n_live;  // item i: head i / n_live
+  auto load_q = [&](int i, int stage) {
+    const int t = live[1 + i % n_live];
+    const __nv_bfloat16* qh = qp + ((size_t)b * h + head0 + i / n_live) * np * D;
+    for (int e = tid; e < PT_BP * CPR; e += THREADS) {
+      const int r = e / CPR, c = (e % CPR) * 8, row = t * PT_BP + r;
+      const bool in = row < np;
+      cp_async16(Qs + (stage * PT_BP + r) * LD + c, qh + (in ? (size_t)row * D + c : 0), in);
+    }
+  };
+  if (n_items > 0) load_q(0, 0);
+  cp_async_commit();
+
+  float cs[NT][2];  // this thread's column sums: columns j * 8 + tg * 2 + c of the block
+#pragma unroll
+  for (int j = 0; j < NT; ++j) cs[j][0] = cs[j][1] = 0.f;
+  const float sscale = scale * LOG2E;
+
+  for (int i = 0; i < n_items; ++i) {
+    if (i + 1 < n_items) load_q(i + 1, (i + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* lh = lse_p + ((size_t)b * h + head0 + i / n_live) * np;
+    const int row0 = live[1 + i % n_live] * PT_BP + warp * 16 + gr;  // rows row0, row0 + 8
+    int pr[2];
+    float l2[2];
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      const int row = row0 + 8 * a;
+      pr[a] = row < np ? __ldg(pb + row) : -1;
+      l2[a] = row < np ? __ldg(lh + row) * LOG2E : 0.f;
+    }
+    int mx = max(pr[0], pr[1]);
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    if (mx >= 0 && (!causal || mx + diag >= k0)) {  // warp-uniform
+      const __nv_bfloat16* Qt = Qs + (i & 1) * PT_BP * LD;
+      float s[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t qf[4];
+        ldmatrix_x4(qf, Qt + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int n2 = 0; n2 < NT / 2; ++n2) {
+          uint32_t kb[4];
+          ldmatrix_x4(kb, Ks + (n2 * 16 + ((lane >> 4) << 3) + (lane & 7)) * LD + kk * 16 +
+                              ((lane >> 3) & 1) * 8);
+          mma_bf16(s[2 * n2], qf, kb[0], kb[1]);
+          mma_bf16(s[2 * n2 + 1], qf, kb[2], kb[3]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int a = e >> 1, col = k0 + j * 8 + tg * 2 + (e & 1);
+          const bool valid = pr[a] >= 0 && col < lkv && (!causal || pr[a] + diag >= col);
+          cs[j][e & 1] += valid ? exp2f(fmaf(s[j][e], sscale, -l2[a])) : 0.f;
+        }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) cs[j][c] += __shfl_xor_sync(0xffffffffu, cs[j][c], o);
+  if (gr == 0) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      red[warp * PT_BK + j * 8 + tg * 2] = cs[j][0];
+      red[warp * PT_BK + j * 8 + tg * 2 + 1] = cs[j][1];
+    }
+  }
+  __syncthreads();
+  if (tid < PT_BK && k0 + tid < lkv) {
+    float acc = red[tid];
+#pragma unroll
+    for (int w = 1; w < THREADS / 32; ++w) acc += red[w * PT_BK + tid];
+    partial[((size_t)b * gridDim.y + blockIdx.y) * lkv + k0 + tid] = acc;
+  }
+}
+
+// colsum[b, col] = (sum over the n_part partials of row b, in order) / h
 __global__ void colsum_merge_kernel(const float* __restrict__ partial, float* __restrict__ colsum,
-                                    int b, int hk, int lkv) {
+                                    int b, int n_part, int lkv, int h) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (size_t)b * lkv) return;
   const size_t bi = i / lkv, col = i % lkv;
   float s = 0.f;
-  for (int kh = 0; kh < hk; ++kh) s += partial[(bi * hk + kh) * lkv + col];
-  colsum[i] = s;
+  for (int p = 0; p < n_part; ++p) s += partial[(bi * n_part + p) * lkv + col];
+  colsum[i] = s / static_cast<float>(h);
+}
+
+cudaError_t colsum_merge(const void* partial, void* colsum, int b, int n_part, int lkv, int h,
+                         cudaStream_t stream) {
+  const int n = b * lkv;
+  colsum_merge_kernel<<<(n + 255) / 256, 256, 0, stream>>>(
+      static_cast<const float*>(partial), static_cast<float*>(colsum), b, n_part, lkv, h);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t colsum_tc_launch(const void* qp, const void* lse_p, const void* pos, const void* k,
+                             void* partial, void* colsum, int b, int h, int hk, int hpc, int np,
+                             int lq, int lkv, int causal, float scale, cudaStream_t stream) {
+  if (hpc <= 0 || (h / hk) % hpc) return cudaErrorInvalidValue;
+  const size_t smem = colsum_tc_smem_bytes<D>((np + PT_BP - 1) / PT_BP);
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(probe_colsum_tc_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((lkv + PT_BK - 1) / PT_BK, h / hpc, b);
+  probe_colsum_tc_kernel<D><<<grid, THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(qp), static_cast<const float*>(lse_p),
+      static_cast<const int*>(pos), static_cast<const __nv_bfloat16*>(k),
+      static_cast<float*>(partial), h, hk, hpc, np, lkv, causal ? lkv - lq : 0, causal, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return colsum_merge(partial, colsum, b, h / hpc, lkv, h, stream);
 }
 
 template <typename T, int D>
@@ -587,22 +792,30 @@ cudaError_t colsum_launch_t(const void* qp, const void* lse_p, const void* pos, 
       causal ? lkv - lq : 0, causal, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int n = b * lkv;
-  colsum_merge_kernel<<<(n + 255) / 256, 256, 0, stream>>>(
-      static_cast<const float*>(partial), static_cast<float*>(colsum), b, hk, lkv);
-  return cudaGetLastError();
+  return colsum_merge(partial, colsum, b, hk, lkv, h, stream);
 }
 
 template <typename T>
 cudaError_t colsum_launch_d(int d, const void* qp, const void* lse_p, const void* pos,
                             const void* k, void* partial, void* colsum, int b, int h, int hk,
-                            int np, int lq, int lkv, int causal, float scale, cudaStream_t s) {
-  switch (d) {
-    case 16: return colsum_launch_t<T, 16>(qp, lse_p, pos, k, partial, colsum, b, h, hk, np, lq, lkv, causal, scale, s);
-    case 32: return colsum_launch_t<T, 32>(qp, lse_p, pos, k, partial, colsum, b, h, hk, np, lq, lkv, causal, scale, s);
-    case 64: return colsum_launch_t<T, 64>(qp, lse_p, pos, k, partial, colsum, b, h, hk, np, lq, lkv, causal, scale, s);
-    case 128: return colsum_launch_t<T, 128>(qp, lse_p, pos, k, partial, colsum, b, h, hk, np, lq, lkv, causal, scale, s);
-    default: return cudaErrorInvalidValue;
+                            int hpc, int np, int lq, int lkv, int causal, float scale,
+                            cudaStream_t s) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    switch (d) {
+      case 16: return colsum_tc_launch<16>(qp, lse_p, pos, k, partial, colsum, b, h, hk, hpc, np, lq, lkv, causal, scale, s);
+      case 32: return colsum_tc_launch<32>(qp, lse_p, pos, k, partial, colsum, b, h, hk, hpc, np, lq, lkv, causal, scale, s);
+      case 64: return colsum_tc_launch<64>(qp, lse_p, pos, k, partial, colsum, b, h, hk, hpc, np, lq, lkv, causal, scale, s);
+      case 128: return colsum_tc_launch<128>(qp, lse_p, pos, k, partial, colsum, b, h, hk, hpc, np, lq, lkv, causal, scale, s);
+      default: return cudaErrorInvalidValue;
+    }
+  } else {
+    switch (d) {
+      case 16: return colsum_launch_t<T, 16>(qp, lse_p, pos, k, partial, colsum, b, h, hk, np, lq, lkv, causal, scale, s);
+      case 32: return colsum_launch_t<T, 32>(qp, lse_p, pos, k, partial, colsum, b, h, hk, np, lq, lkv, causal, scale, s);
+      case 64: return colsum_launch_t<T, 64>(qp, lse_p, pos, k, partial, colsum, b, h, hk, np, lq, lkv, causal, scale, s);
+      case 128: return colsum_launch_t<T, 128>(qp, lse_p, pos, k, partial, colsum, b, h, hk, np, lq, lkv, causal, scale, s);
+      default: return cudaErrorInvalidValue;
+    }
   }
 }
 
@@ -626,16 +839,18 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, voi
 }
 
 // qp (b,h,np,d) and k (b,hk,lkv,d) in one type (bf16 or f32); lse_p (b,h,np) f32;
-// pos (b,np) int32, < 0 = padding row.  Scratch partial (b,hk,lkv) f32.
-// colsum (b,lkv) f32.
+// pos (b,np) int32, < 0 = padding row.  Scratch partial f32: (b,h/hpc,lkv)
+// for bf16 (one partial per hpc query heads, hpc dividing h / hk),
+// (b,hk,lkv) for f32 (per kv head; hpc unused).  colsum (b,lkv) f32.
 extern "C" int probe_colsum_launch(const void* qp, const void* lse_p, const void* pos,
                                    const void* k, void* partial, void* colsum, int b, int h,
-                                   int hk, int np, int lq, int lkv, int d, int causal,
+                                   int hk, int hpc, int np, int lq, int lkv, int d, int causal,
                                    float scale, int is_bf16, void* stream) {
-  if (hk <= 0 || h % hk) return static_cast<int>(cudaErrorInvalidValue);
+  if (hk <= 0 || h % hk || b <= 0 || lkv <= 0 || np < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err = is_bf16
-      ? colsum_launch_d<__nv_bfloat16>(d, qp, lse_p, pos, k, partial, colsum, b, h, hk, np, lq, lkv, causal, scale, s)
-      : colsum_launch_d<float>(d, qp, lse_p, pos, k, partial, colsum, b, h, hk, np, lq, lkv, causal, scale, s);
+      ? colsum_launch_d<__nv_bfloat16>(d, qp, lse_p, pos, k, partial, colsum, b, h, hk, hpc, np, lq, lkv, causal, scale, s)
+      : colsum_launch_d<float>(d, qp, lse_p, pos, k, partial, colsum, b, h, hk, hpc, np, lq, lkv, causal, scale, s);
   return static_cast<int>(err);
 }

@@ -5,10 +5,13 @@ and `probe_colsum` replaces `::probe_colsum`.  Bound on the H100:
 operations (attention at prefill widths).  `flash_fwd` in bf16, the main
 path's type, runs FlashAttention-2 on the tensor cores (`mma.sync` with
 `cp.async`-staged K/V tiles); in f32 it computes on the CUDA cores.
-`probe_colsum` computes in f32 on the CUDA cores, gives each CTA sole
-ownership of its key columns for one kv head, and a second small kernel
-adds the kv heads in order, so the sums are deterministic without atomics.
-See the source for the design."""
+`probe_colsum` in bf16 runs the probe-row scores on the tensor cores
+(`mma.sync`, a `cp.async` Q ring), one CTA per (64 key columns, one
+to eight query heads of a kv group, batch row), skipping probe tiles that lie
+wholly above the causal diagonal; in f32 it computes on the CUDA cores, one CTA per (32 key
+columns, batch, kv head).  Each CTA owns its key columns for its head(s),
+and a second small kernel adds the heads' partials in order, so the sums
+are deterministic without atomics.  See the source for the design."""
 
 from __future__ import annotations
 
@@ -21,8 +24,13 @@ LIB = build.CudaLibrary("probe_flash")
 FLASH = build.CudaKernel(LIB, "flash_fwd_launch",
                          [build.P] * 5 + [build.I] * 7 + [build.F, build.I, build.P])
 COLSUM = build.CudaKernel(LIB, "probe_colsum_launch",
-                          [build.P] * 6 + [build.I] * 8 + [build.F, build.I, build.P])
+                          [build.P] * 6 + [build.I] * 9 + [build.F, build.I, build.P])
 HEAD_DIMS = (16, 32, 64, 128)
+# bf16 probe_colsum: as many query heads of one kv group per CTA as still
+# give MIN_CTAS CTAs (about four per SM, the kernel's residency at 53 KB of
+# shared memory each), else 1
+MIN_CTAS = 512
+COLSUM_COLS = 64  # key columns per CTA
 
 
 def _check(name: str, dtype: torch.dtype, d: int, *ts: torch.Tensor) -> None:
@@ -53,6 +61,12 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = 
     return out, lse
 
 
+def _heads_per_cta(b: int, h: int, g: int, lkv: int) -> int:
+    col_blocks = -(-lkv // COLSUM_COLS)
+    fits = [n for n in range(1, g + 1) if g % n == 0 and col_blocks * (h // n) * b >= MIN_CTAS]
+    return max(fits, default=1)
+
+
 def probe_colsum(qp: torch.Tensor, lse_p: torch.Tensor, pos: torch.Tensor, k: torch.Tensor,
                  causal: bool = True, lq: int = None) -> torch.Tensor:
     """qp (b,h,np,d), lse_p (b,h,np) f32, pos (b,np) int32 (< 0 = padding),
@@ -66,10 +80,16 @@ def probe_colsum(qp: torch.Tensor, lse_p: torch.Tensor, pos: torch.Tensor, k: to
     if k.dtype != qp.dtype or lse_p.dtype != torch.float32 or pos.dtype != torch.int32 or h % hk:
         raise ValueError("probe_colsum: qp/k share a dtype, lse_p f32, pos int32, h % hk == 0")
     qp, lse_p, pos, k = qp.contiguous(), lse_p.contiguous(), pos.contiguous(), k.contiguous()
-    partial = torch.empty((b, hk, lkv), dtype=torch.float32, device=qp.device)
+    bf16 = qp.dtype == torch.bfloat16
+    if bf16 and (qp.data_ptr() % 16 or k.data_ptr() % 16):
+        raise ValueError("probe_colsum: bf16 qp and k must be 16-byte aligned")
+    # one partial column sum per hpc query heads (bf16, tensor cores) or per kv head (f32)
+    hpc = _heads_per_cta(b, h, h // hk, lkv)
+    partial = torch.empty((b, h // hpc if bf16 else hk, lkv), dtype=torch.float32,
+                          device=qp.device)
     colsum = torch.empty((b, lkv), dtype=torch.float32, device=qp.device)
     COLSUM(build.ptr(qp), build.ptr(lse_p), build.ptr(pos), build.ptr(k), build.ptr(partial),
            build.ptr(colsum),
-           b, h, hk, n_p, lq, lkv, d, int(causal), 1.0 / (d ** 0.5),
-           int(qp.dtype == torch.bfloat16), build.stream_of(qp))
+           b, h, hk, hpc, n_p, lq, lkv, d, int(causal), 1.0 / (d ** 0.5), int(bf16),
+           build.stream_of(qp))
     return colsum

@@ -23,6 +23,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.cst_quant import kernel as cst_kernel
 from repro_torch.kernels.cst_quant import ref as cst_ref
 from repro_torch.kernels.decode_qattn import kernel as dq_kernel
+from repro_torch.kernels.decode_qattn import ops as dq_ops
 from repro_torch.kernels.decode_qattn import ref as dq_ref
 from repro_torch.kernels.paged_qattn import kernel as pq_kernel
 from repro_torch.kernels.paged_qattn import ops as pq_ops
@@ -108,6 +109,73 @@ def test_probe_colsum_matches_plain(dev, dtype):
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
 
 
+def _probe_rows(rng, b, n_p, lq, kind):
+    """(b, n_p) int32 probe positions per batch row: unsorted distinct rows
+    with a few pad rows (-1), or every row below position 20."""
+    rows = []
+    for _ in range(b):
+        if kind == "low":
+            r = rng.integers(0, 20, size=n_p)
+        else:
+            r = rng.permutation(lq)[:n_p]
+            r[rng.choice(n_p, size=5, replace=False)] = -1
+        rows.append(r)
+    return np.stack(rows).astype(np.int32)
+
+
+@pytest.mark.parametrize("hpc", [1, 4])
+@pytest.mark.parametrize("rows", ["unsorted", "unsorted-noncausal", "low"])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("b", [1, 4])
+def test_probe_colsum_tensor_cores_matches_plain(dev, b, d, rows, hpc, monkeypatch):
+    """The bf16 (tensor-core) kernel with 1 or 4 query heads per CTA: lq <
+    lkv (a diagonal offset), 75 probe rows (not a multiple of 16) in no
+    order with pad rows, or every row below the first column of all but the
+    first CTA (their tiles skipped: exact zeros there); atol/rtol 1e-4
+    against the plain version (f32 sums in another order), and a second
+    call bitwise equal."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    h, hk, lq, lkv, n_p = 8, 2, 300, 333, 75
+    # the smallest grid that gives hpc heads per CTA
+    monkeypatch.setattr(pf_kernel, "MIN_CTAS", -(-lkv // pf_kernel.COLSUM_COLS) * (h // hpc) * b)
+    assert pf_kernel._heads_per_cta(b, h, h // hk, lkv) == hpc
+    q, k = _randn(gen, b, h, lq, d, dtype=torch.bfloat16), _randn(gen, b, hk, lkv, d,
+                                                                   dtype=torch.bfloat16)
+    causal = rows != "unsorted-noncausal"
+    _, lse = pf_ref.flash_fwd_ref(q, k, k, causal=causal)
+    pos = torch.from_numpy(_probe_rows(np.random.default_rng(b * d), b, n_p, lq,
+                                       rows.split("-")[0])).to(dev)
+    safe = pos.clamp(0, lq - 1).long()
+    qp = torch.stack([q[i][:, safe[i]] for i in range(b)])
+    lse_p = torch.stack([lse[i][:, safe[i]] for i in range(b)])
+    before = pf_kernel.COLSUM.launches
+    got = pf_kernel.probe_colsum(qp, lse_p, pos, k, causal=causal, lq=lq)
+    assert pf_kernel.COLSUM.launches == before + 1
+    want = pf_ref.probe_colsum_ref(qp, lse_p, pos, k, causal=causal, lq=lq)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    assert torch.equal(got, pf_kernel.probe_colsum(qp, lse_p, pos, k, causal=causal, lq=lq))
+    if rows == "low":  # row + (lkv - lq) < 20 + 33 < 64: no column from 64 on is reached
+        assert not got[:, 64:].any()
+
+
+def test_probe_colsum_deterministic(dev):
+    """At the lockstep shape (yi-6b widths, batch 4, prompt 1024, the probe
+    rows of select_probes(1024)), three calls give bitwise-equal sums: they
+    decide the saliency ties."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    b, h, hk, l, d = 4, 32, 4, 1024, 128
+    q, k = _randn(gen, b, h, l, d, dtype=torch.bfloat16), _randn(gen, b, hk, l, d,
+                                                                 dtype=torch.bfloat16)
+    _, lse = pf_kernel.flash_fwd(q, k, k)
+    pos = pf_ops.unique_probe_rows(sal.select_probes(l).positions.to(dev))
+    safe = pos.clamp(0, l - 1).long()
+    args = (q[:, :, safe].contiguous(), lse[:, :, safe].contiguous(),
+            pos[None].expand(b, -1).contiguous(), k)
+    first = pf_kernel.probe_colsum(*args, lq=l)
+    for _ in range(2):
+        assert torch.equal(pf_kernel.probe_colsum(*args, lq=l), first)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hk,g,d", [(2, 2, 16), (4, 8, 128)])
 def test_decode_qattn_matches_plain(dev, dtype, hk, g, d):
@@ -127,6 +195,41 @@ def test_decode_qattn_matches_plain(dev, dtype, hk, g, d):
         torch.testing.assert_close(m, rm, atol=1e-5, rtol=1e-5)
         torch.testing.assert_close(l_, rl, atol=1e-4, rtol=1e-5)
         torch.testing.assert_close(acc, racc, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("hi", ["live", "all-empty", "absent"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,d", [(2, 16), (8, 128)])
+def test_mixed_layer_matches_plain(dev, g, d, dtype, hi):
+    """One `qattn_mixed_layer` launch over a mixed cache's 4-bit hi, 2-bit lo
+    and partly filled raw window against the layer plain version: out
+    within 1e-4 (f32) or one bf16 ulp (bf16) of its largest magnitude (>=
+    1), f32 sums in another order.  The hi segment also comes with no valid
+    slot at all, and not at all."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    cfg = CompressionConfig.zipcache()
+    b, hk, l = 3, 2, 200
+    k, v = _randn(gen, b, hk, l, d, dtype=dtype), _randn(gen, b, hk, l, d, dtype=dtype)
+    cache = kvc.compress_prefill(cfg, k, v, torch.rand((b, l), generator=gen, device=dev), 300,
+                                 dtype=dtype)
+    for _ in range(7):
+        cache = kvc.append_token(cache, _randn(gen, b, hk, d, dtype=dtype),
+                                 _randn(gen, b, hk, d, dtype=dtype))
+    q = _randn(gen, b, hk * g, d, dtype=dtype)
+    segs = dq_ops.mixed_segments(cache)
+    assert [(o["k_bits"], o["v_bits"]) for o in segs] == [(4, 4), (2, 2), (16, 16)]
+    if hi == "all-empty":
+        segs[0] = dict(segs[0], pos=torch.full_like(segs[0]["pos"], -1))
+    elif hi == "absent":
+        segs = segs[1:]
+    before = dq_kernel.KERNEL.launches
+    out = dq_kernel.qattn_mixed_layer(q, segs)
+    assert dq_kernel.KERNEL.launches == before + 1
+    want = dq_ref.mixed_layer_ref(q, segs)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    tol = 2 ** -7 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(out.float(), want.float(),
+                               atol=tol * max(want.float().abs().max().item(), 1.0), rtol=0)
 
 
 def test_engine_runs_every_kernel(dev):
@@ -315,3 +418,26 @@ def test_continuous_engine_runs_every_kernel(dev):
     assert paged.GATHER_DECODES.launches == gathers
     eng._alloc.check_invariants()
     assert all(v["used"] == 0 for k, v in eng.pool_stats().items() if k in ("hi", "lo", "win"))
+
+
+def test_continuous_engine_mixed_layout_runs_decode_qattn(dev):
+    """Smoke-width continuous run on the card over the mixed layout, where
+    decode takes `decode_qattn`'s layer kernel with slots admitted, retired
+    and empty in the batch: every kernel of the path launches, one
+    `decode_qattn` launch per layer per non-probe step, and every request
+    ends with its budget."""
+    cfg = configs.get_arch("yi-6b", smoke=True)
+    ccfg = dataclasses.replace(CompressionConfig.zipcache(), fp_window=8, recompress_interval=8)
+    scfg = ServeConfig(batch_size=2, prompt_len=48, max_new_tokens=12)
+    params = registry.materialize_params(cfg, seed=0, device=dev)
+    kernels = (cst_kernel.KERNEL, pf_kernel.FLASH, pf_kernel.COLSUM, dq_kernel.KERNEL)
+    before = [k.launches for k in kernels]
+    eng = ContinuousEngine(cfg, ccfg, scfg, params, device=dev)
+    rng = np.random.default_rng(1)
+    budgets = (12, 6, 12)
+    rids = [eng.submit(Request(tokens=rng.integers(2, cfg.vocab, size=n).astype(np.int32),
+                               max_new_tokens=m)) for n, m in zip((48, 20, 33), budgets)]
+    res = eng.run()
+    assert [len(res[r].tokens) for r in rids] == list(budgets)
+    assert all(k.launches > n for k, n in zip(kernels, before))
+    assert (dq_kernel.KERNEL.launches - before[3]) % cfg.n_layers == 0
