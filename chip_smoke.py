@@ -13,7 +13,9 @@ continued:
      max error against a stated tolerance, time from CUDA events, the least
      time the card could take (bound), the plain version's time, and, where
      one PyTorch call computes the same function, that call's time;
-     flash_fwd and probe_colsum are timed at batch 1 too (the continuous
+     cst_quant takes the hi and lo stores of the lockstep prefill (K and V
+     in one launch, bitwise against the plain version) and the lo store at
+     batch 1; flash_fwd and probe_colsum are timed at batch 1 too (the continuous
      admission shape), flash_fwd with SDPA beside it; probe_colsum is held
      bitwise equal across two calls, and the salient set that
      `saliency.salient_split` draws from its normalized sums against the
@@ -204,25 +206,66 @@ def main() -> None:
         log(f"{name}: max abs err {err:.3g} (tol {tol:.3g}); kernel {ms:.4f} ms (device "
             f"{dev_ms:.4f} ms), plain {plain:.4f} ms{lib}, bound {bnd[0]:.4f} ms ({bnd[1]})")
 
-    # cst_quant: V of the lo (2-bit) store at prefill, prompt tokens + zero padding
-    # rows; the hi (4-bit) store's shape is checked too.  Codes and params exact.
-    for bits, cap, n_tok in ((4, s_hi, ccfg.n_salient(prompt)),
-                             (2, s_lo, prompt - ccfg.n_salient(prompt))):
-        x = randn(b * hk, cap, d)
-        x[:, n_tok:] = 0
-        c = torch.sqrt(x.float().abs().amax(dim=1).clamp_min(1e-8).double()).float()
-        got = cst_kernel.cst_quant_rows(x, c, bits)
-        want = cst_ref.cst_quant_rows_ref(x, c, bits)
+    # cst_quant: one launch per store, K channelwise and V CST with the gather
+    # fused, at the lockstep prefill's hi (4-bit) and lo (2-bit) stores: slot
+    # indices from salient_split, -1 padding to capacity.  Codes and the
+    # store-dtype parameters equal the plain version's bit for bit.
+    kv_k, kv_v = randn(b, hk, prompt, d), randn(b, hk, prompt, d)
+    sal_idx, reg_idx = sal.salient_split(torch.rand((b, prompt), generator=gen, device=dev),
+                                         ccfg.n_salient(prompt))
+    stores = {}
+    for name, bits, cap, sidx in (("hi", ccfg.high_bits, s_hi, sal_idx),
+                                  ("lo", ccfg.low_bits, s_lo, reg_idx)):
+        sidx = torch.nn.functional.pad(sidx, (0, cap - sidx.shape[1]), value=-1)
+        before = cst_kernel.KERNEL.launches
+        got = cst_kernel.quantize_store(kv_k, kv_v, sidx, bits)
+        want = cst_ref.quantize_store_ref(kv_k, kv_v, sidx, bits)
         torch.cuda.synchronize()
-        for part, a, w in zip(("codes", "scale", "zero"), got, want):
-            check(torch.equal(a, w), f"cst_quant {bits}-bit: {part} differ from the plain version")
-    err = 0.0  # the 2-bit shape's codes and params are equal (checked above)
-    fn = lambda: cst_kernel.cst_quant_rows(x, c, 2)  # noqa: E731
-    ms = time_ms(torch, fn)
-    plain = time_ms(torch, lambda: cst_ref.cst_quant_rows_ref(x, c, 2))
+        check(cst_kernel.KERNEL.launches == before + 1, "cst_quant: one launch per store")
+        for part, a, w in zip(("K codes", "K scale", "K zero", "V codes", "V scale", "V zero",
+                               "V channel scale"), got, want):
+            check(a.dtype == w.dtype and torch.equal(a, w),
+                  f"cst_quant {name} store: {part} differ from the plain version")
+        stores[name] = (bits, sidx, got)
+
+    def store_bound(k_, v_, sidx, got):
+        """Bytes: each live slot's K and V rows read once, the slot indices,
+        the codes and parameters written once."""
+        n_live = int((sidx >= 0).sum())
+        row = k_.shape[1] * (k_.shape[-1] + v_.shape[-1]) * k_.element_size()
+        return bound_ms(0.0, n_live * row + nbytes(sidx, *got))
+
+    bits, sidx, got = stores["lo"]
+    fn = lambda: cst_kernel.quantize_store(kv_k, kv_v, sidx, bits)  # noqa: E731
+    ms = time_ms(torch, fn, iters=50)
+    plain = time_ms(torch, lambda: cst_ref.quantize_store_ref(kv_k, kv_v, sidx, bits))
     record("cst_quant", "src/repro_torch/kernels/cst_quant/csrc/cst_quant.cu",
-           "src/repro/kernels/cst_quant/kernel.py:66", err, 0.0, fn, ms, plain,
-           bound_ms(6.0 * x.numel(), nbytes(x, c, *got)))
+           "src/repro/kernels/cst_quant/kernel.py:66", 0.0, 0.0, fn, ms, plain,
+           store_bound(kv_k, kv_v, sidx, got))
+    hbits, hidx, hgot = stores["hi"]
+    hfn = lambda: cst_kernel.quantize_store(kv_k, kv_v, hidx, hbits)  # noqa: E731
+    extra = {"hi": {"ms": time_ms(torch, hfn, iters=50), "device_ms": device_ms(torch, hfn),
+                    "bound_ms": store_bound(kv_k, kv_v, hidx, hgot)[0]}}
+    # batch 1: one admission or slot fold of the continuous path
+    k1, v1, idx1 = kv_k[:1].contiguous(), kv_v[:1].contiguous(), sidx[:1].contiguous()
+    got1 = cst_kernel.quantize_store(k1, v1, idx1, bits)
+    want1 = cst_ref.quantize_store_ref(k1, v1, idx1, bits)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, w) for a, w in zip(got1, want1)),
+          "cst_quant batch 1: the lo store differs from the plain version")
+    fn1 = lambda: cst_kernel.quantize_store(k1, v1, idx1, bits)  # noqa: E731
+    extra["batch1"] = {"ms": time_ms(torch, fn1, iters=50), "device_ms": device_ms(torch, fn1),
+                       "plain_ms": time_ms(torch, lambda: cst_ref.quantize_store_ref(
+                           k1, v1, idx1, bits)),
+                       "bound_ms": store_bound(k1, v1, idx1, got1)[0]}
+    rows["cst_quant"].update(extra)
+    log(f"cst_quant: timed at the lo store ({bits}-bit, {sidx.shape[1]} slots); hi store "
+        f"({hbits}-bit, {hidx.shape[1]} slots) {extra['hi']['ms']:.4f} ms (device "
+        f"{extra['hi']['device_ms']:.4f} ms, bound {extra['hi']['bound_ms']:.5f} ms); batch 1 "
+        f"lo store {extra['batch1']['ms']:.4f} ms (device {extra['batch1']['device_ms']:.4f} "
+        f"ms, plain {extra['batch1']['plain_ms']:.4f} ms, bound "
+        f"{extra['batch1']['bound_ms']:.5f} ms)")
+    del stores, got, hgot, k1, v1, idx1, got1, want1
 
     # flash_fwd: causal prefill attention, GQA 32/4, bf16
     q, k, v = randn(b, h, prompt, d), randn(b, hk, prompt, d), randn(b, hk, prompt, d)

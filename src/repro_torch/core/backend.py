@@ -3,9 +3,9 @@ behind one interface the model layers and the engines call.
 
 `MixedKVBackend` puts the ZipCache mixed cache behind that interface.  With
 `use_kernels` it routes the cache's hot steps through the port's CUDA
-kernels: CST quantization of V through `cst_quant`, and decode attention on
-non-probe steps through `decode_qattn` where the policy's stores are
-ZipCache's (channelwise K, CST V).  Probe steps need exact head-pooled
+kernels where the policy's stores are ZipCache's (channelwise K, CST V):
+each store's gather and quantization (K and V) through one `cst_quant`
+launch, and decode attention on non-probe steps through `decode_qattn`.  Probe steps need exact head-pooled
 slot weights for the saliency state, so they take the plain exact-softmax
 `attend_decode`.  `use_kernels=False` is the plain path throughout, the JAX
 package's live path written in PyTorch.  The paged layout is

@@ -19,8 +19,9 @@ Continuous batching: `append_token(active=)` masks empty slots,
 write one batch row, and `recompress(rows=)` folds a subset of rows.
 
 Only the saliency policies (zipcache, mikv) are ported; the baselines'
-branches raise.  `use_kernel` routes the CST quantization of V through the
-`cst_quant` kernel wrapper instead of `core.quant.quantize_cst`.
+branches raise.  `use_kernel` builds ZipCache's stores (K channelwise, V
+CST, quantized) with one `cst_quant` launch each, which gathers the store's
+tokens and quantizes K and V together (`store_at`).
 """
 
 from __future__ import annotations
@@ -108,8 +109,7 @@ def _empty_quant(x: torch.Tensor, bits: int) -> quant.QuantizedTensor:
     return quant.QuantizedTensor(codes, scale, zero, None, min(bits, 8), tuple(x.shape))
 
 
-def _quantize_kv(k: torch.Tensor, v: torch.Tensor, bits: int, cfg: CompressionConfig,
-                 use_kernel: bool = False):
+def _quantize_kv(k: torch.Tensor, v: torch.Tensor, bits: int, cfg: CompressionConfig):
     """Quantize gathered K/V token blocks per the policy's schemes."""
     if k.shape[-2] == 0:
         return _empty_quant(k, bits), _empty_quant(v, bits)
@@ -118,18 +118,28 @@ def _quantize_kv(k: torch.Tensor, v: torch.Tensor, bits: int, cfg: CompressionCo
     kw_k = {"group_size": min(cfg.group_size, k.shape[-1])} if cfg.key_scheme == "groupwise" else {}
     kw_v = {"group_size": min(cfg.group_size, v.shape[-1])} if cfg.value_scheme == "groupwise" else {}
     qk = quant.quantize(k, bits, cfg.key_scheme, **kw_k)
-    if use_kernel and cfg.value_scheme == "cst":
-        from repro_torch.kernels.cst_quant import ops as cst_ops
-        qv = cst_ops.quantize_cst(v, bits)
-    else:
-        qv = quant.quantize(v, bits, cfg.value_scheme, **kw_v)
+    qv = quant.quantize(v, bits, cfg.value_scheme, **kw_v)
     return qk, qv
 
 
-def build_store(k, v, pos, acc, nnz, bits: int, cfg: CompressionConfig,
-                use_kernel: bool = False) -> TokenStore:
-    qk, qv = _quantize_kv(k, v, bits, cfg, use_kernel=use_kernel)
+def build_store(k, v, pos, acc, nnz, bits: int, cfg: CompressionConfig) -> TokenStore:
+    qk, qv = _quantize_kv(k, v, bits, cfg)
     return TokenStore(qk, qv, pos.to(torch.int32), acc.float(), nnz.float())
+
+
+def store_at(k: torch.Tensor, v: torch.Tensor, idx: torch.Tensor, pos, acc, nnz, bits: int,
+             cfg: CompressionConfig, use_kernel: bool = False) -> TokenStore:
+    """The store of the tokens that idx (b, S) picks from k / v (b, h_kv, l,
+    d); idx < 0 gives a zero row (a store's padding, an invalid slot).  pos,
+    acc and nnz are per slot already.  With `use_kernel`, ZipCache's stores
+    (K channelwise, V CST) at a quantized width take one `cst_quant` launch
+    for the gather and both quantizers."""
+    if use_kernel and idx.shape[1] and bits < 16 \
+            and (cfg.key_scheme, cfg.value_scheme) == ("channelwise", "cst"):
+        from repro_torch.kernels.cst_quant import ops as cst_ops
+        qk, qv = cst_ops.quantize_store(k, v, idx, bits)
+        return TokenStore(qk, qv, pos.to(torch.int32), acc.float(), nnz.float())
+    return build_store(_gather_tokens(k, idx), _gather_tokens(v, idx), pos, acc, nnz, bits, cfg)
 
 
 def empty_store(b: int, h_kv: int, capacity: int, d: int, bits: int, cfg: CompressionConfig,
@@ -230,27 +240,17 @@ def init_cache(cfg: CompressionConfig, b: int, h_kv: int, d: int, max_len: int,
 # ---------------------------------------------------------------------------
 
 def _gather_tokens(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """x: (b, h, l, d); idx: (b, n) -> (b, h, n, d)."""
+    """x: (b, h, l, d); idx: (b, n) -> (b, h, n, d), a zero row where idx < 0."""
     b, h, _, d = x.shape
-    return torch.gather(x, 2, idx.long()[:, None, :, None].expand(b, h, idx.shape[1], d))
+    src = idx.clamp_min(0).long()[:, None, :, None].expand(b, h, idx.shape[1], d)
+    rows = torch.gather(x, 2, src)
+    return torch.where((idx >= 0)[:, None, :, None], rows,
+                       torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def _gather_slots(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x: (b, l); idx: (b, n) -> (b, n)."""
     return torch.gather(x, 1, idx.long())
-
-
-def _pad_tokens(k, v, pos, acc, nnz, capacity: int):
-    """Right-pad token blocks (b,h,n,d)/(b,n) to a static capacity."""
-    n = k.shape[2]
-    if n > capacity:
-        raise ValueError(f"{n} tokens exceed store capacity {capacity}")
-    if n == capacity:
-        return k, v, pos, acc, nnz
-    pad = capacity - n
-    F = torch.nn.functional
-    return (F.pad(k, (0, 0, 0, pad)), F.pad(v, (0, 0, 0, pad)),
-            F.pad(pos, (0, pad), value=-1), F.pad(acc, (0, pad)), F.pad(nnz, (0, pad)))
 
 
 def compress_prefill(cfg: CompressionConfig, k: torch.Tensor, v: torch.Tensor,
@@ -276,10 +276,17 @@ def compress_prefill(cfg: CompressionConfig, k: torch.Tensor, v: torch.Tensor,
     salient_idx, regular_idx = sal.salient_split(token_saliency, n_hi)
 
     def store(idx, capacity, bits):
-        parts = _pad_tokens(_gather_tokens(k, idx), _gather_tokens(v, idx),
-                            _gather_slots(positions, idx), _gather_slots(acc, idx),
-                            _gather_slots(nnz, idx), capacity)
-        return build_store(*parts, bits, cfg, use_kernel=use_kernel)
+        """The store of tokens idx, right-padded to its static capacity."""
+        pad = capacity - idx.shape[1]
+        if pad < 0:
+            raise ValueError(f"{idx.shape[1]} tokens exceed store capacity {capacity}")
+
+        def slots(x, fill=0):
+            return torch.nn.functional.pad(x, (0, pad), value=fill)
+
+        return store_at(k, v, slots(idx, -1), slots(_gather_slots(positions, idx), -1),
+                        slots(_gather_slots(acc, idx)), slots(_gather_slots(nnz, idx)), bits,
+                        cfg, use_kernel=use_kernel)
 
     return MixedKVCache(
         hi=store(salient_idx, s_hi, cfg.high_bits),
@@ -469,11 +476,6 @@ def _recompress_all(cfg: CompressionConfig, cache: MixedKVCache,
                     use_kernel: bool = False) -> MixedKVCache:
     _ported(cfg)
     k, v, valid, pos = cache_keys_values(cache)
-    # zero the payload of invalid slots first: channel scales reduce over the
-    # whole token axis, so stale payload would leak into live tokens' scales
-    zero = torch.zeros((), dtype=k.dtype, device=k.device)
-    k = torch.where(valid[:, None, :, None], k, zero)
-    v = torch.where(valid[:, None, :, None], v, zero)
     acc = torch.cat([cache.hi.acc, cache.lo.acc, cache.win_acc], dim=1)
     nnz = torch.cat([cache.hi.nnz, cache.lo.nnz, cache.win_nnz], dim=1)
     scores = acc / nnz.clamp_min(1.0) if cfg.saliency_metric == "normalized" else acc
@@ -484,12 +486,15 @@ def _recompress_all(cfg: CompressionConfig, cache: MixedKVCache,
     idx = idx.to(torch.int32)
 
     def store(idx_, bits):
-        return build_store(_gather_tokens(k, idx_), _gather_tokens(v, idx_),
-                           _gather_slots(pos, idx_), _gather_slots(acc, idx_),
-                           _gather_slots(nnz, idx_), bits, cfg, use_kernel=use_kernel)
+        order = _valid_first(idx_, valid)
+        # invalid slots read a zero row: channel scales reduce over the whole
+        # token axis, so stale payload would leak into live tokens' scales
+        src = torch.where(_gather_slots(valid, order), order, -1)
+        return store_at(k, v, src, _gather_slots(pos, order), _gather_slots(acc, order),
+                        _gather_slots(nnz, order), bits, cfg, use_kernel=use_kernel)
 
-    hi = store(_valid_first(idx[:, :s_hi], valid), cfg.high_bits)
-    lo = store(_valid_first(idx[:, s_hi:], valid), cfg.low_bits)
+    hi = store(idx[:, :s_hi], cfg.high_bits)
+    lo = store(idx[:, s_hi:], cfg.low_bits)
     return _emptied_window(dataclasses.replace(cache, hi=hi, lo=lo))
 
 

@@ -1,11 +1,21 @@
-"""Launch wrapper of the CSTQuant kernel (`csrc/cst_quant.cu`).
+"""Launch wrappers of the cache-store quantization kernel (`csrc/cst_quant.cu`).
 
-Replaces `src/repro/kernels/cst_quant/kernel.py::cst_quantize_pallas`.
-Bound on the H100: bytes (read x once, write bits/8 of it back).  One warp
-per token row: shuffle min/max, pack in registers, one store per byte.
+Replaces `src/repro/kernels/cst_quant/kernel.py::cst_quantize_pallas` and,
+on the live path, the store quantizer around it (`repro.core.kvcache.
+_quantize_kv` under the zipcache policy: K channelwise, V CSTQuant).  Bound
+on the H100: bytes.  `quantize_store` is one launch per cache store: it
+gathers the store's tokens from K and V (zero rows where the slot index is
+-1), computes K's channel parameters and V's channel scale, and writes the
+codes and the store-dtype parameters of both, each (batch row, kv head,
+tensor) on `split` CTAs that stage their slots in shared memory once (a
+thread-block cluster when split > 1).  `cst_quant_rows`, the TPU kernel's
+counterpart (rows against a given channel scale, f32 parameters), is the V
+instantiation of the same kernel.  CPU tensors take `ref`.
 """
 
 from __future__ import annotations
+
+import struct
 
 import torch
 
@@ -13,7 +23,105 @@ from repro_torch.kernels import build
 from repro_torch.kernels.cst_quant import ref
 
 LIB = build.CudaLibrary("cst_quant")
-KERNEL = build.CudaKernel(LIB, "cst_quant_launch", [build.P] * 5 + [build.I] * 5 + [build.P])
+KERNEL = build.CudaKernel(LIB, "cst_store_launch", [build.P] + [build.I] * 5 + [build.P])
+BITS = (2, 4, 8)
+FLOATS = (torch.bfloat16, torch.float32)
+THREADS, WARPS = 512, 16
+SMEM_MAX = 232448      # dynamic shared memory a CTA may take on an H100
+MAX_CLUSTER = 8        # CTAs per slice: a cluster of the portable size at most
+TARGET_CTAS = 132      # one per SM: `_split` spreads a store over about this many CTAs
+ROWS_PER_CTA = 64      # cst_quant_rows: rows per CTA
+
+
+# The source's `StoreDesc`, packed: src[2], idx, c_in, codes[2], scale[2],
+# zero[2], cscale (pointers; tensor 0 is K, 1 is V); sb[2], sh[2], sl[2]
+# (int64 strides); d[2], hk, S, has_k, rows_per_cta, chunk (int32); padding.
+_DESC = struct.Struct("<11Q6q7i4x")
+
+
+def head_dim_ok(d: int, bits: int, elem: int) -> bool:
+    """Whether the kernel takes head dim d (elements of `elem` bytes): each
+    thread owns 8 channels of a row (4 at 8 bits), a power of two of
+    threads up to a warp per row, rows of whole 16-byte pieces."""
+    vpt = 4 if bits == 8 else 8
+    tpr = d // vpt
+    return 0 < d <= THREADS and d % vpt == 0 and tpr <= 32 and tpr & (tpr - 1) == 0 \
+        and d * elem % 16 == 0
+
+
+def _split(slices: int) -> int:
+    """CTAs per (batch row, kv head, tensor): a power of two that keeps the
+    grid within one CTA per SM, at most a cluster of MAX_CLUSTER."""
+    split = 1
+    while split < MAX_CLUSTER and 2 * split * slices <= TARGET_CTAS:
+        split *= 2
+    return split
+
+
+def _source(x: torch.Tensor) -> torch.Tensor:
+    """x as the kernel reads it: channel stride 1, 16-byte aligned rows."""
+    e = x.element_size()
+    if x.stride(-1) != 1 or x.data_ptr() % 16 or any(s * e % 16 for s in x.stride()[:-1]):
+        x = x.contiguous()
+    return x
+
+
+def _chunk(rows_per_cta: int, dmax: int, elem: int) -> int:
+    """Slots a CTA stages at once: all of its run where they fit."""
+    room = SMEM_MAX - (2 * WARPS + 4) * dmax * 4 - 16
+    return max(1, min(rows_per_cta, room // (dmax * elem + 4)))
+
+
+def quantize_store(k: torch.Tensor, v: torch.Tensor, idx: torch.Tensor, bits: int,
+                   split: int = None):
+    """One cache store of the zipcache policy, K channelwise and V CST, in
+    one launch.
+
+    k (b, hk, l, dk), v (b, hk, l, dv) bf16 / f32 in one dtype, the store
+    dtype; idx (b, S) int32: the source token of each slot, -1 = a zero row.
+    Returns (k_codes (b, hk, S, dk/pf) int8, k_scale, k_zero (b, hk, 1, dk),
+    v_codes (b, hk, S, dv/pf) int8, v_scale, v_zero (b, hk, S, 1), v_cscale
+    (b, hk, 1, dv)), the parameters in the store dtype: those of
+    `core.quant.quantize_channelwise` and `quantize_cst` on the gathered
+    block, bit for bit.  `split` (a tuning argument: CTAs per batch row,
+    kv head and tensor, 1 to MAX_CLUSTER) defaults to `_split`.
+    """
+    if k.device.type == "cpu":
+        return ref.quantize_store_ref(k, v, idx, bits)
+    if k.device.type != "cuda":
+        raise ValueError(f"cst_quant: unsupported device {k.device}")
+    if k.dtype not in FLOATS or v.dtype != k.dtype or k.dim() != 4 or v.dim() != 4 \
+            or k.shape[:3] != v.shape[:3] or v.device != k.device:
+        raise ValueError(f"cst_quant: K / V (b, hk, l, d) bf16 / f32 of one dtype; got K "
+                         f"{k.dtype} {tuple(k.shape)}, V {v.dtype} {tuple(v.shape)}")
+    b, hk, _, dk = k.shape
+    dv = v.shape[-1]
+    if idx.dtype != torch.int32 or idx.dim() != 2 or idx.shape[0] != b or idx.shape[1] == 0 \
+            or idx.device != k.device:
+        raise ValueError(f"cst_quant: idx ({b}, S > 0) int32 on {k.device}; got {idx.dtype} "
+                         f"{tuple(idx.shape)}")
+    elem = k.element_size()
+    if bits not in BITS or not head_dim_ok(dk, bits, elem) or not head_dim_ok(dv, bits, elem):
+        raise ValueError(f"cst_quant: bits {bits} (one of {BITS}) with head dims {dk} / {dv}")
+    split = split or _split(2 * b * hk)
+    if not 1 <= split <= MAX_CLUSTER:
+        raise ValueError(f"cst_quant: split {split} outside 1..{MAX_CLUSTER}")
+    s = idx.shape[1]
+    k, v, idx = _source(k), _source(v), idx.contiguous()
+    dev = k.device
+    kc = torch.empty((b, hk, s, dk * bits // 8), dtype=torch.int8, device=dev)
+    vc = torch.empty((b, hk, s, dv * bits // 8), dtype=torch.int8, device=dev)
+    ks, kz = torch.empty((2, b, hk, 1, dk), dtype=k.dtype, device=dev).unbind(0)
+    vs, vz = torch.empty((2, b, hk, s, 1), dtype=k.dtype, device=dev).unbind(0)
+    vcs = torch.empty((b, hk, 1, dv), dtype=k.dtype, device=dev)
+    rpc = -(-s // split)
+    (ksb, ksh, ksl, _), (vsb, vsh, vsl, _) = k.stride(), v.stride()
+    desc = _DESC.pack(k.data_ptr(), v.data_ptr(), idx.data_ptr(), 0, kc.data_ptr(),
+                      vc.data_ptr(), ks.data_ptr(), vs.data_ptr(), kz.data_ptr(), vz.data_ptr(),
+                      vcs.data_ptr(), ksb, vsb, ksh, vsh, ksl, vsl, dk, dv, hk, s, 1, rpc,
+                      _chunk(rpc, max(dk, dv), elem))
+    KERNEL(desc, b, split, bits, int(k.dtype == torch.bfloat16), 0, build.stream_of(k))
+    return kc, ks, kz, vc, vs, vz, vcs
 
 
 def cst_quant_rows(x: torch.Tensor, c: torch.Tensor, bits: int):
@@ -23,19 +131,21 @@ def cst_quant_rows(x: torch.Tensor, c: torch.Tensor, bits: int):
         return ref.cst_quant_rows_ref(x, c, bits)
     if x.device.type != "cuda":
         raise ValueError(f"cst_quant: unsupported device {x.device}")
-    if x.dtype not in (torch.bfloat16, torch.float32) or x.dim() != 3:
+    if x.dtype not in FLOATS or x.dim() != 3:
         raise ValueError(f"cst_quant: x must be (B, T, C) bf16/f32, got {x.dtype} {tuple(x.shape)}")
     bsz, t, ch = x.shape
-    if bits not in (2, 4) or ch % (8 // bits):
+    if bits not in BITS or not head_dim_ok(ch, bits, x.element_size()):
         raise ValueError(f"cst_quant: bits {bits} with {ch} channels")
     if c.shape != (bsz, ch) or c.dtype != torch.float32 or c.device != x.device:
         raise ValueError(f"cst_quant: channel scale must be ({bsz}, {ch}) f32 on {x.device}")
-    x = x.contiguous()
-    c = c.contiguous()
-    codes = torch.empty((bsz, t, ch // (8 // bits)), dtype=torch.int8, device=x.device)
-    scale = torch.empty((bsz, t), dtype=torch.float32, device=x.device)
-    zero = torch.empty((bsz, t), dtype=torch.float32, device=x.device)
+    x, c = _source(x), c.contiguous()
+    codes = torch.empty((bsz, t, ch * bits // 8), dtype=torch.int8, device=x.device)
+    sz = torch.empty((2, bsz, t), dtype=torch.float32, device=x.device)
     if t:
-        KERNEL(build.ptr(x), build.ptr(c), build.ptr(codes), build.ptr(scale), build.ptr(zero),
-               bsz * t, t, ch, bits, int(x.dtype == torch.bfloat16), build.stream_of(x))
-    return codes, scale, zero
+        rpc = min(t, ROWS_PER_CTA)
+        desc = _DESC.pack(0, x.data_ptr(), 0, c.data_ptr(), 0, codes.data_ptr(), 0,
+                          sz[0].data_ptr(), 0, sz[1].data_ptr(), 0, 0, x.stride(0), 0, 0, 0,
+                          x.stride(1), 0, ch, 1, t, 0, rpc, _chunk(rpc, ch, x.element_size()))
+        KERNEL(desc, bsz, -(-t // rpc), bits, int(x.dtype == torch.bfloat16), 1,
+               build.stream_of(x))
+    return codes, sz[0], sz[1]

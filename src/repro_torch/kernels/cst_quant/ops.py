@@ -1,11 +1,14 @@
-"""CSTQuant over (..., T, C): channel scales outside the kernel, batching.
+"""The cache-store quantization kernel as the cache calls it.
 
-`cst_quantize` mirrors the reference's `ops.cst_quantize` (f32 params);
-`quantize_cst` is the drop-in for `core.quant.quantize_cst` on the cache's
-path: it casts scale, zero and c to the store dtype, as the core does.
+`quantize_store` wraps one `kernel.quantize_store` launch into the two
+`QuantizedTensor`s of a store.  `cst_quantize` mirrors the reference's
+`ops.cst_quantize` (the channel scale in torch, the rows through the
+kernel, f32 params).
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -13,6 +16,17 @@ from repro_torch.core import quant
 from repro_torch.kernels.cst_quant import kernel as K
 
 EPS = 1e-8
+
+
+def quantize_store(k: torch.Tensor, v: torch.Tensor, idx: torch.Tensor,
+                   bits: int) -> Tuple[quant.QuantizedTensor, quant.QuantizedTensor]:
+    """The (K channelwise, V CST) store of the tokens idx (b, S) picks from
+    k / v (b, hk, l, d), -1 giving a zero row; one launch."""
+    kc, ks, kz, vc, vs, vz, vcs = K.quantize_store(k, v, idx, bits)
+    b, hk, _, dk = k.shape
+    s = idx.shape[1]
+    return (quant.QuantizedTensor(kc, ks, kz, None, bits, (b, hk, s, dk)),
+            quant.QuantizedTensor(vc, vs, vz, vcs, bits, (b, hk, s, v.shape[-1])))
 
 
 def cst_quantize(x: torch.Tensor, bits: int):
@@ -30,11 +44,3 @@ def cst_quantize(x: torch.Tensor, bits: int):
     pf = 8 // bits
     return (codes.reshape(*lead, t, ch // pf), scale.reshape(*lead, t, 1),
             zero.reshape(*lead, t, 1), cs.reshape(*lead, 1, ch))
-
-
-def quantize_cst(x: torch.Tensor, bits: int) -> quant.QuantizedTensor:
-    """`core.quant.quantize_cst(x, bits)` through the kernel: same codes,
-    same store-dtype parameters."""
-    codes, scale, zero, cs = cst_quantize(x, bits)
-    return quant.QuantizedTensor(codes, scale.to(x.dtype), zero.to(x.dtype), cs.to(x.dtype),
-                                 bits, tuple(x.shape))

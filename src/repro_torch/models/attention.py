@@ -133,7 +133,7 @@ def gqa_forward(params: dict, x: torch.Tensor, cfg: ArchConfig, *, causal: bool 
     k = common.apply_rotary(k, cos[None, None], sin[None, None])
     out, colsum = blocked_attention(q, k, v, causal=causal, q_block=q_block, probe=probe,
                                     use_kernel=use_kernel)
-    y = common.einsum("bhld,hde->ble", out, params["wo"])
+    y = common.out_proj(out.transpose(1, 2), params["wo"])  # heads beside d
     saliency = nnz = None
     if probe is not None and colsum is not None:
         saliency, nnz = probe_saliency_from_colsum(colsum, probe, l, causal=causal)

@@ -79,7 +79,7 @@ def apply_layer_decode(params: dict, x_t: torch.Tensor, cfg: ArchConfig, cache_e
     cache_el = be.append(cache_el, k_t, v_t, active=active)
     dec = be.attend(q_t, cache_el, is_probe)
     cache_el = be.update_probe(cache_el, dec.slot_weights, is_probe)
-    x_t = x_t + common.einsum("bhd,hde->be", dec.out, params["attn"]["wo"])
+    x_t = x_t + common.out_proj(dec.out, params["attn"]["wo"])
     if cfg.d_ff:
         x_t = x_t + mlp_mod.dense_mlp(params["mlp"],
                                       common.rms_norm(x_t, params["ln2"], cfg.norm_eps))

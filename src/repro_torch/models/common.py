@@ -105,6 +105,23 @@ def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.einsum(eq, a, b)
 
 
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with `einsum`'s rounding (the CPU's bf16 operands go up to f32).
+    The model's weight-stationary products go through here with `b` a view
+    of the weight (`w.reshape(h * d, e)`, `embed.T`): `torch.einsum` would
+    permute such a weight and copy all of it before its GEMM."""
+    if a.device.type == "cpu" and a.dtype == torch.bfloat16:
+        return (a.float() @ b.float()).to(a.dtype)
+    return a @ b
+
+
+def out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """The attention-output projection: out (..., h, d) @ wo (h, d, e) ->
+    (..., e), contracted over the flattened (h * d) axis through views."""
+    h, d, e = wo.shape
+    return matmul(out.reshape(*out.shape[:-2], h * d), wo.reshape(h * d, e))
+
+
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     g = einsum("...e,ef->...f", x, w_gate)

@@ -46,7 +46,7 @@ def mask_padded_vocab(logits: torch.Tensor, vocab: int) -> torch.Tensor:
 def unembed(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     x = common.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
-        logits = common.einsum("...e,ve->...v", x, params["embed"])
+        logits = common.matmul(x, params["embed"].T)
     else:
         logits = common.einsum("...e,ev->...v", x, params["lm_head"])
     return mask_padded_vocab(logits, cfg.vocab)

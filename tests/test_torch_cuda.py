@@ -65,6 +65,76 @@ def test_cst_quant_exact(dev, bits, dtype, shape):
         assert torch.equal(a.cpu(), w)
 
 
+@pytest.mark.parametrize("split", [None, 1], ids=["cluster", "one-cta"])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,d", [(4, 461, 128), (1, 691, 128), (4, 691, 64), (1, 37, 64)])
+def test_quantize_store_matches_plain(dev, b, s, d, dtype, bits, split):
+    """One store through the kernel equals its plain version (on the card
+    and on the CPU, the JAX-parity path) bit for bit: codes and parameters
+    in the store dtype.  Slots gather shuffled source tokens with a -1 tail;
+    with b 4, row 1 is all -1 and kv head 1 of row 2 is all zeros (scales
+    clamp to eps); both grid designs (a cluster per slice by default, one
+    CTA per slice); a strided source (a transposed view)."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    hk, l = 4, s + 50
+    k = _randn(gen, b, l, hk, d, dtype=dtype, scale=2.0).transpose(1, 2)
+    v = _randn(gen, b, hk, l, d, dtype=dtype)
+    n_live = s - s // 5
+    idx = torch.full((b, s), -1, dtype=torch.int32, device=dev)
+    for row in range(b):
+        idx[row, :n_live] = torch.randperm(l, generator=gen, device=dev)[:n_live].int()
+    if b == 4:
+        idx[1] = -1
+        k[2, 1] = 0
+        v[2, 1] = 0
+    before = cst_kernel.KERNEL.launches
+    got = cst_kernel.quantize_store(k, v, idx, bits, split=split)
+    assert cst_kernel.KERNEL.launches == before + 1
+    want = cst_ref.quantize_store_ref(k, v, idx, bits)
+    on_cpu = cst_ref.quantize_store_ref(k.cpu(), v.cpu(), idx.cpu(), bits)
+    names = ("k_codes", "k_scale", "k_zero", "v_codes", "v_scale", "v_zero", "v_cscale")
+    for name, a, w, c in zip(names, got, want, on_cpu):
+        assert a.dtype == w.dtype and a.shape == w.shape, name
+        assert torch.equal(a, w), name
+        assert torch.equal(a.cpu(), c), name
+
+
+@pytest.mark.parametrize("where", ["decode", "prefill"])
+def test_out_proj_copies_no_weight(dev, where):
+    """The attention-output projection at yi-6b's width reads `wo` through a
+    view: a record_shapes profile on the card shows no copy or clone of a
+    tensor with wo's element count, and the product equals the einsum's
+    within one bf16 ulp of its largest magnitude."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import common
+    gen = torch.Generator(device=dev).manual_seed(8)
+    h, d, e = 32, 128, 4096
+    wo = _randn(gen, h, d, e, dtype=torch.bfloat16, scale=0.01)
+    if where == "decode":
+        out = _randn(gen, 4, h, d, dtype=torch.bfloat16)
+        want = torch.einsum("bhd,hde->be", out, wo)
+        fn = lambda: common.out_proj(out, wo)  # noqa: E731
+    else:
+        out = _randn(gen, 4, h, 64, d, dtype=torch.bfloat16)
+        want = torch.einsum("bhld,hde->ble", out, wo)
+        fn = lambda: common.out_proj(out.transpose(1, 2), wo)  # noqa: E731
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        got = fn()
+        torch.cuda.synchronize()
+    copies = [(ev.name, ev.input_shapes) for ev in prof.events()
+              if ev.name in ("aten::copy_", "aten::clone") and ev.input_shapes
+              and ev.input_shapes[0] and int(np.prod(ev.input_shapes[0])) == wo.numel()]
+    assert not copies, copies
+    assert got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=2 ** -7 * want.float().abs().max().item())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,hk,lq,lkv,d", [(2, 4, 2, 48, 48, 16), (1, 8, 2, 100, 100, 128),
                                             (1, 4, 4, 33, 70, 64)])

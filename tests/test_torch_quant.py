@@ -57,13 +57,16 @@ def test_quantize_rejects_precision_maps():
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
 def test_cst_kernel_plain_version_matches_quantize_cst(bits, dtype, rng):
     """The kernel route on the CPU (its plain version) equals the core's
-    quantize_cst, with the channel scale taken over padding rows too."""
+    quantize_cst for V, with the channel scale taken over padding rows too:
+    a store whose slots read tokens 0-39 and 8 zero rows (slot index -1)."""
     x = np.array(_x(rng, (2, 2, 48, 128), dtype).astype(jnp.float32))
-    x[:, :, 40:] = 0.0  # _pad_tokens' zero rows
+    x[:, :, 40:] = 0.0  # a store's zero rows
     xj = jnp.asarray(x).astype(dtype)
     want = jquant.quantize_cst(xj, bits)
+    idx = torch.arange(48, dtype=torch.int32).masked_fill(torch.arange(48) >= 40, -1)
+    src = to_torch(xj)[:, :, :40]
     launches = cst_kernel.KERNEL.launches
-    got = cst_ops.quantize_cst(to_torch(xj), bits)
+    _, got = cst_ops.quantize_store(src, src, idx.expand(2, 48), bits)
     assert cst_kernel.KERNEL.launches == launches  # CPU tensors never launch
     np.testing.assert_array_equal(got.codes.numpy(), np.asarray(want.codes))
     for a, b in ((got.scale, want.scale), (got.zero, want.zero),
