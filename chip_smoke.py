@@ -30,9 +30,11 @@ continued:
   4. slice 1's main path: `ServingEngine.generate` on yi-6b at full width
      (32 layers, random bf16 weights from a seeded generator), zipcache
      defaults, batch 4, prompt 1024, 128 new tokens: prefill, probe steps,
-     decode and one recompression.  Every kernel of the path must launch.
-     The prefill logits and the first decode step's logits are held against
-     the same model run through the plain versions;
+     decode and one recompression.  Every kernel of the path must launch;
+     the decode steps without a probe replay a captured CUDA graph, whose
+     launches count as the capture's times the replays.  The prefill
+     logits and the first decode step's logits are held against the same
+     model run through the plain versions;
   4b. slice 2's main path: `ContinuousEngine` over the paged layout with the
      free-list allocator (4 slots, page 64, pool_fraction 0.75, the page
      walk on), same model, 8 greedy requests with ragged prompts (200-1024
@@ -42,6 +44,21 @@ continued:
      kernel of the path must launch and no decode may take the gather path.
      One admitted slot's first decode-step logits are held against the same
      engine built with the plain versions;
+  4c / 4d. the captured decode steps (both engines replay a CUDA graph of
+     their non-probe step in phases 4 and 4b): phase 4's and phase 4b's
+     traffic through a fresh eager engine (capture=False) and a fresh
+     captured one, in turn.  For each: decode wall time, the median wall
+     time of a non-probe and of a probe step (lockstep: the step alone to a
+     synchronize; continuous: an engine step that admits, folds and retires
+     nothing), busy share and device operations per step in a profiled
+     window of 16 steps, peak device memory, the launch counts (captured:
+     the capture's times the replays) against the path's expected counts.
+     The captured step must be built once and replayed.  Every decode step
+     of the timed run (lockstep: 128; continuous: the first pass, through
+     its admissions, deferrals, folds and retirements) is held against the
+     eager engine's step of the same index: the active rows' logits within
+     one bf16 ulp of their largest value (the count of bitwise-equal steps
+     is logged), and every greedy token equal;
   5. a `kernels` JSON line, then the last line:
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -660,12 +677,15 @@ def main() -> None:
         peng._admit()   # prefill + insert, without the step's decode
         peng._alloc.note_append(0)   # the window page the decode writes
         peng._sync_tables()
-        tok, probes, act = peng._stage({0: (peng.slots[0].generated[-1], False)})
+        stage = steps_lib.stage_rows({0: (peng.slots[0].generated[-1], False)}, b)
+        kstep, pstep = (steps_lib.make_continuous_decode_step(cfg, e._shape, ccfg, ctx=e.ctx,
+                                                              device=dev, capture=False)[0]
+                        for e in (keng, peng))
         before = pq_kernel.KERNEL.launches
-        lpk, _ = steps_lib.continuous_decode(params, peng.caches, tok, probes, act, cfg, keng.ctx)
+        lpk, _ = kstep(params, peng.caches, stage)
         check(pq_kernel.KERNEL.launches - before == n_layers,
               "the kernel engine's decode step did not go through paged_qattn once per layer")
-        lpp, _ = steps_lib.continuous_decode(params, peng.caches, tok, probes, act, cfg, peng.ctx)
+        lpp, _ = pstep(params, peng.caches, stage)
         check(pq_kernel.KERNEL.launches - before == n_layers,
               "the plain engine's decode step launched paged_qattn")
     check(bool(torch.isfinite(lpk[0]).all()), "continuous first decode logits not finite")
@@ -678,6 +698,111 @@ def main() -> None:
         f"{bool(lpk[0].argmax() == lpp[0].argmax())}")
     check(r <= 0.2, "continuous first decode logits differ from the plain path beyond tolerance")
     del peng, keng
+
+    # ---- 4c / 4d. eager against captured decode steps -----------------------
+    # the same traffic on the same model through a fresh engine of each kind
+    # (capture=False: the plain functions; capture=True: the decode step
+    # replays a CUDA graph), in one call
+    toks = torch.as_tensor(batch["tokens"], device=dev)
+    interval = ccfg.recompress_interval
+    n_win = 16   # steps in each profiled window
+    lock = {}
+    for capture in (False, True):
+        eng = ServingEngine(cfg, ccfg, scfg, params, device=dev, capture=capture)
+        eng.generate(batch, max_new_tokens=2)   # warm-up (with capture: warm-up step, capture)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for kern in kernels.values():
+            kern.launches = 0
+        rec = eng._decode = StepLogits(eng._decode)   # every step's logits
+        out = eng.generate(batch)
+        eng._decode = rec.step
+        got = {n: kern.launches for n, kern in kernels.items()}
+        peak = torch.cuda.max_memory_allocated()
+        for name, n in expected.items():
+            check(got[name] == n, f"lockstep (capture {capture}): {name} {got[name]} launches, "
+                                  f"the path implies {n}")
+        step_ms, probe_ms = [], []
+        with torch.inference_mode():
+            lg, caches = eng._prefill(params, {"tokens": toks})
+            caches = eng._decode.adopt(caches)
+            tok = torch.argmax(lg, dim=-1).to(torch.int32)
+            for i in range(n_win):
+                probe = probe_flag(i, interval, scfg.seed)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lg, caches = eng._decode(params, caches, tok, probe)
+                torch.cuda.synchronize()
+                (probe_ms if probe else step_ms).append((time.perf_counter() - t0) * 1e3)
+                tok = eng._decode.token
+
+            def window():
+                c = caches
+                for _ in range(n_win):
+                    _, c = eng._decode(params, c, eng._decode.token, False)
+
+            busy, ops = profile_window(torch, window, n_win)
+        lock[capture] = dict(tokens=out["tokens"], decode_s=out["timings"]["decode_s"],
+                             tok_s=out["timings"]["tok_per_s"], step_ms=np.median(step_ms),
+                             probe_ms=np.median(probe_ms),
+                             busy=busy, ops=ops, peak=peak, rec=rec, step=eng._decode)
+        del eng, caches, lg
+    summarize("lockstep", lock, torch, rel_l2, yardstick)
+
+    cont = {}
+    for capture in (False, True):
+        eng = ContinuousEngine(cfg, ccfg, cscfg, params, device=dev, capture=capture)
+        rec = eng._decode_masked = StepLogits(eng._decode_masked)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for kern in kernels.values():
+            kern.launches = 0
+        plain_ms, probe_ms = [], []
+        t0 = time.perf_counter()
+        rids = [eng.submit(Request(tokens=r, max_new_tokens=int(m)))
+                for r, m in zip(requests, budgets)]
+        while eng.pending:
+            # a plain or a probe step: nothing is admitted, folded or retired
+            live = [sl for sl in eng.slots if sl is not None]
+            probe = any(probe_flag(sl.steps, interval, 0) for sl in live)
+            n_events = (eng._n_admissions, eng._n_folds, len(live))
+            ts = time.perf_counter()
+            eng.step()   # ends in the tokens' copy to the host
+            if live and n_events == (eng._n_admissions, eng._n_folds,
+                                     sum(sl is not None for sl in eng.slots)):
+                (probe_ms if probe else plain_ms).append((time.perf_counter() - ts) * 1e3)
+        wall = time.perf_counter() - t0
+        got = {n: kern.launches for n, kern in kernels.items()}
+        peak = torch.cuda.max_memory_allocated()
+        st = eng.pool_stats()
+        want = {"cst_quant": 2 * n_layers * (st["admissions"] + st["folds"]),
+                "flash_fwd": n_layers * st["admissions"],
+                "probe_colsum": n_layers * st["admissions"],
+                "decode_qattn": 0, "paged_qattn": n_layers * eng._step_no}
+        for name, n in want.items():
+            check(got[name] == n, f"continuous (capture {capture}): {name} {got[name]} "
+                                  f"launches, the path implies {n}")
+        rec.on = False   # the first pass's steps are the ones compared
+        res = {r: eng.result(r).tokens for r in rids}
+        check(all(len(res[r]) == budgets[i] for i, r in enumerate(rids)),
+              f"continuous (capture {capture}): a request ended short of its budget")
+        # a profiled window of engine steps in the middle of a second pass
+        rids2 = [eng.submit(Request(tokens=r, max_new_tokens=int(m)))
+                 for r, m in zip(requests, budgets)]
+        for _ in range(40):
+            eng.step()
+        busy, ops = profile_window(torch, lambda: [eng.step() for _ in range(n_win)], n_win)
+        eng.run()
+        same = np.mean([eng.result(r).tokens.tolist() == res[q].tolist()
+                        for r, q in zip(rids2, rids)])
+        log(f"continuous (capture {capture}): {same:.3f} of the requests' tokens repeat on a "
+            f"second pass of the same traffic on the same engine")
+        cont[capture] = dict(tokens=np.concatenate([res[r] for r in rids]), decode_s=wall,
+                             tok_s=sum(len(t) for t in res.values()) / wall,
+                             step_ms=np.median(plain_ms), probe_ms=np.median(probe_ms), busy=busy,
+                             ops=ops, peak=peak, rec=rec, step=rec.step)
+        del eng
+    summarize("continuous", cont, torch, rel_l2, yardstick)
     for name, row in rows.items():
         row["launches"] = sum(p.get(name, 0) for p in by_path.values())
         row["launches_by_path"] = {k: p.get(name, 0) for k, p in by_path.items()}
@@ -687,6 +812,92 @@ def main() -> None:
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
+
+
+def profile_window(torch, run, n_steps):
+    """(busy share, device operations per step) of `run()`, which runs
+    `n_steps` steps, under torch.profiler: the device's summed kernel, copy
+    and fill time over the wall time to a synchronize."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ops = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    if not ops:
+        log("torch.profiler recorded no device operations: busy share not measured")
+        return None, None
+    return sum(e.device_time for e in ops) / 1e6 / wall, len(ops) / n_steps
+
+
+class StepLogits:
+    """A decode step that keeps every call's logits while `on`: all rows of
+    a lockstep step; the active rows of a continuous step (staged (3, b)
+    host rows), the only ones the engine reads.  Also the step's replay
+    count after each call."""
+
+    def __init__(self, step):
+        self.step, self.on, self.logits, self.replays = step, True, [], []
+
+    def __call__(self, *args):
+        logits, caches = self.step(*args)
+        if self.on:
+            kept = logits
+            if len(args) == 3:   # continuous: (params, caches, staged); row 2 active
+                kept = logits[[i for i, a in enumerate(args[2][2]) if a]]
+            self.logits.append(kept.clone())
+            self.replays.append(self.step.replays)
+        return logits, caches
+
+    def __getattr__(self, name):
+        return getattr(self.step, name)
+
+
+def summarize(path, runs, torch, rel_l2, yardstick):
+    """Log the eager and captured runs of one engine side by side; check the
+    captured step was built once and replayed, that every step's logits
+    agree with the eager step's of the same index within one bf16 ulp of
+    their largest value, and that every greedy token is equal."""
+    eager, cap = runs[False], runs[True]
+    step = cap["step"]
+    check(step.captures == 1 and step.replays > 0,
+          f"{path}: the captured step was built {step.captures} times and replayed "
+          f"{step.replays} times")
+    check(eager["step"].captures == 0 and eager["step"].replays == 0,
+          f"{path}: the eager engine built a step")
+    got, want = cap["rec"].logits, eager["rec"].logits
+    check(len(got) == len(want) > 0,
+          f"{path}: {len(got)} captured steps against {len(want)} eager steps")
+    n_equal, worst = 0, 0.0
+    for i, (a, w) in enumerate(zip(got, want)):
+        check(a.shape == w.shape and bool(torch.isfinite(a).all()),
+              f"{path}: step {i}'s logits not finite or of another shape")
+        n_equal += bool(torch.equal(a, w))
+        ulp = 2 ** -7 * max(w.float().abs().max().item(), 1.0)
+        dev_ = (a.float() - w.float()).abs().max().item() / ulp
+        worst = max(worst, dev_)
+        check(dev_ <= 1.0, f"{path}: step {i}'s logits differ from the eager step's by "
+                           f"{dev_:.3g} bf16 ulps of their largest value (tolerance 1)")
+    k = next(i for i, r in enumerate(cap["rec"].replays) if r > 0)
+    r = rel_l2(got[k], want[k])
+    agree = float((cap["tokens"] == eager["tokens"]).mean())
+    for name, x in (("eager", eager), ("captured", cap)):
+        busy = "not measured" if x["busy"] is None else f"{x['busy']:.4f}"
+        ops = "not measured" if x["ops"] is None else f"{x['ops']:.1f}"
+        log(f"{path} {name}: decode wall {x['decode_s']:.3f} s ({x['tok_s']:.1f} tok/s), "
+            f"median non-probe step {x['step_ms']:.3f} ms, probe step {x['probe_ms']:.3f} ms, "
+            f"busy share {busy}, device ops "
+            f"per step {ops}, max memory allocated {x['peak'] / 2**30:.3f} GiB")
+    log(f"{path}: captured step {step.captures} capture(s), {step.replays} replays; "
+        f"{len(got)} steps' logits vs eager: {n_equal} bitwise equal, largest difference "
+        f"{worst:.4g} bf16 ulps of the largest value (tolerance 1); replayed first non-probe "
+        f"step (step {k}): bitwise equal {bool(torch.equal(got[k], want[k]))}, relative L2 "
+        f"{r:.4g} (yardstick of bf16 noise {yardstick:.4g}); greedy tokens equal {agree:.4f}")
+    check(agree == 1.0, f"{path}: the captured engine's greedy tokens differ from the eager "
+                        "engine's")
 
 
 def _freelist_cache(torch, np, backend_lib, alloc_lib, paged, ccfg, dev, gen, hk, d, max_len,

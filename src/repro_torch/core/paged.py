@@ -37,6 +37,7 @@ import torch
 from repro_torch.core import kvcache as kvc
 from repro_torch.core import quant
 from repro_torch.core.policy import CompressionConfig
+from repro_torch.kernels import build
 
 DEFAULT_PAGE_SIZE = 64
 
@@ -469,14 +470,9 @@ def recompress_slot(cfg: CompressionConfig, cache: PagedKVCache, slot: int,
 # Backend
 # ---------------------------------------------------------------------------
 
-class PathCounter:
-    """How often a path ran; reset by writing 0 to `launches`."""
-    launches = 0
-
-
 # decode attentions whose output came from the gather path (a dense view of
 # every page, then `kvcache.attend_decode`) instead of the page walk
-GATHER_DECODES = PathCounter()
+GATHER_DECODES = build.Counter()
 
 
 @dataclasses.dataclass(frozen=True)

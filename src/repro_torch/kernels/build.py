@@ -113,7 +113,25 @@ class CudaLibrary:
         return self._handle
 
 
-class CudaKernel:
+# every launch counter of the port, so that a captured step
+# (`launch.steps`) can add what its capture counted once per replay
+COUNTERS: List["Counter"] = []
+
+
+class Counter:
+    """How often a path ran: `launches`, reset by writing 0 to it.
+
+    A wrapper adds one where it launches its kernel.  Inside a CUDA graph
+    capture nothing runs, so the captured step takes the capture's counts
+    back and adds them again at every replay.
+    """
+
+    def __init__(self) -> None:
+        self.launches = 0
+        COUNTERS.append(self)
+
+
+class CudaKernel(Counter):
     """A C entry point of a `CudaLibrary` plus its launch counter.
 
     Calling it launches the kernel on the given stream; a non-zero
@@ -124,10 +142,10 @@ class CudaKernel:
     """
 
     def __init__(self, library: CudaLibrary, symbol: str, argtypes: list):
+        super().__init__()
         self.library = library
         self.symbol = symbol
         self.argtypes = argtypes
-        self.launches = 0
         self._fn = None
 
     def __call__(self, *args) -> None:

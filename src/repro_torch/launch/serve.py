@@ -61,6 +61,12 @@ def _profiled(run, device: torch.device):
     return out
 
 
+def print_step(step) -> None:
+    """The decode step's builds and replays: CUDA graph captures and replays
+    on the card; on the CPU, static-buffer builds and their eager runs."""
+    print(f"[serve] decode step {step.name}: {step.captures} captures, {step.replays} replays")
+
+
 def add_engine_args(ap: argparse.ArgumentParser) -> None:
     """The engine / `ServeConfig` flags, named as in `repro.launch.serve`."""
     ap.add_argument("--arch", required=True)
@@ -158,6 +164,7 @@ def _serve_continuous(args, cfg, ccfg, scfg, params, device, prompts):
         print(f"[serve] page pools peak used {used}, {ps['deferrals']} admissions deferred, "
               f"{ps['preemptions']} slots preempted")
     print("[serve] kernel launches:", {n: k.launches for n, k in KERNELS.items()})
+    print_step(eng._decode_masked)
     return {rid: eng.result(rid) for rid in rids}
 
 
@@ -211,6 +218,7 @@ def main(argv=None):
           f"({out['timings']['tok_per_s']:.1f} tok/s)")
     print("[serve] first request tokens:", out["tokens"][0][:16].tolist())
     print("[serve] kernel launches:", {n: k.launches for n, k in KERNELS.items()})
+    print_step(engine._decode)
     return out
 
 

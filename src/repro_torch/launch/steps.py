@@ -1,22 +1,58 @@
-"""Serving context and the engines' step functions (port of the serving half
+"""Serving context and the engines' step factories (port of the serving half
 of `repro.launch.steps`).
 
-The JAX package builds each engine program with a step factory and jits
-it; PyTorch runs eagerly, so the factories become the plain functions
-below, called with the serving context they share.
+Each factory returns `(fn, ctx)` as the reference's does, without `mesh`.
+The JAX package jits every engine program.  Here prefill, recompression,
+the folds and slot insertion run eagerly, and the two decode programs (the
+lockstep step and the continuous masked step) are step objects over static
+buffers:
+
+  * the step owns its inputs (the lockstep token; the continuous step's
+    staged (3, b) rows of tokens, probe flags and active flags) and the
+    cache tree it reads, and writes every cache leaf it changes back into
+    that tree;
+  * on the card, a step on which no row probes is captured once as a CUDA
+    graph and replayed.  The first such step runs eagerly on the capture
+    stream (the warm-up: kernel builds, `cudaFuncSetAttribute`, cuBLAS's
+    workspace for that stream); the second is captured, then replayed.  A
+    capture that fails raises `CaptureError`: there is no quiet return to
+    the eager path;
+  * a probe step runs eagerly against the same buffers: its route (exact
+    slot weights for the saliency state) is chosen on the host;
+  * on the CPU every step runs eagerly against the same buffers, the plain
+    version of a replay;
+  * `capture=False` runs the plain functions on fresh caches every step:
+    the eager path that the captured one is held against.
+
+A graph bakes in every address it reads: the parameters, the static inputs
+and every cache leaf.  So whatever replaces cache leaves outside the step
+(prefill, a fold, insertion, a slot's retirement) goes through `adopt`,
+which copies the new leaves into the static tree.
+
+A kernel wrapper counts its launches on the host, which a replay never
+runs: the capture's counts are taken back and added again at every replay
+(`kernels.build.COUNTERS`).  Each build (a capture on the card, the static
+buffers on the CPU) is reported to `runtime.compile_guard`.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core import backend as backend_lib
+from repro_torch.core import kvcache as kvc
 from repro_torch.core import saliency as sal
 from repro_torch.core.policy import CompressionConfig
+from repro_torch.kernels import build
 from repro_torch.models import blocks, registry
+from repro_torch.runtime import compile_guard
+
+# rows of the continuous step's staged (3, b) int32 inputs
+ROW_TOK, ROW_PROBE, ROW_ACT = range(3)
 
 
 def serve_ctx(cfg: ArchConfig, shape: ShapeConfig, ccfg: Optional[CompressionConfig] = None,
@@ -45,26 +81,301 @@ def serve_ctx(cfg: ArchConfig, shape: ShapeConfig, ccfg: Optional[CompressionCon
                          q_block=q_block, use_kernels=use_kernels, backend=backend)
 
 
-def continuous_decode(params, caches: Any, token: torch.Tensor, probes, active: torch.Tensor,
-                      cfg: ArchConfig, ctx: blocks.RunCtx):
-    """Decode with per-slot probe flags and an active-slot mask -> (logits,
-    caches).  Inactive slots are masked (no append, invalid positions), never
-    sliced away."""
-    return registry.decode_step(params, token, caches, cfg, ctx, probes, active=active)
+def stage_rows(rows: Dict[int, Tuple[int, bool]], b: int) -> np.ndarray:
+    """A continuous step's inputs {slot: (token, probe)} as its host (3, b)
+    int32 matrix; slots not in `rows` are inactive."""
+    stage = np.zeros((3, b), np.int32)
+    for i, (tok, probe) in rows.items():
+        stage[ROW_TOK, i], stage[ROW_PROBE, i], stage[ROW_ACT, i] = tok, probe, 1
+    return stage
 
 
-def insert(caches: Any, slice_caches: Any, slot: int):
-    """Write a batch-1 prefill cache slice into decode-batch row `slot`."""
-    return registry.insert_caches(caches, slice_caches, slot)
+class CaptureError(RuntimeError):
+    """A decode step could not be captured as a CUDA graph."""
 
 
-def recompress_rows(caches: Any, rows: torch.Tensor, cfg: ArchConfig, ctx: blocks.RunCtx):
-    """Fold the staging windows of the masked slots only (per-request cadence,
-    paper Alg. 3).  Recompresses the whole batch and selects rows."""
-    return registry.recompress(caches, cfg, ctx, rows=rows)
+def _copy_into(dst: Any, src: Any) -> None:
+    """Copy every leaf of cache tree `src` that is not dst's own leaf into
+    dst's, in place.  Shapes and dtypes must match."""
+    def put(d: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+        if s is d:
+            return d
+        if s.shape != d.shape or s.dtype != d.dtype:
+            raise ValueError(f"cache leaf {tuple(s.shape)} {s.dtype} does not fit the static "
+                             f"leaf {tuple(d.shape)} {d.dtype}")
+        return d.copy_(s)
+
+    if len(dst["groups"]) != len(src["groups"]):
+        raise ValueError("the cache trees have different layer counts")
+    for gd, gs in zip(dst["groups"], src["groups"]):
+        kvc.tree_map(put, gd["sub0"], gs["sub0"])
 
 
-def recompress_slot(caches: Any, slot: int, cfg: ArchConfig, ctx: blocks.RunCtx):
-    """Fold exactly ONE slot's staging window through the backend's per-slot
-    recompression (the paged layout): a batch-1 view, ~1/slots the work."""
-    return registry.recompress(caches, cfg, ctx, slot=slot)
+def _greedy(logits: torch.Tensor) -> torch.Tensor:
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+class _DecodeStep:
+    """A decode program over static buffers (see the module docstring).
+
+    `captures` counts builds (captures on the card, the static buffers on
+    the CPU); `replays` counts the steps on which no row probes served by
+    the built program (graph replays on the card, its plain version on the
+    CPU).  The logits a step returns on the card alias the graph's output:
+    the next step overwrites them.
+    """
+
+    def __init__(self, name: str, cfg: ArchConfig, ctx: blocks.RunCtx, device, capture: bool):
+        self.name = name
+        self.cfg = cfg
+        self.ctx = ctx
+        self.device = torch.device(device)
+        self.capture = capture
+        self.caches = None
+        self.captures = 0
+        self.replays = 0
+        self._params = None
+        self._stream: Optional[torch.cuda.Stream] = None
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._out: Optional[torch.Tensor] = None
+        self._deltas: Tuple = ()
+
+    def adopt(self, caches: Any) -> Any:
+        """Make `caches` the step's cache tree and return that tree: the first
+        tree becomes the static one, a later one is copied into it.  With
+        capture=False, `caches` itself."""
+        if not self.capture:
+            return caches
+        if self.caches is None:
+            self.caches = caches
+        elif caches is not self.caches:
+            _copy_into(self.caches, caches)
+        return self.caches
+
+    def _make_inputs(self, like) -> None:
+        raise NotImplementedError
+
+    def _run(self, probes) -> torch.Tensor:
+        """The step against the static buffers, eagerly: returns the logits."""
+        raise NotImplementedError
+
+    def _prepare(self, params, caches: Any, like) -> None:
+        """Adopt `caches`; at the first call make the static inputs shaped
+        like `like` (a build on the CPU) and keep the parameters, whose
+        addresses a graph bakes in."""
+        self.adopt(caches)
+        if self._params is None:
+            self._make_inputs(like)
+            self._params = params
+            if self.device.type != "cuda":
+                self._built()
+        elif params is not self._params:
+            raise ValueError(f"{self.name}: called with other parameters than it was built "
+                             "with")
+
+    def _built(self) -> None:
+        self.captures += 1
+        compile_guard.record(self.name)
+
+    def _step(self, probes) -> torch.Tensor:
+        """One step against the static buffers: a probe step eagerly, a
+        non-probe step through the built program."""
+        if probes is not False:
+            return self._run(probes)
+        if self.device.type == "cuda" and self._graph is None:
+            if self._stream is None:
+                return self._warm_up()
+            self._capture()
+        self.replays += 1
+        if self._graph is None:   # the CPU: the plain version of a replay
+            return self._run(False)
+        self._graph.replay()
+        for counter, n in self._deltas:
+            counter.launches += n
+        return self._out
+
+    def _warm_up(self) -> torch.Tensor:
+        """The first non-probe step, eagerly, on the stream that will capture
+        it."""
+        self._stream = torch.cuda.Stream(self.device)
+        main = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(main)
+        with torch.cuda.stream(self._stream):
+            out = self._run(False)
+        main.wait_stream(self._stream)
+        out.record_stream(main)
+        return out
+
+    def _capture(self) -> None:
+        before = [(c, c.launches) for c in build.COUNTERS]
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, stream=self._stream):
+                out = self._run(False)
+        except Exception as e:  # noqa: BLE001 — any op that cannot be captured
+            raise CaptureError(f"{self.name}: capturing the decode step failed: "
+                               f"{type(e).__name__}: {e}") from e
+        finally:
+            deltas = tuple((c, c.launches - n) for c, n in before if c.launches != n)
+            for c, n in before:
+                c.launches = n
+        self._graph, self._out, self._deltas = graph, out, deltas
+        self._built()
+
+
+class ServeStep(_DecodeStep):
+    """serve_step(params, caches, token, is_probe) -> (logits, caches).
+
+    is_probe: the step's host bool.  After a call, `token` holds the greedy
+    next token ((b,) int32); with capture, that is the static input itself,
+    written inside the graph, so passing it back feeds the next step with no
+    copy.
+    """
+
+    def __init__(self, cfg: ArchConfig, ctx: blocks.RunCtx, device, capture: bool):
+        super().__init__("serve_step", cfg, ctx, device, capture)
+        self.token: Optional[torch.Tensor] = None
+
+    def __call__(self, params, caches: Any, token: torch.Tensor, is_probe: bool):
+        if not self.capture:
+            logits, caches = registry.decode_step(params, token, caches, self.cfg, self.ctx,
+                                                  bool(is_probe))
+            self.token = _greedy(logits)
+            return logits, caches
+        self._prepare(params, caches, token)
+        if token is not self.token:
+            self.token.copy_(token)
+        return self._step(bool(is_probe)), self.caches
+
+    def _make_inputs(self, like: torch.Tensor) -> None:
+        self.token = torch.zeros(like.shape, dtype=torch.int32, device=self.device)
+
+    def _run(self, probes) -> torch.Tensor:
+        logits, new = registry.decode_step(self._params, self.token, self.caches, self.cfg,
+                                           self.ctx, probes)
+        _copy_into(self.caches, new)
+        self.token.copy_(_greedy(logits))
+        return logits
+
+
+class ContinuousDecodeStep(_DecodeStep):
+    """decode(params, caches, staged) -> (logits, caches).
+
+    staged: the step's host (3, b) int32 matrix (`stage_rows`: tokens,
+    probe flags, active flags), uploaded once.  Inactive slots are masked
+    (no append, invalid positions), never sliced away.  A step on which no
+    row probes is the captured program.
+    """
+
+    def __init__(self, cfg: ArchConfig, ctx: blocks.RunCtx, device, capture: bool):
+        super().__init__("continuous_decode", cfg, ctx, device, capture)
+        self.staged: Optional[torch.Tensor] = None
+
+    def __call__(self, params, caches: Any, staged: np.ndarray):
+        probe = bool(staged[ROW_PROBE].any())
+        if not self.capture:
+            dev = torch.from_numpy(staged).to(self.device)
+            return registry.decode_step(params, dev[ROW_TOK], caches, self.cfg, self.ctx,
+                                        dev[ROW_PROBE] if probe else False,
+                                        active=dev[ROW_ACT].bool())
+        self._prepare(params, caches, staged)
+        self.staged.copy_(torch.from_numpy(staged))
+        return self._step(self.staged[ROW_PROBE] if probe else False), self.caches
+
+    def _make_inputs(self, like: np.ndarray) -> None:
+        self.staged = torch.zeros(like.shape, dtype=torch.int32, device=self.device)
+
+    def _run(self, probes) -> torch.Tensor:
+        s = self.staged
+        logits, new = registry.decode_step(self._params, s[ROW_TOK], self.caches, self.cfg,
+                                           self.ctx, probes, active=s[ROW_ACT].bool())
+        _copy_into(self.caches, new)
+        return logits
+
+
+def _ctx(cfg, shape, ccfg, ctx, q_block, device) -> blocks.RunCtx:
+    """`ctx`, else the serving context of `shape` with the port's kernels on
+    the path.  A caller that wants the plain versions passes
+    `serve_ctx(..., use_kernels=False)` as `ctx`, as the engines do."""
+    return ctx or serve_ctx(cfg, shape, ccfg, q_block=q_block, device=device)
+
+
+def make_prefill_step(cfg: ArchConfig, shape: ShapeConfig, ccfg: Optional[CompressionConfig] = None,
+                      q_block: int = 512, *, ctx=None, device="cuda"):
+    """prefill(params, batch) -> (logits at the last position, caches)."""
+    ctx = _ctx(cfg, shape, ccfg, ctx, q_block, device)
+
+    def prefill_step(params, batch):
+        return registry.prefill(params, batch, cfg, ctx)
+
+    return prefill_step, ctx
+
+
+def make_serve_step(cfg: ArchConfig, shape: ShapeConfig, ccfg: Optional[CompressionConfig] = None,
+                    q_block: int = 512, *, ctx=None, device="cuda", capture: bool = True):
+    """The lockstep decode step, a `ServeStep`: serve_step(params, caches,
+    token, is_probe) -> (logits, caches)."""
+    ctx = _ctx(cfg, shape, ccfg, ctx, q_block, device)
+    return ServeStep(cfg, ctx, device, capture), ctx
+
+
+def make_recompress_step(cfg: ArchConfig, shape: ShapeConfig,
+                         ccfg: Optional[CompressionConfig] = None, *, ctx=None, device="cuda"):
+    """recompress_step(caches) -> caches: every slot's window folded."""
+    ctx = _ctx(cfg, shape, ccfg, ctx, 512, device)
+
+    def recompress_step(caches):
+        return registry.recompress(caches, cfg, ctx)
+
+    return recompress_step, ctx
+
+
+def make_continuous_decode_step(cfg: ArchConfig, shape: ShapeConfig,
+                                ccfg: Optional[CompressionConfig] = None, q_block: int = 512,
+                                ctx=None, *, device="cuda", capture: bool = True):
+    """The continuous masked decode step, a `ContinuousDecodeStep`:
+    decode(params, caches, staged (3, b) host int32) -> (logits, caches).
+    Pass `ctx` to share one serving context across the program family (the
+    engines do)."""
+    ctx = _ctx(cfg, shape, ccfg, ctx, q_block, device)
+    return ContinuousDecodeStep(cfg, ctx, device, capture), ctx
+
+
+def make_insert_step(cfg: ArchConfig, shape: ShapeConfig, ccfg: Optional[CompressionConfig] = None,
+                     ctx=None, *, device="cuda"):
+    """insert(caches, slice_caches, slot): write a batch-1 prefill cache slice
+    into decode-batch row `slot`."""
+    ctx = _ctx(cfg, shape, ccfg, ctx, 512, device)
+
+    def insert(caches, slice_caches, slot: int):
+        return registry.insert_caches(caches, slice_caches, slot)
+
+    return insert, ctx
+
+
+def make_recompress_rows_step(cfg: ArchConfig, shape: ShapeConfig,
+                              ccfg: Optional[CompressionConfig] = None, ctx=None, *,
+                              device="cuda"):
+    """recompress_rows(caches, rows (b,) bool): fold the staging windows of
+    the masked slots only (per-request cadence, paper Alg. 3).  Recompresses
+    the whole batch and selects rows."""
+    ctx = _ctx(cfg, shape, ccfg, ctx, 512, device)
+
+    def recompress_rows(caches, rows: torch.Tensor):
+        return registry.recompress(caches, cfg, ctx, rows=rows)
+
+    return recompress_rows, ctx
+
+
+def make_recompress_slot_step(cfg: ArchConfig, shape: ShapeConfig,
+                              ccfg: Optional[CompressionConfig] = None, ctx=None, *,
+                              device="cuda"):
+    """recompress_slot(caches, slot): fold exactly ONE slot's staging window
+    through the backend's per-slot recompression (the paged layout): a
+    batch-1 view, ~1/slots the work."""
+    ctx = _ctx(cfg, shape, ccfg, ctx, 512, device)
+
+    def recompress_slot(caches, slot: int):
+        return registry.recompress(caches, cfg, ctx, slot=slot)
+
+    return recompress_slot, ctx

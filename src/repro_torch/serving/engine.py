@@ -26,6 +26,14 @@ The probe flags of a step are host values: they pick the decode path
 (exact slot weights on probe steps) with no device sync.  Sampling is
 greedy; temperature > 0, swap, the downshift ladder, shared-prefix dedup
 and precision maps are not ported yet and raise `NotImplementedError`.
+
+Every engine program comes from the step factories of `launch.steps`, as
+the reference's jitted ones do.  With `capture` (the default) both decode
+steps are step objects over static buffers: on the card a step on which no
+row probes replays a captured CUDA graph, and the engine writes whatever
+an eager operation produces (prefill, a probe step, a fold, insertion, a
+retirement) into the step's static cache tree (`adopt`).  `capture=False`
+builds the eager path that the captured one is held against.
 """
 
 from __future__ import annotations
@@ -163,23 +171,38 @@ def pack_requests(requests: Sequence[np.ndarray], batch_size: int,
 
 class _EngineBase:
     def __init__(self, cfg: ArchConfig, ccfg: CompressionConfig, scfg: ServeConfig, params,
-                 device="cuda", use_kernels: bool = True):
+                 device="cuda", use_kernels: bool = True, capture: bool = True):
         self.cfg = cfg
         self.ccfg = ccfg
         self.scfg = scfg
         self.params = params
         self.device = torch.device(device)
         self.use_kernels = use_kernels
-        self._shape = ShapeConfig("serve", scfg.prompt_len, scfg.batch_size, "prefill",
-                                  cache_backend=scfg.backend, page_size=scfg.page_size,
-                                  paged_kernel=scfg.paged_kernel,
-                                  page_allocator=scfg.page_allocator,
-                                  pool_fraction=scfg.pool_fraction)
-        self.ctx = steps_lib.serve_ctx(cfg, self._shape, ccfg,
+        shape = ShapeConfig("serve", scfg.prompt_len, scfg.batch_size, "prefill",
+                            cache_backend=scfg.backend, page_size=scfg.page_size,
+                            paged_kernel=scfg.paged_kernel, page_allocator=scfg.page_allocator,
+                            pool_fraction=scfg.pool_fraction)
+        self._shape = shape
+        self.ctx = steps_lib.serve_ctx(cfg, shape, ccfg,
                                        decode_budget=scfg.max_new_tokens,
                                        q_block=min(512, scfg.prompt_len), device=self.device,
                                        use_kernels=use_kernels)
-        self._bucket_ctx: Dict[int, object] = {}
+        # the program family, built from the shared step factories over one
+        # serving ctx (ragged admission buckets get their prefill lazily)
+        mk = dict(ctx=self.ctx, device=self.device)
+        self._prefill = steps_lib.make_prefill_step(cfg, shape, ccfg, **mk)[0]
+        self._prefill_buckets: Dict[int, Callable] = {}
+        self._decode = steps_lib.make_serve_step(cfg, shape, ccfg, capture=capture, **mk)[0]
+        self._recompress = steps_lib.make_recompress_step(cfg, shape, ccfg, **mk)[0]
+        self._decode_masked = steps_lib.make_continuous_decode_step(cfg, shape, ccfg,
+                                                                    capture=capture, **mk)[0]
+        self._insert = steps_lib.make_insert_step(cfg, shape, ccfg, **mk)[0]
+        self._recompress_rows = steps_lib.make_recompress_rows_step(cfg, shape, ccfg, **mk)[0]
+        # per-slot folds where the backend offers them (paged): a batch-1 view
+        self._recompress_slot = None
+        if hasattr(self.ctx.backend, "recompress_slot"):
+            self._recompress_slot = steps_lib.make_recompress_slot_step(cfg, shape, ccfg,
+                                                                        **mk)[0]
 
     def _bucket_len(self, n_tokens: int) -> int:
         """Ragged admission bucket: the smallest whole-page length that holds
@@ -188,20 +211,23 @@ class _EngineBase:
         ps = self.scfg.page_size
         return min(alloc_lib.pages_for(max(n_tokens, 1), ps) * ps, self.scfg.prompt_len)
 
-    def _prefill_ctx(self, bucket_len: int):
-        """The serving context of one admission bucket: its own probes for
-        `seq_len = bucket_len`, and the decode budget extended by the saved
-        prompt tokens, so every cache shape matches the decode batch's."""
+    def _prefill_for(self, bucket_len: int) -> Callable:
+        """The prefill program of one admission bucket.  A shorter bucket has
+        its own serving context: its own probes for `seq_len = bucket_len`,
+        and the decode budget extended by the saved prompt tokens, so every
+        cache shape matches the decode batch's."""
         if bucket_len == self.scfg.prompt_len:
-            return self.ctx
-        ctx = self._bucket_ctx.get(bucket_len)
-        if ctx is None:
+            return self._prefill
+        fn = self._prefill_buckets.get(bucket_len)
+        if fn is None:
+            bshape = dataclasses.replace(self._shape, seq_len=bucket_len)
             ctx = steps_lib.serve_ctx(
-                self.cfg, dataclasses.replace(self._shape, seq_len=bucket_len), self.ccfg,
+                self.cfg, bshape, self.ccfg,
                 decode_budget=self.scfg.max_new_tokens + self.scfg.prompt_len - bucket_len,
                 q_block=min(512, bucket_len), device=self.device, use_kernels=self.use_kernels)
-            self._bucket_ctx[bucket_len] = ctx
-        return ctx
+            fn = steps_lib.make_prefill_step(self.cfg, bshape, self.ccfg, ctx=ctx)[0]
+            self._prefill_buckets[bucket_len] = fn
+        return fn
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -210,11 +236,14 @@ class _EngineBase:
 
 class ServingEngine(_EngineBase):
     """Lockstep batch generation: all requests prefill together and decode
-    the same number of greedy steps."""
+    the same number of greedy steps.  Each step's greedy token feeds the
+    next through the decode step's static input: the loop never waits for
+    the device."""
 
     def __init__(self, cfg: ArchConfig, ccfg: CompressionConfig, scfg: ServeConfig, params,
-                 device="cuda", use_kernels: bool = True):
-        super().__init__(cfg, ccfg, scfg, params, device=device, use_kernels=use_kernels)
+                 device="cuda", use_kernels: bool = True, capture: bool = True):
+        super().__init__(cfg, ccfg, scfg, params, device=device, use_kernels=use_kernels,
+                         capture=capture)
         self.last_caches = None
 
     def _is_probe(self, i: int) -> bool:
@@ -231,35 +260,31 @@ class ServingEngine(_EngineBase):
         n_new = max_new_tokens if max_new_tokens is not None else self.scfg.max_new_tokens
         t0 = time.perf_counter()
         tokens = torch.as_tensor(np.asarray(batch["tokens"]), device=self.device)
-        logits, caches = registry.prefill(self.params, {"tokens": tokens}, self.cfg, self.ctx)
+        logits, caches = self._prefill(self.params, {"tokens": tokens})
+        caches = self._decode.adopt(caches)
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
         self._sync()
         t_prefill = time.perf_counter() - t0
 
-        outs = []
+        outs = torch.empty((tokens.shape[0], n_new), dtype=torch.int32, device=self.device)
         t1 = time.perf_counter()
         since_recompress = 0
         for i in range(n_new):
-            outs.append(tok)
-            logits, caches = registry.decode_step(self.params, tok, caches, self.cfg, self.ctx,
-                                                  self._is_probe(i))
-            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            outs[:, i] = tok
+            _, caches = self._decode(self.params, caches, tok, self._is_probe(i))
+            tok = self._decode.token
             since_recompress += 1
             if since_recompress >= self.ccfg.recompress_interval:
-                caches = registry.recompress(caches, self.cfg, self.ctx)
+                caches = self._decode.adopt(self._recompress(caches))
                 since_recompress = 0
         self._sync()
         t_decode = time.perf_counter() - t1
         self.last_caches = caches
         return {
-            "tokens": torch.stack(outs, dim=1).cpu().numpy(),
+            "tokens": outs.cpu().numpy(),
             "timings": {"prefill_s": t_prefill, "decode_s": t_decode,
                         "tok_per_s": n_new * self.scfg.batch_size / max(t_decode, 1e-9)},
         }
-
-
-# rows of the (3, b) int32 matrix a step stages host-side and uploads once
-_ROW_TOK, _ROW_PROBE, _ROW_ACT = range(3)
 
 
 class EngineCore(_EngineBase):
@@ -278,7 +303,8 @@ class EngineCore(_EngineBase):
     """
 
     def __init__(self, cfg: ArchConfig, ccfg: CompressionConfig, scfg: ServeConfig, params,
-                 scheduler: scheduler_lib.Scheduler, device="cuda", use_kernels: bool = True):
+                 scheduler: scheduler_lib.Scheduler, device="cuda", use_kernels: bool = True,
+                 capture: bool = True):
         if scfg.backpressure not in ("defer", "error"):
             raise ValueError(f"ServeConfig.backpressure must be 'defer' or 'error', got "
                              f"{scfg.backpressure!r}")
@@ -292,13 +318,13 @@ class EngineCore(_EngineBase):
                               ("ladder_watermark", 0.0), ("swap_pool_mb", 0)):
             if getattr(scfg, name) != default:
                 raise NotImplementedError(f"ServeConfig.{name} is not ported yet")
-        super().__init__(cfg, ccfg, scfg, params, device=device, use_kernels=use_kernels)
+        super().__init__(cfg, ccfg, scfg, params, device=device, use_kernels=use_kernels,
+                         capture=capture)
         # every op on the caches runs in inference mode (`step`, `cancel`), so
         # they are made in it too: an inference tensor takes no in-place
         # write outside the mode
         with torch.inference_mode():
-            self.caches = registry.init_caches(cfg, self.ctx, scfg.batch_size,
-                                               device=self.device)
+            caches = registry.init_caches(cfg, self.ctx, scfg.batch_size, device=self.device)
         self.scheduler = scheduler
         self.slots: List[Optional[_Slot]] = [None] * scfg.batch_size
         self.queue: Deque[Request] = collections.deque()
@@ -312,16 +338,23 @@ class EngineCore(_EngineBase):
         self._events: List[events_lib.Event] = []    # the current step's events
         self._n_admissions = 0                       # prefills, re-admissions included
         self._n_folds = 0                            # slot windows folded
-        # per-slot folds where the backend offers them (paged): a batch-1 view
-        self._slot_folds = hasattr(self.ctx.backend, "recompress_slot")
         self._alloc: Optional[alloc_lib.FreeListAllocator] = None
+        self._tables: Dict[str, torch.Tensor] = {}
         self._last_deferred: Optional[str] = None
         if getattr(self.ctx.backend, "allocator", "static") == "freelist":
             self._alloc = alloc_lib.FreeListAllocator.from_caches(
-                self.caches, page_size=self.ctx.backend.page_size,
-                watermark=scfg.admit_watermark)
+                caches, page_size=self.ctx.backend.page_size, watermark=scfg.admit_watermark)
+            # one device table per segment, shared by every layer and written
+            # in place from then on: the captured step reads it by address
             with torch.inference_mode():
-                self._sync_tables()
+                self._tables = {k: torch.from_numpy(v).to(self.device)
+                                for k, v in self._alloc.tables().items()}
+            self._alloc.dirty = False
+            caches = {"prefix": [], "groups": [
+                {"sub0": paged_lib.with_tables(g["sub0"], self._tables["hi"],
+                                               self._tables["lo"], self._tables["win"])}
+                for g in caches["groups"]]}
+        self.caches = self._decode_masked.adopt(caches)
 
     # ------------------------------------------------------------------
     # lifecycle API
@@ -505,15 +538,19 @@ class EngineCore(_EngineBase):
     # ------------------------------------------------------------------
 
     def _sync_tables(self) -> None:
-        """Install the allocator's page tables onto every layer's cache (each
-        table uploaded once and shared); only when the allocator changed."""
+        """Write the allocator's page tables into the device tables every
+        layer's cache shares, in place; only when the allocator changed.  A
+        blocking copy: the host tables are free again when it returns."""
         if self._alloc is None or not self._alloc.dirty:
             return
-        t = {k: torch.from_numpy(v).to(self.device) for k, v in self._alloc.tables().items()}
-        self.caches = {"prefix": [], "groups": [
-            {"sub0": paged_lib.with_tables(g["sub0"], t["hi"], t["lo"], t["win"])}
-            for g in self.caches["groups"]]}
+        for name, table in self._alloc.tables().items():
+            self._tables[name].copy_(torch.from_numpy(table))
         self._alloc.dirty = False
+
+    def _set_caches(self, caches) -> None:
+        """Take the result of an eager operation on the caches: copied into
+        the decode step's static tree (with capture)."""
+        self.caches = self._decode_masked.adopt(caches)
 
     def pool_stats(self) -> Optional[Dict]:
         """Free-list pool telemetry (None for static and mixed layouts):
@@ -530,7 +567,7 @@ class EngineCore(_EngineBase):
         if self._alloc is not None:
             self._alloc.free(slot_id)
             self._sync_tables()
-        self.caches = registry.free_caches(self.caches, slot_id)
+        self._set_caches(registry.free_caches(self.caches, slot_id))
         self.slots[slot_id] = None
 
     def _retire(self, slot_id: int, reason: str, cancel_reason: Optional[str] = None) -> None:
@@ -645,13 +682,12 @@ class EngineCore(_EngineBase):
         bucket = self._bucket_len(int(req.tokens.shape[-1]))
         resume = getattr(req, "_resume_tokens", None)
         prompt = torch.from_numpy(pack_requests([req.tokens], 1, bucket)).to(self.device)
-        logits, slice_caches = registry.prefill(self.params, {"tokens": prompt}, self.cfg,
-                                                self._prefill_ctx(bucket))
+        logits, slice_caches = self._prefill_for(bucket)(self.params, {"tokens": prompt})
         if self._alloc is not None:
             self._alloc.admit(slot_id, alloc_lib.slice_occupancy(slice_caches),
                               self._request_total_tokens(req), bucket)
             self._sync_tables()
-        self.caches = steps_lib.insert(self.caches, slice_caches, slot_id)
+        self._set_caches(self._insert(self.caches, slice_caches, slot_id))
         if resume is None:
             generated = [int(torch.argmax(logits[0]))]
         else:   # the prefill rebuilt exactly the cache the first token came from
@@ -672,16 +708,12 @@ class EngineCore(_EngineBase):
             self.slots[slot_id].prefill_s = time.perf_counter() - t0
         self._maybe_finish(slot_id)
 
-    def _stage(self, rows: Dict[int, Tuple[int, bool]]):
-        """Upload one step's per-slot inputs {slot: (token, probe)} as one
-        (3, b) transfer -> (tokens, probe operand, active mask).  The host
-        matrix is fresh and never written after the upload."""
-        stage = np.zeros((3, self.scfg.batch_size), np.int32)
-        for i, (tok, probe) in rows.items():
-            stage[_ROW_TOK, i], stage[_ROW_PROBE, i], stage[_ROW_ACT, i] = tok, probe, 1
-        dev = torch.from_numpy(stage).to(self.device)
-        probes = dev[_ROW_PROBE] if stage[_ROW_PROBE].any() else False
-        return dev[_ROW_TOK], probes, dev[_ROW_ACT].bool()
+    def _decode_rows(self, rows: Dict[int, Tuple[int, bool]]) -> torch.Tensor:
+        """One masked decode step of the slots {slot: (token, probe)}, staged
+        as one (3, b) host matrix -> logits (b, vocab)."""
+        logits, self.caches = self._decode_masked(
+            self.params, self.caches, steps_lib.stage_rows(rows, self.scfg.batch_size))
+        return logits
 
     def _replay(self, slot_id: int, tokens: Sequence[int]) -> None:
         """Recompute a preempted slot's cache: feed its retained tokens back
@@ -694,10 +726,8 @@ class EngineCore(_EngineBase):
             if self._alloc is not None:
                 self._alloc.note_append(slot_id)
                 self._sync_tables()
-            tok, probes, act = self._stage(
+            self._decode_rows(
                 {slot_id: (int(tokens[i]), probe_flag(s.steps, interval, self.scfg.seed))})
-            _, self.caches = steps_lib.continuous_decode(self.params, self.caches, tok, probes,
-                                                         act, self.cfg, self.ctx)
             s.steps += 1
             s.since_rc += 1
             s.generated.append(int(tokens[i + 1]))
@@ -735,14 +765,14 @@ class EngineCore(_EngineBase):
                 self._alloc.fold_grant(int(i))
             self._sync_tables()
         # per-slot folds while they save work over one full-batch fold
-        if self._slot_folds and len(due_ids) * 2 <= b:
+        if self._recompress_slot is not None and len(due_ids) * 2 <= b:
             for i in due_ids:
-                self.caches = steps_lib.recompress_slot(self.caches, int(i), self.cfg, self.ctx)
+                self._set_caches(self._recompress_slot(self.caches, int(i)))
         else:
             due = np.zeros(b, bool)
             due[np.asarray(due_ids, int)] = True
-            self.caches = steps_lib.recompress_rows(
-                self.caches, torch.from_numpy(due).to(self.device), self.cfg, self.ctx)
+            self._set_caches(self._recompress_rows(self.caches,
+                                                   torch.from_numpy(due).to(self.device)))
         freed = 0
         if self._alloc is not None:
             for i in due_ids:
@@ -768,11 +798,9 @@ class EngineCore(_EngineBase):
             for i in active_ids:
                 self._alloc.note_append(i)
             self._sync_tables()
-        tok, probes, act = self._stage({
+        logits = self._decode_rows({
             i: (self.slots[i].generated[-1],
                 probe_flag(self.slots[i].steps, interval, self.scfg.seed)) for i in active_ids})
-        logits, self.caches = steps_lib.continuous_decode(self.params, self.caches, tok, probes,
-                                                          act, self.cfg, self.ctx)
         nxt = torch.argmax(logits, dim=-1).cpu().numpy()   # greedy
 
         due = []
@@ -801,7 +829,7 @@ class ContinuousEngine(EngineCore):
 
     def __init__(self, cfg: ArchConfig, ccfg: CompressionConfig, scfg: ServeConfig, params,
                  device="cuda", use_kernels: bool = True,
-                 scheduler: Optional[scheduler_lib.Scheduler] = None):
+                 scheduler: Optional[scheduler_lib.Scheduler] = None, capture: bool = True):
         super().__init__(cfg, ccfg, scfg, params,
                          scheduler or scheduler_lib.make_scheduler(scfg.scheduler),
-                         device=device, use_kernels=use_kernels)
+                         device=device, use_kernels=use_kernels, capture=capture)

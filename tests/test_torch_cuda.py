@@ -31,9 +31,10 @@ from repro_torch.kernels.paged_qattn import ref as pq_ref
 from repro_torch.kernels.probe_flash import kernel as pf_kernel
 from repro_torch.kernels.probe_flash import ops as pf_ops
 from repro_torch.kernels.probe_flash import ref as pf_ref
-from repro_torch.models import registry
+from repro_torch.launch import steps as steps_lib
+from repro_torch.models import blocks, common, registry
 from repro_torch.serving import (ContinuousEngine, Request, ServeConfig, ServingEngine,
-                                 pack_requests)
+                                 pack_requests, probe_flag)
 
 pytestmark = pytest.mark.gpu
 
@@ -511,3 +512,217 @@ def test_continuous_engine_mixed_layout_runs_decode_qattn(dev):
     assert [len(res[r].tokens) for r in rids] == list(budgets)
     assert all(k.launches > n for k, n in zip(kernels, before))
     assert (dq_kernel.KERNEL.launches - before[3]) % cfg.n_layers == 0
+
+
+# ---- captured decode steps (launch/steps.py) --------------------------------
+
+CAPTURE_LAYOUTS = {"mixed": dict(backend="mixed"),
+                   "paged-kernel": dict(backend="paged", page_size=8, paged_kernel=True)}
+
+
+def _smoke(dev, **kw):
+    cfg = configs.get_arch("yi-6b", smoke=True)
+    ccfg = dataclasses.replace(CompressionConfig.zipcache(), fp_window=8, recompress_interval=8)
+    params = registry.materialize_params(cfg, seed=0, device=dev)
+    return cfg, ccfg, params, ServeConfig(batch_size=2, prompt_len=48, max_new_tokens=12, **kw)
+
+
+def _smoke_batch(cfg):
+    rng = np.random.default_rng(0)
+    return pack_requests([rng.integers(2, cfg.vocab, size=48) for _ in range(2)], 2, 48)
+
+
+def _close(got, want):
+    """Within one bf16 ulp of the largest value: a replay may take other
+    cuBLAS algorithms than the eager run."""
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=2 ** -7 * max(want.float().abs().max().item(), 1.0))
+
+
+@pytest.mark.parametrize("layout", list(CAPTURE_LAYOUTS))
+def test_captured_decode_layer_matches_eager(dev, layout):
+    """One decode layer, non-probe, captured as a CUDA graph after a warm-up
+    on the capture stream, replayed: its output and new window metadata
+    against the eager call on the same cache."""
+    cfg, ccfg, params, scfg = _smoke(dev, **CAPTURE_LAYOUTS[layout])
+    eng = ServingEngine(cfg, ccfg, scfg, params, device=dev, capture=False)
+    with torch.inference_mode():
+        logits, caches = eng._prefill(params, {"tokens": torch.as_tensor(_smoke_batch(cfg),
+                                                                         device=dev)})
+        x = common.embed_lookup(params["embed"], torch.argmax(logits, -1))
+        lp = common.layer_slice(params["groups"]["sub0"], 0)
+        el = caches["groups"][0]["sub0"]
+        want, want_el = blocks.apply_layer_decode(lp, x, cfg, el, eng.ctx, False)
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            blocks.apply_layer_decode(lp, x, cfg, el, eng.ctx, False)
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            got, got_el = blocks.apply_layer_decode(lp, x, cfg, el, eng.ctx, False)
+        graph.replay()
+        torch.cuda.synchronize()
+    _close(got, want)
+    for name in ("win_pos", "length", "win_fill"):
+        assert torch.equal(getattr(got_el, name), getattr(want_el, name))
+
+
+@pytest.mark.parametrize("layout", list(CAPTURE_LAYOUTS))
+def test_captured_serve_step_matches_eager(dev, layout):
+    """The lockstep engine's decode steps, captured and replayed, against
+    the eager engine's from the same prefill, step by step through a probe
+    step and a fold: logits within bf16 noise.  The captured step is built
+    once and every non-probe step after the warm-up is a replay."""
+    cfg, ccfg, params, scfg = _smoke(dev, **CAPTURE_LAYOUTS[layout])
+    toks = torch.as_tensor(_smoke_batch(cfg), device=dev)
+    runs = []
+    for capture in (True, False):
+        eng = ServingEngine(cfg, ccfg, scfg, params, device=dev, capture=capture)
+        seen = []
+        with torch.inference_mode():
+            logits, caches = eng._prefill(params, {"tokens": toks})
+            caches = eng._decode.adopt(caches)
+            tok = torch.argmax(logits, -1).to(torch.int32)
+            for i in range(12):
+                logits, caches = eng._decode(params, caches, tok, eng._is_probe(i))
+                seen.append(logits.clone())
+                tok = eng._decode.token
+                if i == 7:
+                    caches = eng._decode.adopt(eng._recompress(caches))
+        torch.cuda.synchronize()
+        runs.append((eng._decode, seen))
+    (step, got), (_, want) = runs
+    for a, w in zip(got, want):
+        _close(a, w)
+    n_probe = sum(probe_flag(i, 8) for i in range(12))
+    assert 0 < n_probe and step.captures == 1 and step.replays == 12 - n_probe - 1
+
+
+class _ActiveLogits:
+    """A continuous decode step that keeps every call's logits of the
+    active rows (an inactive row's logits are never read)."""
+
+    def __init__(self, step):
+        self.step, self.logits = step, []
+
+    def __call__(self, params, caches, staged):
+        logits, caches = self.step(params, caches, staged)
+        self.logits.append(logits[np.flatnonzero(staged[steps_lib.ROW_ACT]).tolist()].clone())
+        return logits, caches
+
+    def __getattr__(self, name):
+        return getattr(self.step, name)
+
+
+def test_captured_continuous_engine_matches_eager(dev):
+    """The continuous engine's captured decode step against capture=False,
+    step by step on the free-list paged layout through admissions, a
+    watermark deferral, slot folds, probe steps and retirements: the active
+    rows' logits within one bf16 ulp at every step, every greedy token
+    equal.  Each fold, admission and retirement rewrites the static tree or
+    the page tables between replays, so a leaf or a table left stale there
+    shows at the steps after it."""
+    cfg, ccfg, params, _ = _smoke(dev)
+    scfg = ServeConfig(batch_size=2, prompt_len=32, max_new_tokens=12, backend="paged",
+                       page_size=8, page_allocator="freelist", pool_fraction=1.0,
+                       admit_watermark=0.25, paged_kernel=True)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, cfg.vocab, size=(24,)).astype(np.int32) for _ in range(3)]
+    runs = []
+    for capture in (False, True):
+        eng = ContinuousEngine(cfg, ccfg, scfg, params, device=dev, capture=capture)
+        rec = _ActiveLogits(eng._decode_masked)
+        eng._decode_masked = rec
+        rids = [eng.submit(Request(tokens=prompts[0])),
+                eng.submit(Request(tokens=prompts[1], max_new_tokens=6))]
+        for _ in range(4):
+            eng.step()
+        rids.append(eng.submit(Request(tokens=prompts[2])))   # defers, then admits
+        res = eng.run()
+        torch.cuda.synchronize()
+        st = eng.pool_stats()
+        assert st["admissions"] == 3 and st["deferrals"] >= 1 and st["folds"] >= 1
+        assert [len(res[r].tokens) for r in rids] == [12, 6, 12]
+        runs.append((rec, [res[r].tokens.tolist() for r in rids]))
+    (eager, want_tokens), (cap, got_tokens) = runs
+    assert cap.step.captures == 1 and cap.step.replays > 0
+    assert got_tokens == want_tokens
+    assert len(cap.logits) == len(eager.logits)
+    for a, w in zip(cap.logits, eager.logits):
+        _close(a, w)
+
+
+def test_replays_count_the_capture_launches(dev):
+    """Launch counters under capture: each replay adds what the capture
+    counted.  Continuous (paged walk): one paged_qattn launch per layer per
+    step; lockstep (mixed): one decode_qattn launch per layer per non-probe
+    step, as the eager engines count."""
+    cfg, ccfg, params, scfg = _smoke(dev, backend="paged", page_size=8, paged_kernel=True,
+                                     page_allocator="freelist", pool_fraction=0.75)
+    eng = ContinuousEngine(cfg, ccfg, scfg, params, device=dev)
+    before = pq_kernel.KERNEL.launches
+    rng = np.random.default_rng(0)
+    rids = [eng.submit(Request(tokens=rng.integers(2, cfg.vocab, size=n).astype(np.int32),
+                               max_new_tokens=m)) for n, m in ((48, 12), (20, 6), (33, 12))]
+    res = eng.run()
+    assert [len(res[r].tokens) for r in rids] == [12, 6, 12]
+    step = eng._decode_masked
+    assert step.captures == 1 and step.replays > 0
+    assert pq_kernel.KERNEL.launches - before == cfg.n_layers * eng._step_no
+
+    cfg, ccfg, params, scfg = _smoke(dev)
+    eng = ServingEngine(cfg, ccfg, scfg, params, device=dev)
+    before = dq_kernel.KERNEL.launches
+    eng.generate({"tokens": _smoke_batch(cfg)})
+    n_probe = sum(probe_flag(i, 8) for i in range(12))
+    assert eng._decode.replays > 0
+    assert dq_kernel.KERNEL.launches - before == cfg.n_layers * (12 - n_probe)
+
+
+def test_cst_quant_store_captures(dev):
+    """cst_quant's store, a thread-block cluster launched through
+    `cudaLaunchKernelEx`, inside a CUDA graph (the folds' kernel, which a
+    later capture of the folds needs): the replay equals the eager launch
+    bit for bit."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    b, hk, l, s, d = 4, 4, 300, 256, 128
+    k = _randn(gen, b, hk, l, d, dtype=torch.bfloat16, scale=2.0)
+    v = _randn(gen, b, hk, l, d, dtype=torch.bfloat16)
+    idx = torch.full((b, s), -1, dtype=torch.int32, device=dev)
+    for row in range(b):
+        idx[row, :200] = torch.randperm(l, generator=gen, device=dev)[:200].int()
+    want = cst_kernel.quantize_store(k, v, idx, 2)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        cst_kernel.quantize_store(k, v, idx, 2)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        got = cst_kernel.quantize_store(k, v, idx, 2)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+
+
+def test_failed_capture_raises(dev, monkeypatch):
+    """A step body that syncs with the host cannot be captured: the second
+    non-probe step (the capture) raises `CaptureError`, nothing falls back
+    to the eager path, and the card stays usable."""
+    cfg, ccfg, params, scfg = _smoke(dev)
+    eng = ServingEngine(cfg, ccfg, scfg, params, device=dev)
+    decode = registry.decode_step
+
+    def syncing(*args, **kw):
+        logits, caches = decode(*args, **kw)
+        logits.sum().item()
+        return logits, caches
+
+    monkeypatch.setattr(registry, "decode_step", syncing)
+    with pytest.raises(steps_lib.CaptureError, match="serve_step"):
+        eng.generate({"tokens": _smoke_batch(cfg)}, max_new_tokens=2)
+    assert eng._decode.captures == 0 and eng._decode.replays == 0
+    torch.cuda.synchronize()
+    assert torch.ones(4, device=dev).sum().item() == 4.0

@@ -1,0 +1,76 @@
+"""Nothing host-side inside the port's captured decode steps.
+
+A CUDA graph records device work only: a host sync (`.item()`, `.cpu()`,
+`.tolist()`) inside the capture fails it, and a host-to-device upload
+(`torch.as_tensor`, `torch.from_numpy`) would be baked into the graph with
+the value of the capture.  The captured bodies are `ServeStep._run` and
+`ContinuousDecodeStep._run` (`repro_torch.launch.steps`); their uploads go
+into the static buffers before the replay.
+
+The call graph is `tools/analyze/hostsync.py`'s, pointed at
+`src/repro_torch`: it follows calls through module imports and `self`, and
+stops at attribute chains.  So the backends' decode methods (reached as
+`ctx.backend.append(...)`) and the caches' dequantization and dense views
+are rooted here as well.
+"""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+from tools.analyze import common, hostsync
+
+ROOT = Path(__file__).resolve().parents[1]
+SUB = "src/repro_torch"
+ROOTS = (
+    ("repro_torch.launch.steps", "ServeStep._run"),
+    ("repro_torch.launch.steps", "ContinuousDecodeStep._run"),
+    *(("repro_torch.core.backend", f"MixedKVBackend.{m}") for m in ("append", "attend",
+                                                                     "update_probe")),
+    *(("repro_torch.core.paged", f"PagedKVBackend.{m}") for m in ("append", "attend",
+                                                                   "update_probe")),
+    ("repro_torch.core.paged", "PagedKVCache.dense_view"),
+    ("repro_torch.core.paged", "PagedStore.dense"),
+    ("repro_torch.core.quant", "QuantizedTensor.dequantize"),
+)
+HOST_METHODS = {"item", "cpu", "tolist"}
+HOST_CALLS = {"torch.as_tensor", "torch.from_numpy"}
+
+
+def host_calls(fn: ast.AST):
+    """(line, pattern) of every host sync or upload in a function's body."""
+    for node in ast.walk(fn):
+        if not isinstance(node, ast.Call):
+            continue
+        if isinstance(node.func, ast.Attribute) and node.func.attr in HOST_METHODS:
+            yield node.lineno, f".{node.func.attr}()"
+        elif common.dotted_name(node.func) in HOST_CALLS:
+            yield node.lineno, common.dotted_name(node.func)
+
+
+@pytest.fixture(scope="module")
+def graph():
+    return hostsync._Graph(ROOT, SUB)
+
+
+def test_roots_exist(graph):
+    for mod, qual in ROOTS:
+        assert qual in graph.modules[mod].functions, f"{mod}.{qual} is gone: update ROOTS"
+
+
+def test_captured_steps_reach_no_host_calls(graph):
+    reached = graph.reachable(ROOTS)
+    assert ("repro_torch.models.lm", "decode_step") in reached
+    assert ("repro_torch.kernels.qattn_walk", "launch") in reached
+    bad = [f"{graph.modules[mod].src.rel}:{line} {qual}: {pattern}"
+           for mod, qual in reached
+           for line, pattern in host_calls(graph.modules[mod].functions[qual])]
+    assert not bad, "host calls inside a captured decode step:\n" + "\n".join(bad)
+
+
+@pytest.mark.parametrize("expr", ["x.item()", "x.cpu()", "x.tolist()", "torch.as_tensor(x)",
+                                  "torch.from_numpy(x)"])
+def test_scan_flags_each_pattern(expr):
+    fn = ast.parse(f"def f(x):\n    return {expr}\n").body[0]
+    assert [line for line, _ in host_calls(fn)] == [2]

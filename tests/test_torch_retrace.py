@@ -1,0 +1,146 @@
+"""The port's zero-rebuild steady state (port of the mixed and paged
+free-list scenarios of tests/test_retrace.py, and of its guard test).
+
+The port's counterpart of a jitted program is a decode step over static
+buffers (`repro_torch.launch.steps`), built once: captured as a CUDA graph
+on the card, its static buffers allocated on the CPU.
+`repro_torch.runtime.compile_guard` counts those builds, so the invariant
+is asserted directly on the CPU:
+
+  * warm-up (a full scenario pass) builds more than zero steps (the guard
+    really sees this process);
+  * a second, identically shaped pass on the SAME engine builds none,
+    while a preemption (mixed) or an admission deferral (paged free list)
+    fires inside the guarded region.
+
+A step object never builds twice (a changed input shape fails in `copy_`
+rather than rebuilding), so what these tests can catch is an engine that
+makes new step objects in steady state; a hidden retrace forced by a
+shape or a host value, which the reference's test catches under
+`jax.jit`, has no counterpart here.
+
+The reference's mixed scenario carries one sampled request; the port
+serves greedy requests only, so that request is greedy here.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+from repro_torch import configs
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.core.policy import CompressionConfig
+from repro_torch.launch import steps as steps_lib
+from repro_torch.models import registry
+from repro_torch.runtime import compile_guard
+from repro_torch.serving import ContinuousEngine, PreemptedEvent, Request, ServeConfig
+from tests.torch_parity import torch_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_threads")
+INTERVAL = 8
+
+
+def _setup():
+    cfg = configs.get_arch("yi-6b", smoke=True)
+    ccfg = dataclasses.replace(CompressionConfig.zipcache(), fp_window=8,
+                               recompress_interval=INTERVAL)
+    return cfg, ccfg, registry.materialize_params(cfg, 0, device="cpu")
+
+
+def _engine(**scfg_kw):
+    cfg, ccfg, params = _setup()
+    scfg = ServeConfig(**{**dict(batch_size=2, prompt_len=32, max_new_tokens=12), **scfg_kw})
+    return cfg, ContinuousEngine(cfg, ccfg, scfg, params, device="cpu")
+
+
+def _prompts(cfg, seed, n):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(2, cfg.vocab, size=(24,)).astype(np.int32) for _ in range(n)]
+
+
+def _drive_mixed_scenario(eng, prompts):
+    """Admission, folds, retirement, a mid-run admission into a freed slot,
+    and a forced preemption + recompute (a priority-2 short request arriving
+    with both slots held).  Returns the events."""
+    events = []
+    r0 = eng.submit(Request(tokens=prompts[0]))           # max_new 12 > 8: folds
+    eng.submit(Request(tokens=prompts[1], max_new_tokens=6))
+    for _ in range(4):
+        events += eng.step()
+    eng.submit(Request(tokens=prompts[2]))                # mid-run admission
+    eng.submit(Request(tokens=prompts[3], max_new_tokens=3, priority=2))
+    while eng.pending:
+        events += eng.step()
+    assert eng.result(r0).finish_reason == "length"
+    return events
+
+
+def _drive_deferral_scenario(eng, prompts):
+    """Admission, folds, retirement, and a watermark-forced admission
+    deferral (the third request waits until the short one retires and
+    returns its pages) on the free-list paged engine."""
+    eng.submit(Request(tokens=prompts[0]))
+    eng.submit(Request(tokens=prompts[1], max_new_tokens=6))
+    for _ in range(4):
+        eng.step()
+    eng.submit(Request(tokens=prompts[2]))                # defers, then admits
+    eng.run()
+
+
+def test_mixed_engine_zero_builds_at_steady_state():
+    cfg, eng = _engine(scheduler="priority", preemption="recompute")
+
+    with compile_guard.count_captures() as warm:
+        _drive_mixed_scenario(eng, _prompts(cfg, seed=0, n=4))
+    assert warm.count > 0, "warm-up must build (guard sanity check)"
+
+    with compile_guard.assert_no_captures() as steady:
+        events = _drive_mixed_scenario(eng, _prompts(cfg, seed=1, n=4))
+    assert steady.count == 0
+    assert any(isinstance(e, PreemptedEvent) for e in events), \
+        "scenario must force a preemption inside the guarded region"
+    assert eng._decode_masked.replays > 0
+
+
+def test_paged_freelist_engine_zero_builds_at_steady_state():
+    cfg, eng = _engine(backend="paged", page_size=8, page_allocator="freelist",
+                       pool_fraction=1.0, admit_watermark=0.25, paged_kernel=True)
+
+    with compile_guard.count_captures() as warm:
+        _drive_deferral_scenario(eng, _prompts(cfg, seed=0, n=3))
+    assert warm.count > 0, "warm-up must build (guard sanity check)"
+    deferrals_before = eng.pool_stats()["deferrals"]
+    assert deferrals_before >= 1, "scenario must force a deferral"
+
+    with compile_guard.assert_no_captures() as steady:
+        _drive_deferral_scenario(eng, _prompts(cfg, seed=1, n=3))
+    assert steady.count == 0
+    # the deferral fired again inside the guarded region: page-table writes
+    # and the late admission reused the step built at warm-up
+    assert eng.pool_stats()["deferrals"] > deferrals_before
+    assert eng.caches is eng._decode_masked.caches
+
+
+def test_guard_counts_fresh_builds():
+    """The guard itself: a step built inside the region is counted and
+    named; `assert_no_captures` raises `RecaptureError` on it."""
+    cfg, ccfg, params = _setup()
+    shape = ShapeConfig("serve", 16, 2, "prefill")
+
+    def fresh_step():
+        step, ctx = steps_lib.make_continuous_decode_step(cfg, shape, ccfg, device="cpu")
+        return step, registry.init_caches(cfg, ctx, 2, device="cpu")
+
+    stage = steps_lib.stage_rows({0: (5, False)}, 2)
+    step, caches = fresh_step()
+    with compile_guard.count_captures() as log:
+        step(params, caches, stage)
+    assert log.count == 1 and log.names == ["continuous_decode"]
+    with compile_guard.count_captures() as log2:
+        step(params, caches, stage)              # built: nothing new
+    assert log2.count == 0
+    with pytest.raises(compile_guard.RecaptureError, match="continuous_decode"):
+        with compile_guard.assert_no_captures():
+            other, other_caches = fresh_step()
+            other(params, other_caches, stage)   # a new step: a new build
