@@ -15,7 +15,9 @@ continued:
      one PyTorch call computes the same function, that call's time;
      cst_quant takes the hi and lo stores of the lockstep prefill (K and V
      in one launch, bitwise against the plain version) and the lo store at
-     batch 1; flash_fwd and probe_colsum are timed at batch 1 too (the continuous
+     batch 1, each also through its effective-bit (`eff`) instantiation with
+     a mixed table of per-slice effective bits, bitwise against the plain
+     version and timed beside the static launch; flash_fwd and probe_colsum are timed at batch 1 too (the continuous
      admission shape), flash_fwd with SDPA beside it; probe_colsum is held
      bitwise equal across two calls, and the salient set that
      `saliency.salient_split` draws from its normalized sums against the
@@ -59,6 +61,17 @@ continued:
      eager engine's step of the same index: the active rows' logits within
      one bf16 ulp of their largest value (the count of bitwise-equal steps
      is logged), and every greedy token equal;
+  4e. slice 7's levers: the continuous engine under the conformance
+     precision map ("default=k8v8;layer:1-=k3v3", every store through
+     cst_quant's eff instantiation), paged free-list, the page walk, the
+     priority scheduler, 2 slots and prompts of 1024: a swap-pressure run
+     (two long requests, then an urgent short one that forces a victim; at
+     least one swap-out and swap-in, tokens equal to the same traffic under
+     preemption by recompute, host bytes back to 0) and a ladder-pressure
+     run (an exactly sized pool under a watermark of 0.6; at least one
+     downshift that frees pages).  Each run's launches are counted from 0
+     and held against its path; entry bytes and the swap-out / swap-in and
+     downshift (fold at a rung) times are logged;
   5. a `kernels` JSON line, then the last line:
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -245,12 +258,13 @@ def main() -> None:
                   f"cst_quant {name} store: {part} differ from the plain version")
         stores[name] = (bits, sidx, got)
 
-    def store_bound(k_, v_, sidx, got):
-        """Bytes: each live slot's K and V rows read once, the slot indices,
-        the codes and parameters written once."""
+    def store_bound(k_, v_, sidx, got, *inputs):
+        """Bytes: each live slot's K and V rows read once, the slot indices
+        (and any other input, an eff table) read, the codes and parameters
+        written once."""
         n_live = int((sidx >= 0).sum())
         row = k_.shape[1] * (k_.shape[-1] + v_.shape[-1]) * k_.element_size()
-        return bound_ms(0.0, n_live * row + nbytes(sidx, *got))
+        return bound_ms(0.0, n_live * row + nbytes(sidx, *got, *inputs))
 
     bits, sidx, got = stores["lo"]
     fn = lambda: cst_kernel.quantize_store(kv_k, kv_v, sidx, bits)  # noqa: E731
@@ -275,6 +289,51 @@ def main() -> None:
                        "plain_ms": time_ms(torch, lambda: cst_ref.quantize_store_ref(
                            k1, v1, idx1, bits)),
                        "bound_ms": store_bound(k1, v1, idx1, got1)[0]}
+    # the eff instantiation (precision maps, downshift rungs): a (b, hk, 2)
+    # table of effective bits per slice and tensor, a third of it at the
+    # container width; bitwise the plain version at the hi, lo and batch-1
+    # lo stores, one launch each, and timed beside the static launch
+    def eff_for(bits_, b_):
+        e = torch.randint(1, bits_ + 1, (b_, hk, 2), generator=gen, device=dev).float()
+        e.view(-1)[::3] = float(bits_)
+        return e
+
+    eff_cases = {name: (kv_k, kv_v, sidx_, bits_, eff_for(bits_, b))
+                 for name, (bits_, sidx_, _) in stores.items()}
+    eff_cases["batch1"] = (k1, v1, idx1, bits, eff_for(bits, 1))
+    for name, (k_, v_, sidx_, bits_, e) in eff_cases.items():
+        before = cst_kernel.KERNEL.launches
+        got_e = cst_kernel.quantize_store(k_, v_, sidx_, bits_, eff=e)
+        want_e = cst_ref.quantize_store_ref(k_, v_, sidx_, bits_, e)
+        torch.cuda.synchronize()
+        check(cst_kernel.KERNEL.launches == before + 1, "cst_quant eff: one launch per store")
+        for part, a, w in zip(("K codes", "K scale", "K zero", "V codes", "V scale", "V zero",
+                               "V channel scale"), got_e, want_e):
+            check(a.dtype == w.dtype and torch.equal(a, w),
+                  f"cst_quant eff {name} store: {part} differ from the plain version")
+    k_, v_, sidx_, bits_, e = eff_cases["lo"]
+    fn_s = lambda: cst_kernel.quantize_store(k_, v_, sidx_, bits_)  # noqa: E731
+    fn_e = lambda: cst_kernel.quantize_store(k_, v_, sidx_, bits_, eff=e)  # noqa: E731
+    got_e = fn_e()
+    eb = store_bound(k_, v_, sidx_, got_e, e)
+    extra["eff"] = {"max_abs_err": 0.0, "static_ms": time_ms(torch, fn_s, iters=50),
+                    "ms": time_ms(torch, fn_e, iters=50),
+                    "static_device_ms": device_ms(torch, fn_s), "device_ms": device_ms(torch, fn_e),
+                    "plain_ms": time_ms(torch, lambda: cst_ref.quantize_store_ref(
+                        k_, v_, sidx_, bits_, e)), "bound_ms": eb[0], "bound_by": eb[1]}
+    k_, v_, sidx_, bits_, e = eff_cases["batch1"]
+    fn_s1 = lambda: cst_kernel.quantize_store(k_, v_, sidx_, bits_)  # noqa: E731
+    fn_e1 = lambda: cst_kernel.quantize_store(k_, v_, sidx_, bits_, eff=e)  # noqa: E731
+    extra["eff"]["batch1"] = {"static_device_ms": device_ms(torch, fn_s1),
+                              "device_ms": device_ms(torch, fn_e1)}
+    fx = extra["eff"]
+    log(f"cst_quant eff: bitwise at the hi, lo and batch-1 stores; lo store with eff "
+        f"{fx['ms']:.4f} ms (device {fx['device_ms']:.4f} ms) against static "
+        f"{fx['static_ms']:.4f} ms (device {fx['static_device_ms']:.4f} ms), plain "
+        f"{fx['plain_ms']:.4f} ms, bound {fx['bound_ms']:.5f} ms; batch-1 lo device "
+        f"{fx['batch1']['device_ms']:.4f} ms against static "
+        f"{fx['batch1']['static_device_ms']:.4f} ms")
+    del eff_cases, got_e, e, k_, v_, sidx_
     rows["cst_quant"].update(extra)
     log(f"cst_quant: timed at the lo store ({bits}-bit, {sidx.shape[1]} slots); hi store "
         f"({hbits}-bit, {hidx.shape[1]} slots) {extra['hi']['ms']:.4f} ms (device "
@@ -632,8 +691,7 @@ def main() -> None:
         log(f"  {r}: prompt {lengths[i]}, {len(res[r].tokens)} tokens, queued "
             f"{t['queued_s']:.3f} s, first token {t['first_token_s']:.3f} s, prefill "
             f"{t['prefill_s']:.3f} s, decode {t['tok_per_s']:.1f} tok/s")
-    peaks = {k: f"{v['peak_used']}/{v['pool_pages']}" for k, v in stats.items()
-             if isinstance(v, dict)}
+    peaks = {k: f"{stats[k]['peak_used']}/{stats[k]['pool_pages']}" for k in ("hi", "lo", "win")}
     log(f"continuous: pages peak used / pool {peaks}")
     log(f"continuous: kernel launches {claunches}, gather-path decodes {gathers}")
     log(f"continuous: max memory allocated {cpeak / 2**30:.2f} GiB")
@@ -803,6 +861,12 @@ def main() -> None:
                              ops=ops, peak=peak, rec=rec, step=rec.step)
         del eng
     summarize("continuous", cont, torch, rel_l2, yardstick)
+    del cont
+
+    # ---- 4e. slice 7's levers: precision map, swap tier, downshift ladder ---
+    by_path.update(levers(torch, np, cfg, ccfg, params, dev, kernels, n_layers, prompt))
+    rows["cst_quant"]["eff"]["launches"] = sum(
+        p["cst_quant"] for name, p in by_path.items() if name.startswith("levers"))
     for name, row in rows.items():
         row["launches"] = sum(p.get(name, 0) for p in by_path.values())
         row["launches_by_path"] = {k: p.get(name, 0) for k, p in by_path.items()}
@@ -812,6 +876,117 @@ def main() -> None:
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
+
+
+PRECISION_MAP = "default=k8v8;layer:1-=k3v3"   # tests/test_backend_conformance.py's
+
+
+def levers(torch, np, cfg, ccfg, params, dev, kernels, n_layers, prompt):
+    """Phase 4e: the swap-pressure and ladder-pressure runs of
+    tests/test_backend_conformance.py at yi-6b's full width (prompts of
+    1024, page 64), under the conformance precision map, captured.  Returns
+    each run's launch counts, read from 0."""
+    from repro_torch.serving import (ContinuousEngine, DownshiftEvent, PreemptedEvent,
+                                     Request, ServeConfig, SwappedEvent)
+
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(2, cfg.vocab, size=(prompt,)).astype(np.int32) for _ in range(3)]
+    timed = {"_swap_out": [], "_swap_in": [], "_downshift": []}
+
+    def engine(**kw):
+        scfg = ServeConfig(batch_size=2, prompt_len=prompt, max_new_tokens=12, seed=0,
+                           backend="paged", page_size=64, page_allocator="freelist",
+                           paged_kernel=True, scheduler="priority",
+                           precision_map=PRECISION_MAP, **kw)
+        eng = ContinuousEngine(cfg, ccfg, scfg, params, device=dev)
+        for name, ms in timed.items():   # wall time of each lever event, to a synchronize
+            def wrapped(*a, _fn=getattr(eng, name), _ms=ms):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _fn(*a)
+                torch.cuda.synchronize()
+                if out is not False:   # not a refused or ineligible victim
+                    _ms.append(round((time.perf_counter() - t0) * 1e3, 3))
+                return out
+            setattr(eng, name, wrapped)
+        return eng
+
+    def drive(eng, scenario, label):
+        """Returns (tokens per request, events, pool stats, launches)."""
+        torch.cuda.synchronize()
+        for kern in kernels.values():
+            kern.launches = 0
+        if scenario == "swap":
+            rids = [eng.submit(Request(tokens=prompts[0])), eng.submit(Request(tokens=prompts[1]))]
+        else:
+            rids = [eng.submit(Request(tokens=prompts[0])),
+                    eng.submit(Request(tokens=prompts[1], max_new_tokens=6))]
+        events = []
+        for _ in range(4):
+            events += eng.step()
+        if scenario == "swap":
+            rids.append(eng.submit(Request(tokens=prompts[2], max_new_tokens=3, priority=2)))
+        else:
+            rids.append(eng.submit(Request(tokens=prompts[2])))
+        while eng.pending:
+            events += eng.step()
+        torch.cuda.synchronize()
+        launches = {n: kern.launches for n, kern in kernels.items()}
+        eng._alloc.check_invariants()
+        st = eng.pool_stats()
+        for seg in ("hi", "lo", "win"):
+            check(st[seg]["used"] == 0, f"levers ({label}): {seg} pages not all returned")
+        # every store of every admission and fold through cst_quant (here its
+        # eff instantiation: the map covers every layer), every decode step
+        # through the page walk, a recompute re-admission's replayed steps too
+        replayed = sum(e.n_generated - 1 for e in events if isinstance(e, PreemptedEvent))
+        want = {"cst_quant": 2 * n_layers * (st["admissions"] + st["folds"]),
+                "flash_fwd": n_layers * st["admissions"],
+                "probe_colsum": n_layers * st["admissions"],
+                "decode_qattn": 0, "paged_qattn": n_layers * (eng._step_no + replayed)}
+        for name, n in want.items():
+            check(launches[name] == n, f"levers ({label}): {name} {launches[name]} "
+                                       f"launches, the path implies {n}")
+            check(n > 0 or name == "decode_qattn", f"levers ({label}): {name} never launched")
+        step = eng._decode_masked
+        check(step.captures == 1 and step.replays > 0,
+              f"levers ({label}): the decode step was built {step.captures} times")
+        return [eng.result(r).tokens.tolist() for r in rids], events, st, launches
+
+    out_rc, ev_rc, _, _ = drive(engine(pool_fraction=1.0, preemption="recompute"), "swap",
+                                "recompute")
+    check(any(isinstance(e, PreemptedEvent) for e in ev_rc),
+          "levers: the swap scenario forced no victim under recompute")
+    for ms in timed.values():
+        ms.clear()
+    out_sw, ev_sw, st_sw, l_sw = drive(engine(pool_fraction=1.0, preemption="swap"), "swap", "swap")
+    dirs = [e.direction for e in ev_sw if isinstance(e, SwappedEvent)]
+    sw = st_sw["swap"]
+    log(f"levers (swap): {dirs.count('out')} swap-outs, {dirs.count('in')} swap-ins; entry "
+        f"{sw['entry_bytes']} bytes ({sw['entry_bytes'] / 2**20:.2f} MiB, {sw['capacity']} "
+        f"pinned entries); swap-out {timed['_swap_out']} ms, swap-in {timed['_swap_in']} ms "
+        f"(wall to a synchronize); host bytes after the run {sw['host_bytes']}")
+    check("out" in dirs and "in" in dirs, f"levers: no swap-out and swap-in: {dirs}")
+    check(not any(isinstance(e, PreemptedEvent) for e in ev_sw),
+          "levers: a swap fell back to recompute")
+    check(sw["host_bytes"] == 0 and sw["resident"] == 0, f"levers: host bytes left: {sw}")
+    check(out_sw == out_rc, "levers: the swap run's tokens differ from the recompute run's")
+    log(f"levers (swap): tokens equal to the recompute run's; launches {l_sw}")
+
+    out_ds, ev_ds, st_ds, l_ds = drive(engine(pool_fraction=1.0, ladder_watermark=0.6), "ladder",
+                                      "ladder")
+    ds = st_ds["downshift"]
+    rungs = [e.rung for e in ev_ds if isinstance(e, DownshiftEvent)]
+    log(f"levers (ladder): {ds['downshifts']} downshifts (rungs {rungs}) freed "
+        f"{ds['pages_freed']} window pages; downshift (fold at the rung, all layers) "
+        f"{timed['_downshift']} ms; {st_ds['folds']} folds, {st_ds['deferrals']} deferrals; "
+        f"launches {l_ds}")
+    check(ds["downshifts"] >= 1 and ds["pages_freed"] >= 1, f"levers: no downshift: {ds}")
+    check(all(len(t) == m for t, m in zip(out_ds, (12, 6, 12))),
+          "levers (ladder): a request ended short of its budget")
+    check(all(0 <= tok < cfg.vocab for t in out_ds + out_sw for tok in t),
+          "levers: token ids out of range")
+    return {"levers (swap)": l_sw, "levers (ladder)": l_ds}
 
 
 def profile_window(torch, run, n_steps):

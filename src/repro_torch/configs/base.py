@@ -44,3 +44,4 @@ class ShapeConfig:
     paged_kernel: bool = False     # "paged" only: decode attention walks the pages
     page_allocator: str = "static"  # "paged" only: "static" | "freelist"
     pool_fraction: float = 1.0     # "freelist" only: pools as a fraction of the worst case
+    precision_map: str = ""        # per-layer/head effective-bit ceilings; "" = off

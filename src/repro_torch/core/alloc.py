@@ -18,10 +18,11 @@ reserve its WORST-CASE page demand (prompt + full decode budget) on top of
 the running slots' outstanding reservations and the watermark, so later
 grants never fail; pressure shows as deferred admission.
 
-Left out of this copy, for the serving-levers slice: shared-prefix dedup
-(`prefix_key`, `PrefixIndex`, `alias`/`admit_alias`, `privatize`, the
-`prefix_*` calls) and the downshift-ladder notes.  Without aliasing every
-granted page is owned by exactly one slot.
+Left out of this copy until shared-prefix dedup is ported: `prefix_key`,
+`PrefixIndex`, `alias`/`admit_alias`, `privatize` and the `prefix_*` calls.
+Without aliasing every granted page is owned by exactly one slot, so
+`needs_privatize` is False by construction, and the swap and downshift
+refusals it guards cannot fire yet.
 """
 
 from __future__ import annotations
@@ -172,7 +173,12 @@ class FreeListAllocator:
         self.occ: List[Optional[Occupancy]] = [None] * slots
         self.watermark = watermark
         self.deferrals = 0
-        self.preemptions = 0   # preempt+recompute evictions (each a full free)
+        self.preemptions = 0   # evictions (recompute or swap), each a full free
+        # the downshift ladder: early folds at a lowered lo-store width, the
+        # window pages they returned, and victims refused for aliased pages
+        self.downshifts = 0
+        self.downshift_pages_freed = 0
+        self.downshift_refusals = 0
         self.dirty = True
 
     @classmethod
@@ -263,6 +269,24 @@ class FreeListAllocator:
         fracs = [len(seg.free) / seg.pool_pages for seg in self.segs.values() if seg.pool_pages]
         return min(fracs) if fracs else 1.0
 
+    def note_downshift(self, slot: int, pages_freed: int) -> None:
+        """Account one ladder downshift of `slot`: its window was early-folded
+        at a lowered lo-store width and `pages_freed` window pages came back
+        (the returns themselves went through `fold_shrink`)."""
+        assert self.occ[slot] is not None, f"downshift of unoccupied slot {slot}"
+        self.downshifts += 1
+        self.downshift_pages_freed += int(pages_freed)
+
+    def note_downshift_refusal(self) -> None:
+        """Account a victim skipped because its tables alias shared pages."""
+        self.downshift_refusals += 1
+
+    def needs_privatize(self, slot: int) -> bool:
+        """Whether the slot's tables hold a page it does not own (a shared
+        prefix page) that a fold would write through.  No page is shared
+        without prefix dedup, so False."""
+        return False
+
     def fold_grant(self, slot: int) -> None:
         """BEFORE a recompression: grant the hi/lo growth pages the fold will
         write (predicted by `fold_occupancy`)."""
@@ -303,6 +327,9 @@ class FreeListAllocator:
                      for n, seg in self.segs.items()}
         out["deferrals"] = self.deferrals
         out["preemptions"] = self.preemptions
+        out["downshift"] = {"downshifts": self.downshifts,
+                            "pages_freed": self.downshift_pages_freed,
+                            "refusals": self.downshift_refusals}
         return out
 
     def check_invariants(self) -> None:

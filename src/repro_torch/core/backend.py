@@ -13,7 +13,8 @@ package's live path written in PyTorch.  The paged layout is
 
 `is_probe`, wherever it appears, is a host bool for the whole batch or a
 (b,) device tensor of per-row flags that the caller passes only when some
-row probes; `active` is an optional (b,) bool device tensor of live slots.
+row probes; `active` is an optional (b,) bool device tensor of live slots;
+`eff` is an optional `core.precision.LayerEff` (a layer's effective bits).
 """
 
 from __future__ import annotations
@@ -38,10 +39,10 @@ class MixedKVBackend:
         return kvc.init_cache(self.ccfg, b, h_kv, d, max_len, dtype, d_v=d_v, device=device)
 
     def compress_prefill(self, k, v, token_saliency, max_len, probe_nnz=None,
-                         dtype=torch.bfloat16):
+                         dtype=torch.bfloat16, eff=None):
         return kvc.compress_prefill(self.ccfg, k, v, token_saliency, max_len,
                                     probe_nnz=probe_nnz, dtype=dtype,
-                                    use_kernel=self.use_kernels)
+                                    use_kernel=self.use_kernels, eff=eff)
 
     def append(self, cache, k_t, v_t, active=None):
         return kvc.append_token(cache, k_t, v_t, active=active)
@@ -58,8 +59,8 @@ class MixedKVBackend:
     def update_probe(self, cache, slot_weights, is_probe):
         return kvc.update_probe_state(cache, slot_weights, is_probe)
 
-    def recompress(self, cache, rows=None):
-        return kvc.recompress(self.ccfg, cache, rows=rows, use_kernel=self.use_kernels)
+    def recompress(self, cache, rows=None, eff=None):
+        return kvc.recompress(self.ccfg, cache, rows=rows, use_kernel=self.use_kernels, eff=eff)
 
     def insert(self, cache, slice_cache, slot: int):
         return kvc.insert_slot(cache, slice_cache, slot)

@@ -22,6 +22,11 @@ Only the saliency policies (zipcache, mikv) are ported; the baselines'
 branches raise.  `use_kernel` builds ZipCache's stores (K channelwise, V
 CST, quantized) with one `cst_quant` launch each, which gathers the store's
 tokens and quantizes K and V together (`store_at`).
+
+`eff` (`core.precision.LayerEff`, a precision map and / or a downshift
+rung) gives the hi and lo stores effective-bit ceilings inside their
+containers; every store takes it through `store_at`, on the kernel route
+and the plain route alike.  None is the container widths.
 """
 
 from __future__ import annotations
@@ -109,37 +114,50 @@ def _empty_quant(x: torch.Tensor, bits: int) -> quant.QuantizedTensor:
     return quant.QuantizedTensor(codes, scale, zero, None, min(bits, 8), tuple(x.shape))
 
 
-def _quantize_kv(k: torch.Tensor, v: torch.Tensor, bits: int, cfg: CompressionConfig):
-    """Quantize gathered K/V token blocks per the policy's schemes."""
+def _quantize_kv(k: torch.Tensor, v: torch.Tensor, bits: int, cfg: CompressionConfig,
+                 eff=None):
+    """Quantize gathered K/V token blocks per the policy's schemes; eff:
+    None or the store's (eff_k, eff_v).  Raw 16-bit stores ignore it."""
     if k.shape[-2] == 0:
         return _empty_quant(k, bits), _empty_quant(v, bits)
     if bits >= 16:
         return quant.quantize_raw16(k), quant.quantize_raw16(v)
     kw_k = {"group_size": min(cfg.group_size, k.shape[-1])} if cfg.key_scheme == "groupwise" else {}
     kw_v = {"group_size": min(cfg.group_size, v.shape[-1])} if cfg.value_scheme == "groupwise" else {}
-    qk = quant.quantize(k, bits, cfg.key_scheme, **kw_k)
-    qv = quant.quantize(v, bits, cfg.value_scheme, **kw_v)
+    eff_k, eff_v = eff if eff is not None else (None, None)
+    qk = quant.quantize(k, bits, cfg.key_scheme, eff=eff_k, **kw_k)
+    qv = quant.quantize(v, bits, cfg.value_scheme, eff=eff_v, **kw_v)
     return qk, qv
 
 
-def build_store(k, v, pos, acc, nnz, bits: int, cfg: CompressionConfig) -> TokenStore:
-    qk, qv = _quantize_kv(k, v, bits, cfg)
+def build_store(k, v, pos, acc, nnz, bits: int, cfg: CompressionConfig,
+                eff=None) -> TokenStore:
+    qk, qv = _quantize_kv(k, v, bits, cfg, eff=eff)
     return TokenStore(qk, qv, pos.to(torch.int32), acc.float(), nnz.float())
 
 
 def store_at(k: torch.Tensor, v: torch.Tensor, idx: torch.Tensor, pos, acc, nnz, bits: int,
-             cfg: CompressionConfig, use_kernel: bool = False) -> TokenStore:
+             cfg: CompressionConfig, use_kernel: bool = False, eff=None) -> TokenStore:
     """The store of the tokens that idx (b, S) picks from k / v (b, h_kv, l,
     d); idx < 0 gives a zero row (a store's padding, an invalid slot).  pos,
-    acc and nnz are per slot already.  With `use_kernel`, ZipCache's stores
-    (K channelwise, V CST) at a quantized width take one `cst_quant` launch
-    for the gather and both quantizers."""
+    acc and nnz are per slot already.  eff: None or the store's (eff_k,
+    eff_v) effective bits.  With `use_kernel`, ZipCache's stores (K
+    channelwise, V CST) at a quantized width take one `cst_quant` launch for
+    the gather and both quantizers, eff included."""
     if use_kernel and idx.shape[1] and bits < 16 \
             and (cfg.key_scheme, cfg.value_scheme) == ("channelwise", "cst"):
         from repro_torch.kernels.cst_quant import ops as cst_ops
-        qk, qv = cst_ops.quantize_store(k, v, idx, bits)
+        qk, qv = cst_ops.quantize_store(k, v, idx, bits, eff=eff)
         return TokenStore(qk, qv, pos.to(torch.int32), acc.float(), nnz.float())
-    return build_store(_gather_tokens(k, idx), _gather_tokens(v, idx), pos, acc, nnz, bits, cfg)
+    return build_store(_gather_tokens(k, idx), _gather_tokens(v, idx), pos, acc, nnz, bits, cfg,
+                       eff=eff)
+
+
+def _store_effs(eff):
+    """(hi, lo) store effs of a `precision.LayerEff` (None: both None)."""
+    if eff is None:
+        return None, None
+    return (eff.hi_k, eff.hi_v), (eff.lo_k, eff.lo_v)
 
 
 def empty_store(b: int, h_kv: int, capacity: int, d: int, bits: int, cfg: CompressionConfig,
@@ -256,11 +274,12 @@ def _gather_slots(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def compress_prefill(cfg: CompressionConfig, k: torch.Tensor, v: torch.Tensor,
                      token_saliency: torch.Tensor, max_len: int,
                      probe_nnz: Optional[torch.Tensor] = None, dtype=torch.bfloat16,
-                     use_kernel: bool = False) -> MixedKVCache:
+                     use_kernel: bool = False, eff=None) -> MixedKVCache:
     """Compress prefill K/V (b, h_kv, l, d) into a MixedKVCache sized max_len.
 
     token_saliency: (b, l) normalized probe saliency; probe_nnz: (b, l) its
     Eq. 8 denominators.  `acc` stores the raw mass: saliency * max(nnz, 1).
+    eff: optional `precision.LayerEff`, this layer's effective bits.
     """
     _ported(cfg)
     if token_saliency is None:
@@ -275,7 +294,9 @@ def compress_prefill(cfg: CompressionConfig, k: torch.Tensor, v: torch.Tensor,
     n_hi = min(cfg.n_salient(l), s_hi)
     salient_idx, regular_idx = sal.salient_split(token_saliency, n_hi)
 
-    def store(idx, capacity, bits):
+    eff_hi, eff_lo = _store_effs(eff)
+
+    def store(idx, capacity, bits, store_eff):
         """The store of tokens idx, right-padded to its static capacity."""
         pad = capacity - idx.shape[1]
         if pad < 0:
@@ -286,11 +307,11 @@ def compress_prefill(cfg: CompressionConfig, k: torch.Tensor, v: torch.Tensor,
 
         return store_at(k, v, slots(idx, -1), slots(_gather_slots(positions, idx), -1),
                         slots(_gather_slots(acc, idx)), slots(_gather_slots(nnz, idx)), bits,
-                        cfg, use_kernel=use_kernel)
+                        cfg, use_kernel=use_kernel, eff=store_eff)
 
     return MixedKVCache(
-        hi=store(salient_idx, s_hi, cfg.high_bits),
-        lo=store(regular_idx, s_lo, cfg.low_bits),
+        hi=store(salient_idx, s_hi, cfg.high_bits, eff_hi),
+        lo=store(regular_idx, s_lo, cfg.low_bits, eff_lo),
         length=torch.full((b,), l, dtype=torch.int32, device=dev),
         **_window(b, h_kv, w, d, v.shape[-1], dtype, dev))
 
@@ -452,15 +473,19 @@ def tree_select_rows(mask: torch.Tensor, new_tree, old_tree):
 # ---------------------------------------------------------------------------
 
 def recompress(cfg: CompressionConfig, cache: MixedKVCache, rows: Optional[torch.Tensor] = None,
-               use_kernel: bool = False) -> MixedKVCache:
+               use_kernel: bool = False, eff=None) -> MixedKVCache:
     """Fold the staging window back into the quantized stores: re-rank every
     valid token by its current saliency (acc / nnz for 'normalized', acc for
     'accumulated'), rebuild hi/lo, empty the window.
 
     rows: optional (b,) bool: fold only those rows (each slot of a
     continuous batch folds on its own counter).  Every step is
-    row-independent, so selecting rows afterwards is exact."""
-    new = _recompress_all(cfg, cache, use_kernel=use_kernel)
+    row-independent, so selecting rows afterwards is exact.
+
+    eff: optional `precision.LayerEff` of the rebuilt stores (a precision
+    map, possibly with a per-slot downshift rung folded in by
+    `precision.rung_eff`)."""
+    new = _recompress_all(cfg, cache, use_kernel=use_kernel, eff=eff)
     return new if rows is None else tree_select_rows(rows, new, cache)
 
 
@@ -473,7 +498,7 @@ def _valid_first(idx: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 
 
 def _recompress_all(cfg: CompressionConfig, cache: MixedKVCache,
-                    use_kernel: bool = False) -> MixedKVCache:
+                    use_kernel: bool = False, eff=None) -> MixedKVCache:
     _ported(cfg)
     k, v, valid, pos = cache_keys_values(cache)
     acc = torch.cat([cache.hi.acc, cache.lo.acc, cache.win_acc], dim=1)
@@ -485,16 +510,19 @@ def _recompress_all(cfg: CompressionConfig, cache: MixedKVCache,
     idx = torch.sort(scores, dim=-1, descending=True, stable=True).indices[:, :s_hi + s_lo]
     idx = idx.to(torch.int32)
 
-    def store(idx_, bits):
+    eff_hi, eff_lo = _store_effs(eff)
+
+    def store(idx_, bits, store_eff):
         order = _valid_first(idx_, valid)
         # invalid slots read a zero row: channel scales reduce over the whole
         # token axis, so stale payload would leak into live tokens' scales
         src = torch.where(_gather_slots(valid, order), order, -1)
         return store_at(k, v, src, _gather_slots(pos, order), _gather_slots(acc, order),
-                        _gather_slots(nnz, order), bits, cfg, use_kernel=use_kernel)
+                        _gather_slots(nnz, order), bits, cfg, use_kernel=use_kernel,
+                        eff=store_eff)
 
-    hi = store(idx[:, :s_hi], cfg.high_bits)
-    lo = store(idx[:, s_hi:], cfg.low_bits)
+    hi = store(idx[:, :s_hi], cfg.high_bits, eff_hi)
+    lo = store(idx[:, s_hi:], cfg.low_bits, eff_lo)
     return _emptied_window(dataclasses.replace(cache, hi=hi, lo=lo))
 
 

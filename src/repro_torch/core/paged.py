@@ -400,10 +400,13 @@ def _write_back(cache: PagedKVCache, mx: kvc.MixedKVCache,
 
 
 def recompress(cfg: CompressionConfig, cache: PagedKVCache, rows: Optional[torch.Tensor] = None,
-               use_kernel: bool = False) -> PagedKVCache:
+               use_kernel: bool = False, eff=None) -> PagedKVCache:
     """Fold staging pages back into the stores (paper Alg. 3): the dense
-    recompression on the gathered view, scattered back page-wise."""
-    mx = kvc.recompress(cfg, cache.dense_view(), use_kernel=use_kernel)
+    recompression on the gathered view, scattered back page-wise.  `eff`
+    (a precision map, a downshift rung) passes through to the dense
+    recompression: codes stay packed at the container width, so the page
+    layout does not depend on it."""
+    mx = kvc.recompress(cfg, cache.dense_view(), use_kernel=use_kernel, eff=eff)
     return _write_back(cache, mx, rows=rows)
 
 
@@ -436,11 +439,13 @@ def _slice_slot_view(cache: PagedKVCache, slot: int) -> kvc.MixedKVCache:
 
 
 def recompress_slot(cfg: CompressionConfig, cache: PagedKVCache, slot: int,
-                    use_kernel: bool = False) -> PagedKVCache:
+                    use_kernel: bool = False, eff=None) -> PagedKVCache:
     """Fold ONE slot's staging pages: recompress its batch-1 dense view and
     scatter the result onto the slot's pages and metadata row.  Bitwise
-    `recompress(rows=onehot(slot))`, at per-request instead of batch cost."""
-    mx1 = kvc.recompress(cfg, _slice_slot_view(cache, slot), use_kernel=use_kernel)
+    `recompress(rows=onehot(slot))`, at per-request instead of batch cost.
+    `eff` must be per-head or scalar shaped (the view is batch 1): a slot
+    fold takes a scalar rung, not the (b,) batch rung."""
+    mx1 = kvc.recompress(cfg, _slice_slot_view(cache, slot), use_kernel=use_kernel, eff=eff)
 
     def scat(pages, table, dense):
         if table.shape[1]:
@@ -464,6 +469,41 @@ def recompress_slot(cfg: CompressionConfig, cache: PagedKVCache, slot: int,
         win_pos=rowup(cache.win_pos, mx1.win_pos), win_acc=rowup(cache.win_acc, mx1.win_acc),
         win_nnz=rowup(cache.win_nnz, mx1.win_nnz), length=rowup(cache.length, mx1.length),
         win_fill=rowup(cache.win_fill, mx1.win_fill))
+
+
+# ---------------------------------------------------------------------------
+# Swap: one slot's state out to the host and back
+# ---------------------------------------------------------------------------
+
+def extract_slot(cache: PagedKVCache, slot: int) -> list:
+    """One slot's complete device state, the device half of a swap-out
+    (`core.swap` owns the host entries): the payload pages of each segment
+    (`_segments` order) in LOGICAL order through the slot's table row,
+    (npp, h, page, c) each, then the slot's metadata rows, (1, ...) each, as
+    a flat list.
+
+    Table entries past the granted prefix are NULL (the sink) and gather
+    its bytes, harmless: validity is pos-driven, and `restore_slot`
+    scatters those logical pages back into the sink.  The full npp extent
+    keeps every shape fixed, so one host entry fits every occupancy."""
+    pages = [pool[table[slot].long()] if table.shape[1] else pool[:0]
+             for pool, table in _segments(cache)]
+    return pages + [x[slot:slot + 1] for x in kvc.tree_leaves(_meta_only(cache))]
+
+
+def restore_slot(cache: PagedKVCache, payload: list, slot: int) -> PagedKVCache:
+    """Inverse of `extract_slot` through the slot's NEW table row: the pages
+    onto the physical pages the allocator re-granted (logical pages past
+    the grant land in the sink), the metadata rows rewritten.  Bitwise: the
+    slot gets back exactly the bytes `extract_slot` took."""
+    segments = _segments(cache)
+    for (pool, table), logical in zip(segments, payload):
+        if table.shape[1]:
+            pool[table[slot].long()] = logical.to(pool.dtype)
+    rows = iter(payload[len(segments):])
+    src = kvc.tree_map(lambda _: next(rows), _meta_only(cache))
+    meta = kvc.tree_update_rows(_meta_only(cache), src, slot)
+    return _with_payload_of(meta, cache)
 
 
 # ---------------------------------------------------------------------------
@@ -505,11 +545,11 @@ class PagedKVBackend:
         return from_mixed_freelist(mx, self.page_size, pools)
 
     def compress_prefill(self, k, v, token_saliency, max_len, probe_nnz=None,
-                         dtype=torch.bfloat16):
+                         dtype=torch.bfloat16, eff=None):
         """Always the static layout: a prefill slice only lives until it is
         inserted into the decode cache."""
         mx = kvc.compress_prefill(self.ccfg, k, v, token_saliency, max_len, probe_nnz=probe_nnz,
-                                  dtype=dtype, use_kernel=self.use_kernels)
+                                  dtype=dtype, use_kernel=self.use_kernels, eff=eff)
         return from_mixed(mx, self.page_size)
 
     def append(self, cache, k_t, v_t, active=None):
@@ -530,11 +570,11 @@ class PagedKVBackend:
     def update_probe(self, cache, slot_weights, is_probe):
         return kvc.update_probe_state(cache, slot_weights, is_probe)
 
-    def recompress(self, cache, rows=None):
-        return recompress(self.ccfg, cache, rows=rows, use_kernel=self.use_kernels)
+    def recompress(self, cache, rows=None, eff=None):
+        return recompress(self.ccfg, cache, rows=rows, use_kernel=self.use_kernels, eff=eff)
 
-    def recompress_slot(self, cache, slot: int):
-        return recompress_slot(self.ccfg, cache, slot, use_kernel=self.use_kernels)
+    def recompress_slot(self, cache, slot: int, eff=None):
+        return recompress_slot(self.ccfg, cache, slot, use_kernel=self.use_kernels, eff=eff)
 
     def insert(self, cache, slice_cache, slot: int):
         return insert_slot(cache, slice_cache, slot)

@@ -7,8 +7,11 @@ channels).  Every step repeats the reference's float32 arithmetic in the
 same order (divide, round half to even, clip), so the packed codes are
 bit-identical to the JAX package's for the same inputs.
 
-Effective-bit ceilings (`eff`, precision maps) are not ported yet: passing
-one raises.
+Every quantizer takes an optional `eff`: effective-bit ceilings inside the
+static container (`core.precision`), an f32 tensor that broadcasts against
+the per-slice statistics.  qmax is then ``2**eff - 1`` (exact in f32 for an
+integer eff) and scale, zero and the clip all use it; `eff=None` is the
+static-qmax path.
 """
 
 from __future__ import annotations
@@ -70,11 +73,6 @@ class QuantizedTensor:
                    if t is not None)
 
 
-def _no_eff(eff) -> None:
-    if eff is not None:
-        raise NotImplementedError("effective-bit precision maps are not ported yet")
-
-
 def true_div(x: torch.Tensor, n: float) -> torch.Tensor:
     """x / n with one IEEE rounding.  On CUDA, PyTorch divides by a Python
     number as a multiply by its reciprocal, which is off by an ulp at
@@ -83,48 +81,61 @@ def true_div(x: torch.Tensor, n: float) -> torch.Tensor:
     return x / torch.full((), n, dtype=x.dtype, device=x.device)
 
 
-def _minmax_params(x: torch.Tensor, bits: int, dim: int):
+def _qmax(bits: int, eff=None):
+    """The static integer qmax (eff None) or the effective one, ``2**eff -
+    1`` in f32 (a tensor)."""
+    return 2**bits - 1 if eff is None else torch.exp2(eff.float()) - 1.0
+
+
+def _minmax_params(x: torch.Tensor, bits: int, dim: int, eff=None):
     """Uniform asymmetric min/max quantization parameters (paper Eq. 5)."""
-    qmax = 2**bits - 1
+    qmax = _qmax(bits, eff)
     xmin = x.amin(dim=dim, keepdim=True)
     xmax = x.amax(dim=dim, keepdim=True)
-    scale = true_div(xmax - xmin, qmax).clamp_min(_EPS)
+    # a tensor divisor is a true division already; a Python one needs true_div
+    rng = xmax - xmin
+    scale = (true_div(rng, qmax) if eff is None else rng / qmax).clamp_min(_EPS)
     zero = torch.round(-xmin / scale)
     return scale, zero
 
 
-def _encode(x: torch.Tensor, scale, zero, bits: int) -> torch.Tensor:
-    q = torch.clamp(torch.round(x / scale + zero), 0, 2**bits - 1)
+def _clip(q: torch.Tensor, bits: int, eff=None) -> torch.Tensor:
+    if eff is None:
+        return torch.clamp(q, 0, 2**bits - 1)
+    return torch.minimum(q.clamp_min(0), _qmax(bits, eff))
+
+
+def _encode(x: torch.Tensor, scale, zero, bits: int, eff=None) -> torch.Tensor:
+    q = _clip(torch.round(x / scale + zero), bits, eff)
     return packing.pack(q.to(torch.uint8), bits)
 
 
 def quantize_tokenwise(x: torch.Tensor, bits: int, eff=None) -> QuantizedTensor:
     """Per-token (channel-reduced) uniform quantization. x: (..., T, C)."""
-    _no_eff(eff)
     xf = x.float()
-    scale, zero = _minmax_params(xf, bits, dim=-1)
-    codes = _encode(xf, scale, zero, bits)
+    scale, zero = _minmax_params(xf, bits, dim=-1, eff=eff)
+    codes = _encode(xf, scale, zero, bits, eff=eff)
     return QuantizedTensor(codes, scale.to(x.dtype), zero.to(x.dtype), None, bits, tuple(x.shape))
 
 
 def quantize_channelwise(x: torch.Tensor, bits: int, eff=None) -> QuantizedTensor:
     """Per-channel uniform quantization (token-reduced): the KEY scheme (§4.1)."""
-    _no_eff(eff)
     xf = x.float()
-    scale, zero = _minmax_params(xf, bits, dim=-2)
-    codes = _encode(xf, scale, zero, bits)
+    scale, zero = _minmax_params(xf, bits, dim=-2, eff=eff)
+    codes = _encode(xf, scale, zero, bits, eff=eff)
     return QuantizedTensor(codes, scale.to(x.dtype), zero.to(x.dtype), None, bits, tuple(x.shape))
 
 
 def quantize_groupwise(x: torch.Tensor, bits: int, group_size: int = 32, eff=None) -> QuantizedTensor:
     """KIVI-style groupwise quantization along channels; params (..., T, C/g)."""
-    _no_eff(eff)
     *lead, t, c = x.shape
     if c % group_size:
         raise ValueError(f"channels {c} not divisible by group size {group_size}")
+    if eff is not None:
+        eff = torch.as_tensor(eff)[..., None]   # grouped statistics carry an extra axis
     xg = x.float().reshape(*lead, t, c // group_size, group_size)
-    scale, zero = _minmax_params(xg, bits, dim=-1)
-    q = torch.clamp(torch.round(xg / scale + zero), 0, 2**bits - 1).reshape(*lead, t, c)
+    scale, zero = _minmax_params(xg, bits, dim=-1, eff=eff)
+    q = _clip(torch.round(xg / scale + zero), bits, eff).reshape(*lead, t, c)
     codes = packing.pack(q.to(torch.uint8), bits)
     return QuantizedTensor(codes, scale[..., 0].to(x.dtype), zero[..., 0].to(x.dtype),
                            None, bits, tuple(x.shape))
@@ -152,12 +163,11 @@ def quantize_cst(x: torch.Tensor, bits: int, channel_scale: Optional[torch.Tenso
                  eff=None) -> QuantizedTensor:
     """Channel-separable tokenwise quantization (paper Alg. 1): normalize each
     channel by c, tokenwise-quantize, and multiply c back at dequantization."""
-    _no_eff(eff)
     xf = x.float()
     c = channel_norm_scale(xf) if channel_scale is None else channel_scale.float()
     xn = xf / c
-    scale, zero = _minmax_params(xn, bits, dim=-1)
-    codes = _encode(xn, scale, zero, bits)
+    scale, zero = _minmax_params(xn, bits, dim=-1, eff=eff)
+    codes = _encode(xn, scale, zero, bits, eff=eff)
     return QuantizedTensor(codes, scale.to(x.dtype), zero.to(x.dtype), c.to(x.dtype),
                            bits, tuple(x.shape))
 

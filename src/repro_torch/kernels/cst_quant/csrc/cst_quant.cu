@@ -14,6 +14,11 @@
 //      zero = round(-min / scale); codes = clip(round(x / scale + zero));
 //   V: c = sqrt(max(colmax |x|, 1e-8)); per slot over the channels of
 //      xn = x / c the same (scale, zero) and codes of xn.
+// qmax is 2**bits - 1, or, where the host passes a per-slice table of
+// effective bits (a precision map or a downshift rung: whole bits, 1 to
+// `bits`), 2**eff - 1 for the (b, kv head, tensor) of the slice, computed
+// exactly in integers: scale, zero and the clip all take it, and the codes
+// stay packed at `bits`.
 // Codes pack 8 / bits fields LSB-first into a byte; scale, zero and c are
 // written in the store dtype (the sources' dtype), rounded to nearest even.
 // The arithmetic is the reference's in the same order: IEEE division and
@@ -48,7 +53,10 @@
 //     a warp a coalesced run of code rows.
 // The one-tensor call (cst_quant_rows, the TPU kernel's counterpart) is
 // the V instantiation with c given, f32 parameters and no gather: pass 2
-// alone, over runs of rows in chunks.
+// alone, over runs of rows in chunks.  A store with an eff table is its own
+// instantiation (HAS_EFF): one scalar load per CTA, the same arithmetic
+// with the slice's qmax in place of the constant; without a table the
+// constant folds as before.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -77,6 +85,8 @@ struct StoreDesc {
   void* scale[2];           // K: (b, hk, 1, d[0]); V: (b, hk, S, 1)
   void* zero[2];
   void* cscale;             // V's c (b, hk, 1, d[1]); store mode only
+  const float* eff;         // (b, hk, 2) f32 effective bits per slice and tensor (K, V),
+                            //   whole numbers 1..bits; null: the container's (store mode only)
   long long sb[2], sh[2], sl[2];  // source strides in elements: batch, head, token
   int d[2];
   int hk, S;
@@ -147,7 +157,7 @@ __device__ void stage_rows(T* stage, int* sidx, const StoreDesc& a, int t, int b
   __syncthreads();
 }
 
-template <typename T, typename P, int BITS, bool C_GIVEN>
+template <typename T, typename P, int BITS, bool C_GIVEN, bool HAS_EFF>
 __global__ void __launch_bounds__(THREADS, 2) store_kernel(const StoreDesc a) {
   constexpr int VPT = BITS == 8 ? 4 : 8;  // channels per thread
   using W = typename std::conditional<VPT * BITS == 32, uint32_t, uint16_t>::type;  // its codes
@@ -162,6 +172,9 @@ __global__ void __launch_bounds__(THREADS, 2) store_kernel(const StoreDesc a) {
   const int r_begin = blockIdx.x * a.rows_per_cta;
   const int n_rows = max(min(a.S - r_begin, a.rows_per_cta), 0);
   const long long slice = (long long)bi * a.hk + h;
+  // the slice's qmax: the container's, or 2**eff - 1 of its table entry
+  const float qm =
+      HAS_EFF ? static_cast<float>((1u << static_cast<int>(a.eff[slice * 2 + t])) - 1u) : QMAX;
 
   // shared: staged rows (chunk x dmax) | their slot indices (chunk) | warp
   // partials 2 x WARPS x dmax | column statistics 2 x dmax | channel
@@ -260,7 +273,7 @@ __global__ void __launch_bounds__(THREADS, 2) store_kernel(const StoreDesc a) {
         par[j] = c;
         if (blockIdx.x == 0) static_cast<P*>(a.cscale)[slice * d + j] = from_f32<P>(c);
       } else {
-        const float scale = fmaxf(__fdiv_rn(u - l, QMAX), EPS);
+        const float scale = fmaxf(__fdiv_rn(u - l, qm), EPS);
         const float zero = rintf(__fdiv_rn(-l, scale));
         par[j] = scale;
         par[dmax + j] = zero;
@@ -288,7 +301,7 @@ __global__ void __launch_bounds__(THREADS, 2) store_kernel(const StoreDesc a) {
 #pragma unroll
     for (int i = 0; i < VPT; ++i)
       zero_row |= static_cast<W>(static_cast<uint32_t>(
-                      fminf(fmaxf(rintf(0.f + p1[i]), 0.f), QMAX)) << (BITS * i));
+                      fminf(fmaxf(rintf(0.f + p1[i]), 0.f), qm)) << (BITS * i));
   }
   W* codes = static_cast<W*>(a.codes[t]) + (slice * a.S + r_begin) * tpr;
   P* vscale = static_cast<P*>(a.scale[1]) + slice * a.S + r_begin;
@@ -321,7 +334,7 @@ __global__ void __launch_bounds__(THREADS, 2) store_kernel(const StoreDesc a) {
         } else {
 #pragma unroll
           for (int i = 0; i < VPT; ++i) {
-            const float q = fminf(fmaxf(rintf(__fdiv_rn(x[i], p0[i]) + p1[i]), 0.f), QMAX);
+            const float q = fminf(fmaxf(rintf(__fdiv_rn(x[i], p0[i]) + p1[i]), 0.f), qm);
             word |= static_cast<W>(static_cast<uint32_t>(q) << (BITS * i));
           }
         }
@@ -341,11 +354,11 @@ __global__ void __launch_bounds__(THREADS, 2) store_kernel(const StoreDesc a) {
         }
         float scale = EPS, zero = -0.f;
         if (!skip) {
-          scale = fmaxf(__fdiv_rn(mx - mn, QMAX), EPS);
+          scale = fmaxf(__fdiv_rn(mx - mn, qm), EPS);
           zero = rintf(__fdiv_rn(-mn, scale));
 #pragma unroll
           for (int i = 0; i < VPT; ++i) {
-            const float q = fminf(fmaxf(rintf(__fdiv_rn(x[i], scale) + zero), 0.f), QMAX);
+            const float q = fminf(fmaxf(rintf(__fdiv_rn(x[i], scale) + zero), 0.f), qm);
             word |= static_cast<W>(static_cast<uint32_t>(q) << (BITS * i));
           }
         }
@@ -367,9 +380,9 @@ size_t smem_bytes(const StoreDesc& a, size_t elem) {
          (2 * WARPS + 4) * dmax * sizeof(float);
 }
 
-template <typename T, typename P, int BITS, bool C_GIVEN>
+template <typename T, typename P, int BITS, bool C_GIVEN, bool HAS_EFF>
 cudaError_t launch(const StoreDesc& a, int b, int split, cudaStream_t stream) {
-  auto kernel = store_kernel<T, P, BITS, C_GIVEN>;
+  auto kernel = store_kernel<T, P, BITS, C_GIVEN, HAS_EFF>;
   const size_t smem = smem_bytes(a, sizeof(T));
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
@@ -391,13 +404,13 @@ cudaError_t launch(const StoreDesc& a, int b, int split, cudaStream_t stream) {
   return cudaLaunchKernelEx(&cfg, kernel, a);
 }
 
-template <typename T, bool C_GIVEN>
+template <typename T, bool C_GIVEN, bool HAS_EFF>
 cudaError_t dispatch(const StoreDesc& a, int b, int split, int bits, cudaStream_t stream) {
   using P = typename std::conditional<C_GIVEN, float, T>::type;
   switch (bits) {
-    case 2: return launch<T, P, 2, C_GIVEN>(a, b, split, stream);
-    case 4: return launch<T, P, 4, C_GIVEN>(a, b, split, stream);
-    default: return launch<T, P, 8, C_GIVEN>(a, b, split, stream);
+    case 2: return launch<T, P, 2, C_GIVEN, HAS_EFF>(a, b, split, stream);
+    case 4: return launch<T, P, 4, C_GIVEN, HAS_EFF>(a, b, split, stream);
+    default: return launch<T, P, 8, C_GIVEN, HAS_EFF>(a, b, split, stream);
   }
 }
 
@@ -413,9 +426,10 @@ extern "C" const char* zc_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// One store (rows_mode 0: K and V, c computed, store-dtype parameters) or one
-// cst_quant_rows call (rows_mode 1: V only, c given, f32 parameters, no
-// gather), over b batch rows with `split` CTAs per (row, head, tensor).
+// One store (rows_mode 0: K and V, c computed, store-dtype parameters, qmax
+// from the desc's eff table where it has one) or one cst_quant_rows call
+// (rows_mode 1: V only, c given, f32 parameters, no gather, no table), over b
+// batch rows with `split` CTAs per (row, head, tensor).
 // `desc` points at a StoreDesc (a plain C pointer: the struct itself has
 // internal linkage).
 extern "C" int cst_store_launch(const void* desc, int b, int split, int bits, int t_bf16,
@@ -426,17 +440,21 @@ extern "C" int cst_store_launch(const void* desc, int b, int split, int bits, in
                   split > 0 && a->rows_per_cta > 0 && a->chunk > 0 &&
                   (long long)split * a->rows_per_cta >= a->S &&
                   head_dim_ok(a->d[1], bits, elem) &&
-                  (rows_mode ? !a->has_k && a->c_in : a->has_k && split <= MAX_CLUSTER &&
-                                                          head_dim_ok(a->d[0], bits, elem));
+                  (rows_mode ? !a->has_k && a->c_in && !a->eff
+                             : a->has_k && split <= MAX_CLUSTER &&
+                                   head_dim_ok(a->d[0], bits, elem));
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (rows_mode)
-    err = t_bf16 ? dispatch<__nv_bfloat16, true>(*a, b, split, bits, s)
-                 : dispatch<float, true>(*a, b, split, bits, s);
+    err = t_bf16 ? dispatch<__nv_bfloat16, true, false>(*a, b, split, bits, s)
+                 : dispatch<float, true, false>(*a, b, split, bits, s);
+  else if (a->eff)
+    err = t_bf16 ? dispatch<__nv_bfloat16, false, true>(*a, b, split, bits, s)
+                 : dispatch<float, false, true>(*a, b, split, bits, s);
   else
-    err = t_bf16 ? dispatch<__nv_bfloat16, false>(*a, b, split, bits, s)
-                 : dispatch<float, false>(*a, b, split, bits, s);
+    err = t_bf16 ? dispatch<__nv_bfloat16, false, false>(*a, b, split, bits, s)
+                 : dispatch<float, false, false>(*a, b, split, bits, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

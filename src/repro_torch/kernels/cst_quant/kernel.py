@@ -10,7 +10,10 @@ codes and the store-dtype parameters of both, each (batch row, kv head,
 tensor) on `split` CTAs that stage their slots in shared memory once (a
 thread-block cluster when split > 1).  `cst_quant_rows`, the TPU kernel's
 counterpart (rows against a given channel scale, f32 parameters), is the V
-instantiation of the same kernel.  CPU tensors take `ref`.
+instantiation of the same kernel.  A store under a precision map or a
+downshift rung passes `eff`, effective bits per (batch row, kv head,
+tensor): the kernel's instantiation with an eff table, which turns each
+entry into its qmax.  CPU tensors take `ref`.
 """
 
 from __future__ import annotations
@@ -34,9 +37,10 @@ ROWS_PER_CTA = 64      # cst_quant_rows: rows per CTA
 
 
 # The source's `StoreDesc`, packed: src[2], idx, c_in, codes[2], scale[2],
-# zero[2], cscale (pointers; tensor 0 is K, 1 is V); sb[2], sh[2], sl[2]
-# (int64 strides); d[2], hk, S, has_k, rows_per_cta, chunk (int32); padding.
-_DESC = struct.Struct("<11Q6q7i4x")
+# zero[2], cscale, eff (pointers; tensor 0 is K, 1 is V); sb[2], sh[2],
+# sl[2] (int64 strides); d[2], hk, S, has_k, rows_per_cta, chunk (int32);
+# padding.
+_DESC = struct.Struct("<12Q6q7i4x")
 
 
 def head_dim_ok(d: int, bits: int, elem: int) -> bool:
@@ -73,7 +77,7 @@ def _chunk(rows_per_cta: int, dmax: int, elem: int) -> int:
 
 
 def quantize_store(k: torch.Tensor, v: torch.Tensor, idx: torch.Tensor, bits: int,
-                   split: int = None):
+                   split: int = None, eff: torch.Tensor = None):
     """One cache store of the zipcache policy, K channelwise and V CST, in
     one launch.
 
@@ -84,10 +88,14 @@ def quantize_store(k: torch.Tensor, v: torch.Tensor, idx: torch.Tensor, bits: in
     (b, hk, 1, dv)), the parameters in the store dtype: those of
     `core.quant.quantize_channelwise` and `quantize_cst` on the gathered
     block, bit for bit.  `split` (a tuning argument: CTAs per batch row,
-    kv head and tensor, 1 to MAX_CLUSTER) defaults to `_split`.
+    kv head and tensor, 1 to MAX_CLUSTER) defaults to `_split`.  eff:
+    optional (b, hk, 2) f32 effective bits of K and V per slice (1 to
+    `bits`, whole numbers as a map and a rung make them); the quantizers
+    then take qmax = 2**eff - 1, as `quantize_channelwise` / `quantize_cst`
+    do with eff.
     """
     if k.device.type == "cpu":
-        return ref.quantize_store_ref(k, v, idx, bits)
+        return ref.quantize_store_ref(k, v, idx, bits, eff)
     if k.device.type != "cuda":
         raise ValueError(f"cst_quant: unsupported device {k.device}")
     if k.dtype not in FLOATS or v.dtype != k.dtype or k.dim() != 4 or v.dim() != 4 \
@@ -103,6 +111,11 @@ def quantize_store(k: torch.Tensor, v: torch.Tensor, idx: torch.Tensor, bits: in
     elem = k.element_size()
     if bits not in BITS or not head_dim_ok(dk, bits, elem) or not head_dim_ok(dv, bits, elem):
         raise ValueError(f"cst_quant: bits {bits} (one of {BITS}) with head dims {dk} / {dv}")
+    if eff is not None:
+        if eff.shape != (b, hk, 2) or eff.dtype != torch.float32 or eff.device != k.device:
+            raise ValueError(f"cst_quant: eff ({b}, {hk}, 2) f32 on {k.device}; got "
+                             f"{eff.dtype} {tuple(eff.shape)}")
+        eff = eff.contiguous()
     split = split or _split(2 * b * hk)
     if not 1 <= split <= MAX_CLUSTER:
         raise ValueError(f"cst_quant: split {split} outside 1..{MAX_CLUSTER}")
@@ -118,7 +131,8 @@ def quantize_store(k: torch.Tensor, v: torch.Tensor, idx: torch.Tensor, bits: in
     (ksb, ksh, ksl, _), (vsb, vsh, vsl, _) = k.stride(), v.stride()
     desc = _DESC.pack(k.data_ptr(), v.data_ptr(), idx.data_ptr(), 0, kc.data_ptr(),
                       vc.data_ptr(), ks.data_ptr(), vs.data_ptr(), kz.data_ptr(), vz.data_ptr(),
-                      vcs.data_ptr(), ksb, vsb, ksh, vsh, ksl, vsl, dk, dv, hk, s, 1, rpc,
+                      vcs.data_ptr(), 0 if eff is None else eff.data_ptr(), ksb, vsb, ksh, vsh,
+                      ksl, vsl, dk, dv, hk, s, 1, rpc,
                       _chunk(rpc, max(dk, dv), elem))
     KERNEL(desc, b, split, bits, int(k.dtype == torch.bfloat16), 0, build.stream_of(k))
     return kc, ks, kz, vc, vs, vz, vcs
@@ -144,7 +158,7 @@ def cst_quant_rows(x: torch.Tensor, c: torch.Tensor, bits: int):
     if t:
         rpc = min(t, ROWS_PER_CTA)
         desc = _DESC.pack(0, x.data_ptr(), 0, c.data_ptr(), 0, codes.data_ptr(), 0,
-                          sz[0].data_ptr(), 0, sz[1].data_ptr(), 0, 0, x.stride(0), 0, 0, 0,
+                          sz[0].data_ptr(), 0, sz[1].data_ptr(), 0, 0, 0, x.stride(0), 0, 0, 0,
                           x.stride(1), 0, ch, 1, t, 0, rpc, _chunk(rpc, ch, x.element_size()))
         KERNEL(desc, bsz, -(-t // rpc), bits, int(x.dtype == torch.bfloat16), 1,
                build.stream_of(x))

@@ -39,10 +39,15 @@ def cst_quant_rows_ref(x: torch.Tensor, c: torch.Tensor, bits: int):
     return codes, scale[..., 0], zero[..., 0]
 
 
-def quantize_store_ref(k: torch.Tensor, v: torch.Tensor, idx: torch.Tensor, bits: int):
-    """k (b, hk, l, dk), v (b, hk, l, dv), idx (b, S) int32 (-1 = a zero row)
-    -> (k_codes, k_scale, k_zero, v_codes, v_scale, v_zero, v_cscale), the
-    parameters in the sources' dtype."""
-    qk = quant.quantize_channelwise(_gather_tokens(k, idx), bits)
-    qv = quant.quantize_cst(_gather_tokens(v, idx), bits)
+def quantize_store_ref(k: torch.Tensor, v: torch.Tensor, idx: torch.Tensor, bits: int,
+                       eff: torch.Tensor = None):
+    """k (b, hk, l, dk), v (b, hk, l, dv), idx (b, S) int32 (-1 = a zero row),
+    eff optional (b, hk, 2) f32 effective bits of K and V -> (k_codes,
+    k_scale, k_zero, v_codes, v_scale, v_zero, v_cscale), the parameters in
+    the sources' dtype."""
+    eff_k = eff_v = None
+    if eff is not None:
+        eff_k, eff_v = eff[..., 0, None, None], eff[..., 1, None, None]
+    qk = quant.quantize_channelwise(_gather_tokens(k, idx), bits, eff=eff_k)
+    qv = quant.quantize_cst(_gather_tokens(v, idx), bits, eff=eff_v)
     return qk.codes, qk.scale, qk.zero, qv.codes, qv.scale, qv.zero, qv.channel_scale

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch import configs
+from repro_torch.core import precision as precision_lib
 from repro_torch.core.policy import CompressionConfig
 from repro_torch.kernels.cst_quant import kernel as cst_kernel
 from repro_torch.kernels.decode_qattn import kernel as dq_kernel
@@ -97,9 +98,28 @@ def add_engine_args(ap: argparse.ArgumentParser) -> None:
                          "as admission headroom")
     ap.add_argument("--scheduler", default="fifo", choices=("fifo", "priority"),
                     help="--continuous only: admission policy")
-    ap.add_argument("--preemption", default="off", choices=("off", "recompute"),
+    ap.add_argument("--preemption", default="off",
+                    choices=("off", "recompute", "downshift", "swap"),
                     help="--scheduler priority only: recompute lets the scheduler evict a "
-                         "running lower-priority slot and re-admit it by replaying its tokens")
+                         "running lower-priority slot and re-admit it by replaying its "
+                         "tokens; downshift (freelist only) keeps the victim decoding and "
+                         "early-folds its window one lo-store bit lower, returning the "
+                         "window's pages; swap (freelist only) moves the victim's exact "
+                         "cache to host memory and back (tokens unchanged; a full host pool "
+                         "falls back to recompute)")
+    ap.add_argument("--swap-pool-mb", type=int, default=0,
+                    help="--preemption swap only: host budget (MiB) of the swap tier's "
+                         "preallocated entries; 0 = one entry per batch slot")
+    ap.add_argument("--precision-map", default="",
+                    help="per-layer/head (key, value) effective-bit ceilings inside the "
+                         "policy's containers: compact rules like "
+                         "'default=k8v8;layer:2-:head:0-1=k2v2' or a KVTuner-shaped JSON "
+                         "object; empty = off")
+    ap.add_argument("--ladder-watermark", type=float, default=0.0,
+                    help="--page-allocator freelist only: when the smallest free fraction of "
+                         "the page pools is at or below this, the oldest slot's window is "
+                         "early-folded one lo-store bit lower (floor 1 bit) and its pages "
+                         "return; 0 = off")
 
 
 def validate_engine_args(args, ap: argparse.ArgumentParser) -> None:
@@ -110,6 +130,17 @@ def validate_engine_args(args, ap: argparse.ArgumentParser) -> None:
         ap.error("--scheduler requires --continuous")
     if args.preemption != "off" and args.scheduler != "priority":
         ap.error(f"--preemption {args.preemption} requires --scheduler priority")
+    for lever in ("downshift", "swap"):
+        if args.preemption == lever and args.page_allocator != "freelist":
+            ap.error(f"--preemption {lever} requires --page-allocator freelist")
+    if args.swap_pool_mb != 0 and args.preemption != "swap":
+        ap.error("--swap-pool-mb requires --preemption swap")
+    if args.ladder_watermark != 0.0 and args.page_allocator != "freelist":
+        ap.error("--ladder-watermark requires --page-allocator freelist")
+    try:
+        precision_lib.parse_precision_map(args.precision_map)
+    except ValueError as e:
+        ap.error(f"--precision-map: {e}")
     if args.page_allocator == "freelist" and args.backend != "paged":
         ap.error("--page-allocator freelist requires --backend paged")
     if args.page_allocator == "freelist" and not args.continuous:
@@ -128,7 +159,9 @@ def build_serve_config(args) -> ServeConfig:
                        page_size=args.page_size, paged_kernel=args.paged_kernel == "on",
                        page_allocator=args.page_allocator, pool_fraction=args.pool_fraction,
                        admit_watermark=args.admit_watermark, scheduler=args.scheduler,
-                       preemption=args.preemption)
+                       preemption=args.preemption, precision_map=args.precision_map,
+                       ladder_watermark=args.ladder_watermark,
+                       swap_pool_mb=args.swap_pool_mb)
 
 
 def _serve_continuous(args, cfg, ccfg, scfg, params, device, prompts):
@@ -159,10 +192,17 @@ def _serve_continuous(args, cfg, ccfg, scfg, params, device, prompts):
               f"{int(out.timings['n_preemptions'])} preemptions) first={out.tokens[:16].tolist()}")
     ps = eng.pool_stats()
     if ps is not None:
-        used = {k: f"{v['peak_used']}/{v['pool_pages']}" for k, v in ps.items()
-                if isinstance(v, dict)}
+        used = {k: f"{ps[k]['peak_used']}/{ps[k]['pool_pages']}" for k in ("hi", "lo", "win")}
         print(f"[serve] page pools peak used {used}, {ps['deferrals']} admissions deferred, "
               f"{ps['preemptions']} slots preempted")
+        ds, sw = ps["downshift"], ps.get("swap")
+        if ds["downshifts"] or ds["refusals"]:
+            print(f"[serve] downshift ladder: {ds['downshifts']} downshifts freed "
+                  f"{ds['pages_freed']} window pages, {ds['refusals']} refusals")
+        if sw is not None:
+            print(f"[serve] swap tier: {sw['swaps_out']} out / {sw['swaps_in']} in, entry "
+                  f"{sw['entry_bytes']} bytes, {sw['host_bytes']} host bytes resident, "
+                  f"{sw['swap_refusals']} refusals")
     print("[serve] kernel launches:", {n: k.launches for n, k in KERNELS.items()})
     print_step(eng._decode_masked)
     return {rid: eng.result(rid) for rid in rids}

@@ -45,6 +45,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core import backend as backend_lib
 from repro_torch.core import kvcache as kvc
+from repro_torch.core import precision as precision_lib
 from repro_torch.core import saliency as sal
 from repro_torch.core.policy import CompressionConfig
 from repro_torch.kernels import build
@@ -61,9 +62,10 @@ def serve_ctx(cfg: ArchConfig, shape: ShapeConfig, ccfg: Optional[CompressionCon
     """RunCtx + probes for a serving shape; max cache = seq_len + decode budget.
 
     The shape carries the cache layout (`cache_backend`, `page_size`,
-    `paged_kernel`, `page_allocator`, `pool_fraction`).  use_kernels: the
-    port's CUDA kernels on the path (the default), or their plain PyTorch
-    versions throughout.
+    `paged_kernel`, `page_allocator`, `pool_fraction`) and the precision
+    map, resolved here into the context's ceiling table ("" = maps off).
+    use_kernels: the port's CUDA kernels on the path (the default), or their
+    plain PyTorch versions throughout.
     """
     ccfg = ccfg or CompressionConfig.zipcache()
     qlen = shape.seq_len
@@ -77,8 +79,11 @@ def serve_ctx(cfg: ArchConfig, shape: ShapeConfig, ccfg: Optional[CompressionCon
                              page_size=shape.page_size, paged_kernel=shape.paged_kernel,
                              page_allocator=shape.page_allocator,
                              pool_fraction=shape.pool_fraction)
+    pmap = precision_lib.parse_precision_map(shape.precision_map)
+    table = pmap.resolve(cfg.n_layers, cfg.n_kv_heads) if pmap else None
     return blocks.RunCtx(ccfg=ccfg, probe=probe, max_cache_len=shape.seq_len + decode_budget,
-                         q_block=q_block, use_kernels=use_kernels, backend=backend)
+                         q_block=q_block, use_kernels=use_kernels, backend=backend,
+                         precision=table)
 
 
 def stage_rows(rows: Dict[int, Tuple[int, bool]], b: int) -> np.ndarray:
@@ -355,11 +360,20 @@ def make_insert_step(cfg: ArchConfig, shape: ShapeConfig, ccfg: Optional[Compres
 
 def make_recompress_rows_step(cfg: ArchConfig, shape: ShapeConfig,
                               ccfg: Optional[CompressionConfig] = None, ctx=None, *,
-                              device="cuda"):
+                              device="cuda", ladder: bool = False):
     """recompress_rows(caches, rows (b,) bool): fold the staging windows of
     the masked slots only (per-request cadence, paper Alg. 3).  Recompresses
-    the whole batch and selects rows."""
+    the whole batch and selects rows.
+
+    ladder=True arms the downshift ladder: the step takes a third operand,
+    the (b,) int32 rungs, lowering each folded slot's lo-store effective
+    bits (one routine serves every rung)."""
     ctx = _ctx(cfg, shape, ccfg, ctx, 512, device)
+
+    if ladder:
+        def recompress_rows_rung(caches, rows: torch.Tensor, rung: torch.Tensor):
+            return registry.recompress(caches, cfg, ctx, rows=rows, rung=rung)
+        return recompress_rows_rung, ctx
 
     def recompress_rows(caches, rows: torch.Tensor):
         return registry.recompress(caches, cfg, ctx, rows=rows)
@@ -369,13 +383,48 @@ def make_recompress_rows_step(cfg: ArchConfig, shape: ShapeConfig,
 
 def make_recompress_slot_step(cfg: ArchConfig, shape: ShapeConfig,
                               ccfg: Optional[CompressionConfig] = None, ctx=None, *,
-                              device="cuda"):
+                              device="cuda", ladder: bool = False):
     """recompress_slot(caches, slot): fold exactly ONE slot's staging window
     through the backend's per-slot recompression (the paged layout): a
-    batch-1 view, ~1/slots the work."""
+    batch-1 view, ~1/slots the work.  ladder=True adds a scalar int32 rung
+    operand (the view is batch 1)."""
     ctx = _ctx(cfg, shape, ccfg, ctx, 512, device)
+
+    if ladder:
+        def recompress_slot_rung(caches, slot: int, rung: torch.Tensor):
+            return registry.recompress(caches, cfg, ctx, slot=slot, rung=rung)
+        return recompress_slot_rung, ctx
 
     def recompress_slot(caches, slot: int):
         return registry.recompress(caches, cfg, ctx, slot=slot)
 
     return recompress_slot, ctx
+
+
+def make_swap_extract_step(cfg: ArchConfig, shape: ShapeConfig,
+                           ccfg: Optional[CompressionConfig] = None, ctx=None, *,
+                           device="cuda"):
+    """extract(caches, slot) -> list of tensors: one slot's complete state
+    (logical pages at their full extent and metadata rows), the device half
+    of a swap-out.  Every shape is fixed, so one host entry fits every slot
+    and occupancy."""
+    ctx = _ctx(cfg, shape, ccfg, ctx, 512, device)
+
+    def extract(caches, slot: int):
+        return registry.extract_caches(caches, slot)
+
+    return extract, ctx
+
+
+def make_swap_restore_step(cfg: ArchConfig, shape: ShapeConfig,
+                           ccfg: Optional[CompressionConfig] = None, ctx=None, *,
+                           device="cuda"):
+    """restore(caches, payload, slot) -> caches: a swapped-out slot's payload
+    back through its re-granted page tables and its metadata rows.  No
+    prefill, no recompute: the slot gets back the bytes the extract took."""
+    ctx = _ctx(cfg, shape, ccfg, ctx, 512, device)
+
+    def restore(caches, payload: list, slot: int):
+        return registry.restore_caches(caches, payload, slot)
+
+    return restore, ctx

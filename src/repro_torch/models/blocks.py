@@ -9,6 +9,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import backend as backend_lib
+from repro_torch.core import precision as precision_lib
 from repro_torch.core import saliency as sal
 from repro_torch.core.policy import CompressionConfig
 from repro_torch.models import attention as attn
@@ -36,12 +37,17 @@ class RunCtx:
     `use_kernels` routes prefill attention through `kernels.probe_flash`;
     the cache backend carries its own switch for `cst_quant`, `decode_qattn`
     and `paged_qattn` (`backend_lib.of(ccfg, use_kernels=...)`).
+
+    `precision`: the resolved (L, h, 2) ceiling table of a precision map
+    (`core.precision`), read at every quantization site; None is the
+    bitwise-default path.  It lives here, not on the backend, because only
+    the model code knows the layer index of each compress / recompress.
     """
 
     def __init__(self, ccfg: Optional[CompressionConfig] = None,
                  probe: Optional[sal.ProbeSpec] = None, max_cache_len: int = 0,
                  q_block: int = 512, use_kernels: bool = False,
-                 backend=None):
+                 backend=None, precision=None):
         self.ccfg = ccfg
         self.probe = probe
         self.max_cache_len = max_cache_len
@@ -49,18 +55,37 @@ class RunCtx:
         self.use_kernels = use_kernels
         self.backend = backend if backend is not None else backend_lib.of(
             ccfg, use_kernels=use_kernels)
+        self.precision = precision
+        self._layer_effs = {}
+
+    def layer_eff(self, layer: int, n_heads: int, device=None):
+        """This layer's `precision.LayerEff` on `device` (None without a
+        map).  n_heads: the cache's head count; the table is min-pooled onto
+        it.  Made once per (layer, heads, device) and kept."""
+        if self.precision is None or self.ccfg is None:
+            return None
+        key = (layer, n_heads, str(device))
+        eff = self._layer_effs.get(key)
+        if eff is None:
+            table = precision_lib.pooled_table(self.precision, n_heads)
+            eff = precision_lib.layer_eff(table, layer, self.ccfg.high_bits,
+                                          self.ccfg.low_bits, device=device)
+            self._layer_effs[key] = eff
+        return eff
 
 
 def apply_layer_full(params: dict, x: torch.Tensor, cfg: ArchConfig, ctx: RunCtx,
-                     build_cache: bool) -> Tuple[torch.Tensor, Any]:
-    """One layer over the full sequence. Returns (x, cache element | None)."""
+                     build_cache: bool, layer: int = 0) -> Tuple[torch.Tensor, Any]:
+    """One layer over the full sequence. Returns (x, cache element | None).
+    `layer`: the absolute layer index, for the precision map."""
     h = common.rms_norm(x, params["ln1"], cfg.norm_eps)
     y, aux = attn.gqa_forward(params["attn"], h, cfg, probe=ctx.probe, q_block=ctx.q_block,
                               use_kernel=ctx.use_kernels)
     cache_el = None
     if build_cache:
-        cache_el = ctx.backend.compress_prefill(aux.k, aux.v, aux.saliency, ctx.max_cache_len,
-                                                probe_nnz=aux.probe_nnz, dtype=x.dtype)
+        cache_el = ctx.backend.compress_prefill(
+            aux.k, aux.v, aux.saliency, ctx.max_cache_len, probe_nnz=aux.probe_nnz,
+            dtype=x.dtype, eff=ctx.layer_eff(layer, aux.k.shape[1], device=aux.k.device))
     x = x + y
     if cfg.d_ff:
         x = x + mlp_mod.dense_mlp(params["mlp"], common.rms_norm(x, params["ln2"], cfg.norm_eps))

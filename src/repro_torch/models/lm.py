@@ -14,6 +14,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import precision as precision_lib
 from repro_torch.models import blocks, common
 from repro_torch.models.common import ParamDef
 
@@ -60,7 +61,7 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     groups = []
     for i in range(cfg.n_scan_groups):
         x, el = blocks.apply_layer_full(common.layer_slice(params["groups"]["sub0"], i),
-                                        x, cfg, ctx, build_cache=True)
+                                        x, cfg, ctx, build_cache=True, layer=i)
         groups.append({"sub0": el})
     return unembed(params, cfg, x[:, -1]), {"prefix": [], "groups": groups}
 
@@ -85,19 +86,29 @@ def decode_step(params: dict, token: torch.Tensor, caches: Any, cfg: ArchConfig,
 
 
 def recompress_caches(caches: Any, cfg: ArchConfig, ctx: blocks.RunCtx,
-                      rows: Optional[torch.Tensor] = None, slot: Optional[int] = None) -> Any:
+                      rows: Optional[torch.Tensor] = None, slot: Optional[int] = None,
+                      rung=None) -> Any:
     """Streaming recompression across all layers (paper Alg. 3).
 
     rows: optional (b,) bool device tensor: fold only those slots.  slot:
     fold exactly one slot through the backend's per-slot recompression
-    (the paged layout's; excludes `rows`)."""
+    (the paged layout's; excludes `rows`).  rung: optional downshift
+    rung(s), a (b,) int tensor with `rows`, a scalar with `slot`: the folded
+    slots' lo stores take max(1, base - rung) effective bits
+    (`precision.rung_eff`)."""
     assert rows is None or slot is None, "pass rows OR slot, not both"
     be = ctx.backend
 
-    def fold(el):
-        return be.recompress_slot(el, slot) if slot is not None else be.recompress(el, rows=rows)
+    def fold(el, layer):
+        eff = ctx.layer_eff(layer, cfg.n_kv_heads, device=el.length.device)
+        if rung is not None:
+            eff = precision_lib.rung_eff(eff, rung, ctx.ccfg.high_bits, ctx.ccfg.low_bits)
+        if slot is not None:
+            return be.recompress_slot(el, slot, eff=eff)
+        return be.recompress(el, rows=rows, eff=eff)
 
-    return {"prefix": [], "groups": [{"sub0": fold(gc["sub0"])} for gc in caches["groups"]]}
+    return {"prefix": [], "groups": [{"sub0": fold(gc["sub0"], i)}
+                                     for i, gc in enumerate(caches["groups"])]}
 
 
 def init_caches(cfg: ArchConfig, ctx: blocks.RunCtx, b: int, dtype=torch.bfloat16,

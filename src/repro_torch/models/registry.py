@@ -30,10 +30,11 @@ def decode_step(params, token: torch.Tensor, caches: Any, cfg: ArchConfig,
 
 
 def recompress(caches: Any, cfg: ArchConfig, ctx: blocks.RunCtx,
-               rows: Optional[torch.Tensor] = None, slot: Optional[int] = None):
+               rows: Optional[torch.Tensor] = None, slot: Optional[int] = None, rung=None):
     """rows: fold only those slots; slot: fold one slot through the backend's
-    per-slot recompression (paged layout)."""
-    return lm.recompress_caches(caches, cfg, ctx, rows=rows, slot=slot)
+    per-slot recompression (paged layout); rung: the downshift rung(s) of
+    the folded slots ((b,) with rows, a scalar with slot)."""
+    return lm.recompress_caches(caches, cfg, ctx, rows=rows, slot=slot, rung=rung)
 
 
 def _map_elements(fn, *trees):
@@ -54,6 +55,23 @@ def insert_caches(dst: Any, src: Any, slot: int) -> Any:
         return kvc.insert_slot(d, s, slot)
 
     return _map_elements(ins, dst, src)
+
+
+def extract_caches(caches: Any, slot: int) -> list:
+    """One slot's complete state across the cache tree, the device half of a
+    swap-out: each paged layer's `paged.extract_slot`, as one flat list of
+    tensors (`restore_caches` takes it back)."""
+    from repro_torch.core import paged
+    return [t for gc in caches["groups"] for t in paged.extract_slot(gc["sub0"], slot)]
+
+
+def restore_caches(caches: Any, payload: list, slot: int) -> Any:
+    """Inverse of `extract_caches` through the slot's current table rows."""
+    from repro_torch.core import paged
+    n = len(payload) // len(caches["groups"])
+    return {"prefix": [], "groups": [
+        {"sub0": paged.restore_slot(gc["sub0"], payload[i * n:(i + 1) * n], slot)}
+        for i, gc in enumerate(caches["groups"])]}
 
 
 def free_caches(caches: Any, slot: int) -> Any:

@@ -3,7 +3,8 @@ from repro_torch.serving.engine import (ContinuousEngine, EngineCore, Request,  
                                         RequestOutput, SamplingParams, ServeConfig,
                                         ServingEngine, pack_requests, probe_flag)
 from repro_torch.serving.events import (CallbackErrorEvent, CancelledEvent,  # noqa: F401
-                                        EngineClosedError, Event, FinishedEvent,
-                                        PreemptedEvent, TokenEvent, UnknownRequestError)
+                                        DownshiftEvent, EngineClosedError, Event,
+                                        FinishedEvent, PreemptedEvent, SwappedEvent,
+                                        TokenEvent, UnknownRequestError)
 from repro_torch.serving.scheduler import (FIFOScheduler, PriorityScheduler,  # noqa: F401
                                            Scheduler, make_scheduler)

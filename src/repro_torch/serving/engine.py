@@ -21,11 +21,19 @@ carries its own token counter; probe rows and window folds fire on it, so a
 request admitted mid-run sees the schedule of a fresh lockstep run.
 Preemption by recompute re-prefills a victim and replays its retained
 tokens through the same decode and fold steps, so its tokens are unchanged.
+Under the free-list allocator two more levers relieve pressure: the host
+swap tier (`preemption="swap"`, `core.swap`) moves a victim's exact cache
+to host memory and back, tokens unchanged; the downshift ladder
+(`preemption="downshift"`, `ladder_watermark`) early-folds a slot's window
+one effective bit lower on its lo store and returns the window's pages.
+Both engines take a precision map (`ServeConfig.precision_map`,
+`core.precision`): effective-bit ceilings per layer and head inside the
+same containers.
 
 The probe flags of a step are host values: they pick the decode path
 (exact slot weights on probe steps) with no device sync.  Sampling is
-greedy; temperature > 0, swap, the downshift ladder, shared-prefix dedup
-and precision maps are not ported yet and raise `NotImplementedError`.
+greedy; temperature > 0 and shared-prefix dedup are not ported yet and
+raise `NotImplementedError`.
 
 Every engine program comes from the step factories of `launch.steps`, as
 the reference's jitted ones do.  With `capture` (the default) both decode
@@ -50,6 +58,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core import alloc as alloc_lib
 from repro_torch.core import paged as paged_lib
+from repro_torch.core import swap as swap_lib
 from repro_torch.core.policy import CompressionConfig
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import registry
@@ -92,13 +101,22 @@ class ServeConfig:
     backpressure: str = "defer"
     scheduler: str = "fifo"          # "fifo" | "priority"
     # "off" never evicts; "recompute" lets the scheduler evict a running
-    # slot and re-admit it later by re-prefill + replay (tokens unchanged)
+    # slot and re-admit it later by re-prefill + replay (tokens unchanged);
+    # "swap" ("freelist" only) moves the victim's exact cache to host memory
+    # and back (tokens unchanged; a refused swap falls back to recompute);
+    # "downshift" ("freelist" only) keeps the victim decoding and early-folds
+    # its window one lo-store bit lower, returning the window's pages
     preemption: str = "off"
-    # levers of the reference not ported yet: a non-default value raises
-    prefix_cache: bool = False
+    # per-layer/head effective-bit ceilings (core/precision.py); "" = off
     precision_map: str = ""
+    # "freelist" only: downshift the oldest slot while the smallest free
+    # fraction of the pools is at or below this (0 = the trigger is off)
     ladder_watermark: float = 0.0
+    # preemption="swap" only: the host tier's budget in MiB (0 = one entry
+    # per batch slot)
     swap_pool_mb: int = 0
+    # a lever of the reference not ported yet: True raises
+    prefix_cache: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,6 +160,19 @@ class RequestOutput:
     timings: Dict[str, float]
 
 
+@dataclasses.dataclass(frozen=True)
+class _SwapState:
+    """Host record of one swapped-out request, carried on the Request until
+    re-admission: the swap pool's handle and every per-slot counter the
+    restore reinstates (allocator occupancy, probe and fold counters, the
+    ladder rung)."""
+    handle: int
+    occ: alloc_lib.Occupancy
+    steps: int
+    since_rc: int
+    rung: int
+
+
 @dataclasses.dataclass
 class _Slot:
     """Engine-internal per-slot decode state."""
@@ -181,7 +212,7 @@ class _EngineBase:
         shape = ShapeConfig("serve", scfg.prompt_len, scfg.batch_size, "prefill",
                             cache_backend=scfg.backend, page_size=scfg.page_size,
                             paged_kernel=scfg.paged_kernel, page_allocator=scfg.page_allocator,
-                            pool_fraction=scfg.pool_fraction)
+                            pool_fraction=scfg.pool_fraction, precision_map=scfg.precision_map)
         self._shape = shape
         self.ctx = steps_lib.serve_ctx(cfg, shape, ccfg,
                                        decode_budget=scfg.max_new_tokens,
@@ -296,10 +327,11 @@ class EngineCore(_EngineBase):
             ...
         out = eng.result(rid)           # RequestOutput
 
-    Each ``step()`` runs the scheduler's admission plan (and, with
-    ``preemption="recompute"``, evictions), decodes one token for every
-    active slot, retires finished requests, folds staging windows on each
-    slot's own cadence, and returns the typed events it produced.
+    Each ``step()`` runs the ladder's pressure trigger, the scheduler's
+    admission plan (and, with preemption armed, evictions: recompute, swap
+    or downshift), decodes one token for every active slot, retires
+    finished requests, folds staging windows on each slot's own cadence,
+    and returns the typed events it produced.
     """
 
     def __init__(self, cfg: ArchConfig, ccfg: CompressionConfig, scfg: ServeConfig, params,
@@ -308,16 +340,11 @@ class EngineCore(_EngineBase):
         if scfg.backpressure not in ("defer", "error"):
             raise ValueError(f"ServeConfig.backpressure must be 'defer' or 'error', got "
                              f"{scfg.backpressure!r}")
-        if scfg.preemption in ("downshift", "swap"):
-            raise NotImplementedError(f"preemption={scfg.preemption!r} is not ported yet "
-                                      "(ported: 'off', 'recompute')")
-        if scfg.preemption not in ("off", "recompute"):
-            raise ValueError(f"ServeConfig.preemption must be 'off' or 'recompute', got "
-                             f"{scfg.preemption!r}")
-        for name, default in (("prefix_cache", False), ("precision_map", ""),
-                              ("ladder_watermark", 0.0), ("swap_pool_mb", 0)):
-            if getattr(scfg, name) != default:
-                raise NotImplementedError(f"ServeConfig.{name} is not ported yet")
+        if scfg.preemption not in ("off", "recompute", "downshift", "swap"):
+            raise ValueError(f"ServeConfig.preemption must be 'off', 'recompute', 'downshift' "
+                             f"or 'swap', got {scfg.preemption!r}")
+        if scfg.prefix_cache:
+            raise NotImplementedError("ServeConfig.prefix_cache is not ported yet")
         super().__init__(cfg, ccfg, scfg, params, device=device, use_kernels=use_kernels,
                          capture=capture)
         # every op on the caches runs in inference mode (`step`, `cancel`), so
@@ -355,6 +382,40 @@ class EngineCore(_EngineBase):
                                                self._tables["lo"], self._tables["win"])}
                 for g in caches["groups"]]}
         self.caches = self._decode_masked.adopt(caches)
+        # the downshift ladder: pressure is page-pool pressure, and what a
+        # downshift frees is the window pages its fold returns, which only the
+        # free list has.  A slot's rung: effective bits below the base map of
+        # its lo store at its next folds; it dies with the slot, and the
+        # deepest rung floors the lo store at 1 bit.  Armed, every fold takes
+        # the slots' rungs as an operand (the ladder's fold steps).
+        self._ladder = scfg.ladder_watermark > 0 or scfg.preemption == "downshift"
+        if self._ladder and self._alloc is None:
+            raise ValueError("the downshift ladder (ladder_watermark > 0 or "
+                             "preemption='downshift') requires backend='paged' with "
+                             "page_allocator='freelist'")
+        self._rungs = np.zeros(scfg.batch_size, np.int32)
+        self._max_rung = max(ccfg.low_bits - 1, 0)
+        mk = dict(ctx=self.ctx, device=self.device)
+        if self._ladder:
+            self._recompress_rows_rung = steps_lib.make_recompress_rows_step(
+                cfg, self._shape, ccfg, ladder=True, **mk)[0]
+            self._recompress_slot_rung = steps_lib.make_recompress_slot_step(
+                cfg, self._shape, ccfg, ladder=True, **mk)[0]
+        # the host swap tier: the extract / restore pair and a pool of host
+        # entries shaped like one extract, made once
+        self._swap: Optional[swap_lib.HostSwapPool] = None
+        if scfg.preemption == "swap":
+            if self._alloc is None:
+                raise ValueError("preemption='swap' requires backend='paged' with "
+                                 "page_allocator='freelist' (a swap-out returns the victim's "
+                                 "pages to the free pools)")
+            self._swap_extract = steps_lib.make_swap_extract_step(cfg, self._shape, ccfg, **mk)[0]
+            self._swap_restore = steps_lib.make_swap_restore_step(cfg, self._shape, ccfg, **mk)[0]
+            with torch.inference_mode():
+                template = self._swap_extract(self.caches, 0)
+            self._swap = swap_lib.HostSwapPool(template, swap_pool_mb=scfg.swap_pool_mb,
+                                               fallback_entries=scfg.batch_size)
+            del template
 
     # ------------------------------------------------------------------
     # lifecycle API
@@ -481,6 +542,11 @@ class EngineCore(_EngineBase):
                 return True
         req = next(r for r in self.queue if r.id == request_id)
         self.queue.remove(req)
+        # a swapped-out request dies with its host entry
+        st = getattr(req, "_swap_state", None)
+        if st is not None:
+            self._swap.release(st.handle)
+            del req._swap_state
         now = time.perf_counter()
         resume = getattr(req, "_resume_tokens", None)
         tokens = list(resume) if resume is not None else []
@@ -555,11 +621,16 @@ class EngineCore(_EngineBase):
     def pool_stats(self) -> Optional[Dict]:
         """Free-list pool telemetry (None for static and mixed layouts):
         per segment {pool_pages, used, free, peak_used, outstanding}, the
-        cumulative deferral and preemption counts, and the engine's
-        admissions and slot folds."""
+        cumulative deferral and preemption counts, the downshift ladder's
+        block (downshifts, the window pages they freed, refusals), the host
+        swap tier's block where preemption="swap" (swaps out / in, resident
+        host bytes, refusals), and the engine's admissions and slot folds."""
         if self._alloc is None:
             return None
-        return {**self._alloc.stats(), "admissions": self._n_admissions, "folds": self._n_folds}
+        stats = self._alloc.stats()
+        if self._swap is not None:
+            stats["swap"] = self._swap.stats()
+        return {**stats, "admissions": self._n_admissions, "folds": self._n_folds}
 
     def free(self, slot_id: int) -> None:
         """Retire a slot: invalidate its batch row and, under the free list,
@@ -569,6 +640,7 @@ class EngineCore(_EngineBase):
             self._sync_tables()
         self._set_caches(registry.free_caches(self.caches, slot_id))
         self.slots[slot_id] = None
+        self._rungs[slot_id] = 0   # the ladder rung dies with the slot
 
     def _retire(self, slot_id: int, reason: str, cancel_reason: Optional[str] = None) -> None:
         s = self.slots[slot_id]
@@ -652,14 +724,14 @@ class EngineCore(_EngineBase):
             for slot_id, req in plan.admissions:
                 self.queue.remove(req)
                 self._admit_one(slot_id, req)
-            if (self.scfg.preemption == "recompute" and self.queue
+            if (self.scfg.preemption != "off" and self.queue
                     and n_evicted < self.scfg.batch_size):
                 victim = self.scheduler.select_victim(list(self.queue), self._running_views(),
                                                       self._pool_view())
-                if victim is not None:
-                    self._preempt(victim)
+                # an ineligible downshift victim falls through to defer / error
+                if victim is not None and self._relieve(victim):
                     n_evicted += 1
-                    continue   # re-plan with the freed slot and pages
+                    continue   # re-plan with the freed slot or pages
             if plan.blocked is not None:
                 if self.scfg.backpressure == "error":
                     raise alloc_lib.PagePoolExhausted(
@@ -678,6 +750,10 @@ class EngineCore(_EngineBase):
         slice into the slot, then take the first token (a fresh request) or
         replay the retained tokens (recompute re-admission)."""
         t0 = time.perf_counter()
+        if getattr(req, "_swap_state", None) is not None:
+            # the host holds its exact cache: upload it instead of a prefill
+            self._swap_in(slot_id, req, t0)
+            return
         self._n_admissions += 1
         bucket = self._bucket_len(int(req.tokens.shape[-1]))
         resume = getattr(req, "_resume_tokens", None)
@@ -735,9 +811,19 @@ class EngineCore(_EngineBase):
                 self._fold([slot_id])
                 s.since_rc = 0
 
-    def _preempt(self, slot_id: int) -> None:
-        """Evict a running slot: return its pages, keep its tokens host-side
-        for recompute, requeue it at its arrival position."""
+    def _relieve(self, victim: int) -> bool:
+        """Apply the preemption lever to the scheduler's victim; False when a
+        downshift cannot make progress this step.  A refused swap falls back
+        to recompute, so an eviction frees the slot either way."""
+        if self.scfg.preemption == "downshift":
+            return self._downshift(victim)
+        if not (self.scfg.preemption == "swap" and self._swap_out(victim)):
+            self._preempt(victim)
+        return True
+
+    def _evict(self, slot_id: int) -> Request:
+        """Evict a running slot: keep its tokens host-side (`_resume_tokens`),
+        return its pages, requeue it at its arrival position."""
         s = self.slots[slot_id]
         req = s.request
         now = time.perf_counter()
@@ -752,12 +838,111 @@ class EngineCore(_EngineBase):
         pos = next((j for j, r in enumerate(self.queue)
                     if getattr(r, "_seq", 0) > req._seq), len(self.queue))
         self.queue.insert(pos, req)
+        return req
+
+    def _preempt(self, slot_id: int) -> None:
+        """Evict a running slot for recompute: re-admission re-prefills it
+        and replays its tokens."""
+        req = self._evict(slot_id)
         self._events.append(events_lib.PreemptedEvent(
             req.id, self._step_no, n_generated=len(req._resume_tokens)))
 
+    def _swap_out(self, slot_id: int) -> bool:
+        """Evict a running slot to the host swap tier: mirror its exact device
+        state into a host entry, return its pages, requeue it at its arrival
+        position.  Re-admission takes `_swap_in`: an upload and a page
+        re-grant, no prefill, no recompute.  False, after a counted refusal,
+        when the slot shares prefix pages or the host pool is full: the
+        caller then preempts by recompute."""
+        s = self.slots[slot_id]
+        if s is None:
+            return False
+        if self._alloc.needs_privatize(slot_id):
+            self._swap.note_refusal("aliased")
+            return False
+        handle = self._swap.reserve()    # a full pool counts its own refusal
+        if handle is None:
+            return False
+        # taken before the eviction: the allocator clears the occupancy and
+        # the rung dies with the slot
+        s.request._swap_state = _SwapState(handle=handle, occ=self._alloc.occ[slot_id],
+                                           steps=s.steps, since_rc=s.since_rc,
+                                           rung=int(self._rungs[slot_id]))
+        self._swap.store(handle, self._swap_extract(self.caches, slot_id))
+        req = self._evict(slot_id)
+        self._events.append(events_lib.SwappedEvent(
+            req.id, self._step_no, direction="out", n_generated=len(req._resume_tokens),
+            host_bytes=self._swap.stats()["host_bytes"]))
+        return True
+
+    def _swap_in(self, slot_id: int, req: Request, t0: float) -> None:
+        """Re-admit a swapped-out request without recompute: re-grant its
+        pages from the occupancy it left with (its worst-case reservation
+        covered it while it ran), upload its host entry, scatter it through
+        the new tables (into the decode step's static tree) and reinstate
+        every per-slot counter.  Its next decode step reads exactly the bytes
+        and counters it would have had without the eviction."""
+        st: _SwapState = req._swap_state
+        resume = req._resume_tokens
+        bucket = self._bucket_len(int(req.tokens.shape[-1]))
+        self._alloc.admit(slot_id, st.occ, self._request_total_tokens(req), bucket)
+        self._sync_tables()
+        payload = self._swap.load(st.handle, self.device)
+        self._set_caches(self._swap_restore(self.caches, payload, slot_id))
+        self._swap.release(st.handle)
+        req._preempt_s += t0 - req._t_preempt
+        t1 = time.perf_counter()
+        self.slots[slot_id] = _Slot(request=req, generated=list(resume), steps=st.steps,
+                                    since_rc=st.since_rc,
+                                    t_submit=getattr(req, "_t_submit", t0), t_admit=t0,
+                                    prefill_s=t1 - t0)   # two transfers, no prefill
+        self._rungs[slot_id] = st.rung   # later folds stay at the ladder rung
+        del req._swap_state
+        del req._resume_tokens
+        self._events.append(events_lib.SwappedEvent(
+            req.id, self._step_no, direction="in", n_generated=len(resume),
+            host_bytes=self._swap.stats()["host_bytes"]))
+        self._maybe_finish(slot_id)
+
+    def _downshift(self, slot_id: int) -> bool:
+        """One ladder downshift of a running slot: raise its rung and fold its
+        window early at the lowered lo-store width, returning the window's
+        pages.  The slot keeps decoding.  False when it is ineligible (empty,
+        at the deepest rung, or an empty window: no pages to free), and after
+        a counted refusal when it shares prefix pages."""
+        s = self.slots[slot_id]
+        if s is None or int(self._rungs[slot_id]) >= self._max_rung or s.since_rc == 0:
+            return False
+        if self._alloc.needs_privatize(slot_id):
+            self._alloc.note_downshift_refusal()
+            return False
+        self._rungs[slot_id] += 1
+        freed = self._fold([slot_id])
+        s.since_rc = 0
+        self._alloc.note_downshift(slot_id, freed)
+        self._events.append(events_lib.DownshiftEvent(
+            s.request.id, self._step_no, rung=int(self._rungs[slot_id]), pages_freed=freed))
+        return True
+
+    def _ladder_step(self) -> None:
+        """The pressure trigger (`ladder_watermark`): while the smallest free
+        fraction of the pools is at or below the watermark, downshift the
+        oldest eligible slot (by arrival), at most one per step."""
+        if not self._ladder or self.scfg.ladder_watermark <= 0 or self._alloc is None:
+            return
+        if self._alloc.pool_pressure() > self.scfg.ladder_watermark:
+            return
+        order = sorted((i for i in range(self.scfg.batch_size) if self.slots[i] is not None),
+                       key=lambda i: self.slots[i].request._seq)
+        for i in order:
+            if self._downshift(i):
+                return
+
     def _fold(self, due_ids: Sequence[int]) -> int:
         """Fold the due slots' staging windows, with the allocator's grant
-        before and shrink after.  Returns how many window pages came back."""
+        before and shrink after.  Returns how many window pages came back
+        (what a downshift frees).  With the ladder armed every fold takes
+        the slots' rungs (rung 0 is the base map's bits)."""
         b = self.scfg.batch_size
         self._n_folds += len(due_ids)
         if self._alloc is not None:
@@ -767,12 +952,24 @@ class EngineCore(_EngineBase):
         # per-slot folds while they save work over one full-batch fold
         if self._recompress_slot is not None and len(due_ids) * 2 <= b:
             for i in due_ids:
-                self._set_caches(self._recompress_slot(self.caches, int(i)))
+                if self._ladder:
+                    rung = torch.tensor(int(self._rungs[i]), dtype=torch.int32,
+                                        device=self.device)
+                    new = self._recompress_slot_rung(self.caches, int(i), rung)
+                else:
+                    new = self._recompress_slot(self.caches, int(i))
+                self._set_caches(new)
         else:
             due = np.zeros(b, bool)
             due[np.asarray(due_ids, int)] = True
-            self._set_caches(self._recompress_rows(self.caches,
-                                                   torch.from_numpy(due).to(self.device)))
+            rows = torch.from_numpy(due).to(self.device)
+            if self._ladder:
+                # a copy: the host array changes between steps
+                rungs = torch.from_numpy(self._rungs.copy()).to(self.device)
+                new = self._recompress_rows_rung(self.caches, rows, rungs)
+            else:
+                new = self._recompress_rows(self.caches, rows)
+            self._set_caches(new)
         freed = 0
         if self._alloc is not None:
             for i in due_ids:
@@ -787,6 +984,7 @@ class EngineCore(_EngineBase):
         cadence.  Returns the events of this iteration (and any buffered
         between steps), in order."""
         self._sweep_deadlines()
+        self._ladder_step()   # relieve pool pressure before planning admissions
         self._admit()
         b = self.scfg.batch_size
         active_ids = [i for i in range(b) if self.slots[i] is not None]

@@ -37,10 +37,6 @@ order.  Seven event kinds cover the request lifecycle after admission:
     callback so a broken sink cannot raise twice, and surfaces the error
     here instead of unwinding the step.
 
-The port's engine has no downshift ladder and no swap tier yet, so it never
-emits ``DownshiftEvent`` or ``SwappedEvent``; the types are kept so that
-consumers written against the reference import unchanged.
-
 Events raised between steps (``cancel()`` from an async server loop) are
 buffered and returned by the NEXT ``step()`` call, never dropped.
 

@@ -205,9 +205,9 @@ def test_unported_levers_raise(port):
     with pytest.raises(NotImplementedError):
         eng.submit(Request(tokens=np.arange(2, 10, dtype=np.int32),
                            sampling=SamplingParams(temperature=0.7)))
-    for kw in (dict(preemption="swap"), dict(prefix_cache=True), dict(precision_map="k4v4")):
-        with pytest.raises(NotImplementedError):
-            port["engine"](backend="paged", page_allocator="freelist", scheduler="priority", **kw)
+    with pytest.raises(NotImplementedError):
+        port["engine"](backend="paged", page_allocator="freelist", scheduler="priority",
+                       prefix_cache=True)
 
 
 def test_serve_cli_continuous_on_cpu(capsys):
@@ -218,3 +218,33 @@ def test_serve_cli_continuous_on_cpu(capsys):
     assert sorted(len(o.tokens) for o in out.values()) == [4, 4, 4]
     printed = capsys.readouterr().out
     assert "page pools peak used" in printed and "kernel launches" in printed
+
+
+SERVE_LEVERS = ["--arch", "yi-6b", "--smoke", "--device", "cpu", "--continuous", "--requests",
+                "3", "--batch", "2", "--prompt-len", "16", "--max-new", "4", "--backend",
+                "paged", "--page-allocator", "freelist", "--paged-kernel", "on", "--page-size",
+                "8", "--scheduler", "priority", "--preemption", "swap", "--swap-pool-mb", "4",
+                "--ladder-watermark", "0.05"]
+
+
+def test_serve_cli_levers_on_cpu(capsys):
+    """The lever flags reach the engine: a mapped, swap-armed, ladder-armed
+    continuous run serves every request and reports its swap tier."""
+    out = serve.main(SERVE_LEVERS + ["--precision-map", "default=k8v8;layer:1-=k3v3"])
+    assert sorted(len(o.tokens) for o in out.values()) == [4, 4, 4]
+    printed = capsys.readouterr().out
+    assert "swap tier: 0 out / 0 in" in printed and "kernel launches" in printed
+
+
+@pytest.mark.parametrize("argv", [
+    ["--precision-map", "layer:0=k0v2"],
+    ["--precision-map", "{bad json"],
+    ["--swap-pool-mb", "4", "--preemption", "recompute"],
+], ids=["bits-out-of-range", "bad-json", "swap-pool-without-swap"])
+def test_serve_cli_rejects_bad_levers(argv, capsys):
+    """A malformed map (or a swap budget without the swap tier) is an
+    argparse error: exit status 2 before any model is built."""
+    with pytest.raises(SystemExit) as exc:
+        serve.main(SERVE_LEVERS[:-6] + argv)
+    assert exc.value.code == 2
+    assert "error:" in capsys.readouterr().err

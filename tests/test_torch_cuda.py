@@ -726,3 +726,135 @@ def test_failed_capture_raises(dev, monkeypatch):
     assert eng._decode.captures == 0 and eng._decode.replays == 0
     torch.cuda.synchronize()
     assert torch.ones(4, device=dev).sum().item() == 4.0
+
+
+# ---- slice 7: the eff operand of cst_quant, precision maps, swap, ladder ----
+
+@pytest.mark.parametrize("split", [None, 1], ids=["cluster", "one-cta"])
+@pytest.mark.parametrize("bits", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,d", [(4, 461, 128), (1, 691, 128), (4, 37, 64)])
+def test_quantize_store_eff_matches_plain(dev, b, s, d, dtype, bits, split):
+    """One store with an eff table (mixed per (batch row, kv head, tensor),
+    about a third of the entries at the container width) through the
+    kernel's qmax instantiation, in one launch, equals its plain version on
+    the card and on the CPU bit for bit; the container-width entries' slices
+    equal the static launch's."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    hk, l = 4, s + 50
+    k = _randn(gen, b, hk, l, d, dtype=dtype, scale=2.0)
+    v = _randn(gen, b, hk, l, d, dtype=dtype)
+    idx = torch.full((b, s), -1, dtype=torch.int32, device=dev)
+    for row in range(b):
+        n_live = s - (s // 5) * (row % 2)
+        idx[row, :n_live] = torch.randperm(l, generator=gen, device=dev)[:n_live].int()
+    eff = torch.randint(1, bits + 1, (b, hk, 2), generator=gen, device=dev).float()
+    eff.view(-1)[::3] = float(bits)
+    before = cst_kernel.KERNEL.launches
+    got = cst_kernel.quantize_store(k, v, idx, bits, split=split, eff=eff)
+    assert cst_kernel.KERNEL.launches == before + 1
+    want = cst_ref.quantize_store_ref(k, v, idx, bits, eff)
+    on_cpu = cst_ref.quantize_store_ref(k.cpu(), v.cpu(), idx.cpu(), bits, eff.cpu())
+    static = cst_kernel.quantize_store(k, v, idx, bits, split=split)
+    names = ("k_codes", "k_scale", "k_zero", "v_codes", "v_scale", "v_zero", "v_cscale")
+    full = eff == bits
+    for i, (name, a, w, c, st) in enumerate(zip(names, got, want, on_cpu, static)):
+        assert a.dtype == w.dtype and a.shape == w.shape, name
+        assert torch.equal(a, w), name
+        assert torch.equal(a.cpu(), c), name
+        tensor = 0 if i < 3 else 1
+        sel = full[..., tensor]
+        assert torch.equal(a[sel], st[sel]), name
+    assert sel.any() and not full.all()
+
+
+def _lever_engines(dev, capture, **kw):
+    cfg, ccfg, params, _ = _smoke(dev)
+    scfg = ServeConfig(batch_size=2, prompt_len=48, max_new_tokens=12, backend="paged",
+                       page_size=8, page_allocator="freelist", paged_kernel=True, **kw)
+    return cfg, ContinuousEngine(cfg, ccfg, scfg, params, device=dev, capture=capture)
+
+
+def _run_swap_scenario(eng, prompts):
+    rids = [eng.submit(Request(tokens=prompts[0])), eng.submit(Request(tokens=prompts[1]))]
+    events = []
+    for _ in range(4):
+        events += eng.step()
+    rids.append(eng.submit(Request(tokens=prompts[2], max_new_tokens=3, priority=2)))
+    while eng.pending:
+        events += eng.step()
+    return rids, events
+
+
+def _run_ladder_scenario(eng, prompts):
+    rids = [eng.submit(Request(tokens=prompts[0])),
+            eng.submit(Request(tokens=prompts[1], max_new_tokens=6))]
+    events = []
+    for _ in range(4):
+        events += eng.step()
+    rids.append(eng.submit(Request(tokens=prompts[2])))
+    while eng.pending:
+        events += eng.step()
+    return rids, events
+
+
+def test_mapped_engine_launches_cst_quant_and_no_torch_quantizer(dev, monkeypatch):
+    """Under a precision map and an armed ladder (pressured: downshifts
+    fire), every store of every admission and fold goes through the
+    kernel's qmax instantiation: the torch quantizers are never called, and
+    cst_quant launches twice per layer per admission and per slot fold."""
+    cfg, eng = _lever_engines(dev, True, pool_fraction=1.0, ladder_watermark=0.6,
+                              precision_map="default=k8v8;layer:1-=k3v3")
+
+    def no_torch_quantizer(*a, **kw):
+        raise AssertionError("a torch quantizer ran on the card's path")
+
+    monkeypatch.setattr(kvc, "build_store", no_torch_quantizer)
+    for scheme in ("channelwise", "cst"):
+        monkeypatch.setitem(kvc.quant._SCHEMES, scheme, no_torch_quantizer)
+    before = cst_kernel.KERNEL.launches
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, cfg.vocab, size=(48,)).astype(np.int32) for _ in range(3)]
+    rids, events = _run_ladder_scenario(eng, prompts)
+    torch.cuda.synchronize()
+    st = eng.pool_stats()
+    assert st["downshift"]["downshifts"] >= 1
+    assert all(eng.result(r).finish_reason == "length" for r in rids)
+    assert cst_kernel.KERNEL.launches - before == \
+        2 * cfg.n_layers * (st["admissions"] + st["folds"])
+
+
+@pytest.mark.parametrize("scenario", ["swap", "ladder"])
+def test_replay_after_swap_in_and_downshift_matches_eager(dev, scenario):
+    """After a swap-in (the restore writes the static tree) and after a
+    downshift (an early fold at a rung), every step of the captured engine
+    equals the eager engine's step of the same index bit for bit, the step
+    is built once (no recapture), and the tokens agree."""
+    vocab = configs.get_arch("yi-6b", smoke=True).vocab
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, vocab, size=(48,)).astype(np.int32) for _ in range(3)]
+    runs = []
+    for capture in (False, True):
+        if scenario == "swap":
+            cfg, eng = _lever_engines(dev, capture, pool_fraction=1.0, scheduler="priority",
+                                      preemption="swap")
+        else:
+            cfg, eng = _lever_engines(dev, capture, pool_fraction=1.0, ladder_watermark=0.6,
+                                      precision_map="default=k8v8;layer:1-=k3v3")
+        rec = _ActiveLogits(eng._decode_masked)
+        eng._decode_masked = rec
+        run = _run_swap_scenario if scenario == "swap" else _run_ladder_scenario
+        rids, events = run(eng, prompts)
+        torch.cuda.synchronize()
+        kinds = {type(e).__name__ for e in events}
+        assert ("SwappedEvent" if scenario == "swap" else "DownshiftEvent") in kinds
+        st = eng.pool_stats()
+        if scenario == "swap":
+            assert st["swap"]["swaps_in"] >= 1 and st["swap"]["host_bytes"] == 0
+        runs.append((rec, [eng.result(r).tokens.tolist() for r in rids]))
+    (eager, want_tokens), (cap, got_tokens) = runs
+    assert cap.step.captures == 1 and cap.step.replays > 0
+    assert got_tokens == want_tokens
+    assert len(cap.logits) == len(eager.logits)
+    for a, w in zip(cap.logits, eager.logits):
+        assert torch.equal(a, w)

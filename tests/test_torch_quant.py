@@ -48,11 +48,6 @@ def test_quantizers_match_reference(scheme, bits, dtype, rng):
     np.testing.assert_array_equal(to_np(got.dequantize()), to_np(want.dequantize()))
 
 
-def test_quantize_rejects_precision_maps():
-    with pytest.raises(NotImplementedError):
-        quant.quantize_cst(torch.zeros(4, 8), 2, eff=torch.ones(1))
-
-
 @pytest.mark.parametrize("bits", [2, 4])
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
 def test_cst_kernel_plain_version_matches_quantize_cst(bits, dtype, rng):

@@ -1,5 +1,6 @@
-"""The port's zero-rebuild steady state (port of the mixed and paged
-free-list scenarios of tests/test_retrace.py, and of its guard test).
+"""The port's zero-rebuild steady state (port of the mixed, paged free-list,
+precision-map, downshift-ladder and swap-tier scenarios of
+tests/test_retrace.py, and of its guard test).
 
 The port's counterpart of a jitted program is a decode step over static
 buffers (`repro_torch.launch.steps`), built once: captured as a CUDA graph
@@ -10,8 +11,9 @@ is asserted directly on the CPU:
   * warm-up (a full scenario pass) builds more than zero steps (the guard
     really sees this process);
   * a second, identically shaped pass on the SAME engine builds none,
-    while a preemption (mixed) or an admission deferral (paged free list)
-    fires inside the guarded region.
+    while a preemption (mixed), an admission deferral (paged free list), a
+    downshift (the ladder) or a swap-out and swap-in (the swap tier) fires
+    inside the guarded region, and under a precision map.
 
 A step object never builds twice (a changed input shape fails in `copy_`
 rather than rebuilding), so what these tests can catch is an engine that
@@ -34,7 +36,8 @@ from repro_torch.core.policy import CompressionConfig
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import registry
 from repro_torch.runtime import compile_guard
-from repro_torch.serving import ContinuousEngine, PreemptedEvent, Request, ServeConfig
+from repro_torch.serving import (ContinuousEngine, PreemptedEvent, Request, ServeConfig,
+                                 SwappedEvent)
 from tests.torch_parity import torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("torch_threads")
@@ -120,6 +123,75 @@ def test_paged_freelist_engine_zero_builds_at_steady_state():
     # and the late admission reused the step built at warm-up
     assert eng.pool_stats()["deferrals"] > deferrals_before
     assert eng.caches is eng._decode_masked.caches
+
+
+def test_precision_map_engine_zero_builds_at_steady_state():
+    """A map changes effective bits inside unchanged containers: the mapped
+    engine builds what the unmapped one does, and a second pass nothing."""
+    cfg, eng = _engine(precision_map="default=k8v8;layer:1-=k3v3")
+
+    with compile_guard.count_captures() as warm:
+        _drive_deferral_scenario(eng, _prompts(cfg, seed=0, n=3))
+    assert warm.count > 0, "warm-up must build (guard sanity check)"
+
+    with compile_guard.assert_no_captures() as steady:
+        _drive_deferral_scenario(eng, _prompts(cfg, seed=1, n=3))
+    assert steady.count == 0
+
+
+def test_downshift_ladder_zero_builds_at_steady_state():
+    """A downshift is an early fold through the rung-taking folds every armed
+    fold uses (the rung an operand): pressure at steady state builds
+    nothing.  The watermark over an exactly sized pool makes the trigger
+    fire inside both regions."""
+    cfg, eng = _engine(backend="paged", page_size=8, page_allocator="freelist",
+                       pool_fraction=1.0, ladder_watermark=0.6, paged_kernel=True)
+
+    with compile_guard.count_captures() as warm:
+        _drive_deferral_scenario(eng, _prompts(cfg, seed=0, n=3))
+    assert warm.count > 0, "warm-up must build (guard sanity check)"
+    ds_before = eng.pool_stats()["downshift"]["downshifts"]
+    assert ds_before >= 1, "scenario must force a downshift"
+
+    with compile_guard.assert_no_captures() as steady:
+        _drive_deferral_scenario(eng, _prompts(cfg, seed=1, n=3))
+    assert steady.count == 0
+    assert eng.pool_stats()["downshift"]["downshifts"] > ds_before
+    assert eng.caches is eng._decode_masked.caches
+    eng._alloc.check_invariants()
+
+
+@pytest.mark.parametrize("extra_kw", [dict(pool_fraction=1.0),
+                                      dict(pool_fraction=1.0, admit_watermark=0.25)],
+                         ids=["plain", "watermarked"])
+def test_swap_tier_zero_builds_at_steady_state(extra_kw):
+    """Swap-out and swap-in at steady state reuse the step built at warm-up
+    and the host entries made at construction: the mixed scenario's
+    priority-2 short forces a swap-out, and its re-admission a swap-in,
+    inside both regions, with no preemption by recompute."""
+    cfg, eng = _engine(backend="paged", page_size=8, page_allocator="freelist",
+                       scheduler="priority", preemption="swap", paged_kernel=True, **extra_kw)
+
+    with compile_guard.count_captures() as warm:
+        events = _drive_mixed_scenario(eng, _prompts(cfg, seed=0, n=4))
+    assert warm.count > 0, "warm-up must build (guard sanity check)"
+    dirs = [e.direction for e in events if isinstance(e, SwappedEvent)]
+    assert "out" in dirs and "in" in dirs, dirs
+    swaps_before = eng.pool_stats()["swap"]["swaps_in"]
+    buffers = [entry.data_ptr() for entry in eng._swap._buffers]
+
+    with compile_guard.assert_no_captures() as steady:
+        events = _drive_mixed_scenario(eng, _prompts(cfg, seed=1, n=4))
+    assert steady.count == 0
+    dirs = [e.direction for e in events if isinstance(e, SwappedEvent)]
+    assert "out" in dirs and "in" in dirs, dirs
+    assert not any(isinstance(e, PreemptedEvent) for e in events)
+    sw = eng.pool_stats()["swap"]
+    assert sw["swaps_in"] > swaps_before
+    assert sw["host_bytes"] == 0 and sw["resident"] == 0, sw
+    assert [entry.data_ptr() for entry in eng._swap._buffers] == buffers
+    assert eng.caches is eng._decode_masked.caches
+    eng._alloc.check_invariants()
 
 
 def test_guard_counts_fresh_builds():
