@@ -72,6 +72,19 @@ continued:
      downshift that frees pages).  Each run's launches are counted from 0
      and held against its path; entry bytes and the swap-out / swap-in and
      downshift (fold at a rung) times are logged;
+  4f. slice 8's shared-prefix dedup: the continuous engine (4 slots, prompt
+     window 1024, budget 128, paged free list at 1.5 x the worst case, page
+     64, the page walk, FIFO, captured) serves eight greedy requests on four
+     prompts, four of them repeats, once with `prefix_cache` off and once
+     with it on, then on again eagerly.  Tokens and finish reasons equal
+     between off and on; at least one hit and one copy-on-write copy; the
+     prefill tokens skipped equal the hits' buckets; the allocator's
+     invariants after every step; every page back after the index is
+     reclaimed; flash_fwd and probe_colsum launched 32 x hits fewer times;
+     the captured step built once, and its first replays after an alias
+     admission and after a CoW copy bitwise the eager step's.  Hit and miss
+     admission times, CoW copy times, peak pages and snapshot bytes are
+     logged;
   5. a `kernels` JSON line, then the last line:
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -865,6 +878,10 @@ def main() -> None:
 
     # ---- 4e. slice 7's levers: precision map, swap tier, downshift ladder ---
     by_path.update(levers(torch, np, cfg, ccfg, params, dev, kernels, n_layers, prompt))
+
+    # ---- 4f. slice 8: shared-prefix dedup with copy-on-write ---------------
+    by_path.update(prefix_dedup(torch, np, cfg, ccfg, params, dev, kernels, n_layers, prompt,
+                                card, rel_l2))
     rows["cst_quant"]["eff"]["launches"] = sum(
         p["cst_quant"] for name, p in by_path.items() if name.startswith("levers"))
     for name, row in rows.items():
@@ -989,6 +1006,166 @@ def levers(torch, np, cfg, ccfg, params, dev, kernels, n_layers, prompt):
     return {"levers (swap)": l_sw, "levers (ladder)": l_ds}
 
 
+# phase 4f's traffic: (prompt, budget) in submission order.  The first four
+# miss and register; 5-8 come in as slots retire and can hit; budgets past
+# recompress_interval (100) fold, so donors and aliases copy on write; #7
+# never folds (it reserves no hi/lo pages)
+PREFIX_TRAFFIC = (("A", 128), ("C", 64), ("B", 48), ("D", 96),
+                  ("A", 128), ("B", 112), ("A", 48), ("A", 120))
+PREFIX_LENGTHS = {"A": 1024, "B": 640, "C": 300, "D": 900}
+
+
+def prefix_dedup(torch, np, cfg, ccfg, params, dev, kernels, n_layers, prompt, card, rel_l2):
+    """Phase 4f: the same traffic through a fresh captured engine with
+    `prefix_cache` off, then on, then an eager engine with it on.  Returns
+    the captured runs' launch counts, each read from 0."""
+    from repro_torch.core import alloc as alloc_lib
+    from repro_torch.serving import ContinuousEngine, Request, ServeConfig
+
+    rng = np.random.default_rng(3)
+    texts = {k: rng.integers(2, cfg.vocab, size=(n,)).astype(np.int32)
+             for k, n in PREFIX_LENGTHS.items()}
+
+    def run(prefix_cache, capture):
+        scfg = ServeConfig(batch_size=4, prompt_len=prompt, max_new_tokens=128, seed=0,
+                           backend="paged", page_size=64, page_allocator="freelist",
+                           pool_fraction=1.5, paged_kernel=True, scheduler="fifo",
+                           prefix_cache=prefix_cache)
+        eng = ContinuousEngine(cfg, ccfg, scfg, params, device=dev, capture=capture)
+        log_ = {"hit_ms": [], "miss_ms": [], "cow_ms": [], "hit_buckets": 0, "shared_peak": 0,
+                "marks": {}, "pending": set()}
+        rec = eng._decode_masked = MarkedLogits(eng._decode_masked, log_["pending"],
+                                                log_["marks"])
+        admit_one, copy_pages = eng._admit_one, getattr(eng, "_copy_pages", None)
+
+        def timed_admit(slot_id, req):
+            hits = eng._alloc.prefix_hits
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            admit_one(slot_id, req)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            if eng._alloc.prefix_hits > hits:
+                log_["hit_ms"].append(ms)
+                log_["hit_buckets"] += eng._bucket_len(int(req.tokens.shape[-1]))
+                log_["pending"].add("alias")
+            else:
+                log_["miss_ms"].append(ms)
+
+        def timed_copy(caches, moves):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = copy_pages(caches, moves)
+            torch.cuda.synchronize()
+            log_["cow_ms"].append(round((time.perf_counter() - t0) * 1e3, 3))
+            log_["pending"].add("cow")
+            return out
+
+        eng._admit_one = timed_admit
+        eng._copy_pages = timed_copy
+        torch.cuda.synchronize()
+        for kern in kernels.values():
+            kern.launches = 0
+        t0 = time.perf_counter()
+        rids = [eng.submit(Request(tokens=texts[k], max_new_tokens=m))
+                for k, m in PREFIX_TRAFFIC]
+        while eng.pending:
+            eng.step()
+            eng._alloc.check_invariants()
+            log_["shared_peak"] = max(log_["shared_peak"],
+                                      eng._alloc.stats()["prefix"]["shared_pages"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: kern.launches for n, kern in kernels.items()}
+        st = eng.pool_stats()
+        outs = [(eng.result(r).tokens.tolist(), eng.result(r).finish_reason) for r in rids]
+        snap_bytes = [sum(g["sub0"].nbytes_total() for g in snap["groups"]) + nbytes(lg)
+                      for snap, lg in eng._prefix_snap.values()]
+        for key in eng._alloc.prefix_reclaim(min_pages=10**9):
+            eng._prefix_snap.pop(key)
+        eng._alloc.check_invariants()
+        for name, seg in eng._alloc.segs.items():
+            check(len(seg.free) == seg.pool_pages and not seg.refcount.any(),
+                  f"prefix (on={prefix_cache}): {name} pages not all back after the reclaim")
+        return dict(eng=eng, rec=rec, wall=wall, launches=launches, stats=st, outs=outs,
+                    snap_bytes=snap_bytes, **log_)
+
+    off = run(False, True)
+    on = run(True, True)
+    eager = run(True, False)
+    for i, ((a, ra), (w, rw)) in enumerate(zip(on["outs"], off["outs"])):
+        if (a, ra) != (w, rw):
+            step = next((j for j, (x, y) in enumerate(zip(a, w)) if x != y), min(len(a), len(w)))
+            fail(f"prefix: request {i} ({PREFIX_TRAFFIC[i][0]}, budget {PREFIX_TRAFFIC[i][1]}) "
+                 f"diverges at token {step}: on {a[step:step + 4]} ({ra}), off "
+                 f"{w[step:step + 4]} ({rw})")
+    check(eager["outs"] == on["outs"], "prefix: the eager engine's tokens differ from the "
+                                       "captured engine's")
+    check(all(len(t) == m and r == "length" for (t, r), (_, m) in zip(on["outs"], PREFIX_TRAFFIC)),
+          "prefix: a request ended short of its budget")
+    pf = on["stats"]["prefix"]
+    log(f"prefix: {card}; {pf['hits']} hits, {pf['misses']} misses, {pf['cow_copies']} CoW "
+        f"page copies ({len(on['cow_ms'])} copy steps), {pf['evictions']} evictions, "
+        f"{on['shared_peak']} shared pages at peak, {pf['prefill_tokens_skipped']} prefill "
+        f"tokens skipped")
+    check(pf["hits"] >= 1 and pf["cow_copies"] >= 1, f"prefix: no hit or no CoW copy: {pf}")
+    check(pf["prefill_tokens_skipped"] == on["hit_buckets"],
+          f"prefix: {pf['prefill_tokens_skipped']} tokens skipped, the hits' buckets hold "
+          f"{on['hit_buckets']}")
+    check(off["stats"]["prefix"]["hits"] == 0, "prefix: the run with dedup off hit")
+    log(f"prefix: admission wall to a synchronize: hit median {np.median(on['hit_ms']):.3f} ms "
+        f"({len(on['hit_ms'])}: {[round(x, 3) for x in on['hit_ms']]}), miss median "
+        f"{np.median(on['miss_ms']):.3f} ms ({len(on['miss_ms'])}); with dedup off, miss median "
+        f"{np.median(off['miss_ms']):.3f} ms ({len(off['miss_ms'])})")
+    log(f"prefix: CoW copy (all layers' pools, one step) wall {on['cow_ms']} ms")
+    peaks = {k: (on["stats"][k]["peak_used"], off["stats"][k]["peak_used"],
+                 on["stats"][k]["pool_pages"]) for k in ("hi", "lo", "win")}
+    log(f"prefix: peak pages used on / off / pool per segment {peaks}")
+    log(f"prefix: snapshot bytes per entry {on['snap_bytes']} "
+        f"({[round(b / 2**20, 2) for b in on['snap_bytes']]} MiB)")
+    log(f"prefix: decode wall (submit to drained) off {off['wall']:.3f} s, on {on['wall']:.3f} s, "
+        f"on eager {eager['wall']:.3f} s")
+    log(f"prefix: launches off {off['launches']}, on {on['launches']}")
+    for run_, label in ((off, "off"), (on, "on")):
+        st, got = run_["stats"], run_["launches"]
+        want = {"cst_quant": 2 * n_layers * (st["admissions"] + st["folds"]),
+                "flash_fwd": n_layers * st["admissions"],
+                "probe_colsum": n_layers * st["admissions"],
+                "decode_qattn": 0, "paged_qattn": n_layers * run_["eng"]._step_no}
+        for name, n in want.items():
+            check(got[name] == n, f"prefix ({label}): {name} {got[name]} launches, the path "
+                                  f"implies {n}")
+            check(n > 0 or name == "decode_qattn", f"prefix ({label}): {name} never launched")
+    for name in ("flash_fwd", "probe_colsum"):
+        saved = off["launches"][name] - on["launches"][name]
+        check(saved == n_layers * pf["hits"], f"prefix: {name} launched {saved} times fewer "
+                                              f"with dedup, 32 x hits is {n_layers * pf['hits']}")
+    step = on["rec"].step
+    check(step.captures == 1 and step.replays > 0,
+          f"prefix: the captured step was built {step.captures} times")
+    got, want = on["rec"].logits, eager["rec"].logits
+    check(len(got) == len(want) > 0, f"prefix: {len(got)} captured steps against {len(want)}")
+    n_equal, worst = 0, 0.0
+    for i, (a, w) in enumerate(zip(got, want)):
+        n_equal += bool(torch.equal(a, w))
+        ulp = 2 ** -7 * max(w.float().abs().max().item(), 1.0)
+        worst = max(worst, (a.float() - w.float()).abs().max().item() / ulp)
+    check(worst <= 1.0, f"prefix: a captured step's logits differ from the eager step's by "
+                        f"{worst:.3g} bf16 ulps (tolerance 1)")
+    marks = on["marks"]
+    check(set(marks) == {"alias", "cow"}, f"prefix: no replay after an alias admission and "
+                                           f"after a CoW copy: {marks}")
+    for what, i in sorted(marks.items()):
+        check(torch.equal(got[i], want[i]),
+              f"prefix: the first replay after {what} (step {i}) is not bitwise the eager "
+              f"step's: relative L2 {rel_l2(got[i], want[i]):.4g}")
+    log(f"prefix: captured step {step.captures} capture(s), {step.replays} replays; {len(got)} "
+        f"steps vs eager: {n_equal} bitwise equal, largest difference {worst:.4g} bf16 ulps; "
+        f"first replays after an alias admission (step {marks['alias']}) and after a CoW copy "
+        f"(step {marks['cow']}) bitwise equal")
+    return {"prefix (off)": off["launches"], "prefix (on)": on["launches"]}
+
+
 def profile_window(torch, run, n_steps):
     """(busy share, device operations per step) of `run()`, which runs
     `n_steps` steps, under torch.profiler: the device's summed kernel, copy
@@ -1029,6 +1206,25 @@ class StepLogits:
 
     def __getattr__(self, name):
         return getattr(self.step, name)
+
+
+class MarkedLogits(StepLogits):
+    """`StepLogits` that also notes, for each event named in `pending` (an
+    alias admission, a CoW copy) before a call, the index of the first
+    later call that was a replay, in `marks`."""
+
+    def __init__(self, step, pending, marks):
+        super().__init__(step)
+        self.pending, self.marks = pending, marks
+
+    def __call__(self, *args):
+        before, replays = set(self.pending), self.step.replays
+        out = super().__call__(*args)
+        if self.step.replays > replays:
+            for what in before:
+                self.marks.setdefault(what, len(self.logits) - 1)
+            self.pending.difference_update(before)
+        return out
 
 
 def summarize(path, runs, torch, rel_l2, yardstick):

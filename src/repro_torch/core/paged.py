@@ -377,6 +377,28 @@ def free_slot(cache: PagedKVCache, slot: int) -> PagedKVCache:
     return kvc.free_slot(cache, slot)
 
 
+def copy_pages(cache: PagedKVCache, moves) -> PagedKVCache:
+    """Copy physical pages inside each pool, in place: pages `src[i]` ->
+    `dst[i]` per segment ("hi", "lo", "win"; moves[seg] = (src, dst) int64
+    device vectors).  The device half of copy-on-write (`core.alloc`
+    `privatize`): the allocator points a slot's table at fresh pages, and
+    this fills them before anything reads through the new table.
+
+    Every source page is gathered before any write.  The engine pads the id
+    vectors with the segment's sink id: those sink -> sink copies write
+    duplicate destinations with equal values.  Tables and metadata are
+    untouched.  Writing the pools in place (the reference returns new ones)
+    spares a copy of every pool into the decode step's static tree."""
+    for name, pools in (("hi", (cache.hi.k_pages, cache.hi.v_pages)),
+                        ("lo", (cache.lo.k_pages, cache.lo.v_pages)),
+                        ("win", (cache.win_k_pages, cache.win_v_pages))):
+        src, dst = moves[name]
+        for pool in pools:
+            if pool.shape[0]:
+                pool.index_copy_(0, dst, pool.index_select(0, src))
+    return cache
+
+
 def _write_back(cache: PagedKVCache, mx: kvc.MixedKVCache,
                 rows: Optional[torch.Tensor] = None) -> PagedKVCache:
     """Scatter a recompressed dense cache back into the paged layout,

@@ -7,6 +7,9 @@ Examples (on a CUDA card):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke \
       --continuous --requests 8 --backend paged --page-allocator freelist \
       --pool-fraction 0.75 --paged-kernel on
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke \
+      --continuous --backend paged --page-allocator freelist --pool-fraction 1.5 \
+      --prefix-cache on
 
 The flags are those of `repro.launch.serve` that the port runs, plus
 --requests (how many requests the continuous engine serves) and --device
@@ -92,10 +95,17 @@ def add_engine_args(ap: argparse.ArgumentParser) -> None:
                          "deferred when they cannot cover a request's worst case")
     ap.add_argument("--pool-fraction", type=float, default=1.0,
                     help="--page-allocator freelist only: pool capacity as a fraction of the "
-                         "static worst case")
+                         "static worst case; above 1.0 provisions the slack pages that "
+                         "--prefix-cache registrations keep while every slot runs")
     ap.add_argument("--admit-watermark", type=float, default=0.0,
                     help="--page-allocator freelist only: fraction of each pool held back "
                          "as admission headroom")
+    ap.add_argument("--prefix-cache", default="off", choices=("off", "on"),
+                    help="--page-allocator freelist only: content-hash shared-prefix page "
+                         "dedup with copy-on-write tables: identical page-aligned prompt "
+                         "buckets alias one set of hi/lo pages and skip their prefill; a "
+                         "shared slot gets its own pages before its first fold.  Greedy "
+                         "output is that of off")
     ap.add_argument("--scheduler", default="fifo", choices=("fifo", "priority"),
                     help="--continuous only: admission policy")
     ap.add_argument("--preemption", default="off",
@@ -149,6 +159,8 @@ def validate_engine_args(args, ap: argparse.ArgumentParser) -> None:
         ap.error("--pool-fraction requires --page-allocator freelist")
     if args.admit_watermark != 0.0 and args.page_allocator != "freelist":
         ap.error("--admit-watermark requires --page-allocator freelist")
+    if args.prefix_cache == "on" and args.page_allocator != "freelist":
+        ap.error("--prefix-cache on requires --page-allocator freelist")
     if args.requests is not None and not args.continuous:
         ap.error("--requests requires --continuous")
 
@@ -159,7 +171,8 @@ def build_serve_config(args) -> ServeConfig:
                        page_size=args.page_size, paged_kernel=args.paged_kernel == "on",
                        page_allocator=args.page_allocator, pool_fraction=args.pool_fraction,
                        admit_watermark=args.admit_watermark, scheduler=args.scheduler,
-                       preemption=args.preemption, precision_map=args.precision_map,
+                       preemption=args.preemption, prefix_cache=args.prefix_cache == "on",
+                       precision_map=args.precision_map,
                        ladder_watermark=args.ladder_watermark,
                        swap_pool_mb=args.swap_pool_mb)
 
@@ -203,6 +216,11 @@ def _serve_continuous(args, cfg, ccfg, scfg, params, device, prompts):
             print(f"[serve] swap tier: {sw['swaps_out']} out / {sw['swaps_in']} in, entry "
                   f"{sw['entry_bytes']} bytes, {sw['host_bytes']} host bytes resident, "
                   f"{sw['swap_refusals']} refusals")
+        px = ps["prefix"]
+        if px["hits"] or px["misses"]:
+            print(f"[serve] prefix cache: {px['hits']} hits / {px['misses']} misses, "
+                  f"{px['cow_copies']} CoW copies, {px['prefill_tokens_skipped']} prefill "
+                  "tokens skipped")
     print("[serve] kernel launches:", {n: k.launches for n, k in KERNELS.items()})
     print_step(eng._decode_masked)
     return {rid: eng.result(rid) for rid in rids}

@@ -401,6 +401,20 @@ def make_recompress_slot_step(cfg: ArchConfig, shape: ShapeConfig,
     return recompress_slot, ctx
 
 
+def make_copy_pages_step(cfg: ArchConfig, shape: ShapeConfig,
+                         ccfg: Optional[CompressionConfig] = None, ctx=None, *,
+                         device="cuda"):
+    """copy(caches, moves) -> caches: duplicate physical pages inside every
+    pool per the allocator's copy-on-write plan ({segment: (src, dst)}
+    int64 id vectors, sink-padded to each segment's page count), in place."""
+    ctx = _ctx(cfg, shape, ccfg, ctx, 512, device)
+
+    def copy(caches, moves):
+        return registry.copy_caches(caches, moves)
+
+    return copy, ctx
+
+
 def make_swap_extract_step(cfg: ArchConfig, shape: ShapeConfig,
                            ccfg: Optional[CompressionConfig] = None, ctx=None, *,
                            device="cuda"):

@@ -74,6 +74,17 @@ def restore_caches(caches: Any, payload: list, slot: int) -> Any:
         for i, gc in enumerate(caches["groups"])]}
 
 
+def copy_caches(caches: Any, moves) -> Any:
+    """Apply one set of page moves ({segment: (src_ids, dst_ids)}) to every
+    layer's pools, in place: the device half of copy-on-write.  Every layer
+    shares the allocator's one table per segment, so one move set holds
+    tree-wide."""
+    from repro_torch.core import paged
+    for gc in caches["groups"]:
+        paged.copy_pages(gc["sub0"], moves)
+    return caches
+
+
 def free_caches(caches: Any, slot: int) -> Any:
     """Retire batch row `slot` across the cache tree (metadata row writes; a
     paged slot's pages stay, validity is pos-driven)."""

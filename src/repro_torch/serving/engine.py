@@ -28,12 +28,16 @@ to host memory and back, tokens unchanged; the downshift ladder
 one effective bit lower on its lo store and returns the window's pages.
 Both engines take a precision map (`ServeConfig.precision_map`,
 `core.precision`): effective-bit ceilings per layer and head inside the
-same containers.
+same containers.  Over the free list, shared-prefix dedup
+(`ServeConfig.prefix_cache`) admits a request whose page-aligned prompt
+bucket was prefilled before by pointing its hi/lo page-table rows at the
+donor's pages (no prefill), and copies those pages (copy-on-write) before
+its first fold.
 
 The probe flags of a step are host values: they pick the decode path
 (exact slot weights on probe steps) with no device sync.  Sampling is
-greedy; temperature > 0 and shared-prefix dedup are not ported yet and
-raise `NotImplementedError`.
+greedy; temperature > 0 is not ported yet and raises
+`NotImplementedError`.
 
 Every engine program comes from the step factories of `launch.steps`, as
 the reference's jitted ones do.  With `capture` (the default) both decode
@@ -115,7 +119,11 @@ class ServeConfig:
     # preemption="swap" only: the host tier's budget in MiB (0 = one entry
     # per batch slot)
     swap_pool_mb: int = 0
-    # a lever of the reference not ported yet: True raises
+    # "freelist" only: content-hash shared-prefix page dedup with
+    # copy-on-write tables.  A hit aliases the hi/lo pages of an earlier
+    # prefill of the same page-aligned prompt bucket and skips its prefill;
+    # the slot's first fold privatizes the shared pages.  Greedy output is
+    # bitwise that of prefix_cache=False
     prefix_cache: bool = False
 
 
@@ -343,8 +351,6 @@ class EngineCore(_EngineBase):
         if scfg.preemption not in ("off", "recompute", "downshift", "swap"):
             raise ValueError(f"ServeConfig.preemption must be 'off', 'recompute', 'downshift' "
                              f"or 'swap', got {scfg.preemption!r}")
-        if scfg.prefix_cache:
-            raise NotImplementedError("ServeConfig.prefix_cache is not ported yet")
         super().__init__(cfg, ccfg, scfg, params, device=device, use_kernels=use_kernels,
                          capture=capture)
         # every op on the caches runs in inference mode (`step`, `cancel`), so
@@ -396,6 +402,19 @@ class EngineCore(_EngineBase):
         self._rungs = np.zeros(scfg.batch_size, np.int32)
         self._max_rung = max(ccfg.low_bits - 1, 0)
         mk = dict(ctx=self.ctx, device=self.device)
+        # shared-prefix dedup: the allocator keeps the page index, the engine
+        # the device snapshot of each indexed prefill ({key: (slice_caches,
+        # logits)}) that a hit re-inserts instead of prefilling, and the
+        # page copies of copy-on-write
+        if scfg.prefix_cache and self._alloc is None:
+            raise ValueError("ServeConfig.prefix_cache requires backend='paged' with "
+                             "page_allocator='freelist' (dedup aliases free-list pages)")
+        self._prefix_on = scfg.prefix_cache
+        self._prefix_snap: Dict[str, Tuple] = {}
+        self._prefix_tokens_skipped = 0
+        self._pending_reg: List[Tuple] = []
+        if self._prefix_on:
+            self._copy_pages = steps_lib.make_copy_pages_step(cfg, self._shape, ccfg, **mk)[0]
         if self._ladder:
             self._recompress_rows_rung = steps_lib.make_recompress_rows_step(
                 cfg, self._shape, ccfg, ladder=True, **mk)[0]
@@ -466,6 +485,9 @@ class EngineCore(_EngineBase):
                 f"{self._alloc.worst_pages(self._request_total_tokens(request), bucket)} pages "
                 f"worst-case, beyond the pool ({self._alloc.stats()}); raise pool_fraction or "
                 "lower the request budget")
+        # the prefix key, stamped once: planning probes it many times a step
+        request._prefix_key = (alloc_lib.prefix_key(request.tokens, self.scfg.page_size, bucket)
+                               if self._prefix_on else None)
         if request.id is None:
             rid = f"req-{next(self._ids)}"
             while rid in self._known:  # user ids may shadow auto ids
@@ -622,12 +644,16 @@ class EngineCore(_EngineBase):
         """Free-list pool telemetry (None for static and mixed layouts):
         per segment {pool_pages, used, free, peak_used, outstanding}, the
         cumulative deferral and preemption counts, the downshift ladder's
-        block (downshifts, the window pages they freed, refusals), the host
-        swap tier's block where preemption="swap" (swaps out / in, resident
-        host bytes, refusals), and the engine's admissions and slot folds."""
+        block (downshifts, the window pages they freed, refusals), the
+        shared-prefix block (index entries, hits, misses, evictions, CoW
+        copies, shared and saved pages, the prefill tokens hits skipped),
+        the host swap tier's block where preemption="swap" (swaps out / in,
+        resident host bytes, refusals), and the engine's admissions that
+        ran a prefill (a prefix hit runs none) and slot folds."""
         if self._alloc is None:
             return None
         stats = self._alloc.stats()
+        stats["prefix"]["prefill_tokens_skipped"] = self._prefix_tokens_skipped
         if self._swap is not None:
             stats["swap"] = self._swap.stats()
         return {**stats, "admissions": self._n_admissions, "folds": self._n_folds}
@@ -697,10 +723,27 @@ class EngineCore(_EngineBase):
                 self._events.append(events_lib.CallbackErrorEvent(
                     request.id, self._step_no, error=f"{type(e).__name__}: {e}"))
 
+    def _alias_can_fold(self, req: Request) -> bool:
+        """Whether the request can reach a fold: it decodes budget - 1 steps
+        (the first token comes from the prefill logits)."""
+        return self._request_budget(req) - 1 >= self.ccfg.recompress_interval
+
+    def _prefix_hit(self, req: Request) -> bool:
+        """A usable hit needs both the allocator's index entry and the
+        engine's snapshot; planning and admission take the same predicate."""
+        key = getattr(req, "_prefix_key", None)
+        return (key is not None and self._alloc.prefix_peek(key) is not None
+                and key in self._prefix_snap)
+
     def _demand_pages(self, req: Request) -> Dict[str, int]:
-        """Worst-case per-segment page demand of one queued request."""
-        return self._alloc.worst_pages(self._request_total_tokens(req),
-                                       self._bucket_len(int(req.tokens.shape[-1])))
+        """Worst-case per-segment page demand of one queued request; a prefix
+        hit that never folds shares its hi/lo pages for life and demands
+        only its window."""
+        worst = self._alloc.worst_pages(self._request_total_tokens(req),
+                                        self._bucket_len(int(req.tokens.shape[-1])))
+        if self._prefix_hit(req) and not self._alias_can_fold(req):
+            worst = {**worst, "hi": 0, "lo": 0}
+        return worst
 
     def _pool_view(self) -> scheduler_lib.PoolView:
         return scheduler_lib.PoolView(self._alloc,
@@ -732,6 +775,13 @@ class EngineCore(_EngineBase):
                 if victim is not None and self._relieve(victim):
                     n_evicted += 1
                     continue   # re-plan with the freed slot or pages
+            if plan.blocked is not None and self._prefix_on and self._alloc.prefix:
+                # out of pages with prefixes indexed: evict LRU entries and
+                # re-plan before counting a deferral (the index shrinks on
+                # every pass, so this ends)
+                for key in self._alloc.prefix_reclaim():
+                    self._prefix_snap.pop(key, None)
+                continue
             if plan.blocked is not None:
                 if self.scfg.backpressure == "error":
                     raise alloc_lib.PagePoolExhausted(
@@ -744,25 +794,55 @@ class EngineCore(_EngineBase):
             else:
                 self._last_deferred = None
             break
+        # the registrations of this pass's prefills, deferred to its end: one
+        # rescinds the donor's ownership and raises its outstanding
+        # reservation, which must not change the headroom a planned
+        # admission of the same pass was checked against
+        for key, slot_id, req, slice_caches, logits in self._pending_reg:
+            s = self.slots[slot_id]
+            if s is None or s.request is not req:
+                continue   # retired or preempted before its registration
+            if self._alloc.prefix_register(key, slot_id):
+                self._prefix_snap[key] = (slice_caches, logits)
+        self._pending_reg = []
 
     def _admit_one(self, slot_id: int, req: Request) -> None:
-        """Prefill (batch 1, at the request's bucket), insert the compressed
-        slice into the slot, then take the first token (a fresh request) or
-        replay the retained tokens (recompute re-admission)."""
+        """Prefill (batch 1, at the request's bucket) or, on a prefix hit,
+        alias the indexed pages and take the prefill's snapshot; insert the
+        compressed slice into the slot, then take the first token (a fresh
+        request) or replay the retained tokens (recompute re-admission).
+
+        A hit re-inserts the snapshot: the metadata rows and the fresh window
+        pages take the donor's bytes, and the scatter onto the aliased hi/lo
+        pages writes the bytes they already hold."""
         t0 = time.perf_counter()
         if getattr(req, "_swap_state", None) is not None:
             # the host holds its exact cache: upload it instead of a prefill
             self._swap_in(slot_id, req, t0)
             return
-        self._n_admissions += 1
         bucket = self._bucket_len(int(req.tokens.shape[-1]))
         resume = getattr(req, "_resume_tokens", None)
-        prompt = torch.from_numpy(pack_requests([req.tokens], 1, bucket)).to(self.device)
-        logits, slice_caches = self._prefill_for(bucket)(self.params, {"tokens": prompt})
-        if self._alloc is not None:
-            self._alloc.admit(slot_id, alloc_lib.slice_occupancy(slice_caches),
-                              self._request_total_tokens(req), bucket)
+        if self._prefix_on and self._prefix_hit(req):
+            slice_caches, logits = self._prefix_snap[req._prefix_key]
+            self._alloc.admit_alias(slot_id, req._prefix_key, self._request_total_tokens(req),
+                                    bucket, can_fold=self._alias_can_fold(req))
+            self._prefix_tokens_skipped += bucket
             self._sync_tables()
+        else:
+            self._n_admissions += 1
+            prompt = torch.from_numpy(pack_requests([req.tokens], 1, bucket)).to(self.device)
+            logits, slice_caches = self._prefill_for(bucket)(self.params, {"tokens": prompt})
+            if self._alloc is not None:
+                self._alloc.admit(slot_id, alloc_lib.slice_occupancy(slice_caches),
+                                  self._request_total_tokens(req), bucket)
+                self._sync_tables()
+                if self._prefix_on:
+                    self._alloc.prefix_note_miss()
+                    # a recompute re-admission is never a donor: its replay
+                    # may fold the slot before the registration
+                    if resume is None:
+                        self._pending_reg.append((req._prefix_key, slot_id, req, slice_caches,
+                                                  logits))
         self._set_caches(self._insert(self.caches, slice_caches, slot_id))
         if resume is None:
             generated = [int(torch.argmax(logits[0]))]
@@ -938,6 +1018,22 @@ class EngineCore(_EngineBase):
             if self._downshift(i):
                 return
 
+    def _pack_moves(self, moves: Dict[str, Tuple[List[int], List[int]]]
+                    ) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+        """The copy step's operands: per segment, (src, dst) id vectors padded
+        with the segment's sink id (sink -> sink copies), all in one upload
+        of a fresh host array."""
+        segs = alloc_lib.FreeListAllocator.SEGMENTS
+        width = max(max(self._alloc.segs[n].npp for n in segs), 1)
+        ids = np.empty((2 * len(segs), width), np.int64)
+        for k, name in enumerate(segs):
+            src, dst = moves.get(name, ((), ()))
+            ids[2 * k:2 * k + 2] = self._alloc.segs[name].null
+            ids[2 * k, :len(src)] = src
+            ids[2 * k + 1, :len(dst)] = dst
+        dev = torch.from_numpy(ids).to(self.device)
+        return {name: (dev[2 * k], dev[2 * k + 1]) for k, name in enumerate(segs)}
+
     def _fold(self, due_ids: Sequence[int]) -> int:
         """Fold the due slots' staging windows, with the allocator's grant
         before and shrink after.  Returns how many window pages came back
@@ -946,6 +1042,15 @@ class EngineCore(_EngineBase):
         b = self.scfg.batch_size
         self._n_folds += len(due_ids)
         if self._alloc is not None:
+            # copy-on-write before the fold: a fold re-splits hi/lo per slot,
+            # so a slot that still aliases shared pages gets its own first.
+            # The copies are queued before the table write and the fold on
+            # the same stream, so the fold reads the filled pages.
+            for i in due_ids:
+                if self._alloc.needs_privatize(int(i)):
+                    moves = self._alloc.privatize(int(i))
+                    if moves:
+                        self._set_caches(self._copy_pages(self.caches, self._pack_moves(moves)))
             for i in due_ids:
                 self._alloc.fold_grant(int(i))
             self._sync_tables()

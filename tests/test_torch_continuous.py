@@ -201,13 +201,12 @@ def test_cancel_returns_the_slots_pages(port):
 
 
 def test_unported_levers_raise(port):
+    """Sampling (temperature > 0) is the lever not ported yet; prefix dedup
+    is ported (tests/test_torch_prefix.py)."""
     eng = port["engine"]()
     with pytest.raises(NotImplementedError):
         eng.submit(Request(tokens=np.arange(2, 10, dtype=np.int32),
                            sampling=SamplingParams(temperature=0.7)))
-    with pytest.raises(NotImplementedError):
-        port["engine"](backend="paged", page_allocator="freelist", scheduler="priority",
-                       prefix_cache=True)
 
 
 def test_serve_cli_continuous_on_cpu(capsys):
@@ -248,3 +247,19 @@ def test_serve_cli_rejects_bad_levers(argv, capsys):
         serve.main(SERVE_LEVERS[:-6] + argv)
     assert exc.value.code == 2
     assert "error:" in capsys.readouterr().err
+
+
+def test_serve_cli_prefix_cache_on_cpu(capsys):
+    """--prefix-cache on reaches the engine and prints the prefix line (the
+    CLI's prompts are distinct: every admission misses); without the free
+    list it is an argparse error."""
+    argv = ["--arch", "yi-6b", "--smoke", "--device", "cpu", "--continuous", "--requests", "3",
+            "--batch", "2", "--prompt-len", "16", "--max-new", "4", "--backend", "paged",
+            "--page-size", "8", "--prefix-cache", "on"]
+    out = serve.main(argv + ["--page-allocator", "freelist", "--pool-fraction", "1.5"])
+    assert sorted(len(o.tokens) for o in out.values()) == [4, 4, 4]
+    assert ("prefix cache: 0 hits / 3 misses, 0 CoW copies, 0 prefill tokens skipped"
+            in capsys.readouterr().out)
+    with pytest.raises(SystemExit) as exc:
+        serve.main(argv)
+    assert exc.value.code == 2 and "--prefix-cache on requires" in capsys.readouterr().err

@@ -858,3 +858,93 @@ def test_replay_after_swap_in_and_downshift_matches_eager(dev, scenario):
     assert len(cap.logits) == len(eager.logits)
     for a, w in zip(cap.logits, eager.logits):
         assert torch.equal(a, w)
+
+
+def test_copy_pages_in_place_matches_plain(dev):
+    """The copy-on-write copy on the card: every pool is written in place
+    (the same tensors, the same storage), sink-padded id vectors included,
+    and equals its plain version (one page at a time on the CPU, every
+    source read before any write) bit for bit, with the moves chained
+    (a page is both a destination and the next move's source); the tables
+    are untouched."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cache = _freelist_cache(dev, gen, torch.bfloat16, 16, (150, 90, 0, 40))
+    caches = {"prefix": [], "groups": [{"sub0": cache}]}
+    pools = {"hi": (cache.hi.k_pages, cache.hi.v_pages), "lo": (cache.lo.k_pages,
+                                                                  cache.lo.v_pages),
+             "win": (cache.win_k_pages, cache.win_v_pages)}
+    rng = np.random.default_rng(0)
+    moves, want = {}, {}
+    for name, (k_pool, v_pool) in pools.items():
+        sink = k_pool.shape[0] - 1
+        n = min(3, sink // 2)
+        ids = rng.permutation(sink)
+        src, dst = ids[:n], ids[1:n + 1]
+        pad = np.full(6, sink, np.int64)
+        s_ids, d_ids = pad.copy(), pad.copy()
+        s_ids[:n], d_ids[:n] = src, dst
+        moves[name] = (torch.from_numpy(s_ids).to(dev), torch.from_numpy(d_ids).to(dev))
+        want[name] = []
+        for pool in (k_pool, v_pool):
+            plain = pool.cpu().clone()
+            before = pool.cpu()
+            for a, b in zip(s_ids, d_ids):
+                plain[b] = before[a]
+            want[name].append(plain)
+    ptrs = {n: [p.data_ptr() for p in ps] for n, ps in pools.items()}
+    tables = [t.clone() for t in (cache.hi.table, cache.lo.table, cache.win_table)]
+    with torch.inference_mode():
+        out = registry.copy_caches(caches, moves)
+    torch.cuda.synchronize()
+    assert out is caches and out["groups"][0]["sub0"] is cache
+    for name, ps in pools.items():
+        assert [p.data_ptr() for p in ps] == ptrs[name]
+        for pool, w in zip(ps, want[name]):
+            assert torch.equal(pool.cpu(), w), name
+    for t, w in zip((cache.hi.table, cache.lo.table, cache.win_table), tables):
+        assert torch.equal(t, w)
+
+
+def _shared_prompt_run(dev, capture, prefix_cache):
+    cfg, ccfg, params, _ = _smoke(dev)
+    scfg = ServeConfig(batch_size=2, prompt_len=32, max_new_tokens=12, backend="paged",
+                       page_size=8, page_allocator="freelist", pool_fraction=1.5,
+                       paged_kernel=True, prefix_cache=prefix_cache)
+    eng = ContinuousEngine(cfg, ccfg, scfg, params, device=dev, capture=capture)
+    rec = _ActiveLogits(eng._decode_masked)
+    eng._decode_masked = rec
+    shared = np.arange(2, 26, dtype=np.int32)
+    rids = [eng.submit(Request(tokens=shared.copy())) for _ in range(3)]
+    rids.append(eng.submit(Request(tokens=shared.copy(), max_new_tokens=4)))
+    marks = []   # (step index, what happened before it): alias admissions, CoW copies
+    while eng.pending:
+        pf = eng.pool_stats()["prefix"]
+        eng.step()
+        after = eng.pool_stats()["prefix"]
+        if after["hits"] > pf["hits"]:
+            marks.append((len(rec.logits) - 1, "alias"))
+        if after["cow_copies"] > pf["cow_copies"]:
+            marks.append((len(rec.logits), "cow"))   # the fold ends the step
+        eng._alloc.check_invariants()
+    torch.cuda.synchronize()
+    return eng, rec, [eng.result(r).tokens.tolist() for r in rids], marks
+
+
+def test_replay_after_alias_and_cow_matches_eager(dev):
+    """The shared-prompt scenario on the card (the page walk on): after an
+    alias admission (the tables point at shared pages, the snapshot
+    re-inserted) and after a CoW copy (pages copied in place, the table
+    rewritten), every step of the captured engine equals the eager engine's
+    step of the same index bit for bit; the step is built once; the tokens
+    equal those with dedup off."""
+    runs = [_shared_prompt_run(dev, capture, True) for capture in (False, True)]
+    (_, eager, want_tokens, _), (eng, cap, got_tokens, marks) = runs
+    st = eng.pool_stats()["prefix"]
+    assert st["hits"] >= 1 and st["cow_copies"] >= 1, st
+    assert {"alias", "cow"} <= {what for _, what in marks}
+    assert cap.step.captures == 1 and cap.step.replays > 0
+    assert got_tokens == want_tokens == _shared_prompt_run(dev, True, False)[2]
+    assert len(cap.logits) == len(eager.logits)
+    for a, w in zip(cap.logits, eager.logits):
+        assert torch.equal(a, w)
+    assert all(i < len(cap.logits) for i, _ in marks)

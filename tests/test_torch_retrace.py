@@ -1,5 +1,5 @@
 """The port's zero-rebuild steady state (port of the mixed, paged free-list,
-precision-map, downshift-ladder and swap-tier scenarios of
+precision-map, downshift-ladder, swap-tier and shared-prefix scenarios of
 tests/test_retrace.py, and of its guard test).
 
 The port's counterpart of a jitted program is a decode step over static
@@ -77,6 +77,17 @@ def _drive_mixed_scenario(eng, prompts):
         events += eng.step()
     assert eng.result(r0).finish_reason == "length"
     return events
+
+
+def _drive_prefix_scenario(eng, shared, fresh):
+    """Shared-prefix traffic: three requests on one prompt (two fold, so their
+    aliased pages are copied first; one too short to fold) and one distinct
+    prompt (a miss and a registration), at a 24-token bucket."""
+    for _ in range(2):
+        eng.submit(Request(tokens=shared.copy()))
+    eng.submit(Request(tokens=shared.copy(), max_new_tokens=4))
+    eng.submit(Request(tokens=fresh))
+    eng.run()
 
 
 def _drive_deferral_scenario(eng, prompts):
@@ -190,6 +201,30 @@ def test_swap_tier_zero_builds_at_steady_state(extra_kw):
     assert sw["swaps_in"] > swaps_before
     assert sw["host_bytes"] == 0 and sw["resident"] == 0, sw
     assert [entry.data_ptr() for entry in eng._swap._buffers] == buffers
+    assert eng.caches is eng._decode_masked.caches
+    eng._alloc.check_invariants()
+
+
+def test_prefix_cache_engine_zero_builds_at_steady_state():
+    """Alias admissions, copy-on-write (page ids are data of the copy step),
+    registrations and snapshot re-insertions at steady state build nothing:
+    the second pass hits the first pass's index entry, copies and folds on
+    the step built at warm-up."""
+    cfg, eng = _engine(backend="paged", page_size=8, page_allocator="freelist",
+                       pool_fraction=1.5, prefix_cache=True, paged_kernel=True)
+    shared = np.arange(2, 26, dtype=np.int32)
+
+    with compile_guard.count_captures() as warm:
+        _drive_prefix_scenario(eng, shared, _prompts(cfg, seed=0, n=1)[0])
+    assert warm.count > 0, "warm-up must build (guard sanity check)"
+    pf = eng.pool_stats()["prefix"]
+    assert pf["hits"] >= 1 and pf["cow_copies"] >= 1, pf
+
+    with compile_guard.assert_no_captures() as steady:
+        _drive_prefix_scenario(eng, shared, _prompts(cfg, seed=1, n=1)[0])
+    assert steady.count == 0
+    pf2 = eng.pool_stats()["prefix"]
+    assert pf2["hits"] > pf["hits"] and pf2["cow_copies"] > pf["cow_copies"], (pf, pf2)
     assert eng.caches is eng._decode_masked.caches
     eng._alloc.check_invariants()
 

@@ -8,9 +8,9 @@ JAX package on the same operations and the same parameters.
     swap-out / swap-in / free sequences side by side, give equal page
     tables, statistics and handles after every operation, the free-list
     partition holds, resident host bytes return to zero and every restore
-    is bitwise the stored bytes.  The aliased refusal waits for the
-    prefix-dedup port: without shared pages no slot can alias, so only the
-    pool-full refusal is reachable here.
+    is bitwise the stored bytes; both refusals, aliased (a slot that shares
+    prefix pages) and pool-full, are counted as the reference's.  The
+    engine-level aliased refusals are in tests/test_torch_prefix_levers.py.
   * The two pressure scenarios of tests/test_backend_conformance.py, swap
     and ladder, on the port's engine and on the JAX engine (op by op,
     `jax.disable_jit()`, as in tests/test_torch_continuous.py) with the same
@@ -206,11 +206,11 @@ def test_swap_sweep_completes_roundtrips():
 
 
 def test_swap_pool_full_refusal_and_recycling():
-    """tests/test_page_alloc.py's refusal case without the aliased half: a
-    capacity-1 pool with its entry resident refuses with a counted
-    pool_full; a restore closes both ledgers; the released handle recycles
-    into the same preallocated buffers.  The allocator's `needs_privatize`
-    is False for every slot (no page is shared before prefix dedup)."""
+    """The pool-full half of tests/test_page_alloc.py's refusal case, with no
+    prefix registered: a capacity-1 pool with its entry resident refuses
+    with a counted pool_full; a restore closes both ledgers; the released
+    handle recycles into the same preallocated buffers.  No slot shares a
+    page, so `needs_privatize` is False for every one."""
     ja, ta = _allocators(3, 8, 1.5)
     jpool, tpool = _pools(entries=1)
     assert tpool.capacity == 1 and tpool.entry_bytes == 4 * 8 + 3 * 4
@@ -243,6 +243,49 @@ def test_swap_pool_full_refusal_and_recycling():
     assert st["swaps_out"] == 1 and st["swaps_in"] == 1
     _assert_same(ja, ta, jpool, tpool)
     assert tpool.reserve() == h == jpool.reserve()
+
+
+def test_swap_refuses_aliased_and_full_pool_counts():
+    """tests/test_page_alloc.py's refusal case, both allocators and pools in
+    step, over a pool that holds a registered prefix: the donor and its
+    alias (pages at refcount > 1) are refused before an entry is reserved
+    (counted "aliased"); the unaliased slot swaps out; a second reservation
+    of the capacity-1 pool refuses with a counted pool_full; the restore
+    closes both ledgers."""
+    ja, ta = _allocators(3, 8, 1.5)
+    jpool, tpool = _pools(entries=1)
+    occ = alloc.Occupancy(hi=3, lo=5, win=0)
+    for a, o in ((ja, jalloc.Occupancy(3, 5, 0)), (ta, occ)):
+        a.admit(0, o, 40, 8)                                  # donor
+        assert a.prefix_register("sys", 0)
+        a.admit_alias(1, "sys", 40, 8, can_fold=True)
+        a.admit(2, o, 40, 8)                                  # the only victim
+    _assert_same(ja, ta, jpool, tpool)
+    for victim in (0, 1):
+        assert ta.needs_privatize(victim) and ja.needs_privatize(victim)
+        jpool.note_refusal("aliased")
+        tpool.note_refusal("aliased")
+    assert not ta.needs_privatize(2)
+    saved = ta.occ[2]
+    h = tpool.reserve()
+    assert h is not None and h == jpool.reserve()
+    jp, tp = _payload(7)
+    jpool.store(h, jp)
+    tpool.store(h, tp)
+    ja.free(2)
+    ta.free(2)
+    _assert_same(ja, ta, jpool, tpool)
+    assert tpool.reserve() is None and jpool.reserve() is None
+    st = tpool.stats()
+    assert st["refusals"] == {"aliased": 2, "pool_full": 1} and st["swap_refusals"] == 3
+    assert st == jpool.stats()
+    ja.admit(2, jalloc.Occupancy(saved.hi, saved.lo, saved.win), 40, 8)
+    ta.admit(2, saved, 40, 8)
+    _assert_roundtrip(jpool.load(h), tpool.load(h, "cpu"), 7)
+    jpool.release(h)
+    tpool.release(h)
+    _assert_same(ja, ta, jpool, tpool)
+    assert tpool.stats()["host_bytes"] == 0 and tpool.reserve() == h == jpool.reserve()
 
 
 def test_swap_store_rejects_a_payload_of_another_shape():
