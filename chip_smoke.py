@@ -85,6 +85,20 @@ continued:
      admission and after a CoW copy bitwise the eager step's.  Hit and miss
      admission times, CoW copy times, peak pages and snapshot bytes are
      logged;
+  4g. slice 9's seeded sampling: phase 4d's configuration and traffic with
+     the 2nd, 4th, 6th and 8th requests sampled (T 0.7, 1.0, 0.7, 1.0; seeds
+     11-14), captured (run 1), eager (run 2) and captured in reverse
+     submission order (run 3).  Every request's tokens equal between runs 1
+     and 2; greedy requests equal phase 4d's captured run; sampled requests
+     equal between runs 1 and 3 and differ from their greedy tokens; run 1
+     builds at most two graphs (the decode step and its sampler).  Phase
+     4d's all-greedy traffic must have run no sampler.  The device threefry
+     bits equal the numpy ones for 16 (seed, counter) pairs, and
+     `sample_tokens` on 16 logit rows on the card equals the host's (a
+     difference only at a top-two margin within 1e-5).  Logged: step walls
+     with and without sampled rows, the sampler's device ms, each run's
+     decode wall, `cache_bytes` of phase 4's lockstep cache and of the
+     engines;
   5. a `kernels` JSON line, then the last line:
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -194,6 +208,7 @@ def main() -> None:
     from repro_torch.core import backend as backend_lib
     from repro_torch.core import kvcache as kvc
     from repro_torch.core import paged
+    from repro_torch.core import prng
     from repro_torch.core import saliency as sal
     from repro_torch.core.policy import CompressionConfig
     from repro_torch.kernels import build
@@ -585,6 +600,8 @@ def main() -> None:
     out = engine.generate(batch)
     launches = {n: kern.launches for n, kern in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
+    lock_bytes = engine.cache_bytes(engine.last_caches)
+    log(f"main path: cache_bytes of the lockstep cache after the run {lock_bytes}")
     tm = out["timings"]
     n_probe = sum(probe_flag(i, ccfg.recompress_interval, scfg.seed) for i in range(max_new))
     log(f"main path: prefill {tm['prefill_s']:.3f} s, decode {tm['decode_s']:.3f} s, "
@@ -821,6 +838,7 @@ def main() -> None:
     summarize("lockstep", lock, torch, rel_l2, yardstick)
 
     cont = {}
+    prng.SAMPLES.launches = 0
     for capture in (False, True):
         eng = ContinuousEngine(cfg, ccfg, cscfg, params, device=dev, capture=capture)
         rec = eng._decode_masked = StepLogits(eng._decode_masked)
@@ -871,9 +889,18 @@ def main() -> None:
         cont[capture] = dict(tokens=np.concatenate([res[r] for r in rids]), decode_s=wall,
                              tok_s=sum(len(t) for t in res.values()) / wall,
                              step_ms=np.median(plain_ms), probe_ms=np.median(probe_ms), busy=busy,
-                             ops=ops, peak=peak, rec=rec, step=rec.step)
+                             ops=ops, peak=peak, rec=rec, step=rec.step,
+                             per_request=[res[r].tolist() for r in rids])
         del eng
     summarize("continuous", cont, torch, rel_l2, yardstick)
+    # all-greedy traffic runs no sampler: no draw, no sampler graph
+    check(prng.SAMPLES.launches == 0 and cont[True]["step"].sample_replays == 0,
+          f"continuous: all-greedy traffic ran the sampler {prng.SAMPLES.launches} times")
+    ops = cont[True]["ops"]
+    log(f"continuous captured: device ops per step {'not measured' if ops is None else f'{ops:.1f}'} "
+        f"(3,109.2 before sampling existed, H100 80GB HBM3 at 700 W); sampler runs 0, "
+        "sampler graph replays 0")
+    greedy_4d = cont[True]["per_request"]
     del cont
 
     # ---- 4e. slice 7's levers: precision map, swap tier, downshift ladder ---
@@ -882,6 +909,10 @@ def main() -> None:
     # ---- 4f. slice 8: shared-prefix dedup with copy-on-write ---------------
     by_path.update(prefix_dedup(torch, np, cfg, ccfg, params, dev, kernels, n_layers, prompt,
                                 card, rel_l2))
+
+    # ---- 4g. slice 9: seeded temperature sampling --------------------------
+    by_path.update(sampling(torch, np, cfg, ccfg, params, dev, kernels, n_layers, cscfg,
+                            requests, budgets, greedy_4d, lock_bytes, card))
     rows["cst_quant"]["eff"]["launches"] = sum(
         p["cst_quant"] for name, p in by_path.items() if name.startswith("levers"))
     for name, row in rows.items():
@@ -1164,6 +1195,166 @@ def prefix_dedup(torch, np, cfg, ccfg, params, dev, kernels, n_layers, prompt, c
         f"first replays after an alias admission (step {marks['alias']}) and after a CoW copy "
         f"(step {marks['cow']}) bitwise equal")
     return {"prefix (off)": off["launches"], "prefix (on)": on["launches"]}
+
+
+# phase 4g: the requests of phase 4b's traffic that sample, by submission
+# index: (temperature, seed); the others stay greedy
+SAMPLED = {1: (0.7, 11), 3: (1.0, 12), 5: (0.7, 13), 7: (1.0, 14)}
+
+
+def sampling(torch, np, cfg, ccfg, params, dev, kernels, n_layers, scfg, requests, budgets,
+             greedy_4d, lock_bytes, card):
+    """Phase 4g: phase 4d's traffic with the requests of `SAMPLED` sampled,
+    through a captured engine (run 1), an eager one (run 2) and a captured
+    one with the requests submitted in reverse order (run 3); then the draw
+    itself on the card against the host.  Returns run 1's launch counts,
+    read from 0."""
+    from repro_torch.core import prng
+    from repro_torch.core import saliency as sal
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.runtime import compile_guard
+    from repro_torch.serving import ContinuousEngine, Request, SamplingParams, probe_flag
+
+    interval, n = ccfg.recompress_interval, len(requests)
+
+    def run(capture, order, account=False):
+        eng = ContinuousEngine(cfg, ccfg, scfg, params, device=dev, capture=capture)
+        torch.cuda.synchronize()
+        for kern in kernels.values():
+            kern.launches = 0
+        prng.SAMPLES.launches = 0
+        ms = {True: [], False: []}   # non-probe steps that admit, fold, retire nothing
+        peak_bytes = {}
+        with compile_guard.count_captures() as builds:
+            t0 = time.perf_counter()
+            rids = {i: eng.submit(Request(
+                tokens=requests[i], max_new_tokens=int(budgets[i]),
+                sampling=SamplingParams(*SAMPLED.get(i, (0.0, 0))))) for i in order}
+            while eng.pending:
+                live = [sl for sl in eng.slots if sl is not None]
+                probe = any(probe_flag(sl.steps, interval, 0) for sl in live)
+                sampled = any(sl.request.sampling.temperature > 0 for sl in live)
+                n_events = (eng._n_admissions, eng._n_folds, len(live))
+                ts = time.perf_counter()
+                eng.step()   # ends in the tokens' copy to the host
+                if live and not probe and n_events == (eng._n_admissions, eng._n_folds,
+                                                       sum(sl is not None for sl in eng.slots)):
+                    ms[sampled].append((time.perf_counter() - ts) * 1e3)
+                if account:
+                    cb = eng.cache_bytes(eng.caches)
+                    if cb["packed_bytes"] > peak_bytes.get("packed_bytes", -1):
+                        peak_bytes = cb
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        st = eng.pool_stats()
+        got = {name: kern.launches for name, kern in kernels.items()}
+        want = {"cst_quant": 2 * n_layers * (st["admissions"] + st["folds"]),
+                "flash_fwd": n_layers * st["admissions"],
+                "probe_colsum": n_layers * st["admissions"],
+                "decode_qattn": 0, "paged_qattn": n_layers * eng._step_no}
+        for name, k in want.items():
+            check(got[name] == k, f"sampling (capture {capture}): {name} {got[name]} launches, "
+                                  f"the path implies {k}")
+        tokens = [eng.result(rids[i]).tokens.tolist() for i in range(n)]
+        for i, t in enumerate(tokens):
+            check(len(t) == budgets[i] and all(0 <= x < cfg.vocab for x in t),
+                  f"sampling (capture {capture}): request {i} ended with {len(t)} of "
+                  f"{budgets[i]} tokens or out of range")
+        return dict(eng=eng, tokens=tokens, wall=wall, ms=ms, builds=builds.count,
+                    launches=got, draws=prng.SAMPLES.launches, peak_bytes=peak_bytes)
+
+    r1 = run(True, range(n))
+    r2 = run(False, range(n))
+    r3 = run(True, range(n - 1, -1, -1), account=True)
+
+    def first_diff(a, w):
+        return next((j for j, (x, y) in enumerate(zip(a, w)) if x != y), min(len(a), len(w)))
+
+    for i in range(n):
+        a, w = r1["tokens"][i], r2["tokens"][i]
+        if a != w:
+            j = first_diff(a, w)
+            fail(f"sampling: request {i} {SAMPLED.get(i, 'greedy')} differs captured against "
+                 f"eager at step {j}: {a[j:j + 4]} against {w[j:j + 4]}")
+    for i in range(n):
+        a = r1["tokens"][i]
+        if i in SAMPLED:
+            if a != r3["tokens"][i]:
+                j = first_diff(a, r3["tokens"][i])
+                fail(f"sampling: sampled request {i} {SAMPLED[i]} differs in reverse submission "
+                     f"order at step {j}: {a[j:j + 4]} against {r3['tokens'][i][j:j + 4]}")
+            check(a != greedy_4d[i], f"sampling: sampled request {i} {SAMPLED[i]} equals its "
+                                     "greedy tokens of phase 4d")
+        elif a != greedy_4d[i]:
+            j = first_diff(a, greedy_4d[i])
+            fail(f"sampling: greedy request {i} differs from phase 4d at step {j}: "
+                 f"{a[j:j + 4]} against {greedy_4d[i][j:j + 4]}")
+    step = r1["eng"]._decode_masked
+    check(r1["builds"] <= 2 and step.captures <= 2 and step.sample_replays > 0,
+          f"sampling: run 1 built {r1['builds']} graphs ({step.captures} captures, "
+          f"{step.sample_replays} sampler replays)")
+    check(r2["builds"] == 0, f"sampling: the eager run built {r2['builds']} graphs")
+    n_sampled_tok = sum(len(r1["tokens"][i]) for i in SAMPLED)
+    log(f"sampling: {card}; requests {sorted(SAMPLED)} sampled at {list(SAMPLED.values())} "
+        f"((temperature, seed)); {n_sampled_tok} sampled tokens; captured and eager equal, "
+        f"greedy requests equal phase 4d, sampled requests equal in reverse submission order "
+        f"and differ from their greedy tokens")
+    log(f"sampling: run 1 built {r1['builds']} graphs (decode step and sampler), "
+        f"{step.replays} decode replays, {step.sample_replays} sampler replays, "
+        f"{r1['draws']} sampler runs")
+    def median(xs):
+        return f"{np.median(xs):.3f} ms ({len(xs)} steps)" if xs else "none (0 steps)"
+
+    for label, r in (("run 1 captured", r1), ("run 2 eager", r2), ("run 3 captured, reversed", r3)):
+        log(f"sampling: {label}: decode wall {r['wall']:.3f} s; median non-probe step with "
+            f"sampled rows {median(r['ms'][True])}, without {median(r['ms'][False])}")
+    log("sampling: run 3's wall includes a cache_bytes read after every step")
+
+    # the draw itself: 16 (seed, counter) pairs over the vocabulary
+    seeds = [-5, 0, 7, 2**31 - 1, 11, 12, 13, 14, -2**31, 1, 2, 3, 99, 12345, -77, 5]
+    ctrs = [0, 1, 3, 1024, 0, 5, 127, 128, 7, 0, 1, 2, 511, 40, 9, 100]
+    keys = prng.fold_in(prng.key(torch.tensor(seeds, dtype=torch.int32, device=dev)),
+                        torch.tensor(ctrs, dtype=torch.int32, device=dev))
+    bits = prng.random_bits32(keys, cfg.vocab).cpu().numpy()
+    for row, sd, c in zip(bits, seeds, ctrs):
+        want = sal._random_bits32(sal._fold_in(sal._key(sd), c), cfg.vocab).astype(np.int64)
+        check(bool((row == want).all()), f"sampling: device bits differ from numpy's at seed "
+                                         f"{sd}, counter {c}")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    logits = (torch.randn((16, cfg.vocab), generator=gen, device=dev) * 4).to(torch.bfloat16)
+    temps = torch.tensor([0.0, 0.7, 1.0, 2.0] * 4, device=dev)
+    sd_t = torch.tensor(seeds, dtype=torch.int32, device=dev)
+    ct_t = torch.tensor(ctrs, dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        got = prng.sample_tokens(logits, temps, sd_t, ct_t).cpu()
+        host = [t.cpu() for t in (logits, temps, sd_t, ct_t)]
+        want = prng.sample_tokens(*host)
+        scores = (prng.gumbel(prng.fold_in(prng.key(host[2]), host[3]), cfg.vocab)
+                  + host[0].float() / torch.maximum(host[1], torch.full_like(host[1], 1e-3))[:, None])
+    top2 = scores.topk(2, dim=-1).values
+    margins = (top2[:, 0] - top2[:, 1]).tolist()
+    for i in range(16):
+        check(int(got[i]) == int(want[i]) or (host[1][i] > 0 and margins[i] <= 1e-5),
+              f"sampling: row {i} draws {int(got[i])} on the card, {int(want[i])} on the host "
+              f"(top-two margin {margins[i]:.3g})")
+    log(f"sampling: device random_bits32 over {cfg.vocab} columns equals numpy's for 16 (seed, "
+        f"counter) pairs; sample_tokens on 16 bf16 logit rows equal on the card and the host "
+        f"({int((got == want).sum())} of 16; smallest top-two margin of a sampled row "
+        f"{min(m for m, t in zip(margins, host[1]) if t > 0):.4g})")
+
+    # the sampler's device time per step: its graph over the step's static
+    # logits, and the same function eagerly
+    with torch.inference_mode():
+        graph_ms = device_ms(torch, lambda: step.sample(step._out))
+        eager_ms = device_ms(torch, lambda: prng.sample_tokens(
+            step._out, *steps_lib.sampling_rows(step.staged)))
+    log(f"sampling: sampler device ms per step ({scfg.batch_size} x {cfg.vocab}): graph "
+        f"{graph_ms:.4f}, eager {eager_ms:.4f} ({card})")
+    packed = r1["eng"].cache_bytes(r1["eng"].caches)
+    log(f"sampling: cache_bytes at full width ({card}): phase 4 lockstep cache after its run "
+        f"{lock_bytes}; run 1's engine after its run {packed}; run 3's step of most packed "
+        f"bytes {r3['peak_bytes']}")
+    return {"sampling": r1["launches"]}
 
 
 def profile_window(torch, run, n_steps):

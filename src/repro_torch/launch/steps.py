@@ -8,9 +8,9 @@ lockstep step and the continuous masked step) are step objects over static
 buffers:
 
   * the step owns its inputs (the lockstep token; the continuous step's
-    staged (3, b) rows of tokens, probe flags and active flags) and the
-    cache tree it reads, and writes every cache leaf it changes back into
-    that tree;
+    staged (6, b) rows of tokens, probe flags, active flags, temperatures,
+    seeds and token counters) and the cache tree it reads, and writes every
+    cache leaf it changes back into that tree;
   * on the card, a step on which no row probes is captured once as a CUDA
     graph and replayed.  The first such step runs eagerly on the capture
     stream (the warm-up: kernel builds, `cudaFuncSetAttribute`, cuBLAS's
@@ -19,6 +19,14 @@ buffers:
     the eager path;
   * a probe step runs eagerly against the same buffers: its route (exact
     slot weights for the saliency state) is chosen on the host;
+  * the continuous step's tokens: greedy rows take the engine's `argmax` of
+    the logits, as before sampling existed.  A step on which some row
+    samples (temperature > 0) draws its tokens with `core.prng.sample_tokens`
+    (`ContinuousDecodeStep.sample`): after a replay, through a second,
+    small graph captured once over the decode graph's static logits and
+    the staged TEMP, SEED and CTR rows; after an eager step, eagerly with
+    the same function.  A step builds at most two graphs, and one on which
+    no row samples runs exactly the graph it ran before;
   * on the CPU every step runs eagerly against the same buffers, the plain
     version of a replay;
   * `capture=False` runs the plain functions on fresh caches every step:
@@ -46,14 +54,16 @@ from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core import backend as backend_lib
 from repro_torch.core import kvcache as kvc
 from repro_torch.core import precision as precision_lib
+from repro_torch.core import prng
 from repro_torch.core import saliency as sal
 from repro_torch.core.policy import CompressionConfig
 from repro_torch.kernels import build
 from repro_torch.models import blocks, registry
 from repro_torch.runtime import compile_guard
 
-# rows of the continuous step's staged (3, b) int32 inputs
-ROW_TOK, ROW_PROBE, ROW_ACT = range(3)
+# rows of the continuous step's staged (6, b) int32 inputs; ROW_TEMP holds
+# the f32 temperatures' bits, read back on the device with `.view`
+ROW_TOK, ROW_PROBE, ROW_ACT, ROW_TEMP, ROW_SEED, ROW_CTR = range(6)
 
 
 def serve_ctx(cfg: ArchConfig, shape: ShapeConfig, ccfg: Optional[CompressionConfig] = None,
@@ -86,13 +96,22 @@ def serve_ctx(cfg: ArchConfig, shape: ShapeConfig, ccfg: Optional[CompressionCon
                          precision=table)
 
 
-def stage_rows(rows: Dict[int, Tuple[int, bool]], b: int) -> np.ndarray:
-    """A continuous step's inputs {slot: (token, probe)} as its host (3, b)
-    int32 matrix; slots not in `rows` are inactive."""
-    stage = np.zeros((3, b), np.int32)
-    for i, (tok, probe) in rows.items():
+def stage_rows(rows: Dict[int, Tuple], b: int) -> np.ndarray:
+    """A continuous step's inputs {slot: (token, probe[, temperature, seed,
+    counter])} as a fresh host (6, b) int32 matrix; slots not in `rows` are
+    inactive, and a row without sampling fields is greedy."""
+    stage = np.zeros((6, b), np.int32)
+    temps = stage[ROW_TEMP].view(np.float32)
+    for i, (tok, probe, *sampling) in rows.items():
         stage[ROW_TOK, i], stage[ROW_PROBE, i], stage[ROW_ACT, i] = tok, probe, 1
+        if sampling:
+            temps[i], stage[ROW_SEED, i], stage[ROW_CTR, i] = sampling
     return stage
+
+
+def sampling_rows(staged: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(temperatures f32, seeds, counters) of a device (6, b) matrix."""
+    return staged[ROW_TEMP].view(torch.float32), staged[ROW_SEED], staged[ROW_CTR]
 
 
 class CaptureError(RuntimeError):
@@ -178,9 +197,9 @@ class _DecodeStep:
             raise ValueError(f"{self.name}: called with other parameters than it was built "
                              "with")
 
-    def _built(self) -> None:
+    def _built(self, suffix: str = "") -> None:
         self.captures += 1
-        compile_guard.record(self.name)
+        compile_guard.record(self.name + suffix)
 
     def _step(self, probes) -> torch.Tensor:
         """One step against the static buffers: a probe step eagerly, a
@@ -194,10 +213,14 @@ class _DecodeStep:
         self.replays += 1
         if self._graph is None:   # the CPU: the plain version of a replay
             return self._run(False)
-        self._graph.replay()
-        for counter, n in self._deltas:
+        return self._replay(self._graph, self._deltas, self._out)
+
+    @staticmethod
+    def _replay(graph, deltas, out):
+        graph.replay()
+        for counter, n in deltas:
             counter.launches += n
-        return self._out
+        return out
 
     def _warm_up(self) -> torch.Tensor:
         """The first non-probe step, eagerly, on the stream that will capture
@@ -211,20 +234,26 @@ class _DecodeStep:
         out.record_stream(main)
         return out
 
-    def _capture(self) -> None:
+    def _record(self, fn, what: str):
+        """Capture `fn()` on the step's stream: (graph, its output, the launch
+        counts the capture took back, which each replay adds again)."""
         before = [(c, c.launches) for c in build.COUNTERS]
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph, stream=self._stream):
-                out = self._run(False)
+                out = fn()
         except Exception as e:  # noqa: BLE001 — any op that cannot be captured
-            raise CaptureError(f"{self.name}: capturing the decode step failed: "
+            raise CaptureError(f"{self.name}: capturing {what} failed: "
                                f"{type(e).__name__}: {e}") from e
         finally:
             deltas = tuple((c, c.launches - n) for c, n in before if c.launches != n)
             for c, n in before:
                 c.launches = n
-        self._graph, self._out, self._deltas = graph, out, deltas
+        return graph, out, deltas
+
+    def _capture(self) -> None:
+        self._graph, self._out, self._deltas = self._record(lambda: self._run(False),
+                                                            "the decode step")
         self._built()
 
 
@@ -266,26 +295,48 @@ class ServeStep(_DecodeStep):
 class ContinuousDecodeStep(_DecodeStep):
     """decode(params, caches, staged) -> (logits, caches).
 
-    staged: the step's host (3, b) int32 matrix (`stage_rows`: tokens,
-    probe flags, active flags), uploaded once.  Inactive slots are masked
-    (no append, invalid positions), never sliced away.  A step on which no
-    row probes is the captured program.
+    staged: the step's host (6, b) int32 matrix (`stage_rows`: tokens,
+    probe flags, active flags, temperatures, seeds, counters), uploaded
+    once.  Inactive slots are masked (no append, invalid positions), never
+    sliced away.  A step on which no row probes is the captured program.
+
+    `sample(logits)` draws the step's tokens with `prng.sample_tokens`;
+    `sample_replays` counts the sampler graph's replays.
     """
 
     def __init__(self, cfg: ArchConfig, ctx: blocks.RunCtx, device, capture: bool):
         super().__init__("continuous_decode", cfg, ctx, device, capture)
         self.staged: Optional[torch.Tensor] = None
+        self.sample_replays = 0
+        self._sample_graph: Optional[torch.cuda.CUDAGraph] = None
+        self._tokens: Optional[torch.Tensor] = None
+        self._sample_deltas: Tuple = ()
 
     def __call__(self, params, caches: Any, staged: np.ndarray):
         probe = bool(staged[ROW_PROBE].any())
         if not self.capture:
-            dev = torch.from_numpy(staged).to(self.device)
+            self.staged = dev = torch.from_numpy(staged).to(self.device)
             return registry.decode_step(params, dev[ROW_TOK], caches, self.cfg, self.ctx,
                                         dev[ROW_PROBE] if probe else False,
                                         active=dev[ROW_ACT].bool())
         self._prepare(params, caches, staged)
         self.staged.copy_(torch.from_numpy(staged))
         return self._step(self.staged[ROW_PROBE] if probe else False), self.caches
+
+    def sample(self, logits: torch.Tensor) -> torch.Tensor:
+        """The last step's tokens drawn from its `logits` at its staged TEMP,
+        SEED and CTR rows: (b,) int32 on the device.  The logits of a replay
+        go through the sampler's graph (captured at the first such call; on
+        the card only); any other logits (capture=False, the CPU, a probe
+        step, the warm-up) through the sampler eagerly."""
+        if self._graph is None or logits is not self._out:
+            return prng.sample_tokens(logits, *sampling_rows(self.staged))
+        if self._sample_graph is None:
+            self._sample_graph, self._tokens, self._sample_deltas = self._record(
+                lambda: prng.sample_tokens(self._out, *sampling_rows(self.staged)), "the sampler")
+            self._built("_sample")
+        self.sample_replays += 1
+        return self._replay(self._sample_graph, self._sample_deltas, self._tokens)
 
     def _make_inputs(self, like: np.ndarray) -> None:
         self.staged = torch.zeros(like.shape, dtype=torch.int32, device=self.device)
@@ -339,9 +390,9 @@ def make_continuous_decode_step(cfg: ArchConfig, shape: ShapeConfig,
                                 ccfg: Optional[CompressionConfig] = None, q_block: int = 512,
                                 ctx=None, *, device="cuda", capture: bool = True):
     """The continuous masked decode step, a `ContinuousDecodeStep`:
-    decode(params, caches, staged (3, b) host int32) -> (logits, caches).
-    Pass `ctx` to share one serving context across the program family (the
-    engines do)."""
+    decode(params, caches, staged (6, b) host int32) -> (logits, caches),
+    and `sample(logits)` for the steps on which a row samples.  Pass `ctx` to share one serving context across the program
+    family (the engines do)."""
     ctx = _ctx(cfg, shape, ccfg, ctx, q_block, device)
     return ContinuousDecodeStep(cfg, ctx, device, capture), ctx
 

@@ -35,9 +35,16 @@ donor's pages (no prefill), and copies those pages (copy-on-write) before
 its first fold.
 
 The probe flags of a step are host values: they pick the decode path
-(exact slot weights on probe steps) with no device sync.  Sampling is
-greedy; temperature > 0 is not ported yet and raises
-`NotImplementedError`.
+(exact slot weights on probe steps) with no device sync.
+
+Sampling (the continuous engine; the lockstep engine is greedy): a request
+with `SamplingParams(temperature > 0, seed)` draws each token with
+`sample_tokens`, keyed on (seed, the request's token counter), so its
+tokens depend on neither its slot nor its admission step, eager or
+captured.  The draws are the reference's threefry bits (`core.prng`, the
+`jax_threefry_partitionable=True` mode).  The first token is drawn at
+admission (counter 0, from the prefill's or a prefix hit's snapshot
+logits); a recompute replay or a swap-in never draws again.
 
 Every engine program comes from the step factories of `launch.steps`, as
 the reference's jitted ones do.  With `capture` (the default) both decode
@@ -61,9 +68,11 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core import alloc as alloc_lib
+from repro_torch.core import backend as backend_lib
 from repro_torch.core import paged as paged_lib
 from repro_torch.core import swap as swap_lib
 from repro_torch.core.policy import CompressionConfig
+from repro_torch.core.prng import sample_tokens
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import registry
 from repro_torch.serving import events as events_lib
@@ -129,7 +138,9 @@ class ServeConfig:
 
 @dataclasses.dataclass(frozen=True)
 class SamplingParams:
-    """Per-request sampling: temperature 0 = greedy (the only mode ported)."""
+    """Per-request sampling: temperature 0 = greedy; the seed (an int32)
+    makes a sampled request reproducible whatever its slot and admission
+    step."""
     temperature: float = 0.0
     seed: int = 0
 
@@ -233,8 +244,8 @@ class _EngineBase:
         self._prefill_buckets: Dict[int, Callable] = {}
         self._decode = steps_lib.make_serve_step(cfg, shape, ccfg, capture=capture, **mk)[0]
         self._recompress = steps_lib.make_recompress_step(cfg, shape, ccfg, **mk)[0]
-        self._decode_masked = steps_lib.make_continuous_decode_step(cfg, shape, ccfg,
-                                                                    capture=capture, **mk)[0]
+        self._decode_masked = steps_lib.make_continuous_decode_step(
+            cfg, shape, ccfg, capture=capture, **mk)[0]
         self._insert = steps_lib.make_insert_step(cfg, shape, ccfg, **mk)[0]
         self._recompress_rows = steps_lib.make_recompress_rows_step(cfg, shape, ccfg, **mk)[0]
         # per-slot folds where the backend offers them (paged): a batch-1 view
@@ -271,6 +282,12 @@ class _EngineBase:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def cache_bytes(self, caches) -> Dict[str, int]:
+        """Packed KV payload against bookkeeping overhead (and, for the free
+        list, the unallocated pool pages within it) over a cache tree, as
+        `core.backend.cache_bytes` counts them."""
+        return backend_lib.cache_bytes(caches)
 
 
 class ServingEngine(_EngineBase):
@@ -460,14 +477,12 @@ class EngineCore(_EngineBase):
         Raises ValueError on prompts or budgets the engine can never hold,
         `events.EngineClosedError` after `shutdown()`,
         `alloc.PoolCapacityError` when the free-list pools can never hold the
-        request's worst case, and NotImplementedError for sampled
-        (temperature > 0) requests."""
+        request's worst case."""
         if self._closed:
             raise events_lib.EngineClosedError(
                 "engine is shut down: it drains what it has but accepts no new requests")
-        if request.sampling.temperature > 0:
-            raise NotImplementedError("sampling with temperature > 0 is not ported yet "
-                                      "(greedy only)")
+        if not -2**31 <= request.sampling.seed < 2**31:
+            raise ValueError(f"sampling seed {request.sampling.seed} is not an int32")
         request.tokens = np.array(request.tokens, dtype=np.int32)
         n = int(request.tokens.shape[-1])
         if n > self.scfg.prompt_len:
@@ -845,7 +860,7 @@ class EngineCore(_EngineBase):
                                                   logits))
         self._set_caches(self._insert(self.caches, slice_caches, slot_id))
         if resume is None:
-            generated = [int(torch.argmax(logits[0]))]
+            generated = [self._first_token(req, logits)]
         else:   # the prefill rebuilt exactly the cache the first token came from
             req._preempt_s += t0 - req._t_preempt
             generated = [int(resume[0])]
@@ -864,9 +879,20 @@ class EngineCore(_EngineBase):
             self.slots[slot_id].prefill_s = time.perf_counter() - t0
         self._maybe_finish(slot_id)
 
-    def _decode_rows(self, rows: Dict[int, Tuple[int, bool]]) -> torch.Tensor:
-        """One masked decode step of the slots {slot: (token, probe)}, staged
-        as one (3, b) host matrix -> logits (b, vocab)."""
+    def _first_token(self, req: Request, logits: torch.Tensor) -> int:
+        """A fresh request's first token from its prefill (or snapshot)
+        logits: greedy, or drawn at counter 0."""
+        sp = req.sampling
+        if not sp.temperature > 0:
+            return int(torch.argmax(logits[0]))
+        temp = torch.tensor([sp.temperature], dtype=torch.float32, device=self.device)
+        seed, ctr = torch.tensor([[sp.seed], [0]], dtype=torch.int32, device=self.device)
+        return int(sample_tokens(logits, temp, seed, ctr)[0])
+
+    def _decode_rows(self, rows: Dict[int, Tuple]) -> torch.Tensor:
+        """One masked decode step of the slots {slot: (token, probe[,
+        temperature, seed, counter])}, staged as one (6, b) host matrix ->
+        logits (b, vocab)."""
         logits, self.caches = self._decode_masked(
             self.params, self.caches, steps_lib.stage_rows(rows, self.scfg.batch_size))
         return logits
@@ -1101,10 +1127,17 @@ class EngineCore(_EngineBase):
             for i in active_ids:
                 self._alloc.note_append(i)
             self._sync_tables()
-        logits = self._decode_rows({
-            i: (self.slots[i].generated[-1],
-                probe_flag(self.slots[i].steps, interval, self.scfg.seed)) for i in active_ids})
-        nxt = torch.argmax(logits, dim=-1).cpu().numpy()   # greedy
+        rows = {}
+        for i in active_ids:
+            s = self.slots[i]
+            rows[i] = (s.generated[-1], probe_flag(s.steps, interval, self.scfg.seed),
+                       s.request.sampling.temperature, s.request.sampling.seed,
+                       len(s.generated))
+        logits = self._decode_rows(rows)
+        # one copy to the host; an all-greedy step launches no sampler op
+        sampled = any(r[2] > 0 for r in rows.values())
+        nxt = (self._decode_masked.sample(logits) if sampled
+               else torch.argmax(logits, dim=-1)).cpu().numpy()
 
         due = []
         for i in active_ids:

@@ -32,7 +32,7 @@ from repro_torch import configs, convert
 from repro_torch.core.policy import CompressionConfig
 from repro_torch.launch import serve
 from repro_torch.serving import (CancelledEvent, ContinuousEngine, PreemptedEvent, Request,
-                                 SamplingParams, ServeConfig, ServingEngine, pack_requests)
+                                 ServeConfig, ServingEngine, pack_requests)
 from tests.torch_parity import torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("torch_threads")
@@ -198,15 +198,6 @@ def test_cancel_returns_the_slots_pages(port):
     assert res[keep].tokens.tolist() == port["mixed"][0][0].tokens.tolist()
     assert used() == 0
     eng._alloc.check_invariants()
-
-
-def test_unported_levers_raise(port):
-    """Sampling (temperature > 0) is the lever not ported yet; prefix dedup
-    is ported (tests/test_torch_prefix.py)."""
-    eng = port["engine"]()
-    with pytest.raises(NotImplementedError):
-        eng.submit(Request(tokens=np.arange(2, 10, dtype=np.int32),
-                           sampling=SamplingParams(temperature=0.7)))
 
 
 def test_serve_cli_continuous_on_cpu(capsys):

@@ -948,3 +948,85 @@ def test_replay_after_alias_and_cow_matches_eager(dev):
     for a, w in zip(cap.logits, eager.logits):
         assert torch.equal(a, w)
     assert all(i < len(cap.logits) for i, _ in marks)
+
+
+# ---------------------------------------------------------------------------
+# seeded sampling on the card
+# ---------------------------------------------------------------------------
+
+def test_device_bits_equal_numpy(dev):
+    """The device threefry (int64 arithmetic) gives the numpy threefry's
+    32-bit draws bit for bit: 16 (seed, counter) pairs, seed -5 among them,
+    over 64000 columns."""
+    from repro_torch.core import prng
+    seeds = [-5, 0, 7, 2**31 - 1, 11, 12, 13, 14, -2**31, 1, 2, 3, 99, 12345, -77, 5]
+    ctrs = [0, 1, 3, 1024, 0, 5, 127, 128, 7, 0, 1, 2, 511, 40, 9, 100]
+    keys = prng.fold_in(prng.key(torch.tensor(seeds, dtype=torch.int32, device=dev)),
+                        torch.tensor(ctrs, dtype=torch.int32, device=dev))
+    got = prng.random_bits32(keys, 64000).cpu().numpy()
+    for row, s, c in zip(got, seeds, ctrs):
+        want = sal._random_bits32(sal._fold_in(sal._key(s), c), 64000).astype(np.int64)
+        np.testing.assert_array_equal(row, want)
+
+
+def _sampled_run(dev, capture, sampled=True):
+    """Two slots on the paged free list with the page walk; a sampled and a
+    greedy request, then a third (sampled) admitted mid-run: -> (engine,
+    active-row logits per step, tokens per request)."""
+    from repro_torch.serving import SamplingParams
+    cfg, ccfg, params, _ = _smoke(dev)
+    scfg = ServeConfig(batch_size=2, prompt_len=48, max_new_tokens=12, backend="paged",
+                       page_size=8, page_allocator="freelist", pool_fraction=1.0,
+                       paged_kernel=True)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, cfg.vocab, size=(40,)).astype(np.int32) for _ in range(3)]
+    sp = (lambda t, s: SamplingParams(temperature=t, seed=s)) if sampled else (
+        lambda t, s: SamplingParams())
+    eng = ContinuousEngine(cfg, ccfg, scfg, params, device=dev, capture=capture)
+    rec = _ActiveLogits(eng._decode_masked)
+    eng._decode_masked = rec
+    rids = [eng.submit(Request(tokens=prompts[0], sampling=sp(0.7, 11))),
+            eng.submit(Request(tokens=prompts[1], max_new_tokens=6))]
+    for _ in range(3):
+        eng.step()
+    rids.append(eng.submit(Request(tokens=prompts[2], sampling=sp(1.0, -5))))
+    res = eng.run()
+    torch.cuda.synchronize()
+    return eng, rec, [res[r].tokens.tolist() for r in rids]
+
+
+def test_captured_sampled_step_matches_eager(dev):
+    """With sampled rows: every step's logits bitwise the eager engine's,
+    every token equal; the step builds two graphs (the decode step and its
+    sampler), the sampler's replayed; a replayed draw is bitwise the
+    sampler run eagerly on the same logits."""
+    from repro_torch.core.prng import sample_tokens
+    _, eager, want = _sampled_run(dev, False)
+    eng, cap, got = _sampled_run(dev, True)
+    assert got == want
+    assert len(cap.logits) == len(eager.logits)
+    for a, w in zip(cap.logits, eager.logits):
+        assert torch.equal(a, w)
+    step = cap.step
+    assert step.captures == 2 and step.replays > 0 and step.sample_replays > 0
+    with torch.inference_mode():
+        replayed = step.sample(step._out).clone()
+        eager_draw = sample_tokens(step._out.clone(), *steps_lib.sampling_rows(step.staged))
+    assert torch.equal(replayed, eager_draw)
+
+
+def test_greedy_only_step_graph_unchanged(dev):
+    """All-greedy traffic builds one graph and runs no sampler; with sampled
+    rows the decode graph is still built once (beside the sampler's), and
+    the greedy request's tokens are the all-greedy run's."""
+    from repro_torch.core.prng import SAMPLES
+    before = SAMPLES.launches
+    eng, _, greedy = _sampled_run(dev, True, sampled=False)
+    step = eng._decode_masked.step
+    assert SAMPLES.launches == before
+    assert step.captures == 1 and step._sample_graph is None and step.sample_replays == 0
+    eng, _, mixed = _sampled_run(dev, True)
+    assert SAMPLES.launches > before
+    assert mixed[1] == greedy[1] and mixed[0] != greedy[0]
+    step = eng._decode_masked.step
+    assert step.captures == 2 and step._sample_graph is not None

@@ -4,8 +4,10 @@ A CUDA graph records device work only: a host sync (`.item()`, `.cpu()`,
 `.tolist()`) inside the capture fails it, and a host-to-device upload
 (`torch.as_tensor`, `torch.from_numpy`) would be baked into the graph with
 the value of the capture.  The captured bodies are `ServeStep._run` and
-`ContinuousDecodeStep._run` (`repro_torch.launch.steps`); their uploads go
-into the static buffers before the replay.
+`ContinuousDecodeStep._run` (`repro_torch.launch.steps`), and the sampled
+variant's graph: `core.prng.sample_tokens` over the step's staged
+rows (`steps.sampling_rows`); their uploads go into the static buffers
+before the replay.
 
 The call graph is `tools/analyze/hostsync.py`'s, pointed at
 `src/repro_torch`: it follows calls through module imports and `self`, and
@@ -26,6 +28,8 @@ SUB = "src/repro_torch"
 ROOTS = (
     ("repro_torch.launch.steps", "ServeStep._run"),
     ("repro_torch.launch.steps", "ContinuousDecodeStep._run"),
+    ("repro_torch.launch.steps", "sampling_rows"),
+    ("repro_torch.core.prng", "sample_tokens"),
     *(("repro_torch.core.backend", f"MixedKVBackend.{m}") for m in ("append", "attend",
                                                                      "update_probe")),
     *(("repro_torch.core.paged", f"PagedKVBackend.{m}") for m in ("append", "attend",
@@ -63,6 +67,7 @@ def test_captured_steps_reach_no_host_calls(graph):
     reached = graph.reachable(ROOTS)
     assert ("repro_torch.models.lm", "decode_step") in reached
     assert ("repro_torch.kernels.qattn_walk", "launch") in reached
+    assert ("repro_torch.core.prng", "threefry2x32") in reached
     bad = [f"{graph.modules[mod].src.rel}:{line} {qual}: {pattern}"
            for mod, qual in reached
            for line, pattern in host_calls(graph.modules[mod].functions[qual])]

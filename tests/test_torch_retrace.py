@@ -21,8 +21,10 @@ makes new step objects in steady state; a hidden retrace forced by a
 shape or a host value, which the reference's test catches under
 `jax.jit`, has no counterpart here.
 
-The reference's mixed scenario carries one sampled request; the port
-serves greedy requests only, so that request is greedy here.
+The mixed scenario carries the reference's sampled request (T 0.7, seed
+5): a step on which a row samples draws through the step's sampler (a
+second graph on the card, built once), so the whole scenario builds at
+most two programs and its steady state none.
 """
 
 import dataclasses
@@ -33,11 +35,12 @@ import pytest
 from repro_torch import configs
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.policy import CompressionConfig
+from repro_torch.core.prng import SAMPLES
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import registry
 from repro_torch.runtime import compile_guard
-from repro_torch.serving import (ContinuousEngine, PreemptedEvent, Request, ServeConfig,
-                                 SwappedEvent)
+from repro_torch.serving import (ContinuousEngine, PreemptedEvent, Request, SamplingParams,
+                                 ServeConfig, SwappedEvent)
 from tests.torch_parity import torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("torch_threads")
@@ -68,7 +71,8 @@ def _drive_mixed_scenario(eng, prompts):
     with both slots held).  Returns the events."""
     events = []
     r0 = eng.submit(Request(tokens=prompts[0]))           # max_new 12 > 8: folds
-    eng.submit(Request(tokens=prompts[1], max_new_tokens=6))
+    eng.submit(Request(tokens=prompts[1], max_new_tokens=6,
+                       sampling=SamplingParams(temperature=0.7, seed=5)))
     for _ in range(4):
         events += eng.step()
     eng.submit(Request(tokens=prompts[2]))                # mid-run admission
@@ -107,13 +111,15 @@ def test_mixed_engine_zero_builds_at_steady_state():
 
     with compile_guard.count_captures() as warm:
         _drive_mixed_scenario(eng, _prompts(cfg, seed=0, n=4))
-    assert warm.count > 0, "warm-up must build (guard sanity check)"
+    assert 0 < warm.count <= 2, warm.describe()   # the decode step, its sampler
 
+    draws = SAMPLES.launches
     with compile_guard.assert_no_captures() as steady:
         events = _drive_mixed_scenario(eng, _prompts(cfg, seed=1, n=4))
     assert steady.count == 0
     assert any(isinstance(e, PreemptedEvent) for e in events), \
         "scenario must force a preemption inside the guarded region"
+    assert SAMPLES.launches > draws, "the sampled request must draw inside the region"
     assert eng._decode_masked.replays > 0
 
 
