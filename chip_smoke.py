@@ -99,6 +99,22 @@ continued:
      with and without sampled rows, the sampler's device ms, each run's
      decode wall, `cache_bytes` of phase 4's lockstep cache and of the
      engines;
+  4h. slice 10's serving edge: `python -m repro_torch.launch.serve_http`
+     as a child process at full width, driven over loopback sockets.  Run
+     (i): two replicas on phase 4b's paged configuration take phase 4g's
+     eight requests concurrently (the sampled ones with their temperature
+     and seed in the body); every stream's tokens equal its done event's
+     and phase 4g's run 1; both replicas take requests; a stream that hangs
+     up after 8 events has its replica's free pages back at the first
+     `/v1/stats` answer (a witness stream on the other replica counts the
+     router steps meanwhile).  Run (ii): one replica on the CLI's default
+     mixed layout, two 16-token requests one after the other, equal to an
+     in-process engine built from the same flags on this script's
+     parameters.  Each server exits 0 on SIGINT and prints its launches:
+     every kernel of its layout, at the counts its admissions and folds
+     imply; neither builds a kernel library.  Logged: each request's client
+     time to its first SSE event and to its done event, run (i)'s wall
+     against phase 4g's run 1;
   5. a `kernels` JSON line, then the last line:
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -107,9 +123,17 @@ It needs the repository's `src/repro_torch` beside it and one CUDA card.
 
 from __future__ import annotations
 
+import argparse
+import ast
+import asyncio
 import json
+import os
+import queue
+import re
+import signal
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -911,8 +935,14 @@ def main() -> None:
                                 card, rel_l2))
 
     # ---- 4g. slice 9: seeded temperature sampling --------------------------
-    by_path.update(sampling(torch, np, cfg, ccfg, params, dev, kernels, n_layers, cscfg,
-                            requests, budgets, greedy_4d, lock_bytes, card))
+    run_4g = sampling(torch, np, cfg, ccfg, params, dev, kernels, n_layers, cscfg, requests,
+                      budgets, greedy_4d, lock_bytes, card)
+    by_path.update(run_4g["launches"])
+
+    # ---- 4h. slice 10: the serving edge, serve_http over HTTP/SSE ------------
+    torch.cuda.empty_cache()   # the server processes take their own share of the card
+    by_path["http"] = serving_edge(torch, np, cfg, params, dev, n_layers, requests, budgets,
+                                   run_4g, card)
     rows["cst_quant"]["eff"]["launches"] = sum(
         p["cst_quant"] for name, p in by_path.items() if name.startswith("levers"))
     for name, row in rows.items():
@@ -1208,7 +1238,8 @@ def sampling(torch, np, cfg, ccfg, params, dev, kernels, n_layers, scfg, request
     through a captured engine (run 1), an eager one (run 2) and a captured
     one with the requests submitted in reverse order (run 3); then the draw
     itself on the card against the host.  Returns run 1's launch counts,
-    read from 0."""
+    read from 0, its tokens by submission index, decode wall and the
+    requests' first-token times."""
     from repro_torch.core import prng
     from repro_torch.core import saliency as sal
     from repro_torch.launch import steps as steps_lib
@@ -1260,7 +1291,7 @@ def sampling(torch, np, cfg, ccfg, params, dev, kernels, n_layers, scfg, request
             check(len(t) == budgets[i] and all(0 <= x < cfg.vocab for x in t),
                   f"sampling (capture {capture}): request {i} ended with {len(t)} of "
                   f"{budgets[i]} tokens or out of range")
-        return dict(eng=eng, tokens=tokens, wall=wall, ms=ms, builds=builds.count,
+        return dict(eng=eng, rids=rids, tokens=tokens, wall=wall, ms=ms, builds=builds.count,
                     launches=got, draws=prng.SAMPLES.launches, peak_bytes=peak_bytes)
 
     r1 = run(True, range(n))
@@ -1354,7 +1385,323 @@ def sampling(torch, np, cfg, ccfg, params, dev, kernels, n_layers, scfg, request
     log(f"sampling: cache_bytes at full width ({card}): phase 4 lockstep cache after its run "
         f"{lock_bytes}; run 1's engine after its run {packed}; run 3's step of most packed "
         f"bytes {r3['peak_bytes']}")
-    return {"sampling": r1["launches"]}
+    return {"launches": {"sampling": r1["launches"]}, "tokens": r1["tokens"], "wall": r1["wall"],
+            "first_token_s": [r1["eng"].result(r1["rids"][i]).timings["first_token_s"]
+                              for i in range(n)]}
+
+
+# phase 4h: serve_http's command line at phase 4b's configuration; run (i)
+# adds the paged layout's flags and two replicas, run (ii) keeps the CLI's
+# default mixed layout on one replica
+HTTP_ARGV = ["--arch", "yi-6b", "--seed", "0", "--batch", "4", "--prompt-len", "1024",
+             "--max-new", "128"]
+HTTP_PAGED = ["--backend", "paged", "--page-size", "64", "--page-allocator", "freelist",
+              "--pool-fraction", "0.75", "--paged-kernel", "on"]
+
+
+class HttpServer:
+    """`python -m repro_torch.launch.serve_http` on 127.0.0.1 as a child
+    process, its port read from the line it prints; its stderr goes to this
+    script's.  `stop()` sends SIGINT and returns the kernel launches the
+    server printed on its way out; leaving the `with` block kills a server
+    that is still alive."""
+
+    def __init__(self, argv, start_timeout: float = 600.0):
+        self.argv, self.start_timeout = argv, start_timeout
+
+    def __enter__(self):
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.serve_http", *self.argv, "--port", "0"],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, text=True)
+        try:
+            self.lines = queue.Queue()
+            threading.Thread(target=self._pump, daemon=True).start()
+            t0, self.port = time.perf_counter(), None
+            while self.port is None:
+                wait = self.start_timeout - (time.perf_counter() - t0)
+                try:
+                    line = self.lines.get(timeout=max(wait, 0.01))
+                except queue.Empty:
+                    fail(f"serve_http printed no port within {self.start_timeout:.0f} s")
+                if line is None:
+                    fail(f"serve_http exited with status {self.proc.wait()} before listening")
+                log(f"server: {line.rstrip()}")
+                m = re.search(r"listening on http://127\.0\.0\.1:(\d+) ", line)
+                self.port = int(m.group(1)) if m else None
+            self.start_s = time.perf_counter() - t0
+        except BaseException:
+            self.__exit__()
+            raise
+        return self
+
+    def _pump(self):
+        for line in self.proc.stdout:
+            self.lines.put(line)
+        self.lines.put(None)
+
+    def stop(self, timeout: float = 60.0):
+        """SIGINT -> (kernel launches, seconds to exit); fails unless the
+        server drains, prints its launches and exits 0 within `timeout`."""
+        t0 = time.perf_counter()
+        self.proc.send_signal(signal.SIGINT)
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            fail(f"serve_http still running {timeout:.0f} s after SIGINT")
+        exit_s = time.perf_counter() - t0
+        out = []
+        while (line := self.lines.get(timeout=timeout)) is not None:
+            out.append(line)
+            log(f"server: {line.rstrip()}")
+        check(rc == 0, f"serve_http exited with status {rc} after SIGINT")
+        m = re.search(r"\[serve_http\] kernel launches: (\{.*\})", "".join(out))
+        check(m is not None, "serve_http printed no kernel launches on shutdown")
+        return ast.literal_eval(m.group(1)), exit_s
+
+    def __exit__(self, *exc):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+async def _http(port: int, method: str, path: str, payload=None):
+    """One request on a fresh loopback connection -> (status line, reader,
+    writer), the headers consumed."""
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    body = b"" if payload is None else json.dumps(payload).encode()
+    writer.write(f"{method} {path} HTTP/1.1\r\nHost: 127.0.0.1\r\nContent-Length: "
+                 f"{len(body)}\r\n\r\n".encode() + body)
+    await writer.drain()
+    status = (await reader.readline()).decode().strip()
+    while (await reader.readline()) not in (b"\r\n", b""):
+        pass
+    return status, reader, writer
+
+
+async def _get_json(port: int, path: str):
+    status, reader, writer = await _http(port, "GET", path)
+    body = json.loads(await reader.read())
+    writer.close()
+    check(status.endswith("200 OK"), f"GET {path}: {status} {body}")
+    return body
+
+
+async def _next_event(reader):
+    """The data of the next SSE event, or None at the end of the stream."""
+    while line := await reader.readline():
+        if line.startswith(b"data: "):
+            return json.loads(line[6:])
+    return None
+
+
+async def _generate(port: int, spec):
+    """One streamed request: its token events, its done event, and the
+    client's seconds from sending to the first event and to the done event."""
+    t0 = time.perf_counter()
+    status, reader, writer = await _http(port, "POST", "/v1/generate", spec)
+    check(status.endswith("200 OK"), f"POST /v1/generate: {status}")
+    tokens, t_first = [], None
+    while True:
+        ev = await _next_event(reader)
+        check(ev is not None, "an SSE stream ended without its done event")
+        if t_first is None:
+            t_first = time.perf_counter() - t0
+        if "token" not in ev:
+            break
+        check(ev["index"] == len(tokens), f"SSE token event {ev} out of order")
+        tokens.append(ev["token"])
+    writer.close()
+    return dict(tokens=tokens, done=ev, t_first=t_first, t_done=time.perf_counter() - t0)
+
+
+async def _hang_up(port: int, witness_spec, spec):
+    """Phase 4h's disconnect: a witness stream on replica-0 (both replicas
+    idle: the router's tie goes to the lower index), then `spec` on
+    replica-1 (the less loaded), which hangs up after 8 events.  Polls
+    /v1/stats until replica-1's free pages are back to their value before;
+    the witness's events in between count the router steps.  Then the
+    witness hangs up too, and replica-0's pages must come back."""
+    def free(st, name):
+        return st["replicas"][name]["free_pool_pages"]
+
+    before = await _get_json(port, "/v1/stats")
+    status, wr, ww = await _http(port, "POST", "/v1/generate", witness_spec)
+    check(status.endswith("200 OK"), f"witness: {status}")
+    arrivals = []
+
+    async def witness():
+        while (ev := await _next_event(wr)) is not None and "token" in ev:
+            arrivals.append(time.perf_counter())
+
+    wtask = asyncio.create_task(witness())
+    while not arrivals:
+        await asyncio.sleep(0.001)
+    status, r, w = await _http(port, "POST", "/v1/generate", spec)
+    check(status.endswith("200 OK"), f"hang-up request: {status}")
+    times = []
+    for _ in range(8):
+        ev = await _next_event(r)
+        check(ev is not None and "token" in ev, "the hang-up request ended early")
+        times.append(time.perf_counter())
+    mid = await _get_json(port, "/v1/stats")
+    check(mid["replicas"]["replica-1"]["busy_slots"] == 1
+          and free(mid, "replica-1") < free(before, "replica-1"),
+          f"the hang-up request is not running on replica-1: {mid['replicas']}")
+    gaps = sorted(b - a for a, b in zip(times, times[1:]))
+    out = {"gap_ms": gaps[len(gaps) // 2] * 1e3}
+    for name, writer, task in (("replica-1", w, None), ("replica-0", ww, wtask)):
+        writer.close()
+        t_hang, polls = time.perf_counter(), 0
+        while True:
+            st = await _get_json(port, "/v1/stats")
+            polls += 1
+            if free(st, name) == free(before, name):
+                break
+            check(time.perf_counter() - t_hang < 30, f"{name}: pages not back 30 s after the "
+                                                     f"hang-up: {st['replicas'][name]}")
+        t_back = time.perf_counter()
+        out[name] = dict(polls=polls, ms=(t_back - t_hang) * 1e3,
+                         steps=sum(t_hang < a <= t_back for a in arrivals),
+                         busy=st["replicas"][name]["busy_slots"])
+        if task is not None:
+            await asyncio.wait_for(task, timeout=30)
+    return out
+
+
+def serving_edge(torch, np, cfg, params, dev, n_layers, requests, budgets, run_4g, card):
+    """Phase 4h: `python -m repro_torch.launch.serve_http` as a child
+    process on the card at full width, driven over loopback sockets.  Run
+    (i): two replicas on the paged layout take phase 4g's eight requests
+    concurrently (its sampled ones at their temperature and seed); each
+    stream's tokens equal its done event's and phase 4g's run 1; both
+    replicas take requests; a hung-up stream's pages come back.  Run (ii):
+    one replica on the CLI's default mixed layout, two requests of 16 tokens
+    one after the other, equal to an in-process engine on `params`.  Each
+    server exits 0 on SIGINT with its layout's kernels launched.  Returns
+    the two runs' launches, summed."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+    from repro_torch.serving import ContinuousEngine, Request, SamplingParams
+
+    built = sorted(build.BUILD_DIR.glob("*.so"))   # phase 2's libraries, loaded by the servers
+    n = len(requests)
+    specs = [{"tokens": requests[i].tolist(), "max_new_tokens": int(budgets[i]),
+              "temperature": SAMPLED.get(i, (0.0, 0))[0], "seed": SAMPLED.get(i, (0.0, 0))[1]}
+             for i in range(n)]
+
+    # run (i): two replicas, paged
+    async def run_i(port):
+        t0 = time.perf_counter()
+        res = await asyncio.wait_for(asyncio.gather(*[_generate(port, sp) for sp in specs]),
+                                     timeout=600)
+        wall = time.perf_counter() - t0
+        stats = await _get_json(port, "/v1/stats")
+        full = [{k: v for k, v in specs[i].items() if k != "max_new_tokens"} for i in (0, 2)]
+        hang = await asyncio.wait_for(_hang_up(port, *full), timeout=300)
+        return res, wall, stats, hang, await _get_json(port, "/v1/stats")
+
+    with HttpServer(HTTP_ARGV + HTTP_PAGED + ["--replicas", "2"]) as srv:
+        res, wall, stats, hang, final = asyncio.run(run_i(srv.port))
+        launches_i, exit_i = srv.stop()
+    for i, r in enumerate(res):
+        check(r["tokens"] == r["done"]["tokens"], f"http: request {i}'s SSE tokens differ from "
+                                                  f"its done event's")
+        check(r["done"]["finish_reason"] == "length" and len(r["tokens"]) == budgets[i],
+              f"http: request {i} ended {r['done']['finish_reason']} with {len(r['tokens'])} "
+              f"of {budgets[i]} tokens")
+        if r["tokens"] != run_4g["tokens"][i]:
+            want = run_4g["tokens"][i]
+            j = next(j for j, (a, b) in enumerate(zip(r["tokens"], want)) if a != b)
+            fail(f"http: request {i} {SAMPLED.get(i, 'greedy')} on {r['done']['id']} differs "
+                 f"from phase 4g's run 1 at step {j}: {r['tokens'][j:j + 4]} against "
+                 f"{want[j:j + 4]}")
+    names = {"replica-0", "replica-1"}
+    placed = [r["done"]["id"].split("/")[0] for r in res]
+    check(set(stats["replicas"]) == names and set(placed) == names
+          and all(stats["pool_stats"][k]["admissions"] > 0 for k in names),
+          f"http: the requests did not spread over both replicas: {placed}, {stats['replicas']}")
+    for name in ("replica-1", "replica-0"):
+        h = hang[name]
+        check(h["polls"] == 1 and h["busy"] == 0,
+              f"http: {name}'s pages came back at /v1/stats poll {h['polls']} after the hang-up "
+              f"(busy slots {h['busy']}), not at the first")
+    adm = sum(final["pool_stats"][k]["admissions"] for k in names)
+    folds = sum(final["pool_stats"][k]["folds"] for k in names)
+    want_i = {"cst_quant": 2 * n_layers * (adm + folds), "flash_fwd": n_layers * adm,
+              "probe_colsum": n_layers * adm, "decode_qattn": 0}
+    for name, k in want_i.items():
+        check(launches_i[name] == k, f"http run (i): {name} {launches_i[name]} launches, the "
+                                     f"path implies {k}")
+    check(launches_i["paged_qattn"] > 0 and launches_i["paged_qattn"] % n_layers == 0,
+          f"http run (i): paged_qattn {launches_i['paged_qattn']} launches")
+
+    log(f"http: {card}; run (i) serve_http --replicas 2 (paged free list 0.75, page walk), "
+        f"listening {srv.start_s:.1f} s after start; 8 requests posted concurrently, placed "
+        f"{placed}; tokens equal phase 4g's run 1 and each done event's")
+    lags = []
+    for i, r in enumerate(res):
+        t = r["done"]["timings"]
+        finish = t["queued_s"] + t["prefill_s"] + t["decode_s"]   # submit to retirement
+        lags.append(r["t_done"] - finish)
+        log(f"  request {i} ({len(specs[i]['tokens'])} prompt tokens, {budgets[i]} new, "
+            f"{SAMPLED.get(i, 'greedy')}) on {r['done']['id']}: client first event "
+            f"{r['t_first']:.3f} s, done {r['t_done']:.3f} s; server first token "
+            f"{t['first_token_s']:.3f} s, retired {finish:.3f} s, queued {t['queued_s']:.3f} "
+            f"s; phase 4g run 1 first token {run_4g['first_token_s'][i]:.3f} s")
+    log(f"http: done event after the server's retirement by {min(lags):.3f}-{max(lags):.3f} s "
+        f"(client clock from sending, server clock from submit)")
+    last = range(n - 4, n)
+    log(f"http: run (i) wall {wall:.3f} s against phase 4g run 1's decode wall "
+        f"{run_4g['wall']:.3f} s (ratio {wall / run_4g['wall']:.3f}); mean first event of "
+        f"requests 4-7 {np.mean([res[i]['t_first'] for i in last]):.3f} s on two replicas, "
+        f"phase 4g run 1 first token {np.mean([run_4g['first_token_s'][i] for i in last]):.3f} "
+        f"s on one engine")
+    log(f"http: hang-up after 8 events (median gap {hang['gap_ms']:.2f} ms): replica-1's pages "
+        f"back at the first /v1/stats answer, {hang['replica-1']['ms']:.1f} ms and "
+        f"{hang['replica-1']['steps']} router steps (witness events) after the hang-up; the "
+        f"witness's own hang-up: replica-0's back in {hang['replica-0']['ms']:.1f} ms")
+    log(f"http: run (i) SIGINT -> exit 0 in {exit_i:.2f} s; launches {launches_i} "
+        f"({adm} admissions, {folds} slot folds)")
+
+    # run (ii): one replica, the CLI's default (mixed) layout, against an
+    # in-process engine built from the same flags; one request at a time,
+    # so both see the same slots and steps
+    specs2 = [dict(specs[i], max_new_tokens=16) for i in (0, 1)]
+
+    async def run_ii(port):
+        return [await asyncio.wait_for(_generate(port, sp), timeout=300) for sp in specs2]
+
+    with HttpServer(HTTP_ARGV + ["--replicas", "1"]) as srv:
+        res2 = asyncio.run(run_ii(srv.port))
+        launches_ii, exit_ii = srv.stop()
+    ap = argparse.ArgumentParser()
+    serve.add_engine_args(ap)
+    args = ap.parse_args(HTTP_ARGV)
+    eng = ContinuousEngine(cfg, serve.build_compression_config(args),
+                           serve.build_serve_config(args), params, device=dev)
+    for i, (sp, r) in enumerate(zip(specs2, res2)):
+        rid = eng.submit(Request(tokens=np.asarray(sp["tokens"], np.int32), max_new_tokens=16,
+                                 sampling=SamplingParams(sp["temperature"], sp["seed"])))
+        want = eng.run()[rid].tokens.tolist()
+        check(r["tokens"] == r["done"]["tokens"] == want and len(want) == 16,
+              f"http run (ii): request {i} {r['tokens']} differs from the in-process engine's "
+              f"{want}")
+    del eng
+    want_ii = {"cst_quant": 2 * n_layers * 2, "flash_fwd": 2 * n_layers,
+               "probe_colsum": 2 * n_layers, "paged_qattn": 0}
+    for name, k in want_ii.items():
+        check(launches_ii[name] == k, f"http run (ii): {name} {launches_ii[name]} launches, "
+                                      f"the path implies {k}")
+    check(launches_ii["decode_qattn"] > 0, "http run (ii): decode_qattn never launched")
+    check(sorted(build.BUILD_DIR.glob("*.so")) == built,
+          "http: a serve_http process built kernel libraries of its own")
+    firsts = ", ".join(f"{r['t_first']:.3f}" for r in res2)
+    dones = ", ".join(f"{r['t_done']:.3f}" for r in res2)
+    log(f"http: run (ii) serve_http --replicas 1 (mixed layout): 2 requests of 16 tokens equal "
+        f"the in-process engine's; client first event {firsts} s, done {dones} s; SIGINT -> "
+        f"exit 0 in {exit_ii:.2f} s; launches {launches_ii}")
+    return {k: launches_i[k] + launches_ii[k] for k in launches_i}
 
 
 def profile_window(torch, run, n_steps):

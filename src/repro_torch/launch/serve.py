@@ -19,6 +19,7 @@ The flags are those of `repro.launch.serve` that the port runs, plus
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import subprocess
 import time
 
@@ -132,11 +133,12 @@ def add_engine_args(ap: argparse.ArgumentParser) -> None:
                          "return; 0 = off")
 
 
-def validate_engine_args(args, ap: argparse.ArgumentParser) -> None:
-    """Reject flag combinations that would be silently ignored."""
+def validate_engine_args(args, ap: argparse.ArgumentParser, continuous: bool) -> None:
+    """Reject flag combinations that would be silently ignored.  `continuous`
+    is the caller's engine mode (the HTTP front is always continuous)."""
     if args.paged_kernel == "on" and args.backend != "paged":
         ap.error("--paged-kernel on requires --backend paged")
-    if args.scheduler != "fifo" and not args.continuous:
+    if args.scheduler != "fifo" and not continuous:
         ap.error("--scheduler requires --continuous")
     if args.preemption != "off" and args.scheduler != "priority":
         ap.error(f"--preemption {args.preemption} requires --scheduler priority")
@@ -153,7 +155,7 @@ def validate_engine_args(args, ap: argparse.ArgumentParser) -> None:
         ap.error(f"--precision-map: {e}")
     if args.page_allocator == "freelist" and args.backend != "paged":
         ap.error("--page-allocator freelist requires --backend paged")
-    if args.page_allocator == "freelist" and not args.continuous:
+    if args.page_allocator == "freelist" and not continuous:
         ap.error("--page-allocator freelist requires --continuous")
     if args.pool_fraction != 1.0 and args.page_allocator != "freelist":
         ap.error("--pool-fraction requires --page-allocator freelist")
@@ -161,8 +163,6 @@ def validate_engine_args(args, ap: argparse.ArgumentParser) -> None:
         ap.error("--admit-watermark requires --page-allocator freelist")
     if args.prefix_cache == "on" and args.page_allocator != "freelist":
         ap.error("--prefix-cache on requires --page-allocator freelist")
-    if args.requests is not None and not args.continuous:
-        ap.error("--requests requires --continuous")
 
 
 def build_serve_config(args) -> ServeConfig:
@@ -175,6 +175,15 @@ def build_serve_config(args) -> ServeConfig:
                        precision_map=args.precision_map,
                        ladder_watermark=args.ladder_watermark,
                        swap_pool_mb=args.swap_pool_mb)
+
+
+def build_compression_config(args) -> CompressionConfig:
+    """The policy's preset; --smoke shrinks the fold cadence (fp_window =
+    recompress_interval = 16) so short runs still cross a recompression, as
+    `repro.launch.serve` does."""
+    kw = {"saliency_ratio": args.saliency_ratio} if args.policy in ("zipcache", "mikv") else {}
+    ccfg = CompressionConfig.preset(args.policy, **kw)
+    return dataclasses.replace(ccfg, fp_window=16, recompress_interval=16) if args.smoke else ccfg
 
 
 def _serve_continuous(args, cfg, ccfg, scfg, params, device, prompts):
@@ -239,12 +248,13 @@ def main(argv=None):
                          "request) with torch.profiler and print device time by kernel and "
                          "the device's busy share")
     args = ap.parse_args(argv)
-    validate_engine_args(args, ap)
+    validate_engine_args(args, ap, continuous=args.continuous)
+    if args.requests is not None and not args.continuous:
+        ap.error("--requests requires --continuous")
 
     device = torch.device(args.device)
     cfg = configs.get_arch(args.arch, smoke=args.smoke)
-    kw = {"saliency_ratio": args.saliency_ratio} if args.policy in ("zipcache", "mikv") else {}
-    ccfg = CompressionConfig.preset(args.policy, **kw)
+    ccfg = build_compression_config(args)
     scfg = build_serve_config(args)
     params = registry.materialize_params(cfg, seed=args.seed, device=device)
     rng = np.random.default_rng(args.seed)

@@ -6,5 +6,6 @@ from repro_torch.serving.events import (CallbackErrorEvent, CancelledEvent,  # n
                                         DownshiftEvent, EngineClosedError, Event,
                                         FinishedEvent, PreemptedEvent, SwappedEvent,
                                         TokenEvent, UnknownRequestError)
+from repro_torch.serving.router import EngineRouter, NoReplicaError  # noqa: F401
 from repro_torch.serving.scheduler import (FIFOScheduler, PriorityScheduler,  # noqa: F401
                                            Scheduler, make_scheduler)
