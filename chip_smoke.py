@@ -115,6 +115,33 @@ continued:
      imply; neither builds a kernel library.  Logged: each request's client
      time to its first SSE event and to its done event, run (i)'s wall
      against phase 4g's run 1;
+  4i. slice 11's baseline policies and levers.  The kernels at the
+     baselines' shapes: probe_colsum with every row a probe (h2o, mikv: np
+     1024) at batch 4 and 1 against its plain version, two calls bitwise,
+     the salient sets of the normalized (prefill) and accumulated (fold)
+     scores as the plain version's; decode_qattn over fp16's raw 1152-slot
+     store and window, bf16 and, after a fold, f32 (the fold promotes it),
+     within one bf16 ulp, with the walk's split count.  The levers on one
+     full-width layer, each timed beside its counterpart:
+     `attend_decode(impl="int8_algebra")` against the exact route (out atol
+     2e-2 rtol 1e-2, slot weights 1e-3), `blocked_attention(compact=True)`
+     against f32 at batch 1 (out 2e-2).  Lockstep: `ServingEngine.generate`
+     under fp16, h2o, mikv, gear and kivi at their preset defaults (phase
+     4's batch, prompt and 128 new tokens: 16 probe steps, one fold),
+     captured and eager: every step's logits within one bf16 ulp of the
+     eager step's, tokens equal; the prefill and first decode step's logits
+     against the plain versions' within phase 4's bound; launches held to
+     each route (decode_qattn on fp16's and h2o's non-probe steps, the plain
+     route on every step of mikv, gear and kivi, counted in
+     `backend.PLAIN_DECODES`; probe_colsum 32 for h2o and mikv; no
+     cst_quant); the step built again after the fold where it promotes the
+     stores.  Logged: walls, step times, cache_bytes against the
+     Appendix-A ratio, the cosine of the first and the last decode step's
+     logits to fp16's.
+     Continuous: phase 4b's configuration and traffic under fp16 (raw pages
+     through paged_qattn, no gather) and kivi (every decode layer on the
+     gather path, counted): every request ends with its budget, the
+     allocator's invariants after every step, every page back;
   5. a `kernels` JSON line, then the last line:
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -943,6 +970,9 @@ def main() -> None:
     torch.cuda.empty_cache()   # the server processes take their own share of the card
     by_path["http"] = serving_edge(torch, np, cfg, params, dev, n_layers, requests, budgets,
                                    run_4g, card)
+    # ---- 4i. slice 11: the baseline policies and the two levers -------------
+    by_path.update(baselines(torch, np, cfg, params, dev, kernels, rows, n_layers, batch, scfg,
+                             cscfg, requests, budgets, rel_l2, yardstick, card))
     rows["cst_quant"]["eff"]["launches"] = sum(
         p["cst_quant"] for name, p in by_path.items() if name.startswith("levers"))
     for name, row in rows.items():
@@ -1704,6 +1734,329 @@ def serving_edge(torch, np, cfg, params, dev, n_layers, requests, budgets, run_4
     return {k: launches_i[k] + launches_ii[k] for k in launches_i}
 
 
+# phase 4i: the lockstep policies (fp16 first: the others' logits are held
+# to its) and the continuous ones
+LOCKSTEP_POLICIES = ("fp16", "h2o", "mikv", "gear", "kivi")
+CONTINUOUS_POLICIES = ("fp16", "kivi")
+# the policies whose mixed stores a fold promotes to f32 (a zero-capacity
+# store's f32 parameters, as in the reference): their lockstep step is
+# built again after the first fold
+PROMOTING = ("fp16", "h2o", "gear", "kivi")
+
+
+def baselines(torch, np, cfg, params, dev, kernels, rows, n_layers, batch, scfg, cscfg,
+              requests, budgets, rel_l2, yardstick, card):
+    """Phase 4i: the baseline policies on both engines at full width, the
+    kernels at their shapes, and the int8-algebra / compact-softmax levers.
+    Returns the launch counts of each run ({path: {kernel: n}})."""
+    from repro_torch.core import backend as backend_lib
+    from repro_torch.core import kvcache as kvc
+    from repro_torch.core import paged
+    from repro_torch.core import saliency as sal
+    from repro_torch.core.policy import CompressionConfig
+    from repro_torch.kernels.decode_qattn import kernel as dq_kernel
+    from repro_torch.kernels.decode_qattn import ops as dq_ops
+    from repro_torch.kernels.decode_qattn import ref as dq_ref
+    from repro_torch.kernels.probe_flash import kernel as pf_kernel
+    from repro_torch.kernels.probe_flash import ref as pf_ref
+    from repro_torch.models import attention, registry
+    from repro_torch.serving import ContinuousEngine, Request, ServingEngine, probe_flag
+
+    t_phase = time.perf_counter()
+    b, prompt = batch["tokens"].shape
+    max_new = scfg.max_new_tokens
+    h, hk, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    max_len = prompt + max_new
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    # -- the kernels at the baselines' shapes --------------------------------
+    # probe_colsum with every row a probe (h2o, mikv: np = lq = 1024), batch 4
+    # (lockstep) and 1 (an admission); sums in another order within 1e-4 of
+    # the largest column sum (>= 1), two calls bitwise; the salient sets the
+    # prefill (Eq. 8, normalized) and a fold (Eq. 7, accumulated) would draw
+    # agree with the plain version's up to ties at the boundary
+    q, k, v = randn(b, h, prompt, d), randn(b, hk, prompt, d), randn(b, hk, prompt, d)
+    _, lse = pf_kernel.flash_fwd(q, k, v)
+    pos = torch.arange(prompt, dtype=torch.int32, device=dev)
+    every = sal.ProbeSpec(pos, 0, 0)
+    hcfg = CompressionConfig.h2o()
+    np1024 = {}
+    for nb in (b, 1):
+        args = (q[:nb].contiguous(), lse[:nb].contiguous(), pos[None].expand(nb, -1).contiguous(),
+                k[:nb].contiguous())
+        col = pf_kernel.probe_colsum(*args, lq=prompt)
+        col_ref = pf_ref.probe_colsum_ref(*args, lq=prompt)
+        again = pf_kernel.probe_colsum(*args, lq=prompt)
+        torch.cuda.synchronize()
+        check(torch.equal(col, again), f"probe_colsum np {prompt} batch {nb}: two calls differ")
+        err = (col - col_ref).abs().max().item()
+        tol = 1e-4 * max(col_ref.abs().max().item(), 1.0)
+        check(err <= tol, f"probe_colsum np {prompt} batch {nb}: max abs error {err:.3g} "
+                          f"exceeds {tol:.3g}")
+        _salient_sets_agree(torch, sal, attention, hcfg, every, col, col_ref, prompt)
+        _salient_sets_agree(torch, sal, attention, hcfg, every, col, col_ref, prompt,
+                            normalized=False)
+        fn = lambda: pf_kernel.probe_colsum(*args, lq=prompt)  # noqa: E731
+        pairs = prompt * (prompt + 1) // 2
+        np1024[nb] = {"max_abs_err": err, "ms": time_ms(torch, fn),
+                      "device_ms": device_ms(torch, fn),
+                      "plain_ms": time_ms(torch, lambda: pf_ref.probe_colsum_ref(
+                          *args, lq=prompt), iters=5),
+                      "bound_ms": bound_ms(2.0 * nb * h * pairs * d, nbytes(*args, col))[0]}
+        log(f"probe_colsum np {prompt} batch {nb}: max abs err {err:.3g} (tol {tol:.3g}); "
+            f"kernel {np1024[nb]['ms']:.4f} ms (device {np1024[nb]['device_ms']:.4f} ms), "
+            f"plain {np1024[nb]['plain_ms']:.4f} ms, bound {np1024[nb]['bound_ms']:.5f} ms")
+    rows["probe_colsum"]["np1024"] = np1024[b]
+    rows["probe_colsum"]["np1024"]["batch1"] = np1024[1]
+    del q, k, v, lse, args, col, col_ref, again
+
+    # decode_qattn over fp16's raw store (1152 slots, 1024 filled) and a 100-slot
+    # window with 40 appends, in bf16; then the same after a fold (the hi store's
+    # values f32, as the fold promotes them): each within one bf16 ulp of the
+    # largest output of the plain version
+    fcfg = CompressionConfig.fp16()
+    cache = kvc.compress_prefill(fcfg, randn(b, hk, prompt, d), randn(b, hk, prompt, d), None,
+                                 max_len)
+    for _ in range(40):
+        cache = kvc.append_token(cache, randn(b, hk, d), randn(b, hk, d))
+    qd = randn(b, h, d)
+    raw = {}
+    for when in ("prefill", "fold"):
+        if when == "fold":
+            cache = kvc.recompress(fcfg, cache)
+            for _ in range(40):
+                cache = kvc.append_token(cache, randn(b, hk, d), randn(b, hk, d))
+        check(dq_ops.kernel_supported(cache), "decode_qattn: fp16's raw stores must qualify")
+        dsegs = dq_ops.mixed_segments(cache)
+        check([(o["k_bits"], o["k_codes"].shape[2]) for o in dsegs] == [(16, max_len),
+                                                                          (16, cache.window)],
+              f"decode_qattn fp16: segments {[(o['k_bits'], o['k_codes'].shape) for o in dsegs]}")
+        before = dq_kernel.KERNEL.launches
+        dq_kernel.KERNEL.splits = None
+        got = dq_kernel.qattn_mixed_layer(qd, dsegs)
+        splits = dq_kernel.KERNEL.splits
+        want = dq_ref.mixed_layer_ref(qd, dsegs)
+        torch.cuda.synchronize()
+        check(dq_kernel.KERNEL.launches == before + 1, "decode_qattn fp16: one launch per layer")
+        check(isinstance(splits, int) and splits >= 1,
+              f"decode_qattn fp16: the launch recorded no split count ({splits!r})")
+        err = (got.float() - want.float()).abs().max().item()
+        tol = 2 ** -7 * max(want.float().abs().max().item(), 1.0)
+        check(err <= tol, f"decode_qattn fp16 raw ({when}): max abs error {err:.3g} exceeds "
+                          f"{tol:.3g}")
+        fn = lambda: dq_kernel.qattn_mixed_layer(qd, dsegs)  # noqa: E731
+        moved, flops = nbytes(qd, got), 0.0
+        for o in dsegs:
+            n_live = int((o["pos"] >= 0).sum())
+            moved += hk * n_live * nbytes(o["k_codes"][0, 0, 0], o["v_codes"][0, 0, 0])
+            moved += nbytes(o["pos"])
+            flops += 4.0 * h * n_live * d
+        raw[when] = {"max_abs_err": err, "ms": time_ms(torch, fn, iters=50),
+                     "device_ms": device_ms(torch, fn),
+                     "plain_ms": time_ms(torch, lambda: dq_ref.mixed_layer_ref(qd, dsegs)),
+                     "bound_ms": bound_ms(flops, moved)[0], "splits": splits,
+                     "hi_dtype": str(dsegs[0]["k_codes"].dtype)}
+        log(f"decode_qattn fp16 raw layer ({when}: hi {raw[when]['hi_dtype']}, {max_len} slots, "
+            f"window {cache.window}): max abs err {err:.3g} (tol {tol:.3g}); "
+            f"{raw[when]['splits']} splits per (row, kv head); kernel {raw[when]['ms']:.4f} ms "
+            f"(device {raw[when]['device_ms']:.4f} ms), plain {raw[when]['plain_ms']:.4f} ms, "
+            f"bound {raw[when]['bound_ms']:.5f} ms")
+    rows["decode_qattn"]["fp16_raw"] = raw
+    del cache, dsegs, got, want
+
+    # -- (iii) the levers: int8-algebra decode, compact softmax ----------------
+    zcfg = CompressionConfig.zipcache()
+    cache = kvc.compress_prefill(zcfg, randn(b, hk, prompt, d), randn(b, hk, prompt, d),
+                                 torch.rand((b, prompt), generator=gen, device=dev), max_len)
+    for _ in range(40):
+        cache = kvc.append_token(cache, randn(b, hk, d), randn(b, hk, d))
+    ref = kvc.attend_decode(qd, cache)
+    alg = kvc.attend_decode(qd, cache, impl="int8_algebra")
+    err = (alg.out.float() - ref.out.float()).abs()
+    check(bool((err <= 2e-2 + 1e-2 * ref.out.float().abs()).all()),
+          f"int8 algebra: output off by {err.max().item():.3g} (atol 2e-2, rtol 1e-2)")
+    werr = (alg.slot_weights - ref.slot_weights).abs().max().item()
+    check(werr <= 1e-3, f"int8 algebra: slot weights off by {werr:.3g} (atol 1e-3)")
+    levers = {"int8_ms": time_ms(torch, lambda: kvc.attend_decode(qd, cache, impl="int8_algebra")),
+              "ref_ms": time_ms(torch, lambda: kvc.attend_decode(qd, cache)),
+              "int8_out_err": err.max().item(), "int8_weight_err": werr}
+    q1, k1, v1 = randn(1, h, prompt, d), randn(1, hk, prompt, d), randn(1, hk, prompt, d)
+    probe = sal.select_probes(prompt, device=dev)
+    oc, cc = attention.blocked_attention(q1, k1, v1, probe=probe, compact=True)
+    of, cf = attention.blocked_attention(q1, k1, v1, probe=probe)
+    cerr = (oc.float() - of.float()).abs().max().item()
+    check(cerr <= 2e-2, f"compact softmax: output off by {cerr:.3g} (atol 2e-2)")
+    levers.update(compact_ms=time_ms(torch, lambda: attention.blocked_attention(
+        q1, k1, v1, probe=probe, compact=True), iters=5), f32_ms=time_ms(
+        torch, lambda: attention.blocked_attention(q1, k1, v1, probe=probe), iters=5),
+        compact_out_err=cerr, compact_colsum_err=(cc - cf).abs().max().item())
+    log(f"levers ({card}): int8-algebra decode layer {levers['int8_ms']:.4f} ms against the "
+        f"exact route's {levers['ref_ms']:.4f} ms (output off by {levers['int8_out_err']:.3g}, "
+        f"slot weights by {werr:.3g}); compact prefill attention, batch 1, "
+        f"{levers['compact_ms']:.4f} ms against f32's {levers['f32_ms']:.4f} ms (output off by "
+        f"{cerr:.3g}, probe column sums by {levers['compact_colsum_err']:.3g}); plain routes")
+    del cache, ref, alg, q1, k1, v1, oc, of, cc, cf
+
+    # -- (i) lockstep runs ------------------------------------------------------
+    out_paths = {}
+    toks = torch.as_tensor(batch["tokens"], device=dev)
+    first, last = {}, {}
+    counters = dict(kernels, plain_decodes=backend_lib.PLAIN_DECODES)
+    for policy in LOCKSTEP_POLICIES:
+        ccfg = CompressionConfig.preset(policy)
+        interval = ccfg.recompress_interval
+        n_probe = sum(probe_flag(i, interval, scfg.seed) for i in range(max_new))
+        n_fold = max_new // interval
+        runs = {}
+        for capture in (True, False):
+            eng = ServingEngine(cfg, ccfg, scfg, params, device=dev, capture=capture)
+            eng.generate(batch, max_new_tokens=2)   # warm-up
+            torch.cuda.synchronize()
+            for c in counters.values():
+                c.launches = 0
+            rec = eng._decode = StepLogits(eng._decode)
+            out = eng.generate(batch)
+            eng._decode = rec.step
+            got = {n: c.launches for n, c in counters.items()}
+            runs[capture] = dict(out=out, rec=rec, launches=got, step=rec.step,
+                                 captures=rec.step.captures,
+                                 bytes=eng.cache_bytes(eng.last_caches))
+            if capture:
+                plain_eng = ServingEngine(cfg, ccfg, scfg, params, device=dev, use_kernels=False)
+                with torch.inference_mode():
+                    lk, _ = registry.prefill(params, {"tokens": toks}, cfg, eng.ctx)
+                    lp, cp = registry.prefill(params, {"tokens": toks}, cfg, plain_eng.ctx)
+                    tok0 = torch.argmax(lp, dim=-1).to(torch.int32)
+                    dk, _ = registry.decode_step(params, tok0, cp, cfg, eng.ctx, False)
+                    dp, _ = registry.decode_step(params, tok0, cp, cfg, plain_eng.ctx, False)
+                for what, a, w in (("prefill", lk, lp), ("first decode step", dk, dp)):
+                    r = rel_l2(a, w)
+                    check(bool(torch.isfinite(a).all()) and r <= 0.2,
+                          f"{policy}: {what} logits vs plain: relative L2 {r:.4g} (tolerance "
+                          "0.2) or not finite")
+                    runs[capture][what] = r
+                del plain_eng, lk, lp, cp, dk, dp
+                # the step alone to a synchronize: median non-probe and probe step
+                step_ms, probe_ms = [], []
+                with torch.inference_mode():
+                    lg, caches = eng._prefill(params, {"tokens": toks})
+                    caches = eng._decode.adopt(caches)
+                    tok = torch.argmax(lg, dim=-1).to(torch.int32)
+                    for i in range(16):
+                        p = probe_flag(i, interval, scfg.seed)
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        lg, caches = eng._decode(params, caches, tok, p)
+                        torch.cuda.synchronize()
+                        (probe_ms if p else step_ms).append((time.perf_counter() - t0) * 1e3)
+                        tok = eng._decode.token
+                runs[capture].update(step_ms=float(np.median(step_ms)),
+                                     probe_ms=float(np.median(probe_ms)) if probe_ms else None)
+                del lg, caches
+            del eng
+        cap, eager = runs[True], runs[False]
+        uses_walk = policy in ("fp16", "h2o")
+        want = {"flash_fwd": n_layers, "cst_quant": 0, "paged_qattn": 0,
+                "probe_colsum": n_layers if CompressionConfig.preset(policy).uses_saliency else 0,
+                "decode_qattn": n_layers * (max_new - n_probe) if uses_walk else 0,
+                "plain_decodes": n_layers * (n_probe if uses_walk else max_new)}
+        for name, n in want.items():
+            check(cap["launches"][name] == n, f"lockstep {policy}: {name} {cap['launches'][name]} "
+                                              f"launches, the route implies {n}")
+        # the warm-up run's capture, then one after the first fold where it promotes
+        builds = 1 + (policy in PROMOTING and n_fold > 0)
+        check(cap["captures"] == builds and eager["captures"] == 0,
+              f"lockstep {policy}: the captured step was built {cap['captures']} times, the "
+              f"route implies {builds}")
+        n_equal, worst = 0, 0.0
+        for i, (a, w) in enumerate(zip(cap["rec"].logits, eager["rec"].logits)):
+            check(bool(torch.isfinite(a).all()), f"lockstep {policy}: step {i} not finite")
+            n_equal += bool(torch.equal(a, w))
+            dev_ = (a.float() - w.float()).abs().max().item() / (
+                2 ** -7 * max(w.float().abs().max().item(), 1.0))
+            worst = max(worst, dev_)
+            check(dev_ <= 1.0, f"lockstep {policy}: step {i}'s logits differ from the eager "
+                               f"step's by {dev_:.3g} bf16 ulps of their largest value")
+        check(len(cap["rec"].logits) == len(eager["rec"].logits) == max_new,
+              f"lockstep {policy}: {len(cap['rec'].logits)} captured steps")
+        check(bool((cap["out"]["tokens"] == eager["out"]["tokens"]).all()),
+              f"lockstep {policy}: captured tokens differ from the eager engine's")
+        first[policy], last[policy] = (cap["rec"].logits[i].float() for i in (0, -1))
+        tm = cap["out"]["timings"]
+        packed = cap["bytes"]["packed_bytes"]
+        fp16_bytes = 2 * b * hk * max_len * d * 2 * n_layers
+        ratio = ccfg.compression_ratio(b, hk, max_len, d)
+        # the first decode step's logits (one prefill, the caches apart) as
+        # tests/test_serving.py compares policies; the last step's follow
+        # each policy's own greedy tokens
+        cos = [torch.nn.functional.cosine_similarity(x[policy].flatten(), x["fp16"].flatten(),
+                                                     dim=0).item() for x in (first, last)]
+        log(f"lockstep {policy} ({card}): prefill {tm['prefill_s']:.3f} s, decode "
+            f"{tm['decode_s']:.3f} s (eager {eager['out']['timings']['decode_s']:.3f} s), median "
+            f"non-probe step {cap['step_ms']:.3f} ms, probe step {cap['probe_ms'] or 0:.3f} ms; "
+            f"{n_probe} probe steps, {n_fold} fold; launches {cap['launches']}; captures "
+            f"{cap['captures']}; {n_equal} of {max_new} steps bitwise the eager step's, largest "
+            f"difference {worst:.3g} bf16 ulps; logits vs plain: prefill rel L2 "
+            f"{cap['prefill']:.4g}, first decode {cap['first decode step']:.4g} (yardstick "
+            f"{yardstick:.4g}); cache_bytes packed {packed} ({fp16_bytes / packed:.4f}x the "
+            f"bf16 bytes of {max_len} tokens; Appendix-A ratio {ratio:.4f}), total "
+            f"{cap['bytes']['total_bytes']}; logits cosine to fp16's: first decode step "
+            f"{cos[0]:.4f}, last step {cos[1]:.4f}")
+        out_paths[f"4i-lockstep-{policy}"] = {n: c for n, c in cap["launches"].items()
+                                              if n in kernels}
+        del runs, cap, eager
+
+    # -- (ii) continuous runs: phase 4b's configuration and traffic -------------
+    for policy in CONTINUOUS_POLICIES:
+        ccfg = CompressionConfig.preset(policy)
+        eng = ContinuousEngine(cfg, ccfg, cscfg, params, device=dev)
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        paged.GATHER_DECODES.launches = 0
+        t0 = time.perf_counter()
+        rids = [eng.submit(Request(tokens=r, max_new_tokens=int(m)))
+                for r, m in zip(requests, budgets)]
+        while eng.pending:
+            eng.step()
+            eng._alloc.check_invariants()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {n: c.launches for n, c in kernels.items()}
+        gathers = paged.GATHER_DECODES.launches
+        st = eng.pool_stats()
+        res = {r: eng.result(r) for r in rids}
+        for i, r in enumerate(rids):
+            check(res[r].finish_reason == "length" and len(res[r].tokens) == budgets[i],
+                  f"continuous {policy}: {r} ended {res[r].finish_reason} with "
+                  f"{len(res[r].tokens)} of {budgets[i]} tokens")
+        for seg in ("hi", "lo", "win"):
+            check(st[seg]["used"] == 0 and st[seg]["free"] == st[seg]["pool_pages"],
+                  f"continuous {policy}: {seg} pages not all returned: {st[seg]}")
+        walk_ = policy == "fp16"
+        want = {"cst_quant": 0, "flash_fwd": n_layers * st["admissions"], "probe_colsum": 0,
+                "decode_qattn": 0, "paged_qattn": n_layers * eng._step_no if walk_ else 0}
+        for name, n in want.items():
+            check(got[name] == n, f"continuous {policy}: {name} {got[name]} launches, the route "
+                                  f"implies {n}")
+        n_gather = 0 if walk_ else n_layers * eng._step_no
+        check(gathers == n_gather, f"continuous {policy}: {gathers} gather-path decodes, the "
+                                   f"route implies {n_gather}")
+        n_tok = sum(len(x.tokens) for x in res.values())
+        peaks = {k: f"{st[k]['peak_used']}/{st[k]['pool_pages']}" for k in ("hi", "lo", "win")}
+        log(f"continuous {policy} ({card}): {n_tok} tokens in {wall:.3f} s, {eng._step_no} "
+            f"steps, {st['admissions']} admissions, {st['deferrals']} deferrals, {st['folds']} "
+            f"folds; pages peak used / pool {peaks}; launches {got}, gather-path decodes "
+            f"{gathers}; allocator invariants held after every step, every page back")
+        out_paths[f"4i-continuous-{policy}"] = got
+        del eng, res
+    log(f"baselines: phase 4i took {time.perf_counter() - t_phase:.1f} s")
+    return out_paths
+
+
 def profile_window(torch, run, n_steps):
     """(busy share, device operations per step) of `run()`, which runs
     `n_steps` steps, under torch.profiler: the device's summed kernel, copy
@@ -1847,8 +2200,10 @@ def _freelist_cache(torch, np, backend_lib, alloc_lib, paged, ccfg, dev, gen, hk
     return cache
 
 
-def _salient_sets_agree(torch, sal, attention, ccfg, probe, col, col_ref, prompt):
-    """`saliency.salient_split` of the kernel's normalized saliency picks the
+def _salient_sets_agree(torch, sal, attention, ccfg, probe, col, col_ref, prompt,
+                        normalized=True):
+    """`saliency.salient_split` of the kernel's normalized saliency (or,
+    without `normalized`, of its accumulated column sums, Eq. 7) picks the
     plain version's salient set, up to tokens within the tolerance of the
     split boundary: a column sum may move by 1e-4 + 1e-4 |sum| (the
     kernel's tolerance), so a token whose saliency and the boundary's lie
@@ -1856,6 +2211,8 @@ def _salient_sets_agree(torch, sal, attention, ccfg, probe, col, col_ref, prompt
     n_hi = ccfg.n_salient(prompt)
     s_k, nnz = attention.probe_saliency_from_colsum(col, probe, prompt)
     s_r, _ = attention.probe_saliency_from_colsum(col_ref, probe, prompt)
+    if not normalized:
+        s_k, s_r, nnz = col, col_ref, torch.ones_like(nnz)
     tol = (1e-4 + 1e-4 * col_ref.abs()) / nnz.clamp_min(1.0)
     idx_k, _ = sal.salient_split(s_k, n_hi)
     idx_r, _ = sal.salient_split(s_r, n_hi)
@@ -1870,8 +2227,9 @@ def _salient_sets_agree(torch, sal, attention, ccfg, probe, col, col_ref, prompt
                   f"probe_colsum: token {t} of row {row} changes saliency side {gap:.3g} away "
                   "from the split boundary")
         n_diff += len(ks ^ rs) // 2
-    log(f"probe_colsum: salient sets ({n_hi} of {prompt} tokens per row) agree with the plain "
-        f"version's up to {n_diff} swapped pairs, all within tolerance of the boundary")
+    log(f"probe_colsum: salient sets ({n_hi} of {prompt} tokens per row, "
+        f"{'normalized' if normalized else 'accumulated'}) agree with the plain version's up "
+        f"to {n_diff} swapped pairs, all within tolerance of the boundary")
 
 
 def _leaves(tree):

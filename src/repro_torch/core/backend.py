@@ -1,15 +1,19 @@
 """Cache backends (port of `repro.core.backend`): the mixed and paged layouts
 behind one interface the model layers and the engines call.
 
-`MixedKVBackend` puts the ZipCache mixed cache behind that interface.  With
-`use_kernels` it routes the cache's hot steps through the port's CUDA
-kernels where the policy's stores are ZipCache's (channelwise K, CST V):
-each store's gather and quantization (K and V) through one `cst_quant`
-launch, and decode attention on non-probe steps through `decode_qattn`.  Probe steps need exact head-pooled
-slot weights for the saliency state, so they take the plain exact-softmax
-`attend_decode`.  `use_kernels=False` is the plain path throughout, the JAX
-package's live path written in PyTorch.  The paged layout is
-`core.paged.PagedKVBackend`.
+`MixedKVBackend` puts the mixed cache of every policy behind that
+interface.  With `use_kernels` it routes the cache's hot steps through the
+port's CUDA kernels where the stores allow: each ZipCache store's gather
+and quantization (K and V) through one `cst_quant` launch, and decode
+attention on non-probe steps through `decode_qattn` wherever every
+non-empty store is in the walk's schemes (channelwise K, CST V, or raw:
+zipcache, fp16, h2o), checked per store as the paged layout's gate does.
+Probe steps need exact head-pooled slot weights for the saliency state, so
+they take the plain exact-softmax `attend_decode`, as do the stores the
+walk does not read (kivi, gear, mikv: the gather route).  `impl` picks
+that plain route's algebra ("ref" or "int8_algebra").  `use_kernels=False`
+is the plain path throughout, the JAX package's live path written in
+PyTorch.  The paged layout is `core.paged.PagedKVBackend`.
 
 `is_probe`, wherever it appears, is a host bool for the whole batch or a
 (b,) device tensor of per-row flags that the caller passes only when some
@@ -26,6 +30,12 @@ import torch
 
 from repro_torch.core import kvcache as kvc
 from repro_torch.core.policy import CompressionConfig
+from repro_torch.kernels import build
+
+# mixed-layout decode attentions computed by the plain exact route
+# (`kvcache.attend_decode`) instead of `decode_qattn`: probe steps, the
+# policies whose stores the walk does not read, and use_kernels=False
+PLAIN_DECODES = build.Counter()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,13 +57,14 @@ class MixedKVBackend:
     def append(self, cache, k_t, v_t, active=None):
         return kvc.append_token(cache, k_t, v_t, active=active)
 
-    def attend(self, q, cache, is_probe=False) -> kvc.DecodeAttnOut:
-        """Decode attention: the exact path with slot weights when some row
-        probes; otherwise the kernel, which returns no slot weights."""
-        zipcache_stores = (self.ccfg.key_scheme, self.ccfg.value_scheme) == ("channelwise", "cst")
-        if kvc.any_probe(is_probe) or not self.use_kernels or not zipcache_stores:
-            return kvc.attend_decode(q, cache)
+    def attend(self, q, cache, is_probe=False, impl: str = "ref") -> kvc.DecodeAttnOut:
+        """Decode attention: the exact path (`impl`'s algebra) with slot
+        weights when some row probes or a store is not the walk's;
+        otherwise the kernel, which returns no slot weights."""
         from repro_torch.kernels.decode_qattn import ops as dq_ops
+        if kvc.any_probe(is_probe) or not self.use_kernels or not dq_ops.kernel_supported(cache):
+            PLAIN_DECODES.launches += 1
+            return kvc.attend_decode(q, cache, impl=impl)
         return kvc.DecodeAttnOut(dq_ops.decode_attend_mixed(q, cache), None)
 
     def update_probe(self, cache, slot_weights, is_probe):

@@ -18,10 +18,19 @@ Continuous batching: `append_token(active=)` masks empty slots,
 `update_probe_state` takes per-row probe flags, `insert_slot`/`free_slot`
 write one batch row, and `recompress(rows=)` folds a subset of rows.
 
-Only the saliency policies (zipcache, mikv) are ported; the baselines'
-branches raise.  `use_kernel` builds ZipCache's stores (K channelwise, V
+Every policy of `CompressionConfig.preset` runs on the same structure with
+its own capacities: zipcache and mikv split tokens by saliency into hi and
+lo; fp16 keeps every token raw in hi; gear quantizes every token into lo;
+kivi keeps its last `fp_window` tokens raw in the window and the rest in
+lo; h2o keeps its salient tokens raw in hi and evicts the rest (a
+zero-capacity lo).  `use_kernel` builds ZipCache's stores (K channelwise, V
 CST, quantized) with one `cst_quant` launch each, which gathers the store's
 tokens and quantizes K and V together (`store_at`).
+
+`attend_decode(impl="int8_algebra")` folds the dequantization parameters of
+channelwise K and CST V stores into the attention algebra, so the only
+(slots, d) tensors are the unpacked bf16 codes (the reference's decode
+lever); a store in another scheme raises.
 
 `eff` (`core.precision.LayerEff`, a precision map and / or a downshift
 rung) gives the hi and lo stores effective-bit ceilings inside their
@@ -39,15 +48,9 @@ import torch
 from repro_torch.core import packing, quant
 from repro_torch.core import saliency as sal
 from repro_torch.core.policy import CompressionConfig
+from repro_torch.models import common
 
 NEG_INF = -1e30
-_SALIENCY_METHODS = ("zipcache", "mikv")
-
-
-def _ported(cfg: CompressionConfig) -> None:
-    if cfg.method not in _SALIENCY_METHODS:
-        raise NotImplementedError(
-            f"policy {cfg.method!r} is not ported yet (ported: {_SALIENCY_METHODS})")
 
 
 # ---------------------------------------------------------------------------
@@ -231,6 +234,12 @@ def capacities(cfg: CompressionConfig, max_len: int) -> Tuple[int, int, int]:
     return s_hi, max_len - s_hi, w
 
 
+def _lo_bits(cfg: CompressionConfig) -> int:
+    """The lo store's width: h2o evicts its regular tokens (0 bits), and its
+    zero-capacity lo store is declared 2-bit, as the reference's."""
+    return max(cfg.low_bits, 2) if cfg.low_bits else 2
+
+
 def _window(b, h_kv, w, d, dv, dtype, device) -> dict:
     return dict(
         k_win=torch.zeros((b, h_kv, w, d), dtype=dtype, device=device),
@@ -243,12 +252,11 @@ def _window(b, h_kv, w, d, dv, dtype, device) -> dict:
 
 def init_cache(cfg: CompressionConfig, b: int, h_kv: int, d: int, max_len: int,
                dtype=torch.bfloat16, d_v: Optional[int] = None, device=None) -> MixedKVCache:
-    _ported(cfg)
     dv = d_v if d_v is not None else d
     s_hi, s_lo, w = capacities(cfg, max_len)
     return MixedKVCache(
         hi=empty_store(b, h_kv, s_hi, d, cfg.high_bits, cfg, dtype, d_v=dv, device=device),
-        lo=empty_store(b, h_kv, s_lo, d, cfg.low_bits, cfg, dtype, d_v=dv, device=device),
+        lo=empty_store(b, h_kv, s_lo, d, _lo_bits(cfg), cfg, dtype, d_v=dv, device=device),
         length=torch.zeros((b,), dtype=torch.int32, device=device),
         **_window(b, h_kv, w, d, dv, dtype, device))
 
@@ -272,28 +280,26 @@ def _gather_slots(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def compress_prefill(cfg: CompressionConfig, k: torch.Tensor, v: torch.Tensor,
-                     token_saliency: torch.Tensor, max_len: int,
+                     token_saliency: Optional[torch.Tensor], max_len: int,
                      probe_nnz: Optional[torch.Tensor] = None, dtype=torch.bfloat16,
                      use_kernel: bool = False, eff=None) -> MixedKVCache:
     """Compress prefill K/V (b, h_kv, l, d) into a MixedKVCache sized max_len.
 
-    token_saliency: (b, l) normalized probe saliency; probe_nnz: (b, l) its
-    Eq. 8 denominators.  `acc` stores the raw mass: saliency * max(nnz, 1).
-    eff: optional `precision.LayerEff`, this layer's effective bits.
+    token_saliency: (b, l) normalized probe saliency, None for the policies
+    without saliency (fp16, gear, kivi); probe_nnz: (b, l) its Eq. 8
+    denominators.  `acc` stores the raw mass: saliency * max(nnz, 1).
+    eff: optional `precision.LayerEff`, this layer's effective bits (raw
+    segments ignore it).
     """
-    _ported(cfg)
-    if token_saliency is None:
-        raise ValueError(f"{cfg.method} needs token saliency")
     b, h_kv, l, d = k.shape
     s_hi, s_lo, w = capacities(cfg, max_len)
     dev = k.device
     positions = torch.arange(l, dtype=torch.int32, device=dev).expand(b, l)
     nnz = probe_nnz.float() if probe_nnz is not None else torch.ones((b, l), device=dev)
-    acc = token_saliency.float() * nnz.clamp_min(1.0)
-
-    n_hi = min(cfg.n_salient(l), s_hi)
-    salient_idx, regular_idx = sal.salient_split(token_saliency, n_hi)
-
+    sal_ = (token_saliency.float() if token_saliency is not None
+            else torch.zeros((b, l), device=dev))
+    acc = sal_ * nnz.clamp_min(1.0)
+    length = torch.full((b,), l, dtype=torch.int32, device=dev)
     eff_hi, eff_lo = _store_effs(eff)
 
     def store(idx, capacity, bits, store_eff):
@@ -309,11 +315,42 @@ def compress_prefill(cfg: CompressionConfig, k: torch.Tensor, v: torch.Tensor,
                         slots(_gather_slots(acc, idx)), slots(_gather_slots(nnz, idx)), bits,
                         cfg, use_kernel=use_kernel, eff=store_eff)
 
-    return MixedKVCache(
-        hi=store(salient_idx, s_hi, cfg.high_bits, eff_hi),
-        lo=store(regular_idx, s_lo, cfg.low_bits, eff_lo),
-        length=torch.full((b,), l, dtype=torch.int32, device=dev),
-        **_window(b, h_kv, w, d, v.shape[-1], dtype, dev))
+    def empty(capacity, bits):
+        """A store this policy leaves empty (zero capacity)."""
+        return empty_store(b, h_kv, capacity, d, bits, cfg, dtype, d_v=v.shape[-1], device=dev)
+
+    def window():
+        return _window(b, h_kv, w, d, v.shape[-1], dtype, dev)
+
+    def cache(hi, lo, win=None):
+        return MixedKVCache(hi=hi, lo=lo, length=length, **(win or window()))
+
+    if cfg.method == "fp16":
+        return cache(store(positions, s_hi, 16, None), empty(s_lo, _lo_bits(cfg)))
+    if cfg.method == "gear":
+        return cache(empty(s_hi, cfg.high_bits), store(positions, s_lo, cfg.low_bits, eff_lo))
+    if cfg.method == "kivi":
+        # the last fp_window tokens raw in the window (sized fp_window plus
+        # the fold's staging room), the rest in lo at low bits
+        n_body = max(l - min(cfg.fp_window, w), 0)
+        n_win = l - n_body
+        win = window()
+        win["k_win"][:, :, :n_win] = k[:, :, n_body:].to(dtype)
+        win["v_win"][:, :, :n_win] = v[:, :, n_body:].to(dtype)
+        win["win_pos"][:, :n_win] = positions[:, n_body:]
+        win["win_fill"].fill_(n_win)
+        return cache(empty(s_hi, cfg.high_bits),
+                     store(positions[:, :n_body], s_lo, cfg.low_bits, eff_lo), win)
+
+    # saliency policies: zipcache, mikv, h2o
+    if token_saliency is None:
+        raise ValueError(f"{cfg.method} needs token saliency")
+    n_hi = min(cfg.n_salient(l), s_hi)
+    salient_idx, regular_idx = sal.salient_split(token_saliency, n_hi)
+    hi = store(salient_idx, s_hi, cfg.high_bits, eff_hi)
+    if cfg.low_bits == 0:   # h2o: the regular tokens are evicted
+        return cache(hi, empty(s_lo, _lo_bits(cfg)))
+    return cache(hi, store(regular_idx, s_lo, cfg.low_bits, eff_lo))
 
 
 # ---------------------------------------------------------------------------
@@ -335,10 +372,15 @@ def cache_keys_values(cache: MixedKVCache):
     return k, v, pos >= 0, pos
 
 
-def attend_decode(q: torch.Tensor, cache: MixedKVCache,
-                  scale: Optional[float] = None) -> DecodeAttnOut:
+def attend_decode(q: torch.Tensor, cache: MixedKVCache, scale: Optional[float] = None,
+                  impl: str = "ref") -> DecodeAttnOut:
     """One-token decode attention over the mixed cache (exact softmax, with
-    head-pooled slot weights).  q: (b, h_q, d)."""
+    head-pooled slot weights).  q: (b, h_q, d).  impl="int8_algebra" folds
+    the dequantization into the attention algebra (`attend_decode_int8`)."""
+    if impl == "int8_algebra":
+        return attend_decode_int8(q, cache, scale)
+    if impl != "ref":
+        raise ValueError(f"unknown decode impl {impl!r}; one of ('ref', 'int8_algebra')")
     k, v, valid, _ = cache_keys_values(cache)
     b, h_kv, _, d = k.shape
     h_q = q.shape[1]
@@ -349,6 +391,84 @@ def attend_decode(q: torch.Tensor, cache: MixedKVCache,
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgs,bhsd->bhgd", w, v.float()).reshape(b, h_q, -1).to(q.dtype)
     return DecodeAttnOut(out, w.mean(dim=(1, 2)))
+
+
+def _int8_store(store: TokenStore) -> None:
+    """The int8 algebra folds channelwise K and CST V parameters: a store
+    quantized in another scheme raises, naming it."""
+    for name, q, want in (("K", store.k, "channelwise"), ("V", store.v, "cst")):
+        got = quant.scheme_of(q)
+        if got not in ("raw", want):
+            raise ValueError(f"decode_impl='int8_algebra' needs {want} {name} stores (or raw "
+                             f"ones); this store's {name} is {got}")
+
+
+def _codes_product(eq: str, x: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """x (f32) against unpacked bf16 codes: a bf16 product (f32 accumulation,
+    one rounding to bf16), returned in f32."""
+    return common.einsum(eq, x.to(torch.bfloat16), codes).float()
+
+
+def _store_logits_int8(qg: torch.Tensor, store: TokenStore) -> torch.Tensor:
+    """q . dequant(K)^T of a channelwise K store without dequantized K:
+        dequant(K)[s, d] = (C[s, d] - zero_c[d]) * scale_c[d]
+        logits[s] = sum_d q'[d] C[s, d] - sum_d q[d] scale_c[d] zero_c[d],
+    with q' = q * scale_c.  qg (b, hk, g, d) f32 -> (b, hk, g, S) f32."""
+    kq = store.k
+    if kq.bits >= 16:
+        return torch.einsum("bhgd,bhsd->bhgs", qg, kq.dequantize().float())
+    codes = packing.unpack(kq.codes, kq.bits, out_dtype=torch.bfloat16)
+    scale_c = kq.scale.float()[:, :, 0]               # (b, hk, d)
+    zero_c = kq.zero.float()[:, :, 0]
+    lin = _codes_product("bhgd,bhsd->bhgs", qg * scale_c[:, :, None, :], codes)
+    const = torch.einsum("bhgd,bhd->bhg", qg, scale_c * zero_c)
+    return lin - const[..., None]
+
+
+def _store_values_int8(w: torch.Tensor, store: TokenStore) -> torch.Tensor:
+    """w . dequant(V) of a CST V store, its scales folded into the weights:
+        V[s, d] = (C[s, d] - zt[s]) * ts[s] * cs[d]
+        out[d] = cs[d] (sum_s (w ts)[s] C[s, d] - sum_s w[s] ts[s] zt[s]).
+    w (b, hk, g, S) f32 -> (b, hk, g, dv) f32."""
+    vq = store.v
+    if vq.bits >= 16:
+        return torch.einsum("bhgs,bhsd->bhgd", w, vq.dequantize().float())
+    codes = packing.unpack(vq.codes, vq.bits, out_dtype=torch.bfloat16)
+    ts = vq.scale.float()[..., 0]                     # (b, hk, S)
+    zt = vq.zero.float()[..., 0]
+    cs = vq.channel_scale.float()[:, :, 0]            # (b, hk, d)
+    lin = _codes_product("bhgs,bhsd->bhgd", w * ts[:, :, None, :], codes)
+    corr = torch.einsum("bhgs,bhs->bhg", w, ts * zt)
+    return (lin - corr[..., None]) * cs[:, :, None, :]
+
+
+def attend_decode_int8(q: torch.Tensor, cache: MixedKVCache,
+                       scale: Optional[float] = None) -> DecodeAttnOut:
+    """Decode attention with the dequantization folded into the attention
+    algebra: the only (S, d) tensors are the unpacked bf16 codes feeding the
+    products (the reference's `attend_decode_int8`).  Same (out,
+    slot_weights) as `attend_decode` within bf16 rounding of the products.
+    Stores must be channelwise K / CST V (ZipCache's) or raw; empty ones
+    are skipped."""
+    b, h_q, d = q.shape
+    h_kv = cache.k_win.shape[1]
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    qg = q.reshape(b, h_kv, h_q // h_kv, d).float() * scale
+    stores = [s for s in (cache.hi, cache.lo) if s.capacity]
+    for store in stores:
+        _int8_store(store)
+    logits = torch.cat([_store_logits_int8(qg, s) for s in stores]
+                       + [torch.einsum("bhgd,bhsd->bhgs", qg, cache.k_win.float())], dim=-1)
+    valid = torch.cat([s.valid for s in stores] + [cache.win_pos >= 0], dim=-1)
+    w = torch.softmax(logits.masked_fill(~valid[:, None, None, :], NEG_INF), dim=-1)
+    out = torch.zeros((b, h_kv, h_q // h_kv, cache.v_win.shape[-1]), dtype=torch.float32,
+                      device=q.device)
+    off = 0
+    for store in stores:
+        out = out + _store_values_int8(w[..., off:off + store.capacity], store)
+        off += store.capacity
+    out = out + torch.einsum("bhgs,bhsd->bhgd", w[..., off:], cache.v_win.float())
+    return DecodeAttnOut(out.reshape(b, h_q, -1).to(q.dtype), w.mean(dim=(1, 2)))
 
 
 def any_probe(is_probe) -> bool:
@@ -476,7 +596,10 @@ def recompress(cfg: CompressionConfig, cache: MixedKVCache, rows: Optional[torch
                use_kernel: bool = False, eff=None) -> MixedKVCache:
     """Fold the staging window back into the quantized stores: re-rank every
     valid token by its current saliency (acc / nnz for 'normalized', acc for
-    'accumulated'), rebuild hi/lo, empty the window.
+    'accumulated'; by position for fp16, gear and kivi), rebuild hi/lo,
+    empty the window.  h2o keeps half its raw hi store for the most recent
+    tokens and fills the rest with heavy hitters; kivi's fold, like the
+    reference's, leaves no token raw (its window empties into lo).
 
     rows: optional (b,) bool: fold only those rows (each slot of a
     continuous batch folds on its own counter).  Every step is
@@ -497,19 +620,25 @@ def _valid_first(idx: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return (torch.sort(key, dim=-1).values % s_total).to(torch.int32)
 
 
+def _top(scores: torch.Tensor, n: int) -> torch.Tensor:
+    """Indices of the n largest scores per row, ties lower index first, as
+    `jax.lax.top_k` (and the reference's stable `argsort(-scores)`) ranks."""
+    return torch.sort(scores, dim=-1, descending=True, stable=True).indices[:, :n].to(torch.int32)
+
+
 def _recompress_all(cfg: CompressionConfig, cache: MixedKVCache,
                     use_kernel: bool = False, eff=None) -> MixedKVCache:
-    _ported(cfg)
     k, v, valid, pos = cache_keys_values(cache)
     acc = torch.cat([cache.hi.acc, cache.lo.acc, cache.win_acc], dim=1)
     nnz = torch.cat([cache.hi.nnz, cache.lo.nnz, cache.win_nnz], dim=1)
-    scores = acc / nnz.clamp_min(1.0) if cfg.saliency_metric == "normalized" else acc
+    if cfg.method == "fp16" or cfg.saliency_metric not in ("normalized", "accumulated"):
+        scores = pos.float()           # fp16, gear, kivi: by recency, newest first
+    elif cfg.saliency_metric == "normalized":
+        scores = acc / nnz.clamp_min(1.0)
+    else:
+        scores = acc
     scores = scores.masked_fill(~valid, NEG_INF)
-
     s_hi, s_lo = cache.hi.capacity, cache.lo.capacity
-    idx = torch.sort(scores, dim=-1, descending=True, stable=True).indices[:, :s_hi + s_lo]
-    idx = idx.to(torch.int32)
-
     eff_hi, eff_lo = _store_effs(eff)
 
     def store(idx_, bits, store_eff):
@@ -521,6 +650,14 @@ def _recompress_all(cfg: CompressionConfig, cache: MixedKVCache,
                         _gather_slots(nnz, order), bits, cfg, use_kernel=use_kernel,
                         eff=store_eff)
 
+    if cfg.method == "h2o":
+        # H2O's retention: the s_hi // 2 most recent tokens (+1e30 on their
+        # scores), then the heavy hitters by accumulated score; all raw
+        recency = pos.float().masked_fill(~valid, NEG_INF)
+        keep = torch.zeros_like(scores).scatter_(1, _top(recency, s_hi // 2).long(), -NEG_INF)
+        hi = store(_top(scores + keep, s_hi), 16, None)
+        return _emptied_window(dataclasses.replace(cache, hi=hi))
+    idx = _top(scores, s_hi + s_lo)
     hi = store(idx[:, :s_hi], cfg.high_bits, eff_hi)
     lo = store(idx[:, s_hi:], cfg.low_bits, eff_lo)
     return _emptied_window(dataclasses.replace(cache, hi=hi, lo=lo))

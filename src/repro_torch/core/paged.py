@@ -577,17 +577,21 @@ class PagedKVBackend:
     def append(self, cache, k_t, v_t, active=None):
         return append_token(cache, k_t, v_t, active=active)
 
-    def attend(self, q, cache, is_probe=False) -> kvc.DecodeAttnOut:
+    def attend(self, q, cache, is_probe=False, impl: str = "ref") -> kvc.DecodeAttnOut:
+        """The page walk where `kernel_supported` allows it, its slot
+        weights on a probe step from the gather path; else the gather path.
+        `impl` ("ref" or "int8_algebra") is the gather path's algebra, the
+        probe step's recompute included."""
         if self.paged_kernel:
             from repro_torch.kernels.paged_qattn import ops as pq_ops
             if pq_ops.kernel_supported(cache):
                 out = pq_ops.attend_paged(q, cache, use_ref=not self.use_kernels,
                                           want_weights=False).out
-                w = (kvc.attend_decode(q, cache.dense_view()).slot_weights
+                w = (kvc.attend_decode(q, cache.dense_view(), impl=impl).slot_weights
                      if kvc.any_probe(is_probe) else None)
                 return kvc.DecodeAttnOut(out, w)
         GATHER_DECODES.launches += 1
-        return kvc.attend_decode(q, cache.dense_view())
+        return kvc.attend_decode(q, cache.dense_view(), impl=impl)
 
     def update_probe(self, cache, slot_weights, is_probe):
         return kvc.update_probe_state(cache, slot_weights, is_probe)

@@ -1,12 +1,14 @@
-"""Compression policies (port of `repro.core.policy`, declarative part).
-
-The port's cache runs the ZipCache policy; the baseline presets are kept as
-declarations so `--policy` names resolve, and the cache raises for them.
+"""Compression policies (port of `repro.core.policy`): ZipCache and every
+baseline the paper compares against (MiKV, KIVI, GEAR, H2O, fp16), as
+declarative configs that the cache (`core.kvcache`) and the engines read,
+with each policy's Appendix-A compression ratio.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+from repro_torch.core import quant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,3 +104,18 @@ class CompressionConfig:
 
     def n_salient(self, length: int) -> int:
         return int(round(self.saliency_ratio * length))
+
+    def compression_ratio(self, b: int, h: int, l: int, d: int) -> float:
+        """Paper-style compression ratio for this policy (Appendix A algebra)."""
+        if self.method == "fp16":
+            return 1.0
+        if self.method == "h2o":
+            return quant.mixed_precision_ratio(16, 0, self.saliency_ratio, b, h, l, d, evict=True)
+        if self.method == "kivi":
+            return quant.mixed_precision_ratio(16, self.low_bits, 0.0, b, h, l, d,
+                                               fp_window=self.fp_window,
+                                               param_scheme="zipcache_baseline")
+        param_scheme = ("zipcache_baseline" if self.value_scheme == "cst"
+                        else "channelwise_k_tokenwise_v")
+        return quant.mixed_precision_ratio(self.high_bits, self.low_bits, self.saliency_ratio,
+                                           b, h, l, d, param_scheme=param_scheme)

@@ -73,6 +73,20 @@ class QuantizedTensor:
                    if t is not None)
 
 
+def scheme_of(q: QuantizedTensor) -> str:
+    """The scheme a quantized tensor's parameter shapes imply: "raw" (16
+    bits), "cst" (a channel normalizer), "channelwise" (params (..., 1, C)),
+    "tokenwise" (..., T, 1) or "groupwise" (..., T, C / g).  Works on a
+    paged store's metadata too (codes None)."""
+    if q.bits >= 16:
+        return "raw"
+    if q.channel_scale is not None:
+        return "cst"
+    if q.scale.shape[-2:] == (1, q.shape[-1]):
+        return "channelwise"
+    return "tokenwise" if q.scale.shape[-1] == 1 else "groupwise"
+
+
 def true_div(x: torch.Tensor, n: float) -> torch.Tensor:
     """x / n with one IEEE rounding.  On CUDA, PyTorch divides by a Python
     number as a multiply by its reciprocal, which is off by an ulp at
@@ -186,3 +200,64 @@ def quantize(x: torch.Tensor, bits: int, scheme: str, **kw) -> QuantizedTensor:
     except KeyError:
         raise ValueError(f"unknown scheme {scheme!r}; one of {sorted(_SCHEMES)}") from None
     return fn(x, bits, **kw)
+
+
+def fake_quant(x: torch.Tensor, bits: int, scheme: str, **kw) -> torch.Tensor:
+    """Quantize + dequantize round trip (the quality-evaluation paths)."""
+    return quantize(x, bits, scheme, **kw).dequantize().to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Compression-ratio algebra (paper Appendix A): host arithmetic, the
+# reference's operations in its order, so the floats are equal.
+# ---------------------------------------------------------------------------
+
+def param_count(scheme: str, b: int, h: int, l: int, d: int, group_size: int = 32) -> int:
+    """fp16 quantization parameters for quantizing K *and* V (b batch, h
+    heads, l tokens, d head dim; h * d flattened channels)."""
+    hd = h * d
+    if scheme == "groupwise":
+        return 4 * b * hd * l // group_size   # 2 tensors x 2 params x groups
+    if scheme == "tokenwise":
+        return 4 * b * l
+    if scheme == "channelwise_k_tokenwise_v":
+        return 2 * hd + 2 * b * l
+    if scheme == "zipcache_baseline":         # channelwise K + CST V (paper Table 1)
+        return 3 * hd + 2 * b * l
+    raise ValueError(scheme)
+
+
+def compression_ratio(scheme: str, bits: int, b: int, h: int, l: int, d: int,
+                      group_size: int = 32, fp_bits: int = 16) -> float:
+    """KV compression ratio with the parameter overhead (paper Eq. A-C)."""
+    hd = h * d
+    total_fp = 2 * b * hd * l * fp_bits
+    payload = 2 * b * hd * l * bits
+    overhead = param_count(scheme, b, h, l, d, group_size) * fp_bits
+    return total_fp / (payload + overhead)
+
+
+def mixed_precision_ratio(high_bits: int, low_bits: int, saliency_ratio: float, b: int, h: int,
+                          l: int, d: int, fp_bits: int = 16,
+                          param_scheme: str = "zipcache_baseline", fp_window: int = 0,
+                          evict: bool = False) -> float:
+    """Compression ratio of the mixed-precision, windowed and eviction
+    policies (paper Table 3 / A / B): ZipCache and MiKV put r% of the
+    tokens at high_bits and the rest at low_bits; KIVI the last fp_window
+    at fp16 and the rest at low_bits; H2O keeps r% at fp16 and evicts the
+    rest (no parameters); GEAR has high_bits == low_bits."""
+    hd = h * d
+    total_fp = 2.0 * b * hd * l * fp_bits
+    l_hi = saliency_ratio * l
+    l_lo = l - l_hi
+    if evict:
+        payload = 2.0 * b * hd * l_hi * fp_bits
+        overhead = 0.0
+    elif fp_window:
+        l_w = min(fp_window, l)
+        payload = 2.0 * b * hd * (l_w * fp_bits + (l - l_w) * low_bits)
+        overhead = param_count(param_scheme, b, h, int(l - l_w), d) * fp_bits
+    else:
+        payload = 2.0 * b * hd * (l_hi * high_bits + l_lo * low_bits)
+        overhead = param_count(param_scheme, b, h, l, d) * fp_bits
+    return total_fp / (payload + overhead)

@@ -1,4 +1,9 @@
-"""Probe selection and salient-token partition (port of `repro.core.saliency`).
+"""Token-saliency metrics, probe selection and the salient-token partition
+(port of `repro.core.saliency`).
+
+The exact metrics need the full attention matrix: the accumulated score of
+Eq. 7 (H2O, MiKV) and the normalized score of Eq. 8 (ZipCache).  The probe
+approximation of Eq. 9 substitutes a few probe rows into Eq. 8.
 
 `select_probes` reproduces the reference's probe positions exactly.  Its
 random half comes from `jax.random.randint` on a threefry2x32 key; the
@@ -14,6 +19,8 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.models import common
 
 # ---------------------------------------------------------------------------
 # threefry2x32 (numpy, uint32 arrays wrap on overflow)
@@ -81,6 +88,36 @@ def _hash_positions(n: int, lo: int, hi: int, seed: int) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
+# Exact metrics
+# ---------------------------------------------------------------------------
+
+def accumulated_scores(attn: torch.Tensor) -> torch.Tensor:
+    """Eq. 7: column sums of the (causal) attention matrix.
+    attn (..., q_len, kv_len) -> (..., kv_len)."""
+    return attn.sum(dim=-2)
+
+
+def causal_nnz(q_len: int, kv_len: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """nnz(A[:, i]) of a causal matrix whose queries are the LAST q_len
+    positions of a kv_len-long sequence: min(q_len, kv_len - i)."""
+    i = torch.arange(kv_len, device=device)
+    return torch.clamp(kv_len - i, max=q_len).to(dtype)
+
+
+def normalized_scores(attn: torch.Tensor, nnz: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Eq. 8: accumulated scores over per-column non-zero counts; `nnz`
+    defaults to the causal structure (queries are the last q_len rows)."""
+    if nnz is None:
+        nnz = causal_nnz(attn.shape[-2], attn.shape[-1], dtype=attn.dtype, device=attn.device)
+    return accumulated_scores(attn) / nnz.clamp_min(1.0)
+
+
+def head_mean(saliency: torch.Tensor, head_axis: int = -2) -> torch.Tensor:
+    """Saliency averaged over heads: the cache quantizes whole tokens."""
+    return saliency.mean(dim=head_axis)
+
+
+# ---------------------------------------------------------------------------
 # Probe selection (paper §4.3, Table 2)
 # ---------------------------------------------------------------------------
 
@@ -128,6 +165,39 @@ def select_probes(
         raise ValueError(f"unknown probe strategy {strategy!r}")
     return ProbeSpec(torch.as_tensor(pos, dtype=torch.int32, device=device),
                      n_recent, n_random)
+
+
+def probe_normalized_scores(attn_probe: torch.Tensor, probe_positions: torch.Tensor,
+                            kv_len: int) -> torch.Tensor:
+    """Eq. 8 on probe rows only (the Eq. 9 substitution).  attn_probe
+    (..., n_probes, kv_len): causal softmax rows of the probe queries at
+    absolute positions `probe_positions`; a column's nnz is the number of
+    probes at or after it."""
+    pos = probe_positions.to(attn_probe.device)[:, None]
+    col = torch.arange(kv_len, device=attn_probe.device)[None, :]
+    nnz = (pos >= col).to(attn_probe.dtype).sum(dim=0)
+    return attn_probe.sum(dim=-2) / nnz.clamp_min(1.0)
+
+
+def probe_scores_from_qk(q: torch.Tensor, k: torch.Tensor, probe: ProbeSpec,
+                         scale: Optional[float] = None, pool_heads: bool = True) -> torch.Tensor:
+    """Probe-row attention (standard softmax) and its normalized saliency,
+    from Q/K directly (Eq. 9 into Eq. 8): the plain path that the probe
+    kernels' column sums replace.  q (..., h, q_len, d), k (..., h, kv_len,
+    d) -> (..., kv_len), or (..., h, kv_len) without `pool_heads`."""
+    d = q.shape[-1]
+    if scale is None:
+        scale = 1.0 / torch.sqrt(torch.tensor(float(d), device=q.device)).to(q.dtype)
+    positions = probe.positions.to(q.device)
+    qp = q.index_select(-2, positions.long())
+    logits = common.einsum("...pd,...kd->...pk", qp * scale, k).float()
+    kv_len = k.shape[-2]
+    mask = positions[:, None] >= torch.arange(kv_len, device=q.device)[None, :]
+    a = torch.softmax(logits.masked_fill(~mask, float("-inf")), dim=-1)
+    sal = probe_normalized_scores(a, positions, kv_len)
+    if pool_heads and sal.dim() >= 2:
+        sal = sal.mean(dim=-2)
+    return sal
 
 
 # ---------------------------------------------------------------------------

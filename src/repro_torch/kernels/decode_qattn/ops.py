@@ -2,16 +2,25 @@
 
 `decode_attend_mixed` hands the hi store, the lo store and the raw bf16
 window to one `qattn_mixed_layer` call, which walks the three segments and
-merges them flash-decoding style.  It needs the ZipCache layout (channelwise
-K, CST V; raw >= 16-bit stores pass their values through) and yields no
-slot weights: probe steps take `core.kvcache.attend_decode` instead.
+merges them flash-decoding style.  It needs every non-empty store in the
+walk's schemes (`kernel_supported`: channelwise K, CST V, or raw >= 16-bit
+values, as the paged layout's gate checks them) and yields no slot
+weights: probe steps take `core.kvcache.attend_decode` instead.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import qattn_walk as walk
 from repro_torch.kernels.decode_qattn import kernel as K
+
+
+def kernel_supported(cache) -> bool:
+    """Per-store check of a `MixedKVCache`: every non-empty store must be in
+    the walk's schemes, so ZipCache's quantized stores and the raw stores of
+    fp16 and h2o qualify, and KIVI's, GEAR's and MiKV's do not."""
+    return all(walk.store_supported(s.k, s.v) for s in (cache.hi, cache.lo) if s.capacity)
 
 
 def mixed_segments(cache) -> list:

@@ -3,8 +3,8 @@
 
 `attend_paged` replaces the paged backend's gather path
 (`kvcache.attend_decode(q, cache.dense_view())`) wherever the stores carry
-channelwise K / CST V codes or raw >= 16-bit values (the ZipCache and fp16
-configurations): the hi store, the lo store and the bf16 staging window go
+channelwise K / CST V codes or raw >= 16-bit values (the ZipCache, fp16 and
+H2O configurations): the hi store, the lo store and the bf16 staging window go
 through one `kernel.qattn_paged_layer` call, which walks the three segments'
 pages and merges their flash stats as `ref.merge_segments_weights` does.
 With `want_weights` it also rebuilds the head-pooled slot weights; the
@@ -22,25 +22,17 @@ from typing import Optional
 import torch
 
 from repro_torch.core import kvcache as kvc
+from repro_torch.kernels import qattn_walk as walk
 from repro_torch.kernels.paged_qattn import kernel as K
 from repro_torch.kernels.paged_qattn import ref as R
 
 
 def kernel_supported(cache) -> bool:
-    """Static check of the policy's schemes: every non-empty quantized store
-    must be ZipCache's (channelwise K, CST V); raw (bits >= 16) stores always
-    qualify.  Groupwise / tokenwise stores (KIVI, GEAR) take the gather path."""
-    for store in (cache.hi, cache.lo):
-        if store.table.shape[1] == 0:
-            continue
-        km, vm = store.k_meta, store.v_meta
-        if km.bits < 16 and (km.scale is None or km.scale.shape[-2] != 1
-                             or km.channel_scale is not None):
-            return False
-        if vm.bits < 16 and (vm.scale is None or vm.scale.shape[-1] != 1
-                             or vm.channel_scale is None):
-            return False
-    return True
+    """Static check of the stores: every non-empty one must be in the walk's
+    schemes (`qattn_walk.store_supported`: channelwise K, CST V, or raw).
+    Groupwise / tokenwise stores (KIVI, GEAR) take the gather path."""
+    return all(walk.store_supported(s.k_meta, s.v_meta)
+               for s in (cache.hi, cache.lo) if s.table.shape[1])
 
 
 def _store_operands(store, pad: bool = False) -> dict:

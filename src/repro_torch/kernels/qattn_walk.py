@@ -16,6 +16,7 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.core import quant
 from repro_torch.kernels import build
 
 HEAD_DIMS = (16, 32, 64, 128)
@@ -33,6 +34,13 @@ class SegDesc(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in ("kpool", "vpool", "ks", "kz", "vcs", "vts", "vtz",
                                                 "pos", "table")] + \
                [(n, ctypes.c_int) for n in ("npp", "page", "k_bits", "v_bits", "s_seg", "t_bf16")]
+
+
+def store_supported(k: "quant.QuantizedTensor", v: "quant.QuantizedTensor") -> bool:
+    """Whether the walk reads a store as it is: K channelwise and V CST
+    (ZipCache's schemes), either raw (>= 16 bits).  Groupwise and tokenwise
+    stores (KIVI, GEAR, MiKV's V) take the gather route."""
+    return quant.scheme_of(k) in ("raw", "channelwise") and quant.scheme_of(v) in ("raw", "cst")
 
 
 def ptr(t) -> int:
@@ -91,11 +99,20 @@ def describe(name: str, q: torch.Tensor, k_data: torch.Tensor, v_data: torch.Ten
     return desc, ts
 
 
+def split_plan(descs: Sequence[SegDesc], b: int, hk: int, target_ctas: int):
+    """(blocks per CTA, splits per (row, kv head)) for a walk over `descs`:
+    about `target_ctas` CTAs in all, at most MAX_SPLITS splits."""
+    n_blk = sum(-(-dd.s_seg // SLOT_BLOCK) for dd in descs)
+    bpc = max(1, -(-n_blk * b * hk // target_ctas), -(-n_blk // MAX_SPLITS))
+    return bpc, -(-n_blk // bpc)
+
+
 def launch(kernel: build.CudaKernel, name: str, q: torch.Tensor, descs: Sequence[SegDesc],
            hk: int, scale: float, target_ctas: int, want_weights: bool, normalized: bool):
     """One launch of `kernel` over the described segments (whose tensors the
     caller keeps alive through the call).  Returns (out in q's dtype if
-    `normalized` else acc f32, m, l, p or None, m_run or None)."""
+    `normalized` else acc f32, m, l, p or None, m_run or None).  The split
+    count the launch used stays on `kernel.splits`."""
     b, h, d = q.shape
     if q.dtype not in FLOATS or d not in HEAD_DIMS or h % hk or h // hk not in GROUPS \
             or not 1 <= len(descs) <= 3:
@@ -103,11 +120,8 @@ def launch(kernel: build.CudaKernel, name: str, q: torch.Tensor, descs: Sequence
                          f"{GROUPS}, one to three segments; got {q.dtype} {tuple(q.shape)}, "
                          f"hk {hk}, {len(descs)} segments")
     arr = (SegDesc * len(descs))(*descs)
-    n_blk = sum(-(-dd.s_seg // SLOT_BLOCK) for dd in descs)
     s_total = sum(dd.s_seg for dd in descs)
-    # blocks per CTA: about target_ctas CTAs in all
-    bpc = max(1, -(-n_blk * b * hk // target_ctas), -(-n_blk // MAX_SPLITS))
-    nsplit = -(-n_blk // bpc)
+    bpc, nsplit = split_plan(descs, b, hk, target_ctas)
     q = q.contiguous()
     f32 = dict(dtype=torch.float32, device=q.device)
     n_part, n_bh = b * h * nsplit, b * h
@@ -126,4 +140,5 @@ def launch(kernel: build.CudaKernel, name: str, q: torch.Tensor, descs: Sequence
            ptr0 + 4 * n_part * (d + 1), 0 if normalized else ptr(res),
            ptr(res) if normalized else 0, ptr(m), ptr(l), ptr(p), ptr(m_run),
            b, h, hk, d, scale, bpc, nsplit, int(q.dtype == torch.bfloat16), build.stream_of(q))
+    kernel.splits = nsplit
     return res, m, l, p, m_run

@@ -35,7 +35,12 @@ buffers:
 A graph bakes in every address it reads: the parameters, the static inputs
 and every cache leaf.  So whatever replaces cache leaves outside the step
 (prefill, a fold, insertion, a slot's retirement) goes through `adopt`,
-which copies the new leaves into the static tree.
+which copies the new leaves into the static tree.  A tree whose leaves
+differ from the static tree's in shape or dtype becomes the static tree
+itself, and the step is built again (a warm-up, then a capture), as the
+reference's jitted step retraces: the baselines' first fold promotes their
+mixed stores to f32 through the zero-capacity store's f32 parameters, in
+the port as in the reference (ROADMAP.md §3).
 
 A kernel wrapper counts its launches on the host, which a replay never
 runs: the capture's counts are taken back and added again at every replay
@@ -68,14 +73,16 @@ ROW_TOK, ROW_PROBE, ROW_ACT, ROW_TEMP, ROW_SEED, ROW_CTR = range(6)
 
 def serve_ctx(cfg: ArchConfig, shape: ShapeConfig, ccfg: Optional[CompressionConfig] = None,
               decode_budget: int = 512, q_block: int = 512, device="cuda",
-              use_kernels: bool = True) -> blocks.RunCtx:
+              use_kernels: bool = True, decode_impl: str = "ref",
+              compact_softmax: bool = False) -> blocks.RunCtx:
     """RunCtx + probes for a serving shape; max cache = seq_len + decode budget.
 
     The shape carries the cache layout (`cache_backend`, `page_size`,
     `paged_kernel`, `page_allocator`, `pool_fraction`) and the precision
     map, resolved here into the context's ceiling table ("" = maps off).
     use_kernels: the port's CUDA kernels on the path (the default), or their
-    plain PyTorch versions throughout.
+    plain PyTorch versions throughout.  decode_impl / compact_softmax: the
+    reference's levers on the plain routes (`blocks.RunCtx`).
     """
     ccfg = ccfg or CompressionConfig.zipcache()
     qlen = shape.seq_len
@@ -92,8 +99,8 @@ def serve_ctx(cfg: ArchConfig, shape: ShapeConfig, ccfg: Optional[CompressionCon
     pmap = precision_lib.parse_precision_map(shape.precision_map)
     table = pmap.resolve(cfg.n_layers, cfg.n_kv_heads) if pmap else None
     return blocks.RunCtx(ccfg=ccfg, probe=probe, max_cache_len=shape.seq_len + decode_budget,
-                         q_block=q_block, use_kernels=use_kernels, backend=backend,
-                         precision=table)
+                         q_block=q_block, use_kernels=use_kernels, decode_impl=decode_impl,
+                         compact_softmax=compact_softmax, backend=backend, precision=table)
 
 
 def stage_rows(rows: Dict[int, Tuple], b: int) -> np.ndarray:
@@ -116,6 +123,15 @@ def sampling_rows(staged: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, tor
 
 class CaptureError(RuntimeError):
     """A decode step could not be captured as a CUDA graph."""
+
+
+def _fits(dst: Any, src: Any) -> bool:
+    """Whether cache tree `src` has dst's layers and leaf shapes and dtypes."""
+    if len(dst["groups"]) != len(src["groups"]):
+        return False
+    pairs = [(d, t) for gd, gs in zip(dst["groups"], src["groups"])
+             for d, t in zip(kvc.tree_leaves(gd["sub0"]), kvc.tree_leaves(gs["sub0"]))]
+    return all(d.shape == t.shape and d.dtype == t.dtype for d, t in pairs)
 
 
 def _copy_into(dst: Any, src: Any) -> None:
@@ -166,15 +182,34 @@ class _DecodeStep:
 
     def adopt(self, caches: Any) -> Any:
         """Make `caches` the step's cache tree and return that tree: the first
-        tree becomes the static one, a later one is copied into it.  With
+        tree becomes the static one, a later one is copied into it, and one
+        that does not fit it (other leaf dtypes or shapes) becomes the
+        static tree and drops what was built over the old one.  With
         capture=False, `caches` itself."""
         if not self.capture:
             return caches
         if self.caches is None:
             self.caches = caches
         elif caches is not self.caches:
-            _copy_into(self.caches, caches)
+            if _fits(self.caches, caches):
+                _copy_into(self.caches, caches)
+            else:
+                self._rebuild(caches)
         return self.caches
+
+    def _rebuild(self, caches: Any) -> None:
+        """A new static tree: the graphs over the old one go, and the next
+        non-probe step warms up and captures again (on the CPU, the rebuilt
+        static buffers count as a build)."""
+        self.caches = caches
+        self._stream = self._graph = self._out = None
+        self._deltas = ()
+        self._drop_graphs()
+        if self._params is not None and self.device.type != "cuda":
+            self._built()
+
+    def _drop_graphs(self) -> None:
+        """Forget the graphs captured beside the decode step's."""
 
     def _make_inputs(self, like) -> None:
         raise NotImplementedError
@@ -338,6 +373,10 @@ class ContinuousDecodeStep(_DecodeStep):
         self.sample_replays += 1
         return self._replay(self._sample_graph, self._sample_deltas, self._tokens)
 
+    def _drop_graphs(self) -> None:
+        self._sample_graph = self._tokens = None
+        self._sample_deltas = ()
+
     def _make_inputs(self, like: np.ndarray) -> None:
         self.staged = torch.zeros(like.shape, dtype=torch.int32, device=self.device)
 
@@ -349,17 +388,21 @@ class ContinuousDecodeStep(_DecodeStep):
         return logits
 
 
-def _ctx(cfg, shape, ccfg, ctx, q_block, device) -> blocks.RunCtx:
+def _ctx(cfg, shape, ccfg, ctx, q_block, device, decode_impl: str = "ref",
+         compact_softmax: bool = False) -> blocks.RunCtx:
     """`ctx`, else the serving context of `shape` with the port's kernels on
-    the path.  A caller that wants the plain versions passes
-    `serve_ctx(..., use_kernels=False)` as `ctx`, as the engines do."""
-    return ctx or serve_ctx(cfg, shape, ccfg, q_block=q_block, device=device)
+    the path and the given levers.  A caller that wants the plain versions
+    passes `serve_ctx(..., use_kernels=False)` as `ctx`, as the engines do."""
+    return ctx or serve_ctx(cfg, shape, ccfg, q_block=q_block, device=device,
+                            decode_impl=decode_impl, compact_softmax=compact_softmax)
 
 
 def make_prefill_step(cfg: ArchConfig, shape: ShapeConfig, ccfg: Optional[CompressionConfig] = None,
-                      q_block: int = 512, *, ctx=None, device="cuda"):
-    """prefill(params, batch) -> (logits at the last position, caches)."""
-    ctx = _ctx(cfg, shape, ccfg, ctx, q_block, device)
+                      q_block: int = 512, *, ctx=None, device="cuda",
+                      compact_softmax: bool = False):
+    """prefill(params, batch) -> (logits at the last position, caches).
+    compact_softmax: bf16 logits and probabilities on the plain route."""
+    ctx = _ctx(cfg, shape, ccfg, ctx, q_block, device, compact_softmax=compact_softmax)
 
     def prefill_step(params, batch):
         return registry.prefill(params, batch, cfg, ctx)
@@ -368,10 +411,12 @@ def make_prefill_step(cfg: ArchConfig, shape: ShapeConfig, ccfg: Optional[Compre
 
 
 def make_serve_step(cfg: ArchConfig, shape: ShapeConfig, ccfg: Optional[CompressionConfig] = None,
-                    q_block: int = 512, *, ctx=None, device="cuda", capture: bool = True):
+                    q_block: int = 512, *, ctx=None, device="cuda", capture: bool = True,
+                    decode_impl: str = "ref"):
     """The lockstep decode step, a `ServeStep`: serve_step(params, caches,
-    token, is_probe) -> (logits, caches)."""
-    ctx = _ctx(cfg, shape, ccfg, ctx, q_block, device)
+    token, is_probe) -> (logits, caches).  decode_impl: the algebra of the
+    plain decode attention ("ref" or "int8_algebra")."""
+    ctx = _ctx(cfg, shape, ccfg, ctx, q_block, device, decode_impl=decode_impl)
     return ServeStep(cfg, ctx, device, capture), ctx
 
 

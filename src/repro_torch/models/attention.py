@@ -3,7 +3,8 @@
 Prefill runs blocked causal attention with the ZipCache probe side-output:
 the per-column sum of softmax probabilities over probe rows, averaged over
 heads (paper Eq. 9).  `blocked_attention` is the reference's jnp path in
-PyTorch; with `use_kernel` it routes to `kernels.probe_flash`.
+PyTorch (with its `compact` bf16 variant); with `use_kernel` it routes to
+`kernels.probe_flash`.
 Shapes: activations (b, l, e); heads (b, h, l, d).
 """
 
@@ -57,11 +58,17 @@ def _probe_row_mask(probe: Optional[sal.ProbeSpec], lq: int, device) -> Optional
 def blocked_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
     q_block: int = 512, probe: Optional[sal.ProbeSpec] = None, use_kernel: bool = False,
+    compact: bool = False,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """q (b,h,lq,d), k/v (b,h_kv,lkv,d) -> (out, probe_colsum (b, lkv) | None).
 
     A loop over q blocks; every block sees the full K/V, so each row's
     softmax closes inside its block (float32 scores and probabilities).
+
+    compact=True materializes each block's logits and probabilities in
+    bf16 (the softmax statistics still reduce in f32): half the traffic of
+    the f32 route, probabilities in [0, 1] within 1e-2.  The kernel route
+    (`use_kernel`) takes precedence, as in the reference.
     """
     if use_kernel:
         from repro_torch.kernels.probe_flash import ops as pf_ops
@@ -79,17 +86,28 @@ def blocked_attention(
     if probe_rows is not None and pad:
         probe_rows = F.pad(probe_rows, (0, pad))
 
-    kf, vf = k.float(), v.float()
+    mat = torch.bfloat16 if compact else torch.float32
+    kf = k.to(mat)
+    vf = v.to(mat).float()     # compact: V in bf16, its products accumulate in f32
     col = torch.arange(lkv, device=q.device)
     colsum = torch.zeros((b, lkv), dtype=torch.float32, device=q.device)
     outs = []
     for i in range(nb):
         row = i * q_block + torch.arange(q_block, device=q.device)
-        logits = torch.einsum("bhgqd,bhkd->bhgqk", qp[:, :, :, i].float() * scale, kf)
+        qb = (qp[:, :, :, i].float() * scale).to(mat)
+        logits = common.einsum("bhgqd,bhkd->bhgqk", qb, kf)    # in mat
         if causal:
             logits = logits.masked_fill(row[:, None] < col[None, :], NEG_INF)
-        probs = torch.softmax(logits, dim=-1)
-        outs.append(torch.einsum("bhgqk,bhkd->bhgqd", probs, vf).to(q.dtype))
+        if compact:
+            lf = logits.float()
+            probs = torch.exp(lf - lf.amax(dim=-1, keepdim=True)).to(torch.bfloat16).float()
+            denom = probs.sum(dim=-1, keepdim=True)
+            out = torch.einsum("bhgqk,bhkd->bhgqd", probs, vf) / denom
+            probs = probs / denom
+        else:
+            probs = torch.softmax(logits, dim=-1)
+            out = torch.einsum("bhgqk,bhkd->bhgqd", probs, vf)
+        outs.append(out.to(q.dtype))
         if probe_rows is not None:
             pr = probe_rows[i * q_block:(i + 1) * q_block]
             colsum = colsum + quant.true_div(torch.einsum("bhgqk,q->bk", probs, pr), h)
@@ -120,8 +138,10 @@ def _qkv(params: dict, x: torch.Tensor, eq: str):
 
 def gqa_forward(params: dict, x: torch.Tensor, cfg: ArchConfig, *, causal: bool = True,
                 probe: Optional[sal.ProbeSpec] = None, q_block: int = 512,
-                use_kernel: bool = False) -> Tuple[torch.Tensor, AttnAux]:
-    """Full-sequence GQA self-attention (prefill), with the probe saliency."""
+                use_kernel: bool = False, compact: bool = False
+                ) -> Tuple[torch.Tensor, AttnAux]:
+    """Full-sequence GQA self-attention (prefill), with the probe saliency.
+    compact: `blocked_attention`'s bf16 logits and probabilities."""
     b, l, e = x.shape
     q, k, v = _qkv(params, x, "ble,ehd->bhld")
     if cfg.qkv_bias:
@@ -132,7 +152,7 @@ def gqa_forward(params: dict, x: torch.Tensor, cfg: ArchConfig, *, causal: bool 
     q = common.apply_rotary(q, cos[None, None], sin[None, None])
     k = common.apply_rotary(k, cos[None, None], sin[None, None])
     out, colsum = blocked_attention(q, k, v, causal=causal, q_block=q_block, probe=probe,
-                                    use_kernel=use_kernel)
+                                    use_kernel=use_kernel, compact=compact)
     y = common.out_proj(out.transpose(1, 2), params["wo"])  # heads beside d
     saliency = nnz = None
     if probe is not None and colsum is not None:

@@ -42,17 +42,25 @@ class RunCtx:
     (`core.precision`), read at every quantization site; None is the
     bitwise-default path.  It lives here, not on the backend, because only
     the model code knows the layer index of each compress / recompress.
+
+    The reference's two levers: `decode_impl` ("ref" or "int8_algebra") is
+    the algebra of the cache's plain decode attention (the gather route and
+    the probe steps' exact slot weights), and `compact_softmax` gives the
+    plain prefill attention bf16 logits and probabilities.
     """
 
     def __init__(self, ccfg: Optional[CompressionConfig] = None,
                  probe: Optional[sal.ProbeSpec] = None, max_cache_len: int = 0,
                  q_block: int = 512, use_kernels: bool = False,
+                 decode_impl: str = "ref", compact_softmax: bool = False,
                  backend=None, precision=None):
         self.ccfg = ccfg
         self.probe = probe
         self.max_cache_len = max_cache_len
         self.q_block = q_block
         self.use_kernels = use_kernels
+        self.decode_impl = decode_impl
+        self.compact_softmax = compact_softmax
         self.backend = backend if backend is not None else backend_lib.of(
             ccfg, use_kernels=use_kernels)
         self.precision = precision
@@ -80,7 +88,7 @@ def apply_layer_full(params: dict, x: torch.Tensor, cfg: ArchConfig, ctx: RunCtx
     `layer`: the absolute layer index, for the precision map."""
     h = common.rms_norm(x, params["ln1"], cfg.norm_eps)
     y, aux = attn.gqa_forward(params["attn"], h, cfg, probe=ctx.probe, q_block=ctx.q_block,
-                              use_kernel=ctx.use_kernels)
+                              use_kernel=ctx.use_kernels, compact=ctx.compact_softmax)
     cache_el = None
     if build_cache:
         cache_el = ctx.backend.compress_prefill(
@@ -102,7 +110,7 @@ def apply_layer_decode(params: dict, x_t: torch.Tensor, cfg: ArchConfig, cache_e
     h = common.rms_norm(x_t, params["ln1"], cfg.norm_eps)
     q_t, k_t, v_t = attn.gqa_decode_qkv(params["attn"], h, cfg, cache_el.length)
     cache_el = be.append(cache_el, k_t, v_t, active=active)
-    dec = be.attend(q_t, cache_el, is_probe)
+    dec = be.attend(q_t, cache_el, is_probe, impl=ctx.decode_impl)
     cache_el = be.update_probe(cache_el, dec.slot_weights, is_probe)
     x_t = x_t + common.out_proj(dec.out, params["attn"]["wo"])
     if cfg.d_ff:

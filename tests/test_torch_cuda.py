@@ -32,7 +32,7 @@ from repro_torch.kernels.probe_flash import kernel as pf_kernel
 from repro_torch.kernels.probe_flash import ops as pf_ops
 from repro_torch.kernels.probe_flash import ref as pf_ref
 from repro_torch.launch import steps as steps_lib
-from repro_torch.models import blocks, common, registry
+from repro_torch.models import attention, blocks, common, registry
 from repro_torch.serving import (ContinuousEngine, Request, ServeConfig, ServingEngine,
                                  pack_requests, probe_flag)
 
@@ -1030,3 +1030,115 @@ def test_greedy_only_step_graph_unchanged(dev):
     assert mixed[1] == greedy[1] and mixed[0] != greedy[0]
     step = eng._decode_masked.step
     assert step.captures == 2 and step._sample_graph is not None
+
+
+# ---------------------------------------------------------------------------
+# the baseline policies and the levers on the card
+# ---------------------------------------------------------------------------
+
+BASELINES = ("mikv", "h2o", "fp16", "gear", "kivi")
+
+
+@pytest.mark.parametrize("policy", BASELINES)
+def test_baseline_engine_matches_eager_and_plain(dev, policy):
+    """A baseline policy's lockstep run on the card (smoke width, a fold and
+    probe steps in 12 tokens): every captured step's logits within one bf16
+    ulp of the eager step's, tokens equal; the prefill logits within bf16
+    noise of the plain versions'; `decode_qattn` on the non-probe steps of
+    fp16 and h2o (raw stores), the plain route (`PLAIN_DECODES`) on every
+    step of mikv, gear and kivi; the step built again after the first fold
+    where it promotes the stores (all but mikv)."""
+    cfg, _, params, scfg = _smoke(dev)
+    ccfg = dataclasses.replace(CompressionConfig.preset(policy), fp_window=8,
+                               recompress_interval=8)
+    batch = {"tokens": _smoke_batch(cfg)}
+    runs = {}
+    for capture in (True, False):
+        eng = ServingEngine(cfg, ccfg, scfg, params, device=dev, capture=capture)
+        counters = (dq_kernel.KERNEL, backend_lib.PLAIN_DECODES, cst_kernel.KERNEL)
+        before = [c.launches for c in counters]
+        seen, step = [], eng._decode
+        eng._decode = _Keep(step, seen)
+        out = eng.generate(batch)
+        torch.cuda.synchronize()
+        runs[capture] = (out["tokens"], seen, [c.launches - n for c, n in zip(counters, before)],
+                         step)
+    (tok_c, got, launches, step), (tok_e, want, _, _) = runs[True], runs[False]
+    assert (tok_c == tok_e).all()
+    for a, w in zip(got, want):
+        _close(a, w)
+    n_layers, n_probe = cfg.n_layers, sum(probe_flag(i, 8) for i in range(12))
+    walks = policy in ("h2o", "fp16")
+    assert launches == [n_layers * (12 - n_probe) if walks else 0,
+                        n_layers * (n_probe if walks else 12), 0]
+    assert step.captures == (1 if policy == "mikv" else 2)
+    tokens = torch.as_tensor(batch["tokens"], device=dev)
+    lk, _ = registry.prefill(params, {"tokens": tokens}, cfg,
+                             ServingEngine(cfg, ccfg, scfg, params, device=dev).ctx)
+    lp, _ = registry.prefill(params, {"tokens": tokens}, cfg,
+                             ServingEngine(cfg, ccfg, scfg, params, device=dev,
+                                           use_kernels=False).ctx)
+    assert (lk.float() - lp.float()).abs().max() <= 2 ** -6 * lp.float().abs().max()
+
+
+class _Keep:
+    """A lockstep decode step that keeps every call's logits."""
+
+    def __init__(self, step, seen):
+        self.step, self.seen = step, seen
+
+    def __call__(self, *args):
+        logits, caches = self.step(*args)
+        self.seen.append(logits.clone())
+        return logits, caches
+
+    def __getattr__(self, name):
+        return getattr(self.step, name)
+
+
+@pytest.mark.parametrize("policy", BASELINES + ("zipcache",))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mixed_gate_per_store(dev, policy, dtype):
+    """The mixed layout's decode gate reads each store: fp16's and h2o's raw
+    stores (and zipcache's) reach `decode_qattn` on a non-probe step, within
+    one bf16 ulp (bf16) or 1e-4 (f32) of the exact route; mikv, gear and
+    kivi take the exact route, counted in `PLAIN_DECODES`."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ccfg = dataclasses.replace(CompressionConfig.preset(policy), fp_window=8,
+                               recompress_interval=8)
+    k, v = (_randn(gen, 2, 2, 40, 16, dtype=dtype, dev=dev) for _ in range(2))
+    s = torch.rand((2, 40), generator=gen, device=dev)
+    be = backend_lib.of(ccfg)
+    cache = be.compress_prefill(k, v, s if ccfg.uses_saliency else None, 60, dtype=dtype)
+    cache = be.append(cache, k[:, :, 0], v[:, :, 0])
+    q = _randn(gen, 2, 4, 16, dtype=dtype, dev=dev)
+    before = (dq_kernel.KERNEL.launches, backend_lib.PLAIN_DECODES.launches)
+    out = be.attend(q, cache, is_probe=False).out
+    torch.cuda.synchronize()
+    walks = policy in ("zipcache", "h2o", "fp16")
+    assert (dq_kernel.KERNEL.launches - before[0],
+            backend_lib.PLAIN_DECODES.launches - before[1]) == ((1, 0) if walks else (0, 1))
+    want = kvc.attend_decode(q, cache).out
+    tol = 2 ** -7 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(out.float(), want.float(), rtol=0,
+                               atol=tol * max(want.float().abs().max().item(), 1.0))
+
+
+def test_levers_on_the_card(dev):
+    """`attend_decode(impl="int8_algebra")` against the exact route on a
+    zipcache cache (out atol 2e-2 rtol 1e-2, slot weights 1e-3), and
+    `blocked_attention(compact=True)` against the f32 route (outputs within
+    2e-2), both on the card."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ccfg = CompressionConfig.zipcache()
+    k, v = (_randn(gen, 2, 4, 300, 128, dtype=torch.bfloat16, dev=dev) for _ in range(2))
+    cache = kvc.compress_prefill(ccfg, k, v, torch.rand((2, 300), generator=gen, device=dev),
+                                 340)
+    q = _randn(gen, 2, 32, 128, dtype=torch.bfloat16, dev=dev)
+    ref, alg = kvc.attend_decode(q, cache), kvc.attend_decode(q, cache, impl="int8_algebra")
+    torch.testing.assert_close(alg.out.float(), ref.out.float(), atol=2e-2, rtol=1e-2)
+    torch.testing.assert_close(alg.slot_weights, ref.slot_weights, atol=1e-3, rtol=0)
+    qa = _randn(gen, 1, 32, 300, 128, dtype=torch.bfloat16, dev=dev)
+    oc, _ = attention.blocked_attention(qa, k[:1], v[:1], compact=True)
+    of, _ = attention.blocked_attention(qa, k[:1], v[:1])
+    assert (oc.float() - of.float()).abs().max().item() <= 2e-2

@@ -118,6 +118,20 @@ def test_layer_descriptors(dtype, rng):
     assert n_blk == -(-tc.hi.capacity // 32) + -(-tc.lo.capacity // 32) + 1
 
 
+def test_split_plan():
+    """The walk's split sizing, which every launch records on its kernel:
+    every block in one split, no split empty, at most MAX_SPLITS; fp16's
+    full-width raw layer (1152 + 100 slots, batch 4, 4 kv heads, 528 CTAs)
+    walks 20 splits of 2 blocks."""
+    segs = lambda *lens: [walk.SegDesc(s_seg=n) for n in lens]  # noqa: E731
+    assert walk.split_plan(segs(1152, 100), 4, 4, 528) == (2, 20)
+    for lens, b, hk in [((461, 691, 100), 4, 4), ((64,), 1, 1), ((5, 33), 2, 1),
+                        ((1 << 20,), 1, 1)]:
+        bpc, nsplit = walk.split_plan(segs(*lens), b, hk, 528)
+        n_blk = sum(-(-n // walk.SLOT_BLOCK) for n in lens)
+        assert (nsplit - 1) * bpc < n_blk <= nsplit * bpc and nsplit <= walk.MAX_SPLITS
+
+
 def test_layer_rejects_mismatched_operands(rng):
     """The wrapper's checks: a quantized store without its parameters, a pos
     of the wrong length, K raw and V quantized."""

@@ -13,7 +13,10 @@ The call graph is `tools/analyze/hostsync.py`'s, pointed at
 `src/repro_torch`: it follows calls through module imports and `self`, and
 stops at attribute chains.  So the backends' decode methods (reached as
 `ctx.backend.append(...)`) and the caches' dequantization and dense views
-are rooted here as well.
+are rooted here as well, and so is the plain decode attention a
+gather-route policy's captured step replays (kivi, gear, mikv: the
+groupwise and tokenwise dequantization, `kvcache.attend_decode`) with the
+int8-algebra route beside it (`decode_impl="int8_algebra"`).
 """
 
 import ast
@@ -37,6 +40,8 @@ ROOTS = (
     ("repro_torch.core.paged", "PagedKVCache.dense_view"),
     ("repro_torch.core.paged", "PagedStore.dense"),
     ("repro_torch.core.quant", "QuantizedTensor.dequantize"),
+    ("repro_torch.core.kvcache", "attend_decode"),
+    ("repro_torch.core.kvcache", "attend_decode_int8"),
 )
 HOST_METHODS = {"item", "cpu", "tolist"}
 HOST_CALLS = {"torch.as_tensor", "torch.from_numpy"}
@@ -68,6 +73,9 @@ def test_captured_steps_reach_no_host_calls(graph):
     assert ("repro_torch.models.lm", "decode_step") in reached
     assert ("repro_torch.kernels.qattn_walk", "launch") in reached
     assert ("repro_torch.core.prng", "threefry2x32") in reached
+    for fn in ("cache_keys_values", "_store_logits_int8", "_store_values_int8", "_int8_store"):
+        assert ("repro_torch.core.kvcache", fn) in reached
+    assert ("repro_torch.core.quant", "scheme_of") in reached
     bad = [f"{graph.modules[mod].src.rel}:{line} {qual}: {pattern}"
            for mod, qual in reached
            for line, pattern in host_calls(graph.modules[mod].functions[qual])]

@@ -121,8 +121,3 @@ def test_init_caches_match_reference():
     assert len(caches["groups"]) == arch.n_layers
     for group in caches["groups"]:
         _assert_cache_equal(group["sub0"], want)
-
-
-def test_baseline_policies_raise():
-    with pytest.raises(NotImplementedError):
-        kvc.init_cache(CompressionConfig.kivi(), 1, 1, 8, 16)

@@ -169,13 +169,14 @@ def _kv(rng, b=2, hk=2, l=48, d=16):
         np.float32))
 
 
-@pytest.mark.parametrize("policy", ["zipcache", "mikv"])
+@pytest.mark.parametrize("policy", ["zipcache", "mikv", "kivi", "gear", "fp16", "h2o"])
 def test_attend_bitwise_across_layouts(policy, rng):
     """(a): append, attend, a probe update and a recompression on each layout,
     then the exact (probe-step) attention: mixed and paged-gather agree bit
     for bit, the page-walk backend keeps the same saliency state and slot
-    weights and agrees to 1e-5 (mikv's tokenwise V is not the page walk's
-    layout, so there it takes the gather path)."""
+    weights and agrees to 1e-5 (mikv's tokenwise V, gear's and kivi's
+    stores are not the page walk's layout, so there it takes the gather
+    path; fp16 and h2o walk their raw pages)."""
     _, ccfg = _cfgs(policy)
     k, v, s = _kv(rng)
     q = torch.from_numpy(rng.normal(size=(2, 4, 16)).astype(np.float32))

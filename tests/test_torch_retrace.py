@@ -47,15 +47,15 @@ pytestmark = pytest.mark.usefixtures("torch_threads")
 INTERVAL = 8
 
 
-def _setup():
+def _setup(policy="zipcache"):
     cfg = configs.get_arch("yi-6b", smoke=True)
-    ccfg = dataclasses.replace(CompressionConfig.zipcache(), fp_window=8,
+    ccfg = dataclasses.replace(CompressionConfig.preset(policy), fp_window=8,
                                recompress_interval=INTERVAL)
     return cfg, ccfg, registry.materialize_params(cfg, 0, device="cpu")
 
 
-def _engine(**scfg_kw):
-    cfg, ccfg, params = _setup()
+def _engine(policy="zipcache", **scfg_kw):
+    cfg, ccfg, params = _setup(policy)
     scfg = ServeConfig(**{**dict(batch_size=2, prompt_len=32, max_new_tokens=12), **scfg_kw})
     return cfg, ContinuousEngine(cfg, ccfg, scfg, params, device="cpu")
 
@@ -233,6 +233,36 @@ def test_prefix_cache_engine_zero_builds_at_steady_state():
     assert pf2["hits"] > pf["hits"] and pf2["cow_copies"] > pf["cow_copies"], (pf, pf2)
     assert eng.caches is eng._decode_masked.caches
     eng._alloc.check_invariants()
+
+
+@pytest.mark.parametrize("policy", ["kivi", "h2o"])
+@pytest.mark.parametrize("layout", ["mixed", "paged-freelist"])
+def test_baseline_policy_zero_builds_at_steady_state(policy, layout):
+    """kivi (the gather route: groupwise stores) and h2o (raw stores, the
+    page walk on the paged layout).  On the mixed layout the first fold
+    promotes the stores to f32 (the zero-capacity store's f32 parameters,
+    as in the reference), so the warm-up builds the decode step twice; a
+    second pass, with its admissions inserted into the promoted tree, its
+    preemption and its folds, builds nothing.  The paged slot fold keeps
+    the store dtype: one build."""
+    if layout == "mixed":
+        cfg, eng = _engine(policy, scheduler="priority", preemption="recompute")
+        drive = _drive_mixed_scenario
+        n = 4
+    else:
+        cfg, eng = _engine(policy, backend="paged", page_size=8, page_allocator="freelist",
+                           pool_fraction=1.0, admit_watermark=0.25, paged_kernel=True)
+        drive, n = _drive_deferral_scenario, 3
+
+    with compile_guard.count_captures() as warm:
+        drive(eng, _prompts(cfg, seed=0, n=n))
+    assert warm.count == (2 if layout == "mixed" else 1), warm.describe()
+    folds = eng._n_folds
+    with compile_guard.assert_no_captures() as steady:
+        drive(eng, _prompts(cfg, seed=1, n=n))
+    assert steady.count == 0
+    assert eng._n_folds > folds and eng._decode_masked.replays > 0
+    assert eng.caches is eng._decode_masked.caches
 
 
 def test_guard_counts_fresh_builds():
