@@ -29,6 +29,12 @@ continued:
      free-list paged cache at the continuous path's shapes (shuffled
      physical page ids, NULL entries, an empty slot), with and without the
      slot-weight outputs, and each segment alone through the same kernel;
+     then the rows at DeepSeek-V2-Lite's MLA shapes (`<kernel>@mla`):
+     flash_fwd at q/k head dim 192 and v 128, 16 heads, batch 4 and 1, with
+     SDPA beside it (its backend logged); probe_colsum at d 192, two calls
+     bitwise and the salient set the plain version's; cst_quant's hi and lo
+     stores of one MLA layer's lockstep prefill (one kv head: the 64-wide
+     rope key, the 512-wide latent), static and eff, bitwise;
   4. slice 1's main path: `ServingEngine.generate` on yi-6b at full width
      (32 layers, random bf16 weights from a seeded generator), zipcache
      defaults, batch 4, prompt 1024, 128 new tokens: prefill, probe steps,
@@ -142,6 +148,25 @@ continued:
      through paged_qattn, no gather) and kivi (every decode layer on the
      gather path, counted): every request ends with its budget, the
      allocator's invariants after every step, every page back;
+  4j. slice 12: DeepSeek-V2-Lite at full width (27 layers: an MLA prefix
+     layer with a dense FFN, then 26 layers of MLA and 64 routed + 2 shared
+     experts, top 6; latent 512, q/k head dim 192, v 128), random bf16
+     weights from a seeded generator, after phase 4i's yi-6b model is freed.
+     Lockstep: phase 4's batch and prompts, 128 new tokens, zipcache
+     defaults (probe steps, one fold), captured and eager: every step's
+     logits within one bf16 ulp of the eager step's, tokens equal; the
+     prefill and first decode step's logits against the plain versions'
+     within phase 4's bound.  Continuous: phase 4b's configuration and
+     traffic, captured and eager: every request ends with its budget, the
+     allocator's invariants hold and every page comes back, the first pass's
+     steps held as the lockstep's.  Launches held to the path: flash_fwd and
+     probe_colsum once per layer per prefill or admission, cst_quant twice
+     per layer per prefill, admission and fold, no decode_qattn or
+     paged_qattn (MLA decodes through the plain route over the cache's dense
+     view).  Logged: parameter bytes and peak memory, prefill and decode
+     walls, median non-probe and probe step times, packed cache bytes
+     against the bf16 latent and rope-key streams, the expert-weight bytes
+     a decode step reads;
   5. a `kernels` JSON line, then the last line:
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -153,6 +178,7 @@ from __future__ import annotations
 import argparse
 import ast
 import asyncio
+import gc
 import json
 import os
 import queue
@@ -631,6 +657,9 @@ def main() -> None:
         f"without slot weights; with them {ms_w:.4f} ms (device {dev_w:.4f} ms)")
     del pcache, segs
 
+    # flash_fwd, probe_colsum and cst_quant at DeepSeek-V2-Lite's MLA shapes
+    mla_kernels(torch, np, dev, rows, record, ccfg, prompt, max_new)
+
     # ---- 4. the main path -------------------------------------------------
     t0 = time.perf_counter()
     params = registry.materialize_params(cfg, seed=0, device=dev)
@@ -973,6 +1002,13 @@ def main() -> None:
     # ---- 4i. slice 11: the baseline policies and the two levers -------------
     by_path.update(baselines(torch, np, cfg, params, dev, kernels, rows, n_layers, batch, scfg,
                              cscfg, requests, budgets, rel_l2, yardstick, card))
+    # ---- 4j. slice 12: DeepSeek-V2-Lite (MLA + fine-grained MoE) ------------
+    del params, lock, rec, kstep, pstep   # the last holders of yi-6b's tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"yi-6b freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated")
+    by_path.update(deepseek(torch, np, dev, kernels, batch, cscfg, requests, budgets, rel_l2,
+                            yardstick, card))
     rows["cst_quant"]["eff"]["launches"] = sum(
         p["cst_quant"] for name, p in by_path.items() if name.startswith("levers"))
     for name, row in rows.items():
@@ -1111,6 +1147,7 @@ def prefix_dedup(torch, np, cfg, ccfg, params, dev, kernels, n_layers, prompt, c
     `prefix_cache` off, then on, then an eager engine with it on.  Returns
     the captured runs' launch counts, each read from 0."""
     from repro_torch.core import alloc as alloc_lib
+    from repro_torch.models import registry
     from repro_torch.serving import ContinuousEngine, Request, ServeConfig
 
     rng = np.random.default_rng(3)
@@ -1170,7 +1207,7 @@ def prefix_dedup(torch, np, cfg, ccfg, params, dev, kernels, n_layers, prompt, c
         launches = {n: kern.launches for n, kern in kernels.items()}
         st = eng.pool_stats()
         outs = [(eng.result(r).tokens.tolist(), eng.result(r).finish_reason) for r in rids]
-        snap_bytes = [sum(g["sub0"].nbytes_total() for g in snap["groups"]) + nbytes(lg)
+        snap_bytes = [sum(el.nbytes_total() for el in registry.cache_elements(snap)) + nbytes(lg)
                       for snap, lg in eng._prefix_snap.values()]
         for key in eng._alloc.prefix_reclaim(min_pages=10**9):
             eng._prefix_snap.pop(key)
@@ -2238,6 +2275,347 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+# phase 3's MLA rows and phase 4j: DeepSeek-V2-Lite (MLA + fine-grained MoE)
+MLA_ARCH = "deepseek-v2-lite-16b"
+
+
+def _sdpa_timed(torch, q, k, v):
+    """(ms, backend name) of the first SDPA backend that takes q/k/v: flash,
+    memory-efficient, cuDNN, then the math fallback."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        def fn(backend=backend):
+            with sdpa_kernel(backend):
+                return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True)
+        try:
+            fn()
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        return time_ms(torch, fn), backend.name
+    fail("no SDPA backend takes the MLA shapes")
+
+
+def mla_kernels(torch, np, dev, rows, record, ccfg, prompt, max_new):
+    """Phase 3's rows at DeepSeek-V2-Lite's shapes: flash_fwd at (q/k 192, v
+    128), 16 heads of one kv head each (MLA's materialized rope-key
+    broadcast), batch 4 and 1; probe_colsum at d 192 over the probe rows of
+    select_probes(prompt); cst_quant's hi and lo stores of one MLA layer's
+    lockstep prefill (one kv head: K the 64-wide rope key, V the 512-wide
+    latent), static and through an eff table."""
+    from repro_torch import configs
+    from repro_torch.core import kvcache as kvc
+    from repro_torch.core import saliency as sal
+    from repro_torch.kernels.cst_quant import kernel as cst_kernel
+    from repro_torch.kernels.cst_quant import ref as cst_ref
+    from repro_torch.kernels.probe_flash import kernel as pf_kernel
+    from repro_torch.kernels.probe_flash import ops as pf_ops
+    from repro_torch.kernels.probe_flash import ref as pf_ref
+    from repro_torch.models import attention
+
+    cfg = configs.get_arch(MLA_ARCH)
+    h, p, r = cfg.n_heads, cfg.rope_head_dim, cfg.kv_lora_rank
+    dqk, dv = cfg.nope_head_dim + p, cfg.v_head_dim
+    gen = torch.Generator(device=dev).manual_seed(24)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    pairs = prompt * (prompt + 1) // 2
+    q, k, v = randn(4, h, prompt, dqk), randn(4, h, prompt, dqk), randn(4, h, prompt, dv)
+    extra = {}
+    for b in (4, 1):
+        qb, kb, vb = q[:b].contiguous(), k[:b].contiguous(), v[:b].contiguous()
+        out, lse = pf_kernel.flash_fwd(qb, kb, vb)
+        ref_out, ref_lse = pf_ref.flash_fwd_ref(qb, kb, vb)
+        torch.cuda.synchronize()
+        check(out.shape == (b, h, prompt, dv), f"flash_fwd mla: output shape {tuple(out.shape)}")
+        err = (out.float() - ref_out.float()).abs().max().item()
+        tol = 2 ** -7 * ref_out.float().abs().max().item()
+        err_lse = (lse - ref_lse).abs().max().item()
+        check(err_lse <= 1e-4, f"flash_fwd mla batch {b}: lse error {err_lse:.3g} exceeds 1e-4")
+        fn = lambda qb=qb, kb=kb, vb=vb: pf_kernel.flash_fwd(qb, kb, vb)  # noqa: E731
+        lib, backend = _sdpa_timed(torch, qb, kb, vb)
+        bnd = bound_ms(2.0 * b * h * pairs * (dqk + dv), nbytes(qb, kb, vb, out, lse))
+        if b == 4:
+            record("flash_fwd@mla", "src/repro_torch/kernels/probe_flash/csrc/probe_flash.cu",
+                   "src/repro/kernels/probe_flash/kernel.py:100", err, tol, fn,
+                   time_ms(torch, fn), time_ms(torch, lambda: pf_ref.flash_fwd_ref(qb, kb, vb),
+                                               iters=5), bnd, lib)
+            rows["flash_fwd@mla"].update(sdpa_backend=backend, shape=[b, h, prompt, dqk, dv])
+            q4, lse4 = qb, lse
+        else:
+            check(err <= tol, f"flash_fwd mla batch 1: max abs error {err:.3g} exceeds {tol:.3g}")
+            extra = {"ms": time_ms(torch, fn), "device_ms": device_ms(torch, fn),
+                     "library_ms": lib, "sdpa_backend": backend, "max_abs_err": err,
+                     "bound_ms": bnd[0]}
+            rows["flash_fwd@mla"]["batch1"] = extra
+            log(f"flash_fwd@mla batch 1: kernel {extra['ms']:.4f} ms (device "
+                f"{extra['device_ms']:.4f} ms), SDPA ({backend}) {lib:.4f} ms, bound "
+                f"{bnd[0]:.4f} ms")
+    log(f"flash_fwd@mla: SDPA backend at batch 4: {rows['flash_fwd@mla']['sdpa_backend']}")
+
+    # probe_colsum at d 192: the probe rows of select_probes(prompt) (repeats -> -1)
+    probe = sal.select_probes(prompt)
+    pos = pf_ops.unique_probe_rows(probe.positions.to(dev))
+    safe = pos.clamp(0, prompt - 1).long()
+    args = (q4[:, :, safe].contiguous(), lse4[:, :, safe].contiguous(),
+            pos[None].expand(4, -1).contiguous(), k)
+    col = pf_kernel.probe_colsum(*args, lq=prompt)
+    col_ref = pf_ref.probe_colsum_ref(*args, lq=prompt)
+    again = pf_kernel.probe_colsum(*args, lq=prompt)
+    torch.cuda.synchronize()
+    check(torch.equal(col, again), "probe_colsum@mla: two calls on the same inputs differ")
+    _salient_sets_agree(torch, sal, attention, ccfg, probe, col, col_ref, prompt)
+    fn = lambda: pf_kernel.probe_colsum(*args, lq=prompt)  # noqa: E731
+    valid_pairs = int((pos[pos >= 0] + 1).sum())
+    record("probe_colsum@mla", "src/repro_torch/kernels/probe_flash/csrc/probe_flash.cu",
+           "src/repro/kernels/probe_flash/kernel.py:177", (col - col_ref).abs().max().item(),
+           1e-4, fn, time_ms(torch, fn),
+           time_ms(torch, lambda: pf_ref.probe_colsum_ref(*args, lq=prompt), iters=5),
+           bound_ms(2.0 * 4 * h * valid_pairs * dqk, nbytes(*args, col)))
+    rows["probe_colsum@mla"]["heads_per_cta"] = pf_kernel._heads_per_cta(4, h, 1, prompt)
+    del q, k, v, out, lse, ref_out, ref_lse, args, col, col_ref, again, q4, lse4
+
+    # cst_quant: one MLA layer's lockstep prefill stores, K the rope key, V the latent
+    s_hi, s_lo, _ = kvc.capacities(ccfg, prompt + max_new)
+    kpe, lat = randn(4, 1, prompt, p), randn(4, 1, prompt, r)
+    sal_idx, reg_idx = sal.salient_split(torch.rand((4, prompt), generator=gen, device=dev),
+                                         ccfg.n_salient(prompt))
+    timed = {}
+    for name, bits, cap, sidx in (("hi", ccfg.high_bits, s_hi, sal_idx),
+                                  ("lo", ccfg.low_bits, s_lo, reg_idx)):
+        sidx = torch.nn.functional.pad(sidx, (0, cap - sidx.shape[1]), value=-1)
+        eff = torch.randint(1, bits + 1, (4, 1, 2), generator=gen, device=dev).float()
+        eff.view(-1)[::3] = float(bits)
+        for e in (None, eff):
+            got = cst_kernel.quantize_store(kpe, lat, sidx, bits, eff=e)
+            want = cst_ref.quantize_store_ref(kpe, lat, sidx, bits, e)
+            torch.cuda.synchronize()
+            for part, a, w in zip(("K codes", "K scale", "K zero", "V codes", "V scale",
+                                   "V zero", "V channel scale"), got, want):
+                check(a.dtype == w.dtype and torch.equal(a, w),
+                      f"cst_quant@mla {name} store (eff {e is not None}): {part} differ from "
+                      "the plain version")
+        n_live = int((sidx >= 0).sum())
+        timed[name] = (bits, sidx, eff, bound_ms(0.0, n_live * (p + r) * 2 + nbytes(sidx, *got)))
+    bits, sidx, eff, bnd = timed["lo"]
+    fn = lambda: cst_kernel.quantize_store(kpe, lat, sidx, bits)  # noqa: E731
+    record("cst_quant@mla", "src/repro_torch/kernels/cst_quant/csrc/cst_quant.cu",
+           "src/repro/kernels/cst_quant/kernel.py:66", 0.0, 0.0, fn, time_ms(torch, fn, iters=50),
+           time_ms(torch, lambda: cst_ref.quantize_store_ref(kpe, lat, sidx, bits)), bnd)
+    fe = lambda: cst_kernel.quantize_store(kpe, lat, sidx, bits, eff=eff)  # noqa: E731
+    hbits, hidx, _, hbnd = timed["hi"]
+    fh = lambda: cst_kernel.quantize_store(kpe, lat, hidx, hbits)  # noqa: E731
+    rows["cst_quant@mla"].update(
+        eff={"ms": time_ms(torch, fe, iters=50), "device_ms": device_ms(torch, fe)},
+        hi={"ms": time_ms(torch, fh, iters=50), "device_ms": device_ms(torch, fh),
+            "bound_ms": hbnd[0]}, split=cst_kernel._split(2 * 4 * 1))
+    log(f"cst_quant@mla: bitwise at the hi and lo stores, static and eff; lo store "
+        f"({bits}-bit, {sidx.shape[1]} slots) with eff {rows['cst_quant@mla']['eff']['ms']:.4f} "
+        f"ms; hi store ({hbits}-bit, {hidx.shape[1]} slots) "
+        f"{rows['cst_quant@mla']['hi']['ms']:.4f} ms (device "
+        f"{rows['cst_quant@mla']['hi']['device_ms']:.4f} ms, bound {hbnd[0]:.5f} ms); "
+        f"{rows['cst_quant@mla']['split']} CTAs per slice")
+    del kpe, lat
+
+
+class TimedLogits(StepLogits):
+    """`StepLogits` that also times each call to a synchronize, by kind:
+    a probe step (lockstep: its host flag; continuous: a staged probe row)
+    or not."""
+
+    def __init__(self, step, torch):
+        super().__init__(step)
+        self.torch, self.ms = torch, {True: [], False: []}
+
+    def __call__(self, *args):
+        probe = bool(args[3]) if len(args) == 4 else bool(args[2][1].any())
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = super().__call__(*args)
+        self.torch.cuda.synchronize()
+        self.ms[probe].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+
+def deepseek(torch, np, dev, kernels, batch, cscfg, requests, budgets, rel_l2, yardstick, card):
+    """Phase 4j: DeepSeek-V2-Lite at full width (27 layers: an MLA prefix
+    layer with a dense FFN, then 26 MLA + MoE layers of 64 routed and 2
+    shared experts, top 6) from a seeded generator, on both engines,
+    captured and eager.  Returns the launch counts of each run."""
+    from repro_torch import configs
+    from repro_torch.core import paged
+    from repro_torch.core.policy import CompressionConfig
+    from repro_torch.models import attention, registry
+    from repro_torch.serving import ContinuousEngine, Request, ServeConfig, ServingEngine
+    from repro_torch.serving import probe_flag
+
+    t_phase = time.perf_counter()
+    cfg = configs.get_arch(MLA_ARCH)
+    ccfg = CompressionConfig.zipcache()
+    b, prompt = batch["tokens"].shape
+    max_new = 128
+    n_layers = cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = registry.materialize_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    leaves = list(_leaves(params))
+    log(f"deepseek: {MLA_ARCH} params {sum(t.numel() for t in leaves) / 1e9:.3f} B "
+        f"({nbytes(*leaves) / 1e9:.2f} GB) in {time.perf_counter() - t0:.1f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    n_probe = sum(probe_flag(i, ccfg.recompress_interval, 0) for i in range(max_new))
+    n_fold = max_new // ccfg.recompress_interval
+    scfg = ServeConfig(batch_size=b, prompt_len=prompt, max_new_tokens=max_new, seed=0)
+    out_paths = {}
+
+    def counts(path, want):
+        got = {n: kern.launches for n, kern in kernels.items()}
+        for name, n in want.items():
+            check(got[name] == n, f"deepseek {path}: {name} {got[name]} launches, the path "
+                                  f"implies {n}")
+        got.update({f"{n}@mla": got[n] for n in ("flash_fwd", "probe_colsum", "cst_quant")})
+        return got
+
+    # -- lockstep: captured and eager, step by step ---------------------------
+    lock = {}
+    for capture in (True, False):
+        eng = ServingEngine(cfg, ccfg, scfg, params, device=dev, capture=capture)
+        eng.generate(batch, max_new_tokens=2)   # warm-up (with capture: warm-up step, capture)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for kern in kernels.values():
+            kern.launches = 0
+        rec = eng._decode = TimedLogits(eng._decode, torch)
+        out = eng.generate(batch)
+        eng._decode = rec.step
+        want = {"flash_fwd": n_layers, "probe_colsum": n_layers,
+                "cst_quant": 2 * n_layers * (1 + n_fold), "decode_qattn": 0, "paged_qattn": 0}
+        out_paths[f"deepseek-lockstep-{'captured' if capture else 'eager'}"] = counts(
+            f"lockstep (capture {capture})", want)
+        tm = out["timings"]
+        lock[capture] = dict(tokens=out["tokens"], decode_s=tm["decode_s"],
+                             tok_s=tm["tok_per_s"], step_ms=np.median(rec.ms[False]),
+                             probe_ms=np.median(rec.ms[True]), busy=None, ops=None,
+                             peak=torch.cuda.max_memory_allocated(), rec=rec, step=rec.step)
+        log(f"deepseek lockstep (capture {capture}): prefill {tm['prefill_s']:.3f} s, decode "
+            f"{tm['decode_s']:.3f} s ({b} x {max_new} tokens, {n_probe} probe steps, {n_fold} "
+            f"fold), median non-probe step {lock[capture]['step_ms']:.3f} ms, probe step "
+            f"{lock[capture]['probe_ms']:.3f} ms (each to a synchronize)")
+        if capture:
+            tokens = out["tokens"]
+            check(tokens.shape == (b, max_new) and bool(((tokens >= 0)
+                                                         & (tokens < cfg.vocab)).all()),
+                  f"deepseek lockstep: tokens {tokens.shape} out of shape or range")
+            cb = eng.cache_bytes(eng.last_caches)
+            raw = 2 * b * (prompt + max_new) * (cfg.rope_head_dim + cfg.kv_lora_rank) * n_layers
+            log(f"deepseek lockstep: cache_bytes {cb}; packed {cb['packed_bytes']} B against "
+                f"{raw} B of bf16 latent + rope-key streams at {prompt + max_new} tokens "
+                f"({cb['packed_bytes'] / raw:.4f})")
+            ctx = eng.ctx
+        del eng
+    summarize("deepseek lockstep", lock, torch, rel_l2, yardstick)
+    del lock
+
+    # the same model through the plain versions: prefill and first decode step
+    plain = ServingEngine(cfg, ccfg, scfg, params, device=dev, use_kernels=False)
+    toks = torch.as_tensor(batch["tokens"], device=dev)
+    plain_blocked = attention.blocked_attention
+
+    def sdpa_blocked(q, k, v, **kw):
+        _, colsum = plain_blocked(q, k, v, **kw)
+        return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True), colsum
+
+    with torch.inference_mode():
+        lk, _ = registry.prefill(params, {"tokens": toks}, cfg, ctx)
+        lp, cp = registry.prefill(params, {"tokens": toks}, cfg, plain.ctx)
+        attention.blocked_attention = sdpa_blocked
+        try:
+            lf, _ = registry.prefill(params, {"tokens": toks}, cfg, plain.ctx)
+        finally:
+            attention.blocked_attention = plain_blocked
+        tok0 = torch.argmax(lp, dim=-1).to(torch.int32)
+        dk, _ = registry.decode_step(params, tok0, cp, cfg, ctx, False)
+        dp, _ = registry.decode_step(params, tok0, cp, cfg, plain.ctx, False)
+    # phase 4's yardstick, on this model: the router turns bf16 noise in an
+    # attention output into other experts, so the noise reads about 4x
+    # yi-6b's (0.408 against 0.095 on an H100).  Held to 1.5x this model's
+    # own yardstick (at least phase 4's 0.2); a wiring fault reads about 1.4.
+    own = rel_l2(lf, lp)
+    tol = max(0.2, 1.5 * own)
+    log(f"deepseek yardstick: plain prefill logits with SDPA's attention output vs plain: "
+        f"relative L2 {own:.4g} (phase 4's, yi-6b: {yardstick:.4g})")
+    check(own < 0.7, f"deepseek: the yardstick itself reads {own:.4g}")
+    for what, a, w in (("prefill", lk, lp), ("first decode step", dk, dp)):
+        check(bool(torch.isfinite(a).all()), f"deepseek {what} logits not finite")
+        r = rel_l2(a, w)
+        log(f"deepseek {what} logits vs plain: relative L2 {r:.4g} (tolerance {tol:.4g}), "
+            f"argmax equal {float((a.argmax(-1) == w.argmax(-1)).float().mean()):.2f}")
+        check(r <= tol, f"deepseek {what} logits differ from the plain path beyond tolerance")
+    del plain, cp, lk, lp, lf, dk, dp
+
+    # -- continuous: phase 4b's configuration and traffic ---------------------
+    cont = {}
+    for capture in (True, False):
+        eng = ContinuousEngine(cfg, ccfg, cscfg, params, device=dev, capture=capture)
+        rec = eng._decode_masked = TimedLogits(eng._decode_masked, torch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for kern in kernels.values():
+            kern.launches = 0
+        paged.GATHER_DECODES.launches = 0
+        t0 = time.perf_counter()
+        rids = [eng.submit(Request(tokens=r, max_new_tokens=int(m)))
+                for r, m in zip(requests, budgets)]
+        res = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = eng.pool_stats()
+        want = {"flash_fwd": n_layers * st["admissions"],
+                "probe_colsum": n_layers * st["admissions"],
+                "cst_quant": 2 * n_layers * (st["admissions"] + st["folds"]),
+                "decode_qattn": 0, "paged_qattn": 0}
+        out_paths[f"deepseek-continuous-{'captured' if capture else 'eager'}"] = counts(
+            f"continuous (capture {capture})", want)
+        check(paged.GATHER_DECODES.launches == 0,
+              "deepseek continuous: a decode took the GQA gather path")
+        for i, r in enumerate(rids):
+            check(res[r].finish_reason == "length" and len(res[r].tokens) == budgets[i],
+                  f"deepseek continuous: {r} ended {res[r].finish_reason} with "
+                  f"{len(res[r].tokens)} of {budgets[i]} tokens")
+        eng._alloc.check_invariants()
+        for seg in ("hi", "lo", "win"):
+            check(st[seg]["used"] == 0 and st[seg]["free"] == st[seg]["pool_pages"],
+                  f"deepseek continuous: {seg} pages not all returned: {st[seg]}")
+        n_tok = sum(len(res[r].tokens) for r in rids)
+        cont[capture] = dict(tokens=np.concatenate([res[r].tokens for r in rids]),
+                             decode_s=wall, tok_s=n_tok / wall,
+                             step_ms=np.median(rec.ms[False]), probe_ms=np.median(rec.ms[True]),
+                             busy=None, ops=None, peak=torch.cuda.max_memory_allocated(),
+                             rec=rec, step=rec.step)
+        peaks = {k: f"{st[k]['peak_used']}/{st[k]['pool_pages']}" for k in ("hi", "lo", "win")}
+        log(f"deepseek continuous (capture {capture}): {n_tok} tokens in {wall:.3f} s, "
+            f"{eng._step_no} steps, {st['admissions']} admissions, {st['deferrals']} deferrals, "
+            f"{st['folds']} slot folds; pages peak used / pool {peaks}")
+        del eng, res
+    summarize("deepseek continuous", cont, torch, rel_l2, yardstick)
+    del cont
+
+    # the expert weights one decode step reads: every expert runs its capacity slot(s)
+    e_bytes = (cfg.n_layers - cfg.first_dense_layers) * cfg.n_experts * 3 * cfg.d_model \
+        * cfg.moe_d_ff * 2
+    log(f"deepseek: expert weights read per decode step {e_bytes / 1e9:.2f} GB, a bound of "
+        f">= {e_bytes / PEAK_BYTES * 1e3:.2f} ms at {PEAK_BYTES / 1e12:.2f} TB/s ({card})")
+    del params, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"deepseek: phase 4j took {time.perf_counter() - t_phase:.1f} s")
+    return out_paths
 
 
 if __name__ == "__main__":

@@ -8,6 +8,7 @@ from repro_torch.configs.base import ArchConfig, ShapeConfig  # noqa: F401
 
 _MODULES = {
     "yi-6b": "repro_torch.configs.yi_6b",
+    "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
 }
 
 

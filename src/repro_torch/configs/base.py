@@ -1,16 +1,17 @@
 """Architecture and serving-shape configuration (copy of `repro.configs.base`,
-cut to the dense decoder-only fields the port runs)."""
+cut to the decoder-only fields the port runs: dense, MoE and MLA; the SSM,
+encoder-decoder and frontend fields are left out)."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                 # dense (the only family ported so far)
+    family: str                 # dense | moe
     n_layers: int
     d_model: int
     n_heads: int
@@ -23,14 +24,63 @@ class ArchConfig:
     rope_theta: float = 10_000.0
     tie_embeddings: bool = False
 
+    # --- MoE ---
+    n_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0
+    n_shared_experts: int = 0
+    first_dense_layers: int = 0
+    moe_layer_period: int = 1    # layer i is MoE iff i % period == offset
+    moe_layer_offset: int = 0
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.001
+
+    # --- MLA (deepseek-v2) ---
+    mla: bool = False
+    kv_lora_rank: int = 0
+    q_lora_rank: int = 0
+    rope_head_dim: int = 0
+    nope_head_dim: int = 0
+    v_head_dim: int = 0
+
     @property
     def hd(self) -> int:
         return self.head_dim if self.head_dim is not None else self.d_model // self.n_heads
 
+    def is_moe_layer(self, i: int) -> bool:
+        if self.n_experts == 0 or i < self.first_dense_layers:
+            return False
+        return (i % self.moe_layer_period) == self.moe_layer_offset
+
+    def is_attn_layer(self, i: int) -> bool:
+        """Every layer of the ported families attends (no SSM layers)."""
+        return True
+
+    @property
+    def scan_group(self) -> int:
+        """Layers per stacked group (homogeneous across groups)."""
+        return self.moe_layer_period if self.n_experts else 1
+
     @property
     def n_scan_groups(self) -> int:
-        """Stacked layer groups of the parameters: one layer per group."""
-        return self.n_layers
+        """Stacked layer groups after the unrolled prefix (first dense) layers."""
+        body = self.n_layers - self.first_dense_layers
+        assert body % self.scan_group == 0, (self.name, body, self.scan_group)
+        return body // self.scan_group
+
+    def layer_kinds(self) -> Tuple[Tuple[str, str], ...]:
+        """Per-layer (mixer, ffn) kinds within one group (group-invariant)."""
+        kinds = []
+        for j in range(self.scan_group):
+            i = self.first_dense_layers + j
+            mixer = "mla" if self.mla else "attn"
+            ffn = "moe" if self.is_moe_layer(i) else ("dense" if self.d_ff else "none")
+            kinds.append((mixer, ffn))
+        return tuple(kinds)
+
+    def prefix_kinds(self) -> Tuple[Tuple[str, str], ...]:
+        """(mixer, ffn) of each unrolled prefix layer: dense FFN."""
+        return (("mla" if self.mla else "attn", "dense"),) * self.first_dense_layers
 
 
 @dataclasses.dataclass(frozen=True)

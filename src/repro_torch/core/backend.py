@@ -79,6 +79,11 @@ class MixedKVBackend:
     def free(self, cache, slot: int):
         return kvc.free_slot(cache, slot)
 
+    def dense(self, cache) -> kvc.MixedKVCache:
+        """The cache as the mixed layout, for consumers that read its stores
+        directly (MLA's absorbed decode): the identity here."""
+        return cache
+
     def nbytes(self, cache) -> Tuple[int, int]:
         packed = cache.nbytes_packed()
         return packed, cache.nbytes_total() - packed

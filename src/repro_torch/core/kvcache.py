@@ -471,6 +471,54 @@ def attend_decode_int8(q: torch.Tensor, cache: MixedKVCache,
     return DecodeAttnOut(out.reshape(b, h_q, -1).to(q.dtype), w.mean(dim=(1, 2)))
 
 
+def _store_logits_vstream_int8(qv: torch.Tensor, store: TokenStore) -> torch.Tensor:
+    """q . dequant(V)^T of a CST V stream (MLA: the latent is the value-scheme
+    stream and also the keys of the absorbed attention), the per-channel
+    scale folded into q:
+        V[s, r] = (C[s, r] - zt[s]) * ts[s] * cs[r]
+        logits[s] = ts[s] ((q cs) . C[s]) - ts[s] zt[s] ((q cs) . 1).
+    qv (b, hk, g, r) f32 -> (b, hk, g, S) f32."""
+    vq = store.v
+    if vq.bits >= 16:
+        return torch.einsum("bhgr,bhsr->bhgs", qv, vq.dequantize().float())
+    codes = packing.unpack(vq.codes, vq.bits, out_dtype=torch.bfloat16)
+    ts = vq.scale.float()[..., 0]                     # (b, hk, S)
+    zt = vq.zero.float()[..., 0]
+    cs = vq.channel_scale.float()[:, :, 0]            # (b, hk, r)
+    qc = qv * cs[:, :, None, :]
+    lin = _codes_product("bhgr,bhsr->bhgs", qc, codes)
+    return ts[:, :, None, :] * lin - (ts * zt)[:, :, None, :] * qc.sum(dim=-1)[..., None]
+
+
+def attend_decode_mla_int8(q_abs: torch.Tensor, q_pe: torch.Tensor, cache: MixedKVCache,
+                           scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Absorbed MLA decode with the dequantization folded into the attention
+    algebra (the reference's `attend_decode_mla_int8`): the k stream is the
+    rope key (b, 1, S, p), channelwise; the v stream the latent (b, 1, S, r),
+    CST.  logits = scale (q_abs . latent + q_pe . k_pe); out = softmax .
+    latent.  q_abs (b, h, r), q_pe (b, h, p).  Returns (out_latent (b, h, r)
+    f32, slot_weights (b, S_total))."""
+    b, h, r = q_abs.shape
+    qa = q_abs.reshape(b, 1, h, r).float() * scale
+    qp = q_pe.reshape(b, 1, h, -1).float() * scale
+    stores = [s for s in (cache.hi, cache.lo) if s.capacity]
+    for store in stores:
+        _int8_store(store)
+    logits = torch.cat(
+        [_store_logits_vstream_int8(qa, s) + _store_logits_int8(qp, s) for s in stores]
+        + [torch.einsum("bhgr,bhsr->bhgs", qa, cache.v_win.float())
+           + torch.einsum("bhgp,bhsp->bhgs", qp, cache.k_win.float())], dim=-1)
+    valid = torch.cat([s.valid for s in stores] + [cache.win_pos >= 0], dim=-1)
+    w = torch.softmax(logits.masked_fill(~valid[:, None, None, :], NEG_INF), dim=-1)
+    out = torch.zeros((b, 1, h, r), dtype=torch.float32, device=q_abs.device)
+    off = 0
+    for store in stores:
+        out = out + _store_values_int8(w[..., off:off + store.capacity], store)
+        off += store.capacity
+    out = out + torch.einsum("bhgs,bhsr->bhgr", w[..., off:], cache.v_win.float())
+    return out.reshape(b, h, r), w[:, 0].mean(dim=1)
+
+
 def any_probe(is_probe) -> bool:
     """Whether any row probes this step: a host bool, or a (b,) tensor that
     the caller passes only when some row probes."""

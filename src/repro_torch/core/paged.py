@@ -608,6 +608,12 @@ class PagedKVBackend:
     def free(self, cache, slot: int):
         return free_slot(cache, slot)
 
+    def dense(self, cache) -> kvc.MixedKVCache:
+        """A gathered mixed-layout view of every page, for consumers that read
+        the stores directly (MLA's absorbed decode); device gathers only, so
+        a captured step may hold it."""
+        return cache.dense_view()
+
     def nbytes(self, cache) -> Tuple[int, int]:
         """(packed, overhead): live payload pages + quantization params, and
         everything else (metadata, tables, free-pool pages)."""

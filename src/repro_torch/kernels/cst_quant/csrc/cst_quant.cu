@@ -42,7 +42,10 @@
 //     twice;
 //   - pass 1, the column statistics (K min and max, V abs max): each thread
 //     owns 8 channels of a row (4 at 8 bits), one 16- or 32-bit word of
-//     codes; shuffles fold a warp's rows, then the warps in order; a
+//     codes, up to a warp per row (256 channels, 128 at 8 bits); a wider
+//     row (MLA's 512-wide latent) gives each thread M = 2 or 4 such words,
+//     so that a warp still owns a row; shuffles fold a warp's rows, then
+//     the warps in order; a
 //     cluster's CTAs read each other's statistics through distributed
 //     shared memory (min / max are order-free; no atomics) and arrive on
 //     the cluster barrier they wait on only at the end;
@@ -56,7 +59,12 @@
 // alone, over runs of rows in chunks.  A store with an eff table is its own
 // instantiation (HAS_EFF): one scalar load per CTA, the same arithmetic
 // with the slice's qmax in place of the constant; without a table the
-// constant folds as before.
+// constant folds as before.  A launch whose rows all fit a warp at one word
+// a thread is the MMAX = 1 instantiation (two CTAs an SM); one with a wider
+// tensor is MMAX = 2 or 4, whose CTAs pick the body of their tensor's
+// multiplier (one CTA an SM, up to 128 registers a thread).  The min / max
+// reductions are exact in any order, so the codes and parameters are the
+// same bits at every multiplier.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -157,17 +165,25 @@ __device__ void stage_rows(T* stage, int* sidx, const StoreDesc& a, int t, int b
   __syncthreads();
 }
 
-template <typename T, typename P, int BITS, bool C_GIVEN, bool HAS_EFF>
-__global__ void __launch_bounds__(THREADS, 2) store_kernel(const StoreDesc a) {
-  constexpr int VPT = BITS == 8 ? 4 : 8;  // channels per thread
-  using W = typename std::conditional<VPT * BITS == 32, uint32_t, uint16_t>::type;  // its codes
+// channels per word of codes, and the words a thread of a d-wide row takes
+// (M: 1 up to a warp per row, else d / (32 * VPW), so that a warp owns a row)
+__host__ __device__ constexpr int word_channels(int bits) { return bits == 8 ? 4 : 8; }
+__host__ __device__ constexpr int row_mult(int d, int bits) {
+  return d / word_channels(bits) > 32 ? d / (32 * word_channels(bits)) : 1;
+}
+
+template <typename T, typename P, int BITS, bool C_GIVEN, bool HAS_EFF, int M>
+__device__ __forceinline__ void store_body(const StoreDesc& a, unsigned char* smem) {
+  constexpr int VPW = word_channels(BITS);  // channels per word of codes
+  constexpr int VPT = VPW * M;              // channels per thread
+  using W = typename std::conditional<VPW * BITS == 32, uint32_t, uint16_t>::type;  // a word
   constexpr float QMAX = float((1 << BITS) - 1);
-  extern __shared__ __align__(16) unsigned char smem[];
 
   const int t = a.has_k ? blockIdx.y / a.hk : 1;
   const int h = blockIdx.y % a.hk, bi = blockIdx.z;
   const int d = a.d[t], dmax = max(a.d[0], a.d[1]);
   const int tpr = d / VPT;                  // threads per row, a power of two <= 32
+  const int wpr = tpr * M;                  // words of codes per row
   const int rl = threadIdx.x / tpr, g = threadIdx.x % tpr, n_rl = THREADS / tpr;
   const int r_begin = blockIdx.x * a.rows_per_cta;
   const int n_rows = max(min(a.S - r_begin, a.rows_per_cta), 0);
@@ -296,14 +312,16 @@ __global__ void __launch_bounds__(THREADS, 2) store_kernel(const StoreDesc a) {
   // K's codes are clip(round(0 + zero)); V's row has min = max = +0, so
   // scale = eps, zero = round(-0 / eps) = -0 and every code 0 (the
   // reference's arithmetic, bit for bit).
-  W zero_row = 0;
+  W zero_row[M] = {};
   if (t == 0) {
 #pragma unroll
-    for (int i = 0; i < VPT; ++i)
-      zero_row |= static_cast<W>(static_cast<uint32_t>(
-                      fminf(fmaxf(rintf(0.f + p1[i]), 0.f), qm)) << (BITS * i));
+    for (int w = 0; w < M; ++w)
+#pragma unroll
+      for (int i = 0; i < VPW; ++i)
+        zero_row[w] |= static_cast<W>(static_cast<uint32_t>(
+                           fminf(fmaxf(rintf(0.f + p1[w * VPW + i]), 0.f), qm)) << (BITS * i));
   }
-  W* codes = static_cast<W*>(a.codes[t]) + (slice * a.S + r_begin) * tpr;
+  W* codes = static_cast<W*>(a.codes[t]) + (slice * a.S + r_begin) * wpr;
   P* vscale = static_cast<P*>(a.scale[1]) + slice * a.S + r_begin;
   P* vzero = static_cast<P*>(a.zero[1]) + slice * a.S + r_begin;
   const bool resident = !C_GIVEN && n_rows <= a.chunk;
@@ -327,15 +345,16 @@ __global__ void __launch_bounds__(THREADS, 2) store_kernel(const StoreDesc a) {
 #pragma unroll
         for (int i = 0; i < VPT; ++i) x[i] = 0.f;
       }
-      W word = 0;
+      W word[M] = {};
       if (t == 0) {
         if (skip) {
-          word = zero_row;
+#pragma unroll
+          for (int w = 0; w < M; ++w) word[w] = zero_row[w];
         } else {
 #pragma unroll
           for (int i = 0; i < VPT; ++i) {
             const float q = fminf(fmaxf(rintf(__fdiv_rn(x[i], p0[i]) + p1[i]), 0.f), qm);
-            word |= static_cast<W>(static_cast<uint32_t>(q) << (BITS * i));
+            word[i / VPW] |= static_cast<W>(static_cast<uint32_t>(q) << (BITS * (i % VPW)));
           }
         }
       } else {
@@ -359,7 +378,7 @@ __global__ void __launch_bounds__(THREADS, 2) store_kernel(const StoreDesc a) {
 #pragma unroll
           for (int i = 0; i < VPT; ++i) {
             const float q = fminf(fmaxf(rintf(__fdiv_rn(x[i], scale) + zero), 0.f), qm);
-            word |= static_cast<W>(static_cast<uint32_t>(q) << (BITS * i));
+            word[i / VPW] |= static_cast<W>(static_cast<uint32_t>(q) << (BITS * (i % VPW)));
           }
         }
         if (live && g == 0) {
@@ -367,11 +386,36 @@ __global__ void __launch_bounds__(THREADS, 2) store_kernel(const StoreDesc a) {
           vzero[c0 + r] = from_f32<P>(zero);
         }
       }
-      if (live) codes[(size_t)(c0 + r) * tpr + g] = word;
+      if (live) {
+#pragma unroll
+        for (int w = 0; w < M; ++w) codes[(size_t)(c0 + r) * wpr + g * M + w] = word[w];
+      }
     }
   }
   if (!C_GIVEN && gridDim.x > 1)
     asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// MMAX: the largest multiplier of the launch's tensors (1, 2 or 4); each
+// CTA runs the body of its own tensor's
+template <typename T, typename P, int BITS, bool C_GIVEN, bool HAS_EFF, int MMAX>
+__global__ void __launch_bounds__(THREADS, MMAX == 1 ? 2 : 1) store_kernel(const StoreDesc a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  if constexpr (MMAX == 1) {
+    store_body<T, P, BITS, C_GIVEN, HAS_EFF, 1>(a, smem);
+  } else {
+    const int m = row_mult(a.d[a.has_k ? blockIdx.y / a.hk : 1], BITS);
+    if (m == MMAX) {
+      store_body<T, P, BITS, C_GIVEN, HAS_EFF, MMAX>(a, smem);
+    } else if constexpr (MMAX == 4) {
+      if (m == 2)
+        store_body<T, P, BITS, C_GIVEN, HAS_EFF, 2>(a, smem);
+      else
+        store_body<T, P, BITS, C_GIVEN, HAS_EFF, 1>(a, smem);
+    } else {
+      store_body<T, P, BITS, C_GIVEN, HAS_EFF, 1>(a, smem);
+    }
+  }
 }
 
 size_t smem_bytes(const StoreDesc& a, size_t elem) {
@@ -380,9 +424,9 @@ size_t smem_bytes(const StoreDesc& a, size_t elem) {
          (2 * WARPS + 4) * dmax * sizeof(float);
 }
 
-template <typename T, typename P, int BITS, bool C_GIVEN, bool HAS_EFF>
+template <typename T, typename P, int BITS, bool C_GIVEN, bool HAS_EFF, int MMAX>
 cudaError_t launch(const StoreDesc& a, int b, int split, cudaStream_t stream) {
-  auto kernel = store_kernel<T, P, BITS, C_GIVEN, HAS_EFF>;
+  auto kernel = store_kernel<T, P, BITS, C_GIVEN, HAS_EFF, MMAX>;
   const size_t smem = smem_bytes(a, sizeof(T));
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
@@ -404,20 +448,34 @@ cudaError_t launch(const StoreDesc& a, int b, int split, cudaStream_t stream) {
   return cudaLaunchKernelEx(&cfg, kernel, a);
 }
 
+template <typename T, typename P, int BITS, bool C_GIVEN, bool HAS_EFF>
+cudaError_t launch_m(const StoreDesc& a, int b, int split, cudaStream_t stream) {
+  int mmax = row_mult(a.d[1], BITS);
+  if (a.has_k && row_mult(a.d[0], BITS) > mmax) mmax = row_mult(a.d[0], BITS);
+  if (mmax == 1) return launch<T, P, BITS, C_GIVEN, HAS_EFF, 1>(a, b, split, stream);
+  if (mmax == 2) return launch<T, P, BITS, C_GIVEN, HAS_EFF, 2>(a, b, split, stream);
+  if constexpr (BITS == 8)  // 4 words a thread: 8-bit rows wider than 256 channels
+    return launch<T, P, BITS, C_GIVEN, HAS_EFF, 4>(a, b, split, stream);
+  return cudaErrorInvalidValue;
+}
+
 template <typename T, bool C_GIVEN, bool HAS_EFF>
 cudaError_t dispatch(const StoreDesc& a, int b, int split, int bits, cudaStream_t stream) {
   using P = typename std::conditional<C_GIVEN, float, T>::type;
   switch (bits) {
-    case 2: return launch<T, P, 2, C_GIVEN, HAS_EFF>(a, b, split, stream);
-    case 4: return launch<T, P, 4, C_GIVEN, HAS_EFF>(a, b, split, stream);
-    default: return launch<T, P, 8, C_GIVEN, HAS_EFF>(a, b, split, stream);
+    case 2: return launch_m<T, P, 2, C_GIVEN, HAS_EFF>(a, b, split, stream);
+    case 4: return launch_m<T, P, 4, C_GIVEN, HAS_EFF>(a, b, split, stream);
+    default: return launch_m<T, P, 8, C_GIVEN, HAS_EFF>(a, b, split, stream);
   }
 }
 
+// a row of d channels: whole words, a power of two of them, at most one
+// channel a thread (d <= THREADS: pass 1 finishes channel j on thread j),
+// whole 16-byte pieces
 bool head_dim_ok(int d, int bits, int elem) {
-  const int vpt = bits == 8 ? 4 : 8, tpr = d / vpt;
-  return d > 0 && d % vpt == 0 && tpr <= 32 && (tpr & (tpr - 1)) == 0 &&
-         (d * elem) % 16 == 0 && d <= THREADS;
+  const int vpw = word_channels(bits), words = d / vpw;
+  return d > 0 && d % vpw == 0 && (words & (words - 1)) == 0 && (d * elem) % 16 == 0 &&
+         d <= THREADS;
 }
 
 }  // namespace

@@ -44,12 +44,14 @@ _DESC = struct.Struct("<12Q6q7i4x")
 
 
 def head_dim_ok(d: int, bits: int, elem: int) -> bool:
-    """Whether the kernel takes head dim d (elements of `elem` bytes): each
-    thread owns 8 channels of a row (4 at 8 bits), a power of two of
-    threads up to a warp per row, rows of whole 16-byte pieces."""
-    vpt = 4 if bits == 8 else 8
-    tpr = d // vpt
-    return 0 < d <= THREADS and d % vpt == 0 and tpr <= 32 and tpr & (tpr - 1) == 0 \
+    """Whether the kernel takes head dim d (elements of `elem` bytes): a row
+    is a power of two of code words of 8 channels (4 at 8 bits), at most
+    THREADS channels, in whole 16-byte pieces.  A thread owns one word up to
+    a warp per row (256 channels, 128 at 8 bits) and 2 or 4 words of a
+    wider row (MLA's 512-wide latent), so that a warp still owns a row."""
+    vpw = 4 if bits == 8 else 8
+    words = d // vpw
+    return 0 < d <= THREADS and d % vpw == 0 and words & (words - 1) == 0 \
         and d * elem % 16 == 0
 
 

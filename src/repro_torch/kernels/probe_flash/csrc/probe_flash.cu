@@ -9,6 +9,14 @@
 // Bound on the H100: operations.  At yi-6b prefill widths (d = 128,
 // 1024 tokens) attention does ~128 multiply-adds per byte it reads.
 //
+// Head dims: flash_fwd takes a q/k head dim DQK and a v head dim DV, one
+// instantiation per pair: (d, d) for d in 16, 32, 64, 128 (GQA), and
+// (192, 128) for DeepSeek-V2's MLA prefill (q/k = nope 128 + rope 64, v
+// 128) with (32, 16) its smoke width.  The Q/K tiles and the score product
+// run over DQK, the V tiles, the output accumulator and the output over DV;
+// the LSE is per row as before.  probe_colsum reads no V and takes d in 16,
+// 32, 64, 128 and 192.
+//
 // flash_fwd design, bf16 (the main path): FlashAttention-2 on the tensor
 // cores, mma.sync m16n8k16 with a 2-stage cp.async K/V ring; see
 // flash_fwd_tc_kernel.  The f32 instantiation, which no serving path runs,
@@ -54,12 +62,13 @@ template <> __device__ __forceinline__ float from_f32<float>(float v) { return v
 constexpr int FA_BQ = 64;
 constexpr int FA_BK = 32;
 
-template <int D>
+template <int D, int DV>
 constexpr size_t flash_smem_bytes() {
-  return sizeof(float) * (FA_BQ * (D + 1) + D * (FA_BK + 1) + FA_BK * D + FA_BQ * (FA_BK + 1));
+  return sizeof(float) * (FA_BQ * (D + 1) + D * (FA_BK + 1) + FA_BK * DV + FA_BQ * (FA_BK + 1));
 }
 
-template <typename T, int D>
+// D: the q/k head dim; DV: the v head dim (DV == D but for MLA)
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ out, float* __restrict__ lse, int h, int hk, int lq, int lkv,
@@ -67,8 +76,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   extern __shared__ float smem[];
   float* Qs = smem;                          // [FA_BQ][D + 1], pre-scaled
   float* Kt = Qs + FA_BQ * (D + 1);          // [D][FA_BK + 1], transposed
-  float* Vs = Kt + D * (FA_BK + 1);          // [FA_BK][D]
-  float* Ps = Vs + FA_BK * D;                // [FA_BQ][FA_BK + 1]
+  float* Vs = Kt + D * (FA_BK + 1);          // [FA_BK][DV]
+  float* Ps = Vs + FA_BK * DV;               // [FA_BQ][FA_BK + 1]
 
   const int tid = threadIdx.x;
   const int ty = tid >> 3;   // rows ty*4 .. ty*4+3
@@ -79,14 +88,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int kvh = head / (h / hk);
   const T* qh = q + ((size_t)b * h + head) * lq * D;
   const T* kh = k + ((size_t)b * hk + kvh) * lkv * D;
-  const T* vh = v + ((size_t)b * hk + kvh) * lkv * D;
+  const T* vh = v + ((size_t)b * hk + kvh) * lkv * DV;
 
   for (int e = tid; e < FA_BQ * D; e += THREADS) {
     const int r = e / D, j = e % D;
     Qs[r * (D + 1) + j] = (q0 + r < lq) ? to_f32(qh[(size_t)(q0 + r) * D + j]) * scale : 0.f;
   }
 
-  constexpr int NC = D / 8;
+  constexpr int NC = DV / 8;
   float acc[4][NC];
   float m_i[4], l_i[4];
 #pragma unroll
@@ -102,9 +111,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     __syncthreads();
     for (int e = tid; e < FA_BK * D; e += THREADS) {
       const int s = e / D, j = e % D;
-      const bool in = k0 + s < lkv;
-      Kt[j * (FA_BK + 1) + s] = in ? to_f32(kh[(size_t)(k0 + s) * D + j]) : 0.f;
-      Vs[s * D + j] = in ? to_f32(vh[(size_t)(k0 + s) * D + j]) : 0.f;
+      Kt[j * (FA_BK + 1) + s] = k0 + s < lkv ? to_f32(kh[(size_t)(k0 + s) * D + j]) : 0.f;
+    }
+    for (int e = tid; e < FA_BK * DV; e += THREADS) {
+      const int s = e / DV, j = e % DV;
+      Vs[s * DV + j] = k0 + s < lkv ? to_f32(vh[(size_t)(k0 + s) * DV + j]) : 0.f;
     }
     __syncthreads();
 
@@ -165,7 +176,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty * 4 + i) * (FA_BK + 1) + s];
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
-        const float vv = Vs[s * D + tx + 8 * c];
+        const float vv = Vs[s * DV + tx + 8 * c];
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[i][c] += pv[i] * vv;
       }
@@ -177,7 +188,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int row = q0 + ty * 4 + i;
     if (row >= lq) continue;
     const float l = fmaxf(l_i[i], 1e-30f);
-    T* orow = out + (((size_t)b * h + head) * lq + row) * D;
+    T* orow = out + (((size_t)b * h + head) * lq + row) * DV;
 #pragma unroll
     for (int c = 0; c < NC; ++c) orow[tx + 8 * c] = from_f32<T>(acc[i][c] / l);
     if (tx == 0) lse[((size_t)b * h + head) * lq + row] = m_i[i] + logf(l);
@@ -206,9 +217,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 constexpr int TC_BQ = 64;
 constexpr int TC_BK = 64;
 
-template <int D>
+template <int D, int DV>
 constexpr size_t tc_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (TC_BQ + 4 * TC_BK) * (D + 8);
+  return sizeof(__nv_bfloat16) * ((TC_BQ + 2 * TC_BK) * (D + 8) + 2 * TC_BK * (DV + 8));
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -252,21 +263,23 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
                     float* __restrict__ lse, int h, int hk, int lq, int lkv, int diag,
                     int causal, float scale) {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int LD = D + 8;        // shared row stride in elements (16-byte pad)
-  constexpr int CPR = D / 8;       // 16-byte chunks per row
+  static_assert(D % 16 == 0 && DV % 16 == 0, "head dims must be multiples of 16");
+  constexpr int LD = D + 8;        // Q/K shared row stride in elements (16-byte pad)
+  constexpr int LDV = DV + 8;      // V shared row stride
+  constexpr int CPR = D / 8;       // 16-byte chunks per Q/K row
+  constexpr int CPRV = DV / 8;     // 16-byte chunks per V row
   constexpr int NT = TC_BK / 8;    // score n-tiles per warp
-  constexpr int DT = D / 8;        // output n-tiles per warp
+  constexpr int DT = DV / 8;       // output n-tiles per warp
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [TC_BQ][LD]
   __nv_bfloat16* Ks = Qs + TC_BQ * LD;                              // [2][TC_BK][LD]
-  __nv_bfloat16* Vs = Ks + 2 * TC_BK * LD;                          // [2][TC_BK][LD]
+  __nv_bfloat16* Vs = Ks + 2 * TC_BK * LD;                          // [2][TC_BK][LDV]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gr = lane >> 2, tg = lane & 3;
@@ -276,7 +289,7 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   const int kvh = head / (h / hk);
   const __nv_bfloat16* qh = q + ((size_t)b * h + head) * lq * D;
   const __nv_bfloat16* kh = k + ((size_t)b * hk + kvh) * lkv * D;
-  const __nv_bfloat16* vh = v + ((size_t)b * hk + kvh) * lkv * D;
+  const __nv_bfloat16* vh = v + ((size_t)b * hk + kvh) * lkv * DV;
 
   for (int e = tid; e < TC_BQ * CPR; e += THREADS) {
     const int r = e / CPR, c = (e % CPR) * 8;
@@ -285,12 +298,27 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   }
   auto load_kv = [&](int tile, int stage) {
     const int k0 = tile * TC_BK;
-    for (int e = tid; e < TC_BK * CPR; e += THREADS) {
-      const int r = e / CPR, c = (e % CPR) * 8;
-      const bool in = k0 + r < lkv;
-      const size_t off = in ? (size_t)(k0 + r) * D + c : 0;
-      cp_async16(Ks + (stage * TC_BK + r) * LD + c, kh + off, in);
-      cp_async16(Vs + (stage * TC_BK + r) * LD + c, vh + off, in);
+    if constexpr (D == DV) {  // one loop for both tiles (the GQA widths)
+      for (int e = tid; e < TC_BK * CPR; e += THREADS) {
+        const int r = e / CPR, c = (e % CPR) * 8;
+        const bool in = k0 + r < lkv;
+        const size_t off = in ? (size_t)(k0 + r) * D + c : 0;
+        cp_async16(Ks + (stage * TC_BK + r) * LD + c, kh + off, in);
+        cp_async16(Vs + (stage * TC_BK + r) * LDV + c, vh + off, in);
+      }
+    } else {
+      for (int e = tid; e < TC_BK * CPR; e += THREADS) {
+        const int r = e / CPR, c = (e % CPR) * 8;
+        const bool in = k0 + r < lkv;
+        cp_async16(Ks + (stage * TC_BK + r) * LD + c, kh + (in ? (size_t)(k0 + r) * D + c : 0),
+                   in);
+      }
+      for (int e = tid; e < TC_BK * CPRV; e += THREADS) {
+        const int r = e / CPRV, c = (e % CPRV) * 8;
+        const bool in = k0 + r < lkv;
+        cp_async16(Vs + (stage * TC_BK + r) * LDV + c,
+                   vh + (in ? (size_t)(k0 + r) * DV + c : 0), in);
+      }
     }
   };
   const int kv_end = causal ? min(lkv, q0 + TC_BQ + diag) : lkv;
@@ -319,7 +347,7 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
         ldmatrix_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
     }
     const __nv_bfloat16* Kt = Ks + (t & 1) * TC_BK * LD;
-    const __nv_bfloat16* Vt = Vs + (t & 1) * TC_BK * LD;
+    const __nv_bfloat16* Vt = Vs + (t & 1) * TC_BK * LDV;
 
     float s[NT][4];
 #pragma unroll
@@ -385,9 +413,9 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
+      for (int dp = 0; dp < DV / 16; ++dp) {
         uint32_t vb[4];
-        ldmatrix_x4_trans(vb, Vt + (kk * 16 + (lane & 15)) * LD + dp * 16 + (lane >> 4) * 8);
+        ldmatrix_x4_trans(vb, Vt + (kk * 16 + (lane & 15)) * LDV + dp * 16 + (lane >> 4) * 8);
         mma_bf16(o[2 * dp], pa, vb[0], vb[1]);
         mma_bf16(o[2 * dp + 1], pa, vb[2], vb[3]);
       }
@@ -406,7 +434,7 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
     const int row = row0 + i * 8;
     if (row >= lq) continue;
     const float l = fmaxf(l_r[i], 1e-30f);
-    __nv_bfloat16* orow = out + (((size_t)b * h + head) * lq + row) * D;
+    __nv_bfloat16* orow = out + (((size_t)b * h + head) * lq + row) * DV;
 #pragma unroll
     for (int c = 0; c < DT; ++c)
       *reinterpret_cast<__nv_bfloat162*>(orow + c * 8 + tg * 2) =
@@ -415,59 +443,55 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   }
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t flash_tc_launch(const void* q, const void* k, const void* v, void* out, void* lse,
                             int b, int h, int hk, int lq, int lkv, int causal, float scale,
                             cudaStream_t stream) {
-  const size_t smem = tc_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_tc_kernel<D>,
+  const size_t smem = tc_smem_bytes<D, DV>();
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_tc_kernel<D, DV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((lq + TC_BQ - 1) / TC_BQ, h, b);
-  flash_fwd_tc_kernel<D><<<grid, THREADS, smem, stream>>>(
+  flash_fwd_tc_kernel<D, DV><<<grid, THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
       static_cast<float*>(lse), h, hk, lq, lkv, causal ? lkv - lq : 0, causal, scale);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 cudaError_t flash_launch_t(const void* q, const void* k, const void* v, void* out, void* lse,
                            int b, int h, int hk, int lq, int lkv, int causal, float scale,
                            cudaStream_t stream) {
-  const size_t smem = flash_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+  const size_t smem = flash_smem_bytes<D, DV>();
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D, DV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((lq + FA_BQ - 1) / FA_BQ, h, b);
-  flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
+  flash_fwd_kernel<T, D, DV><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), static_cast<float*>(lse), h, hk, lq, lkv,
       causal ? lkv - lq : 0, causal, scale);
   return cudaGetLastError();
 }
 
+// one instantiation per (q/k, v) head-dim pair
+#define FLASH_PAIRS(X) X(16, 16) X(32, 32) X(64, 64) X(128, 128) X(192, 128) X(32, 16)
+
 template <typename T>
-cudaError_t flash_launch_d(int d, const void* q, const void* k, const void* v, void* out,
+cudaError_t flash_launch_d(int d, int dv, const void* q, const void* k, const void* v, void* out,
                            void* lse, int b, int h, int hk, int lq, int lkv, int causal,
                            float scale, cudaStream_t s) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    switch (d) {
-      case 16: return flash_tc_launch<16>(q, k, v, out, lse, b, h, hk, lq, lkv, causal, scale, s);
-      case 32: return flash_tc_launch<32>(q, k, v, out, lse, b, h, hk, lq, lkv, causal, scale, s);
-      case 64: return flash_tc_launch<64>(q, k, v, out, lse, b, h, hk, lq, lkv, causal, scale, s);
-      case 128: return flash_tc_launch<128>(q, k, v, out, lse, b, h, hk, lq, lkv, causal, scale, s);
-      default: return cudaErrorInvalidValue;
-    }
-  } else {
-    switch (d) {
-      case 16: return flash_launch_t<T, 16>(q, k, v, out, lse, b, h, hk, lq, lkv, causal, scale, s);
-      case 32: return flash_launch_t<T, 32>(q, k, v, out, lse, b, h, hk, lq, lkv, causal, scale, s);
-      case 64: return flash_launch_t<T, 64>(q, k, v, out, lse, b, h, hk, lq, lkv, causal, scale, s);
-      case 128: return flash_launch_t<T, 128>(q, k, v, out, lse, b, h, hk, lq, lkv, causal, scale, s);
-      default: return cudaErrorInvalidValue;
-    }
+#define FLASH_CASE(D, DV)                                                                    \
+  if (d == D && dv == DV) {                                                                  \
+    if constexpr (std::is_same<T, __nv_bfloat16>::value)                                     \
+      return flash_tc_launch<D, DV>(q, k, v, out, lse, b, h, hk, lq, lkv, causal, scale, s); \
+    else                                                                                     \
+      return flash_launch_t<T, D, DV>(q, k, v, out, lse, b, h, hk, lq, lkv, causal, scale, s); \
   }
+  FLASH_PAIRS(FLASH_CASE)
+#undef FLASH_CASE
+  return cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
@@ -806,6 +830,7 @@ cudaError_t colsum_launch_d(int d, const void* qp, const void* lse_p, const void
       case 32: return colsum_tc_launch<32>(qp, lse_p, pos, k, partial, colsum, b, h, hk, hpc, np, lq, lkv, causal, scale, s);
       case 64: return colsum_tc_launch<64>(qp, lse_p, pos, k, partial, colsum, b, h, hk, hpc, np, lq, lkv, causal, scale, s);
       case 128: return colsum_tc_launch<128>(qp, lse_p, pos, k, partial, colsum, b, h, hk, hpc, np, lq, lkv, causal, scale, s);
+      case 192: return colsum_tc_launch<192>(qp, lse_p, pos, k, partial, colsum, b, h, hk, hpc, np, lq, lkv, causal, scale, s);
       default: return cudaErrorInvalidValue;
     }
   } else {
@@ -814,6 +839,7 @@ cudaError_t colsum_launch_d(int d, const void* qp, const void* lse_p, const void
       case 32: return colsum_launch_t<T, 32>(qp, lse_p, pos, k, partial, colsum, b, h, hk, np, lq, lkv, causal, scale, s);
       case 64: return colsum_launch_t<T, 64>(qp, lse_p, pos, k, partial, colsum, b, h, hk, np, lq, lkv, causal, scale, s);
       case 128: return colsum_launch_t<T, 128>(qp, lse_p, pos, k, partial, colsum, b, h, hk, np, lq, lkv, causal, scale, s);
+      case 192: return colsum_launch_t<T, 192>(qp, lse_p, pos, k, partial, colsum, b, h, hk, np, lq, lkv, causal, scale, s);
       default: return cudaErrorInvalidValue;
     }
   }
@@ -825,16 +851,16 @@ extern "C" const char* zc_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// q (b,h,lq,d), k/v (b,hk,lkv,d), all bf16 or all f32, contiguous.
-// out (b,h,lq,d) in q's type, lse (b,h,lq) f32.  d in {16, 32, 64, 128}.
+// q (b,h,lq,d), k (b,hk,lkv,d), v (b,hk,lkv,dv), all bf16 or all f32, contiguous.
+// out (b,h,lq,dv) in q's type, lse (b,h,lq) f32.  (d, dv) one of FLASH_PAIRS.
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, void* out,
-                                void* lse, int b, int h, int hk, int lq, int lkv, int d,
+                                void* lse, int b, int h, int hk, int lq, int lkv, int d, int dv,
                                 int causal, float scale, int is_bf16, void* stream) {
   if (hk <= 0 || h % hk || (causal && lkv < lq)) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err = is_bf16
-      ? flash_launch_d<__nv_bfloat16>(d, q, k, v, out, lse, b, h, hk, lq, lkv, causal, scale, s)
-      : flash_launch_d<float>(d, q, k, v, out, lse, b, h, hk, lq, lkv, causal, scale, s);
+      ? flash_launch_d<__nv_bfloat16>(d, dv, q, k, v, out, lse, b, h, hk, lq, lkv, causal, scale, s)
+      : flash_launch_d<float>(d, dv, q, k, v, out, lse, b, h, hk, lq, lkv, causal, scale, s);
   return static_cast<int>(err);
 }
 

@@ -31,7 +31,8 @@ def probe_flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
     probe: Optional[sal.ProbeSpec] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """q (b,h,lq,d), k/v (b,hk,lkv,d) -> (out (b,h,lq,d), colsum (b,lkv) | None)."""
+    """q (b,h,lq,d), k (b,hk,lkv,d), v (b,hk,lkv,dv) -> (out (b,h,lq,dv),
+    colsum (b,lkv) | None)."""
     out, lse = K.flash_fwd(q, k, v, causal=causal)
     if probe is None:
         return out, None

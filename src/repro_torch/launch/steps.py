@@ -126,17 +126,20 @@ class CaptureError(RuntimeError):
 
 
 def _fits(dst: Any, src: Any) -> bool:
-    """Whether cache tree `src` has dst's layers and leaf shapes and dtypes."""
-    if len(dst["groups"]) != len(src["groups"]):
+    """Whether cache tree `src` has dst's layers and leaf shapes and dtypes,
+    prefix layers and groups alike."""
+    els_d, els_s = registry.cache_elements(dst), registry.cache_elements(src)
+    if len(els_d) != len(els_s) or len(dst["prefix"]) != len(src["prefix"]):
         return False
-    pairs = [(d, t) for gd, gs in zip(dst["groups"], src["groups"])
-             for d, t in zip(kvc.tree_leaves(gd["sub0"]), kvc.tree_leaves(gs["sub0"]))]
+    pairs = [(d, t) for ed, es in zip(els_d, els_s)
+             for d, t in zip(kvc.tree_leaves(ed), kvc.tree_leaves(es))]
     return all(d.shape == t.shape and d.dtype == t.dtype for d, t in pairs)
 
 
 def _copy_into(dst: Any, src: Any) -> None:
     """Copy every leaf of cache tree `src` that is not dst's own leaf into
-    dst's, in place.  Shapes and dtypes must match."""
+    dst's, in place, prefix layers and groups alike.  Shapes and dtypes
+    must match."""
     def put(d: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
         if s is d:
             return d
@@ -145,10 +148,11 @@ def _copy_into(dst: Any, src: Any) -> None:
                              f"leaf {tuple(d.shape)} {d.dtype}")
         return d.copy_(s)
 
-    if len(dst["groups"]) != len(src["groups"]):
+    els_d, els_s = registry.cache_elements(dst), registry.cache_elements(src)
+    if len(els_d) != len(els_s) or len(dst["prefix"]) != len(src["prefix"]):
         raise ValueError("the cache trees have different layer counts")
-    for gd, gs in zip(dst["groups"], src["groups"]):
-        kvc.tree_map(put, gd["sub0"], gs["sub0"])
+    for ed, es in zip(els_d, els_s):
+        kvc.tree_map(put, ed, es)
 
 
 def _greedy(logits: torch.Tensor) -> torch.Tensor:

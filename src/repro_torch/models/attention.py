@@ -1,10 +1,17 @@
-"""GQA attention (port of the GQA half of `repro.models.attention`).
+"""Attention mixers (port of `repro.models.attention`): GQA, and MLA
+(DeepSeek-V2) materialized for prefill and absorbed for decode.
 
 Prefill runs blocked causal attention with the ZipCache probe side-output:
 the per-column sum of softmax probabilities over probe rows, averaged over
 heads (paper Eq. 9).  `blocked_attention` is the reference's jnp path in
 PyTorch (with its `compact` bf16 variant); with `use_kernel` it routes to
 `kernels.probe_flash`.
+MLA's prefill attends with q/k head dim nope + rope and v head dim
+v_head_dim (the kernel route takes dv != d); its cache streams are the rope
+key (b, 1, l, p) as K and the latent (b, 1, l, r) as V.  MLA decode is
+plain PyTorch over the cache's mixed-layout view (`backend.dense`): exact
+(`impl="ref"`) or with the dequantization folded into the algebra
+(`"int8_algebra"`, `kvcache.attend_decode_mla_int8`).
 Shapes: activations (b, l, e); heads (b, h, l, d).
 """
 
@@ -37,6 +44,21 @@ def gqa_schema(cfg: ArchConfig) -> dict:
         s["bk"] = ParamDef((hk, d), init="zeros")
         s["bv"] = ParamDef((hk, d), init="zeros")
     return s
+
+
+def mla_schema(cfg: ArchConfig) -> dict:
+    e, h = cfg.d_model, cfg.n_heads
+    r, p, nd, vd = cfg.kv_lora_rank, cfg.rope_head_dim, cfg.nope_head_dim, cfg.v_head_dim
+    return {
+        "w_dkv": ParamDef((e, r)),          # down-projection to the latent
+        "w_kpe": ParamDef((e, p)),          # the shared rope key
+        "w_q_nope": ParamDef((e, h, nd)),
+        "w_q_pe": ParamDef((e, h, p)),
+        "w_uk": ParamDef((r, h, nd)),       # up-projection of the keys
+        "w_uv": ParamDef((r, h, vd)),       # up-projection of the values
+        "wo": ParamDef((h, vd, e)),
+        "kv_norm": ParamDef((r,), init="ones"),
+    }
 
 
 class AttnAux(NamedTuple):
@@ -169,3 +191,80 @@ def gqa_decode_qkv(params: dict, x_t: torch.Tensor, cfg: ArchConfig, position: t
     q = common.apply_rotary(q, cos[:, None], sin[:, None])
     k = common.apply_rotary(k, cos[:, None], sin[:, None])
     return q, k, v
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): materialized for prefill, absorbed for decode
+# ---------------------------------------------------------------------------
+
+def mla_forward(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
+                probe: Optional[sal.ProbeSpec] = None, q_block: int = 512,
+                use_kernel: bool = False, compact: bool = False
+                ) -> Tuple[torch.Tensor, AttnAux]:
+    """Full-sequence MLA.  Returns the latent cache streams in AttnAux:
+    aux.k = rope key (b, 1, l, p), aux.v = latent (b, 1, l, r).  The softmax
+    scale 1/sqrt(nope + rope) is q's last dim; v's head dim is v_head_dim."""
+    b, l, e = x.shape
+    h, p = cfg.n_heads, cfg.rope_head_dim
+    cos, sin = common.rotary_cos_sin(torch.arange(l, device=x.device), p, cfg.rope_theta)
+    latent = common.rms_norm(common.einsum("ble,er->blr", x, params["w_dkv"]),
+                             params["kv_norm"], cfg.norm_eps)
+    k_pe = common.apply_rotary(common.einsum("ble,ep->blp", x, params["w_kpe"]), cos, sin)
+    q_nope = common.einsum("ble,ehd->bhld", x, params["w_q_nope"])
+    q_pe = common.apply_rotary(common.einsum("ble,ehp->bhlp", x, params["w_q_pe"]),
+                               cos[None, None], sin[None, None])
+    k_nope = common.einsum("blr,rhd->bhld", latent, params["w_uk"])
+    val = common.einsum("blr,rhv->bhlv", latent, params["w_uv"])
+    q_full = torch.cat([q_nope, q_pe], dim=-1)                      # (b, h, l, nd + p)
+    k_full = torch.cat([k_nope, k_pe[:, None].expand(b, h, l, p)], dim=-1)
+    out, colsum = blocked_attention(q_full, k_full, val, causal=True, q_block=q_block,
+                                    probe=probe, use_kernel=use_kernel, compact=compact)
+    y = common.out_proj(out.transpose(1, 2), params["wo"])
+    saliency = nnz = None
+    if probe is not None and colsum is not None:
+        saliency, nnz = probe_saliency_from_colsum(colsum, probe, l)
+    return y, AttnAux(k=k_pe[:, None], v=latent[:, None], saliency=saliency, probe_nnz=nnz)
+
+
+def mla_kv_t(params: dict, x_t: torch.Tensor, cfg: ArchConfig, position: torch.Tensor):
+    """One token's cache entries: (rope key (b, p), latent (b, r))."""
+    cos, sin = common.rotary_cos_sin(position, cfg.rope_head_dim, cfg.rope_theta)
+    latent_t = common.rms_norm(common.einsum("be,er->br", x_t, params["w_dkv"]),
+                               params["kv_norm"], cfg.norm_eps)
+    k_pe_t = common.apply_rotary(common.einsum("be,ep->bp", x_t, params["w_kpe"]), cos, sin)
+    return k_pe_t, latent_t
+
+
+def mla_decode(params: dict, x_t: torch.Tensor, cache, cfg: ArchConfig,
+               position: torch.Tensor, impl: str = "ref", kv_t=None):
+    """Absorbed-matmul MLA decode (one token) against the latent cache, a
+    `MixedKVCache` holding k = rope key (b, 1, S, p), v = latent (b, 1, S, r).
+    impl: "ref" (exact, dequantized streams) or "int8_algebra".  kv_t: this
+    token's (rope key, latent) when the caller has them (`mla_kv_t`).
+    Returns (y_t (b, e), k_pe_t (b, 1, p), latent_t (b, 1, r), slot_weights
+    (b, S))."""
+    from repro_torch.core import kvcache as kvc
+
+    p, nd = cfg.rope_head_dim, cfg.nope_head_dim
+    k_pe_t, latent_t = kv_t if kv_t is not None else mla_kv_t(params, x_t, cfg, position)
+    cos, sin = common.rotary_cos_sin(position, p, cfg.rope_theta)
+    q_nope = common.einsum("be,ehd->bhd", x_t, params["w_q_nope"])
+    q_pe = common.apply_rotary(common.einsum("be,ehp->bhp", x_t, params["w_q_pe"]),
+                               cos[:, None], sin[:, None])
+    q_abs = common.einsum("bhd,rhd->bhr", q_nope, params["w_uk"])   # absorb W_uk
+    scale = 1.0 / ((nd + p) ** 0.5)
+    if impl == "int8_algebra":
+        out_latent, slot_w = kvc.attend_decode_mla_int8(q_abs, q_pe, cache, scale)
+    elif impl == "ref":
+        k_pe_all, latent_all, valid, _ = kvc.cache_keys_values(cache)
+        k_pe_all, latent_all = k_pe_all[:, 0].float(), latent_all[:, 0].float()
+        logits = (torch.einsum("bhr,bsr->bhs", q_abs.float(), latent_all)
+                  + torch.einsum("bhp,bsp->bhs", q_pe.float(), k_pe_all)) * scale
+        w = torch.softmax(logits.masked_fill(~valid[:, None, :], NEG_INF), dim=-1)
+        out_latent = torch.einsum("bhs,bsr->bhr", w, latent_all)
+        slot_w = w.mean(dim=1)
+    else:
+        raise ValueError(f"unknown decode impl {impl!r}; one of ('ref', 'int8_algebra')")
+    out = common.einsum("bhr,rhv->bhv", out_latent.to(x_t.dtype), params["w_uv"])
+    y = common.out_proj(out, params["wo"])
+    return y, k_pe_t[:, None], latent_t[:, None], slot_w

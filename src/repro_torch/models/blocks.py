@@ -1,5 +1,11 @@
-"""Decoder blocks (port of `repro.models.blocks`, attention + dense FFN):
-the run context, and one layer's prefill and decode steps."""
+"""Decoder blocks (port of `repro.models.blocks`, attention layers): the run
+context, layer schemas by (mixer, ffn) kind, and one layer's prefill and
+decode steps.
+
+Mixers: "attn" (GQA) and "mla" (DeepSeek-V2's latent attention; its cache
+holds the rope key as the K stream and the latent as the V stream, one kv
+head).  FFNs: "dense" (SwiGLU), "moe" (fine-grained experts) or "none".
+"""
 
 from __future__ import annotations
 
@@ -18,17 +24,25 @@ from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import ParamDef
 
 
-def layer_schema(cfg: ArchConfig) -> dict:
+def layer_schema(cfg: ArchConfig, mixer: str, ffn: str) -> dict:
     e = cfg.d_model
-    s = {"ln1": ParamDef((e,), init="ones"), "attn": attn.gqa_schema(cfg)}
-    if cfg.d_ff:
+    if mixer not in ("attn", "mla"):
+        raise ValueError(mixer)
+    s = {"ln1": ParamDef((e,), init="ones"),
+         "attn": attn.gqa_schema(cfg) if mixer == "attn" else attn.mla_schema(cfg)}
+    if ffn == "dense":
         s["ln2"] = ParamDef((e,), init="ones")
         s["mlp"] = mlp_mod.dense_mlp_schema(cfg)
+    elif ffn == "moe":
+        s["ln2"] = ParamDef((e,), init="ones")
+        s["moe"] = mlp_mod.moe_schema(cfg)
+    elif ffn != "none":
+        raise ValueError(ffn)
     return s
 
 
 def group_schema(cfg: ArchConfig) -> dict:
-    return {"sub0": layer_schema(cfg)}
+    return {f"sub{j}": layer_schema(cfg, m, f) for j, (m, f) in enumerate(cfg.layer_kinds())}
 
 
 class RunCtx:
@@ -82,38 +96,81 @@ class RunCtx:
         return eff
 
 
-def apply_layer_full(params: dict, x: torch.Tensor, cfg: ArchConfig, ctx: RunCtx,
-                     build_cache: bool, layer: int = 0) -> Tuple[torch.Tensor, Any]:
+def _ffn(params: dict, x: torch.Tensor, cfg: ArchConfig, ffn: str,
+         active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x plus the layer's FFN of its post-attention norm (x: (b, s, e) or, at
+    decode, (b, e); `active`: the live rows, the only ones that take MoE
+    expert slots)."""
+    if ffn == "none":
+        return x
+    h = common.rms_norm(x, params["ln2"], cfg.norm_eps)
+    if ffn == "dense":
+        return x + mlp_mod.dense_mlp(params["mlp"], h)
+    if x.dim() == 2:
+        return x + mlp_mod.moe_ffn(params["moe"], h[:, None, :], cfg, active=active).y[:, 0]
+    return x + mlp_mod.moe_ffn(params["moe"], h, cfg).y
+
+
+def apply_layer_full(params: dict, x: torch.Tensor, cfg: ArchConfig, mixer: str, ffn: str,
+                     ctx: RunCtx, build_cache: bool, layer: int = 0
+                     ) -> Tuple[torch.Tensor, Any]:
     """One layer over the full sequence. Returns (x, cache element | None).
     `layer`: the absolute layer index, for the precision map."""
     h = common.rms_norm(x, params["ln1"], cfg.norm_eps)
-    y, aux = attn.gqa_forward(params["attn"], h, cfg, probe=ctx.probe, q_block=ctx.q_block,
-                              use_kernel=ctx.use_kernels, compact=ctx.compact_softmax)
+    fwd = attn.gqa_forward if mixer == "attn" else attn.mla_forward
+    y, aux = fwd(params["attn"], h, cfg, probe=ctx.probe, q_block=ctx.q_block,
+                 use_kernel=ctx.use_kernels, compact=ctx.compact_softmax)
     cache_el = None
     if build_cache:
         cache_el = ctx.backend.compress_prefill(
             aux.k, aux.v, aux.saliency, ctx.max_cache_len, probe_nnz=aux.probe_nnz,
             dtype=x.dtype, eff=ctx.layer_eff(layer, aux.k.shape[1], device=aux.k.device))
-    x = x + y
-    if cfg.d_ff:
-        x = x + mlp_mod.dense_mlp(params["mlp"], common.rms_norm(x, params["ln2"], cfg.norm_eps))
-    return x, cache_el
+    return _ffn(params, x + y, cfg, ffn), cache_el
 
 
-def apply_layer_decode(params: dict, x_t: torch.Tensor, cfg: ArchConfig, cache_el: Any,
-                       ctx: RunCtx, is_probe, active: Optional[torch.Tensor] = None
-                       ) -> Tuple[torch.Tensor, Any]:
+def apply_layer_decode(params: dict, x_t: torch.Tensor, cfg: ArchConfig, mixer: str, ffn: str,
+                       cache_el: Any, ctx: RunCtx, is_probe,
+                       active: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Any]:
     """One layer, one token: append this token's K/V, attend over the cache
     (exact slot weights on probe steps), fold the probe row.  `is_probe` and
-    `active` as in `core.backend`: inactive rows append nothing."""
+    `active` as in `core.backend`: inactive rows append nothing.  MLA appends
+    the rope key and the latent first (the token attends to itself), then
+    reads the cache's mixed-layout view."""
     be = ctx.backend
     h = common.rms_norm(x_t, params["ln1"], cfg.norm_eps)
-    q_t, k_t, v_t = attn.gqa_decode_qkv(params["attn"], h, cfg, cache_el.length)
-    cache_el = be.append(cache_el, k_t, v_t, active=active)
-    dec = be.attend(q_t, cache_el, is_probe, impl=ctx.decode_impl)
-    cache_el = be.update_probe(cache_el, dec.slot_weights, is_probe)
-    x_t = x_t + common.out_proj(dec.out, params["attn"]["wo"])
-    if cfg.d_ff:
-        x_t = x_t + mlp_mod.dense_mlp(params["mlp"],
-                                      common.rms_norm(x_t, params["ln2"], cfg.norm_eps))
-    return x_t, cache_el
+    position = cache_el.length
+    if mixer == "attn":
+        q_t, k_t, v_t = attn.gqa_decode_qkv(params["attn"], h, cfg, position)
+        cache_el = be.append(cache_el, k_t, v_t, active=active)
+        dec = be.attend(q_t, cache_el, is_probe, impl=ctx.decode_impl)
+        cache_el = be.update_probe(cache_el, dec.slot_weights, is_probe)
+        y = common.out_proj(dec.out, params["attn"]["wo"])
+    else:
+        kv_t = attn.mla_kv_t(params["attn"], h, cfg, position)
+        cache_el = be.append(cache_el, kv_t[0][:, None], kv_t[1][:, None], active=active)
+        y, _, _, slot_w = attn.mla_decode(params["attn"], h, be.dense(cache_el), cfg, position,
+                                          impl=ctx.decode_impl, kv_t=kv_t)
+        cache_el = be.update_probe(cache_el, slot_w, is_probe)
+    return _ffn(params, x_t + y, cfg, ffn, active), cache_el
+
+
+def init_mla_cache(cfg: ArchConfig, ctx: RunCtx, b: int, dtype=torch.bfloat16, device=None):
+    """MLA latent cache: one kv head; K stream the rope key (dim p), V stream
+    the latent (rank r).  ZipCache's schemes map onto the two: channelwise
+    K on the rope key, CSTQuant V on the latent."""
+    return ctx.backend.init_cache(b, 1, cfg.rope_head_dim, ctx.max_cache_len, dtype,
+                                  d_v=cfg.kv_lora_rank, device=device)
+
+
+def init_layer_cache(cfg: ArchConfig, ctx: RunCtx, mixer: str, b: int, dtype=torch.bfloat16,
+                     device=None):
+    """An empty cache element of a layer of kind `mixer`."""
+    if mixer == "mla":
+        return init_mla_cache(cfg, ctx, b, dtype, device=device)
+    return ctx.backend.init_cache(b, cfg.n_kv_heads, cfg.hd, ctx.max_cache_len, dtype,
+                                  device=device)
+
+
+def cache_heads(cfg: ArchConfig, mixer: str) -> int:
+    """The kv heads of a layer's cache (MLA: the one shared latent)."""
+    return 1 if mixer == "mla" else cfg.n_kv_heads

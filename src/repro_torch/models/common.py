@@ -14,7 +14,7 @@ import torch.nn.functional as F
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: Tuple[int, ...]
-    init: str = "normal"        # normal | zeros | ones | embed
+    init: str = "normal"        # normal | zeros | ones | embed | small
     scale: float = 1.0
     dtype: torch.dtype = torch.bfloat16
 
@@ -48,7 +48,13 @@ def _init_leaf(p: ParamDef, gen: torch.Generator, device) -> torch.Tensor:
         return torch.ones(p.shape, dtype=p.dtype, device=device)
     # the reference's rule: fan-in is the leaf's leading axis (for stacked
     # layer weights that is the layer count), std = 1/sqrt(fan_in)
-    std = 1.0 if p.init == "embed" else 1.0 / math.sqrt(max(p.shape[0] if p.shape else 1, 1))
+    # ("small": std 0.02, the MoE router's f32 init)
+    if p.init == "embed":
+        std = 1.0
+    elif p.init == "small":
+        std = 0.02
+    else:
+        std = 1.0 / math.sqrt(max(p.shape[0] if p.shape else 1, 1))
     out = torch.empty(p.shape, dtype=p.dtype, device=device)
     _trunc_normal_(out, std * p.scale, gen)
     return out

@@ -1,10 +1,14 @@
-"""Decoder-only LM (port of `repro.models.lm`, dense decoder-only).
+"""Decoder-only LM (port of `repro.models.lm`, decoder-only).
 
-Parameters keep the reference's layout: `groups` holds every layer's
-weights stacked on a leading layer axis (`groups.sub0.{ln1, ln2,
-attn.{wq,wk,wv,wo}, mlp.{w_gate,w_up,w_down}}`); a Python loop over the
-layer axis replaces `lax.scan`.  Caches are {"prefix": [], "groups":
-[{"sub0": MixedKVCache} per layer]}.
+Parameters keep the reference's layout: optional unrolled prefix layers
+(`prefix.layer{i}`, DeepSeek's first dense layer) before `groups`, which
+holds every later layer's weights stacked on a leading group axis
+(`groups.sub{j}.{ln1, ln2, attn.*, mlp.* | moe.*}`); a Python loop over the
+group axis replaces `lax.scan`.  Caches are {"prefix": [element per prefix
+layer], "groups": [{"sub{j}": element} per group]}, each element a
+`MixedKVCache` or `PagedKVCache`.  The absolute layer of group g's
+sub-layer j is first_dense_layers + g * scan_group + j (the precision
+map's index).
 """
 
 from __future__ import annotations
@@ -32,8 +36,46 @@ def lm_schema(cfg: ArchConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         s["lm_head"] = ParamDef((e, v))
+    if cfg.first_dense_layers:
+        s["prefix"] = {f"layer{i}": blocks.layer_schema(cfg, m, f)
+                       for i, (m, f) in enumerate(cfg.prefix_kinds())}
     s["groups"] = common.stack_schema(blocks.group_schema(cfg), cfg.n_scan_groups)
     return s
+
+
+def layers(cfg: ArchConfig):
+    """Every layer in order: (absolute layer, mixer, ffn, where), `where`
+    ("prefix", i) for prefix layer i, ("groups", g, "sub{j}") for group g's
+    sub-layer j: the paths of its parameters and its cache element."""
+    out = [(i, m, f, ("prefix", i)) for i, (m, f) in enumerate(cfg.prefix_kinds())]
+    for g in range(cfg.n_scan_groups):
+        for j, (m, f) in enumerate(cfg.layer_kinds()):
+            out.append((cfg.first_dense_layers + g * cfg.scan_group + j, m, f,
+                        ("groups", g, f"sub{j}")))
+    return out
+
+
+def layer_params(params: dict, where) -> dict:
+    if where[0] == "prefix":
+        return params["prefix"][f"layer{where[1]}"]
+    return common.layer_slice(params["groups"][where[2]], where[1])
+
+
+def _cache_tree(cfg: ArchConfig, elements) -> Any:
+    """Cache elements in `layers(cfg)` order -> the cache tree."""
+    elements = list(elements)
+    n_prefix = cfg.first_dense_layers
+    keys = [f"sub{j}" for j in range(cfg.scan_group)]
+    body = elements[n_prefix:]
+    return {"prefix": elements[:n_prefix],
+            "groups": [dict(zip(keys, body[g * len(keys):(g + 1) * len(keys)]))
+                       for g in range(len(body) // len(keys))]}
+
+
+def cache_element(caches: Any, where) -> Any:
+    if where[0] == "prefix":
+        return caches["prefix"][where[1]]
+    return caches["groups"][where[1]][where[2]]
 
 
 def mask_padded_vocab(logits: torch.Tensor, vocab: int) -> torch.Tensor:
@@ -58,12 +100,12 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     """Serving prefill: forward + per-layer ZipCache compression (Alg. 2).
     Returns (logits at the last position (b, vocab), caches)."""
     x = common.embed_lookup(params["embed"], tokens)
-    groups = []
-    for i in range(cfg.n_scan_groups):
-        x, el = blocks.apply_layer_full(common.layer_slice(params["groups"]["sub0"], i),
-                                        x, cfg, ctx, build_cache=True, layer=i)
-        groups.append({"sub0": el})
-    return unembed(params, cfg, x[:, -1]), {"prefix": [], "groups": groups}
+    els = []
+    for layer, mixer, ffn, where in layers(cfg):
+        x, el = blocks.apply_layer_full(layer_params(params, where), x, cfg, mixer, ffn, ctx,
+                                        build_cache=True, layer=layer)
+        els.append(el)
+    return unembed(params, cfg, x[:, -1]), _cache_tree(cfg, els)
 
 
 def decode_step(params: dict, token: torch.Tensor, caches: Any, cfg: ArchConfig,
@@ -77,12 +119,13 @@ def decode_step(params: dict, token: torch.Tensor, caches: Any, cfg: ArchConfig,
     (b,) bool device tensor of live slots; inactive rows neither append nor
     advance their counters."""
     x_t = common.embed_lookup(params["embed"], token)
-    groups = []
-    for i, gc in enumerate(caches["groups"]):
-        x_t, el = blocks.apply_layer_decode(common.layer_slice(params["groups"]["sub0"], i),
-                                            x_t, cfg, gc["sub0"], ctx, is_probe, active)
-        groups.append({"sub0": el})
-    return unembed(params, cfg, x_t), {"prefix": [], "groups": groups}
+    els = []
+    for _, mixer, ffn, where in layers(cfg):
+        x_t, el = blocks.apply_layer_decode(layer_params(params, where), x_t, cfg, mixer, ffn,
+                                            cache_element(caches, where), ctx, is_probe,
+                                            active)
+        els.append(el)
+    return unembed(params, cfg, x_t), _cache_tree(cfg, els)
 
 
 def recompress_caches(caches: Any, cfg: ArchConfig, ctx: blocks.RunCtx,
@@ -95,26 +138,25 @@ def recompress_caches(caches: Any, cfg: ArchConfig, ctx: blocks.RunCtx,
     (the paged layout's; excludes `rows`).  rung: optional downshift
     rung(s), a (b,) int tensor with `rows`, a scalar with `slot`: the folded
     slots' lo stores take max(1, base - rung) effective bits
-    (`precision.rung_eff`)."""
+    (`precision.rung_eff`).  MLA layers pool the precision map onto their
+    one latent head."""
     assert rows is None or slot is None, "pass rows OR slot, not both"
     be = ctx.backend
 
-    def fold(el, layer):
-        eff = ctx.layer_eff(layer, cfg.n_kv_heads, device=el.length.device)
+    def fold(el, layer, mixer):
+        eff = ctx.layer_eff(layer, blocks.cache_heads(cfg, mixer), device=el.length.device)
         if rung is not None:
             eff = precision_lib.rung_eff(eff, rung, ctx.ccfg.high_bits, ctx.ccfg.low_bits)
         if slot is not None:
             return be.recompress_slot(el, slot, eff=eff)
         return be.recompress(el, rows=rows, eff=eff)
 
-    return {"prefix": [], "groups": [{"sub0": fold(gc["sub0"], i)}
-                                     for i, gc in enumerate(caches["groups"])]}
+    return _cache_tree(cfg, [fold(cache_element(caches, where), layer, mixer)
+                             for layer, mixer, _, where in layers(cfg)])
 
 
 def init_caches(cfg: ArchConfig, ctx: blocks.RunCtx, b: int, dtype=torch.bfloat16,
                 device=None) -> Any:
     """Empty caches for every layer."""
-    return {"prefix": [],
-            "groups": [{"sub0": ctx.backend.init_cache(b, cfg.n_kv_heads, cfg.hd,
-                                                       ctx.max_cache_len, dtype, device=device)}
-                       for _ in range(cfg.n_scan_groups)]}
+    return _cache_tree(cfg, [blocks.init_layer_cache(cfg, ctx, mixer, b, dtype, device=device)
+                             for _, mixer, _, _ in layers(cfg)])

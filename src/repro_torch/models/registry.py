@@ -37,10 +37,19 @@ def recompress(caches: Any, cfg: ArchConfig, ctx: blocks.RunCtx,
     return lm.recompress_caches(caches, cfg, ctx, rows=rows, slot=slot, rung=rung)
 
 
-def _map_elements(fn, *trees):
-    return {"prefix": [],
-            "groups": [{"sub0": fn(*(t["groups"][i]["sub0"] for t in trees))}
-                       for i in range(len(trees[0]["groups"]))]}
+def cache_elements(caches: Any) -> list:
+    """Every cache element of a cache tree in layer order: the prefix layers'
+    (DeepSeek's first dense layer), then each group's sub-layers'."""
+    return list(caches["prefix"]) + [el for gc in caches["groups"] for el in gc.values()]
+
+
+def map_caches(fn, *trees) -> Any:
+    """The cache tree of fn(elements of `trees` at the same layer), over the
+    prefix layers and the groups alike."""
+    first = trees[0]
+    return {"prefix": [fn(*els) for els in zip(*(t["prefix"] for t in trees))],
+            "groups": [{key: fn(*(t["groups"][i][key] for t in trees)) for key in gc}
+                       for i, gc in enumerate(first["groups"])]}
 
 
 def insert_caches(dst: Any, src: Any, slot: int) -> Any:
@@ -54,7 +63,7 @@ def insert_caches(dst: Any, src: Any, slot: int) -> Any:
             return paged.insert_slot(d, s, slot)
         return kvc.insert_slot(d, s, slot)
 
-    return _map_elements(ins, dst, src)
+    return map_caches(ins, dst, src)
 
 
 def extract_caches(caches: Any, slot: int) -> list:
@@ -62,16 +71,15 @@ def extract_caches(caches: Any, slot: int) -> list:
     swap-out: each paged layer's `paged.extract_slot`, as one flat list of
     tensors (`restore_caches` takes it back)."""
     from repro_torch.core import paged
-    return [t for gc in caches["groups"] for t in paged.extract_slot(gc["sub0"], slot)]
+    return [t for el in cache_elements(caches) for t in paged.extract_slot(el, slot)]
 
 
 def restore_caches(caches: Any, payload: list, slot: int) -> Any:
     """Inverse of `extract_caches` through the slot's current table rows."""
     from repro_torch.core import paged
-    n = len(payload) // len(caches["groups"])
-    return {"prefix": [], "groups": [
-        {"sub0": paged.restore_slot(gc["sub0"], payload[i * n:(i + 1) * n], slot)}
-        for i, gc in enumerate(caches["groups"])]}
+    n = len(payload) // len(cache_elements(caches))
+    chunks = iter([payload[i:i + n] for i in range(0, len(payload), n)])
+    return map_caches(lambda el: paged.restore_slot(el, next(chunks), slot), caches)
 
 
 def copy_caches(caches: Any, moves) -> Any:
@@ -80,8 +88,8 @@ def copy_caches(caches: Any, moves) -> Any:
     shares the allocator's one table per segment, so one move set holds
     tree-wide."""
     from repro_torch.core import paged
-    for gc in caches["groups"]:
-        paged.copy_pages(gc["sub0"], moves)
+    for el in cache_elements(caches):
+        paged.copy_pages(el, moves)
     return caches
 
 
@@ -89,7 +97,7 @@ def free_caches(caches: Any, slot: int) -> Any:
     """Retire batch row `slot` across the cache tree (metadata row writes; a
     paged slot's pages stay, validity is pos-driven)."""
     from repro_torch.core import kvcache as kvc
-    return _map_elements(lambda el: kvc.free_slot(el, slot), caches)
+    return map_caches(lambda el: kvc.free_slot(el, slot), caches)
 
 
 def init_caches(cfg: ArchConfig, ctx: blocks.RunCtx, b: int, dtype=torch.bfloat16,

@@ -400,10 +400,9 @@ class EngineCore(_EngineBase):
                 self._tables = {k: torch.from_numpy(v).to(self.device)
                                 for k, v in self._alloc.tables().items()}
             self._alloc.dirty = False
-            caches = {"prefix": [], "groups": [
-                {"sub0": paged_lib.with_tables(g["sub0"], self._tables["hi"],
-                                               self._tables["lo"], self._tables["win"])}
-                for g in caches["groups"]]}
+            caches = registry.map_caches(
+                lambda el: paged_lib.with_tables(el, self._tables["hi"], self._tables["lo"],
+                                                 self._tables["win"]), caches)
         self.caches = self._decode_masked.adopt(caches)
         # the downshift ladder: pressure is page-pool pressure, and what a
         # downshift frees is the window pages its fold returns, which only the

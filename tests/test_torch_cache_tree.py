@@ -1,0 +1,251 @@
+"""The cache tree with a prefix layer: DeepSeek-V2-Lite's first dense layer
+is unrolled before the stacked groups, so its cache element sits in
+`caches["prefix"]`, and every walk over the tree must take it.
+
+  * `convert.from_jax_params` carries the JAX package's DeepSeek smoke tree
+    (a prefix layer, stacked MoE experts, an f32 router) over leaf for leaf;
+  * every walk — `registry.insert_caches`, `free_caches`, `extract_caches` /
+    `restore_caches`, `copy_caches`, `backend.cache_bytes`, the captured
+    steps' `_fits` / `_copy_into` (`adopt`) — treats the prefix element as
+    it treats a group's: each case marks the prefix element only, and
+    fails if the walk leaves it behind;
+  * the engines' static-buffer decode steps on the DeepSeek smoke model
+    (the CPU's route of a captured step) bitwise equal to `capture=False`,
+    lockstep and continuous, with the static tree's every leaf, the prefix
+    layer's included, at one address for the whole run;
+  * the serve CLI with `--arch deepseek-v2-lite-16b --smoke`, both engines.
+"""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.models import registry as jregistry
+from repro_torch import configs, convert
+from repro_torch.core import backend as backend_lib
+from repro_torch.core import kvcache as kvc
+from repro_torch.core import paged
+from repro_torch.core.policy import CompressionConfig
+from repro_torch.launch import serve, steps
+from repro_torch.models import registry
+from repro_torch.serving import ContinuousEngine, Request, ServeConfig, ServingEngine
+from repro_torch.serving import pack_requests
+from tests.torch_parity import to_np, torch_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_threads")
+ARCH = "deepseek-v2-lite-16b"
+
+
+def test_from_jax_params_round_trips_the_deepseek_tree():
+    jcfg = jconfigs.get_arch(ARCH, smoke=True)
+    cfg = configs.get_arch(ARCH, smoke=True)
+    with jax.threefry_partitionable(True):
+        ref = jax.device_get(jregistry.materialize_params(jcfg, seed=0))
+    got = convert.from_jax_params(ref, cfg, device="cpu")
+    flat_ref = jax.tree_util.tree_flatten_with_path(ref)[0]
+    assert len(flat_ref) == len(jax.tree_util.tree_leaves(got))
+    for path, want in flat_ref:
+        leaf = got
+        for key in path:
+            leaf = leaf[key.key]
+        assert tuple(leaf.shape) == want.shape, path
+        np.testing.assert_array_equal(to_np(leaf), to_np(want))
+    assert set(got["prefix"]) == {"layer0"} and "mlp" in got["prefix"]["layer0"]
+    moe = got["groups"]["sub0"]["moe"]
+    assert moe["router"].dtype == torch.float32
+    assert moe["w_gate"].shape == (cfg.n_scan_groups, cfg.n_experts, cfg.d_model, cfg.moe_d_ff)
+    bad = dict(ref, prefix={"layer0": ref["groups"]})
+    with pytest.raises(ValueError, match="prefix"):
+        convert.from_jax_params(bad, cfg, device="cpu")
+
+
+def _ctx(**shape):
+    cfg = configs.get_arch(ARCH, smoke=True)
+    ccfg = dataclasses.replace(CompressionConfig.zipcache(), fp_window=8, recompress_interval=8)
+    shp = configs.ShapeConfig("t", 24, 2, "decode", **shape)
+    return cfg, steps.serve_ctx(cfg, shp, ccfg, decode_budget=8, q_block=24, device="cpu")
+
+
+def _tree(ctx_pair, b=2):
+    cfg, ctx = ctx_pair
+    return registry.init_caches(cfg, ctx, b, device="cpu")
+
+
+def _prefill_slice(ctx_pair, seed=0):
+    cfg, ctx = ctx_pair
+    params = registry.materialize_params(cfg, seed=seed, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(2, cfg.vocab, (1, 24)))
+    return registry.prefill(params, {"tokens": toks}, cfg, ctx)[1]
+
+
+def _equal(a, b):
+    return all(torch.equal(x, y) for x, y in zip(kvc.tree_leaves(a), kvc.tree_leaves(b)))
+
+
+PAGED = dict(cache_backend="paged", page_size=8, page_allocator="freelist", pool_fraction=1.0)
+
+
+@pytest.mark.parametrize("layout", ["mixed", "paged"])
+def test_insert_and_free_take_the_prefix(layout):
+    pair = _ctx(**(PAGED if layout == "paged" else {}))
+    dst, src = _tree(pair), _prefill_slice(pair)
+    assert len(dst["prefix"]) == 1 and len(src["prefix"]) == 1
+    out = registry.insert_caches(dst, src, 1)
+    for el, sl in zip(registry.cache_elements(out), registry.cache_elements(src)):
+        assert int(el.length[1]) == int(sl.length[0]) == 24 and int(el.length[0]) == 0
+    want = (paged.insert_slot if layout == "paged" else kvc.insert_slot)(
+        dst["prefix"][0], src["prefix"][0], 1)
+    assert _equal(out["prefix"][0], want)
+    freed = registry.free_caches(out, 1)
+    assert all(int(el.length[1]) == 0 and not bool((el.hi.pos[1] >= 0).any())
+               for el in registry.cache_elements(freed))
+
+
+def test_swap_payload_covers_the_prefix():
+    """`extract_caches` takes one list per layer, the prefix layer's first;
+    `restore_caches` writes each back, the prefix layer's included."""
+    pair = _ctx(**PAGED)
+    tree = registry.insert_caches(_tree(pair), _prefill_slice(pair), 0)
+    payload = registry.extract_caches(tree, 0)
+    per = len(paged.extract_slot(tree["prefix"][0], 0))
+    assert len(payload) == per * len(registry.cache_elements(tree))
+    for want, got in zip(paged.extract_slot(tree["prefix"][0], 0), payload[:per]):
+        assert torch.equal(want, got)
+    empty = registry.free_caches(tree, 0)
+    back = registry.restore_caches(empty, [t.clone() for t in payload], 0)
+    for el, ref in zip(registry.cache_elements(back), registry.cache_elements(tree)):
+        for want, got in zip(paged.extract_slot(ref, 0), paged.extract_slot(el, 0)):
+            assert torch.equal(want, got)
+
+
+def test_copy_pages_reaches_the_prefix():
+    pair = _ctx(**PAGED)
+    tree = registry.insert_caches(_tree(pair), _prefill_slice(pair), 0)
+    src_page = int(tree["prefix"][0].hi.table[0, 0])
+    dst_page = (src_page + 1) % int(tree["prefix"][0].hi.k_pages.shape[0])
+    none = (torch.zeros(0, dtype=torch.int64),) * 2
+    moves = {"hi": (torch.tensor([src_page]), torch.tensor([dst_page])), "lo": none,
+             "win": none}
+    assert not torch.equal(tree["prefix"][0].hi.k_pages[dst_page],
+                           tree["prefix"][0].hi.k_pages[src_page])
+    out = registry.copy_caches(tree, moves)
+    for el in registry.cache_elements(out):
+        assert torch.equal(el.hi.k_pages[dst_page], el.hi.k_pages[src_page])
+        assert torch.equal(el.hi.v_pages[dst_page], el.hi.v_pages[src_page])
+
+
+def test_cache_bytes_count_the_prefix():
+    pair = _ctx()
+    tree = _tree(pair)
+    got = backend_lib.cache_bytes(tree)
+    per = [el.nbytes_total() for el in registry.cache_elements(tree)]
+    assert len(per) == pair[0].n_layers and got["total_bytes"] == sum(per)
+
+
+def test_adopt_copies_into_the_prefix_and_refits_on_it():
+    """The captured step's `adopt`: a tree that fits is copied in, the prefix
+    element included; a tree whose prefix element alone has another shape
+    does not fit."""
+    pair = _ctx()
+    static, new = _tree(pair), registry.insert_caches(_tree(pair), _prefill_slice(pair), 0)
+    assert steps._fits(static, new)
+    before = [t.data_ptr() for t in kvc.tree_leaves(static["prefix"][0])]
+    steps._copy_into(static, new)
+    assert _equal(static["prefix"][0], new["prefix"][0])
+    assert [t.data_ptr() for t in kvc.tree_leaves(static["prefix"][0])] == before
+    odd = dict(new, prefix=[kvc.tree_map(lambda t: t[:1], new["prefix"][0])])
+    assert not steps._fits(static, odd)
+    with pytest.raises(ValueError):
+        steps._copy_into(static, odd)
+    assert not steps._fits(static, dict(new, prefix=[]))
+
+
+# ---- the static-buffer steps on the DeepSeek smoke model ---------------------
+
+class _Recorder:
+    def __init__(self, step):
+        self.step, self.logits = step, []
+
+    def __call__(self, *args):
+        logits, caches = self.step(*args)
+        self.logits.append(logits.clone())
+        return logits, caches
+
+    def __getattr__(self, name):
+        return getattr(self.step, name)
+
+
+def _addresses(caches):
+    return [t.data_ptr() for el in registry.cache_elements(caches) for t in kvc.tree_leaves(el)]
+
+
+def _smoke():
+    cfg = configs.get_arch(ARCH, smoke=True)
+    ccfg = dataclasses.replace(CompressionConfig.zipcache(), fp_window=8, recompress_interval=8)
+    return cfg, ccfg, registry.materialize_params(cfg, seed=0, device="cpu")
+
+
+def test_lockstep_static_route_is_bitwise_eager():
+    cfg, ccfg, params = _smoke()
+    rng = np.random.default_rng(0)
+    batch = {"tokens": pack_requests([rng.integers(2, cfg.vocab, 48) for _ in range(2)], 2, 48)}
+    runs = []
+    for capture in (True, False):
+        eng = ServingEngine(cfg, ccfg, ServeConfig(2, 48, 12), params, device="cpu",
+                            capture=capture)
+        eng._decode = _Recorder(eng._decode)
+        runs.append((eng, eng.generate(batch)["tokens"]))
+    (eng, tokens), (eager, want) = runs
+    np.testing.assert_array_equal(tokens, want)
+    assert len(eng._decode.logits) == 12
+    for a, w in zip(eng._decode.logits, eager._decode.logits):
+        assert torch.equal(a, w)
+    step = eng._decode.step
+    assert step.captures == 1 and 0 < step.replays < 12
+    assert len(step.caches["prefix"]) == 1
+    before = _addresses(step.caches)
+    eng.generate(batch)   # a second batch: copied into the static tree, nothing rebuilt
+    assert _addresses(step.caches) == before and step.captures == 1
+
+
+def test_continuous_static_route_is_bitwise_eager():
+    cfg, ccfg, params = _smoke()
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(2, cfg.vocab, size=(n,)).astype(np.int32) for n in (24, 16, 20)]
+    scfg = ServeConfig(batch_size=2, prompt_len=24, max_new_tokens=10, backend="paged",
+                       page_size=8, page_allocator="freelist", pool_fraction=0.75)
+    runs = []
+    for capture in (True, False):
+        eng = ContinuousEngine(cfg, ccfg, scfg, params, device="cpu", capture=capture)
+        eng._decode_masked = _Recorder(eng._decode_masked)
+        before = _addresses(eng.caches)
+        rids = [eng.submit(Request(tokens=p, max_new_tokens=m))
+                for p, m in zip(prompts, (10, 3, 10))]
+        res = eng.run()
+        runs.append((eng, [res[r].tokens.tolist() for r in rids], before))
+    (eng, outs, before), (eager, want, _) = runs
+    assert outs == want and [len(t) for t in outs] == [10, 3, 10]
+    for a, w in zip(eng._decode_masked.logits, eager._decode_masked.logits):
+        assert torch.equal(a, w)
+    step = eng._decode_masked.step
+    assert step.captures == 1 and 0 < step.replays < len(eng._decode_masked.logits)
+    assert eng._n_folds >= 1
+    assert eng.caches is step.caches and _addresses(eng.caches) == before
+
+
+@pytest.mark.parametrize("extra", [[], ["--continuous", "--requests", "3", "--backend", "paged",
+                                        "--page-allocator", "freelist", "--page-size", "8"]],
+                         ids=["lockstep", "continuous"])
+def test_serve_cli_runs_deepseek_on_cpu(capsys, extra):
+    out = serve.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--batch", "2",
+                      "--prompt-len", "16", "--max-new", "4", *extra])
+    printed = capsys.readouterr().out
+    assert "kernel launches" in printed
+    if extra:
+        assert all(f"req-{i}: 4 tok" in printed for i in range(3))
+    else:
+        assert f"{ARCH} policy=zipcache" in printed and out["tokens"].shape == (2, 4)

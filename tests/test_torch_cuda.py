@@ -552,15 +552,17 @@ def test_captured_decode_layer_matches_eager(dev, layout):
         x = common.embed_lookup(params["embed"], torch.argmax(logits, -1))
         lp = common.layer_slice(params["groups"]["sub0"], 0)
         el = caches["groups"][0]["sub0"]
-        want, want_el = blocks.apply_layer_decode(lp, x, cfg, el, eng.ctx, False)
+        want, want_el = blocks.apply_layer_decode(lp, x, cfg, "attn", "dense", el, eng.ctx,
+                                                  False)
         stream = torch.cuda.Stream()
         stream.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(stream):
-            blocks.apply_layer_decode(lp, x, cfg, el, eng.ctx, False)
+            blocks.apply_layer_decode(lp, x, cfg, "attn", "dense", el, eng.ctx, False)
         torch.cuda.current_stream().wait_stream(stream)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, stream=stream):
-            got, got_el = blocks.apply_layer_decode(lp, x, cfg, el, eng.ctx, False)
+            got, got_el = blocks.apply_layer_decode(lp, x, cfg, "attn", "dense", el, eng.ctx,
+                                                    False)
         graph.replay()
         torch.cuda.synchronize()
     _close(got, want)
@@ -1142,3 +1144,138 @@ def test_levers_on_the_card(dev):
     oc, _ = attention.blocked_attention(qa, k[:1], v[:1], compact=True)
     of, _ = attention.blocked_attention(qa, k[:1], v[:1])
     assert (oc.float() - of.float()).abs().max().item() <= 2e-2
+
+
+# ---- MLA shapes (DeepSeek-V2-Lite): flash_fwd / probe_colsum at d 192, v 128;
+# cst_quant over the 512-wide latent --------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,lq,lkv,d,dv", [(2, 16, 130, 130, 192, 128), (1, 16, 70, 200, 192, 128),
+                                            (2, 4, 48, 48, 32, 16), (1, 4, 33, 70, 32, 16)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_fwd_mla_matches_plain(dev, dtype, b, h, lq, lkv, d, dv, causal):
+    """flash_fwd with a v head dim below the q/k one (MLA's prefill: q/k
+    nope + rope, v v_head_dim; full width and smoke width), ragged lq and a
+    diagonal offset: out (b, h, lq, dv) within 2**-7 of the plain version,
+    LSE within 1e-5."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    q = _randn(gen, b, h, lq, d, dtype=dtype)
+    k = _randn(gen, b, h, lkv, d, dtype=dtype)
+    v = _randn(gen, b, h, lkv, dv, dtype=dtype)
+    out, lse = pf_kernel.flash_fwd(q, k, v, causal=causal)
+    ref_out, ref_lse = pf_ref.flash_fwd_ref(q, k, v, causal=causal)
+    assert out.shape == (b, h, lq, dv)
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=2 ** -7, rtol=2 ** -7)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=1e-5)
+
+
+def test_flash_fwd_rejects_other_head_dim_pairs(dev):
+    gen = torch.Generator(device=dev).manual_seed(12)
+    q, k = _randn(gen, 1, 4, 8, 64), _randn(gen, 1, 4, 8, 64)
+    with pytest.raises(ValueError, match="head dims"):
+        pf_kernel.flash_fwd(q, k, _randn(gen, 1, 4, 8, 32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 4])
+def test_probe_colsum_mla_matches_plain(dev, dtype, b):
+    """probe_colsum at MLA's q/k head dim 192, 16 heads of one kv head each
+    (the materialized rope-key broadcast), the probe rows of
+    select_probes(1024): within 1e-4 of the plain version, bitwise across
+    two calls."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    h, l, d = 16, 1024, 192
+    q, k = _randn(gen, b, h, l, d, dtype=dtype), _randn(gen, b, h, l, d, dtype=dtype)
+    _, lse = pf_ref.flash_fwd_ref(q, k, k)
+    pos = pf_ops.unique_probe_rows(sal.select_probes(l).positions.to(dev))
+    safe = pos.clamp(0, l - 1).long()
+    args = (q[:, :, safe].contiguous(), lse[:, :, safe].contiguous(),
+            pos[None].expand(b, -1).contiguous(), k)
+    got = pf_kernel.probe_colsum(*args, lq=l)
+    torch.testing.assert_close(got, pf_ref.probe_colsum_ref(*args, lq=l), atol=1e-4, rtol=1e-4)
+    assert torch.equal(got, pf_kernel.probe_colsum(*args, lq=l))
+
+
+@pytest.mark.parametrize("eff", [False, True], ids=["static", "eff"])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s", [(4, 461), (1, 37)])
+def test_quantize_store_mla_matches_plain(dev, b, s, dtype, bits, eff):
+    """One MLA cache store: one kv head, K the 64-wide rope key
+    (channelwise), V the 512-wide latent (CST, several code words a
+    thread), static and through an eff table: codes and parameters bitwise
+    the plain version's on the card and on the CPU."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    l = s + 50
+    k = _randn(gen, b, 1, l, 64, dtype=dtype, scale=2.0)
+    v = _randn(gen, b, 1, l, 512, dtype=dtype)
+    idx = torch.full((b, s), -1, dtype=torch.int32, device=dev)
+    for row in range(b):
+        idx[row, :s - s // 5] = torch.randperm(l, generator=gen, device=dev)[:s - s // 5].int()
+    table = None
+    if eff:
+        table = torch.randint(1, bits + 1, (b, 1, 2), generator=gen, device=dev).float()
+        table.view(-1)[::3] = float(bits)
+    got = cst_kernel.quantize_store(k, v, idx, bits, eff=table)
+    want = cst_ref.quantize_store_ref(k, v, idx, bits, table)
+    on_cpu = cst_ref.quantize_store_ref(k.cpu(), v.cpu(), idx.cpu(), bits,
+                                        None if table is None else table.cpu())
+    names = ("k_codes", "k_scale", "k_zero", "v_codes", "v_scale", "v_zero", "v_cscale")
+    for name, a, w, c in zip(names, got, want, on_cpu):
+        assert a.dtype == w.dtype and a.shape == w.shape, name
+        assert torch.equal(a, w), name
+        assert torch.equal(a.cpu(), c), name
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_cst_quant_rows_512_exact(dev, bits):
+    gen = torch.Generator(device=dev).manual_seed(15)
+    x = _randn(gen, 3, 77, 512, dtype=torch.bfloat16, scale=2.0)
+    c = torch.sqrt(x.float().abs().amax(dim=1).double()).float().clamp_min(1e-4)
+    for a, w in zip(cst_kernel.cst_quant_rows(x, c, bits), cst_ref.cst_quant_rows_ref(x, c, bits)):
+        assert torch.equal(a, w)
+
+
+def _deepseek_smoke(dev, **kw):
+    cfg = configs.get_arch("deepseek-v2-lite-16b", smoke=True)
+    ccfg = dataclasses.replace(CompressionConfig.zipcache(), fp_window=8, recompress_interval=8)
+    params = registry.materialize_params(cfg, seed=0, device=dev)
+    return cfg, ccfg, params, ServeConfig(batch_size=2, prompt_len=48, max_new_tokens=12, **kw)
+
+
+@pytest.mark.parametrize("layout", list(CAPTURE_LAYOUTS))
+def test_deepseek_captured_serve_step_matches_eager(dev, layout):
+    """DeepSeek-V2-Lite smoke (an MLA prefix layer, MLA + MoE groups) on the
+    lockstep engine: the captured decode steps against the eager ones from
+    the same prefill through a probe step and a fold, logits within one bf16
+    ulp; flash_fwd at (32, 16) and probe_colsum once per layer per prefill,
+    cst_quant twice per layer per compression; no decode_qattn (MLA decodes
+    through the plain route over the dense view)."""
+    cfg, ccfg, params, scfg = _deepseek_smoke(dev, **CAPTURE_LAYOUTS[layout])
+    toks = torch.as_tensor(_smoke_batch(cfg), device=dev)
+    runs = []
+    for capture in (True, False):
+        eng = ServingEngine(cfg, ccfg, scfg, params, device=dev, capture=capture)
+        counts = [k.launches for k in (pf_kernel.FLASH, pf_kernel.COLSUM, cst_kernel.KERNEL,
+                                       dq_kernel.KERNEL, pq_kernel.KERNEL)]
+        seen = []
+        with torch.inference_mode():
+            logits, caches = eng._prefill(params, {"tokens": toks})
+            caches = eng._decode.adopt(caches)
+            tok = torch.argmax(logits, -1).to(torch.int32)
+            for i in range(12):
+                logits, caches = eng._decode(params, caches, tok, eng._is_probe(i))
+                seen.append(logits.clone())
+                tok = eng._decode.token
+                if i == 7:
+                    caches = eng._decode.adopt(eng._recompress(caches))
+        torch.cuda.synchronize()
+        got = [k.launches - c for k, c in zip((pf_kernel.FLASH, pf_kernel.COLSUM,
+                                               cst_kernel.KERNEL, dq_kernel.KERNEL,
+                                               pq_kernel.KERNEL), counts)]
+        assert got == [cfg.n_layers, cfg.n_layers, 4 * cfg.n_layers, 0, 0]
+        runs.append((eng._decode, seen))
+    (step, got), (_, want) = runs
+    for a, w in zip(got, want):
+        _close(a, w)
+    assert step.captures == 1 and step.replays == 12 - sum(probe_flag(i, 8) for i in range(12)) - 1

@@ -16,7 +16,12 @@ stops at attribute chains.  So the backends' decode methods (reached as
 are rooted here as well, and so is the plain decode attention a
 gather-route policy's captured step replays (kivi, gear, mikv: the
 groupwise and tokenwise dequantization, `kvcache.attend_decode`) with the
-int8-algebra route beside it (`decode_impl="int8_algebra"`).
+int8-algebra route beside it (`decode_impl="int8_algebra"`).  MLA's decode
+reads the cache through the backends' `dense` views (rooted here too) with
+both its algebras, and the MoE dispatch (`models.mlp`) runs in the MoE
+layers' step bodies.  Beside the syncs by name, the ops whose output size
+depends on the data (`torch.bincount`, `torch.nonzero`, `torch.unique`,
+`.nonzero()`) read a count back to the host, so they are flagged too.
 """
 
 import ast
@@ -38,13 +43,17 @@ ROOTS = (
     *(("repro_torch.core.paged", f"PagedKVBackend.{m}") for m in ("append", "attend",
                                                                    "update_probe")),
     ("repro_torch.core.paged", "PagedKVCache.dense_view"),
+    ("repro_torch.core.backend", "MixedKVBackend.dense"),
+    ("repro_torch.core.paged", "PagedKVBackend.dense"),
     ("repro_torch.core.paged", "PagedStore.dense"),
     ("repro_torch.core.quant", "QuantizedTensor.dequantize"),
     ("repro_torch.core.kvcache", "attend_decode"),
     ("repro_torch.core.kvcache", "attend_decode_int8"),
+    ("repro_torch.core.kvcache", "attend_decode_mla_int8"),
 )
-HOST_METHODS = {"item", "cpu", "tolist"}
-HOST_CALLS = {"torch.as_tensor", "torch.from_numpy"}
+HOST_METHODS = {"item", "cpu", "tolist", "nonzero"}
+HOST_CALLS = {"torch.as_tensor", "torch.from_numpy", "torch.bincount", "torch.nonzero",
+              "torch.unique"}
 
 
 def host_calls(fn: ast.AST):
@@ -76,6 +85,11 @@ def test_captured_steps_reach_no_host_calls(graph):
     for fn in ("cache_keys_values", "_store_logits_int8", "_store_values_int8", "_int8_store"):
         assert ("repro_torch.core.kvcache", fn) in reached
     assert ("repro_torch.core.quant", "scheme_of") in reached
+    for mod, fn in (("repro_torch.models.mlp", "_dispatch_compute"),
+                    ("repro_torch.models.attention", "mla_decode"),
+                    ("repro_torch.models.attention", "mla_kv_t"),
+                    ("repro_torch.core.kvcache", "_store_logits_vstream_int8")):
+        assert (mod, fn) in reached, (mod, fn)
     bad = [f"{graph.modules[mod].src.rel}:{line} {qual}: {pattern}"
            for mod, qual in reached
            for line, pattern in host_calls(graph.modules[mod].functions[qual])]
@@ -83,7 +97,8 @@ def test_captured_steps_reach_no_host_calls(graph):
 
 
 @pytest.mark.parametrize("expr", ["x.item()", "x.cpu()", "x.tolist()", "torch.as_tensor(x)",
-                                  "torch.from_numpy(x)"])
+                                  "torch.from_numpy(x)", "torch.bincount(x)", "x.nonzero()",
+                                  "torch.nonzero(x)", "torch.unique(x)"])
 def test_scan_flags_each_pattern(expr):
     fn = ast.parse(f"def f(x):\n    return {expr}\n").body[0]
     assert [line for line, _ in host_calls(fn)] == [2]
