@@ -2373,12 +2373,16 @@ def mla_kernels(torch, np, dev, rows, record, ccfg, prompt, max_new):
     _salient_sets_agree(torch, sal, attention, ccfg, probe, col, col_ref, prompt)
     fn = lambda: pf_kernel.probe_colsum(*args, lq=prompt)  # noqa: E731
     valid_pairs = int((pos[pos >= 0] + 1).sum())
+    pf_kernel.COLSUM.heads_per_cta = None
     record("probe_colsum@mla", "src/repro_torch/kernels/probe_flash/csrc/probe_flash.cu",
            "src/repro/kernels/probe_flash/kernel.py:177", (col - col_ref).abs().max().item(),
            1e-4, fn, time_ms(torch, fn),
            time_ms(torch, lambda: pf_ref.probe_colsum_ref(*args, lq=prompt), iters=5),
            bound_ms(2.0 * 4 * h * valid_pairs * dqk, nbytes(*args, col)))
-    rows["probe_colsum@mla"]["heads_per_cta"] = pf_kernel._heads_per_cta(4, h, 1, prompt)
+    hpc = pf_kernel.COLSUM.heads_per_cta
+    check(isinstance(hpc, int) and hpc >= 1,
+          f"probe_colsum@mla: the launch recorded no heads per CTA ({hpc!r})")
+    rows["probe_colsum@mla"]["heads_per_cta"] = hpc
     del q, k, v, out, lse, ref_out, ref_lse, args, col, col_ref, again, q4, lse4
 
     # cst_quant: one MLA layer's lockstep prefill stores, K the rope key, V the latent
@@ -2405,16 +2409,20 @@ def mla_kernels(torch, np, dev, rows, record, ccfg, prompt, max_new):
         timed[name] = (bits, sidx, eff, bound_ms(0.0, n_live * (p + r) * 2 + nbytes(sidx, *got)))
     bits, sidx, eff, bnd = timed["lo"]
     fn = lambda: cst_kernel.quantize_store(kpe, lat, sidx, bits)  # noqa: E731
+    cst_kernel.KERNEL.split = None
     record("cst_quant@mla", "src/repro_torch/kernels/cst_quant/csrc/cst_quant.cu",
            "src/repro/kernels/cst_quant/kernel.py:66", 0.0, 0.0, fn, time_ms(torch, fn, iters=50),
            time_ms(torch, lambda: cst_ref.quantize_store_ref(kpe, lat, sidx, bits)), bnd)
+    split = cst_kernel.KERNEL.split
+    check(isinstance(split, int) and split >= 1,
+          f"cst_quant@mla: the launch recorded no split ({split!r})")
     fe = lambda: cst_kernel.quantize_store(kpe, lat, sidx, bits, eff=eff)  # noqa: E731
     hbits, hidx, _, hbnd = timed["hi"]
     fh = lambda: cst_kernel.quantize_store(kpe, lat, hidx, hbits)  # noqa: E731
     rows["cst_quant@mla"].update(
         eff={"ms": time_ms(torch, fe, iters=50), "device_ms": device_ms(torch, fe)},
         hi={"ms": time_ms(torch, fh, iters=50), "device_ms": device_ms(torch, fh),
-            "bound_ms": hbnd[0]}, split=cst_kernel._split(2 * 4 * 1))
+            "bound_ms": hbnd[0]}, split=split)
     log(f"cst_quant@mla: bitwise at the hi and lo stores, static and eff; lo store "
         f"({bits}-bit, {sidx.shape[1]} slots) with eff {rows['cst_quant@mla']['eff']['ms']:.4f} "
         f"ms; hi store ({hbits}-bit, {hidx.shape[1]} slots) "
@@ -2451,7 +2459,7 @@ def deepseek(torch, np, dev, kernels, batch, cscfg, requests, budgets, rel_l2, y
     from repro_torch import configs
     from repro_torch.core import paged
     from repro_torch.core.policy import CompressionConfig
-    from repro_torch.models import attention, registry
+    from repro_torch.models import attention, common, registry
     from repro_torch.serving import ContinuousEngine, Request, ServeConfig, ServingEngine
     from repro_torch.serving import probe_flag
 
@@ -2522,9 +2530,34 @@ def deepseek(torch, np, dev, kernels, batch, cscfg, requests, budgets, rel_l2, y
     summarize("deepseek lockstep", lock, torch, rel_l2, yardstick)
     del lock
 
-    # the same model through the plain versions: prefill and first decode step
+    # the kernel route against the plain one where no router runs before it:
+    # the attention output of layer 0 (the MLA prefix layer, dense FFN), to a
+    # bf16 limit (2**-7 of its largest value, phase 3's flash_fwd limit)
     plain = ServingEngine(cfg, ccfg, scfg, params, device=dev, use_kernels=False)
     toks = torch.as_tensor(batch["tokens"], device=dev)
+    p0 = params["prefix"]["layer0"]
+    with torch.inference_mode():
+        h0 = common.rms_norm(common.embed_lookup(params["embed"], toks), p0["ln1"],
+                             cfg.norm_eps)
+        y0 = {run.use_kernels: attention.mla_forward(p0["attn"], h0, cfg, probe=run.probe,
+                                                     q_block=run.q_block,
+                                                     use_kernel=run.use_kernels)
+              for run in (ctx, plain.ctx)}
+    (yk, ak), (yp, ap) = y0[True], y0[False]
+    err = (yk.float() - yp.float()).abs().max().item()
+    tol = 2 ** -7 * yp.float().abs().max().item()
+    err_s = (ak.saliency - ap.saliency).abs().max().item()
+    log(f"deepseek layer 0 (before any router): attention output, kernel route vs plain: "
+        f"max abs err {err:.4g} (tol {tol:.4g}), relative L2 {rel_l2(yk, yp):.4g}; "
+        f"saliency max abs err {err_s:.4g}")
+    check(bool(torch.isfinite(yk).all()), "deepseek layer 0: attention output not finite")
+    check(err <= tol, f"deepseek layer 0: the kernel route's attention output is {err:.4g} "
+                      f"from the plain route's, beyond {tol:.4g}")
+    del y0, yk, yp, ak, ap, h0
+
+    # the whole prefill's logits, logged beside phase 4's yardstick: past
+    # layer 0 the router turns bf16 noise into other experts, so a bound here
+    # would see only gross faults
     plain_blocked = attention.blocked_attention
 
     def sdpa_blocked(q, k, v, **kw):
@@ -2533,31 +2566,18 @@ def deepseek(torch, np, dev, kernels, batch, cscfg, requests, budgets, rel_l2, y
 
     with torch.inference_mode():
         lk, _ = registry.prefill(params, {"tokens": toks}, cfg, ctx)
-        lp, cp = registry.prefill(params, {"tokens": toks}, cfg, plain.ctx)
+        lp, _ = registry.prefill(params, {"tokens": toks}, cfg, plain.ctx)
         attention.blocked_attention = sdpa_blocked
         try:
             lf, _ = registry.prefill(params, {"tokens": toks}, cfg, plain.ctx)
         finally:
             attention.blocked_attention = plain_blocked
-        tok0 = torch.argmax(lp, dim=-1).to(torch.int32)
-        dk, _ = registry.decode_step(params, tok0, cp, cfg, ctx, False)
-        dp, _ = registry.decode_step(params, tok0, cp, cfg, plain.ctx, False)
-    # phase 4's yardstick, on this model: the router turns bf16 noise in an
-    # attention output into other experts, so the noise reads about 4x
-    # yi-6b's (0.408 against 0.095 on an H100).  Held to 1.5x this model's
-    # own yardstick (at least phase 4's 0.2); a wiring fault reads about 1.4.
-    own = rel_l2(lf, lp)
-    tol = max(0.2, 1.5 * own)
-    log(f"deepseek yardstick: plain prefill logits with SDPA's attention output vs plain: "
-        f"relative L2 {own:.4g} (phase 4's, yi-6b: {yardstick:.4g})")
-    check(own < 0.7, f"deepseek: the yardstick itself reads {own:.4g}")
-    for what, a, w in (("prefill", lk, lp), ("first decode step", dk, dp)):
-        check(bool(torch.isfinite(a).all()), f"deepseek {what} logits not finite")
-        r = rel_l2(a, w)
-        log(f"deepseek {what} logits vs plain: relative L2 {r:.4g} (tolerance {tol:.4g}), "
-            f"argmax equal {float((a.argmax(-1) == w.argmax(-1)).float().mean()):.2f}")
-        check(r <= tol, f"deepseek {what} logits differ from the plain path beyond tolerance")
-    del plain, cp, lk, lp, lf, dk, dp
+    check(bool(torch.isfinite(lk).all()), "deepseek prefill logits not finite")
+    log(f"deepseek prefill logits vs plain: relative L2 {rel_l2(lk, lp):.4g}, argmax equal "
+        f"{float((lk.argmax(-1) == lp.argmax(-1)).float().mean()):.2f}; SDPA's attention "
+        f"output in the plain route vs plain: {rel_l2(lf, lp):.4g} (phase 4's yardstick, "
+        f"yi-6b: {yardstick:.4g})")
+    del plain, lk, lp, lf
 
     # -- continuous: phase 4b's configuration and traffic ---------------------
     cont = {}

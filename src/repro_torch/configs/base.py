@@ -38,7 +38,6 @@ class ArchConfig:
     # --- MLA (deepseek-v2) ---
     mla: bool = False
     kv_lora_rank: int = 0
-    q_lora_rank: int = 0
     rope_head_dim: int = 0
     nope_head_dim: int = 0
     v_head_dim: int = 0
@@ -51,10 +50,6 @@ class ArchConfig:
         if self.n_experts == 0 or i < self.first_dense_layers:
             return False
         return (i % self.moe_layer_period) == self.moe_layer_offset
-
-    def is_attn_layer(self, i: int) -> bool:
-        """Every layer of the ported families attends (no SSM layers)."""
-        return True
 
     @property
     def scan_group(self) -> int:

@@ -19,7 +19,6 @@ CONFIG = ArchConfig(
     vocab=102_400,
     mla=True,
     kv_lora_rank=512,
-    q_lora_rank=0,             # v2-lite has no q lora
     rope_head_dim=64,
     nope_head_dim=128,
     v_head_dim=128,

@@ -94,7 +94,7 @@ def quantize_store(k: torch.Tensor, v: torch.Tensor, idx: torch.Tensor, bits: in
     optional (b, hk, 2) f32 effective bits of K and V per slice (1 to
     `bits`, whole numbers as a map and a rung make them); the quantizers
     then take qmax = 2**eff - 1, as `quantize_channelwise` / `quantize_cst`
-    do with eff.
+    do with eff.  The split the launch used stays on `KERNEL.split`.
     """
     if k.device.type == "cpu":
         return ref.quantize_store_ref(k, v, idx, bits, eff)
@@ -137,6 +137,7 @@ def quantize_store(k: torch.Tensor, v: torch.Tensor, idx: torch.Tensor, bits: in
                       ksl, vsl, dk, dv, hk, s, 1, rpc,
                       _chunk(rpc, max(dk, dv), elem))
     KERNEL(desc, b, split, bits, int(k.dtype == torch.bfloat16), 0, build.stream_of(k))
+    KERNEL.split = split
     return kc, ks, kz, vc, vs, vz, vcs
 
 

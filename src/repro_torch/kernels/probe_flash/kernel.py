@@ -79,7 +79,8 @@ def _heads_per_cta(b: int, h: int, g: int, lkv: int) -> int:
 def probe_colsum(qp: torch.Tensor, lse_p: torch.Tensor, pos: torch.Tensor, k: torch.Tensor,
                  causal: bool = True, lq: int = None) -> torch.Tensor:
     """qp (b,h,np,d), lse_p (b,h,np) f32, pos (b,np) int32 (< 0 = padding),
-    k (b,hk,lkv,d) -> (b,lkv) f32.  CPU tensors take `ref.probe_colsum_ref`."""
+    k (b,hk,lkv,d) -> (b,lkv) f32.  CPU tensors take `ref.probe_colsum_ref`.
+    The query heads per CTA the launch used stay on `COLSUM.heads_per_cta`."""
     if qp.device.type == "cpu":
         return ref.probe_colsum_ref(qp, lse_p, pos, k, causal=causal, lq=lq)
     b, h, n_p, d = qp.shape
@@ -101,4 +102,5 @@ def probe_colsum(qp: torch.Tensor, lse_p: torch.Tensor, pos: torch.Tensor, k: to
            build.ptr(colsum),
            b, h, hk, hpc, n_p, lq, lkv, d, int(causal), 1.0 / (d ** 0.5), int(bf16),
            build.stream_of(qp))
+    COLSUM.heads_per_cta = hpc
     return colsum

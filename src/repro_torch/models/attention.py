@@ -236,17 +236,15 @@ def mla_kv_t(params: dict, x_t: torch.Tensor, cfg: ArchConfig, position: torch.T
 
 
 def mla_decode(params: dict, x_t: torch.Tensor, cache, cfg: ArchConfig,
-               position: torch.Tensor, impl: str = "ref", kv_t=None):
+               position: torch.Tensor, impl: str = "ref"):
     """Absorbed-matmul MLA decode (one token) against the latent cache, a
     `MixedKVCache` holding k = rope key (b, 1, S, p), v = latent (b, 1, S, r).
-    impl: "ref" (exact, dequantized streams) or "int8_algebra".  kv_t: this
-    token's (rope key, latent) when the caller has them (`mla_kv_t`).
-    Returns (y_t (b, e), k_pe_t (b, 1, p), latent_t (b, 1, r), slot_weights
-    (b, S))."""
+    impl: "ref" (exact, dequantized streams) or "int8_algebra".
+    Returns (y_t (b, e), slot_weights (b, S)): the reference's first and last
+    outputs (its middle two are `mla_kv_t`'s)."""
     from repro_torch.core import kvcache as kvc
 
     p, nd = cfg.rope_head_dim, cfg.nope_head_dim
-    k_pe_t, latent_t = kv_t if kv_t is not None else mla_kv_t(params, x_t, cfg, position)
     cos, sin = common.rotary_cos_sin(position, p, cfg.rope_theta)
     q_nope = common.einsum("be,ehd->bhd", x_t, params["w_q_nope"])
     q_pe = common.apply_rotary(common.einsum("be,ehp->bhp", x_t, params["w_q_pe"]),
@@ -267,4 +265,4 @@ def mla_decode(params: dict, x_t: torch.Tensor, cache, cfg: ArchConfig,
         raise ValueError(f"unknown decode impl {impl!r}; one of ('ref', 'int8_algebra')")
     out = common.einsum("bhr,rhv->bhv", out_latent.to(x_t.dtype), params["w_uv"])
     y = common.out_proj(out, params["wo"])
-    return y, k_pe_t[:, None], latent_t[:, None], slot_w
+    return y, slot_w

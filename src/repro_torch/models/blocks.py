@@ -107,8 +107,8 @@ def _ffn(params: dict, x: torch.Tensor, cfg: ArchConfig, ffn: str,
     if ffn == "dense":
         return x + mlp_mod.dense_mlp(params["mlp"], h)
     if x.dim() == 2:
-        return x + mlp_mod.moe_ffn(params["moe"], h[:, None, :], cfg, active=active).y[:, 0]
-    return x + mlp_mod.moe_ffn(params["moe"], h, cfg).y
+        return x + mlp_mod.moe_ffn(params["moe"], h[:, None, :], cfg, active=active)[:, 0]
+    return x + mlp_mod.moe_ffn(params["moe"], h, cfg)
 
 
 def apply_layer_full(params: dict, x: torch.Tensor, cfg: ArchConfig, mixer: str, ffn: str,
@@ -146,10 +146,10 @@ def apply_layer_decode(params: dict, x_t: torch.Tensor, cfg: ArchConfig, mixer: 
         cache_el = be.update_probe(cache_el, dec.slot_weights, is_probe)
         y = common.out_proj(dec.out, params["attn"]["wo"])
     else:
-        kv_t = attn.mla_kv_t(params["attn"], h, cfg, position)
-        cache_el = be.append(cache_el, kv_t[0][:, None], kv_t[1][:, None], active=active)
-        y, _, _, slot_w = attn.mla_decode(params["attn"], h, be.dense(cache_el), cfg, position,
-                                          impl=ctx.decode_impl, kv_t=kv_t)
+        k_pe_t, latent_t = attn.mla_kv_t(params["attn"], h, cfg, position)
+        cache_el = be.append(cache_el, k_pe_t[:, None], latent_t[:, None], active=active)
+        y, slot_w = attn.mla_decode(params["attn"], h, be.dense(cache_el), cfg, position,
+                                    impl=ctx.decode_impl)
         cache_el = be.update_probe(cache_el, slot_w, is_probe)
     return _ffn(params, x_t + y, cfg, ffn, active), cache_el
 

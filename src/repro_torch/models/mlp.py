@@ -30,7 +30,7 @@ on the card as on the CPU.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -60,11 +60,6 @@ def moe_schema(cfg: ArchConfig) -> dict:
     if cfg.n_shared_experts:
         s["shared"] = dense_mlp_schema(cfg, cfg.n_shared_experts * cfg.moe_d_ff)
     return s
-
-
-class MoEOut(NamedTuple):
-    y: torch.Tensor
-    aux_loss: torch.Tensor
 
 
 def capacity(cfg: ArchConfig, n_tokens: int) -> int:
@@ -127,24 +122,36 @@ def _dispatch_compute(x_flat: torch.Tensor, gates: torch.Tensor, eidx: torch.Ten
     return out
 
 
-def moe_ffn(params: dict, x: torch.Tensor, cfg: ArchConfig,
-            active: Optional[torch.Tensor] = None) -> MoEOut:
-    """Fine-grained MoE FFN. x: (b, s, e) (s may be 1 for decode); active:
-    optional (b,) bool, the rows whose tokens take expert slots."""
-    b, s, e = x.shape
-    n_exp, k = cfg.n_experts, cfg.top_k
+def route(params: dict, x: torch.Tensor, cfg: ArchConfig):
+    """The f32 router over x (b, s, e) -> (probs (b, s, E), gates (b, s, k)
+    renormalized over the top k, expert ids (b, s, k))."""
+    k = cfg.top_k
     logits = torch.einsum("bse,en->bsn", x.float(), params["router"])
     probs = torch.softmax(logits, dim=-1)
     # jax.lax.top_k's order: descending, the lower expert first on ties
     gate_vals, eidx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_vals, eidx = gate_vals[..., :k], eidx[..., :k]
-    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    return probs, gate_vals / gate_vals.sum(dim=-1, keepdim=True).clamp_min(1e-9), eidx
 
-    # load-balancing aux loss (Switch-style): E * sum_e f_e * P_e
+
+def router_aux_loss(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The reference's load-balancing aux loss (Switch-style: E * sum_e f_e
+    * P_e, times `router_aux_coef`), the second field of its `MoEOut`.  The
+    port serves and does not train, so `moe_ffn` does not compute it."""
+    probs, _, eidx = route(params, x, cfg)
     me = probs.mean(dim=(0, 1))
     ce = torch.zeros_like(probs).scatter_(-1, eidx, 1.0).mean(dim=(0, 1))
-    aux = n_exp * (me * ce).sum() * cfg.router_aux_coef
+    return cfg.n_experts * (me * ce).sum() * cfg.router_aux_coef
 
+
+def moe_ffn(params: dict, x: torch.Tensor, cfg: ArchConfig,
+            active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Fine-grained MoE FFN. x: (b, s, e) (s may be 1 for decode); active:
+    optional (b,) bool, the rows whose tokens take expert slots.  Returns
+    the reference's `MoEOut.y`."""
+    b, s, e = x.shape
+    k = cfg.top_k
+    _, gate_vals, eidx = route(params, x, cfg)
     y = _dispatch_compute(x.reshape(b * s, e), gate_vals.reshape(b * s, k),
                           eidx.reshape(b * s, k), params["w_gate"], params["w_up"],
                           params["w_down"], capacity(cfg, b * s),
@@ -152,4 +159,4 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: ArchConfig,
                           ).reshape(b, s, e)
     if cfg.n_shared_experts:
         y = y + dense_mlp(params["shared"], x)
-    return MoEOut(y, aux)
+    return y

@@ -160,11 +160,12 @@ def test_mla_decode_matches_reference(layer, dtype, impl):
     _, taux = attention.mla_forward(tp, to_torch(np.asarray(x)), tcfg, q_block=16)
     tc = kvc.compress_prefill(tccfg, taux.k, taux.v, to_torch(sc), max_len=l + 8,
                               dtype=taux.k.dtype)
-    got = attention.mla_decode(tp, to_torch(np.asarray(x_t)), tc, tcfg,
-                               torch.full((b,), l, dtype=torch.int32), impl=impl)
-    for a, w in zip(got[:3], want[:3]):
+    pos = torch.full((b,), l, dtype=torch.int32)
+    y, slot_w = attention.mla_decode(tp, to_torch(np.asarray(x_t)), tc, tcfg, pos, impl=impl)
+    k_pe_t, latent_t = attention.mla_kv_t(tp, to_torch(np.asarray(x_t)), tcfg, pos)
+    for a, w in zip((y, k_pe_t[:, None], latent_t[:, None]), want[:3]):
         _close(a, w, dtype)
-    np.testing.assert_allclose(to_np(got[3]), to_np(want[3]), atol=1e-5)
+    np.testing.assert_allclose(to_np(slot_w), to_np(want[3]), atol=1e-5)
 
 
 # ---- the smoke model on the lockstep engine -----------------------------------

@@ -138,8 +138,9 @@ def test_moe_ffn_matches_reference(dtype, shape):
     params = _moe_params(rng, cfgs[0], jdt)
     x = jnp.asarray(rng.standard_normal((*shape, cfgs[0].d_model)), jdt)
     got, want = _moe_both(cfgs, params, x)
-    _close(got.y, want.y, tol)
-    np.testing.assert_allclose(float(got.aux_loss), float(want.aux_loss), rtol=1e-5)
+    _close(got, want.y, tol)
+    aux = mlp.router_aux_loss(jax.tree_util.tree_map(to_torch, params), to_torch(x), cfgs[1])
+    np.testing.assert_allclose(float(aux), float(want.aux_loss), rtol=1e-5)
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
@@ -157,10 +158,10 @@ def test_moe_ffn_at_decode_capacity_one(dtype):
     x[1] = x[0]
     x = jnp.asarray(x, jdt)
     got, want = _moe_both(cfgs, params, x)
-    _close(got.y, want.y, tol)
+    _close(got, want.y, tol)
     shared = mlp.dense_mlp(jax.tree_util.tree_map(to_torch, params["shared"]), to_torch(x))
-    assert torch.equal(got.y[1], shared[1])
-    assert not torch.equal(got.y[0], shared[0])
+    assert torch.equal(got[1], shared[1])
+    assert not torch.equal(got[0], shared[0])
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
@@ -178,12 +179,12 @@ def test_moe_router_tie_takes_the_lower_expert(dtype):
     params["router"] = jnp.asarray(router)
     x = jnp.asarray(np.abs(rng.standard_normal((2, 5, cfgs[0].d_model))), jdt)
     got, want = _moe_both(cfgs, params, x)
-    _close(got.y, want.y, tol)
+    _close(got, want.y, tol)
     # the same tokens with expert 2's weights swapped for expert 1's would
     # give the same output only if expert 2 were never picked
     swapped = dict(params, **{w: params[w].at[2].set(1.0) for w in ("w_gate", "w_up", "w_down")})
     got2, _ = _moe_both(cfgs, swapped, x)
-    assert torch.equal(got.y, got2.y)
+    assert torch.equal(got, got2)
 
 
 def test_inactive_rows_take_no_expert_slot():
@@ -197,9 +198,9 @@ def test_inactive_rows_take_no_expert_slot():
     live = torch.from_numpy(rng.standard_normal((2, 1, cfg.d_model)).astype(np.float32))
     x = torch.cat([live[:1], live[:1], live[1:], live[1:]])
     assert mlp.capacity(cfg, 4) == mlp.capacity(cfg, 2) == 1
-    masked = mlp.moe_ffn(params, x, cfg, active=torch.tensor([True, False, True, False])).y
-    alone = mlp.moe_ffn(params, live, cfg).y
-    unmasked = mlp.moe_ffn(params, x, cfg).y
+    masked = mlp.moe_ffn(params, x, cfg, active=torch.tensor([True, False, True, False]))
+    alone = mlp.moe_ffn(params, live, cfg)
+    unmasked = mlp.moe_ffn(params, x, cfg)
 
     def differ(a, b):   # beyond f32 products of other shapes
         return (a - b).abs().max().item() > 1e-3
