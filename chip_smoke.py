@@ -34,7 +34,14 @@ continued:
      SDPA beside it (its backend logged); probe_colsum at d 192, two calls
      bitwise and the salient set the plain version's; cst_quant's hi and lo
      stores of one MLA layer's lockstep prefill (one kv head: the 64-wide
-     rope key, the 512-wide latent), static and eff, bitwise;
+     rope key, the 512-wide latent), static and eff, bitwise; then the rows
+     at jamba-v0.1-52b's attention layer (`<kernel>@jamba`: 32 query heads
+     over 8 kv heads, g = 4, d 128, batch 4, prompt 1024): cst_quant's hi
+     and lo stores bitwise; flash_fwd (out within 2**-7 of its largest
+     value, LSE within 1e-5) with SDPA beside it; probe_colsum, two calls
+     bitwise and the salient set the plain version's; decode_qattn's layer
+     (the walk's G = 4 instantiation) and paged_qattn's layer over a
+     free-list cache, within one bf16 ulp; each with its launch sizing;
   4. slice 1's main path: `ServingEngine.generate` on yi-6b at full width
      (32 layers, random bf16 weights from a seeded generator), zipcache
      defaults, batch 4, prompt 1024, 128 new tokens: prefill, probe steps,
@@ -167,6 +174,26 @@ continued:
      walls, median non-probe and probe step times, packed cache bytes
      against the bf16 latent and rope-key streams, the expert-weight bytes
      a decode step reads;
+  4k. slice 13: the SSM models, after phase 4j's model is freed.
+     mamba2-2.7b at full size (64 Mamba2 SSD layers, no attention layer,
+     so no kernel and no KV cache): lockstep on phase 4's batch and 128 new
+     tokens, captured against eager bit for bit; phase 4b's traffic on the
+     continuous engine over the mixed and the paged static layout (its
+     page-aligned buckets give ragged last chunks), tokens equal across
+     the two, the paged run captured against eager bit for bit; the free
+     list refused with the ValueError that names the cause.
+     jamba-v0.1-52b at full width over one 8-layer group (n_layers 32 -> 8:
+     the full depth's 102.9 GB of bf16 weights do not fit one card; layer
+     4 GQA, the rest SSD, odd layers MoE): lockstep as mamba2's, layer 4's
+     attention output on the kernel route within 2**-7 of its largest value
+     of the plain route's (layers 0-3 run no kernel); phase 4b's
+     configuration and traffic, captured against eager bit for bit, every
+     page back.  Launches held to each path (Jamba: one attention layer's
+     flash_fwd, probe_colsum and cst_quant per prefill or admission and
+     fold, decode_qattn or paged_qattn per step; mamba2: none).  Logged:
+     parameter bytes, peak memory, `cache_bytes` split into packed KV and
+     SSM-state overhead, non-probe and probe step walls, the phase's
+     seconds;
   5. a `kernels` JSON line, then the last line:
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -560,17 +587,9 @@ def main() -> None:
     plain = time_ms(torch, lambda: dq_ref.mixed_layer_ref(qd, dsegs))
     # the work this cache needs: every slot's pos and the channel parameters;
     # codes (or raw values) and V token parameters of the live slots only
-    moved, flops = nbytes(qd, out_d), 0.0
-    for o in dsegs:
-        n_live = int((o["pos"] >= 0).sum())          # live (batch row, slot) pairs
-        per_slot = nbytes(*[o[k][0, 0, 0] for k in ("k_codes", "v_codes", "v_tscale", "v_tzero")
-                            if o.get(k) is not None])
-        moved += hk * n_live * per_slot + nbytes(o["pos"])
-        moved += nbytes(*[o[k] for k in ("k_scale", "k_zero", "v_cscale") if o.get(k) is not None])
-        flops += 4.0 * h * n_live * d
     record("decode_qattn", "src/repro_torch/kernels/decode_qattn/csrc/decode_qattn.cu",
            "src/repro/kernels/decode_qattn/kernel.py:109", err, tol, fn, ms, plain,
-           bound_ms(flops, moved))
+           mixed_layer_bound(dsegs, qd, out_d, hk))
     rows["decode_qattn"]["segment_err_over_tol"] = seg_err
     log(f"decode_qattn: timed per decode layer (one launch: hi {cache.hi.capacity}, lo "
         f"{cache.lo.capacity}, window {cache.window} slots, {int(cache.win_fill.max())} "
@@ -639,18 +658,9 @@ def main() -> None:
     ms_w = time_ms(torch, lambda: paged_layer(True), iters=50)
     dev_w = device_ms(torch, lambda: paged_layer(True))
     plain = time_ms(torch, lambda: pq_ref.paged_layer_ref(qd, segs, scale=scale))
-    moved = flops = 0
-    for o in segs:
-        pools = o["k_pages"], o["v_pages"]
-        n_read = int(torch.unique(o["table"]).numel())
-        moved += n_read * sum(nbytes(p) // p.shape[0] for p in pools)
-        moved += nbytes(*[o[k] for k in ("k_scale", "k_zero", "v_cscale", "v_tscale", "v_tzero",
-                                         "pos", "table") if o[k] is not None])
-        flops += 4.0 * b * h * o["s_seg"] * d
-    moved += 2 * nbytes(qd) + 4 * b * h * 2                      # q; out (q's dtype), m, l
     record("paged_qattn", "src/repro_torch/kernels/paged_qattn/csrc/paged_qattn.cu",
            "src/repro/kernels/paged_qattn/kernel.py:181", err, tol, paged_layer, ms, plain,
-           bound_ms(flops, moved))
+           paged_layer_bound(torch, segs, qd))
     rows["paged_qattn"].update(ms_weights=ms_w, device_ms_weights=dev_w)
     log(f"paged_qattn: timed per decode layer (one launch: hi {segs[0]['table'].shape[1]}, "
         f"lo {segs[1]['table'].shape[1]}, window {segs[2]['table'].shape[1]} pages of 64), "
@@ -659,6 +669,8 @@ def main() -> None:
 
     # flash_fwd, probe_colsum and cst_quant at DeepSeek-V2-Lite's MLA shapes
     mla_kernels(torch, np, dev, rows, record, ccfg, prompt, max_new)
+    # the five kernels at Jamba's attention layer (g = 4, 8 kv heads)
+    jamba_kernels(torch, np, dev, rows, record, ccfg, prompt, max_new)
 
     # ---- 4. the main path -------------------------------------------------
     t0 = time.perf_counter()
@@ -668,9 +680,9 @@ def main() -> None:
     log(f"yi-6b params: {n_params / 1e9:.2f} B ({nbytes(*_leaves(params)) / 1e9:.1f} GB bf16) "
         f"in {time.perf_counter() - t0:.1f} s")
     scfg = ServeConfig(batch_size=b, prompt_len=prompt, max_new_tokens=max_new, seed=0)
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(2, cfg.vocab, size=(prompt,)).astype(np.int32) for _ in range(b)]
-    batch = {"tokens": pack_requests(prompts, b, prompt)}
+    batch, requests, budgets = traffic(np, cfg.vocab, b, prompt, max_new)
+    lengths = np.array([len(r) for r in requests])
+    n_req = len(requests)
     engine = ServingEngine(cfg, ccfg, scfg, params, device=dev)
     engine.generate(batch, max_new_tokens=2)  # warm-up: cuBLAS and allocator
     kernels = serve.KERNELS
@@ -769,11 +781,6 @@ def main() -> None:
     cscfg = ServeConfig(batch_size=b, prompt_len=prompt, max_new_tokens=max_new, seed=0,
                         backend="paged", page_size=64, page_allocator="freelist",
                         pool_fraction=0.75, paged_kernel=True, scheduler="fifo")
-    rng = np.random.default_rng(1)
-    n_req = 8
-    lengths = rng.integers(200, prompt + 1, size=n_req)
-    budgets = rng.integers(48, max_new + 1, size=n_req)
-    requests = [rng.integers(2, cfg.vocab, size=(int(n),)).astype(np.int32) for n in lengths]
     log(f"continuous: {n_req} requests, prompt lengths {lengths.tolist()}, budgets "
         f"{budgets.tolist()}")
     ceng = ContinuousEngine(cfg, ccfg, cscfg, params, device=dev)
@@ -1009,6 +1016,8 @@ def main() -> None:
     log(f"yi-6b freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated")
     by_path.update(deepseek(torch, np, dev, kernels, batch, cscfg, requests, budgets, rel_l2,
                             yardstick, card))
+    # ---- 4k. slice 13: mamba2 and Jamba's hybrid group (SSM + attention) ----
+    by_path.update(hybrid(torch, np, dev, kernels, b, prompt, cscfg, rel_l2, yardstick, card))
     rows["cst_quant"]["eff"]["launches"] = sum(
         p["cst_quant"] for name, p in by_path.items() if name.startswith("levers"))
     for name, row in rows.items():
@@ -2094,6 +2103,21 @@ def baselines(torch, np, cfg, params, dev, kernels, rows, n_layers, batch, scfg,
     return out_paths
 
 
+def traffic(np, vocab, b, prompt, max_new):
+    """Phase 4's packed batch (seed 0: b prompts of `prompt` tokens) and
+    phase 4b's eight requests (seed 1: prompts of 200 to `prompt` tokens,
+    budgets of 48 to `max_new`), token ids drawn in [2, vocab)."""
+    from repro_torch.serving import pack_requests
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, vocab, size=(prompt,)).astype(np.int32) for _ in range(b)]
+    rng = np.random.default_rng(1)
+    lengths = rng.integers(200, prompt + 1, size=8)
+    budgets = rng.integers(48, max_new + 1, size=8)
+    requests = [rng.integers(2, vocab, size=(int(n),)).astype(np.int32) for n in lengths]
+    return {"tokens": pack_requests(prompts, b, prompt)}, requests, budgets
+
+
 def profile_window(torch, run, n_steps):
     """(busy share, device operations per step) of `run()`, which runs
     `n_steps` steps, under torch.profiler: the device's summed kernel, copy
@@ -2155,11 +2179,12 @@ class MarkedLogits(StepLogits):
         return out
 
 
-def summarize(path, runs, torch, rel_l2, yardstick):
+def summarize(path, runs, torch, rel_l2, yardstick, bitwise=False):
     """Log the eager and captured runs of one engine side by side; check the
     captured step was built once and replayed, that every step's logits
     agree with the eager step's of the same index within one bf16 ulp of
-    their largest value, and that every greedy token is equal."""
+    their largest value (with `bitwise`, bit for bit), and that every greedy
+    token is equal."""
     eager, cap = runs[False], runs[True]
     step = cap["step"]
     check(step.captures == 1 and step.replays > 0,
@@ -2197,6 +2222,41 @@ def summarize(path, runs, torch, rel_l2, yardstick):
         f"{r:.4g} (yardstick of bf16 noise {yardstick:.4g}); greedy tokens equal {agree:.4f}")
     check(agree == 1.0, f"{path}: the captured engine's greedy tokens differ from the eager "
                         "engine's")
+    check(not bitwise or n_equal == len(got),
+          f"{path}: {len(got) - n_equal} of {len(got)} captured steps' logits differ from the "
+          "eager steps' bit for bit")
+
+
+def mixed_layer_bound(dsegs, qd, out, hk):
+    """decode_qattn's bound over one layer's mixed segments: every slot's pos
+    and the channel parameters; the codes (or raw values) and V token
+    parameters of the live slots only; q read and the output written once."""
+    b, h, d = qd.shape
+    moved, flops = nbytes(qd, out), 0.0
+    for o in dsegs:
+        n_live = int((o["pos"] >= 0).sum())          # live (batch row, slot) pairs
+        per_slot = nbytes(*[o[k][0, 0, 0] for k in ("k_codes", "v_codes", "v_tscale", "v_tzero")
+                            if o.get(k) is not None])
+        moved += hk * n_live * per_slot + nbytes(o["pos"])
+        moved += nbytes(*[o[k] for k in ("k_scale", "k_zero", "v_cscale") if o.get(k) is not None])
+        flops += 4.0 * h * n_live * d
+    return bound_ms(flops, moved)
+
+
+def paged_layer_bound(torch, segs, qd):
+    """paged_qattn's bound over one layer's paged segments: each page the
+    tables reach read once, with the parameters, positions and tables; q
+    read, out (q's dtype), m and l written."""
+    b, h, d = qd.shape
+    moved = flops = 0
+    for o in segs:
+        n_read = int(torch.unique(o["table"]).numel())
+        moved += n_read * sum(nbytes(t) // t.shape[0] for t in (o["k_pages"], o["v_pages"]))
+        moved += nbytes(*[o[k] for k in ("k_scale", "k_zero", "v_cscale", "v_tscale", "v_tzero",
+                                         "pos", "table") if o[k] is not None])
+        flops += 4.0 * b * h * o["s_seg"] * d
+    moved += 2 * nbytes(qd) + 4 * b * h * 2
+    return bound_ms(flops, moved)
 
 
 def _freelist_cache(torch, np, backend_lib, alloc_lib, paged, ccfg, dev, gen, hk, d, max_len,
@@ -2432,6 +2492,180 @@ def mla_kernels(torch, np, dev, rows, record, ccfg, prompt, max_new):
     del kpe, lat
 
 
+# phase 3's Jamba rows and phase 4k: Mamba2 and Jamba's hybrid group
+MAMBA_ARCH, JAMBA_ARCH = "mamba2-2.7b", "jamba-v0.1-52b"
+
+
+def jamba_kernels(torch, np, dev, rows, record, ccfg, prompt, max_new):
+    """Phase 3's rows at jamba-v0.1-52b's attention layer (32 query heads
+    over 8 kv heads: g = 4, d 128), batch 4, prompt 1024: cst_quant's hi and
+    lo stores of the lockstep prefill, bitwise; flash_fwd (out within 2**-7
+    of its largest value, LSE within 1e-5) with SDPA beside it;
+    probe_colsum over the probe rows of select_probes(prompt), 1e-4, two
+    calls bitwise, the salient set the plain version's; decode_qattn's
+    layer after 40 appends (the walk's G = 4, D = 128 instantiation) and
+    paged_qattn's layer over a free-list cache, within one bf16 ulp of
+    their largest value.  Each row records its launch sizing."""
+    from repro_torch import configs
+    from repro_torch.core import alloc as alloc_lib
+    from repro_torch.core import backend as backend_lib
+    from repro_torch.core import kvcache as kvc
+    from repro_torch.core import paged
+    from repro_torch.core import saliency as sal
+    from repro_torch.kernels.cst_quant import kernel as cst_kernel
+    from repro_torch.kernels.cst_quant import ref as cst_ref
+    from repro_torch.kernels.decode_qattn import kernel as dq_kernel
+    from repro_torch.kernels.decode_qattn import ops as dq_ops
+    from repro_torch.kernels.decode_qattn import ref as dq_ref
+    from repro_torch.kernels.paged_qattn import kernel as pq_kernel
+    from repro_torch.kernels.paged_qattn import ops as pq_ops
+    from repro_torch.kernels.paged_qattn import ref as pq_ref
+    from repro_torch.kernels.probe_flash import kernel as pf_kernel
+    from repro_torch.kernels.probe_flash import ops as pf_ops
+    from repro_torch.kernels.probe_flash import ref as pf_ref
+    from repro_torch.models import attention
+
+    cfg = configs.get_arch(JAMBA_ARCH)
+    b, h, hk, d = 4, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    check(h // hk == 4 and d == 128, f"jamba's attention layer: g {h // hk}, d {d}")
+    max_len = prompt + max_new
+    gen = torch.Generator(device=dev).manual_seed(25)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    src_pf = "src/repro_torch/kernels/probe_flash/csrc/probe_flash.cu"
+    # cst_quant: the lockstep prefill's hi and lo stores over 8 kv heads
+    s_hi, s_lo, _ = kvc.capacities(ccfg, max_len)
+    kv_k, kv_v = randn(b, hk, prompt, d), randn(b, hk, prompt, d)
+    sal_idx, reg_idx = sal.salient_split(torch.rand((b, prompt), generator=gen, device=dev),
+                                         ccfg.n_salient(prompt))
+    timed = {}
+    for name, bits, cap, sidx in (("hi", ccfg.high_bits, s_hi, sal_idx),
+                                  ("lo", ccfg.low_bits, s_lo, reg_idx)):
+        sidx = torch.nn.functional.pad(sidx, (0, cap - sidx.shape[1]), value=-1)
+        got = cst_kernel.quantize_store(kv_k, kv_v, sidx, bits)
+        want = cst_ref.quantize_store_ref(kv_k, kv_v, sidx, bits)
+        torch.cuda.synchronize()
+        for part, a, w in zip(("K codes", "K scale", "K zero", "V codes", "V scale", "V zero",
+                               "V channel scale"), got, want):
+            check(a.dtype == w.dtype and torch.equal(a, w),
+                  f"cst_quant@jamba {name} store: {part} differ from the plain version")
+        n_live = int((sidx >= 0).sum())
+        timed[name] = (bits, sidx, bound_ms(0.0, n_live * hk * 2 * d * 2 + nbytes(sidx, *got)))
+    bits, sidx, bnd = timed["lo"]
+    fn = lambda: cst_kernel.quantize_store(kv_k, kv_v, sidx, bits)  # noqa: E731
+    cst_kernel.KERNEL.split = None
+    record("cst_quant@jamba", "src/repro_torch/kernels/cst_quant/csrc/cst_quant.cu",
+           "src/repro/kernels/cst_quant/kernel.py:66", 0.0, 0.0, fn, time_ms(torch, fn, iters=50),
+           time_ms(torch, lambda: cst_ref.quantize_store_ref(kv_k, kv_v, sidx, bits)), bnd)
+    split = cst_kernel.KERNEL.split
+    check(isinstance(split, int) and split >= 1,
+          f"cst_quant@jamba: the launch recorded no split ({split!r})")
+    hbits, hidx, hbnd = timed["hi"]
+    fh = lambda: cst_kernel.quantize_store(kv_k, kv_v, hidx, hbits)  # noqa: E731
+    rows["cst_quant@jamba"].update(
+        split=split, hi={"ms": time_ms(torch, fh, iters=50), "device_ms": device_ms(torch, fh),
+                         "bound_ms": hbnd[0]})
+    log(f"cst_quant@jamba: bitwise at the hi and lo stores (8 kv heads); {split} CTAs per "
+        f"slice; hi store {rows['cst_quant@jamba']['hi']['ms']:.4f} ms (device "
+        f"{rows['cst_quant@jamba']['hi']['device_ms']:.4f} ms, bound {hbnd[0]:.5f} ms)")
+    del kv_k, kv_v
+
+    # flash_fwd at g = 4, with SDPA (GQA) beside it
+    q, k, v = randn(b, h, prompt, d), randn(b, hk, prompt, d), randn(b, hk, prompt, d)
+    out, lse = pf_kernel.flash_fwd(q, k, v)
+    ref_out, ref_lse = pf_ref.flash_fwd_ref(q, k, v)
+    torch.cuda.synchronize()
+    err = (out.float() - ref_out.float()).abs().max().item()
+    tol = 2 ** -7 * ref_out.float().abs().max().item()
+    err_lse = (lse - ref_lse).abs().max().item()
+    check(err_lse <= 1e-5, f"flash_fwd@jamba: lse error {err_lse:.3g} exceeds 1e-5")
+    fn = lambda: pf_kernel.flash_fwd(q, k, v)  # noqa: E731
+    pairs = prompt * (prompt + 1) // 2
+    record("flash_fwd@jamba", src_pf, "src/repro/kernels/probe_flash/kernel.py:100", err, tol, fn,
+           time_ms(torch, fn), time_ms(torch, lambda: pf_ref.flash_fwd_ref(q, k, v), iters=5),
+           bound_ms(4.0 * b * h * pairs * d, nbytes(q, k, v, out, lse)),
+           time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+               q, k, v, is_causal=True, enable_gqa=True)))
+    rows["flash_fwd@jamba"].update(lse_err=err_lse, shape=[b, h, hk, prompt, d])
+
+    # probe_colsum: the probe rows of select_probes(prompt) (repeats -> -1)
+    probe = sal.select_probes(prompt)
+    pos = pf_ops.unique_probe_rows(probe.positions.to(dev))
+    safe = pos.clamp(0, prompt - 1).long()
+    args = (q[:, :, safe].contiguous(), lse[:, :, safe].contiguous(),
+            pos[None].expand(b, -1).contiguous(), k)
+    col = pf_kernel.probe_colsum(*args, lq=prompt)
+    col_ref = pf_ref.probe_colsum_ref(*args, lq=prompt)
+    again = pf_kernel.probe_colsum(*args, lq=prompt)
+    torch.cuda.synchronize()
+    check(torch.equal(col, again), "probe_colsum@jamba: two calls on the same inputs differ")
+    _salient_sets_agree(torch, sal, attention, ccfg, probe, col, col_ref, prompt)
+    fn = lambda: pf_kernel.probe_colsum(*args, lq=prompt)  # noqa: E731
+    valid_pairs = int((pos[pos >= 0] + 1).sum())
+    pf_kernel.COLSUM.heads_per_cta = None
+    record("probe_colsum@jamba", src_pf, "src/repro/kernels/probe_flash/kernel.py:177",
+           (col - col_ref).abs().max().item(), 1e-4, fn, time_ms(torch, fn),
+           time_ms(torch, lambda: pf_ref.probe_colsum_ref(*args, lq=prompt)),
+           bound_ms(2.0 * b * h * valid_pairs * d, nbytes(*args, col)))
+    hpc = pf_kernel.COLSUM.heads_per_cta
+    check(isinstance(hpc, int) and hpc >= 1,
+          f"probe_colsum@jamba: the launch recorded no heads per CTA ({hpc!r})")
+    rows["probe_colsum@jamba"]["heads_per_cta"] = hpc
+    del q, k, v, out, lse, ref_out, ref_lse, args, col, col_ref, again
+
+    # decode_qattn: one decode layer over a prefill cache after 40 appends
+    cache = kvc.compress_prefill(ccfg, randn(b, hk, prompt, d), randn(b, hk, prompt, d),
+                                 torch.rand((b, prompt), generator=gen, device=dev), max_len)
+    for _ in range(40):
+        cache = kvc.append_token(cache, randn(b, hk, d), randn(b, hk, d))
+    qd = randn(b, h, d)
+    dsegs = dq_ops.mixed_segments(cache)
+    out_d = dq_kernel.qattn_mixed_layer(qd, dsegs)
+    want_d = dq_ref.mixed_layer_ref(qd, dsegs)
+    torch.cuda.synchronize()
+    err = (out_d.float() - want_d.float()).abs().max().item()
+    tol = 2 ** -7 * max(want_d.float().abs().max().item(), 1.0)
+    fn = lambda: dq_kernel.qattn_mixed_layer(qd, dsegs)  # noqa: E731
+    dq_kernel.KERNEL.splits = None
+    record("decode_qattn@jamba", "src/repro_torch/kernels/decode_qattn/csrc/decode_qattn.cu",
+           "src/repro/kernels/decode_qattn/kernel.py:109", err, tol, fn,
+           time_ms(torch, fn, iters=50), time_ms(torch, lambda: dq_ref.mixed_layer_ref(qd, dsegs)),
+           mixed_layer_bound(dsegs, qd, out_d, hk))
+    rows["decode_qattn@jamba"]["splits"] = dq_kernel.KERNEL.splits
+    del cache, dsegs
+
+    # paged_qattn: one decode layer over a free-list cache (4 slots, page 64)
+    pcache = _freelist_cache(torch, np, backend_lib, alloc_lib, paged, ccfg, dev, gen, hk, d,
+                             max_len, lengths=(1024, 700, 0, 333), n_append=40)
+    segs = pq_ops.layer_segments(pcache)
+    scale = 1.0 / d ** 0.5
+    live = torch.tensor([True, True, False, True], device=dev)
+    out_p, m_p, l_p, _, _ = pq_kernel.qattn_paged_layer(qd, segs, scale=scale)
+    rout, rm, rl, _ = pq_ref.paged_layer_ref(qd, segs, scale=scale)
+    torch.cuda.synchronize()
+    err = (out_p[live].float() - rout[live].float()).abs().max().item()
+    tol = 2 ** -7 * max(rout[live].float().abs().max().item(), 1.0)
+    for part, a, w in (("m", m_p, rm), ("l", l_p, rl)):
+        e, t = (a[live] - w[live]).abs().max().item(), 1e-4 * max(w[live].abs().max().item(), 1.0)
+        check(e <= t, f"paged_qattn@jamba {part}: max abs error {e:.3g} exceeds {t:.3g}")
+    check(bool((l_p[2] == 0).all()) and not bool(out_p[2].float().any()),
+          "paged_qattn@jamba: the empty slot must give zeros")
+    fn = lambda: pq_kernel.qattn_paged_layer(qd, segs, scale=scale)  # noqa: E731
+    pq_kernel.KERNEL.splits = None
+    record("paged_qattn@jamba", "src/repro_torch/kernels/paged_qattn/csrc/paged_qattn.cu",
+           "src/repro/kernels/paged_qattn/kernel.py:181", err, tol, fn,
+           time_ms(torch, fn, iters=50),
+           time_ms(torch, lambda: pq_ref.paged_layer_ref(qd, segs, scale=scale)),
+           paged_layer_bound(torch, segs, qd))
+    rows["paged_qattn@jamba"]["splits"] = pq_kernel.KERNEL.splits
+    log(f"jamba's attention shapes: decode_qattn {rows['decode_qattn@jamba']['splits']} and "
+        f"paged_qattn {rows['paged_qattn@jamba']['splits']} CTAs per (slot, kv head), "
+        f"probe_colsum {hpc} heads per CTA, cst_quant {split} CTAs per slice")
+    del pcache, segs, qd
+
+
 class TimedLogits(StepLogits):
     """`StepLogits` that also times each call to a synchronize, by kind:
     a probe step (lockstep: its host flag; continuous: a staged probe row)
@@ -2636,6 +2870,243 @@ def deepseek(torch, np, dev, kernels, batch, cscfg, requests, budgets, rel_l2, y
     torch.cuda.empty_cache()
     log(f"deepseek: phase 4j took {time.perf_counter() - t_phase:.1f} s")
     return out_paths
+
+
+def hybrid(torch, np, dev, kernels, b, prompt, cscfg, rel_l2, yardstick, card):
+    """Phase 4k: mamba2-2.7b at full size (64 SSD layers, no attention
+    layer), then jamba-v0.1-52b at full width over one 8-layer group (layer
+    4 GQA under ZipCache, the rest SSD, odd layers MoE; n_layers 32 -> 8:
+    the 32 layers' 102.9 GB of bf16 weights do not fit one card), random
+    bf16 weights from a seeded generator, after phase 4j's model is freed.
+    Lockstep: phase 4's batch and prompts, 128 new tokens, captured against
+    eager bit for bit.  mamba2 continuous: phase 4b's traffic on the mixed
+    and the paged static layout (captured; the paged one eager too), tokens
+    equal across the two, its free list refused.  Jamba continuous: phase
+    4b's configuration and traffic, captured against eager bit for bit.
+    Returns the launch counts of each run."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.core import backend as backend_lib
+    from repro_torch.core import kvcache as kvc
+    from repro_torch.core import paged
+    from repro_torch.core.policy import CompressionConfig
+    from repro_torch.models import attention, blocks, common, lm, registry
+    from repro_torch.models.ssm import SSMState
+    from repro_torch.serving import ContinuousEngine, Request, ServeConfig, ServingEngine
+    from repro_torch.serving import probe_flag
+
+    t_phase = time.perf_counter()
+    ccfg = CompressionConfig.zipcache()
+    max_new = 128
+    n_probe = sum(probe_flag(i, ccfg.recompress_interval, 0) for i in range(max_new))
+    n_fold = max_new // ccfg.recompress_interval
+    scfg = ServeConfig(batch_size=b, prompt_len=prompt, max_new_tokens=max_new, seed=0)
+    out_paths = {}
+
+    def zero_counts():
+        for kern in kernels.values():
+            kern.launches = 0
+        paged.GATHER_DECODES.launches = 0
+
+    def counts(tag, path, want):
+        got = {n: kern.launches for n, kern in kernels.items()}
+        for name, n in want.items():
+            check(got[name] == n, f"{tag} {path}: {name} {got[name]} launches, the path "
+                                  f"implies {n}")
+        check(paged.GATHER_DECODES.launches == 0, f"{tag} {path}: a decode took the gather path")
+        if tag == "jamba":
+            got.update({f"{n}@jamba": got[n] for n in list(got)})
+        out_paths[f"{tag}-{path.replace(' ', '-')}"] = got
+
+    def split_bytes(tag, what, caches):
+        cb = backend_lib.cache_bytes(caches)
+        states = sum(kvc._nbytes(el) for el in registry.cache_elements(caches)
+                     if isinstance(el, SSMState))
+        log(f"{tag} {what}: cache_bytes {cb}: packed KV {cb['packed_bytes']} B, overhead "
+            f"{cb['overhead_bytes']} B, of it SSM states {states} B")
+        check(cb["overhead_bytes"] >= states > 0, f"{tag}: SSM states not counted as overhead")
+        return cb
+
+    def materialize(cfg):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = registry.materialize_params(cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        leaves = list(_leaves(params))
+        log(f"{cfg.name} ({cfg.n_layers} layers): params {sum(t.numel() for t in leaves) / 1e9:.3f} "
+            f"B ({nbytes(*leaves) / 1e9:.2f} GB) in {time.perf_counter() - t0:.1f} s")
+        return params
+
+    def lockstep(tag, cfg, params, batch, want):
+        lock = {}
+        for capture in (True, False):
+            eng = ServingEngine(cfg, ccfg, scfg, params, device=dev, capture=capture)
+            eng.generate(batch, max_new_tokens=2)   # warm-up (with capture: warm-up step, capture)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            rec = eng._decode = TimedLogits(eng._decode, torch)
+            out = eng.generate(batch)
+            eng._decode = rec.step
+            counts(tag, f"lockstep {'captured' if capture else 'eager'}", want)
+            tm = out["timings"]
+            lock[capture] = dict(tokens=out["tokens"], decode_s=tm["decode_s"],
+                                 tok_s=tm["tok_per_s"], step_ms=np.median(rec.ms[False]),
+                                 probe_ms=np.median(rec.ms[True]), busy=None, ops=None,
+                                 peak=torch.cuda.max_memory_allocated(), rec=rec, step=rec.step)
+            log(f"{tag} lockstep (capture {capture}): prefill {tm['prefill_s']:.3f} s, decode "
+                f"{tm['decode_s']:.3f} s ({b} x {max_new} tokens, {n_probe} probe steps, "
+                f"{n_fold} fold), median non-probe step {lock[capture]['step_ms']:.3f} ms, probe "
+                f"step {lock[capture]['probe_ms']:.3f} ms (each to a synchronize), max memory "
+                f"{lock[capture]['peak'] / 2**30:.2f} GiB")
+            if capture:
+                tokens = out["tokens"]
+                check(tokens.shape == (b, max_new) and bool(((tokens >= 0)
+                                                             & (tokens < cfg.vocab)).all()),
+                      f"{tag} lockstep: tokens {tokens.shape} out of shape or range")
+                split_bytes(tag, "lockstep", eng.last_caches)
+                ctx = eng.ctx
+            del eng
+        summarize(f"{tag} lockstep", lock, torch, rel_l2, yardstick, bitwise=True)
+        return ctx
+
+    def continuous(tag, cfg, params, requests, layout, capture):
+        eng = ContinuousEngine(cfg, ccfg, layout, params, device=dev, capture=capture)
+        rec = eng._decode_masked = TimedLogits(eng._decode_masked, torch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        rids = [eng.submit(Request(tokens=r, max_new_tokens=int(m)))
+                for r, m in zip(requests, budgets)]
+        res = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for i, r in enumerate(rids):
+            check(res[r].finish_reason == "length" and len(res[r].tokens) == budgets[i],
+                  f"{tag} continuous: {r} ended {res[r].finish_reason} with "
+                  f"{len(res[r].tokens)} of {budgets[i]} tokens")
+        n_tok = sum(len(res[r].tokens) for r in rids)
+        run = dict(tokens=np.concatenate([res[r].tokens for r in rids]), decode_s=wall,
+                   tok_s=n_tok / wall, step_ms=np.median(rec.ms[False]),
+                   probe_ms=np.median(rec.ms[True]), busy=None, ops=None,
+                   peak=torch.cuda.max_memory_allocated(), rec=rec, step=rec.step)
+        log(f"{tag} continuous {layout.backend}/{layout.page_allocator} (capture {capture}): "
+            f"{n_tok} tokens in {wall:.3f} s, {eng._step_no} steps, {eng._n_admissions} "
+            f"admissions, {eng._n_folds} slot folds, median non-probe step "
+            f"{run['step_ms']:.3f} ms, probe step {run['probe_ms']:.3f} ms, max memory "
+            f"{run['peak'] / 2**30:.2f} GiB")
+        return eng, run
+
+    # -- mamba2-2.7b: no attention layer, so no kernel and no KV cache ----------
+    cfg = configs.get_arch(MAMBA_ARCH)
+    check(cfg.layer_kinds() == (("ssm", "none"),), "mamba2 should have SSD layers only")
+    params = materialize(cfg)
+    batch_m, requests_m, budgets = traffic(np, cfg.vocab, b, prompt, max_new)
+    none = {name: 0 for name in kernels}
+    lockstep("mamba2", cfg, params, batch_m, none)
+    chunk = cfg.ssm_chunk
+    buckets = [min(-(-len(r) // cscfg.page_size) * cscfg.page_size, prompt) for r in requests_m]
+    ragged = [n for n in buckets if n % chunk]
+    log(f"mamba2 continuous: admission buckets {buckets}, {len(ragged)} of them not a multiple "
+        f"of the {chunk}-token chunk (a ragged last chunk, which the reference's assert "
+        "refuses)")
+    check(bool(ragged), "phase 4b's traffic should give a ragged bucket")
+    layouts = {"mixed": dataclasses.replace(cscfg, backend="mixed", paged_kernel=False,
+                                            page_allocator="static", pool_fraction=1.0),
+               "paged": dataclasses.replace(cscfg, page_allocator="static", pool_fraction=1.0)}
+    cont = {}
+    for name, capture in (("mixed", True), ("paged", True), ("paged", False)):
+        eng, run = continuous("mamba2", cfg, params, requests_m, layouts[name], capture)
+        counts("mamba2", f"continuous {name} {'captured' if capture else 'eager'}", none)
+        if name == "paged" and capture:
+            split_bytes("mamba2", "continuous", eng.caches)
+        cont[(name, capture)] = run
+        del eng
+    check(np.array_equal(cont[("mixed", True)]["tokens"], cont[("paged", True)]["tokens"]),
+          "mamba2 continuous: the mixed layout's tokens differ from the paged layout's")
+    summarize("mamba2 continuous (paged static)", {True: cont[("paged", True)],
+                                                   False: cont[("paged", False)]},
+              torch, rel_l2, yardstick, bitwise=True)
+    try:
+        ContinuousEngine(cfg, ccfg, cscfg, params, device=dev)
+        fail("mamba2 on the free list should be refused")
+    except ValueError as e:
+        check("no attention layer" in str(e), f"mamba2 free list: {e}")
+        log(f"mamba2 on the free list refused: {e}")
+    del params, cont
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- jamba-v0.1-52b, one 8-layer group: layer 4 runs the five kernels --------
+    cfg = dataclasses.replace(configs.get_arch(JAMBA_ARCH), n_layers=8)
+    kinds = cfg.layer_kinds()
+    attn_at = [j for j, (m, _) in enumerate(kinds) if m == "attn"]
+    check(attn_at == [cfg.attn_layer_offset] == [4], f"jamba's group kinds {kinds}")
+    params = materialize(cfg)
+    n_attn = len(attn_at)
+    batch, requests, budgets = traffic(np, cfg.vocab, b, prompt, max_new)
+    ctx = lockstep("jamba", cfg, params, batch, {
+        "flash_fwd": n_attn, "probe_colsum": n_attn, "cst_quant": 2 * n_attn * (1 + n_fold),
+        "decode_qattn": n_attn * (max_new - n_probe), "paged_qattn": 0})
+
+    # layer 4's attention output, kernel route against plain: layers 0-3
+    # run no kernel, so layer 4 takes the same input on both routes
+    plain = ServingEngine(cfg, ccfg, scfg, params, device=dev, use_kernels=False)
+    toks = torch.as_tensor(batch["tokens"], device=dev)
+    with torch.inference_mode():
+        x = common.embed_lookup(params["embed"], toks)
+        for layer, mixer, ffn, where in lm.layers(cfg)[:4]:
+            x, _ = blocks.apply_layer_full(lm.layer_params(params, where), x, cfg, mixer, ffn,
+                                           plain.ctx, build_cache=False, layer=layer)
+        p4 = lm.layer_params(params, lm.layers(cfg)[4][3])
+        h4 = common.rms_norm(x, p4["ln1"], cfg.norm_eps)
+        y4 = {run.use_kernels: attention.gqa_forward(p4["attn"], h4, cfg, probe=run.probe,
+                                                     q_block=run.q_block,
+                                                     use_kernel=run.use_kernels)
+              for run in (ctx, plain.ctx)}
+    (yk, ak), (yp, ap) = y4[True], y4[False]
+    err = (yk.float() - yp.float()).abs().max().item()
+    tol = 2 ** -7 * yp.float().abs().max().item()
+    log(f"jamba layer 4 (after four SSM layers, no kernel before it): attention output, kernel "
+        f"route vs plain: max abs err {err:.4g} (tol {tol:.4g}, largest "
+        f"{yp.float().abs().max().item():.4g}), relative L2 {rel_l2(yk, yp):.4g}; saliency max "
+        f"abs err {(ak.saliency - ap.saliency).abs().max().item():.4g}")
+    check(bool(torch.isfinite(yk).all()), "jamba layer 4: attention output not finite")
+    check(err <= tol, f"jamba layer 4: the kernel route's attention output is {err:.4g} from the "
+                      f"plain route's, beyond {tol:.4g}")
+    del plain, y4, yk, yp, ak, ap, h4, x
+
+    cont = {}
+    for capture in (True, False):
+        eng, run = continuous("jamba", cfg, params, requests, cscfg, capture)
+        st = eng.pool_stats()
+        counts("jamba", f"continuous {'captured' if capture else 'eager'}", {
+            "flash_fwd": n_attn * st["admissions"], "probe_colsum": n_attn * st["admissions"],
+            "cst_quant": 2 * n_attn * (st["admissions"] + st["folds"]), "decode_qattn": 0,
+            "paged_qattn": n_attn * eng._step_no})
+        eng._alloc.check_invariants()
+        for seg in ("hi", "lo", "win"):
+            check(st[seg]["used"] == 0 and st[seg]["free"] == st[seg]["pool_pages"],
+                  f"jamba continuous: {seg} pages not all returned: {st[seg]}")
+        peaks = {k: f"{st[k]['peak_used']}/{st[k]['pool_pages']}" for k in ("hi", "lo", "win")}
+        got = out_paths[f"jamba-continuous-{'captured' if capture else 'eager'}"]
+        log(f"jamba continuous (capture {capture}): launches "
+            f"{ {n: got[n] for n in kernels} }; {st['admissions']} admissions, "
+            f"{st['deferrals']} deferrals, {st['folds']} folds; pages peak used / pool {peaks}, "
+            f"every page back ({ {k: st[k]['free'] for k in ('hi', 'lo', 'win')} } free)")
+        if capture:
+            split_bytes("jamba", "continuous", eng.caches)
+        cont[capture] = run
+        del eng
+    summarize("jamba continuous", cont, torch, rel_l2, yardstick, bitwise=True)
+    del params, cont, ctx
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"hybrid: phase 4k took {time.perf_counter() - t_phase:.1f} s ({card})")
+    return out_paths
+
 
 
 if __name__ == "__main__":

@@ -9,6 +9,8 @@ from repro_torch.configs.base import ArchConfig, ShapeConfig  # noqa: F401
 _MODULES = {
     "yi-6b": "repro_torch.configs.yi_6b",
     "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
+    "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
+    "jamba-v0.1-52b": "repro_torch.configs.jamba_v0_1_52b",
 }
 
 
@@ -16,4 +18,6 @@ def get_arch(name: str, smoke: bool = False) -> ArchConfig:
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; ported: {sorted(_MODULES)}")
     mod = importlib.import_module(_MODULES[name])
-    return mod.SMOKE if smoke else mod.CONFIG
+    cfg = mod.SMOKE if smoke else mod.CONFIG
+    cfg.validate_periodicity()
+    return cfg

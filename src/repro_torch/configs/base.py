@@ -1,17 +1,19 @@
 """Architecture and serving-shape configuration (copy of `repro.configs.base`,
-cut to the decoder-only fields the port runs: dense, MoE and MLA; the SSM,
-encoder-decoder and frontend fields are left out)."""
+cut to the decoder-only fields the port runs: dense, MoE, MLA, and the SSM
+and hybrid layers (mamba2, Jamba); the encoder-decoder and frontend fields
+are left out)."""
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                 # dense | moe
+    family: str                 # dense | moe | hybrid | ssm
     n_layers: int
     d_model: int
     n_heads: int
@@ -42,6 +44,17 @@ class ArchConfig:
     nope_head_dim: int = 0
     v_head_dim: int = 0
 
+    # --- SSM / hybrid ---
+    attn_layer_period: int = 0   # 0 => all layers attention (or all ssm if ssm=True)
+    attn_layer_offset: int = 0
+    ssm: bool = False            # True => attention-free (mamba2)
+    ssm_d_state: int = 0
+    ssm_d_conv: int = 4
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 256
+    ssm_n_groups: int = 1
+
     @property
     def hd(self) -> int:
         return self.head_dim if self.head_dim is not None else self.d_model // self.n_heads
@@ -51,10 +64,21 @@ class ArchConfig:
             return False
         return (i % self.moe_layer_period) == self.moe_layer_offset
 
+    def is_attn_layer(self, i: int) -> bool:
+        if self.ssm:
+            return False
+        if self.attn_layer_period == 0:
+            return True
+        return (i % self.attn_layer_period) == self.attn_layer_offset
+
     @property
     def scan_group(self) -> int:
-        """Layers per stacked group (homogeneous across groups)."""
-        return self.moe_layer_period if self.n_experts else 1
+        """Layers per stacked group (homogeneous across groups): the lcm of
+        the attention and MoE periods (8 for Jamba)."""
+        g = self.attn_layer_period or 1
+        if self.n_experts and self.moe_layer_period > 1:
+            g = math.lcm(g, self.moe_layer_period)
+        return g
 
     @property
     def n_scan_groups(self) -> int:
@@ -67,11 +91,23 @@ class ArchConfig:
         """Per-layer (mixer, ffn) kinds within one group (group-invariant)."""
         kinds = []
         for j in range(self.scan_group):
-            i = self.first_dense_layers + j
-            mixer = "mla" if self.mla else "attn"
+            i = self.first_dense_layers + j  # kinds are periodic: group 0 stands for all
+            if self.ssm or not self.is_attn_layer(i):
+                mixer = "ssm"
+            else:
+                mixer = "mla" if self.mla else "attn"
             ffn = "moe" if self.is_moe_layer(i) else ("dense" if self.d_ff else "none")
             kinds.append((mixer, ffn))
         return tuple(kinds)
+
+    def validate_periodicity(self) -> None:
+        """The layer-kind pattern must repeat exactly every scan_group layers."""
+        base = self.first_dense_layers
+        for i in range(base, self.n_layers):
+            j = base + (i - base) % self.scan_group
+            a = (self.is_attn_layer(i), self.is_moe_layer(i))
+            b = (self.is_attn_layer(j), self.is_moe_layer(j))
+            assert a == b, f"{self.name}: layer {i} kind differs from group pattern"
 
     def prefix_kinds(self) -> Tuple[Tuple[str, str], ...]:
         """(mixer, ffn) of each unrolled prefix layer: dense FFN."""

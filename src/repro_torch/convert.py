@@ -2,7 +2,8 @@
 
 `from_jax_params` takes the reference's parameter tree as numpy arrays (after
 `jax.device_get`) and returns the same tree of torch tensors, layout and
-dtype kept.  bfloat16 arrives as `ml_dtypes.bfloat16` numpy, which torch
+dtype kept: every leaf of the port's schema, the SSM layers' `ssm.*` weights
+and a stacked hybrid group (Jamba's eight sub-layers) included.  bfloat16 arrives as `ml_dtypes.bfloat16` numpy, which torch
 cannot read directly, so it crosses as raw 16-bit words.
 """
 

@@ -102,11 +102,23 @@ def kv_elements(caches) -> list:
     return backend_lib.kv_elements(caches)
 
 
+def _first_kv_element(caches):
+    """The first KV element, which stands for every layer's page demand.  A
+    model with no attention layer (mamba2) has none: it holds no pages, so
+    the free list has nothing to allocate (the reference fails here with an
+    IndexError)."""
+    els = kv_elements(caches)
+    if not els:
+        raise ValueError("the page allocator needs a KV cache, and this model has no "
+                         "attention layer: serve it on the mixed or the paged static layout")
+    return els[0]
+
+
 def slice_occupancy(caches) -> Occupancy:
     """Per-segment valid-token counts of a batch-1 prefill slice (identical
     across layers, so the first element stands for all): one small host read
     of three rows per admission."""
-    el = kv_elements(caches)[0]
+    el = _first_kv_element(caches)
     return Occupancy(hi=int((el.hi.pos[0] >= 0).sum()), lo=int((el.lo.pos[0] >= 0).sum()),
                      win=int(el.win_fill[0]))
 
@@ -269,8 +281,8 @@ class FreeListAllocator:
     @classmethod
     def from_caches(cls, caches, page_size: int, watermark: float = 0.0) -> "FreeListAllocator":
         """Read slot count, capacities and pool sizes off an initialized
-        free-list cache tree."""
-        el = kv_elements(caches)[0]
+        free-list cache tree.  ValueError for a tree without a KV element."""
+        el = _first_kv_element(caches)
 
         def pool_of(null_page, pages):
             if null_page is None:

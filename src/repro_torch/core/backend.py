@@ -133,25 +133,36 @@ def is_kv_cache(x) -> bool:
     return isinstance(x, (kvc.MixedKVCache, paged.PagedKVCache))
 
 
-def kv_elements(caches) -> list:
-    """Every KV cache element of an engine's cache tree, in layer order."""
-    if is_kv_cache(caches):
+def _elements(caches) -> list:
+    """Every cache element of an engine's cache tree, in layer order: KV
+    caches and the other per-layer elements (SSM states)."""
+    if is_kv_cache(caches) or dataclasses.is_dataclass(caches):
         return [caches]
     if isinstance(caches, dict):
-        return [el for v in caches.values() for el in kv_elements(v)]
+        return [el for v in caches.values() for el in _elements(v)]
     if isinstance(caches, (list, tuple)):
-        return [el for v in caches for el in kv_elements(v)]
+        return [el for v in caches for el in _elements(v)]
     return []
+
+
+def kv_elements(caches) -> list:
+    """Every KV cache element of an engine's cache tree, in layer order (SSM
+    states are not)."""
+    return [el for el in _elements(caches) if is_kv_cache(el)]
 
 
 def cache_bytes(caches) -> dict:
     """Packed KV payload vs bookkeeping overhead over a cache tree.  packed =
     live payload (codes or pages + quantization params + staging window);
-    overhead = positions, saliency state, counters, page tables and, for
-    the free-list layout, unallocated pool pages (also broken out as
-    `free_pool_bytes`).  packed + overhead == total."""
+    overhead = positions, saliency state, counters, page tables, every SSM
+    state (not compressed payload) and, for the free-list layout,
+    unallocated pool pages (also broken out as `free_pool_bytes`).
+    packed + overhead == total."""
     packed = overhead = free_pool = 0
-    for el in kv_elements(caches):
+    for el in _elements(caches):
+        if not is_kv_cache(el):
+            overhead += kvc._nbytes(el)
+            continue
         p = el.nbytes_packed()
         packed += p
         overhead += el.nbytes_total() - p

@@ -513,6 +513,11 @@ def extract_slot(cache: PagedKVCache, slot: int) -> list:
     return pages + [x[slot:slot + 1] for x in kvc.tree_leaves(_meta_only(cache))]
 
 
+def payload_len(cache: PagedKVCache) -> int:
+    """How many tensors `extract_slot` gives for one slot of `cache`."""
+    return len(_segments(cache)) + sum(1 for _ in kvc.tree_leaves(_meta_only(cache)))
+
+
 def restore_slot(cache: PagedKVCache, payload: list, slot: int) -> PagedKVCache:
     """Inverse of `extract_slot` through the slot's NEW table row: the pages
     onto the physical pages the allocator re-granted (logical pages past

@@ -9,7 +9,8 @@ layer at 4/2 bits.
 
 `HostSwapPool` owns preallocated host entries that mirror the flat list of
 tensors `registry.extract_caches` gives for one slot (the packed hi/lo
-pages, the staging window, the metadata rows): one byte buffer per entry,
+pages, the staging window, the metadata rows and, for a hybrid model, each
+SSM layer's state rows): one byte buffer per entry,
 pinned when the cache lives on a CUDA device, each tensor at a 16-byte
 aligned offset.  The engine's swap-out gathers the slot into that list and
 `store`s it into a reserved entry (the tensors packed on the device, then

@@ -11,6 +11,14 @@ Examples (on a CUDA card):
       --continuous --backend paged --page-allocator freelist --pool-fraction 1.5 \
       --prefix-cache on
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b --smoke \
+      --continuous --backend paged --page-allocator freelist
+
+--arch takes yi-6b, deepseek-v2-lite-16b, mamba2-2.7b and jamba-v0.1-52b.
+mamba2-2.7b has no attention layer, so no KV cache: it runs on the mixed
+and the paged static layout; the free list (and what needs it: swap,
+downshift, --prefix-cache) has no pages to give it and is refused.
+
 The flags are those of `repro.launch.serve` that the port runs, plus
 --requests (how many requests the continuous engine serves) and --device
 (default cuda; --device cpu runs the plain PyTorch versions of the kernels).

@@ -1,10 +1,11 @@
-"""Decoder blocks (port of `repro.models.blocks`, attention layers): the run
-context, layer schemas by (mixer, ffn) kind, and one layer's prefill and
-decode steps.
+"""Decoder blocks (port of `repro.models.blocks`): the run context, layer
+schemas by (mixer, ffn) kind, and one layer's prefill and decode steps.
 
-Mixers: "attn" (GQA) and "mla" (DeepSeek-V2's latent attention; its cache
+Mixers: "attn" (GQA), "mla" (DeepSeek-V2's latent attention; its cache
 holds the rope key as the K stream and the latent as the V stream, one kv
-head).  FFNs: "dense" (SwiGLU), "moe" (fine-grained experts) or "none".
+head) and "ssm" (the Mamba2 SSD mixer; its cache element is the layer's
+`ssm.SSMState`, never compressed).  FFNs: "dense" (SwiGLU), "moe"
+(fine-grained experts) or "none".
 """
 
 from __future__ import annotations
@@ -15,21 +16,28 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import backend as backend_lib
+from repro_torch.core import kvcache as kvc
 from repro_torch.core import precision as precision_lib
 from repro_torch.core import saliency as sal
 from repro_torch.core.policy import CompressionConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import common
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import ParamDef
 
 
 def layer_schema(cfg: ArchConfig, mixer: str, ffn: str) -> dict:
     e = cfg.d_model
-    if mixer not in ("attn", "mla"):
+    s = {"ln1": ParamDef((e,), init="ones")}
+    if mixer == "attn":
+        s["attn"] = attn.gqa_schema(cfg)
+    elif mixer == "mla":
+        s["attn"] = attn.mla_schema(cfg)
+    elif mixer == "ssm":
+        s["ssm"] = ssm_mod.ssm_schema(cfg)
+    else:
         raise ValueError(mixer)
-    s = {"ln1": ParamDef((e,), init="ones"),
-         "attn": attn.gqa_schema(cfg) if mixer == "attn" else attn.mla_schema(cfg)}
     if ffn == "dense":
         s["ln2"] = ParamDef((e,), init="ones")
         s["mlp"] = mlp_mod.dense_mlp_schema(cfg)
@@ -115,8 +123,12 @@ def apply_layer_full(params: dict, x: torch.Tensor, cfg: ArchConfig, mixer: str,
                      ctx: RunCtx, build_cache: bool, layer: int = 0
                      ) -> Tuple[torch.Tensor, Any]:
     """One layer over the full sequence. Returns (x, cache element | None).
-    `layer`: the absolute layer index, for the precision map."""
+    `layer`: the absolute layer index, for the precision map.  An SSM layer's
+    element is its final state: no compression, no saliency."""
     h = common.rms_norm(x, params["ln1"], cfg.norm_eps)
+    if mixer == "ssm":
+        y, state = ssm_mod.ssm_forward(params["ssm"], h, cfg)
+        return _ffn(params, x + y, cfg, ffn), state if build_cache else None
     fwd = attn.gqa_forward if mixer == "attn" else attn.mla_forward
     y, aux = fwd(params["attn"], h, cfg, probe=ctx.probe, q_block=ctx.q_block,
                  use_kernel=ctx.use_kernels, compact=ctx.compact_softmax)
@@ -135,9 +147,15 @@ def apply_layer_decode(params: dict, x_t: torch.Tensor, cfg: ArchConfig, mixer: 
     (exact slot weights on probe steps), fold the probe row.  `is_probe` and
     `active` as in `core.backend`: inactive rows append nothing.  MLA appends
     the rope key and the latent first (the token attends to itself), then
-    reads the cache's mixed-layout view."""
+    reads the cache's mixed-layout view.  An SSM layer advances its state;
+    inactive rows keep their old state."""
     be = ctx.backend
     h = common.rms_norm(x_t, params["ln1"], cfg.norm_eps)
+    if mixer == "ssm":
+        y, new_el = ssm_mod.ssm_decode(params["ssm"], h, cfg, cache_el)
+        if active is not None:
+            new_el = kvc.tree_select_rows(active, new_el, cache_el)
+        return _ffn(params, x_t + y, cfg, ffn, active), new_el
     position = cache_el.length
     if mixer == "attn":
         q_t, k_t, v_t = attn.gqa_decode_qkv(params["attn"], h, cfg, position)
@@ -164,7 +182,10 @@ def init_mla_cache(cfg: ArchConfig, ctx: RunCtx, b: int, dtype=torch.bfloat16, d
 
 def init_layer_cache(cfg: ArchConfig, ctx: RunCtx, mixer: str, b: int, dtype=torch.bfloat16,
                      device=None):
-    """An empty cache element of a layer of kind `mixer`."""
+    """An empty cache element of a layer of kind `mixer` (an SSM layer's: a
+    zero state, its conv tails in `dtype`)."""
+    if mixer == "ssm":
+        return ssm_mod.init_state(cfg, b, dtype, device=device)
     if mixer == "mla":
         return init_mla_cache(cfg, ctx, b, dtype, device=device)
     return ctx.backend.init_cache(b, cfg.n_kv_heads, cfg.hd, ctx.max_cache_len, dtype,

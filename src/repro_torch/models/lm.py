@@ -6,9 +6,10 @@ holds every later layer's weights stacked on a leading group axis
 (`groups.sub{j}.{ln1, ln2, attn.*, mlp.* | moe.*}`); a Python loop over the
 group axis replaces `lax.scan`.  Caches are {"prefix": [element per prefix
 layer], "groups": [{"sub{j}": element} per group]}, each element a
-`MixedKVCache` or `PagedKVCache`.  The absolute layer of group g's
-sub-layer j is first_dense_layers + g * scan_group + j (the precision
-map's index).
+`MixedKVCache` or `PagedKVCache` for an attention layer and an
+`ssm.SSMState` for an SSM layer (mamba2's every layer, seven of Jamba's
+eight).  The absolute layer of group g's sub-layer j is first_dense_layers
++ g * scan_group + j, SSM layers counted (the precision map's index).
 """
 
 from __future__ import annotations
@@ -139,11 +140,13 @@ def recompress_caches(caches: Any, cfg: ArchConfig, ctx: blocks.RunCtx,
     rung(s), a (b,) int tensor with `rows`, a scalar with `slot`: the folded
     slots' lo stores take max(1, base - rung) effective bits
     (`precision.rung_eff`).  MLA layers pool the precision map onto their
-    one latent head."""
+    one latent head.  SSM states pass through: there is no window to fold."""
     assert rows is None or slot is None, "pass rows OR slot, not both"
     be = ctx.backend
 
     def fold(el, layer, mixer):
+        if mixer == "ssm":
+            return el
         eff = ctx.layer_eff(layer, blocks.cache_heads(cfg, mixer), device=el.length.device)
         if rung is not None:
             eff = precision_lib.rung_eff(eff, rung, ctx.ccfg.high_bits, ctx.ccfg.low_bits)

@@ -2,12 +2,14 @@
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import blocks, common, lm
+from repro_torch.models.ssm import SSMState
 
 
 def schema(cfg: ArchConfig) -> dict:
@@ -39,7 +41,8 @@ def recompress(caches: Any, cfg: ArchConfig, ctx: blocks.RunCtx,
 
 def cache_elements(caches: Any) -> list:
     """Every cache element of a cache tree in layer order: the prefix layers'
-    (DeepSeek's first dense layer), then each group's sub-layers'."""
+    (DeepSeek's first dense layer), then each group's sub-layers'.  An SSM
+    layer's element is its `SSMState`; every other one is a KV cache."""
     return list(caches["prefix"]) + [el for gc in caches["groups"] for el in gc.values()]
 
 
@@ -54,50 +57,77 @@ def map_caches(fn, *trees) -> Any:
 
 def insert_caches(dst: Any, src: Any, slot: int) -> Any:
     """Insert a 1-request cache slice into batch row `slot` of a decode batch:
-    paged elements scatter onto the slot's pages, mixed ones write rows."""
+    paged elements scatter onto the slot's pages, mixed ones and SSM states
+    write rows."""
     from repro_torch.core import kvcache as kvc
     from repro_torch.core import paged
 
     def ins(d, s):
         if isinstance(d, paged.PagedKVCache):
             return paged.insert_slot(d, s, slot)
-        return kvc.insert_slot(d, s, slot)
+        return kvc.tree_update_rows(d, s, slot)
 
     return map_caches(ins, dst, src)
 
 
+def _extract(el, slot: int) -> list:
+    from repro_torch.core import kvcache as kvc
+    from repro_torch.core import paged
+    if isinstance(el, SSMState):
+        return [t[slot:slot + 1] for t in kvc.tree_leaves(el)]
+    return paged.extract_slot(el, slot)
+
+
 def extract_caches(caches: Any, slot: int) -> list:
     """One slot's complete state across the cache tree, the device half of a
-    swap-out: each paged layer's `paged.extract_slot`, as one flat list of
-    tensors (`restore_caches` takes it back)."""
-    from repro_torch.core import paged
-    return [t for el in cache_elements(caches) for t in paged.extract_slot(el, slot)]
+    swap-out: each paged layer's `paged.extract_slot` and each SSM state's
+    rows (1, ...), as one flat list of tensors (`restore_caches` takes it
+    back)."""
+    return [t for el in cache_elements(caches) for t in _extract(el, slot)]
 
 
 def restore_caches(caches: Any, payload: list, slot: int) -> Any:
-    """Inverse of `extract_caches` through the slot's current table rows."""
+    """Inverse of `extract_caches`: paged layers through the slot's current
+    table rows, SSM states as row writes."""
+    from repro_torch.core import kvcache as kvc
     from repro_torch.core import paged
-    n = len(payload) // len(cache_elements(caches))
-    chunks = iter([payload[i:i + n] for i in range(0, len(payload), n)])
-    return map_caches(lambda el: paged.restore_slot(el, next(chunks), slot), caches)
+
+    def size(el) -> int:
+        return len(dataclasses.fields(el)) if isinstance(el, SSMState) else paged.payload_len(el)
+
+    if sum(size(el) for el in cache_elements(caches)) != len(payload):
+        raise ValueError(f"a swap payload of {len(payload)} tensors does not fit the cache tree")
+    rest = iter(payload)
+
+    def rst(el):
+        part = [next(rest) for _ in range(size(el))]
+        if isinstance(el, SSMState):
+            return kvc.tree_update_rows(el, SSMState(*part), slot)
+        return paged.restore_slot(el, part, slot)
+
+    return map_caches(rst, caches)
 
 
 def copy_caches(caches: Any, moves) -> Any:
     """Apply one set of page moves ({segment: (src_ids, dst_ids)}) to every
     layer's pools, in place: the device half of copy-on-write.  Every layer
     shares the allocator's one table per segment, so one move set holds
-    tree-wide."""
+    tree-wide.  SSM states hold no pages: they are left as they are."""
     from repro_torch.core import paged
     for el in cache_elements(caches):
-        paged.copy_pages(el, moves)
+        if not isinstance(el, SSMState):
+            paged.copy_pages(el, moves)
     return caches
 
 
 def free_caches(caches: Any, slot: int) -> Any:
     """Retire batch row `slot` across the cache tree (metadata row writes; a
-    paged slot's pages stay, validity is pos-driven)."""
+    paged slot's pages stay, validity is pos-driven).  SSM states are left
+    stale: the row is masked while the slot is inactive and overwritten by
+    the next insertion."""
     from repro_torch.core import kvcache as kvc
-    return map_caches(lambda el: kvc.free_slot(el, slot), caches)
+    return map_caches(lambda el: el if isinstance(el, SSMState) else kvc.free_slot(el, slot),
+                      caches)
 
 
 def init_caches(cfg: ArchConfig, ctx: blocks.RunCtx, b: int, dtype=torch.bfloat16,

@@ -400,9 +400,11 @@ class EngineCore(_EngineBase):
                 self._tables = {k: torch.from_numpy(v).to(self.device)
                                 for k, v in self._alloc.tables().items()}
             self._alloc.dirty = False
+            # onto the paged elements: an SSM state holds no pages
             caches = registry.map_caches(
                 lambda el: paged_lib.with_tables(el, self._tables["hi"], self._tables["lo"],
-                                                 self._tables["win"]), caches)
+                                                 self._tables["win"])
+                if isinstance(el, paged_lib.PagedKVCache) else el, caches)
         self.caches = self._decode_masked.adopt(caches)
         # the downshift ladder: pressure is page-pool pressure, and what a
         # downshift frees is the window pages its fold returns, which only the

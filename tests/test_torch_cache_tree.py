@@ -13,7 +13,11 @@ is unrolled before the stacked groups, so its cache element sits in
     (the CPU's route of a captured step) bitwise equal to `capture=False`,
     lockstep and continuous, with the static tree's every leaf, the prefix
     layer's included, at one address for the whole run;
-  * the serve CLI with `--arch deepseek-v2-lite-16b --smoke`, both engines.
+  * the serve CLI with `--arch deepseek-v2-lite-16b --smoke`, both engines;
+  * SSM states (Jamba's smoke group: seven `SSMState` elements beside one
+    KV cache): insertion writes their rows, retirement leaves them as they
+    are, the swap payload carries their rows and restores them, and
+    copy-on-write passes them by.
 """
 
 import dataclasses
@@ -32,6 +36,7 @@ from repro_torch.core import paged
 from repro_torch.core.policy import CompressionConfig
 from repro_torch.launch import serve, steps
 from repro_torch.models import registry
+from repro_torch.models.ssm import SSMState
 from repro_torch.serving import ContinuousEngine, Request, ServeConfig, ServingEngine
 from repro_torch.serving import pack_requests
 from tests.torch_parity import to_np, torch_threads  # noqa: F401
@@ -63,8 +68,8 @@ def test_from_jax_params_round_trips_the_deepseek_tree():
         convert.from_jax_params(bad, cfg, device="cpu")
 
 
-def _ctx(**shape):
-    cfg = configs.get_arch(ARCH, smoke=True)
+def _ctx(arch=ARCH, **shape):
+    cfg = configs.get_arch(arch, smoke=True)
     ccfg = dataclasses.replace(CompressionConfig.zipcache(), fp_window=8, recompress_interval=8)
     shp = configs.ShapeConfig("t", 24, 2, "decode", **shape)
     return cfg, steps.serve_ctx(cfg, shp, ccfg, decode_budget=8, q_block=24, device="cpu")
@@ -249,3 +254,67 @@ def test_serve_cli_runs_deepseek_on_cpu(capsys, extra):
         assert all(f"req-{i}: 4 tok" in printed for i in range(3))
     else:
         assert f"{ARCH} policy=zipcache" in printed and out["tokens"].shape == (2, 4)
+
+
+# ---- SSM states in the tree (Jamba's hybrid group) ----------------------------
+
+JAMBA = "jamba-v0.1-52b"
+
+
+def _states(tree):
+    return [el for el in registry.cache_elements(tree) if isinstance(el, SSMState)]
+
+
+@pytest.mark.parametrize("layout", ["mixed", "paged"])
+def test_insert_and_free_take_ssm_states(layout):
+    """Insertion writes the slice's state rows into slot 1 and leaves slot
+    0's; retirement leaves the state rows as they are (stale until the next
+    insertion, masked while the slot is inactive)."""
+    pair = _ctx(JAMBA, **(PAGED if layout == "paged" else {}))
+    dst, src = _tree(pair), _prefill_slice(pair)
+    assert len(_states(dst)) == 7 and len(registry.cache_elements(dst)) == 8
+    out = registry.insert_caches(dst, src, 1)
+    for el, sl, old in zip(_states(out), _states(src), _states(dst)):
+        for t, ts, to in zip(kvc.tree_leaves(el), kvc.tree_leaves(sl), kvc.tree_leaves(old)):
+            assert torch.equal(t[1], ts[0]) and torch.equal(t[0], to[0])
+        assert bool(el.ssm[1].any())
+    freed = registry.free_caches(out, 1)
+    for a, b in zip(_states(freed), _states(out)):
+        assert _equal(a, b)
+    kv = [el for el in registry.cache_elements(freed) if not isinstance(el, SSMState)]
+    assert len(kv) == 1 and int(kv[0].length[1]) == 0
+
+
+def test_swap_payload_covers_ssm_states():
+    """Each SSM layer adds its four state rows to the payload, in layer
+    order; a restore onto overwritten rows gives them back."""
+    pair = _ctx(JAMBA, **PAGED)
+    tree = registry.insert_caches(_tree(pair), _prefill_slice(pair), 0)
+    payload = registry.extract_caches(tree, 0)
+    n_kv = len(paged.extract_slot(tree["groups"][0]["sub4"], 0))
+    assert len(payload) == 7 * 4 + n_kv
+    for want, got in zip(kvc.tree_leaves(tree["groups"][0]["sub0"]), payload[:4]):
+        assert torch.equal(want[0:1], got)
+    wiped = registry.map_caches(
+        lambda el: kvc.tree_map(torch.zeros_like, el) if isinstance(el, SSMState) else el,
+        registry.free_caches(tree, 0))
+    back = registry.restore_caches(wiped, [t.clone() for t in payload], 0)
+    for a, b in zip(_states(back), _states(tree)):
+        assert _equal(a, b)
+    with pytest.raises(ValueError):
+        registry.restore_caches(wiped, payload + payload[:1], 0)
+
+
+def test_copy_pages_skips_ssm_states():
+    pair = _ctx(JAMBA, **PAGED)
+    tree = registry.insert_caches(_tree(pair), _prefill_slice(pair), 0)
+    kv = tree["groups"][0]["sub4"]
+    src_page = int(kv.hi.table[0, 0])
+    dst_page = (src_page + 1) % int(kv.hi.k_pages.shape[0])
+    none = (torch.zeros(0, dtype=torch.int64),) * 2
+    before = [[t.clone() for t in kvc.tree_leaves(el)] for el in _states(tree)]
+    out = registry.copy_caches(tree, {"hi": (torch.tensor([src_page]), torch.tensor([dst_page])),
+                                      "lo": none, "win": none})
+    assert torch.equal(kv.hi.k_pages[dst_page], kv.hi.k_pages[src_page])
+    for el, want in zip(_states(out), before):
+        assert all(torch.equal(t, w) for t, w in zip(kvc.tree_leaves(el), want))

@@ -1279,3 +1279,163 @@ def test_deepseek_captured_serve_step_matches_eager(dev, layout):
     for a, w in zip(got, want):
         _close(a, w)
     assert step.captures == 1 and step.replays == 12 - sum(probe_flag(i, 8) for i in range(12)) - 1
+
+
+# ---- Jamba's attention shapes (g = 4, hk = 8, d = 128) and the SSM models ----
+
+JAMBA = "jamba-v0.1-52b"
+HK, G, D = 8, 4, 128      # jamba-v0.1-52b's attention layer: 32 query heads over 8 kv heads
+
+
+def test_cst_quant_at_jamba_shapes(dev):
+    """Both stores of one Jamba attention layer's prefill (8 kv heads,
+    d 128) in one launch each, bitwise the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(31)
+    ccfg = CompressionConfig.zipcache()
+    b, l = 2, 300
+    k, v = (_randn(gen, b, HK, l, D, dtype=torch.bfloat16) for _ in range(2))
+    s_hi, s_lo, _ = kvc.capacities(ccfg, l + 64)
+    sal_idx, reg_idx = sal.salient_split(torch.rand((b, l), generator=gen, device=dev),
+                                         ccfg.n_salient(l))
+    for bits, cap, idx in ((ccfg.high_bits, s_hi, sal_idx), (ccfg.low_bits, s_lo, reg_idx)):
+        idx = torch.nn.functional.pad(idx, (0, cap - idx.shape[1]), value=-1)
+        before = cst_kernel.KERNEL.launches
+        got = cst_kernel.quantize_store(k, v, idx, bits)
+        assert cst_kernel.KERNEL.launches == before + 1
+        for a, w in zip(got, cst_ref.quantize_store_ref(k, v, idx, bits)):
+            assert a.dtype == w.dtype and torch.equal(a, w)
+
+
+@pytest.mark.parametrize("b,lq", [(2, 300), (1, 1024)])
+def test_flash_fwd_and_probe_colsum_at_jamba_shapes(dev, b, lq):
+    """flash_fwd at 32 / 8 heads (g = 4), d 128, bf16: out within one bf16
+    ulp of 1, LSE 1e-5; probe_colsum over its probe rows: 1e-4 and two
+    calls bitwise."""
+    gen = torch.Generator(device=dev).manual_seed(32)
+    q = _randn(gen, b, HK * G, lq, D, dtype=torch.bfloat16)
+    k, v = (_randn(gen, b, HK, lq, D, dtype=torch.bfloat16) for _ in range(2))
+    out, lse = pf_kernel.flash_fwd(q, k, v)
+    ref_out, ref_lse = pf_ref.flash_fwd_ref(q, k, v)
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=2 ** -7, rtol=2 ** -7)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=1e-5)
+    pos = pf_ops.unique_probe_rows(sal.select_probes(lq).positions.to(dev))
+    safe = pos.clamp(0, lq - 1).long()
+    args = (q[:, :, safe].contiguous(), lse[:, :, safe].contiguous(),
+            pos[None].expand(b, -1).contiguous(), k)
+    got = pf_kernel.probe_colsum(*args, lq=lq)
+    torch.testing.assert_close(got, pf_ref.probe_colsum_ref(*args, lq=lq), atol=1e-4, rtol=1e-4)
+    assert torch.equal(got, pf_kernel.probe_colsum(*args, lq=lq))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_qattn_at_jamba_shapes(dev, dtype):
+    """One `qattn_mixed_layer` launch (the walk's G = 4, D = 128
+    instantiation) over a mixed cache of 8 kv heads: out within 1e-4 (f32)
+    or one bf16 ulp (bf16) of its largest magnitude (>= 1)."""
+    gen = torch.Generator(device=dev).manual_seed(33)
+    ccfg = CompressionConfig.zipcache()
+    b, l = 2, 300
+    k, v = (_randn(gen, b, HK, l, D, dtype=dtype) for _ in range(2))
+    cache = kvc.compress_prefill(ccfg, k, v, torch.rand((b, l), generator=gen, device=dev),
+                                 l + 64, dtype=dtype)
+    for _ in range(9):
+        cache = kvc.append_token(cache, _randn(gen, b, HK, D, dtype=dtype),
+                                 _randn(gen, b, HK, D, dtype=dtype))
+    q = _randn(gen, b, HK * G, D, dtype=dtype)
+    segs = dq_ops.mixed_segments(cache)
+    before = dq_kernel.KERNEL.launches
+    out = dq_kernel.qattn_mixed_layer(q, segs)
+    assert dq_kernel.KERNEL.launches == before + 1
+    want = dq_ref.mixed_layer_ref(q, segs)
+    tol = 2 ** -7 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(out.float(), want.float(),
+                               atol=tol * max(want.float().abs().max().item(), 1.0), rtol=0)
+
+
+@pytest.mark.parametrize("want_weights", [True, False], ids=["weights", "no-weights"])
+def test_paged_qattn_at_jamba_shapes(dev, want_weights):
+    """One `qattn_paged_layer` launch over a free-list cache of 8 kv heads,
+    d 128, pages of 64, an empty slot: out within one bf16 ulp of its
+    largest magnitude, m and l 1e-4 relative, the slot weights 1e-5, zeros
+    on the empty slot."""
+    gen = torch.Generator(device=dev).manual_seed(34)
+    cache = _freelist_cache(dev, gen, torch.bfloat16, 64, lengths=[300, 0, 97, 200], hk=HK,
+                            d=D, max_len=400)
+    q = _randn(gen, 4, HK * G, D, dtype=torch.bfloat16)
+    segs = pq_ops.layer_segments(cache)
+    scale = 1.0 / D ** 0.5
+    before = pq_kernel.KERNEL.launches
+    out, m, l, p, m_run = pq_kernel.qattn_paged_layer(q, segs, scale=scale,
+                                                      want_weights=want_weights)
+    assert pq_kernel.KERNEL.launches == before + 1
+    rout, rm, rl, rp = pq_ref.paged_layer_ref(q, segs, scale=scale)
+    live = torch.tensor([True, False, True, True], device=dev)
+    for a, w, t in ((out.float(), rout.float(), 2 ** -7), (m, rm, 1e-4), (l, rl, 1e-4)):
+        a, w = a[live], w[live]
+        torch.testing.assert_close(a, w, atol=t * max(w.abs().max().item(), 1.0), rtol=0)
+    assert not l[1].any() and not out[1].float().any()
+    if want_weights:
+        torch.testing.assert_close(p * torch.exp(m_run - m[..., None]), rp, atol=1e-5,
+                                   rtol=1e-5)
+
+
+def _hybrid_smoke(dev, arch):
+    """mamba2 smoke, or Jamba smoke at 8 heads of 16 over 2 kv heads (g = 4
+    on the walk)."""
+    cfg = configs.get_arch(arch, smoke=True)
+    if arch == JAMBA:
+        cfg = dataclasses.replace(cfg, n_heads=8, head_dim=16)
+    ccfg = dataclasses.replace(CompressionConfig.zipcache(), fp_window=8, recompress_interval=8)
+    return cfg, ccfg, registry.materialize_params(cfg, seed=0, device=dev)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", JAMBA])
+def test_hybrid_captured_steps_match_eager(dev, arch):
+    """The SSM states through both engines' captured decode steps: the
+    lockstep step (mixed) and the continuous step (Jamba: paged free list
+    with the walk; mamba2: paged static), captured against capture=False
+    through probe steps, folds, admissions and retirements.  Every step's
+    logits bitwise the eager step's, tokens equal, each step built once and
+    replayed."""
+    cfg, ccfg, params = _hybrid_smoke(dev, arch)
+    rng = np.random.default_rng(3)
+    batch = pack_requests([rng.integers(2, cfg.vocab, size=n) for n in (48, 20)], 2, 48)
+    prompts = [rng.integers(2, cfg.vocab, size=(n,)).astype(np.int32) for n in (40, 24, 33)]
+    layout = (dict(backend="paged", page_size=8, page_allocator="freelist", paged_kernel=True)
+              if arch == JAMBA else dict(backend="paged", page_size=8))
+    runs = []
+    for capture in (True, False):
+        lock = ServingEngine(cfg, ccfg, ServeConfig(2, 48, 12), params, device=dev,
+                             capture=capture)
+        lock_rec = lock._decode = _Recorded(lock._decode)
+        toks = lock.generate({"tokens": batch})["tokens"].tolist()
+        cont = ContinuousEngine(cfg, ccfg, ServeConfig(2, 48, 12, **layout), params, device=dev,
+                                capture=capture)
+        cont_rec = cont._decode_masked = _ActiveLogits(cont._decode_masked)
+        rids = [cont.submit(Request(tokens=p, max_new_tokens=m))
+                for p, m in zip(prompts, (12, 4, 12))]
+        res = cont.run()
+        torch.cuda.synchronize()
+        runs.append((toks, [res[r].tokens.tolist() for r in rids], lock_rec, cont_rec))
+    (toks, ctoks, lock_cap, cont_cap), (want, cwant, lock_eag, cont_eag) = runs
+    assert toks == want and ctoks == cwant
+    for cap, eag in ((lock_cap, lock_eag), (cont_cap, cont_eag)):
+        assert cap.step.captures == 1 and cap.step.replays > 0
+        assert len(cap.logits) == len(eag.logits)
+        for a, w in zip(cap.logits, eag.logits):
+            assert torch.equal(a, w)
+
+
+class _Recorded:
+    """A lockstep decode step that keeps every call's logits."""
+
+    def __init__(self, step):
+        self.step, self.logits = step, []
+
+    def __call__(self, *args):
+        logits, caches = self.step(*args)
+        self.logits.append(logits.clone())
+        return logits, caches
+
+    def __getattr__(self, name):
+        return getattr(self.step, name)

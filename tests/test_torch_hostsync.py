@@ -19,7 +19,9 @@ groupwise and tokenwise dequantization, `kvcache.attend_decode`) with the
 int8-algebra route beside it (`decode_impl="int8_algebra"`).  MLA's decode
 reads the cache through the backends' `dense` views (rooted here too) with
 both its algebras, and the MoE dispatch (`models.mlp`) runs in the MoE
-layers' step bodies.  Beside the syncs by name, the ops whose output size
+layers' step bodies.  The SSM layers' decode step (`models.ssm.ssm_decode`:
+the conv tails, the recurrence, the gated norm) and the row select that
+keeps an inactive slot's state are rooted too.  Beside the syncs by name, the ops whose output size
 depends on the data (`torch.bincount`, `torch.nonzero`, `torch.unique`,
 `.nonzero()`) read a count back to the host, so they are flagged too.
 """
@@ -50,6 +52,8 @@ ROOTS = (
     ("repro_torch.core.kvcache", "attend_decode"),
     ("repro_torch.core.kvcache", "attend_decode_int8"),
     ("repro_torch.core.kvcache", "attend_decode_mla_int8"),
+    ("repro_torch.models.ssm", "ssm_decode"),
+    ("repro_torch.core.kvcache", "tree_select_rows"),
 )
 HOST_METHODS = {"item", "cpu", "tolist", "nonzero"}
 HOST_CALLS = {"torch.as_tensor", "torch.from_numpy", "torch.bincount", "torch.nonzero",
@@ -88,7 +92,9 @@ def test_captured_steps_reach_no_host_calls(graph):
     for mod, fn in (("repro_torch.models.mlp", "_dispatch_compute"),
                     ("repro_torch.models.attention", "mla_decode"),
                     ("repro_torch.models.attention", "mla_kv_t"),
-                    ("repro_torch.core.kvcache", "_store_logits_vstream_int8")):
+                    ("repro_torch.core.kvcache", "_store_logits_vstream_int8"),
+                    ("repro_torch.models.ssm", "_conv_step"),
+                    ("repro_torch.models.ssm", "_softplus")):
         assert (mod, fn) in reached, (mod, fn)
     bad = [f"{graph.modules[mod].src.rel}:{line} {qual}: {pattern}"
            for mod, qual in reached
