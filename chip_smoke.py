@@ -41,7 +41,15 @@ continued:
      value, LSE within 1e-5) with SDPA beside it; probe_colsum, two calls
      bitwise and the salient set the plain version's; decode_qattn's layer
      (the walk's G = 4 instantiation) and paged_qattn's layer over a
-     free-list cache, within one bf16 ulp; each with its launch sizing;
+     free-list cache, within one bf16 ulp; then the rows at
+     seamless-m4t-medium's decoder layer (`<kernel>@seamless`: 16 query
+     heads over 16 kv heads, g = 1, d 64, batch 4, a 128-token decoder
+     prompt over 1024 source frames): cst_quant's self stores (bf16) and
+     cross stores (f32 K / V over 1024 tokens, f32 parameters) bitwise;
+     flash_fwd (2**-7, LSE 1e-5) with SDPA beside it; probe_colsum (1e-4,
+     two calls bitwise, the salient set); decode_qattn's layer (the walk's
+     G = 1, D = 64 instantiation) over the cross cache and over a self
+     cache, within one bf16 ulp; each with its launch sizing;
   4. slice 1's main path: `ServingEngine.generate` on yi-6b at full width
      (32 layers, random bf16 weights from a seeded generator), zipcache
      defaults, batch 4, prompt 1024, 128 new tokens: prefill, probe steps,
@@ -140,7 +148,10 @@ continued:
      2e-2 rtol 1e-2, slot weights 1e-3), `blocked_attention(compact=True)`
      against f32 at batch 1 (out 2e-2).  Lockstep: `ServingEngine.generate`
      under fp16, h2o, mikv, gear and kivi at their preset defaults (phase
-     4's batch, prompt and 128 new tokens: 16 probe steps, one fold),
+     4's batch, prompt and 128 new tokens: 16 probe steps, one fold) over
+     the first 8 of yi-6b's 32 layers at full width (cut from 32, as the
+     continuous runs below, to make room for phase 4l within the time
+     limit),
      captured and eager: every step's logits within one bf16 ulp of the
      eager step's, tokens equal; the prefill and first decode step's logits
      against the plain versions' within phase 4's bound; launches held to
@@ -155,9 +166,10 @@ continued:
      through paged_qattn, no gather) and kivi (every decode layer on the
      gather path, counted): every request ends with its budget, the
      allocator's invariants after every step, every page back;
-  4j. slice 12: DeepSeek-V2-Lite at full width (27 layers: an MLA prefix
-     layer with a dense FFN, then 26 layers of MLA and 64 routed + 2 shared
-     experts, top 6; latent 512, q/k head dim 192, v 128), random bf16
+  4j. slice 12: DeepSeek-V2-Lite at full width over 9 of its 27 layers
+     (the MLA prefix layer with a dense FFN, then 8 layers of MLA and 64
+     routed + 2 shared experts, top 6; latent 512, q/k head dim 192, v 128;
+     cut from 27 to keep the run within its time limit), random bf16
      weights from a seeded generator, after phase 4i's yi-6b model is freed.
      Lockstep: phase 4's batch and prompts, 128 new tokens, zipcache
      defaults (probe steps, one fold), captured and eager: every step's
@@ -175,7 +187,8 @@ continued:
      against the bf16 latent and rope-key streams, the expert-weight bytes
      a decode step reads;
   4k. slice 13: the SSM models, after phase 4j's model is freed.
-     mamba2-2.7b at full size (64 Mamba2 SSD layers, no attention layer,
+     mamba2-2.7b at full width over 16 of its 64 Mamba2 SSD layers (cut
+     from 64 to keep the run within its time limit; no attention layer,
      so no kernel and no KV cache): lockstep on phase 4's batch and 128 new
      tokens, captured against eager bit for bit; phase 4b's traffic on the
      continuous engine over the mixed and the paged static layout (its
@@ -194,6 +207,24 @@ continued:
      parameter bytes, peak memory, `cache_bytes` split into packed KV and
      SSM-state overhead, non-probe and probe step walls, the phase's
      seconds;
+  4l. slice 14: seamless-m4t-medium at full size (12 encoder and 12
+     decoder layers, d_model 1024, 16 / 16 heads, vocab 256206; 978,909,184
+     parameters, 1.96 GB), random bf16 weights from a seeded generator,
+     after phase 4k's models are freed, on the lockstep engine (the
+     continuous engine refuses the encoder-decoder): batch 4, 1024 source
+     frames of f32 embeddings, a 128-token decoder prompt, 128 new tokens
+     at zipcache defaults (16 probe steps, one fold at step 100), captured
+     against eager bit for bit.  Launches held to the path: flash_fwd and
+     probe_colsum 12 per prefill, cst_quant 48 per prefill (every self and
+     cross store) and 24 per fold (the self stores), decode_qattn 24 per
+     non-probe step (both caches of every layer), the plain route on probe
+     steps only.  The encoder memory bitwise between the kernel and the
+     plain route; every cross cache of the kernel route's prefill bitwise
+     the plain route's store of the same K / V and saliency; the prefill
+     and first decode step's logits against the plain route's within
+     phase 4's bound.  Logged: parameter bytes, peak memory, the encoder's
+     and the decoder's prefill walls, non-probe and probe step walls,
+     `cache_bytes` split into self and cross, the phase's seconds;
   5. a `kernels` JSON line, then the last line:
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -284,6 +315,13 @@ def device_ms(torch, fn, iters: int = 20) -> float:
 
 
 def main() -> None:
+    laps = [time.perf_counter()]
+
+    def lap(phase: str) -> None:
+        """Log the seconds since the last lap (the run's phase budget)."""
+        laps.append(time.perf_counter())
+        log(f"phase {phase}: {laps[-1] - laps[-2]:.1f} s (run so far {laps[-1] - laps[0]:.1f} s)")
+
     src = ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "build.py").is_file():
         fail(f"the port's sources (src/repro_torch) are not beside {Path(__file__).name}")
@@ -343,6 +381,7 @@ def main() -> None:
             if "Used" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
 
+    lap("1-2 (device, build)")
     # ---- 3. each kernel against its plain version --------------------------
     cfg = configs.get_arch("yi-6b")
     ccfg = CompressionConfig.zipcache()
@@ -671,7 +710,10 @@ def main() -> None:
     mla_kernels(torch, np, dev, rows, record, ccfg, prompt, max_new)
     # the five kernels at Jamba's attention layer (g = 4, 8 kv heads)
     jamba_kernels(torch, np, dev, rows, record, ccfg, prompt, max_new)
+    # the four on seamless's path at its decoder layer (g = 1, 16 kv heads, d 64)
+    seamless_kernels(torch, np, dev, rows, record, ccfg, max_new)
 
+    lap("3")
     # ---- 4. the main path -------------------------------------------------
     t0 = time.perf_counter()
     params = registry.materialize_params(cfg, seed=0, device=dev)
@@ -777,6 +819,7 @@ def main() -> None:
     yardstick = rel_l2(lf, lp)
     del engine, plain_engine, plain_out, cp, lk, lp, lf, dk, dp
 
+    lap("4")
     # ---- 4b. slice 2's main path: the continuous engine ---------------------
     cscfg = ServeConfig(batch_size=b, prompt_len=prompt, max_new_tokens=max_new, seed=0,
                         backend="paged", page_size=64, page_allocator="freelist",
@@ -874,6 +917,7 @@ def main() -> None:
     check(r <= 0.2, "continuous first decode logits differ from the plain path beyond tolerance")
     del peng, keng
 
+    lap("4b")
     # ---- 4c / 4d. eager against captured decode steps -----------------------
     # the same traffic on the same model through a fresh engine of each kind
     # (capture=False: the plain functions; capture=True: the decode step
@@ -990,25 +1034,31 @@ def main() -> None:
     greedy_4d = cont[True]["per_request"]
     del cont
 
+    lap("4c / 4d")
     # ---- 4e. slice 7's levers: precision map, swap tier, downshift ladder ---
     by_path.update(levers(torch, np, cfg, ccfg, params, dev, kernels, n_layers, prompt))
 
+    lap("4e")
     # ---- 4f. slice 8: shared-prefix dedup with copy-on-write ---------------
     by_path.update(prefix_dedup(torch, np, cfg, ccfg, params, dev, kernels, n_layers, prompt,
                                 card, rel_l2))
 
+    lap("4f")
     # ---- 4g. slice 9: seeded temperature sampling --------------------------
     run_4g = sampling(torch, np, cfg, ccfg, params, dev, kernels, n_layers, cscfg, requests,
                       budgets, greedy_4d, lock_bytes, card)
     by_path.update(run_4g["launches"])
 
+    lap("4g")
     # ---- 4h. slice 10: the serving edge, serve_http over HTTP/SSE ------------
     torch.cuda.empty_cache()   # the server processes take their own share of the card
     by_path["http"] = serving_edge(torch, np, cfg, params, dev, n_layers, requests, budgets,
                                    run_4g, card)
+    lap("4h")
     # ---- 4i. slice 11: the baseline policies and the two levers -------------
-    by_path.update(baselines(torch, np, cfg, params, dev, kernels, rows, n_layers, batch, scfg,
+    by_path.update(baselines(torch, np, cfg, params, dev, kernels, rows, batch, scfg,
                              cscfg, requests, budgets, rel_l2, yardstick, card))
+    lap("4i")
     # ---- 4j. slice 12: DeepSeek-V2-Lite (MLA + fine-grained MoE) ------------
     del params, lock, rec, kstep, pstep   # the last holders of yi-6b's tree
     gc.collect()
@@ -1016,14 +1066,19 @@ def main() -> None:
     log(f"yi-6b freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated")
     by_path.update(deepseek(torch, np, dev, kernels, batch, cscfg, requests, budgets, rel_l2,
                             yardstick, card))
+    lap("4j")
     # ---- 4k. slice 13: mamba2 and Jamba's hybrid group (SSM + attention) ----
     by_path.update(hybrid(torch, np, dev, kernels, b, prompt, cscfg, rel_l2, yardstick, card))
+    lap("4k")
+    # ---- 4l. slice 14: seamless-m4t-medium (encoder-decoder) -----------------
+    by_path.update(seamless(torch, np, dev, kernels, rel_l2, yardstick, card))
     rows["cst_quant"]["eff"]["launches"] = sum(
         p["cst_quant"] for name, p in by_path.items() if name.startswith("levers"))
     for name, row in rows.items():
         row["launches"] = sum(p.get(name, 0) for p in by_path.values())
         row["launches_by_path"] = {k: p.get(name, 0) for k, p in by_path.items()}
 
+    lap("4l")
     # ---- 5. the kernels and the contract line ------------------------------
     log("kernels: " + ", ".join(f"{n} ok ({r['launches']} launches)" for n, r in rows.items()))
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
@@ -1790,11 +1845,14 @@ CONTINUOUS_POLICIES = ("fp16", "kivi")
 PROMOTING = ("fp16", "h2o", "gear", "kivi")
 
 
-def baselines(torch, np, cfg, params, dev, kernels, rows, n_layers, batch, scfg, cscfg,
+def baselines(torch, np, cfg, params, dev, kernels, rows, batch, scfg, cscfg,
               requests, budgets, rel_l2, yardstick, card):
-    """Phase 4i: the baseline policies on both engines at full width, the
-    kernels at their shapes, and the int8-algebra / compact-softmax levers.
-    Returns the launch counts of each run ({path: {kernel: n}})."""
+    """Phase 4i: the baseline policies on both engines at full width over the
+    first BASELINE_LAYERS of yi-6b's 32 layers (cut from 32 to make room for
+    phase 4l in the time limit), the kernels at their shapes, and the
+    int8-algebra / compact-softmax levers.  Returns the launch counts of each run ({path: {kernel: n}})."""
+    import dataclasses
+
     from repro_torch.core import backend as backend_lib
     from repro_torch.core import kvcache as kvc
     from repro_torch.core import paged
@@ -1946,8 +2004,12 @@ def baselines(torch, np, cfg, params, dev, kernels, rows, n_layers, batch, scfg,
         f"{cerr:.3g}, probe column sums by {levers['compact_colsum_err']:.3g}); plain routes")
     del cache, ref, alg, q1, k1, v1, oc, of, cc, cf
 
-    # -- (i) lockstep runs ------------------------------------------------------
+    # -- (i) lockstep runs, at 8 of yi-6b's 32 layers (full width: the groups'
+    # leading axis cut to views of phase 4's first 8 layers) ---------------------
     out_paths = {}
+    lcfg = dataclasses.replace(cfg, n_layers=BASELINE_LAYERS)
+    lparams = _first_layers(params, lcfg.n_scan_groups)
+    n_lock = lcfg.n_layers
     toks = torch.as_tensor(batch["tokens"], device=dev)
     first, last = {}, {}
     counters = dict(kernels, plain_decodes=backend_lib.PLAIN_DECODES)
@@ -1958,7 +2020,7 @@ def baselines(torch, np, cfg, params, dev, kernels, rows, n_layers, batch, scfg,
         n_fold = max_new // interval
         runs = {}
         for capture in (True, False):
-            eng = ServingEngine(cfg, ccfg, scfg, params, device=dev, capture=capture)
+            eng = ServingEngine(lcfg, ccfg, scfg, lparams, device=dev, capture=capture)
             eng.generate(batch, max_new_tokens=2)   # warm-up
             torch.cuda.synchronize()
             for c in counters.values():
@@ -1971,13 +2033,14 @@ def baselines(torch, np, cfg, params, dev, kernels, rows, n_layers, batch, scfg,
                                  captures=rec.step.captures,
                                  bytes=eng.cache_bytes(eng.last_caches))
             if capture:
-                plain_eng = ServingEngine(cfg, ccfg, scfg, params, device=dev, use_kernels=False)
+                plain_eng = ServingEngine(lcfg, ccfg, scfg, lparams, device=dev,
+                                          use_kernels=False)
                 with torch.inference_mode():
-                    lk, _ = registry.prefill(params, {"tokens": toks}, cfg, eng.ctx)
-                    lp, cp = registry.prefill(params, {"tokens": toks}, cfg, plain_eng.ctx)
+                    lk, _ = registry.prefill(lparams, {"tokens": toks}, lcfg, eng.ctx)
+                    lp, cp = registry.prefill(lparams, {"tokens": toks}, lcfg, plain_eng.ctx)
                     tok0 = torch.argmax(lp, dim=-1).to(torch.int32)
-                    dk, _ = registry.decode_step(params, tok0, cp, cfg, eng.ctx, False)
-                    dp, _ = registry.decode_step(params, tok0, cp, cfg, plain_eng.ctx, False)
+                    dk, _ = registry.decode_step(lparams, tok0, cp, lcfg, eng.ctx, False)
+                    dp, _ = registry.decode_step(lparams, tok0, cp, lcfg, plain_eng.ctx, False)
                 for what, a, w in (("prefill", lk, lp), ("first decode step", dk, dp)):
                     r = rel_l2(a, w)
                     check(bool(torch.isfinite(a).all()) and r <= 0.2,
@@ -1988,14 +2051,14 @@ def baselines(torch, np, cfg, params, dev, kernels, rows, n_layers, batch, scfg,
                 # the step alone to a synchronize: median non-probe and probe step
                 step_ms, probe_ms = [], []
                 with torch.inference_mode():
-                    lg, caches = eng._prefill(params, {"tokens": toks})
+                    lg, caches = eng._prefill(lparams, {"tokens": toks})
                     caches = eng._decode.adopt(caches)
                     tok = torch.argmax(lg, dim=-1).to(torch.int32)
                     for i in range(16):
                         p = probe_flag(i, interval, scfg.seed)
                         torch.cuda.synchronize()
                         t0 = time.perf_counter()
-                        lg, caches = eng._decode(params, caches, tok, p)
+                        lg, caches = eng._decode(lparams, caches, tok, p)
                         torch.cuda.synchronize()
                         (probe_ms if p else step_ms).append((time.perf_counter() - t0) * 1e3)
                         tok = eng._decode.token
@@ -2005,10 +2068,10 @@ def baselines(torch, np, cfg, params, dev, kernels, rows, n_layers, batch, scfg,
             del eng
         cap, eager = runs[True], runs[False]
         uses_walk = policy in ("fp16", "h2o")
-        want = {"flash_fwd": n_layers, "cst_quant": 0, "paged_qattn": 0,
-                "probe_colsum": n_layers if CompressionConfig.preset(policy).uses_saliency else 0,
-                "decode_qattn": n_layers * (max_new - n_probe) if uses_walk else 0,
-                "plain_decodes": n_layers * (n_probe if uses_walk else max_new)}
+        want = {"flash_fwd": n_lock, "cst_quant": 0, "paged_qattn": 0,
+                "probe_colsum": n_lock if CompressionConfig.preset(policy).uses_saliency else 0,
+                "decode_qattn": n_lock * (max_new - n_probe) if uses_walk else 0,
+                "plain_decodes": n_lock * (n_probe if uses_walk else max_new)}
         for name, n in want.items():
             check(cap["launches"][name] == n, f"lockstep {policy}: {name} {cap['launches'][name]} "
                                               f"launches, the route implies {n}")
@@ -2033,14 +2096,14 @@ def baselines(torch, np, cfg, params, dev, kernels, rows, n_layers, batch, scfg,
         first[policy], last[policy] = (cap["rec"].logits[i].float() for i in (0, -1))
         tm = cap["out"]["timings"]
         packed = cap["bytes"]["packed_bytes"]
-        fp16_bytes = 2 * b * hk * max_len * d * 2 * n_layers
+        fp16_bytes = 2 * b * hk * max_len * d * 2 * n_lock
         ratio = ccfg.compression_ratio(b, hk, max_len, d)
         # the first decode step's logits (one prefill, the caches apart) as
         # tests/test_serving.py compares policies; the last step's follow
         # each policy's own greedy tokens
         cos = [torch.nn.functional.cosine_similarity(x[policy].flatten(), x["fp16"].flatten(),
                                                      dim=0).item() for x in (first, last)]
-        log(f"lockstep {policy} ({card}): prefill {tm['prefill_s']:.3f} s, decode "
+        log(f"lockstep {policy} ({n_lock} layers, {card}): prefill {tm['prefill_s']:.3f} s, decode "
             f"{tm['decode_s']:.3f} s (eager {eager['out']['timings']['decode_s']:.3f} s), median "
             f"non-probe step {cap['step_ms']:.3f} ms, probe step {cap['probe_ms'] or 0:.3f} ms; "
             f"{n_probe} probe steps, {n_fold} fold; launches {cap['launches']}; captures "
@@ -2055,10 +2118,11 @@ def baselines(torch, np, cfg, params, dev, kernels, rows, n_layers, batch, scfg,
                                               if n in kernels}
         del runs, cap, eager
 
-    # -- (ii) continuous runs: phase 4b's configuration and traffic -------------
+    # -- (ii) continuous runs: phase 4b's configuration and traffic, at the
+    # lockstep runs' 8 layers ------------------------------------------------------
     for policy in CONTINUOUS_POLICIES:
         ccfg = CompressionConfig.preset(policy)
-        eng = ContinuousEngine(cfg, ccfg, cscfg, params, device=dev)
+        eng = ContinuousEngine(lcfg, ccfg, cscfg, lparams, device=dev)
         torch.cuda.synchronize()
         for c in counters.values():
             c.launches = 0
@@ -2083,17 +2147,17 @@ def baselines(torch, np, cfg, params, dev, kernels, rows, n_layers, batch, scfg,
             check(st[seg]["used"] == 0 and st[seg]["free"] == st[seg]["pool_pages"],
                   f"continuous {policy}: {seg} pages not all returned: {st[seg]}")
         walk_ = policy == "fp16"
-        want = {"cst_quant": 0, "flash_fwd": n_layers * st["admissions"], "probe_colsum": 0,
-                "decode_qattn": 0, "paged_qattn": n_layers * eng._step_no if walk_ else 0}
+        want = {"cst_quant": 0, "flash_fwd": n_lock * st["admissions"], "probe_colsum": 0,
+                "decode_qattn": 0, "paged_qattn": n_lock * eng._step_no if walk_ else 0}
         for name, n in want.items():
             check(got[name] == n, f"continuous {policy}: {name} {got[name]} launches, the route "
                                   f"implies {n}")
-        n_gather = 0 if walk_ else n_layers * eng._step_no
+        n_gather = 0 if walk_ else n_lock * eng._step_no
         check(gathers == n_gather, f"continuous {policy}: {gathers} gather-path decodes, the "
                                    f"route implies {n_gather}")
         n_tok = sum(len(x.tokens) for x in res.values())
         peaks = {k: f"{st[k]['peak_used']}/{st[k]['pool_pages']}" for k in ("hi", "lo", "win")}
-        log(f"continuous {policy} ({card}): {n_tok} tokens in {wall:.3f} s, {eng._step_no} "
+        log(f"continuous {policy} ({n_lock} layers, {card}): {n_tok} tokens in {wall:.3f} s, {eng._step_no} "
             f"steps, {st['admissions']} admissions, {st['deferrals']} deferrals, {st['folds']} "
             f"folds; pages peak used / pool {peaks}; launches {got}, gather-path decodes "
             f"{gathers}; allocator invariants held after every step, every page back")
@@ -2101,6 +2165,19 @@ def baselines(torch, np, cfg, params, dev, kernels, rows, n_layers, batch, scfg,
         del eng, res
     log(f"baselines: phase 4i took {time.perf_counter() - t_phase:.1f} s")
     return out_paths
+
+
+BASELINE_LAYERS = 8   # phase 4i's lockstep runs: the first 8 of yi-6b's 32 layers
+
+
+def _first_layers(params, n: int):
+    """A parameter tree's first `n` stacked groups, as views (the prefix
+    layers and the unstacked leaves as they are)."""
+    def cut(node):
+        if isinstance(node, dict):
+            return {k: cut(v) for k, v in node.items()}
+        return node[:n]
+    return dict(params, groups=cut(params["groups"]))
 
 
 def traffic(np, vocab, b, prompt, max_new):
@@ -2339,6 +2416,7 @@ def _leaves(tree):
 
 # phase 3's MLA rows and phase 4j: DeepSeek-V2-Lite (MLA + fine-grained MoE)
 MLA_ARCH = "deepseek-v2-lite-16b"
+DEEPSEEK_LAYERS = 9    # phase 4j: the MLA prefix layer and the first 8 MoE layers of 27
 
 
 def _sdpa_timed(torch, q, k, v):
@@ -2494,6 +2572,7 @@ def mla_kernels(torch, np, dev, rows, record, ccfg, prompt, max_new):
 
 # phase 3's Jamba rows and phase 4k: Mamba2 and Jamba's hybrid group
 MAMBA_ARCH, JAMBA_ARCH = "mamba2-2.7b", "jamba-v0.1-52b"
+MAMBA_LAYERS = 16      # phase 4k: the first 16 of mamba2's 64 SSD layers
 
 
 def jamba_kernels(torch, np, dev, rows, record, ccfg, prompt, max_new):
@@ -2666,6 +2745,191 @@ def jamba_kernels(torch, np, dev, rows, record, ccfg, prompt, max_new):
     del pcache, segs, qd
 
 
+# phase 3's seamless rows and phase 4l: seamless-m4t-medium (encoder-decoder)
+SEAMLESS_ARCH = "seamless-m4t-medium"
+SEAMLESS_SRC, SEAMLESS_DEC = 1024, 128     # source frames; the decoder prompt
+
+
+def seamless_kernels(torch, np, dev, rows, record, ccfg, max_new):
+    """Phase 3's rows at seamless-m4t-medium's decoder layer (16 query heads
+    over 16 kv heads: g = 1, d 64), batch 4, a 128-token decoder prompt
+    over 1024 source frames: cst_quant's self-cache stores (bf16 K / V) and
+    cross-cache stores (the encoder memory's f32 K / V over 1024 tokens, f32
+    parameters), bitwise; flash_fwd over the causal self-attention prefill
+    (out within 2**-7 of its largest value, LSE within 1e-5) with SDPA
+    beside it; probe_colsum over the probe rows of select_probes(128), 1e-4,
+    two calls bitwise, the salient set the plain version's; decode_qattn's
+    layer (the walk's G = 1, D = 64 instantiation) over the cross cache (f32
+    store parameters beside the empty bf16 window) and over a self cache
+    after 40 appends, each within one bf16 ulp of its largest value.  Each
+    row records its launch sizing."""
+    from repro_torch import configs
+    from repro_torch.core import kvcache as kvc
+    from repro_torch.core import saliency as sal
+    from repro_torch.kernels.cst_quant import kernel as cst_kernel
+    from repro_torch.kernels.cst_quant import ref as cst_ref
+    from repro_torch.kernels.decode_qattn import kernel as dq_kernel
+    from repro_torch.kernels.decode_qattn import ops as dq_ops
+    from repro_torch.kernels.decode_qattn import ref as dq_ref
+    from repro_torch.kernels.probe_flash import kernel as pf_kernel
+    from repro_torch.kernels.probe_flash import ops as pf_ops
+    from repro_torch.kernels.probe_flash import ref as pf_ref
+    from repro_torch.models import attention
+
+    cfg = configs.get_arch(SEAMLESS_ARCH)
+    b, h, hk, d = 4, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    check(h == hk == 16 and d == 64, f"seamless's attention: {h} / {hk} heads, d {d}")
+    lq, src, self_len = SEAMLESS_DEC, SEAMLESS_SRC, SEAMLESS_DEC + max_new
+    gen = torch.Generator(device=dev).manual_seed(26)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    src_pf = "src/repro_torch/kernels/probe_flash/csrc/probe_flash.cu"
+    src_cst = "src/repro_torch/kernels/cst_quant/csrc/cst_quant.cu"
+    # cst_quant: a self cache's stores (bf16, 128 tokens, capacity 256) and a
+    # cross cache's (f32, 1024 tokens, capacity 1024)
+    stores = {}
+    for cache, dtype, l, max_len in (("self", torch.bfloat16, lq, self_len),
+                                     ("cross", torch.float32, src, src)):
+        s_hi, s_lo, _ = kvc.capacities(ccfg, max_len)
+        kv_k, kv_v = randn(b, hk, l, d, dtype=dtype), randn(b, hk, l, d, dtype=dtype)
+        sal_idx, reg_idx = sal.salient_split(torch.rand((b, l), generator=gen, device=dev),
+                                             ccfg.n_salient(l))
+        for name, bits, cap, sidx in (("hi", ccfg.high_bits, s_hi, sal_idx),
+                                      ("lo", ccfg.low_bits, s_lo, reg_idx)):
+            sidx = torch.nn.functional.pad(sidx, (0, cap - sidx.shape[1]), value=-1)
+            got = cst_kernel.quantize_store(kv_k, kv_v, sidx, bits)
+            want = cst_ref.quantize_store_ref(kv_k, kv_v, sidx, bits)
+            torch.cuda.synchronize()
+            for part, a, w in zip(("K codes", "K scale", "K zero", "V codes", "V scale",
+                                   "V zero", "V channel scale"), got, want):
+                check(a.dtype == w.dtype and torch.equal(a, w),
+                      f"cst_quant@seamless {cache} {name} store: {part} differ from the plain "
+                      "version")
+            check(got[1].dtype == dtype, f"cst_quant@seamless {cache}: parameters {got[1].dtype}")
+            n_live = int((sidx >= 0).sum())
+            stores[(cache, name)] = (kv_k, kv_v, bits, sidx, bound_ms(
+                0.0, n_live * hk * 2 * d * kv_k.element_size() + nbytes(sidx, *got)))
+    kv_k, kv_v, bits, sidx, bnd = stores[("cross", "lo")]
+    fn = lambda: cst_kernel.quantize_store(kv_k, kv_v, sidx, bits)  # noqa: E731
+    cst_kernel.KERNEL.split = None
+    record("cst_quant@seamless", src_cst, "src/repro/kernels/cst_quant/kernel.py:66", 0.0, 0.0,
+           fn, time_ms(torch, fn, iters=50),
+           time_ms(torch, lambda: cst_ref.quantize_store_ref(kv_k, kv_v, sidx, bits)), bnd)
+    row = rows["cst_quant@seamless"]
+    row.update(timed="cross lo store (f32, 1024 tokens)", split=cst_kernel.KERNEL.split)
+    check(isinstance(row["split"], int) and row["split"] >= 1,
+          f"cst_quant@seamless: the launch recorded no split ({row['split']!r})")
+    for key in (("cross", "hi"), ("self", "hi"), ("self", "lo")):
+        k_, v_, bits_, sidx_, bnd_ = stores[key]
+        f = lambda: cst_kernel.quantize_store(k_, v_, sidx_, bits_)  # noqa: E731
+        row["_".join(key)] = {"ms": time_ms(torch, f, iters=50), "device_ms": device_ms(torch, f),
+                              "bound_ms": bnd_[0]}
+    log(f"cst_quant@seamless: bitwise at the self (bf16) and cross (f32) hi and lo stores; "
+        f"{row['split']} CTAs per slice; " + ", ".join(
+            f"{k} {row[k]['ms']:.4f} ms (device {row[k]['device_ms']:.4f} ms, bound "
+            f"{row[k]['bound_ms']:.5f} ms)" for k in ("cross_hi", "self_hi", "self_lo")))
+    del stores
+
+    # flash_fwd over the decoder's causal self-attention prefill, SDPA beside it
+    q, k, v = randn(b, h, lq, d), randn(b, hk, lq, d), randn(b, hk, lq, d)
+    out, lse = pf_kernel.flash_fwd(q, k, v)
+    ref_out, ref_lse = pf_ref.flash_fwd_ref(q, k, v)
+    torch.cuda.synchronize()
+    err = (out.float() - ref_out.float()).abs().max().item()
+    tol = 2 ** -7 * ref_out.float().abs().max().item()
+    err_lse = (lse - ref_lse).abs().max().item()
+    check(err_lse <= 1e-5, f"flash_fwd@seamless: lse error {err_lse:.3g} exceeds 1e-5")
+    fn = lambda: pf_kernel.flash_fwd(q, k, v)  # noqa: E731
+    pairs = lq * (lq + 1) // 2
+    record("flash_fwd@seamless", src_pf, "src/repro/kernels/probe_flash/kernel.py:100", err, tol,
+           fn, time_ms(torch, fn), time_ms(torch, lambda: pf_ref.flash_fwd_ref(q, k, v), iters=5),
+           bound_ms(4.0 * b * h * pairs * d, nbytes(q, k, v, out, lse)),
+           time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+               q, k, v, is_causal=True)))
+    rows["flash_fwd@seamless"].update(lse_err=err_lse, shape=[b, h, hk, lq, d])
+
+    # probe_colsum: the probe rows of select_probes(128) (repeats -> -1)
+    probe = sal.select_probes(lq)
+    pos = pf_ops.unique_probe_rows(probe.positions.to(dev))
+    safe = pos.clamp(0, lq - 1).long()
+    args = (q[:, :, safe].contiguous(), lse[:, :, safe].contiguous(),
+            pos[None].expand(b, -1).contiguous(), k)
+    col = pf_kernel.probe_colsum(*args, lq=lq)
+    col_ref = pf_ref.probe_colsum_ref(*args, lq=lq)
+    again = pf_kernel.probe_colsum(*args, lq=lq)
+    torch.cuda.synchronize()
+    check(torch.equal(col, again), "probe_colsum@seamless: two calls on the same inputs differ")
+    _salient_sets_agree(torch, sal, attention, ccfg, probe, col, col_ref, lq)
+    fn = lambda: pf_kernel.probe_colsum(*args, lq=lq)  # noqa: E731
+    valid_pairs = int((pos[pos >= 0] + 1).sum())
+    pf_kernel.COLSUM.heads_per_cta = None
+    record("probe_colsum@seamless", src_pf, "src/repro/kernels/probe_flash/kernel.py:177",
+           (col - col_ref).abs().max().item(), 1e-4, fn, time_ms(torch, fn),
+           time_ms(torch, lambda: pf_ref.probe_colsum_ref(*args, lq=lq)),
+           bound_ms(2.0 * b * h * valid_pairs * d, nbytes(*args, col)))
+    hpc = pf_kernel.COLSUM.heads_per_cta
+    check(isinstance(hpc, int) and hpc >= 1,
+          f"probe_colsum@seamless: the launch recorded no heads per CTA ({hpc!r})")
+    rows["probe_colsum@seamless"]["heads_per_cta"] = hpc
+    del q, k, v, out, lse, ref_out, ref_lse, args, col, col_ref, again
+
+    # decode_qattn: the cross cache (f32 parameters, empty bf16 window), the
+    # timed call, and a self cache after 40 appends
+    caches = {
+        "cross": kvc.compress_prefill(ccfg, randn(b, hk, src, d, dtype=torch.float32),
+                                      randn(b, hk, src, d, dtype=torch.float32),
+                                      torch.rand((b, src), generator=gen, device=dev), src,
+                                      use_kernel=True),
+        "self": kvc.compress_prefill(ccfg, randn(b, hk, lq, d), randn(b, hk, lq, d),
+                                     torch.rand((b, lq), generator=gen, device=dev), self_len,
+                                     use_kernel=True)}
+    for _ in range(40):
+        caches["self"] = kvc.append_token(caches["self"], randn(b, hk, d), randn(b, hk, d))
+    qd = randn(b, h, d)
+    timed = {}
+    for name, cache in caches.items():
+        check(dq_ops.kernel_supported(cache), f"decode_qattn@seamless: the {name} cache")
+        dsegs = dq_ops.mixed_segments(cache)
+        check([o["k_codes"].dtype for o in dsegs] == [torch.int8, torch.int8, torch.bfloat16]
+              and cache.hi.k.scale.dtype == (torch.float32 if name == "cross" else torch.bfloat16),
+              f"decode_qattn@seamless {name}: segments "
+              f"{[(o['k_bits'], o['k_codes'].dtype) for o in dsegs]}, parameters "
+              f"{cache.hi.k.scale.dtype}")
+        before = dq_kernel.KERNEL.launches
+        dq_kernel.KERNEL.splits = None
+        out_d = dq_kernel.qattn_mixed_layer(qd, dsegs)
+        splits = dq_kernel.KERNEL.splits
+        want_d = dq_ref.mixed_layer_ref(qd, dsegs)
+        torch.cuda.synchronize()
+        check(dq_kernel.KERNEL.launches == before + 1, "decode_qattn@seamless: one launch per "
+                                                       "layer")
+        err = (out_d.float() - want_d.float()).abs().max().item()
+        tol = 2 ** -7 * max(want_d.float().abs().max().item(), 1.0)
+        check(err <= tol, f"decode_qattn@seamless {name}: max abs error {err:.3g} exceeds "
+                          f"{tol:.3g}")
+        fn = lambda dsegs=dsegs: dq_kernel.qattn_mixed_layer(qd, dsegs)  # noqa: E731
+        timed[name] = (err, tol, fn, dsegs, mixed_layer_bound(dsegs, qd, out_d, hk), splits)
+    err, tol, fn, dsegs, bnd, splits = timed["cross"]
+    record("decode_qattn@seamless", "src/repro_torch/kernels/decode_qattn/csrc/decode_qattn.cu",
+           "src/repro/kernels/decode_qattn/kernel.py:109", err, tol, fn,
+           time_ms(torch, fn, iters=50), time_ms(torch, lambda: dq_ref.mixed_layer_ref(qd, dsegs)),
+           bnd)
+    err, tol, fn, dsegs, bnd, self_splits = timed["self"]
+    rows["decode_qattn@seamless"].update(
+        timed=f"cross cache ({src} source slots, f32 parameters)", splits=splits,
+        self={"max_abs_err": err, "ms": time_ms(torch, fn, iters=50),
+              "device_ms": device_ms(torch, fn), "bound_ms": bnd[0], "splits": self_splits,
+              "slots": int(sum(o["pos"].shape[-1] for o in dsegs))})
+    sr = rows["decode_qattn@seamless"]["self"]
+    log(f"decode_qattn@seamless: cross cache {splits} splits per (row, kv head); self cache "
+        f"({sr['slots']} slots, 40 appended) {sr['ms']:.4f} ms (device {sr['device_ms']:.4f} "
+        f"ms, bound {sr['bound_ms']:.5f} ms, {self_splits} splits), max abs err "
+        f"{sr['max_abs_err']:.3g}; probe_colsum {hpc} heads per CTA")
+    del caches, timed, qd
+
+
 class TimedLogits(StepLogits):
     """`StepLogits` that also times each call to a synchronize, by kind:
     a probe step (lockstep: its host flag; continuous: a staged probe row)
@@ -2686,10 +2950,13 @@ class TimedLogits(StepLogits):
 
 
 def deepseek(torch, np, dev, kernels, batch, cscfg, requests, budgets, rel_l2, yardstick, card):
-    """Phase 4j: DeepSeek-V2-Lite at full width (27 layers: an MLA prefix
-    layer with a dense FFN, then 26 MLA + MoE layers of 64 routed and 2
-    shared experts, top 6) from a seeded generator, on both engines,
+    """Phase 4j: DeepSeek-V2-Lite at full width over DEEPSEEK_LAYERS of its
+    27 layers (the MLA prefix layer with a dense FFN, then MLA + MoE layers
+    of 64 routed and 2 shared experts, top 6; cut from 27 to keep the script
+    within its time limit) from a seeded generator, on both engines,
     captured and eager.  Returns the launch counts of each run."""
+    import dataclasses
+
     from repro_torch import configs
     from repro_torch.core import paged
     from repro_torch.core.policy import CompressionConfig
@@ -2698,7 +2965,7 @@ def deepseek(torch, np, dev, kernels, batch, cscfg, requests, budgets, rel_l2, y
     from repro_torch.serving import probe_flag
 
     t_phase = time.perf_counter()
-    cfg = configs.get_arch(MLA_ARCH)
+    cfg = dataclasses.replace(configs.get_arch(MLA_ARCH), n_layers=DEEPSEEK_LAYERS)
     ccfg = CompressionConfig.zipcache()
     b, prompt = batch["tokens"].shape
     max_new = 128
@@ -2873,8 +3140,9 @@ def deepseek(torch, np, dev, kernels, batch, cscfg, requests, budgets, rel_l2, y
 
 
 def hybrid(torch, np, dev, kernels, b, prompt, cscfg, rel_l2, yardstick, card):
-    """Phase 4k: mamba2-2.7b at full size (64 SSD layers, no attention
-    layer), then jamba-v0.1-52b at full width over one 8-layer group (layer
+    """Phase 4k: mamba2-2.7b at full width over MAMBA_LAYERS of its 64 SSD
+    layers (no attention layer; cut from 64 to keep the script within its
+    time limit), then jamba-v0.1-52b at full width over one 8-layer group (layer
     4 GQA under ZipCache, the rest SSD, odd layers MoE; n_layers 32 -> 8:
     the 32 layers' 102.9 GB of bf16 weights do not fit one card), random
     bf16 weights from a seeded generator, after phase 4j's model is freed.
@@ -3000,7 +3268,7 @@ def hybrid(torch, np, dev, kernels, b, prompt, cscfg, rel_l2, yardstick, card):
         return eng, run
 
     # -- mamba2-2.7b: no attention layer, so no kernel and no KV cache ----------
-    cfg = configs.get_arch(MAMBA_ARCH)
+    cfg = dataclasses.replace(configs.get_arch(MAMBA_ARCH), n_layers=MAMBA_LAYERS)
     check(cfg.layer_kinds() == (("ssm", "none"),), "mamba2 should have SSD layers only")
     params = materialize(cfg)
     batch_m, requests_m, budgets = traffic(np, cfg.vocab, b, prompt, max_new)
@@ -3108,6 +3376,185 @@ def hybrid(torch, np, dev, kernels, b, prompt, cscfg, rel_l2, yardstick, card):
     return out_paths
 
 
+
+class _CrossTap:
+    """A cache backend that keeps the arguments and the result of every
+    cross-cache compression (max_len = the source length) it passes on."""
+
+    def __init__(self, be, src_len):
+        self.be, self.src_len, self.cross = be, src_len, []
+
+    def compress_prefill(self, k, v, saliency, max_len, **kw):
+        el = self.be.compress_prefill(k, v, saliency, max_len, **kw)
+        if max_len == self.src_len:
+            self.cross.append((k, v, saliency, kw, el))
+        return el
+
+    def __getattr__(self, name):
+        return getattr(self.be, name)
+
+
+def seamless(torch, np, dev, kernels, rel_l2, yardstick, card):
+    """Phase 4l: seamless-m4t-medium at full size (12 encoder and 12 decoder
+    layers, d_model 1024, 16 / 16 heads, d 64, vocab 256206 padded to
+    256256), random bf16 weights from a seeded generator, after phase 4k's
+    models are freed; the lockstep engine only (the continuous engine
+    refuses the encoder-decoder, as the reference's).  Batch 4, 1024 source
+    frames of f32 embeddings, a 128-token decoder prompt, 128 new tokens at
+    zipcache defaults (probe steps, one fold at step 100), captured against
+    eager bit for bit.  Held: launches to the path; the prefill's and first
+    decode step's logits on the kernel route against the plain route's;
+    the encoder memory bitwise between the routes; every cross cache of the
+    kernel route's prefill bitwise the plain route's store of the same
+    K / V and saliency.  Returns the launch counts of each run."""
+    from repro_torch import configs
+    from repro_torch.core import backend as backend_lib
+    from repro_torch.core import kvcache as kvc
+    from repro_torch.core.policy import CompressionConfig
+    from repro_torch.models import encdec, registry
+    from repro_torch.serving import ServeConfig, ServingEngine, probe_flag
+
+    t_phase = time.perf_counter()
+    cfg = configs.get_arch(SEAMLESS_ARCH)
+    ccfg = CompressionConfig.zipcache()
+    b, max_new, n_dec = 4, 128, cfg.n_layers
+    n_probe = sum(probe_flag(i, ccfg.recompress_interval, 0) for i in range(max_new))
+    n_fold = max_new // ccfg.recompress_interval
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = registry.materialize_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    leaves = list(_leaves(params))
+    n_params, p_bytes = sum(t.numel() for t in leaves), nbytes(*leaves)
+    log(f"seamless: {cfg.n_enc_layers} encoder + {n_dec} decoder layers, params {n_params:,} "
+        f"({p_bytes / 1e9:.3f} GB bf16) in {time.perf_counter() - t0:.1f} s")
+    check(n_params == 978_909_184, f"seamless: {n_params} parameters, the schema has 978,909,184")
+    rng = np.random.default_rng(26)
+    batch = {"tokens": rng.integers(2, cfg.vocab, size=(b, SEAMLESS_DEC)).astype(np.int32),
+             "frontend_embeds": rng.standard_normal(
+                 (b, SEAMLESS_SRC, cfg.d_model)).astype(np.float32)}
+    scfg = ServeConfig(batch_size=b, prompt_len=SEAMLESS_SRC, max_new_tokens=max_new, seed=0)
+    counters = dict(kernels, plain_decodes=backend_lib.PLAIN_DECODES)
+    # per prefill: flash_fwd and probe_colsum once per decoder layer, cst_quant
+    # on the hi and lo stores of its self and cross caches; per fold cst_quant
+    # on the self stores only; per non-probe step decode_qattn over both
+    # caches of every layer; the plain route on probe steps only
+    want = {"flash_fwd": n_dec, "probe_colsum": n_dec,
+            "cst_quant": 4 * n_dec + 2 * n_dec * n_fold,
+            "decode_qattn": 2 * n_dec * (max_new - n_probe), "paged_qattn": 0,
+            "plain_decodes": 2 * n_dec * n_probe}
+    log(f"seamless: launches the path implies {want} ({n_probe} probe steps, {n_fold} fold)")
+    out_paths, lock = {}, {}
+    for capture in (True, False):
+        eng = ServingEngine(cfg, ccfg, scfg, params, device=dev, capture=capture)
+        eng.generate(batch, max_new_tokens=2)   # warm-up (with capture: warm-up step, capture)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        rec = eng._decode = TimedLogits(eng._decode, torch)
+        out = eng.generate(batch)
+        eng._decode = rec.step
+        rec.logits = [x[:, :cfg.vocab] for x in rec.logits]   # not the masked vocab padding
+        got = {n: c.launches for n, c in counters.items()}
+        path = f"seamless-lockstep-{'captured' if capture else 'eager'}"
+        for name, n in want.items():
+            check(got[name] == n, f"{path}: {name} {got[name]} launches, the path implies {n}")
+        out_paths[path] = {**{n: got[n] for n in kernels},
+                           **{f"{n}@seamless": got[n] for n in kernels}}
+        tm = out["timings"]
+        lock[capture] = dict(tokens=out["tokens"], decode_s=tm["decode_s"],
+                             tok_s=tm["tok_per_s"], step_ms=np.median(rec.ms[False]),
+                             probe_ms=np.median(rec.ms[True]), busy=None, ops=None,
+                             peak=torch.cuda.max_memory_allocated(), rec=rec, step=rec.step)
+        log(f"seamless lockstep (capture {capture}, {card}): prefill {tm['prefill_s']:.3f} s, "
+            f"decode {tm['decode_s']:.3f} s ({b} x {max_new} tokens), median non-probe step "
+            f"{lock[capture]['step_ms']:.3f} ms, probe step {lock[capture]['probe_ms']:.3f} ms "
+            f"(each to a synchronize), max memory {lock[capture]['peak'] / 2**30:.3f} GiB; "
+            f"launches {got}")
+        if capture:
+            tokens = out["tokens"]
+            check(tokens.shape == (b, max_new) and bool(((tokens >= 0)
+                                                         & (tokens < cfg.vocab)).all()),
+                  f"seamless lockstep: tokens {tokens.shape} out of shape or range")
+            groups = eng.last_caches["groups"]
+            split = {k: backend_lib.cache_bytes([gc[k] for gc in groups]) for k in ("self", "cross")}
+            total = backend_lib.cache_bytes(eng.last_caches)
+            check(total["total_bytes"] == sum(x["total_bytes"] for x in split.values()),
+                  "seamless: cache_bytes is not the self and the cross caches' sum")
+            check(all(gc["cross"].hi.k.scale.dtype == torch.float32 for gc in groups),
+                  "seamless: the cross stores' parameters are not f32")
+            log(f"seamless cache_bytes after the run: {total}; self caches {split['self']}; "
+                f"cross caches {split['cross']} (bf16 K / V of the source would take "
+                f"{2 * b * cfg.n_kv_heads * SEAMLESS_SRC * cfg.hd * 2 * n_dec} B)")
+            ctx = eng.ctx
+        del eng
+    summarize("seamless lockstep", lock, torch, rel_l2, yardstick, bitwise=True)
+
+    # the kernel route against the plain route: encoder memory, prefill and
+    # first decode step's logits, and the cross caches' stores
+    plain = ServingEngine(cfg, ccfg, scfg, params, device=dev, use_kernels=False)
+    inputs = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    tap = _CrossTap(ctx.backend, SEAMLESS_SRC)
+    with torch.inference_mode():
+        walls = {}
+        for what in ("encoder", "prefill"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if what == "encoder":
+                enc = encdec.encode(params, inputs["frontend_embeds"], cfg, ctx)
+            else:
+                ctx.backend = tap
+                try:
+                    lk, ck = registry.prefill(params, inputs, cfg, ctx)
+                finally:
+                    ctx.backend = tap.be
+            torch.cuda.synchronize()
+            walls[what] = time.perf_counter() - t0
+        enc_p = encdec.encode(params, inputs["frontend_embeds"], cfg, plain.ctx)
+        lp, cp = registry.prefill(params, inputs, cfg, plain.ctx)
+        tok0 = torch.argmax(lp, dim=-1).to(torch.int32)
+        check(not probe_flag(0, ccfg.recompress_interval, 0), "decode step 0 should not probe")
+        dk, _ = registry.decode_step(params, tok0, cp, cfg, ctx, False)
+        dp, _ = registry.decode_step(params, tok0, cp, cfg, plain.ctx, False)
+        check(enc.dtype == torch.float32 and torch.equal(enc, enc_p),
+              "seamless: the encoder memory differs between the routes")
+        check(len(tap.cross) == n_dec, f"seamless: {len(tap.cross)} cross compressions")
+        n_same = 0
+        for i, ((k_, v_, s_, kw, el), gc_p) in enumerate(zip(tap.cross, cp["groups"])):
+            check(k_.dtype == torch.float32, f"seamless layer {i}: cross K {k_.dtype}")
+            want_el = kvc.compress_prefill(ccfg, k_, v_, s_, SEAMLESS_SRC, use_kernel=False, **kw)
+            for a, w in zip(kvc.tree_leaves(el), kvc.tree_leaves(want_el)):
+                check(a.dtype == w.dtype and torch.equal(a, w),
+                      f"seamless layer {i}: the kernel route's cross cache differs from the "
+                      "plain route's store of the same K / V and saliency")
+            check(all(torch.equal(a, w) for a, w in zip(kvc.tree_leaves(el),
+                                                        kvc.tree_leaves(ck["groups"][i]["cross"]))),
+                  f"seamless layer {i}: the tapped cross cache is not the prefill's")
+            n_same += all(torch.equal(a, w) for a, w in zip(kvc.tree_leaves(el),
+                                                            kvc.tree_leaves(gc_p["cross"])))
+    log(f"seamless prefill walls ({card}): encoder {walls['encoder'] * 1e3:.1f} ms, decoder "
+        f"{(walls['prefill'] - walls['encoder']) * 1e3:.1f} ms (whole prefill "
+        f"{walls['prefill'] * 1e3:.1f} ms, {b} x {SEAMLESS_SRC} frames, {SEAMLESS_DEC}-token "
+        f"decoder prompt)")
+    log(f"seamless: the encoder memory bitwise between the routes; every layer's cross cache on "
+        f"the kernel route bitwise the plain route's store of the same K / V and saliency; "
+        f"{n_same} of {n_dec} layers' cross caches bitwise the plain route's prefill (the cross "
+        "queries follow the decoder's self-attention, whose route moves bf16 roundings)")
+    for what, a, w in (("prefill", lk, lp), ("first decode step", dk, dp)):
+        # the real vocabulary: the padding columns hold -1e30 on both routes
+        a, w = a[:, :cfg.vocab], w[:, :cfg.vocab]
+        check(bool(torch.isfinite(a).all()), f"seamless {what} logits not finite")
+        r = rel_l2(a, w)
+        log(f"seamless {what} logits vs plain: relative L2 {r:.4g} (tolerance 0.2; yardstick "
+            f"{yardstick:.4g}), argmax equal {bool((a.argmax(-1) == w.argmax(-1)).all())}")
+        check(r <= 0.2, f"seamless {what} logits differ from the plain path beyond tolerance")
+    del params, plain, lock, tap, enc, enc_p, ck, cp, lk, lp, dk, dp, ctx, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"seamless: phase 4l took {time.perf_counter() - t_phase:.1f} s, max memory allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
+    return out_paths
 
 if __name__ == "__main__":
     main()

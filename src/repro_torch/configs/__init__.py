@@ -11,6 +11,8 @@ _MODULES = {
     "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
     "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
     "jamba-v0.1-52b": "repro_torch.configs.jamba_v0_1_52b",
+    "seamless-m4t-medium": "repro_torch.configs.seamless_m4t_medium",
+    "llava-next-34b": "repro_torch.configs.llava_next_34b",
 }
 
 

@@ -1,7 +1,9 @@
 """Architecture and serving-shape configuration (copy of `repro.configs.base`,
-cut to the decoder-only fields the port runs: dense, MoE, MLA, and the SSM
-and hybrid layers (mamba2, Jamba); the encoder-decoder and frontend fields
-are left out)."""
+cut to the fields the port runs: dense, MoE, MLA, the SSM and hybrid layers
+(mamba2, Jamba), the encoder-decoder (seamless-m4t) and the modality
+frontend stubs (llava's vision, seamless's audio projections); the MLA
+query low-rank field, 0 in every config ported, and the shape tables of
+the training and dry-run launchers are left out)."""
 
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ from typing import Optional, Tuple
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                 # dense | moe | hybrid | ssm
+    family: str                 # dense | moe | hybrid | ssm | audio | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -54,6 +56,14 @@ class ArchConfig:
     ssm_head_dim: int = 64
     ssm_chunk: int = 256
     ssm_n_groups: int = 1
+
+    # --- encoder-decoder ---
+    encdec: bool = False
+    n_enc_layers: int = 0
+
+    # --- modality frontend stubs ---
+    frontend: str = "none"       # none | audio | vision
+    n_frontend_tokens: int = 0
 
     @property
     def hd(self) -> int:
@@ -112,6 +122,37 @@ class ArchConfig:
     def prefix_kinds(self) -> Tuple[Tuple[str, str], ...]:
         """(mixer, ffn) of each unrolled prefix layer: dense FFN."""
         return (("mla" if self.mla else "attn", "dense"),) * self.first_dense_layers
+
+    def param_count(self) -> int:
+        """Approximate total parameters (embeddings + blocks), as the
+        reference counts them (the encoder-decoder's term included)."""
+        e = self.d_model
+        n = self.vocab * e * (1 if self.tie_embeddings else 2)
+        for i in range(self.n_layers):
+            if self.ssm or not self.is_attn_layer(i):
+                d_in = self.ssm_expand * e
+                heads = d_in // self.ssm_head_dim
+                n += e * (2 * d_in + 2 * self.ssm_n_groups * self.ssm_d_state + heads)
+                n += d_in * self.ssm_d_conv + d_in * e + heads
+            elif self.mla:
+                n += e * (self.kv_lora_rank + self.rope_head_dim)
+                n += e * self.n_heads * (self.nope_head_dim + self.rope_head_dim)
+                n += self.kv_lora_rank * self.n_heads * (self.nope_head_dim + self.v_head_dim)
+                n += self.n_heads * self.v_head_dim * e
+            else:
+                n += e * self.hd * (self.n_heads * 2 + self.n_kv_heads * 2)
+            if self.is_moe_layer(i):
+                n += self.n_experts * 3 * e * self.moe_d_ff
+                n += self.n_shared_experts * 3 * e * self.moe_d_ff
+                n += e * self.n_experts
+            elif self.d_ff:
+                n += 3 * e * self.d_ff
+        if self.encdec:
+            # encoder blocks and the decoder's cross-attention (the
+            # reference's rough term: a same-size encoder)
+            n += self.n_enc_layers * (4 * e * e + 3 * e * self.d_ff)
+            n += self.n_layers * 4 * e * e
+        return n
 
 
 @dataclasses.dataclass(frozen=True)

@@ -14,10 +14,23 @@ Examples (on a CUDA card):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b --smoke \
       --continuous --backend paged --page-allocator freelist
 
---arch takes yi-6b, deepseek-v2-lite-16b, mamba2-2.7b and jamba-v0.1-52b.
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch seamless-m4t-medium \
+      --batch 4 --prompt-len 1024 --max-new 128
+
+--arch takes yi-6b, deepseek-v2-lite-16b, mamba2-2.7b, jamba-v0.1-52b,
+seamless-m4t-medium and llava-next-34b (--smoke only: its full size needs
+the decode walk at 7 query heads per kv head).
 mamba2-2.7b has no attention layer, so no KV cache: it runs on the mixed
 and the paged static layout; the free list (and what needs it: swap,
 downshift, --prefix-cache) has no pages to give it and is refused.
+seamless-m4t-medium (encoder-decoder) and llava-next-34b (vision frontend)
+run on the lockstep engine only, with random f32 frontend embeddings from
+the seeded generator, as `repro.launch.serve` makes them: seamless takes
+--prompt-len source frames and, departing from the reference, a decoder
+prompt of min(128, --prompt-len) tokens, the length its serving context
+sizes the caches and probes for (the reference packs --prompt-len tokens
+and fails past 128); llava takes n_frontend_tokens patch embeddings before
+--prompt-len minus that many text tokens.
 
 The flags are those of `repro.launch.serve` that the port runs, plus
 --requests (how many requests the continuous engine serves) and --device
@@ -262,6 +275,8 @@ def main(argv=None):
 
     device = torch.device(args.device)
     cfg = configs.get_arch(args.arch, smoke=args.smoke)
+    if args.continuous and (cfg.encdec or cfg.frontend != "none"):
+        ap.error(f"--continuous: {args.arch} runs on the lockstep engine only")
     ccfg = build_compression_config(args)
     scfg = build_serve_config(args)
     params = registry.materialize_params(cfg, seed=args.seed, device=device)
@@ -276,6 +291,13 @@ def main(argv=None):
 
     engine = ServingEngine(cfg, ccfg, scfg, params, device=device)
     batch = {"tokens": pack_requests(prompts, args.batch, args.prompt_len)}
+    if cfg.encdec or cfg.frontend != "none":
+        n = args.prompt_len if cfg.encdec else cfg.n_frontend_tokens
+        batch["frontend_embeds"] = rng.standard_normal(
+            (args.batch, n, cfg.d_model)).astype(np.float32)
+        text = (registry.prefill_lengths(cfg, engine._shape)[0] if cfg.encdec
+                else args.prompt_len - n)
+        batch["tokens"] = batch["tokens"][:, :text]
     if args.profile:
         engine.generate(batch, max_new_tokens=2)  # warm-up: kernel builds, cuBLAS, allocator
         for k in KERNELS.values():

@@ -75,17 +75,25 @@ def serve_ctx(cfg: ArchConfig, shape: ShapeConfig, ccfg: Optional[CompressionCon
               decode_budget: int = 512, q_block: int = 512, device="cuda",
               use_kernels: bool = True, decode_impl: str = "ref",
               compact_softmax: bool = False) -> blocks.RunCtx:
-    """RunCtx + probes for a serving shape; max cache = seq_len + decode budget.
+    """RunCtx + probes for a serving shape; max cache = the query length
+    (`registry.prefill_lengths`: seq_len, or the encoder-decoder's decoder
+    prompt) + decode budget.
 
     The shape carries the cache layout (`cache_backend`, `page_size`,
     `paged_kernel`, `page_allocator`, `pool_fraction`) and the precision
     map, resolved here into the context's ceiling table ("" = maps off).
+    The reference's encoder-decoder path never reads that table, so a map
+    on an encoder-decoder arch is refused rather than ignored.
     use_kernels: the port's CUDA kernels on the path (the default), or their
     plain PyTorch versions throughout.  decode_impl / compact_softmax: the
     reference's levers on the plain routes (`blocks.RunCtx`).
     """
     ccfg = ccfg or CompressionConfig.zipcache()
-    qlen = shape.seq_len
+    if cfg.encdec and shape.precision_map:
+        raise ValueError(f"{cfg.name}: a precision map has no effect on an encoder-decoder "
+                         "arch (its prefill, decode and folds never read the table), so it "
+                         "is refused")
+    qlen, _ = registry.prefill_lengths(cfg, shape)
     probe = None
     if ccfg.uses_saliency and ccfg.probe_strategy not in ("none", "exact"):
         probe = sal.select_probes(qlen, ccfg.probe_strategy, ccfg.probe_ratio, ccfg.seed,
@@ -98,7 +106,8 @@ def serve_ctx(cfg: ArchConfig, shape: ShapeConfig, ccfg: Optional[CompressionCon
                              pool_fraction=shape.pool_fraction)
     pmap = precision_lib.parse_precision_map(shape.precision_map)
     table = pmap.resolve(cfg.n_layers, cfg.n_kv_heads) if pmap else None
-    return blocks.RunCtx(ccfg=ccfg, probe=probe, max_cache_len=shape.seq_len + decode_budget,
+    max_cache_len = (qlen if cfg.encdec else shape.seq_len) + decode_budget
+    return blocks.RunCtx(ccfg=ccfg, probe=probe, max_cache_len=max_cache_len,
                          q_block=q_block, use_kernels=use_kernels, decode_impl=decode_impl,
                          compact_softmax=compact_softmax, backend=backend, precision=table)
 

@@ -159,26 +159,36 @@ def _qkv(params: dict, x: torch.Tensor, eq: str):
 
 
 def gqa_forward(params: dict, x: torch.Tensor, cfg: ArchConfig, *, causal: bool = True,
-                probe: Optional[sal.ProbeSpec] = None, q_block: int = 512,
-                use_kernel: bool = False, compact: bool = False
+                probe: Optional[sal.ProbeSpec] = None, kv_x: Optional[torch.Tensor] = None,
+                q_block: int = 512, use_kernel: bool = False, compact: bool = False
                 ) -> Tuple[torch.Tensor, AttnAux]:
-    """Full-sequence GQA self-attention (prefill), with the probe saliency.
-    compact: `blocked_attention`'s bf16 logits and probabilities."""
-    b, l, e = x.shape
-    q, k, v = _qkv(params, x, "ble,ehd->bhld")
+    """Full-sequence GQA (prefill, the encoder, cross-attention), with the
+    probe saliency over the key positions.  kv_x: a separate K/V source
+    (cross-attention), whose keys and queries take no rotary, as in the
+    reference; self-attention, causal or not, is rotated.  compact:
+    `blocked_attention`'s bf16 logits and probabilities."""
+    src = x if kv_x is None else kv_x
+    l, lkv = x.shape[1], src.shape[1]
+    q = common.einsum("ble,ehd->bhld", x, params["wq"])
+    k = common.einsum("ble,ehd->bhld", src, params["wk"])
+    v = common.einsum("ble,ehd->bhld", src, params["wv"])
     if cfg.qkv_bias:
         q = q + params["bq"][None, :, None, :]
         k = k + params["bk"][None, :, None, :]
         v = v + params["bv"][None, :, None, :]
-    cos, sin = common.rotary_cos_sin(torch.arange(l, device=x.device), cfg.hd, cfg.rope_theta)
-    q = common.apply_rotary(q, cos[None, None], sin[None, None])
-    k = common.apply_rotary(k, cos[None, None], sin[None, None])
+    if causal or kv_x is None:
+        cos_q, sin_q = common.rotary_cos_sin(torch.arange(l, device=x.device), cfg.hd,
+                                             cfg.rope_theta)
+        cos_k, sin_k = common.rotary_cos_sin(torch.arange(lkv, device=x.device), cfg.hd,
+                                             cfg.rope_theta)
+        q = common.apply_rotary(q, cos_q[None, None], sin_q[None, None])
+        k = common.apply_rotary(k, cos_k[None, None], sin_k[None, None])
     out, colsum = blocked_attention(q, k, v, causal=causal, q_block=q_block, probe=probe,
                                     use_kernel=use_kernel, compact=compact)
     y = common.out_proj(out.transpose(1, 2), params["wo"])  # heads beside d
     saliency = nnz = None
     if probe is not None and colsum is not None:
-        saliency, nnz = probe_saliency_from_colsum(colsum, probe, l, causal=causal)
+        saliency, nnz = probe_saliency_from_colsum(colsum, probe, lkv, causal=causal)
     return y, AttnAux(k=k, v=v, saliency=saliency, probe_nnz=nnz)
 
 

@@ -102,20 +102,34 @@ def apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
+def _promoted(a: torch.Tensor, b: torch.Tensor):
+    """Both operands in their promoted dtype: the reference's products of
+    f32 activations and bf16 weights (seamless's encoder, the cross
+    attention's K/V) promote, and torch's products take one dtype."""
+    if a.dtype == b.dtype:
+        return a, b
+    t = torch.promote_types(a.dtype, b.dtype)
+    return a.to(t), b.to(t)
+
+
 def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """A product of two model tensors: f32 accumulation, one rounding to the
     operands' dtype, as XLA and cuBLAS compute a bf16 product.  The CPU's
-    bf16 GEMM rounds differently, so on the CPU the operands go up to f32."""
+    bf16 GEMM rounds differently, so on the CPU the operands go up to f32.
+    Operands of two dtypes compute in the promoted one."""
+    a, b = _promoted(a, b)
     if a.device.type == "cpu" and a.dtype == torch.bfloat16:
         return torch.einsum(eq, a.float(), b.float()).to(a.dtype)
     return torch.einsum(eq, a, b)
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b with `einsum`'s rounding (the CPU's bf16 operands go up to f32).
-    The model's weight-stationary products go through here with `b` a view
-    of the weight (`w.reshape(h * d, e)`, `embed.T`): `torch.einsum` would
-    permute such a weight and copy all of it before its GEMM."""
+    """a @ b with `einsum`'s rounding (the CPU's bf16 operands go up to f32;
+    two dtypes compute in the promoted one).  The model's weight-stationary
+    products go through here with `b` a view of the weight (`w.reshape(h *
+    d, e)`, `embed.T`): `torch.einsum` would permute such a weight and copy
+    all of it before its GEMM."""
+    a, b = _promoted(a, b)
     if a.device.type == "cpu" and a.dtype == torch.bfloat16:
         return (a.float() @ b.float()).to(a.dtype)
     return a @ b

@@ -1,0 +1,202 @@
+"""Encoder-decoder backbone (port of `repro.models.encdec`, seamless-m4t):
+an encoder over precomputed frame embeddings (the audio frontend is a
+stub), then a decoder with self- and cross-attention.
+
+ZipCache compresses both caches of every decoder layer:
+  * the self-attention cache: streaming ZipCache (paper Alg. 2/3), as a
+    decoder-only layer's;
+  * the cross-attention cache: the encoder memory is static after `encode`,
+    so it is compressed once at prefill, with the probe saliency of the
+    decoder prefill's cross-attention rows (non-causal: every probe row sees
+    every source position, `attention.probe_saliency_from_colsum`).  Decode
+    reads it and never appends to it; only its probe state moves, on probe
+    steps, and a fold leaves it as it is.
+
+The encoder and the cross-attention prefill run the plain blocked attention
+with f32 scores, as the reference wires them (no `use_kernel`); the
+decoder's causal self-attention prefill takes the kernel route under
+`ctx.use_kernels`.  The encoder runs in the dtype of the embeddings it is
+given: the serve CLI passes f32, and f32 activations against bf16 weights
+compute in f32, so the cross-attention K/V and the cross caches' store
+parameters are f32 beside a bf16 window (`common.einsum` promotes).
+
+Parameters keep the reference's layout: `embed`, `audio_proj`,
+`enc_layers` and `dec_layers` (stacked on a leading layer axis; a Python
+loop over it replaces `lax.scan`), `enc_norm`, `final_norm`, `lm_head`.
+Caches are {"prefix": [], "groups": [{"self": element, "cross": element}
+per decoder layer]}: the decoder-only tree's shape, so every walk over a
+cache tree (`registry.cache_elements` / `map_caches`, `backend.cache_bytes`,
+the captured step's `adopt`) takes both elements of every layer.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import blocks, common, lm
+from repro_torch.models import mlp as mlp_mod
+from repro_torch.models.common import ParamDef
+
+
+def enc_layer_schema(cfg: ArchConfig) -> dict:
+    e = cfg.d_model
+    return {
+        "ln1": ParamDef((e,), init="ones"),
+        "attn": attn.gqa_schema(cfg),
+        "ln2": ParamDef((e,), init="ones"),
+        "mlp": mlp_mod.dense_mlp_schema(cfg),
+    }
+
+
+def dec_layer_schema(cfg: ArchConfig) -> dict:
+    e = cfg.d_model
+    return {
+        "ln1": ParamDef((e,), init="ones"),
+        "self_attn": attn.gqa_schema(cfg),
+        "ln_x": ParamDef((e,), init="ones"),
+        "cross_attn": attn.gqa_schema(cfg),
+        "ln2": ParamDef((e,), init="ones"),
+        "mlp": mlp_mod.dense_mlp_schema(cfg),
+    }
+
+
+def encdec_schema(cfg: ArchConfig) -> dict:
+    e, v = cfg.d_model, lm.padded_vocab(cfg)
+    return {
+        "embed": ParamDef((v, e), init="embed"),
+        "audio_proj": ParamDef((e, e)),
+        "enc_layers": common.stack_schema(enc_layer_schema(cfg), cfg.n_enc_layers),
+        "enc_norm": ParamDef((e,), init="ones"),
+        "dec_layers": common.stack_schema(dec_layer_schema(cfg), cfg.n_layers),
+        "final_norm": ParamDef((e,), init="ones"),
+        "lm_head": ParamDef((e, v)),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Encoder
+# ---------------------------------------------------------------------------
+
+def encode(params: dict, src_embeds: torch.Tensor, cfg: ArchConfig,
+           ctx: Optional[blocks.RunCtx] = None) -> torch.Tensor:
+    """(b, l_src, e) frame embeddings -> the encoder memory (b, l_src, e), in
+    the embeddings' dtype (f32 embeddings promote the bf16 weights)."""
+    q_block = ctx.q_block if ctx is not None else 512
+    x = common.einsum("ble,ef->blf", src_embeds, params["audio_proj"])
+    for i in range(cfg.n_enc_layers):
+        p = common.layer_slice(params["enc_layers"], i)
+        h = common.rms_norm(x, p["ln1"], cfg.norm_eps)
+        y, _ = attn.gqa_forward(p["attn"], h, cfg, causal=False, q_block=q_block)
+        x = x + y
+        x = x + mlp_mod.dense_mlp(p["mlp"], common.rms_norm(x, p["ln2"], cfg.norm_eps))
+    return common.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# Decoder over the full prompt (prefill)
+# ---------------------------------------------------------------------------
+
+def _dec_layer_full(p: dict, x: torch.Tensor, enc_out: torch.Tensor, cfg: ArchConfig,
+                    ctx: blocks.RunCtx, build_cache: bool) -> Tuple[torch.Tensor, Any]:
+    """One decoder layer over the prompt.  Returns (x, {"self": cache,
+    "cross": cache} | None); with build_cache, both caches are compressed,
+    the cross cache over the whole source (its probe is the context's)."""
+    h = common.rms_norm(x, p["ln1"], cfg.norm_eps)
+    y, aux_self = attn.gqa_forward(p["self_attn"], h, cfg, causal=True, probe=ctx.probe,
+                                   q_block=ctx.q_block, use_kernel=ctx.use_kernels)
+    x = x + y
+    hx = common.rms_norm(x, p["ln_x"], cfg.norm_eps)
+    cross_probe = ctx.probe if build_cache else None
+    yx, aux_cross = attn.gqa_forward(p["cross_attn"], hx, cfg, causal=False, kv_x=enc_out,
+                                     probe=cross_probe, q_block=ctx.q_block)
+    x = x + yx
+    x = x + mlp_mod.dense_mlp(p["mlp"], common.rms_norm(x, p["ln2"], cfg.norm_eps))
+    if not build_cache:
+        return x, None
+    be = ctx.backend
+    return x, {
+        "self": be.compress_prefill(aux_self.k, aux_self.v, aux_self.saliency,
+                                    ctx.max_cache_len, probe_nnz=aux_self.probe_nnz,
+                                    dtype=x.dtype),
+        "cross": be.compress_prefill(aux_cross.k, aux_cross.v, aux_cross.saliency,
+                                     enc_out.shape[1], probe_nnz=aux_cross.probe_nnz,
+                                     dtype=x.dtype),
+    }
+
+
+def forward(params: dict, src_embeds: torch.Tensor, tokens: torch.Tensor, cfg: ArchConfig,
+            ctx: Optional[blocks.RunCtx] = None, build_cache: bool = False
+            ) -> Tuple[torch.Tensor, Any]:
+    """Teacher-forced seq2seq forward.  Returns (logits, caches | None); with
+    build_cache (prefill) only the last position's logits, (b, 1, vocab),
+    and the cache tree.  The vocabulary's padding columns are masked."""
+    ctx = ctx or blocks.RunCtx()
+    enc_out = encode(params, src_embeds, cfg, ctx)
+    x = common.embed_lookup(params["embed"], tokens)
+    groups = []
+    for i in range(cfg.n_layers):
+        x, el = _dec_layer_full(common.layer_slice(params["dec_layers"], i), x, enc_out, cfg,
+                                ctx, build_cache)
+        groups.append(el)
+    if not build_cache:
+        return lm.unembed(params, cfg, x), None
+    return lm.unembed(params, cfg, x[:, -1:]), {"prefix": [], "groups": groups}
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+def decode_step(params: dict, token: torch.Tensor, caches: Any, cfg: ArchConfig,
+                ctx: blocks.RunCtx, is_probe, active: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Any]:
+    """One decoder token.  The self cache takes the token's K/V (inactive
+    rows of `active` append nothing); the cross cache is read, with no
+    rotary on its query, and only its probe state moves.  Both take the
+    exact decode algebra on the plain route, as the reference's (which
+    passes no `decode_impl`).  Returns (logits (b, vocab), caches)."""
+    x_t = common.embed_lookup(params["embed"], token)
+    be = ctx.backend
+    groups = []
+    for i, gc in enumerate(caches["groups"]):
+        p = common.layer_slice(params["dec_layers"], i)
+        self_cache, cross_cache = gc["self"], gc["cross"]
+        h = common.rms_norm(x_t, p["ln1"], cfg.norm_eps)
+        q_t, k_t, v_t = attn.gqa_decode_qkv(p["self_attn"], h, cfg, self_cache.length)
+        self_cache = be.append(self_cache, k_t, v_t, active=active)
+        dec = be.attend(q_t, self_cache, is_probe)
+        self_cache = be.update_probe(self_cache, dec.slot_weights, is_probe)
+        x_t = x_t + common.out_proj(dec.out, p["self_attn"]["wo"])
+
+        hx = common.rms_norm(x_t, p["ln_x"], cfg.norm_eps)
+        qx = common.einsum("be,ehd->bhd", hx, p["cross_attn"]["wq"])
+        decx = be.attend(qx, cross_cache, is_probe)
+        cross_cache = be.update_probe(cross_cache, decx.slot_weights, is_probe)
+        x_t = x_t + common.out_proj(decx.out, p["cross_attn"]["wo"])
+
+        x_t = x_t + mlp_mod.dense_mlp(p["mlp"], common.rms_norm(x_t, p["ln2"], cfg.norm_eps))
+        groups.append({"self": self_cache, "cross": cross_cache})
+    return lm.unembed(params, cfg, x_t), {"prefix": [], "groups": groups}
+
+
+def recompress(caches: Any, ctx: blocks.RunCtx, rows: Optional[torch.Tensor] = None) -> Any:
+    """Fold every self cache's window (rows: only those slots); the cross
+    caches pass through untouched."""
+    return {"prefix": [], "groups": [{"self": ctx.backend.recompress(gc["self"], rows=rows),
+                                      "cross": gc["cross"]} for gc in caches["groups"]]}
+
+
+def init_caches(cfg: ArchConfig, ctx: blocks.RunCtx, b: int, l_src: int,
+                dtype=torch.bfloat16, device=None) -> Any:
+    """Empty caches: each decoder layer's self cache sized max_cache_len, its
+    cross cache l_src."""
+    def one():
+        return {"self": ctx.backend.init_cache(b, cfg.n_kv_heads, cfg.hd, ctx.max_cache_len,
+                                               dtype, device=device),
+                "cross": ctx.backend.init_cache(b, cfg.n_kv_heads, cfg.hd, l_src, dtype,
+                                                device=device)}
+    return {"prefix": [], "groups": [one() for _ in range(cfg.n_layers)]}

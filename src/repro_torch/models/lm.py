@@ -1,4 +1,4 @@
-"""Decoder-only LM (port of `repro.models.lm`, decoder-only).
+"""Decoder-only LM and the frontend archs' trunk (port of `repro.models.lm`).
 
 Parameters keep the reference's layout: optional unrolled prefix layers
 (`prefix.layer{i}`, DeepSeek's first dense layer) before `groups`, which
@@ -9,7 +9,10 @@ layer], "groups": [{"sub{j}": element} per group]}, each element a
 `MixedKVCache` or `PagedKVCache` for an attention layer and an
 `ssm.SSMState` for an SSM layer (mamba2's every layer, seven of Jamba's
 eight).  The absolute layer of group g's sub-layer j is first_dense_layers
-+ g * scan_group + j, SSM layers counted (the precision map's index).
++ g * scan_group + j, SSM layers counted (the precision map's index).  A
+frontend arch (llava's vision stub) adds `vision_proj` or `audio_proj`,
+and its prefill prepends the projected frontend embeddings to the text
+(`embed_inputs`).
 """
 
 from __future__ import annotations
@@ -41,7 +44,24 @@ def lm_schema(cfg: ArchConfig) -> dict:
         s["prefix"] = {f"layer{i}": blocks.layer_schema(cfg, m, f)
                        for i, (m, f) in enumerate(cfg.prefix_kinds())}
     s["groups"] = common.stack_schema(blocks.group_schema(cfg), cfg.n_scan_groups)
+    if cfg.frontend == "vision":
+        s["vision_proj"] = ParamDef((e, e))
+    elif cfg.frontend == "audio":
+        s["audio_proj"] = ParamDef((e, e))
     return s
+
+
+def embed_inputs(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
+                 frontend_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """tokens (b, l_text) [+ frontend embeddings (b, l_front, e)] -> (b, l, e):
+    the embeddings, cast to the token embeddings' dtype and projected
+    (`vision_proj` or `audio_proj`), go before the text."""
+    x = common.embed_lookup(params["embed"], tokens)
+    if frontend_embeds is None:
+        return x
+    proj = params["vision_proj"] if "vision_proj" in params else params["audio_proj"]
+    fe = common.einsum("ble,ef->blf", frontend_embeds.to(x.dtype), proj)
+    return torch.cat([fe, x], dim=1)
 
 
 def layers(cfg: ArchConfig):
@@ -96,11 +116,13 @@ def unembed(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     return mask_padded_vocab(logits, cfg.vocab)
 
 
-def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
-            ctx: blocks.RunCtx) -> Tuple[torch.Tensor, Any]:
+def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig, ctx: blocks.RunCtx,
+            frontend_embeds: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Any]:
     """Serving prefill: forward + per-layer ZipCache compression (Alg. 2).
+    frontend_embeds: a frontend arch's embeddings, prepended to the text
+    (`embed_inputs`); the query sequence, and so the probes, covers both.
     Returns (logits at the last position (b, vocab), caches)."""
-    x = common.embed_lookup(params["embed"], tokens)
+    x = embed_inputs(params, cfg, tokens, frontend_embeds)
     els = []
     for layer, mixer, ffn, where in layers(cfg):
         x, el = blocks.apply_layer_full(layer_params(params, where), x, cfg, mixer, ffn, ctx,

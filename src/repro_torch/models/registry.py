@@ -1,19 +1,23 @@
-"""Model API of the port (port of `repro.models.registry`, decoder-only)."""
+"""Model API of the port (port of `repro.models.registry`): schema, prefill,
+decode, recompression and the cache-tree walks, over the decoder-only
+models (`lm`, frontend archs included) and the encoder-decoder (`encdec`).
+Both cache trees have one shape, {"prefix": [...], "groups": [{key:
+element}, ...]}, so every walk here takes either."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
-from repro_torch.models import blocks, common, lm
+from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.models import blocks, common, encdec, lm
 from repro_torch.models.ssm import SSMState
 
 
 def schema(cfg: ArchConfig) -> dict:
-    return lm.lm_schema(cfg)
+    return encdec.encdec_schema(cfg) if cfg.encdec else lm.lm_schema(cfg)
 
 
 def materialize_params(cfg: ArchConfig, seed: int = 0, device="cuda"):
@@ -21,13 +25,24 @@ def materialize_params(cfg: ArchConfig, seed: int = 0, device="cuda"):
 
 
 def prefill(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, ctx: blocks.RunCtx):
-    return lm.prefill(params, batch["tokens"], cfg, ctx)
+    """batch: {"tokens": (b, l) int[, "frontend_embeds": (b, n, e)]}: the
+    encoder-decoder's source frames, or a frontend arch's embeddings put
+    before the text.  Returns (logits at the last position (b, vocab),
+    caches)."""
+    if cfg.encdec:
+        logits, caches = encdec.forward(params, batch["frontend_embeds"], batch["tokens"], cfg,
+                                        ctx, build_cache=True)
+        return logits[:, -1], caches
+    return lm.prefill(params, batch["tokens"], cfg, ctx,
+                      frontend_embeds=batch.get("frontend_embeds"))
 
 
 def decode_step(params, token: torch.Tensor, caches: Any, cfg: ArchConfig,
                 ctx: blocks.RunCtx, is_probe, active: Optional[torch.Tensor] = None):
     """is_probe: a host bool or per-row flags; active: optional (b,) live-slot
     mask (continuous batching: masked slots neither append nor advance)."""
+    if cfg.encdec:
+        return encdec.decode_step(params, token, caches, cfg, ctx, is_probe, active)
     return lm.decode_step(params, token, caches, cfg, ctx, is_probe, active)
 
 
@@ -35,7 +50,15 @@ def recompress(caches: Any, cfg: ArchConfig, ctx: blocks.RunCtx,
                rows: Optional[torch.Tensor] = None, slot: Optional[int] = None, rung=None):
     """rows: fold only those slots; slot: fold one slot through the backend's
     per-slot recompression (paged layout); rung: the downshift rung(s) of
-    the folded slots ((b,) with rows, a scalar with slot)."""
+    the folded slots ((b,) with rows, a scalar with slot).  The
+    encoder-decoder folds its self caches only and takes neither `slot`
+    nor `rung`, as the reference asserts."""
+    if cfg.encdec:
+        if slot is not None:
+            raise ValueError("per-slot recompression: decoder-only caches only")
+        if rung is not None:
+            raise ValueError("the downshift ladder: decoder-only caches only")
+        return encdec.recompress(caches, ctx, rows=rows)
     return lm.recompress_caches(caches, cfg, ctx, rows=rows, slot=slot, rung=rung)
 
 
@@ -130,6 +153,21 @@ def free_caches(caches: Any, slot: int) -> Any:
                       caches)
 
 
-def init_caches(cfg: ArchConfig, ctx: blocks.RunCtx, b: int, dtype=torch.bfloat16,
-                device="cuda"):
+def init_caches(cfg: ArchConfig, ctx: blocks.RunCtx, b: int, l_src: int = 0,
+                dtype=torch.bfloat16, device="cuda"):
+    """Empty caches; l_src: the encoder-decoder's source length (its cross
+    caches' size)."""
+    if cfg.encdec:
+        return encdec.init_caches(cfg, ctx, b, l_src, dtype, device=device)
     return lm.init_caches(cfg, ctx, b, dtype, device=device)
+
+
+def prefill_lengths(cfg: ArchConfig, shape: ShapeConfig) -> Tuple[int, int]:
+    """(decoder / query prefill length, encoder source length or 0).  The
+    probes are built on the query length: the encoder-decoder's decoder
+    prompt is min(128, seq_len) over a seq_len-frame source; a frontend
+    arch's query holds its frontend tokens."""
+    l = shape.seq_len
+    if cfg.encdec:
+        return min(128, l), l
+    return l, 0

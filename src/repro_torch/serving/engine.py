@@ -237,22 +237,14 @@ class _EngineBase:
                                        decode_budget=scfg.max_new_tokens,
                                        q_block=min(512, scfg.prompt_len), device=self.device,
                                        use_kernels=use_kernels)
-        # the program family, built from the shared step factories over one
-        # serving ctx (ragged admission buckets get their prefill lazily)
+        # the lockstep program family, built from the shared step factories
+        # over one serving ctx (ragged admission buckets get their prefill
+        # lazily); `EngineCore` adds the continuous one
         mk = dict(ctx=self.ctx, device=self.device)
         self._prefill = steps_lib.make_prefill_step(cfg, shape, ccfg, **mk)[0]
         self._prefill_buckets: Dict[int, Callable] = {}
         self._decode = steps_lib.make_serve_step(cfg, shape, ccfg, capture=capture, **mk)[0]
         self._recompress = steps_lib.make_recompress_step(cfg, shape, ccfg, **mk)[0]
-        self._decode_masked = steps_lib.make_continuous_decode_step(
-            cfg, shape, ccfg, capture=capture, **mk)[0]
-        self._insert = steps_lib.make_insert_step(cfg, shape, ccfg, **mk)[0]
-        self._recompress_rows = steps_lib.make_recompress_rows_step(cfg, shape, ccfg, **mk)[0]
-        # per-slot folds where the backend offers them (paged): a batch-1 view
-        self._recompress_slot = None
-        if hasattr(self.ctx.backend, "recompress_slot"):
-            self._recompress_slot = steps_lib.make_recompress_slot_step(cfg, shape, ccfg,
-                                                                        **mk)[0]
 
     def _bucket_len(self, n_tokens: int) -> int:
         """Ragged admission bucket: the smallest whole-page length that holds
@@ -310,13 +302,17 @@ class ServingEngine(_EngineBase):
                  max_new_tokens: Optional[int] = None) -> Dict[str, object]:
         """Prefill + streaming decode for one packed batch.
 
-        batch: {"tokens": (b, prompt_len) int32}.
+        batch: {"tokens": (b, l) int32[, "frontend_embeds": (b, n, e)]}: the
+        encoder-decoder's source frames (tokens: its decoder prompt) or a
+        frontend arch's embeddings, on the engine's device in their own dtype.
         Returns {"tokens": (b, n_new) int32 numpy, "timings": {...}}.
         """
         n_new = max_new_tokens if max_new_tokens is not None else self.scfg.max_new_tokens
         t0 = time.perf_counter()
-        tokens = torch.as_tensor(np.asarray(batch["tokens"]), device=self.device)
-        logits, caches = self._prefill(self.params, {"tokens": tokens})
+        inputs = {k: torch.as_tensor(batch[k], device=self.device)
+                  for k in ("tokens", "frontend_embeds") if k in batch}
+        tokens = inputs["tokens"]
+        logits, caches = self._prefill(self.params, inputs)
         caches = self._decode.adopt(caches)
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
         self._sync()
@@ -368,8 +364,22 @@ class EngineCore(_EngineBase):
         if scfg.preemption not in ("off", "recompute", "downshift", "swap"):
             raise ValueError(f"ServeConfig.preemption must be 'off', 'recompute', 'downshift' "
                              f"or 'swap', got {scfg.preemption!r}")
+        if cfg.encdec or cfg.frontend != "none":
+            raise NotImplementedError(
+                "ContinuousEngine currently serves decoder-only text models; "
+                "use the lockstep ServingEngine for encdec/frontend archs")
         super().__init__(cfg, ccfg, scfg, params, device=device, use_kernels=use_kernels,
                          capture=capture)
+        shape, mk = self._shape, dict(ctx=self.ctx, device=self.device)
+        self._decode_masked = steps_lib.make_continuous_decode_step(
+            cfg, shape, ccfg, capture=capture, **mk)[0]
+        self._insert = steps_lib.make_insert_step(cfg, shape, ccfg, **mk)[0]
+        self._recompress_rows = steps_lib.make_recompress_rows_step(cfg, shape, ccfg, **mk)[0]
+        # per-slot folds where the backend offers them (paged): a batch-1 view
+        self._recompress_slot = None
+        if hasattr(self.ctx.backend, "recompress_slot"):
+            self._recompress_slot = steps_lib.make_recompress_slot_step(cfg, shape, ccfg,
+                                                                        **mk)[0]
         # every op on the caches runs in inference mode (`step`, `cancel`), so
         # they are made in it too: an inference tensor takes no in-place
         # write outside the mode

@@ -17,7 +17,12 @@ is unrolled before the stacked groups, so its cache element sits in
   * SSM states (Jamba's smoke group: seven `SSMState` elements beside one
     KV cache): insertion writes their rows, retirement leaves them as they
     are, the swap payload carries their rows and restores them, and
-    copy-on-write passes them by.
+    copy-on-write passes them by;
+  * the encoder-decoder's tree (seamless smoke: a self and a cross cache
+    per decoder layer, the cross stores' parameters f32): `cache_elements`
+    and `map_caches` take both elements of every layer, `cache_bytes`
+    counts both, and `adopt` copies the cross caches in and refits when a
+    cross element alone changes.
 """
 
 import dataclasses
@@ -318,3 +323,60 @@ def test_copy_pages_skips_ssm_states():
     assert torch.equal(kv.hi.k_pages[dst_page], kv.hi.k_pages[src_page])
     for el, want in zip(_states(out), before):
         assert all(torch.equal(t, w) for t, w in zip(kvc.tree_leaves(el), want))
+
+
+# ---- the encoder-decoder: a self and a cross cache per decoder layer ----------
+
+def _encdec_tree(seed=0):
+    cfg = configs.get_arch("seamless-m4t-medium", smoke=True)
+    ccfg = dataclasses.replace(CompressionConfig.zipcache(), fp_window=8, recompress_interval=8)
+    ctx = steps.serve_ctx(cfg, configs.ShapeConfig("t", 24, 2, "decode"), ccfg, decode_budget=8,
+                          q_block=24, device="cpu")
+    params = registry.materialize_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.from_numpy(rng.integers(2, cfg.vocab, (2, 24))),
+             "frontend_embeds": torch.from_numpy(
+                 rng.standard_normal((2, 40, cfg.d_model)).astype(np.float32))}
+    with torch.inference_mode():
+        return cfg, ctx, registry.prefill(params, batch, cfg, ctx)[1]
+
+
+def test_encdec_tree_walks_take_self_and_cross():
+    cfg, ctx, tree = _encdec_tree()
+    assert tree["prefix"] == [] and len(tree["groups"]) == cfg.n_layers
+    els = registry.cache_elements(tree)
+    want = [gc[k] for gc in tree["groups"] for k in ("self", "cross")]
+    assert len(els) == 2 * cfg.n_layers and all(a is b for a, b in zip(els, want))
+    lengths = registry.map_caches(lambda el: int(el.length[0]), tree)
+    assert lengths == {"prefix": [], "groups": [{"self": 24, "cross": 40}] * cfg.n_layers}
+    for gc in tree["groups"]:
+        assert gc["cross"].hi.k.scale.dtype == torch.float32
+        assert gc["self"].hi.k.scale.dtype == torch.bfloat16
+    empty = registry.init_caches(cfg, ctx, 2, l_src=40, device="cpu")
+    assert [[el.hi.capacity + el.lo.capacity for el in (gc["self"], gc["cross"])]
+            for gc in empty["groups"]] == [[24 + 8, 40]] * cfg.n_layers
+
+
+def test_cache_bytes_count_self_and_cross():
+    _, _, tree = _encdec_tree()
+    got = backend_lib.cache_bytes(tree)
+    parts = [backend_lib.cache_bytes([gc[k] for gc in tree["groups"]]) for k in ("self", "cross")]
+    assert got["total_bytes"] == sum(el.nbytes_total() for el in registry.cache_elements(tree))
+    for key in ("packed_bytes", "overhead_bytes", "total_bytes"):
+        assert got[key] == parts[0][key] + parts[1][key] and parts[1][key] > 0
+
+
+def test_adopt_copies_the_cross_caches_and_refits_on_them():
+    _, _, static = _encdec_tree(0)
+    _, _, new = _encdec_tree(1)
+    assert steps._fits(static, new)
+    before = _addresses(static)
+    with torch.inference_mode():   # the engines' mode, in which the trees were made
+        steps._copy_into(static, new)
+    assert _addresses(static) == before
+    assert all(_equal(a, b) for a, b in zip(registry.cache_elements(static),
+                                             registry.cache_elements(new)))
+    groups = [dict(gc) for gc in new["groups"]]
+    groups[-1]["cross"] = kvc.tree_map(lambda t: t.to(torch.bfloat16) if t.is_floating_point()
+                                       else t, groups[-1]["cross"])
+    assert not steps._fits(static, dict(new, groups=groups))

@@ -1439,3 +1439,124 @@ class _Recorded:
 
     def __getattr__(self, name):
         return getattr(self.step, name)
+
+
+# ---- seamless-m4t-medium: 16 heads over 16 kv heads (g = 1), d 64 ----------------
+SEAMLESS = "seamless-m4t-medium"
+HK1, D64 = 16, 64
+
+
+@pytest.mark.parametrize("source", [torch.bfloat16, torch.float32], ids=["self", "cross"])
+def test_cst_quant_at_seamless_shapes(dev, source):
+    """The stores of one decoder layer at 16 kv heads, d 64, one launch each,
+    bitwise the plain version: a self cache's from bf16 K / V (a 128-token
+    prompt) and a cross cache's from the encoder memory's f32 K / V (1024
+    source tokens, f32 parameters)."""
+    gen = torch.Generator(device=dev).manual_seed(41)
+    ccfg = CompressionConfig.zipcache()
+    b, l = 2, 128 if source == torch.bfloat16 else 1024
+    max_len = l + 64 if source == torch.bfloat16 else l
+    k, v = (_randn(gen, b, HK1, l, D64, dtype=source) for _ in range(2))
+    s_hi, s_lo, _ = kvc.capacities(ccfg, max_len)
+    sal_idx, reg_idx = sal.salient_split(torch.rand((b, l), generator=gen, device=dev),
+                                         ccfg.n_salient(l))
+    for bits, cap, idx in ((ccfg.high_bits, s_hi, sal_idx), (ccfg.low_bits, s_lo, reg_idx)):
+        idx = torch.nn.functional.pad(idx, (0, cap - idx.shape[1]), value=-1)
+        before = cst_kernel.KERNEL.launches
+        got = cst_kernel.quantize_store(k, v, idx, bits)
+        assert cst_kernel.KERNEL.launches == before + 1
+        for a, w in zip(got, cst_ref.quantize_store_ref(k, v, idx, bits)):
+            assert a.dtype == w.dtype and torch.equal(a, w)
+        assert got[1].dtype == source
+
+
+@pytest.mark.parametrize("b,lq", [(4, 128), (1, 77)])
+def test_flash_fwd_and_probe_colsum_at_seamless_shapes(dev, b, lq):
+    """The decoder's causal self-attention prefill at 16 / 16 heads (g = 1),
+    d 64, bf16: out within one bf16 ulp of 1, LSE 1e-5; probe_colsum over
+    its probe rows: 1e-4 and two calls bitwise."""
+    gen = torch.Generator(device=dev).manual_seed(42)
+    q, k, v = (_randn(gen, b, HK1, lq, D64, dtype=torch.bfloat16) for _ in range(3))
+    out, lse = pf_kernel.flash_fwd(q, k, v)
+    ref_out, ref_lse = pf_ref.flash_fwd_ref(q, k, v)
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=2 ** -7, rtol=2 ** -7)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=1e-5)
+    pos = pf_ops.unique_probe_rows(sal.select_probes(lq).positions.to(dev))
+    safe = pos.clamp(0, lq - 1).long()
+    args = (q[:, :, safe].contiguous(), lse[:, :, safe].contiguous(),
+            pos[None].expand(b, -1).contiguous(), k)
+    got = pf_kernel.probe_colsum(*args, lq=lq)
+    torch.testing.assert_close(got, pf_ref.probe_colsum_ref(*args, lq=lq), atol=1e-4, rtol=1e-4)
+    assert torch.equal(got, pf_kernel.probe_colsum(*args, lq=lq))
+
+
+@pytest.mark.parametrize("cache", ["self", "cross"])
+def test_decode_qattn_at_seamless_shapes(dev, cache):
+    """One `qattn_mixed_layer` launch (the walk's G = 1, D = 64
+    instantiation) over a self cache (bf16 stores, a partly filled window)
+    and over a cross cache (f32 store parameters from f32 K / V over 1024
+    source slots, beside an empty bf16 window, as the encoder-decoder's
+    prefill builds it): out within one bf16 ulp of its largest magnitude
+    (>= 1)."""
+    gen = torch.Generator(device=dev).manual_seed(43)
+    ccfg = CompressionConfig.zipcache()
+    b = 4
+    if cache == "self":
+        l, max_len, src = 128, 256, torch.bfloat16
+    else:
+        l, max_len, src = 1024, 1024, torch.float32
+    k, v = (_randn(gen, b, HK1, l, D64, dtype=src) for _ in range(2))
+    c = kvc.compress_prefill(ccfg, k, v, torch.rand((b, l), generator=gen, device=dev),
+                             max_len, dtype=torch.bfloat16, use_kernel=True)
+    if cache == "self":
+        for _ in range(9):
+            c = kvc.append_token(c, _randn(gen, b, HK1, D64, dtype=src),
+                                 _randn(gen, b, HK1, D64, dtype=src))
+    segs = dq_ops.mixed_segments(c)
+    assert [s["k_codes"].dtype for s in segs] == [torch.int8, torch.int8, torch.bfloat16]
+    assert c.hi.k.scale.dtype == src and dq_ops.kernel_supported(c)
+    q = _randn(gen, b, HK1, D64, dtype=torch.bfloat16)
+    before = dq_kernel.KERNEL.launches
+    out = dq_kernel.qattn_mixed_layer(q, segs)
+    assert dq_kernel.KERNEL.launches == before + 1
+    want = dq_ref.mixed_layer_ref(q, segs)
+    torch.testing.assert_close(out.float(), want.float(),
+                               atol=2 ** -7 * max(want.float().abs().max().item(), 1.0), rtol=0)
+
+
+def test_encdec_captured_serve_step_matches_eager(dev):
+    """seamless smoke on the lockstep engine, f32 source frames (cross stores
+    with f32 parameters): the captured decode step against capture=False
+    through probe steps and a fold, every step's logits bitwise the eager
+    step's, tokens equal, the step built once and replayed; the non-probe
+    steps read both caches of every layer through decode_qattn, and none
+    takes the plain route."""
+    cfg = configs.get_arch(SEAMLESS, smoke=True)
+    ccfg = dataclasses.replace(CompressionConfig.zipcache(), fp_window=8, recompress_interval=8)
+    params = registry.materialize_params(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(5)
+    # 160 source frames under a 128-token decoder prompt (min(128, 160))
+    batch = {"tokens": rng.integers(2, cfg.vocab, size=(2, 128)).astype(np.int32),
+             "frontend_embeds": rng.standard_normal((2, 160, cfg.d_model)).astype(np.float32)}
+    max_new = 12
+    n_probe = sum(probe_flag(i, ccfg.recompress_interval, 0) for i in range(max_new))
+    runs = []
+    for capture in (True, False):
+        eng = ServingEngine(cfg, ccfg, ServeConfig(2, 160, max_new), params, device=dev,
+                            capture=capture)
+        eng._decode = _Recorded(eng._decode)
+        dq_kernel.KERNEL.launches = backend_lib.PLAIN_DECODES.launches = 0
+        toks = eng.generate(batch)["tokens"]
+        torch.cuda.synchronize()
+        runs.append((toks, eng._decode, dq_kernel.KERNEL.launches,
+                     backend_lib.PLAIN_DECODES.launches))
+        assert eng.last_caches["groups"][0]["cross"].hi.k.scale.dtype == torch.float32
+    (toks, cap, launches, plain), (want, eag, e_launches, e_plain) = runs
+    np.testing.assert_array_equal(toks, want)
+    assert cap.step.captures == 1 and cap.step.replays > 0
+    assert len(cap.logits) == len(eag.logits) == max_new
+    for a, w in zip(cap.logits, eag.logits):
+        assert torch.equal(a, w)
+    per_step = 2 * cfg.n_layers
+    assert launches == e_launches == per_step * (max_new - n_probe)
+    assert plain == e_plain == per_step * n_probe

@@ -21,7 +21,9 @@ reads the cache through the backends' `dense` views (rooted here too) with
 both its algebras, and the MoE dispatch (`models.mlp`) runs in the MoE
 layers' step bodies.  The SSM layers' decode step (`models.ssm.ssm_decode`:
 the conv tails, the recurrence, the gated norm) and the row select that
-keeps an inactive slot's state are rooted too.  Beside the syncs by name, the ops whose output size
+keeps an inactive slot's state are rooted too, and so is the
+encoder-decoder's decode step (`models.encdec.decode_step`: the self
+cache's append and both caches' attention and probe updates).  Beside the syncs by name, the ops whose output size
 depends on the data (`torch.bincount`, `torch.nonzero`, `torch.unique`,
 `.nonzero()`) read a count back to the host, so they are flagged too.
 """
@@ -54,6 +56,7 @@ ROOTS = (
     ("repro_torch.core.kvcache", "attend_decode_mla_int8"),
     ("repro_torch.models.ssm", "ssm_decode"),
     ("repro_torch.core.kvcache", "tree_select_rows"),
+    ("repro_torch.models.encdec", "decode_step"),
 )
 HOST_METHODS = {"item", "cpu", "tolist", "nonzero"}
 HOST_CALLS = {"torch.as_tensor", "torch.from_numpy", "torch.bincount", "torch.nonzero",
@@ -84,6 +87,7 @@ def test_roots_exist(graph):
 def test_captured_steps_reach_no_host_calls(graph):
     reached = graph.reachable(ROOTS)
     assert ("repro_torch.models.lm", "decode_step") in reached
+    assert ("repro_torch.models.encdec", "decode_step") in reached
     assert ("repro_torch.kernels.qattn_walk", "launch") in reached
     assert ("repro_torch.core.prng", "threefry2x32") in reached
     for fn in ("cache_keys_values", "_store_logits_int8", "_store_values_int8", "_int8_store"):
