@@ -49,7 +49,14 @@ continued:
      flash_fwd (2**-7, LSE 1e-5) with SDPA beside it; probe_colsum (1e-4,
      two calls bitwise, the salient set); decode_qattn's layer (the walk's
      G = 1, D = 64 instantiation) over the cross cache and over a self
-     cache, within one bf16 ulp; each with its launch sizing;
+     cache, within one bf16 ulp; then the five kernels at qwen2-7b's
+     attention layer (`<kernel>@qwen2`: 28 query heads over 4 kv heads, g =
+     7, d 128), smollm-360m's (`<kernel>@smollm`: 15 over 5, g = 3, d 64),
+     yi-34b's (`<kernel>@yi34b`: 56 over 8, probe_colsum at 7 heads per
+     CTA, as llava-next-34b's prefill in phase 4m) and deepseek-moe-16b's
+     (`<kernel>@dsmoe`: 16 over 16, g = 1, d 128), batch 4, prompt 1024,
+     at the Jamba rows' tolerances (the walk's G = 7, G = 3 and G = 1 at
+     D = 128 instantiations); each with its launch sizing;
   4. slice 1's main path: `ServingEngine.generate` on yi-6b at full width
      (32 layers, random bf16 weights from a seeded generator), zipcache
      defaults, batch 4, prompt 1024, 128 new tokens: prefill, probe steps,
@@ -225,6 +232,23 @@ continued:
      phase 4's bound.  Logged: parameter bytes, peak memory, the encoder's
      and the decoder's prefill walls, non-probe and probe step walls,
      `cache_bytes` split into self and cross, the phase's seconds;
+  4m. slice 15: the remaining configs at full width and full depth, after
+     every earlier phase's weights and graph pools are released: qwen2-7b
+     (g = 7, QKV biases drawn at random), smollm-360m (g = 3, d 64, tied
+     embeddings) and deepseek-moe-16b (g = 1, a dense prefix layer, 64
+     routed + 2 shared experts) on both engines, zipcache-paper-8b
+     (LLaMA3-8B's shape) on the lockstep engine, llava-next-34b (576 patch
+     embeddings before 448 text tokens) on the lockstep engine and yi-34b
+     on the continuous one over the same 68.8 GB of tensors; zipcache with
+     the window and the fold cadence at 16 over 32 new tokens (phase 4's
+     batch; five requests for four slots).  Each engine captured against
+     eager bit for bit; launches held to the path, the plain route on
+     lockstep probe steps only, no gather-path decode, probe_colsum at the
+     heads per CTA of the model's phase-3 row; the kernel route's prefill
+     and first step against the plain route's within phase 4's bound of
+     0.2 (deepseek-moe: layer 0's attention output and the prefix layer's
+     output, before any router, within 2**-7 of their largest value).
+     Logged: parameters, peak memory, step walls, each model's seconds;
   5. a `kernels` JSON line, then the last line:
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -708,8 +732,12 @@ def main() -> None:
 
     # flash_fwd, probe_colsum and cst_quant at DeepSeek-V2-Lite's MLA shapes
     mla_kernels(torch, np, dev, rows, record, ccfg, prompt, max_new)
-    # the five kernels at Jamba's attention layer (g = 4, 8 kv heads)
-    jamba_kernels(torch, np, dev, rows, record, ccfg, prompt, max_new)
+    # the five kernels at Jamba's (g = 4, 8 kv heads), qwen2-7b's (g = 7, 4 kv
+    # heads), smollm-360m's (g = 3, 5 kv heads, d 64), yi-34b's (g = 7, 8 kv
+    # heads) and deepseek-moe-16b's (g = 1, 16 kv heads) attention layers
+    for tag, arch, g, d, seed, which, hpc in GQA_ROWS:
+        gqa_kernels(torch, np, dev, rows, record, ccfg, prompt, max_new, tag, arch, g, d, seed,
+                    which, hpc)
     # the four on seamless's path at its decoder layer (g = 1, 16 kv heads, d 64)
     seamless_kernels(torch, np, dev, rows, record, ccfg, max_new)
 
@@ -1072,13 +1100,16 @@ def main() -> None:
     lap("4k")
     # ---- 4l. slice 14: seamless-m4t-medium (encoder-decoder) -----------------
     by_path.update(seamless(torch, np, dev, kernels, rel_l2, yardstick, card))
+    lap("4l")
+    # ---- 4m. slice 15: the remaining configs at full size -------------------
+    by_path.update(remaining(torch, np, dev, kernels, rel_l2, yardstick, card))
     rows["cst_quant"]["eff"]["launches"] = sum(
         p["cst_quant"] for name, p in by_path.items() if name.startswith("levers"))
     for name, row in rows.items():
         row["launches"] = sum(p.get(name, 0) for p in by_path.values())
         row["launches_by_path"] = {k: p.get(name, 0) for k, p in by_path.items()}
 
-    lap("4l")
+    lap("4m")
     # ---- 5. the kernels and the contract line ------------------------------
     log("kernels: " + ", ".join(f"{n} ok ({r['launches']} launches)" for n, r in rows.items()))
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
@@ -2575,16 +2606,31 @@ MAMBA_ARCH, JAMBA_ARCH = "mamba2-2.7b", "jamba-v0.1-52b"
 MAMBA_LAYERS = 16      # phase 4k: the first 16 of mamba2's 64 SSD layers
 
 
-def jamba_kernels(torch, np, dev, rows, record, ccfg, prompt, max_new):
-    """Phase 3's rows at jamba-v0.1-52b's attention layer (32 query heads
-    over 8 kv heads: g = 4, d 128), batch 4, prompt 1024: cst_quant's hi and
-    lo stores of the lockstep prefill, bitwise; flash_fwd (out within 2**-7
-    of its largest value, LSE within 1e-5) with SDPA beside it;
-    probe_colsum over the probe rows of select_probes(prompt), 1e-4, two
-    calls bitwise, the salient set the plain version's; decode_qattn's
-    layer after 40 appends (the walk's G = 4, D = 128 instantiation) and
-    paged_qattn's layer over a free-list cache, within one bf16 ulp of
-    their largest value.  Each row records its launch sizing."""
+# phase 3's GQA rows, one model's attention layer each: (row tag, arch, g, d,
+# seed, the kernels held there, probe_colsum's query heads per CTA at batch
+# 4 over 1024 keys): g = 7 and g = 3 are the walk's G = 7 and G = 3
+# instantiations, g = 1 at d 128 its G = 1 at D = 128
+FIVE = ("cst_quant", "flash_fwd", "probe_colsum", "decode_qattn", "paged_qattn")
+GQA_ROWS = (("jamba", JAMBA_ARCH, 4, 128, 25, FIVE, 4),
+            ("qwen2", "qwen2-7b", 7, 128, 27, FIVE, 1),
+            ("smollm", "smollm-360m", 3, 64, 28, FIVE, 1),
+            ("yi34b", "yi-34b", 7, 128, 29, FIVE, 7),
+            ("dsmoe", "deepseek-moe-16b", 1, 128, 30, FIVE, 1))
+
+
+def gqa_kernels(torch, np, dev, rows, record, ccfg, prompt, max_new, tag, arch, g, d, seed,
+                which, want_hpc):
+    """Phase 3's rows `<kernel>@<tag>` at one model's attention layer (its
+    query and kv heads: g query heads a kv head, head dim d), batch 4, prompt
+    `prompt`, for the kernels in `which`: cst_quant's hi and lo stores of the
+    lockstep prefill, bitwise; flash_fwd (out within 2**-7 of its largest
+    value, LSE within 1e-5) with SDPA beside it; probe_colsum over the
+    probe rows of select_probes(prompt), 1e-4, two calls bitwise, the
+    salient set the plain version's, at `want_hpc` query heads per CTA;
+    decode_qattn's layer after 40 appends
+    (the walk's G = g, D = d instantiation) and paged_qattn's layer over a
+    free-list cache, within one bf16 ulp of their largest value.  Each row
+    records its launch sizing."""
     from repro_torch import configs
     from repro_torch.core import alloc as alloc_lib
     from repro_torch.core import backend as backend_lib
@@ -2604,145 +2650,160 @@ def jamba_kernels(torch, np, dev, rows, record, ccfg, prompt, max_new):
     from repro_torch.kernels.probe_flash import ref as pf_ref
     from repro_torch.models import attention
 
-    cfg = configs.get_arch(JAMBA_ARCH)
-    b, h, hk, d = 4, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    check(h // hk == 4 and d == 128, f"jamba's attention layer: g {h // hk}, d {d}")
+    cfg = configs.get_arch(arch)
+    b, h, hk = 4, cfg.n_heads, cfg.n_kv_heads
+    check(h // hk == g and cfg.hd == d, f"{arch}'s attention layer: g {h // hk}, d {cfg.hd}")
     max_len = prompt + max_new
-    gen = torch.Generator(device=dev).manual_seed(25)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sizing = []
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
     src_pf = "src/repro_torch/kernels/probe_flash/csrc/probe_flash.cu"
-    # cst_quant: the lockstep prefill's hi and lo stores over 8 kv heads
-    s_hi, s_lo, _ = kvc.capacities(ccfg, max_len)
-    kv_k, kv_v = randn(b, hk, prompt, d), randn(b, hk, prompt, d)
-    sal_idx, reg_idx = sal.salient_split(torch.rand((b, prompt), generator=gen, device=dev),
-                                         ccfg.n_salient(prompt))
-    timed = {}
-    for name, bits, cap, sidx in (("hi", ccfg.high_bits, s_hi, sal_idx),
-                                  ("lo", ccfg.low_bits, s_lo, reg_idx)):
-        sidx = torch.nn.functional.pad(sidx, (0, cap - sidx.shape[1]), value=-1)
-        got = cst_kernel.quantize_store(kv_k, kv_v, sidx, bits)
-        want = cst_ref.quantize_store_ref(kv_k, kv_v, sidx, bits)
+    if "cst_quant" in which:
+        # the lockstep prefill's hi and lo stores over hk kv heads
+        s_hi, s_lo, _ = kvc.capacities(ccfg, max_len)
+        kv_k, kv_v = randn(b, hk, prompt, d), randn(b, hk, prompt, d)
+        sal_idx, reg_idx = sal.salient_split(torch.rand((b, prompt), generator=gen, device=dev),
+                                             ccfg.n_salient(prompt))
+        timed = {}
+        for name, bits, cap, sidx in (("hi", ccfg.high_bits, s_hi, sal_idx),
+                                      ("lo", ccfg.low_bits, s_lo, reg_idx)):
+            sidx = torch.nn.functional.pad(sidx, (0, cap - sidx.shape[1]), value=-1)
+            got = cst_kernel.quantize_store(kv_k, kv_v, sidx, bits)
+            want = cst_ref.quantize_store_ref(kv_k, kv_v, sidx, bits)
+            torch.cuda.synchronize()
+            for part, a, w in zip(("K codes", "K scale", "K zero", "V codes", "V scale",
+                                   "V zero", "V channel scale"), got, want):
+                check(a.dtype == w.dtype and torch.equal(a, w),
+                      f"cst_quant@{tag} {name} store: {part} differ from the plain version")
+            n_live = int((sidx >= 0).sum())
+            timed[name] = (bits, sidx, bound_ms(0.0, n_live * hk * 2 * d * 2 + nbytes(sidx, *got)))
+        bits, sidx, bnd = timed["lo"]
+        fn = lambda: cst_kernel.quantize_store(kv_k, kv_v, sidx, bits)  # noqa: E731
+        cst_kernel.KERNEL.split = None
+        record(f"cst_quant@{tag}", "src/repro_torch/kernels/cst_quant/csrc/cst_quant.cu",
+               "src/repro/kernels/cst_quant/kernel.py:66", 0.0, 0.0, fn,
+               time_ms(torch, fn, iters=50),
+               time_ms(torch, lambda: cst_ref.quantize_store_ref(kv_k, kv_v, sidx, bits)), bnd)
+        split = cst_kernel.KERNEL.split
+        check(isinstance(split, int) and split >= 1,
+              f"cst_quant@{tag}: the launch recorded no split ({split!r})")
+        hbits, hidx, hbnd = timed["hi"]
+        fh = lambda: cst_kernel.quantize_store(kv_k, kv_v, hidx, hbits)  # noqa: E731
+        row = rows[f"cst_quant@{tag}"]
+        row.update(split=split, hi={"ms": time_ms(torch, fh, iters=50),
+                                    "device_ms": device_ms(torch, fh), "bound_ms": hbnd[0]})
+        log(f"cst_quant@{tag}: bitwise at the hi and lo stores ({hk} kv heads); {split} CTAs "
+            f"per slice; hi store {row['hi']['ms']:.4f} ms (device {row['hi']['device_ms']:.4f} "
+            f"ms, bound {hbnd[0]:.5f} ms)")
+        sizing.append(f"cst_quant {split} CTAs per slice")
+        del kv_k, kv_v
+
+    if "flash_fwd" in which:
+        # flash_fwd at g, with SDPA (GQA) beside it
+        q, k, v = randn(b, h, prompt, d), randn(b, hk, prompt, d), randn(b, hk, prompt, d)
+        out, lse = pf_kernel.flash_fwd(q, k, v)
+        ref_out, ref_lse = pf_ref.flash_fwd_ref(q, k, v)
         torch.cuda.synchronize()
-        for part, a, w in zip(("K codes", "K scale", "K zero", "V codes", "V scale", "V zero",
-                               "V channel scale"), got, want):
-            check(a.dtype == w.dtype and torch.equal(a, w),
-                  f"cst_quant@jamba {name} store: {part} differ from the plain version")
-        n_live = int((sidx >= 0).sum())
-        timed[name] = (bits, sidx, bound_ms(0.0, n_live * hk * 2 * d * 2 + nbytes(sidx, *got)))
-    bits, sidx, bnd = timed["lo"]
-    fn = lambda: cst_kernel.quantize_store(kv_k, kv_v, sidx, bits)  # noqa: E731
-    cst_kernel.KERNEL.split = None
-    record("cst_quant@jamba", "src/repro_torch/kernels/cst_quant/csrc/cst_quant.cu",
-           "src/repro/kernels/cst_quant/kernel.py:66", 0.0, 0.0, fn, time_ms(torch, fn, iters=50),
-           time_ms(torch, lambda: cst_ref.quantize_store_ref(kv_k, kv_v, sidx, bits)), bnd)
-    split = cst_kernel.KERNEL.split
-    check(isinstance(split, int) and split >= 1,
-          f"cst_quant@jamba: the launch recorded no split ({split!r})")
-    hbits, hidx, hbnd = timed["hi"]
-    fh = lambda: cst_kernel.quantize_store(kv_k, kv_v, hidx, hbits)  # noqa: E731
-    rows["cst_quant@jamba"].update(
-        split=split, hi={"ms": time_ms(torch, fh, iters=50), "device_ms": device_ms(torch, fh),
-                         "bound_ms": hbnd[0]})
-    log(f"cst_quant@jamba: bitwise at the hi and lo stores (8 kv heads); {split} CTAs per "
-        f"slice; hi store {rows['cst_quant@jamba']['hi']['ms']:.4f} ms (device "
-        f"{rows['cst_quant@jamba']['hi']['device_ms']:.4f} ms, bound {hbnd[0]:.5f} ms)")
-    del kv_k, kv_v
+        err = (out.float() - ref_out.float()).abs().max().item()
+        tol = 2 ** -7 * ref_out.float().abs().max().item()
+        err_lse = (lse - ref_lse).abs().max().item()
+        check(err_lse <= 1e-5, f"flash_fwd@{tag}: lse error {err_lse:.3g} exceeds 1e-5")
+        fn = lambda: pf_kernel.flash_fwd(q, k, v)  # noqa: E731
+        pairs = prompt * (prompt + 1) // 2
+        record(f"flash_fwd@{tag}", src_pf, "src/repro/kernels/probe_flash/kernel.py:100", err,
+               tol, fn, time_ms(torch, fn),
+               time_ms(torch, lambda: pf_ref.flash_fwd_ref(q, k, v), iters=5),
+               bound_ms(4.0 * b * h * pairs * d, nbytes(q, k, v, out, lse)),
+               time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                   q, k, v, is_causal=True, enable_gqa=True)))
+        rows[f"flash_fwd@{tag}"].update(lse_err=err_lse, shape=[b, h, hk, prompt, d])
 
-    # flash_fwd at g = 4, with SDPA (GQA) beside it
-    q, k, v = randn(b, h, prompt, d), randn(b, hk, prompt, d), randn(b, hk, prompt, d)
-    out, lse = pf_kernel.flash_fwd(q, k, v)
-    ref_out, ref_lse = pf_ref.flash_fwd_ref(q, k, v)
-    torch.cuda.synchronize()
-    err = (out.float() - ref_out.float()).abs().max().item()
-    tol = 2 ** -7 * ref_out.float().abs().max().item()
-    err_lse = (lse - ref_lse).abs().max().item()
-    check(err_lse <= 1e-5, f"flash_fwd@jamba: lse error {err_lse:.3g} exceeds 1e-5")
-    fn = lambda: pf_kernel.flash_fwd(q, k, v)  # noqa: E731
-    pairs = prompt * (prompt + 1) // 2
-    record("flash_fwd@jamba", src_pf, "src/repro/kernels/probe_flash/kernel.py:100", err, tol, fn,
-           time_ms(torch, fn), time_ms(torch, lambda: pf_ref.flash_fwd_ref(q, k, v), iters=5),
-           bound_ms(4.0 * b * h * pairs * d, nbytes(q, k, v, out, lse)),
-           time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
-               q, k, v, is_causal=True, enable_gqa=True)))
-    rows["flash_fwd@jamba"].update(lse_err=err_lse, shape=[b, h, hk, prompt, d])
+        if "probe_colsum" in which:
+            # the probe rows of select_probes(prompt) (repeats -> -1)
+            probe = sal.select_probes(prompt)
+            pos = pf_ops.unique_probe_rows(probe.positions.to(dev))
+            safe = pos.clamp(0, prompt - 1).long()
+            args = (q[:, :, safe].contiguous(), lse[:, :, safe].contiguous(),
+                    pos[None].expand(b, -1).contiguous(), k)
+            col = pf_kernel.probe_colsum(*args, lq=prompt)
+            col_ref = pf_ref.probe_colsum_ref(*args, lq=prompt)
+            again = pf_kernel.probe_colsum(*args, lq=prompt)
+            torch.cuda.synchronize()
+            check(torch.equal(col, again),
+                  f"probe_colsum@{tag}: two calls on the same inputs differ")
+            _salient_sets_agree(torch, sal, attention, ccfg, probe, col, col_ref, prompt)
+            fn = lambda: pf_kernel.probe_colsum(*args, lq=prompt)  # noqa: E731
+            valid_pairs = int((pos[pos >= 0] + 1).sum())
+            pf_kernel.COLSUM.heads_per_cta = None
+            record(f"probe_colsum@{tag}", src_pf, "src/repro/kernels/probe_flash/kernel.py:177",
+                   (col - col_ref).abs().max().item(), 1e-4, fn, time_ms(torch, fn),
+                   time_ms(torch, lambda: pf_ref.probe_colsum_ref(*args, lq=prompt)),
+                   bound_ms(2.0 * b * h * valid_pairs * d, nbytes(*args, col)))
+            hpc = pf_kernel.COLSUM.heads_per_cta
+            check(hpc == want_hpc, f"probe_colsum@{tag}: the launch ran {hpc!r} heads per CTA, "
+                                   f"not {want_hpc}")
+            rows[f"probe_colsum@{tag}"]["heads_per_cta"] = hpc
+            sizing.append(f"probe_colsum {hpc} heads per CTA")
+            del args, col, col_ref, again
+        del q, k, v, out, lse, ref_out, ref_lse
 
-    # probe_colsum: the probe rows of select_probes(prompt) (repeats -> -1)
-    probe = sal.select_probes(prompt)
-    pos = pf_ops.unique_probe_rows(probe.positions.to(dev))
-    safe = pos.clamp(0, prompt - 1).long()
-    args = (q[:, :, safe].contiguous(), lse[:, :, safe].contiguous(),
-            pos[None].expand(b, -1).contiguous(), k)
-    col = pf_kernel.probe_colsum(*args, lq=prompt)
-    col_ref = pf_ref.probe_colsum_ref(*args, lq=prompt)
-    again = pf_kernel.probe_colsum(*args, lq=prompt)
-    torch.cuda.synchronize()
-    check(torch.equal(col, again), "probe_colsum@jamba: two calls on the same inputs differ")
-    _salient_sets_agree(torch, sal, attention, ccfg, probe, col, col_ref, prompt)
-    fn = lambda: pf_kernel.probe_colsum(*args, lq=prompt)  # noqa: E731
-    valid_pairs = int((pos[pos >= 0] + 1).sum())
-    pf_kernel.COLSUM.heads_per_cta = None
-    record("probe_colsum@jamba", src_pf, "src/repro/kernels/probe_flash/kernel.py:177",
-           (col - col_ref).abs().max().item(), 1e-4, fn, time_ms(torch, fn),
-           time_ms(torch, lambda: pf_ref.probe_colsum_ref(*args, lq=prompt)),
-           bound_ms(2.0 * b * h * valid_pairs * d, nbytes(*args, col)))
-    hpc = pf_kernel.COLSUM.heads_per_cta
-    check(isinstance(hpc, int) and hpc >= 1,
-          f"probe_colsum@jamba: the launch recorded no heads per CTA ({hpc!r})")
-    rows["probe_colsum@jamba"]["heads_per_cta"] = hpc
-    del q, k, v, out, lse, ref_out, ref_lse, args, col, col_ref, again
-
-    # decode_qattn: one decode layer over a prefill cache after 40 appends
-    cache = kvc.compress_prefill(ccfg, randn(b, hk, prompt, d), randn(b, hk, prompt, d),
-                                 torch.rand((b, prompt), generator=gen, device=dev), max_len)
-    for _ in range(40):
-        cache = kvc.append_token(cache, randn(b, hk, d), randn(b, hk, d))
     qd = randn(b, h, d)
-    dsegs = dq_ops.mixed_segments(cache)
-    out_d = dq_kernel.qattn_mixed_layer(qd, dsegs)
-    want_d = dq_ref.mixed_layer_ref(qd, dsegs)
-    torch.cuda.synchronize()
-    err = (out_d.float() - want_d.float()).abs().max().item()
-    tol = 2 ** -7 * max(want_d.float().abs().max().item(), 1.0)
-    fn = lambda: dq_kernel.qattn_mixed_layer(qd, dsegs)  # noqa: E731
-    dq_kernel.KERNEL.splits = None
-    record("decode_qattn@jamba", "src/repro_torch/kernels/decode_qattn/csrc/decode_qattn.cu",
-           "src/repro/kernels/decode_qattn/kernel.py:109", err, tol, fn,
-           time_ms(torch, fn, iters=50), time_ms(torch, lambda: dq_ref.mixed_layer_ref(qd, dsegs)),
-           mixed_layer_bound(dsegs, qd, out_d, hk))
-    rows["decode_qattn@jamba"]["splits"] = dq_kernel.KERNEL.splits
-    del cache, dsegs
+    if "decode_qattn" in which:
+        # one decode layer over a prefill cache after 40 appends
+        cache = kvc.compress_prefill(ccfg, randn(b, hk, prompt, d), randn(b, hk, prompt, d),
+                                     torch.rand((b, prompt), generator=gen, device=dev), max_len)
+        for _ in range(40):
+            cache = kvc.append_token(cache, randn(b, hk, d), randn(b, hk, d))
+        dsegs = dq_ops.mixed_segments(cache)
+        out_d = dq_kernel.qattn_mixed_layer(qd, dsegs)
+        want_d = dq_ref.mixed_layer_ref(qd, dsegs)
+        torch.cuda.synchronize()
+        err = (out_d.float() - want_d.float()).abs().max().item()
+        tol = 2 ** -7 * max(want_d.float().abs().max().item(), 1.0)
+        fn = lambda: dq_kernel.qattn_mixed_layer(qd, dsegs)  # noqa: E731
+        dq_kernel.KERNEL.splits = None
+        record(f"decode_qattn@{tag}", "src/repro_torch/kernels/decode_qattn/csrc/decode_qattn.cu",
+               "src/repro/kernels/decode_qattn/kernel.py:109", err, tol, fn,
+               time_ms(torch, fn, iters=50),
+               time_ms(torch, lambda: dq_ref.mixed_layer_ref(qd, dsegs)),
+               mixed_layer_bound(dsegs, qd, out_d, hk))
+        rows[f"decode_qattn@{tag}"]["splits"] = dq_kernel.KERNEL.splits
+        sizing.append(f"decode_qattn {dq_kernel.KERNEL.splits} CTAs per (slot, kv head)")
+        del cache, dsegs
 
-    # paged_qattn: one decode layer over a free-list cache (4 slots, page 64)
-    pcache = _freelist_cache(torch, np, backend_lib, alloc_lib, paged, ccfg, dev, gen, hk, d,
-                             max_len, lengths=(1024, 700, 0, 333), n_append=40)
-    segs = pq_ops.layer_segments(pcache)
-    scale = 1.0 / d ** 0.5
-    live = torch.tensor([True, True, False, True], device=dev)
-    out_p, m_p, l_p, _, _ = pq_kernel.qattn_paged_layer(qd, segs, scale=scale)
-    rout, rm, rl, _ = pq_ref.paged_layer_ref(qd, segs, scale=scale)
-    torch.cuda.synchronize()
-    err = (out_p[live].float() - rout[live].float()).abs().max().item()
-    tol = 2 ** -7 * max(rout[live].float().abs().max().item(), 1.0)
-    for part, a, w in (("m", m_p, rm), ("l", l_p, rl)):
-        e, t = (a[live] - w[live]).abs().max().item(), 1e-4 * max(w[live].abs().max().item(), 1.0)
-        check(e <= t, f"paged_qattn@jamba {part}: max abs error {e:.3g} exceeds {t:.3g}")
-    check(bool((l_p[2] == 0).all()) and not bool(out_p[2].float().any()),
-          "paged_qattn@jamba: the empty slot must give zeros")
-    fn = lambda: pq_kernel.qattn_paged_layer(qd, segs, scale=scale)  # noqa: E731
-    pq_kernel.KERNEL.splits = None
-    record("paged_qattn@jamba", "src/repro_torch/kernels/paged_qattn/csrc/paged_qattn.cu",
-           "src/repro/kernels/paged_qattn/kernel.py:181", err, tol, fn,
-           time_ms(torch, fn, iters=50),
-           time_ms(torch, lambda: pq_ref.paged_layer_ref(qd, segs, scale=scale)),
-           paged_layer_bound(torch, segs, qd))
-    rows["paged_qattn@jamba"]["splits"] = pq_kernel.KERNEL.splits
-    log(f"jamba's attention shapes: decode_qattn {rows['decode_qattn@jamba']['splits']} and "
-        f"paged_qattn {rows['paged_qattn@jamba']['splits']} CTAs per (slot, kv head), "
-        f"probe_colsum {hpc} heads per CTA, cst_quant {split} CTAs per slice")
-    del pcache, segs, qd
+    if "paged_qattn" in which:
+        # one decode layer over a free-list cache (4 slots, page 64)
+        pcache = _freelist_cache(torch, np, backend_lib, alloc_lib, paged, ccfg, dev, gen, hk, d,
+                                 max_len, lengths=(1024, 700, 0, 333), n_append=40)
+        segs = pq_ops.layer_segments(pcache)
+        scale = 1.0 / d ** 0.5
+        live = torch.tensor([True, True, False, True], device=dev)
+        out_p, m_p, l_p, _, _ = pq_kernel.qattn_paged_layer(qd, segs, scale=scale)
+        rout, rm, rl, _ = pq_ref.paged_layer_ref(qd, segs, scale=scale)
+        torch.cuda.synchronize()
+        err = (out_p[live].float() - rout[live].float()).abs().max().item()
+        tol = 2 ** -7 * max(rout[live].float().abs().max().item(), 1.0)
+        for part, a, w in (("m", m_p, rm), ("l", l_p, rl)):
+            e = (a[live] - w[live]).abs().max().item()
+            t = 1e-4 * max(w[live].abs().max().item(), 1.0)
+            check(e <= t, f"paged_qattn@{tag} {part}: max abs error {e:.3g} exceeds {t:.3g}")
+        check(bool((l_p[2] == 0).all()) and not bool(out_p[2].float().any()),
+              f"paged_qattn@{tag}: the empty slot must give zeros")
+        fn = lambda: pq_kernel.qattn_paged_layer(qd, segs, scale=scale)  # noqa: E731
+        pq_kernel.KERNEL.splits = None
+        record(f"paged_qattn@{tag}", "src/repro_torch/kernels/paged_qattn/csrc/paged_qattn.cu",
+               "src/repro/kernels/paged_qattn/kernel.py:181", err, tol, fn,
+               time_ms(torch, fn, iters=50),
+               time_ms(torch, lambda: pq_ref.paged_layer_ref(qd, segs, scale=scale)),
+               paged_layer_bound(torch, segs, qd))
+        rows[f"paged_qattn@{tag}"]["splits"] = pq_kernel.KERNEL.splits
+        sizing.append(f"paged_qattn {pq_kernel.KERNEL.splits} CTAs per (slot, kv head)")
+        del pcache, segs
+    log(f"{arch}'s attention shapes ({h} / {hk} heads, g {g}, d {d}): {'; '.join(sizing)}")
+    del qd
 
 
 # phase 3's seamless rows and phase 4l: seamless-m4t-medium (encoder-decoder)
@@ -3139,6 +3200,156 @@ def deepseek(torch, np, dev, kernels, batch, cscfg, requests, budgets, rel_l2, y
     return out_paths
 
 
+class PathRuns:
+    """What phases 4k and 4m share to drive one model on the engines under
+    `ccfg` and the lockstep `scfg`: the launch counts held to each path and
+    kept on `out_paths` (under the model's tag, and under each phase-3 row
+    tag that `row_tags` gives it), a seeded materialization, the lockstep
+    engine captured and eager, and one continuous run."""
+
+    def __init__(self, torch, np, dev, kernels, ccfg, scfg, rel_l2, yardstick, card,
+                 row_tags):
+        from repro_torch.serving import probe_flag
+
+        self.torch, self.np, self.dev, self.kernels = torch, np, dev, kernels
+        self.ccfg, self.scfg, self.rel_l2, self.yardstick = ccfg, scfg, rel_l2, yardstick
+        self.card, self.row_tags, self.out_paths = card, row_tags, {}
+        self.n_probe = sum(probe_flag(i, ccfg.recompress_interval, 0)
+                           for i in range(scfg.max_new_tokens))
+        self.n_fold = scfg.max_new_tokens // ccfg.recompress_interval
+
+    def zero_counts(self):
+        from repro_torch.core import backend as backend_lib
+        from repro_torch.core import paged
+
+        for kern in self.kernels.values():
+            kern.launches = 0
+        backend_lib.PLAIN_DECODES.launches = paged.GATHER_DECODES.launches = 0
+
+    def counts(self, tag, path, want, plain_decodes=None):
+        """Hold the launches since `zero_counts` to `want`, the plain-route
+        decodes to `plain_decodes` where it is given, and no decode to the
+        gather path."""
+        from repro_torch.core import backend as backend_lib
+        from repro_torch.core import paged
+
+        got = {n: kern.launches for n, kern in self.kernels.items()}
+        for name, n in want.items():
+            check(got[name] == n, f"{tag} {path}: {name} {got[name]} launches, the path "
+                                  f"implies {n}")
+        check(plain_decodes is None or backend_lib.PLAIN_DECODES.launches == plain_decodes,
+              f"{tag} {path}: {backend_lib.PLAIN_DECODES.launches} decodes on the plain route, "
+              f"the probe steps imply {plain_decodes}")
+        check(paged.GATHER_DECODES.launches == 0, f"{tag} {path}: a decode took the gather path")
+        for t in self.row_tags.get(tag, ()):
+            got.update({f"{n}@{t}": got[n] for n in self.kernels})
+        self.out_paths[f"{tag}-{path.replace(' ', '-')}"] = got
+
+    def materialize(self, cfg):
+        from repro_torch.models import registry
+
+        torch = self.torch
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = registry.materialize_params(cfg, seed=0, device=self.dev)
+        torch.cuda.synchronize()
+        leaves = list(_leaves(params))
+        n = sum(t.numel() for t in leaves)
+        heads = f", {cfg.n_heads} / {cfg.n_kv_heads} heads, d {cfg.hd}" if cfg.n_heads else ""
+        log(f"{cfg.name} ({cfg.n_layers} layers{heads}): params {n:,} ({nbytes(*leaves) / 1e9:.2f} "
+            f"GB bf16) in {time.perf_counter() - t0:.1f} s; the config counts "
+            f"{cfg.param_count():,}")
+        return params
+
+    def lockstep(self, tag, cfg, params, batch, want, plain_decodes=None, on_engine=None):
+        """The lockstep engine captured and eager over `batch`, launches held
+        to `want`, every step's logits bitwise across the two; `on_engine`
+        takes the captured engine after its run (by default, its cache_bytes
+        are logged).  Returns the captured engine's serving context."""
+        from repro_torch.serving import ServingEngine
+
+        torch, np = self.torch, self.np
+        b, max_new = self.scfg.batch_size, self.scfg.max_new_tokens
+        lock = {}
+        for capture in (True, False):
+            eng = ServingEngine(cfg, self.ccfg, self.scfg, params, device=self.dev,
+                                capture=capture)
+            eng.generate(batch, max_new_tokens=2)   # warm-up (with capture: warm-up step, capture)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            self.zero_counts()
+            rec = eng._decode = TimedLogits(eng._decode, torch)
+            out = eng.generate(batch)
+            eng._decode = rec.step
+            self.counts(tag, f"lockstep {'captured' if capture else 'eager'}", want,
+                        plain_decodes)
+            tm = out["timings"]
+            lock[capture] = dict(tokens=out["tokens"], decode_s=tm["decode_s"],
+                                 tok_s=tm["tok_per_s"], step_ms=np.median(rec.ms[False]),
+                                 probe_ms=np.median(rec.ms[True]), busy=None, ops=None,
+                                 peak=torch.cuda.max_memory_allocated(), rec=rec, step=rec.step)
+            log(f"{tag} lockstep (capture {capture}): prefill {tm['prefill_s']:.3f} s, decode "
+                f"{tm['decode_s']:.3f} s ({b} x {max_new} tokens, {self.n_probe} probe steps, "
+                f"{self.n_fold} folds), median non-probe step {lock[capture]['step_ms']:.3f} ms, "
+                f"probe step {lock[capture]['probe_ms']:.3f} ms (each to a synchronize), max "
+                f"memory allocated {lock[capture]['peak'] / 2**30:.2f} GiB ({self.card})")
+            if capture:
+                tokens = out["tokens"]
+                check(tokens.shape == (b, max_new) and bool(((tokens >= 0)
+                                                             & (tokens < cfg.vocab)).all()),
+                      f"{tag} lockstep: tokens {tokens.shape} out of shape or range")
+                if on_engine is None:
+                    log(f"{tag} lockstep: cache_bytes {eng.cache_bytes(eng.last_caches)}")
+                else:
+                    on_engine(eng)
+                ctx = eng.ctx
+            del eng
+        summarize(f"{tag} lockstep", lock, self.torch, self.rel_l2, self.yardstick, bitwise=True)
+        return ctx
+
+    def continuous(self, tag, cfg, params, requests, budgets, layout, capture):
+        """One continuous run of `requests` under `layout`, each to its
+        budget.  Returns the engine, the run, and the slots that each fold
+        call took."""
+        from repro_torch.serving import ContinuousEngine, Request
+
+        torch = self.torch
+        eng = ContinuousEngine(cfg, self.ccfg, layout, params, device=self.dev, capture=capture)
+        rec = eng._decode_masked = TimedLogits(eng._decode_masked, torch)
+        fold_calls, fold = [], eng._fold
+
+        def counted_fold(due):
+            fold_calls.append(len(due))
+            return fold(due)
+
+        eng._fold = counted_fold
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        self.zero_counts()
+        t0 = time.perf_counter()
+        rids = [eng.submit(Request(tokens=r, max_new_tokens=int(m)))
+                for r, m in zip(requests, budgets)]
+        res = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for i, r in enumerate(rids):
+            check(res[r].finish_reason == "length" and len(res[r].tokens) == budgets[i],
+                  f"{tag} continuous: {r} ended {res[r].finish_reason} with "
+                  f"{len(res[r].tokens)} of {budgets[i]} tokens")
+        n_tok = sum(len(res[r].tokens) for r in rids)
+        run = dict(tokens=self.np.concatenate([res[r].tokens for r in rids]), decode_s=wall,
+                   tok_s=n_tok / wall, step_ms=self.np.median(rec.ms[False]),
+                   probe_ms=self.np.median(rec.ms[True]), busy=None, ops=None,
+                   peak=torch.cuda.max_memory_allocated(), rec=rec, step=rec.step)
+        log(f"{tag} continuous {layout.backend}/{layout.page_allocator} (capture {capture}): "
+            f"{n_tok} tokens in {wall:.3f} s, {eng._step_no} steps, {eng._n_admissions} "
+            f"admissions, {eng._n_folds} slot folds in {len(fold_calls)} fold calls "
+            f"{fold_calls}, median non-probe step {run['step_ms']:.3f} ms, probe step "
+            f"{run['probe_ms']:.3f} ms, max memory allocated {run['peak'] / 2**30:.2f} GiB "
+            f"({self.card})")
+        return eng, run, fold_calls
+
+
 def hybrid(torch, np, dev, kernels, b, prompt, cscfg, rel_l2, yardstick, card):
     """Phase 4k: mamba2-2.7b at full width over MAMBA_LAYERS of its 64 SSD
     layers (no attention layer; cut from 64 to keep the script within its
@@ -3157,35 +3368,18 @@ def hybrid(torch, np, dev, kernels, b, prompt, cscfg, rel_l2, yardstick, card):
     from repro_torch import configs
     from repro_torch.core import backend as backend_lib
     from repro_torch.core import kvcache as kvc
-    from repro_torch.core import paged
     from repro_torch.core.policy import CompressionConfig
     from repro_torch.models import attention, blocks, common, lm, registry
     from repro_torch.models.ssm import SSMState
-    from repro_torch.serving import ContinuousEngine, Request, ServeConfig, ServingEngine
-    from repro_torch.serving import probe_flag
+    from repro_torch.serving import ContinuousEngine, ServeConfig, ServingEngine
 
     t_phase = time.perf_counter()
     ccfg = CompressionConfig.zipcache()
     max_new = 128
-    n_probe = sum(probe_flag(i, ccfg.recompress_interval, 0) for i in range(max_new))
-    n_fold = max_new // ccfg.recompress_interval
     scfg = ServeConfig(batch_size=b, prompt_len=prompt, max_new_tokens=max_new, seed=0)
-    out_paths = {}
-
-    def zero_counts():
-        for kern in kernels.values():
-            kern.launches = 0
-        paged.GATHER_DECODES.launches = 0
-
-    def counts(tag, path, want):
-        got = {n: kern.launches for n, kern in kernels.items()}
-        for name, n in want.items():
-            check(got[name] == n, f"{tag} {path}: {name} {got[name]} launches, the path "
-                                  f"implies {n}")
-        check(paged.GATHER_DECODES.launches == 0, f"{tag} {path}: a decode took the gather path")
-        if tag == "jamba":
-            got.update({f"{n}@jamba": got[n] for n in list(got)})
-        out_paths[f"{tag}-{path.replace(' ', '-')}"] = got
+    runs = PathRuns(torch, np, dev, kernels, ccfg, scfg, rel_l2, yardstick, card,
+                    {"jamba": ("jamba",)})
+    n_probe, n_fold, out_paths = runs.n_probe, runs.n_fold, runs.out_paths
 
     def split_bytes(tag, what, caches):
         cb = backend_lib.cache_bytes(caches)
@@ -3196,81 +3390,14 @@ def hybrid(torch, np, dev, kernels, b, prompt, cscfg, rel_l2, yardstick, card):
         check(cb["overhead_bytes"] >= states > 0, f"{tag}: SSM states not counted as overhead")
         return cb
 
-    def materialize(cfg):
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        params = registry.materialize_params(cfg, seed=0, device=dev)
-        torch.cuda.synchronize()
-        leaves = list(_leaves(params))
-        log(f"{cfg.name} ({cfg.n_layers} layers): params {sum(t.numel() for t in leaves) / 1e9:.3f} "
-            f"B ({nbytes(*leaves) / 1e9:.2f} GB) in {time.perf_counter() - t0:.1f} s")
-        return params
-
     def lockstep(tag, cfg, params, batch, want):
-        lock = {}
-        for capture in (True, False):
-            eng = ServingEngine(cfg, ccfg, scfg, params, device=dev, capture=capture)
-            eng.generate(batch, max_new_tokens=2)   # warm-up (with capture: warm-up step, capture)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            zero_counts()
-            rec = eng._decode = TimedLogits(eng._decode, torch)
-            out = eng.generate(batch)
-            eng._decode = rec.step
-            counts(tag, f"lockstep {'captured' if capture else 'eager'}", want)
-            tm = out["timings"]
-            lock[capture] = dict(tokens=out["tokens"], decode_s=tm["decode_s"],
-                                 tok_s=tm["tok_per_s"], step_ms=np.median(rec.ms[False]),
-                                 probe_ms=np.median(rec.ms[True]), busy=None, ops=None,
-                                 peak=torch.cuda.max_memory_allocated(), rec=rec, step=rec.step)
-            log(f"{tag} lockstep (capture {capture}): prefill {tm['prefill_s']:.3f} s, decode "
-                f"{tm['decode_s']:.3f} s ({b} x {max_new} tokens, {n_probe} probe steps, "
-                f"{n_fold} fold), median non-probe step {lock[capture]['step_ms']:.3f} ms, probe "
-                f"step {lock[capture]['probe_ms']:.3f} ms (each to a synchronize), max memory "
-                f"{lock[capture]['peak'] / 2**30:.2f} GiB")
-            if capture:
-                tokens = out["tokens"]
-                check(tokens.shape == (b, max_new) and bool(((tokens >= 0)
-                                                             & (tokens < cfg.vocab)).all()),
-                      f"{tag} lockstep: tokens {tokens.shape} out of shape or range")
-                split_bytes(tag, "lockstep", eng.last_caches)
-                ctx = eng.ctx
-            del eng
-        summarize(f"{tag} lockstep", lock, torch, rel_l2, yardstick, bitwise=True)
-        return ctx
-
-    def continuous(tag, cfg, params, requests, layout, capture):
-        eng = ContinuousEngine(cfg, ccfg, layout, params, device=dev, capture=capture)
-        rec = eng._decode_masked = TimedLogits(eng._decode_masked, torch)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        zero_counts()
-        t0 = time.perf_counter()
-        rids = [eng.submit(Request(tokens=r, max_new_tokens=int(m)))
-                for r, m in zip(requests, budgets)]
-        res = eng.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        for i, r in enumerate(rids):
-            check(res[r].finish_reason == "length" and len(res[r].tokens) == budgets[i],
-                  f"{tag} continuous: {r} ended {res[r].finish_reason} with "
-                  f"{len(res[r].tokens)} of {budgets[i]} tokens")
-        n_tok = sum(len(res[r].tokens) for r in rids)
-        run = dict(tokens=np.concatenate([res[r].tokens for r in rids]), decode_s=wall,
-                   tok_s=n_tok / wall, step_ms=np.median(rec.ms[False]),
-                   probe_ms=np.median(rec.ms[True]), busy=None, ops=None,
-                   peak=torch.cuda.max_memory_allocated(), rec=rec, step=rec.step)
-        log(f"{tag} continuous {layout.backend}/{layout.page_allocator} (capture {capture}): "
-            f"{n_tok} tokens in {wall:.3f} s, {eng._step_no} steps, {eng._n_admissions} "
-            f"admissions, {eng._n_folds} slot folds, median non-probe step "
-            f"{run['step_ms']:.3f} ms, probe step {run['probe_ms']:.3f} ms, max memory "
-            f"{run['peak'] / 2**30:.2f} GiB")
-        return eng, run
+        return runs.lockstep(tag, cfg, params, batch, want, on_engine=lambda eng: split_bytes(
+            tag, "lockstep", eng.last_caches))
 
     # -- mamba2-2.7b: no attention layer, so no kernel and no KV cache ----------
     cfg = dataclasses.replace(configs.get_arch(MAMBA_ARCH), n_layers=MAMBA_LAYERS)
     check(cfg.layer_kinds() == (("ssm", "none"),), "mamba2 should have SSD layers only")
-    params = materialize(cfg)
+    params = runs.materialize(cfg)
     batch_m, requests_m, budgets = traffic(np, cfg.vocab, b, prompt, max_new)
     none = {name: 0 for name in kernels}
     lockstep("mamba2", cfg, params, batch_m, none)
@@ -3286,8 +3413,9 @@ def hybrid(torch, np, dev, kernels, b, prompt, cscfg, rel_l2, yardstick, card):
                "paged": dataclasses.replace(cscfg, page_allocator="static", pool_fraction=1.0)}
     cont = {}
     for name, capture in (("mixed", True), ("paged", True), ("paged", False)):
-        eng, run = continuous("mamba2", cfg, params, requests_m, layouts[name], capture)
-        counts("mamba2", f"continuous {name} {'captured' if capture else 'eager'}", none)
+        eng, run, _ = runs.continuous("mamba2", cfg, params, requests_m, budgets, layouts[name],
+                                      capture)
+        runs.counts("mamba2", f"continuous {name} {'captured' if capture else 'eager'}", none)
         if name == "paged" and capture:
             split_bytes("mamba2", "continuous", eng.caches)
         cont[(name, capture)] = run
@@ -3312,7 +3440,7 @@ def hybrid(torch, np, dev, kernels, b, prompt, cscfg, rel_l2, yardstick, card):
     kinds = cfg.layer_kinds()
     attn_at = [j for j, (m, _) in enumerate(kinds) if m == "attn"]
     check(attn_at == [cfg.attn_layer_offset] == [4], f"jamba's group kinds {kinds}")
-    params = materialize(cfg)
+    params = runs.materialize(cfg)
     n_attn = len(attn_at)
     batch, requests, budgets = traffic(np, cfg.vocab, b, prompt, max_new)
     ctx = lockstep("jamba", cfg, params, batch, {
@@ -3348,9 +3476,9 @@ def hybrid(torch, np, dev, kernels, b, prompt, cscfg, rel_l2, yardstick, card):
 
     cont = {}
     for capture in (True, False):
-        eng, run = continuous("jamba", cfg, params, requests, cscfg, capture)
+        eng, run, _ = runs.continuous("jamba", cfg, params, requests, budgets, cscfg, capture)
         st = eng.pool_stats()
-        counts("jamba", f"continuous {'captured' if capture else 'eager'}", {
+        runs.counts("jamba", f"continuous {'captured' if capture else 'eager'}", {
             "flash_fwd": n_attn * st["admissions"], "probe_colsum": n_attn * st["admissions"],
             "cst_quant": 2 * n_attn * (st["admissions"] + st["folds"]), "decode_qattn": 0,
             "paged_qattn": n_attn * eng._step_no})
@@ -3555,6 +3683,282 @@ def seamless(torch, np, dev, kernels, rel_l2, yardstick, card):
     log(f"seamless: phase 4l took {time.perf_counter() - t_phase:.1f} s, max memory allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
     return out_paths
+
+
+# phase 4m: the remaining configs at full size (each model's row tags in phase 3)
+REMAINING_NEW, REMAINING_INTERVAL = 32, 16   # decode budget; fold cadence (and window)
+ROW_TAGS = {"qwen2-7b": ("qwen2",), "smollm-360m": ("smollm",),
+            "llava-next-34b": ("yi34b",), "yi-34b": ("yi34b",),
+            "deepseek-moe-16b": ("dsmoe",)}
+
+
+def remaining_traffic(np, vocab, b, prompt):
+    """Phase 4m's traffic: phase 4's packed batch (seed 0) and five requests
+    for four slots (seed 2: prompts of 200 to `prompt` tokens, budgets of 20
+    to REMAINING_NEW, so each slot passes the probe step at its token 15 and
+    the fold at 16, and the fifth request waits for a slot), token ids in
+    [2, vocab)."""
+    from repro_torch.serving import pack_requests
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, vocab, size=(prompt,)).astype(np.int32) for _ in range(b)]
+    rng = np.random.default_rng(2)
+    lengths = rng.integers(200, prompt + 1, size=5)
+    budgets = rng.integers(20, REMAINING_NEW + 1, size=5)
+    requests = [rng.integers(2, vocab, size=(int(n),)).astype(np.int32) for n in lengths]
+    return {"tokens": pack_requests(prompts, b, prompt)}, requests, budgets
+
+
+def remaining(torch, np, dev, kernels, rel_l2, yardstick, card):
+    """Phase 4m: the remaining configs at full width and full depth, random
+    bf16 weights from a seeded generator, after every earlier phase's
+    weights and graph pools are released: qwen2-7b (28 / 4 heads, g = 7,
+    QKV biases drawn at random), smollm-360m (15 / 5, g = 3, d 64, tied
+    embeddings) and deepseek-moe-16b (16 / 16, g = 1, a dense prefix layer,
+    64 routed + 2 shared experts, top 6) on both engines; zipcache-paper-8b
+    (LLaMA3-8B's shape) on the lockstep engine; llava-next-34b (576 patch
+    embeddings before 448 text tokens) on the lockstep engine and yi-34b on
+    the continuous one over the same tensors, one materialization (the
+    continuous engine refuses frontend archs).  zipcache with the window
+    and the fold cadence at 16 over 32 new tokens (probe steps at 15 and 31,
+    folds at 16 and 32).  Each engine captured and eager: every step's
+    logits bitwise, tokens equal; launches held to the path, the plain
+    route on lockstep probe steps only, no gather-path decode.  The kernel
+    route's prefill and first decode step against the plain route's by
+    relative L2 within phase 4's 0.2 (deepseek-moe: layer 0's attention output and the prefix layer's
+    output, before any router, within 2**-7 of their largest value).
+    Returns the launch counts of each run."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.core.policy import CompressionConfig
+    from repro_torch.kernels.probe_flash import kernel as pf_kernel
+    from repro_torch.models import attention, blocks, common, registry
+    from repro_torch.serving import ContinuousEngine, ServeConfig, ServingEngine
+    from repro_torch.serving import probe_flag
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    log(f"remaining: {held / 2**30:.2f} GiB allocated, {torch.cuda.memory_reserved() / 2**30:.2f} "
+        f"GiB reserved after the earlier phases' weights and graph pools are released")
+    check(held < 2 * 2**30, f"remaining: {held / 2**30:.2f} GiB still held by earlier phases")
+    ccfg = dataclasses.replace(CompressionConfig.zipcache(), fp_window=REMAINING_INTERVAL,
+                               recompress_interval=REMAINING_INTERVAL)
+    b, prompt, max_new = 4, 1024, REMAINING_NEW
+    check(not probe_flag(0, REMAINING_INTERVAL, 0),
+          "phase 4m's first decode step must not be a probe step")
+    scfg = ServeConfig(batch_size=b, prompt_len=prompt, max_new_tokens=max_new, seed=0)
+    cscfg = ServeConfig(batch_size=b, prompt_len=prompt, max_new_tokens=max_new, seed=0,
+                        backend="paged", page_size=64, page_allocator="freelist",
+                        pool_fraction=0.75, paged_kernel=True, scheduler="fifo")
+    runs = PathRuns(torch, np, dev, kernels, ccfg, scfg, rel_l2, yardstick, card, ROW_TAGS)
+    n_probe, n_fold, walls = runs.n_probe, runs.n_fold, {}
+    check(n_probe > 0 and n_fold > 0, "phase 4m's lockstep run must span a probe step and a fold")
+    hpc_of = {tag: hpc for tag, *_, hpc in GQA_ROWS}
+
+    def lockstep(tag, cfg, params, batch):
+        """Both engines' runs at every layer's five kernels, the plain route
+        on the probe steps only; the prefill's probe_colsum at the heads per
+        CTA of the model's phase-3 row."""
+        n = cfg.n_layers
+        ctx = runs.lockstep(tag, cfg, params, batch, {
+            "flash_fwd": n, "probe_colsum": n, "cst_quant": 2 * n * (1 + n_fold),
+            "decode_qattn": n * (max_new - n_probe), "paged_qattn": 0}, n * n_probe)
+        for t in ROW_TAGS.get(tag, ()):
+            hpc = pf_kernel.COLSUM.heads_per_cta
+            check(hpc == hpc_of[t], f"{tag} lockstep: probe_colsum ran {hpc} heads per CTA, "
+                                    f"its row probe_colsum@{t} {hpc_of[t]}")
+        return ctx
+
+    def continuous(tag, cfg, params, requests, budgets):
+        n = cfg.n_layers
+        cont = {}
+        for capture in (True, False):
+            eng, run, fold_calls = runs.continuous(tag, cfg, params, requests, budgets, cscfg,
+                                                   capture)
+            st = eng.pool_stats()
+            # one per-slot fold each while the due slots are at most half
+            # the batch, else one full-batch fold
+            n_stores = sum(k if 2 * k <= b else 1 for k in fold_calls)
+            check(sum(fold_calls) == st["folds"], f"{tag} continuous: fold calls {fold_calls} "
+                                                  f"against {st['folds']} slot folds")
+            runs.counts(tag, f"continuous {'captured' if capture else 'eager'}", {
+                "flash_fwd": n * st["admissions"], "probe_colsum": n * st["admissions"],
+                "cst_quant": 2 * n * (st["admissions"] + n_stores), "decode_qattn": 0,
+                "paged_qattn": n * eng._step_no}, 0)
+            eng._alloc.check_invariants()
+            for seg in ("hi", "lo", "win"):
+                check(st[seg]["used"] == 0 and st[seg]["free"] == st[seg]["pool_pages"],
+                      f"{tag} continuous: {seg} pages not all returned: {st[seg]}")
+            check(st["folds"] >= 1 and len(run["rec"].ms[True]) > 0
+                  and st["admissions"] == len(requests),
+                  f"{tag} continuous: expected {len(requests)} admissions, a fold and a probe "
+                  f"step: {st}")
+            peaks = {k: f"{st[k]['peak_used']}/{st[k]['pool_pages']}" for k in ("hi", "lo", "win")}
+            log(f"{tag} continuous (capture {capture}): {st['deferrals']} deferrals; pages peak "
+                f"used / pool {peaks}")
+            cont[capture] = run
+            del eng
+        summarize(f"{tag} continuous", cont, torch, rel_l2, yardstick, bitwise=True)
+
+    plain_blocked = attention.blocked_attention
+
+    def sdpa_blocked(q, k, v, **kw):
+        _, colsum = plain_blocked(q, k, v, **kw)
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), colsum
+
+    def against_plain(tag, cfg, params, batch, ctx):
+        """The kernel route's prefill and first decode step (from the plain
+        route's cache) against the plain route's, by relative L2 within
+        phase 4's 0.2.  Logged beside it: the model's own yardstick, the
+        plain prefill once more with its attention output from SDPA (an
+        exact kernel the port never calls), the bf16 noise that this depth
+        and width turn into logits, and yi-6b's."""
+        plain = ServingEngine(cfg, ccfg, scfg, params, device=dev, use_kernels=False)
+        inputs = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        with torch.inference_mode():
+            lk, _ = registry.prefill(params, inputs, cfg, ctx)
+            lp, cp = registry.prefill(params, inputs, cfg, plain.ctx)
+            attention.blocked_attention = sdpa_blocked
+            try:
+                lf, _ = registry.prefill(params, inputs, cfg, plain.ctx)
+            finally:
+                attention.blocked_attention = plain_blocked
+            tok0 = torch.argmax(lp, dim=-1).to(torch.int32)
+            dk, _ = registry.decode_step(params, tok0, cp, cfg, ctx, False)
+            dp, _ = registry.decode_step(params, tok0, cp, cfg, plain.ctx, False)
+        own = rel_l2(lf[:, :cfg.vocab], lp[:, :cfg.vocab])
+        for what, a, w in (("prefill", lk, lp), ("first decode step", dk, dp)):
+            a, w = a[:, :cfg.vocab], w[:, :cfg.vocab]
+            check(bool(torch.isfinite(a).all()), f"{tag} {what} logits not finite")
+            r = rel_l2(a, w)
+            log(f"{tag} {what} logits vs plain: relative L2 {r:.4g} (tolerance 0.2; its own "
+                f"yardstick {own:.4g}, yi-6b's {yardstick:.4g}), argmax equal "
+                f"{float((a.argmax(-1) == w.argmax(-1)).float().mean()):.2f}")
+            check(r <= 0.2, f"{tag} {what} logits differ from the plain path beyond tolerance")
+
+    def lap(tag):
+        gc.collect()
+        torch.cuda.empty_cache()
+        walls[tag] = time.perf_counter() - t_phase - sum(walls.values())
+        log(f"remaining: {tag} took {walls[tag]:.1f} s")
+
+    # -- smollm-360m: g = 3, d 64, tied embeddings --------------------------------
+    cfg = configs.get_arch("smollm-360m")
+    check(cfg.tie_embeddings and "lm_head" not in registry.schema(cfg)
+          and (cfg.n_heads // cfg.n_kv_heads, cfg.hd) == (3, 64), f"{cfg.name}'s shape")
+    params = runs.materialize(cfg)
+    batch, requests, budgets = remaining_traffic(np, cfg.vocab, b, prompt)
+    ctx = lockstep(cfg.name, cfg, params, batch)
+    against_plain(cfg.name, cfg, params, batch, ctx)
+    continuous(cfg.name, cfg, params, requests, budgets)
+    del params, ctx
+    lap(cfg.name)
+
+    # -- qwen2-7b: g = 7, QKV biases (zeros at initialization: drawn here) ------
+    cfg = configs.get_arch("qwen2-7b")
+    check(cfg.qkv_bias and (cfg.n_heads // cfg.n_kv_heads, cfg.hd) == (7, 128),
+          f"{cfg.name}'s shape")
+    params = runs.materialize(cfg)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    attn_p = params["groups"]["sub0"]["attn"]
+    for name in ("bq", "bk", "bv"):
+        attn_p[name].copy_(torch.randn(attn_p[name].shape, generator=gen, device=dev) * 0.5)
+    batch, requests, budgets = remaining_traffic(np, cfg.vocab, b, prompt)
+    ctx = lockstep(cfg.name, cfg, params, batch)
+    against_plain(cfg.name, cfg, params, batch, ctx)
+    continuous(cfg.name, cfg, params, requests, budgets)
+    del params, ctx, attn_p
+    lap(cfg.name)
+
+    # -- zipcache-paper-8b: LLaMA3-8B's shape, g = 4, the lockstep engine --------
+    cfg = configs.get_arch("zipcache-paper-8b")
+    params = runs.materialize(cfg)
+    batch, _, _ = remaining_traffic(np, cfg.vocab, b, prompt)
+    ctx = lockstep(cfg.name, cfg, params, batch)
+    against_plain(cfg.name, cfg, params, batch, ctx)
+    del params, ctx
+    lap(cfg.name)
+
+    # -- deepseek-moe-16b: g = 1 (the walk's G = 1 at D = 128), a dense prefix --
+    cfg = configs.get_arch("deepseek-moe-16b")
+    check(cfg.first_dense_layers == 1 and not cfg.mla and cfg.n_heads == cfg.n_kv_heads,
+          f"{cfg.name}'s shape")
+    params = runs.materialize(cfg)
+    batch, requests, budgets = remaining_traffic(np, cfg.vocab, b, prompt)
+    ctx = lockstep(cfg.name, cfg, params, batch)
+    # before any router: layer 0's attention output and the prefix layer's
+    # output, kernel route against plain, to 2**-7 of their largest value
+    plain = ServingEngine(cfg, ccfg, scfg, params, device=dev, use_kernels=False)
+    toks = torch.as_tensor(batch["tokens"], device=dev)
+    p0 = params["prefix"]["layer0"]
+    with torch.inference_mode():
+        x = common.embed_lookup(params["embed"], toks)
+        h0 = common.rms_norm(x, p0["ln1"], cfg.norm_eps)
+        outs = {}
+        for run in (ctx, plain.ctx):
+            y, _ = attention.gqa_forward(p0["attn"], h0, cfg, probe=run.probe, q_block=run.q_block,
+                                         use_kernel=run.use_kernels)
+            x1, _ = blocks.apply_layer_full(p0, x, cfg, "attn", "dense", run, build_cache=False)
+            outs[run.use_kernels] = (y, x1)
+        lk, ck = registry.prefill(params, {"tokens": toks}, cfg, ctx)
+        lp, _ = registry.prefill(params, {"tokens": toks}, cfg, plain.ctx)
+    check(len(ck["prefix"]) == 1 and len(registry.cache_elements(ck)) == cfg.n_layers,
+          "deepseek-moe: the prefix layer's cache is not walked with the groups'")
+    for i, what in enumerate(("layer 0's attention output", "the prefix layer's output")):
+        a, w = outs[True][i].float(), outs[False][i].float()
+        err, tol = (a - w).abs().max().item(), 2 ** -7 * w.abs().max().item()
+        log(f"{cfg.name} {what} (before any router), kernel route vs plain: max abs err "
+            f"{err:.4g} (tol {tol:.4g}), relative L2 {rel_l2(a, w):.4g}")
+        check(bool(torch.isfinite(a).all()) and err <= tol,
+              f"{cfg.name}: {what} on the kernel route is {err:.4g} from the plain route's")
+    check(bool(torch.isfinite(lk).all()), f"{cfg.name} prefill logits not finite")
+    log(f"{cfg.name} prefill logits vs plain: relative L2 {rel_l2(lk, lp):.4g} (not held: the "
+        f"router turns bf16 noise into other experts; yardstick {yardstick:.4g})")
+    del plain, outs, x, x1, h0, y, lk, lp, ck, p0
+    continuous(cfg.name, cfg, params, requests, budgets)
+    del params, ctx
+    lap(cfg.name)
+
+    # -- llava-next-34b (lockstep) and yi-34b (continuous): one materialization --
+    cfg = configs.get_arch("llava-next-34b")
+    ycfg = configs.get_arch("yi-34b")
+    check((cfg.n_heads // cfg.n_kv_heads, cfg.hd) == (7, 128) and cfg.n_frontend_tokens == 576,
+          f"{cfg.name}'s shape")
+    params = runs.materialize(cfg)
+    free, total = torch.cuda.mem_get_info()
+    log(f"{cfg.name}: {free / 2**30:.2f} GiB free of {total / 2**30:.2f} GiB with its weights "
+        f"on the card")
+    batch, requests, budgets = remaining_traffic(np, cfg.vocab, b, prompt)
+    n_text = prompt - cfg.n_frontend_tokens
+    rng = np.random.default_rng(4)
+    batch = {"tokens": batch["tokens"][:, :n_text], "frontend_embeds": rng.standard_normal(
+        (b, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)}
+    ctx = lockstep(cfg.name, cfg, params, batch)
+    against_plain(cfg.name, cfg, params, batch, ctx)
+    del ctx
+    try:
+        ContinuousEngine(cfg, ccfg, cscfg, params, device=dev)
+        fail(f"{cfg.name} on the continuous engine should be refused")
+    except NotImplementedError as e:
+        log(f"{cfg.name} on the continuous engine refused: {e}")
+    yparams = {k: v for k, v in params.items() if k != "vision_proj"}
+    def same_shapes(tree, sch):
+        if isinstance(sch, dict):
+            return set(tree) == set(sch) and all(same_shapes(tree[k], sch[k]) for k in sch)
+        return tuple(tree.shape) == tuple(sch.shape) and tree.dtype == sch.dtype
+
+    check(same_shapes(yparams, registry.schema(ycfg)),
+          f"{ycfg.name}: llava's tree without vision_proj is not yi-34b's")
+    continuous(ycfg.name, ycfg, yparams, requests, budgets)
+    del params, yparams
+    lap("llava-next-34b / yi-34b")
+    log(f"remaining: phase 4m took {time.perf_counter() - t_phase:.1f} s ({card}): "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()))
+    return runs.out_paths
 
 if __name__ == "__main__":
     main()

@@ -1,4 +1,5 @@
-"""Architecture registry of the port (the architectures ported so far)."""
+"""Architecture registry of the port: every architecture of the reference's
+registry (`--arch <id>`), each config a copy of the reference's."""
 
 from __future__ import annotations
 
@@ -13,6 +14,11 @@ _MODULES = {
     "jamba-v0.1-52b": "repro_torch.configs.jamba_v0_1_52b",
     "seamless-m4t-medium": "repro_torch.configs.seamless_m4t_medium",
     "llava-next-34b": "repro_torch.configs.llava_next_34b",
+    "zipcache-paper-8b": "repro_torch.configs.zipcache_paper",
+    "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
+    "qwen2-7b": "repro_torch.configs.qwen2_7b",
+    "yi-34b": "repro_torch.configs.yi_34b",
+    "smollm-360m": "repro_torch.configs.smollm_360m",
 }
 
 

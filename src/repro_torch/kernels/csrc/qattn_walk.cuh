@@ -317,11 +317,12 @@ split_kernel(const void* __restrict__ q, int q_bf16, const Layer L,
   float* vrow = vb + sl * PLD;
   const int c0 = lane * 4;
   const bool owns_c = c0 < D;
-  // Softmax rows of this lane: with g >= 4 the 4 lanes of a slot split the
-  // rows (a reduce-scatter completes their scores), else each lane holds
-  // every row and the run-0 lane owns the writes.
+  // Softmax rows of this lane: where 4 divides g the 4 lanes of a slot
+  // split the rows (a reduce-scatter completes their scores), else (g = 1,
+  // 2, 3, 7) each lane holds every row and the run-0 lane owns the writes:
+  // a scatter of 7 rows over 4 lanes would leave rows that no lane owns.
   static_assert(LPS == 4, "the reduce-scatter is written for 4 lanes per slot");
-  constexpr bool SCATTER = G >= LPS;
+  constexpr bool SCATTER = G % LPS == 0;
   constexpr int R = SCATTER ? G / LPS : G;
   const int rbase = SCATTER ? ((qt >> 1) & 1) * (G / 2) + (qt & 1) * (G / 4) : 0;
   const bool owner = SCATTER || qt == 0;
@@ -610,7 +611,9 @@ cudaError_t launch_g(int g, const Layer& L, const Launch& a) {
   switch (g) {
     case 1: return launch<PAGED, D, 1>(L, a);
     case 2: return launch<PAGED, D, 2>(L, a);
+    case 3: return launch<PAGED, D, 3>(L, a);
     case 4: return launch<PAGED, D, 4>(L, a);
+    case 7: return launch<PAGED, D, 7>(L, a);
     case 8: return launch<PAGED, D, 8>(L, a);
     default: return cudaErrorInvalidValue;
   }
@@ -625,7 +628,7 @@ inline int fmt_of(int bits, int t_bf16) { return bits >= 16 ? (t_bf16 ? 16 : 32)
 // the walk's blocks (counted per segment), nsplit <= 4096 | outputs: acc
 // (b,h,d) f32 and / or out (b,h,d) in q's dtype (either may be null), m
 // (b,h), l (b,h) f32; p and mrun (b,h,sum s_seg) f32, or both null to skip
-// them.  The group size h / hk is 1, 2, 4 or 8; d is 16, 32, 64 or 128.
+// them.  The group size h / hk is 1, 2, 3, 4, 7 or 8; d is 16, 32, 64 or 128.
 template <bool PAGED>
 int walk_launch(const void* q, const void* segs, int n_seg, void* acc_part, void* m_part,
                 void* l_part, void* acc, void* out, void* m, void* l, void* p, void* mrun, int b,

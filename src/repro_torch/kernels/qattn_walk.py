@@ -20,7 +20,7 @@ from repro_torch.core import quant
 from repro_torch.kernels import build
 
 HEAD_DIMS = (16, 32, 64, 128)
-GROUPS = (1, 2, 4, 8)  # query heads per kv head
+GROUPS = (1, 2, 3, 4, 7, 8)  # query heads per kv head (g = 3: smollm; 7: qwen2, yi-34b)
 CODE_BITS = (2, 4, 8)
 SLOT_BLOCK = 32        # slots per block of the walk (one pass of a CTA)
 MAX_SPLITS = 4096

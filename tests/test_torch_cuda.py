@@ -1560,3 +1560,220 @@ def test_encdec_captured_serve_step_matches_eager(dev):
     per_step = 2 * cfg.n_layers
     assert launches == e_launches == per_step * (max_new - n_probe)
     assert plain == e_plain == per_step * n_probe
+
+
+# ---- the remaining configs: the walk's G = 3 and G = 7, qwen2, smollm, yi-34b ------------
+# (g, d): smollm g 3 d 64, qwen2 / yi-34b g 7 d 128, deepseek-moe g 1 d 128
+NEW_WALK = [(1, 128), (3, 64), (3, 128), (7, 64), (7, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,d", NEW_WALK)
+def test_mixed_layer_at_new_group_sizes(dev, g, d, dtype):
+    """One `qattn_mixed_layer` launch (the walk's G = 3 / G = 7
+    instantiations and G = 1 at D = 128, contiguous) over a mixed cache of 2 kv heads, bf16 or
+    f32 stores, against the layer plain version: out within 1e-4 (f32) or
+    one bf16 ulp (bf16) of its largest magnitude (>= 1); m and l of each
+    store alone 1e-4 relative.  At G = 7 every row has its own softmax state
+    (no lane owns two halves of a scatter)."""
+    gen = torch.Generator(device=dev).manual_seed(40 + g)
+    ccfg = CompressionConfig.zipcache()
+    b, hk, l = 3, 2, 300
+    k, v = (_randn(gen, b, hk, l, d, dtype=dtype) for _ in range(2))
+    cache = kvc.compress_prefill(ccfg, k, v, torch.rand((b, l), generator=gen, device=dev),
+                                 l + 64, dtype=dtype)
+    for _ in range(9):
+        cache = kvc.append_token(cache, _randn(gen, b, hk, d, dtype=dtype),
+                                 _randn(gen, b, hk, d, dtype=dtype))
+    q = _randn(gen, b, hk * g, d, dtype=dtype)
+    segs = dq_ops.mixed_segments(cache)
+    before = dq_kernel.KERNEL.launches
+    out = dq_kernel.qattn_mixed_layer(q, segs)
+    assert dq_kernel.KERNEL.launches == before + 1
+    want = dq_ref.mixed_layer_ref(q, segs)
+    tol = 2 ** -7 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(out.float(), want.float(),
+                               atol=tol * max(want.float().abs().max().item(), 1.0), rtol=0)
+    for store in (cache.hi, cache.lo):
+        args = (q, store.k.codes, store.k.scale, store.k.zero, store.v.codes,
+                store.v.channel_scale, store.v.scale, store.v.zero, store.pos,
+                store.k.bits, store.v.bits)
+        for a, w in zip(dq_kernel.qattn_segment(*args), dq_ref.qattn_segment_ref(*args)):
+            torch.testing.assert_close(a, w, atol=1e-4 * max(w.abs().max().item(), 1.0), rtol=0)
+
+
+@pytest.mark.parametrize("want_weights", [True, False], ids=["weights", "no-weights"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,d", NEW_WALK)
+def test_paged_layer_at_new_group_sizes(dev, g, d, dtype, want_weights):
+    """One `qattn_paged_layer` launch (G = 3 / G = 7, paged) over a free-list
+    cache of 2 kv heads, pages of 16, an empty slot: out within 1e-4 (f32)
+    or one bf16 ulp (bf16) of its largest magnitude, m and l 1e-4 relative,
+    the rebuilt softmax rows 1e-5, zeros on the empty slot."""
+    gen = torch.Generator(device=dev).manual_seed(50 + g)
+    cache = _freelist_cache(dev, gen, dtype, 16, lengths=[150, 0, 37, 90], hk=2, d=d)
+    q = _randn(gen, 4, 2 * g, d, dtype=dtype)
+    segs = pq_ops.layer_segments(cache)
+    scale = 1.0 / d ** 0.5
+    before = pq_kernel.KERNEL.launches
+    out, m, l, p, m_run = pq_kernel.qattn_paged_layer(q, segs, scale=scale,
+                                                      want_weights=want_weights)
+    assert pq_kernel.KERNEL.launches == before + 1
+    rout, rm, rl, rp = pq_ref.paged_layer_ref(q, segs, scale=scale)
+    live = torch.tensor([True, False, True, True], device=dev)
+    tol = 2 ** -7 if dtype == torch.bfloat16 else 1e-4
+    for a, w, t in ((out.float(), rout.float(), tol), (m, rm, 1e-4), (l, rl, 1e-4)):
+        a, w = a[live], w[live]
+        torch.testing.assert_close(a, w, atol=t * max(w.abs().max().item(), 1.0), rtol=0)
+    assert not l[1].any() and not out[1].float().any()
+    if want_weights:
+        torch.testing.assert_close(p * torch.exp(m_run - m[..., None]), rp, atol=1e-5,
+                                   rtol=1e-5)
+
+
+@pytest.mark.parametrize("layout", ["mixed", "paged"])
+@pytest.mark.parametrize("g", [5, 6, 16])
+def test_walk_refuses_group_sizes_outside_groups(dev, g, layout):
+    """A group size the walk has no instantiation for raises a ValueError
+    that names GROUPS, on the kernel and through the backend's decode: it is
+    never routed to the plain version (PLAIN_DECODES and GATHER_DECODES stay
+    as they were)."""
+    from repro_torch.kernels import qattn_walk
+
+    assert g not in qattn_walk.GROUPS
+    gen = torch.Generator(device=dev).manual_seed(60)
+    ccfg = CompressionConfig.zipcache()
+    q = _randn(gen, 2 if layout == "mixed" else 4, g, 16, dtype=torch.bfloat16)
+    if layout == "mixed":
+        k, v = (_randn(gen, 2, 1, 80, 16, dtype=torch.bfloat16) for _ in range(2))
+        be = backend_lib.of(ccfg, kind="mixed")
+        cache = be.compress_prefill(k, v, torch.rand((2, 80), generator=gen, device=dev), 120)
+        with pytest.raises(ValueError, match="GROUPS|h / hk"):
+            dq_kernel.qattn_mixed_layer(q, dq_ops.mixed_segments(cache))
+    else:
+        cache = _freelist_cache(dev, gen, torch.bfloat16, 16, lengths=[60, 0, 37, 20], hk=1)
+        be = backend_lib.of(ccfg, kind="paged", page_size=16, paged_kernel=True,
+                            page_allocator="freelist", pool_fraction=0.75)
+        with pytest.raises(ValueError, match="GROUPS|h / hk"):
+            pq_kernel.qattn_paged_layer(q, pq_ops.layer_segments(cache), scale=0.25)
+    counts = (backend_lib.PLAIN_DECODES.launches, paged.GATHER_DECODES.launches)
+    with pytest.raises(ValueError, match="h / hk"):
+        be.attend(q, cache, is_probe=False)
+    assert (backend_lib.PLAIN_DECODES.launches, paged.GATHER_DECODES.launches) == counts
+
+
+@pytest.mark.parametrize("h,hk,b,lq,d,hpc", [(56, 8, 4, 1024, 128, 7), (28, 4, 1, 300, 128, 1),
+                                               (28, 4, 4, 1024, 128, 1), (15, 5, 2, 200, 64, 1),
+                                               (15, 5, 4, 1024, 64, 1)],
+                         ids=["yi34b-b4", "qwen2-b1", "qwen2-b4", "smollm-b2", "smollm-b4"])
+def test_flash_fwd_and_probe_colsum_at_new_group_sizes(dev, h, hk, b, lq, d, hpc):
+    """flash_fwd at g = 7 and g = 3, bf16: out within one bf16 ulp of 1, LSE
+    1e-5; probe_colsum over select_probes' rows: 1e-4, two calls bitwise,
+    and the heads per CTA the launch picked (7 at yi-34b's batch 4: 16
+    column blocks x 8 x 4 = 512 CTAs; 1 where 7 or 3 heads a CTA would leave
+    fewer than 512)."""
+    gen = torch.Generator(device=dev).manual_seed(70)
+    q = _randn(gen, b, h, lq, d, dtype=torch.bfloat16)
+    k, v = (_randn(gen, b, hk, lq, d, dtype=torch.bfloat16) for _ in range(2))
+    out, lse = pf_kernel.flash_fwd(q, k, v)
+    ref_out, ref_lse = pf_ref.flash_fwd_ref(q, k, v)
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=2 ** -7, rtol=2 ** -7)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=1e-5)
+    pos = pf_ops.unique_probe_rows(sal.select_probes(lq).positions.to(dev))
+    safe = pos.clamp(0, lq - 1).long()
+    args = (q[:, :, safe].contiguous(), lse[:, :, safe].contiguous(),
+            pos[None].expand(b, -1).contiguous(), k)
+    pf_kernel.COLSUM.heads_per_cta = None
+    got = pf_kernel.probe_colsum(*args, lq=lq)
+    assert pf_kernel.COLSUM.heads_per_cta == hpc
+    torch.testing.assert_close(got, pf_ref.probe_colsum_ref(*args, lq=lq), atol=1e-4, rtol=1e-4)
+    assert torch.equal(got, pf_kernel.probe_colsum(*args, lq=lq))
+
+
+@pytest.mark.parametrize("hk,d", [(4, 128), (5, 64)], ids=["qwen2", "smollm"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cst_quant_at_4_and_5_kv_heads(dev, hk, d, dtype):
+    """Both stores of one prefill at qwen2's 4 and smollm's 5 kv heads, one
+    launch each, bitwise the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(80 + hk)
+    ccfg = CompressionConfig.zipcache()
+    b, l = 4, 300
+    k, v = (_randn(gen, b, hk, l, d, dtype=dtype) for _ in range(2))
+    s_hi, s_lo, _ = kvc.capacities(ccfg, l + 64)
+    sal_idx, reg_idx = sal.salient_split(torch.rand((b, l), generator=gen, device=dev),
+                                         ccfg.n_salient(l))
+    for bits, cap, idx in ((ccfg.high_bits, s_hi, sal_idx), (ccfg.low_bits, s_lo, reg_idx)):
+        idx = torch.nn.functional.pad(idx, (0, cap - idx.shape[1]), value=-1)
+        before = cst_kernel.KERNEL.launches
+        got = cst_kernel.quantize_store(k, v, idx, bits)
+        assert cst_kernel.KERNEL.launches == before + 1
+        for a, w in zip(got, cst_ref.quantize_store_ref(k, v, idx, bits)):
+            assert a.dtype == w.dtype and torch.equal(a, w)
+
+
+def _new_smoke(dev, which):
+    """qwen2 smoke at 7 / 1 heads, head dim 16 (g = 7), with random QKV
+    biases; smollm smoke at 3 / 1 heads of head dim 16 (g = 3; its own head
+    dim, 20, is in no kernel's HEAD_DIMS), tied embeddings."""
+    if which == "qwen2-g7":
+        cfg = dataclasses.replace(configs.get_arch("qwen2-7b", smoke=True), n_heads=7,
+                                  n_kv_heads=1, d_model=112)
+    else:
+        cfg = dataclasses.replace(configs.get_arch("smollm-360m", smoke=True), head_dim=16)
+    params = registry.materialize_params(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    for sub in params["groups"].values():
+        for name in ("bq", "bk", "bv"):
+            if name in sub["attn"]:
+                leaf = sub["attn"][name]
+                leaf.copy_(_randn(gen, *leaf.shape, dtype=leaf.dtype, dev=dev, scale=0.5))
+    ccfg = dataclasses.replace(CompressionConfig.zipcache(), fp_window=8, recompress_interval=8)
+    return cfg, ccfg, params
+
+
+@pytest.mark.parametrize("which", ["qwen2-g7", "smollm-g3"])
+def test_new_group_sizes_captured_steps_match_eager(dev, which):
+    """Both engines on a g = 7 (QKV bias) and a g = 3 (tied embeddings)
+    smoke model: the lockstep step (mixed, decode_qattn) and the continuous
+    step (paged free list, paged_qattn) captured against capture=False
+    through probe steps, folds, admissions and retirements: every step's
+    logits bitwise the eager step's, tokens equal; the non-probe lockstep
+    steps and every continuous step through the walk, none on the plain or
+    the gather route."""
+    cfg, ccfg, params = _new_smoke(dev, which)
+    assert cfg.n_heads // cfg.n_kv_heads == (7 if which == "qwen2-g7" else 3)
+    rng = np.random.default_rng(4)
+    batch = pack_requests([rng.integers(2, cfg.vocab, size=n) for n in (48, 20)], 2, 48)
+    prompts = [rng.integers(2, cfg.vocab, size=(n,)).astype(np.int32) for n in (40, 24, 33)]
+    layout = dict(backend="paged", page_size=8, page_allocator="freelist", paged_kernel=True)
+    max_new = 12
+    n_probe = sum(probe_flag(i, ccfg.recompress_interval, 0) for i in range(max_new))
+    runs = []
+    for capture in (True, False):
+        dq_kernel.KERNEL.launches = pq_kernel.KERNEL.launches = 0
+        backend_lib.PLAIN_DECODES.launches = paged.GATHER_DECODES.launches = 0
+        lock = ServingEngine(cfg, ccfg, ServeConfig(2, 48, max_new), params, device=dev,
+                             capture=capture)
+        lock_rec = lock._decode = _Recorded(lock._decode)
+        toks = lock.generate({"tokens": batch})["tokens"].tolist()
+        torch.cuda.synchronize()
+        lock_counts = (dq_kernel.KERNEL.launches, backend_lib.PLAIN_DECODES.launches)
+        cont = ContinuousEngine(cfg, ccfg, ServeConfig(2, 48, max_new, **layout), params,
+                                device=dev, capture=capture)
+        cont_rec = cont._decode_masked = _ActiveLogits(cont._decode_masked)
+        rids = [cont.submit(Request(tokens=p, max_new_tokens=m))
+                for p, m in zip(prompts, (12, 4, 12))]
+        res = cont.run()
+        torch.cuda.synchronize()
+        assert paged.GATHER_DECODES.launches == 0
+        assert pq_kernel.KERNEL.launches == cfg.n_layers * cont._step_no
+        runs.append((toks, [res[r].tokens.tolist() for r in rids], lock_rec, cont_rec,
+                     lock_counts))
+    (toks, ctoks, lock_cap, cont_cap, counts), (want, cwant, lock_eag, cont_eag, e_counts) = runs
+    assert toks == want and ctoks == cwant
+    assert counts == e_counts == (cfg.n_layers * (max_new - n_probe), cfg.n_layers * n_probe)
+    for cap, eag in ((lock_cap, lock_eag), (cont_cap, cont_eag)):
+        assert cap.step.captures == 1 and cap.step.replays > 0
+        assert len(cap.logits) == len(eag.logits)
+        for a, w in zip(cap.logits, eag.logits):
+            assert torch.equal(a, w)

@@ -92,8 +92,9 @@ def test_probe_flash_plain_version_matches_pallas_interpret(rng):
     np.testing.assert_allclose(gc.numpy(), np.asarray(wc), atol=TOL)
 
 
-def _caches(rng, dtype, b=2, hk=2, l=40, d=16, max_len=60, n_append=5):
-    """The same cache built by both packages: prefill + a few appends."""
+def _caches(rng, dtype, b=2, hk=2, l=40, d=16, max_len=60, n_append=5, h=None):
+    """The same cache built by both packages: prefill + a few appends; a
+    query of h heads (2 * hk by default)."""
     jcfg = dataclasses.replace(JCompression.zipcache(), fp_window=8, recompress_interval=8)
     cfg = dataclasses.replace(CompressionConfig.zipcache(), fp_window=8, recompress_interval=8)
     f = lambda *s: jnp.asarray(rng.normal(size=s).astype(np.float32)).astype(dtype)
@@ -106,7 +107,7 @@ def _caches(rng, dtype, b=2, hk=2, l=40, d=16, max_len=60, n_append=5):
         kt, vt = f(b, hk, d), f(b, hk, d)
         jc = jkvc.append_token(jc, kt, vt)
         tc = kvc.append_token(tc, to_torch(kt), to_torch(vt))
-    return jc, tc, f(b, 2 * hk, d)
+    return jc, tc, f(b, 2 * hk if h is None else h, d)
 
 
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
@@ -125,10 +126,14 @@ def test_decode_qattn_plain_version_matches_reference(dtype, rng):
     dequantized K/V to the store dtype, as the port's kernel does) and
     against the Pallas `decode_attend_mixed` in interpret mode (which does
     not round: exact at f32, within the bf16 store rounding at bf16)."""
-    jc, tc, q = _caches(rng, dtype)
+    _hold_decode_layer(rng, dtype, hk=2, h=4)
+
+
+def _hold_decode_layer(rng, dtype, hk, h):
+    jc, tc, q = _caches(rng, dtype, hk=hk, h=h)
     launches = dq_kernel.KERNEL.launches
     got = to_np(dq_ops.decode_attend_mixed(to_torch(q), tc))
-    assert dq_kernel.KERNEL.launches == launches
+    assert dq_kernel.KERNEL.launches == launches and got.shape == (2, h, 16)
     exact = to_np(jkvc.attend_decode(q, jc).out)
     pallas = to_np(jdq_ops.decode_attend_mixed(q, jc, block_s=16, interpret=True))
     if dtype == jnp.float32:
@@ -137,3 +142,17 @@ def test_decode_qattn_plain_version_matches_reference(dtype, rng):
     else:
         np.testing.assert_allclose(got, exact, atol=2 ** -7, rtol=2 ** -7)
         np.testing.assert_allclose(got, pallas, atol=5e-2)
+
+
+# the walk's G = 7 (qwen2-7b, yi-34b) and G = 3 (smollm-360m) group sizes
+NEW_GROUPS = [(7, 1), (14, 2), (3, 1), (15, 5)]
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("heads", NEW_GROUPS, ids=[f"h{h}-hk{hk}" for h, hk in NEW_GROUPS])
+def test_decode_qattn_plain_version_at_new_group_sizes(heads, dtype, rng):
+    """The layer's plain version at g = 7 and g = 3 against the exact
+    `attend_decode` and the Pallas `decode_attend_mixed` (interpret mode),
+    at the tolerances of the g = 2 case above."""
+    h, hk = heads
+    _hold_decode_layer(rng, dtype, hk=hk, h=h)

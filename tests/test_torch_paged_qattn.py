@@ -84,10 +84,28 @@ def _to_port(args, kw):
 
 
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("heads", [(7, 1), (14, 2), (3, 1), (15, 5)],
+                         ids=["h7-hk1", "h14-hk2", "h3-hk1", "h15-hk5"])
+@pytest.mark.parametrize("bits", [4, 16])
+def test_paged_segment_at_new_group_sizes(bits, heads, dtype, rng):
+    """The page walk's plain version at the walk's G = 7 and G = 3 against
+    JAX's oracle and the Pallas kernel in interpret mode (the tolerance of
+    the g = 2 and g = 1 cases below)."""
+    h, hk = heads
+    _hold_segment(rng, bits, h, hk, dtype)
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("heads", [(4, 2), (4, 4)], ids=["gqa", "mha"])
 @pytest.mark.parametrize("bits", [2, 4, 16])
 def test_paged_segment_matches_jax_ref_and_kernel(bits, heads, dtype, rng):
     h, hk = heads
+    _hold_segment(rng, bits, h, hk, dtype)
+
+
+def _hold_segment(rng, bits, h, hk, dtype):
+    """The plain page walk and the port's wrapper (its plain version on the
+    CPU) against JAX's oracle and the Pallas kernel in interpret mode."""
     args, kw = _segment(rng, bits, h, hk, dtype)
     want_ref = jpq_ref.paged_segment_ref(*args, **kw)
     acc, m, l, p, mrun = jpq_kernel.qattn_paged_segment(*args, interpret=True, **kw)
@@ -96,6 +114,7 @@ def test_paged_segment_matches_jax_ref_and_kernel(bits, heads, dtype, rng):
     got_ref = pq_ref.paged_segment_ref(*targs, **tkw)
     gacc, gm, gl, gp, gmrun = pq_kernel.qattn_paged_segment(*targs, **tkw)
     got_wrapper = (gacc, gm, gl, gp * torch.exp(gmrun - gm[..., None]))
+    assert tuple(gacc.shape) == (3, h, 16)
     for want in (want_ref, want_ker):
         for got in (got_ref, got_wrapper):
             for name, a, w in zip(("acc", "m", "l", "p"), got, want):
