@@ -232,15 +232,18 @@ continued:
      phase 4's bound.  Logged: parameter bytes, peak memory, the encoder's
      and the decoder's prefill walls, non-probe and probe step walls,
      `cache_bytes` split into self and cross, the phase's seconds;
-  4m. slice 15: the remaining configs at full width and full depth, after
+  4m. slice 15: the remaining configs at full width, at full depth but
+     the 34B pair, after
      every earlier phase's weights and graph pools are released: qwen2-7b
      (g = 7, QKV biases drawn at random), smollm-360m (g = 3, d 64, tied
      embeddings) and deepseek-moe-16b (g = 1, a dense prefix layer, 64
      routed + 2 shared experts) on both engines, zipcache-paper-8b
      (LLaMA3-8B's shape) on the lockstep engine, llava-next-34b (576 patch
      embeddings before 448 text tokens) on the lockstep engine and yi-34b
-     on the continuous one over the same 68.8 GB of tensors; zipcache with
-     the window and the fold cadence at 16 over 32 new tokens (phase 4's
+     on the continuous one over the same tensors, the pair at full width
+     over 20 of its 60 layers (cut to make room for phase 4n);
+     zipcache with the window and the fold cadence at 16 over 32 new
+     tokens (phase 4's
      batch; five requests for four slots).  Each engine captured against
      eager bit for bit; launches held to the path, the plain route on
      lockstep probe steps only, no gather-path decode, probe_colsum at the
@@ -249,6 +252,26 @@ continued:
      0.2 (deepseek-moe: layer 0's attention output and the prefix layer's
      output, before any router, within 2**-7 of their largest value).
      Logged: parameters, peak memory, step walls, each model's seconds;
+  4n. slice 16: single-card training of the dense decoder, after every
+     earlier phase's weights are released.  (i) `launch.train.main` (the
+     CLI's entry point) on smollm-360m at full size: random bf16 weights
+     from a seed, AdamW at its defaults under a cosine schedule (warmup 2,
+     8 steps), the synthetic pipeline at 8 x 2048 tokens, grad_accum 4
+     (`pick_grad_accum`), q_block 512, through `FaultTolerantLoop` with a
+     checkpoint at step 8: every loss finite, step 8's below step 1's, the
+     checkpoint restored into a fresh device tree bitwise.  (ii) At full
+     width over the first 4 layers: 8 steps with checkpoints every 4, a
+     failure injected at step 6, a restart from step 4: every parameter
+     and optimizer leaf at step 8 bitwise the uninterrupted run's.  (iii)
+     At full width over the first 2 layers, one 2048-token microbatch: the
+     card's loss against the port's CPU run (1e-3) at the reference's init;
+     at a fan-in init of the same draws, also the gradient norm (1e-2) and
+     each gradient leaf (2e-2 relative L2): the reference's init (a stacked
+     weight at std 1 / sqrt(layer count)) leaves bf16 gradients that are
+     rounding noise, over 30% from a float64 run of the same weights.  The training path runs no
+     kernel (nor does the reference's): every count stays 0.  Logged: step
+     walls, tokens/s, model FLOP/s against the bf16 dense peak, peak memory,
+     checkpoint bytes, write and restore seconds, (iii)'s readings;
   5. a `kernels` JSON line, then the last line:
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -1103,13 +1126,16 @@ def main() -> None:
     lap("4l")
     # ---- 4m. slice 15: the remaining configs at full size -------------------
     by_path.update(remaining(torch, np, dev, kernels, rel_l2, yardstick, card))
+    lap("4m")
+    # ---- 4n. slice 16: single-card training of the dense decoder -----------
+    by_path["train"] = training(torch, np, dev, kernels, card)
     rows["cst_quant"]["eff"]["launches"] = sum(
         p["cst_quant"] for name, p in by_path.items() if name.startswith("levers"))
     for name, row in rows.items():
         row["launches"] = sum(p.get(name, 0) for p in by_path.values())
         row["launches_by_path"] = {k: p.get(name, 0) for k, p in by_path.items()}
 
-    lap("4m")
+    lap("4n")
     # ---- 5. the kernels and the contract line ------------------------------
     log("kernels: " + ", ".join(f"{n} ok ({r['launches']} launches)" for n, r in rows.items()))
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
@@ -3454,8 +3480,8 @@ def hybrid(torch, np, dev, kernels, b, prompt, cscfg, rel_l2, yardstick, card):
     with torch.inference_mode():
         x = common.embed_lookup(params["embed"], toks)
         for layer, mixer, ffn, where in lm.layers(cfg)[:4]:
-            x, _ = blocks.apply_layer_full(lm.layer_params(params, where), x, cfg, mixer, ffn,
-                                           plain.ctx, build_cache=False, layer=layer)
+            x, _, _ = blocks.apply_layer_full(lm.layer_params(params, where), x, cfg, mixer,
+                                              ffn, plain.ctx, build_cache=False, layer=layer)
         p4 = lm.layer_params(params, lm.layers(cfg)[4][3])
         h4 = common.rms_norm(x, p4["ln1"], cfg.norm_eps)
         y4 = {run.use_kernels: attention.gqa_forward(p4["attn"], h4, cfg, probe=run.probe,
@@ -3687,6 +3713,7 @@ def seamless(torch, np, dev, kernels, rel_l2, yardstick, card):
 
 # phase 4m: the remaining configs at full size (each model's row tags in phase 3)
 REMAINING_NEW, REMAINING_INTERVAL = 32, 16   # decode budget; fold cadence (and window)
+LAYERS_34B = 20   # phase 4m's llava-next-34b / yi-34b: 20 of 60 layers (room for 4n)
 ROW_TAGS = {"qwen2-7b": ("qwen2",), "smollm-360m": ("smollm",),
             "llava-next-34b": ("yi34b",), "yi-34b": ("yi34b",),
             "deepseek-moe-16b": ("dsmoe",)}
@@ -3710,7 +3737,8 @@ def remaining_traffic(np, vocab, b, prompt):
 
 
 def remaining(torch, np, dev, kernels, rel_l2, yardstick, card):
-    """Phase 4m: the remaining configs at full width and full depth, random
+    """Phase 4m: the remaining configs at full width and full depth (the
+    34B pair over its first LAYERS_34B layers), random
     bf16 weights from a seeded generator, after every earlier phase's
     weights and graph pools are released: qwen2-7b (28 / 4 heads, g = 7,
     QKV biases drawn at random), smollm-360m (15 / 5, g = 3, d 64, tied
@@ -3902,7 +3930,8 @@ def remaining(torch, np, dev, kernels, rel_l2, yardstick, card):
         for run in (ctx, plain.ctx):
             y, _ = attention.gqa_forward(p0["attn"], h0, cfg, probe=run.probe, q_block=run.q_block,
                                          use_kernel=run.use_kernels)
-            x1, _ = blocks.apply_layer_full(p0, x, cfg, "attn", "dense", run, build_cache=False)
+            x1, _, _ = blocks.apply_layer_full(p0, x, cfg, "attn", "dense", run,
+                                               build_cache=False)
             outs[run.use_kernels] = (y, x1)
         lk, ck = registry.prefill(params, {"tokens": toks}, cfg, ctx)
         lp, _ = registry.prefill(params, {"tokens": toks}, cfg, plain.ctx)
@@ -3923,9 +3952,10 @@ def remaining(torch, np, dev, kernels, rel_l2, yardstick, card):
     del params, ctx
     lap(cfg.name)
 
-    # -- llava-next-34b (lockstep) and yi-34b (continuous): one materialization --
-    cfg = configs.get_arch("llava-next-34b")
-    ycfg = configs.get_arch("yi-34b")
+    # -- llava-next-34b (lockstep) and yi-34b (continuous): one materialization,
+    # at full width over the first LAYERS_34B of their 60 layers --
+    cfg = dataclasses.replace(configs.get_arch("llava-next-34b"), n_layers=LAYERS_34B)
+    ycfg = dataclasses.replace(configs.get_arch("yi-34b"), n_layers=LAYERS_34B)
     check((cfg.n_heads // cfg.n_kv_heads, cfg.hd) == (7, 128) and cfg.n_frontend_tokens == 576,
           f"{cfg.name}'s shape")
     params = runs.materialize(cfg)
@@ -3959,6 +3989,244 @@ def remaining(torch, np, dev, kernels, rel_l2, yardstick, card):
     log(f"remaining: phase 4m took {time.perf_counter() - t_phase:.1f} s ({card}): "
         + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()))
     return runs.out_paths
+
+
+# ---- 4n. slice 16: single-card training of the dense decoder --------------
+TRAIN_ARCH = "smollm-360m"
+TRAIN_BATCH, TRAIN_SEQ = 8, 2048
+
+
+def train_argv():
+    return ["--arch", TRAIN_ARCH, "--seed", "0", "--steps", "8", "--warmup", "2",
+            "--batch", str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ), "--checkpoint-every", "8"]
+
+
+CRASH_LAYERS = 4      # (ii): full width over the first 4 of smollm's 32 layers
+CARD_CPU_LAYERS = 2   # (iii): full width over the first 2
+# (iii)'s tolerances, the card's first step against the CPU's
+CPU_LOSS_REL, CPU_GNORM_REL, CPU_LEAF_REL_L2 = 1e-3, 1e-2, 2e-2
+
+
+def training(torch, np, dev, kernels, card):
+    """Phase 4n: `launch.train` on smollm-360m at full size, a crash and a
+    restart bitwise, and the card's step against the CPU's.
+
+    (i) `train.main` (the CLI's entry point) at full size: random bf16
+    weights from `registry.materialize_params(cfg, 0)`, AdamW at its
+    defaults under a cosine schedule (warmup 2, 8 steps), the synthetic
+    pipeline at 8 x 2048 tokens, `grad_accum` from `pick_grad_accum` (4:
+    microbatches of 2), q_block 512, through `FaultTolerantLoop` with one
+    checkpoint at step 8, restored into a fresh tree: every loss finite,
+    step 8's below step 1's, every restored leaf bitwise the returned
+    state's.  (ii) At full width over the first 4 layers, 8 steps with
+    checkpoints every 4 and a failure injected at step 6, resumed from
+    step 4: every parameter and optimizer leaf at step 8 bitwise the
+    uninterrupted run's, and its losses too.  (iii) At full width over the
+    first 2 layers, one 2048-token microbatch: the loss on the card against
+    the port on the CPU, and at a fan-in init of the same draws also the
+    gradient norm and every gradient leaf (the comment there has why).
+    Every kernel's count stays 0: the training path runs none (neither
+    does the reference's).  Returns the launch counts of (i)."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch import configs, tree
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train
+    from repro_torch.models import blocks, common, registry
+    from repro_torch.optim import AdamWConfig, adamw_init, cosine_schedule, global_norm
+    from repro_torch.runtime import FaultTolerantLoop
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    check(held < 2 * 2**30, f"training: {held / 2**30:.2f} GiB still held by earlier phases")
+    cfg = configs.get_arch(TRAIN_ARCH)
+    batch, seq = TRAIN_BATCH, TRAIN_SEQ
+    accum = steps_lib.pick_grad_accum(cfg, ShapeConfig("train", seq, batch, "train"))
+    check(accum == 4, f"training: pick_grad_accum gave {accum} for smollm's 8 x 2048, not 4")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        # ---- (i) full size through the CLI's entry point ----------------
+        seen = []
+        print_metrics = train._print_metrics
+
+        def record(step, m):
+            seen.append((time.perf_counter(), step, m))
+            print_metrics(step, m)
+
+        for kern in kernels.values():
+            kern.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        train._print_metrics = record
+        try:
+            t0 = time.perf_counter()
+            state = train.main(train_argv() + ["--checkpoint-dir", f"{tmp}/full"])
+            t_end = time.perf_counter()
+        finally:
+            train._print_metrics = print_metrics
+        launches = {n: kern.launches for n, kern in kernels.items()}
+        peak = torch.cuda.max_memory_allocated()
+        check(all(v == 0 for v in launches.values()),
+              f"training: the train path launched kernels {launches}; it runs none")
+        losses = [m["loss"] for _, _, m in seen]
+        check([s for _, s, _ in seen] == list(range(1, 9)), "training: 8 steps were not run")
+        check(all(np.isfinite(losses)), f"training: a loss is not finite: {losses}")
+        check(losses[-1] < losses[0], f"training: step 8's loss {losses[-1]:.4f} is not below "
+              f"step 1's {losses[0]:.4f}")
+        stamps = [t0] + [t for t, _, _ in seen]
+        step_s = np.diff(stamps)
+        med = float(np.median(step_s[1:]))
+        params, opt = state
+        n_params = sum(t.numel() for t in tree.leaves(params))
+        n_groups = sum(t.numel() for t in tree.leaves(params["groups"]))
+        tokens = batch * seq
+        flops = 6 * n_params * tokens + 2 * n_groups * tokens
+        log(f"training (i): {TRAIN_ARCH} at full size, {n_params:,} parameters ({n_groups:,} in "
+            f"the layers), batch {batch} x {seq}, grad_accum {accum}; losses "
+            + ", ".join(f"{x:.4f}" for x in losses) + "; gradient norms "
+            + ", ".join(f"{m['grad_norm']:.3f}" for _, _, m in seen))
+        log("training (i): step walls " + ", ".join(f"{x * 1e3:.1f}" for x in step_s) + " ms (the "
+            f"first with its warm-up); median of steps 2-8 {med * 1e3:.1f} "
+            f"ms, {tokens / med:,.0f} tokens/s; model FLOPs (6 N tokens + 2 N_layers tokens of "
+            f"the recompute forward, attention scores not counted) {flops / 1e12:.2f} TFLOP a "
+            f"step, {flops / med / 1e12:.1f} TFLOP/s, {flops / med / PEAK_BF16_FLOPS:.1%} of the "
+            f"bf16 dense peak ({card}); max memory allocated {peak / 2**30:.2f} GiB")
+        ck = Checkpointer(f"{tmp}/full")
+        check(ck.all_steps() == [8], f"training: checkpoints {ck.all_steps()}, want [8]")
+        step_dir = Path(tmp) / "full" / f"step_{8:010d}"
+        ck_bytes = sum(p.stat().st_size for p in step_dir.iterdir())
+        fresh = tree.tree_map(torch.empty_like, state)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        restored, meta = ck.restore(8, fresh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t1
+        check(meta["step"] == 8 and meta["data_state"] == {"step": 8, "seed": 0},
+              f"training: checkpoint metadata {meta}")
+        bad = [n for (n, a), b in zip(tree.named_leaves(state), tree.leaves(restored))
+               if a.dtype != b.dtype or a.device != b.device or not torch.equal(a, b)]
+        check(not bad, f"training: restored leaves differ from the saved: {bad[:4]}")
+        log(f"training (i): checkpoint at step 8 {ck_bytes / 1e9:.3f} GB in "
+            f"{len(list(step_dir.iterdir())) - 1} leaves; snapshot and write "
+            f"{t_end - seen[-1][0]:.2f} s (step 8's metrics to the CLI's return, the final wait "
+            f"included); restore into a fresh device tree {restore_s:.2f} s; every leaf bitwise")
+        del state, params, opt, fresh, restored
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- (ii) crash and restart at full width over 4 layers ---------
+        cfg4 = dataclasses.replace(cfg, n_layers=CRASH_LAYERS)
+        opt_cfg = AdamWConfig(schedule=cosine_schedule(2, 8))
+        step4 = steps_lib.make_train_step(cfg4, opt_cfg, grad_accum=accum, q_block=512)
+        step_fn = train.make_step_fn(step4, dev)
+        dcfg = DataConfig(seq_len=seq, global_batch=batch, vocab=cfg.vocab, seed=1)
+        params4 = registry.materialize_params(cfg4, seed=1, device=dev)
+        state0 = (params4, adamw_init(params4))
+        t2 = time.perf_counter()
+        pipe = TokenPipeline(dcfg)
+        ref_state, _, ref_hist = FaultTolerantLoop(
+            step_fn, Checkpointer(f"{tmp}/ref"), checkpoint_every=4, max_steps=8).run(
+                state0, pipe, 0)
+        pipe.close()
+        ck4 = Checkpointer(f"{tmp}/crash")
+        pipe = TokenPipeline(dcfg)
+        try:
+            FaultTolerantLoop(step_fn, ck4, checkpoint_every=4, max_steps=8,
+                              fail_at_step=6).run(state0, pipe, 0)
+            fail("training (ii): the injected failure at step 6 did not raise")
+        except RuntimeError as e:
+            check("injected failure at step 6" in str(e), f"training (ii): {e}")
+        pipe.close()
+        ck4.wait()
+        loop2 = FaultTolerantLoop(step_fn, ck4, checkpoint_every=4, max_steps=8)
+        state, start, data_state = loop2.resume_or(tree.tree_map(torch.empty_like, state0))
+        check(start == 4 and data_state == {"step": 4, "seed": 1},
+              f"training (ii): resumed at {start} with data state {data_state}, want 4")
+        pipe = TokenPipeline.restore(dcfg, data_state)
+        state, last, hist = loop2.run(state, pipe, start)
+        pipe.close()
+        crash_s = time.perf_counter() - t2
+        check(last == 8, f"training (ii): the resumed run ended at {last}")
+        bad = [n for (n, a), b in zip(tree.named_leaves(ref_state), tree.leaves(state))
+               if not torch.equal(a, b)]
+        check(not bad, f"training (ii): leaves at step 8 differ from the uninterrupted run's: "
+              f"{bad[:4]}")
+        check([h["loss"] for h in hist] == [h["loss"] for h in ref_hist[4:]],
+              "training (ii): the resumed losses differ from the uninterrupted run's")
+        crash_dir = Path(tmp) / "crash" / f"step_{8:010d}"
+        crash_bytes = sum(p.stat().st_size for p in crash_dir.iterdir())
+        log(f"training (ii): {CRASH_LAYERS} layers at full width, failure at step 6, resumed "
+            f"at 4: all {len(tree.leaves(state))} parameter and optimizer leaves at step 8 "
+            "bitwise the uninterrupted run's, losses "
+            + ", ".join(f"{h['loss']:.4f}" for h in ref_hist)
+            + f"; checkpoint {crash_bytes / 1e9:.3f} GB; {crash_s:.1f} s for the three runs")
+        del state0, ref_state, state, params4
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- (iii) the card's first step against the CPU's ---------------
+        # the reference's init draws each stacked layer weight at std 1 /
+        # sqrt(its leading axis), the layer count: a 960-wide product then
+        # gains ~20x, the softmaxes saturate, and the bf16 gradients are
+        # rounding noise (over 30% relative L2 from a float64 run of the
+        # same weights, tests/test_torch_train_loss.py), which the card and
+        # the CPU round apart.  There only the loss is held; the gradients
+        # are held at a fan-in init of the same draws
+        cfg2 = dataclasses.replace(cfg, n_layers=CARD_CPU_LAYERS)
+        params2 = registry.materialize_params(cfg2, seed=2, device=dev)
+        pipe = TokenPipeline(DataConfig(seq_len=seq, global_batch=1, vocab=cfg.vocab, seed=2))
+        host = next(pipe)
+        pipe.close()
+        ctx = blocks.RunCtx(q_block=512)
+        on = {d: train.to_device(host, d) for d in (dev, "cpu")}
+        with torch.no_grad():
+            ref_loss = {d: registry.loss_fn(tree.tree_map(lambda t: t.to(d), params2), on[d],
+                                            cfg2, ctx)[0].item() for d in (dev, "cpu")}
+        loss_rel = abs(ref_loss[dev] - ref_loss["cpu"]) / abs(ref_loss["cpu"])
+        log(f"training (iii), the reference's init: loss {ref_loss[dev]:.6f} on the card, "
+            f"{ref_loss['cpu']:.6f} on the CPU ({loss_rel:.2e} relative, tolerance "
+            f"{CPU_LOSS_REL:g})")
+        check(loss_rel <= CPU_LOSS_REL, f"training (iii): loss {loss_rel:.2e} relative")
+        p2 = common.fan_in_init(params2)
+        t3 = time.perf_counter()
+        loss_c, _, g_c = steps_lib.loss_and_grads(p2, on[dev], cfg2, ctx)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t3
+        cpu_params = tree.tree_map(lambda t: t.cpu(), p2)
+        t4 = time.perf_counter()
+        loss_h, _, g_h = steps_lib.loss_and_grads(cpu_params, on["cpu"], cfg2, ctx)
+        cpu_s = time.perf_counter() - t4
+        loss_rel = abs(loss_c.item() - loss_h.item()) / abs(loss_h.item())
+        gn_c, gn_h = global_norm(g_c).item(), global_norm(g_h).item()
+        gn_rel = abs(gn_c - gn_h) / gn_h
+        leaf_rel = {n: ((a.cpu().float() - b.float()).norm() / b.float().norm()).item()
+                    for (n, _), a, b in zip(tree.named_leaves(p2), g_c, g_h)}
+        worst = max(leaf_rel, key=leaf_rel.get)
+        log(f"training (iii), a fan-in init: {CARD_CPU_LAYERS} layers at full width, one "
+            f"{seq}-token microbatch: loss {loss_c.item():.6f} on the card, "
+            f"{loss_h.item():.6f} on the CPU ({loss_rel:.2e} relative, tolerance "
+            f"{CPU_LOSS_REL:g}); gradient norm {gn_c:.5f} / {gn_h:.5f} ({gn_rel:.2e}, "
+            f"tolerance {CPU_GNORM_REL:g}); per-leaf relative L2 "
+            + ", ".join(f"{n} {r:.2e}" for n, r in leaf_rel.items())
+            + f" (tolerance {CPU_LEAF_REL_L2:g}); card {card_s:.2f} s, CPU {cpu_s:.1f} s")
+        check(loss_rel <= CPU_LOSS_REL, f"training (iii): loss {loss_rel:.2e} relative")
+        check(gn_rel <= CPU_GNORM_REL, f"training (iii): gradient norm {gn_rel:.2e} relative")
+        check(leaf_rel[worst] <= CPU_LEAF_REL_L2,
+              f"training (iii): gradient {worst} at {leaf_rel[worst]:.2e} relative L2")
+        del params2, p2, cpu_params, g_c, g_h
+    finally:
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"training: the phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
 
 if __name__ == "__main__":
     main()

@@ -1,0 +1,2 @@
+"""The checkpointer of the port (port of `repro.checkpoint`)."""
+from repro_torch.checkpoint.checkpointer import Checkpointer  # noqa: F401

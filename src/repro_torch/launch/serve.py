@@ -71,7 +71,7 @@ def card_name(device: torch.device) -> str:
     return f"{torch.cuda.get_device_name(device)} ({smi.stdout.strip() or 'nvidia-smi n/a'})"
 
 
-def _profiled(run, device: torch.device):
+def profiled(run, device: torch.device, label: str = "serve"):
     """`run()` (which returns its wall seconds) under torch.profiler: device
     time by kernel name, and the summed kernel time over the wall time."""
     from torch.profiler import ProfilerActivity, profile
@@ -81,7 +81,7 @@ def _profiled(run, device: torch.device):
         out, wall = run()
     kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
     busy = sum(e.device_time for e in kernels) / 1e6  # us -> s
-    print(f"[serve] profile: {len(kernels)} device kernels, {busy:.3f} s of device time "
+    print(f"[{label}] profile: {len(kernels)} device kernels, {busy:.3f} s of device time "
           f"in {wall:.3f} s wall (busy share {busy / max(wall, 1e-9):.3f})")
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=25))
     return out
@@ -224,7 +224,7 @@ def _serve_continuous(args, cfg, ccfg, scfg, params, device, prompts):
         serve_all()   # warm-up: kernel builds, cuBLAS, allocator, every admission bucket
         for k in KERNELS.values():
             k.launches = 0
-        rids = _profiled(serve_all, device)
+        rids = profiled(serve_all, device)
     else:
         rids, _ = serve_all()
     print(f"[serve] device: {card_name(device)}")
@@ -306,7 +306,7 @@ def main(argv=None):
             out = engine.generate(batch)
             return out, out["timings"]["prefill_s"] + out["timings"]["decode_s"]
 
-        out = _profiled(generate, device)
+        out = profiled(generate, device)
     else:
         out = engine.generate(batch)
     print(f"[serve] device: {card_name(device)}")

@@ -1,5 +1,5 @@
-"""Serving context and the engines' step factories (port of the serving half
-of `repro.launch.steps`).
+"""Serving context and the engines' step factories, and the single-card
+train step (port of `repro.launch.steps`; the train half at its end).
 
 Each factory returns `(fn, ctx)` as the reference's does, without `mesh`.
 The JAX package jits every engine program.  Here prefill, recompression,
@@ -55,15 +55,18 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tree as tree_lib
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core import backend as backend_lib
 from repro_torch.core import kvcache as kvc
 from repro_torch.core import precision as precision_lib
 from repro_torch.core import prng
+from repro_torch.core.quant import true_div
 from repro_torch.core import saliency as sal
 from repro_torch.core.policy import CompressionConfig
 from repro_torch.kernels import build
 from repro_torch.models import blocks, registry
+from repro_torch.optim import adamw
 from repro_torch.runtime import compile_guard
 
 # rows of the continuous step's staged (6, b) int32 inputs; ROW_TEMP holds
@@ -551,3 +554,70 @@ def make_swap_restore_step(cfg: ArchConfig, shape: ShapeConfig,
         return registry.restore_caches(caches, payload, slot)
 
     return restore, ctx
+
+
+# ---------------------------------------------------------------------------
+# Train (one card: the reference's mesh=None)
+# ---------------------------------------------------------------------------
+
+def pick_grad_accum(cfg: ArchConfig, shape: ShapeConfig, mesh=None) -> int:
+    """Microbatch count: ~1 sequence per microbatch for wide models
+    (d_model >= 2048), ~2 for small ones, dividing the batch."""
+    if mesh is not None:
+        raise ValueError("a device mesh is not ported yet: one card only (ROADMAP item 15c)")
+    per_dev = max(shape.global_batch, 1)
+    target = 1 if cfg.d_model >= 2048 else 2
+    accum = max(per_dev // target, 1)
+    while shape.global_batch % accum:
+        accum -= 1
+    return max(accum, 1)
+
+
+def loss_and_grads(params, batch, cfg: ArchConfig, ctx: blocks.RunCtx):
+    """(loss, metrics, gradients in flatten order) of one batch, every
+    tensor detached; the gradients in the parameters' dtypes."""
+    leaves = [t.detach().requires_grad_(True) for t in tree_lib.leaves(params)]
+    with torch.enable_grad():
+        loss, met = registry.loss_fn(tree_lib.unflatten(params, leaves), batch, cfg, ctx)
+        grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), {k: v.detach() for k, v in met.items()}, list(grads)
+
+
+def make_train_step(cfg: ArchConfig, opt_cfg: Optional[adamw.AdamWConfig] = None,
+                    grad_accum: int = 1, q_block: int = 512, compact_softmax: bool = False):
+    """train_step(params, opt_state, batch) -> (params, opt_state, metrics),
+    the batch a dict of device tensors.
+
+    grad_accum == 1 keeps the bf16 gradients.  Above it the batch splits into
+    `grad_accum` microbatches along its first axis; each microbatch's
+    gradients add into f32 accumulators in order, and the sums, the loss and
+    the metrics are divided by `grad_accum`.  The metrics stay on the
+    device: {"loss", "ce", "aux", "grad_norm", "lr"}."""
+    opt_cfg = opt_cfg or adamw.AdamWConfig()
+    ctx = blocks.RunCtx(q_block=q_block, compact_softmax=compact_softmax)
+
+    def train_step(params, opt_state, batch):
+        if grad_accum == 1:
+            loss, met, grads = loss_and_grads(params, batch, cfg, ctx)
+        else:
+            acc = [torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+                   for t in tree_lib.leaves(params)]
+            loss, mets = 0.0, []
+            for i in range(grad_accum):
+                mb = {k: v.reshape(grad_accum, v.shape[0] // grad_accum, *v.shape[1:])[i]
+                      for k, v in batch.items()}
+                mb_loss, mb_met, g = loss_and_grads(params, mb, cfg, ctx)
+                for a, gi in zip(acc, g):
+                    a.add_(gi)
+                loss = loss + mb_loss
+                mets.append(mb_met)
+                del g
+            grads = [true_div(a, grad_accum) for a in acc]
+            loss = true_div(loss, grad_accum)
+            met = {k: true_div(torch.stack([m[k] for m in mets]).sum(0), grad_accum)
+                   for k in mets[0]}
+        params, opt_state, opt_met = adamw.adamw_update(
+            opt_cfg, tree_lib.unflatten(params, grads), opt_state)
+        return params, opt_state, {"loss": loss, **met, **opt_met}
+
+    return train_step

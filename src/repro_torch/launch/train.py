@@ -1,0 +1,146 @@
+"""Training driver of the port (port of `repro.launch.train`): --arch <id>
+end-to-end fault-tolerant training on one card.
+
+The reference's flags, plus `--device` (default `cuda`; `--device cpu` runs
+on the CPU).  `--mesh` takes `1x1` only: a mesh across cards is ROADMAP
+item 15c.  Only the dense decoder trains (`registry.require_trainable`; the
+other families are item 15b).  Each step's metrics reach the host once, as one
+stacked transfer.
+
+Example (CPU smoke):
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m --smoke \\
+      --device cpu --steps 20 --batch 4 --seq-len 32
+On the card (smollm-360m at full size):
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
+      --steps 100 --batch 8 --seq-len 2048
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import tempfile
+import time
+
+import torch
+
+from repro_torch import configs
+from repro_torch.checkpoint import Checkpointer
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.data import DataConfig, TokenPipeline
+from repro_torch.launch import serve
+from repro_torch.launch import steps as steps_lib
+from repro_torch.models import registry
+from repro_torch.optim import AdamWConfig, adamw_init, cosine_schedule
+from repro_torch.runtime import FaultTolerantLoop, PreemptionGuard, StragglerDetector
+
+
+def build(args):
+    cfg = configs.get_arch(args.arch, smoke=args.smoke)
+    if args.mesh != "1x1":
+        raise ValueError(f"--mesh {args.mesh}: a mesh across cards is not ported yet, "
+                         "only 1x1 (ROADMAP item 15c)")
+    registry.require_trainable(cfg)
+    shape = ShapeConfig("train", args.seq_len, args.batch, "train")
+    opt_cfg = AdamWConfig(lr=args.lr, schedule=cosine_schedule(args.warmup, args.steps))
+    accum = args.grad_accum or steps_lib.pick_grad_accum(cfg, shape)
+    train_step = steps_lib.make_train_step(
+        cfg, opt_cfg, grad_accum=accum, q_block=min(512, args.seq_len))
+    return cfg, train_step
+
+
+def to_device(batch, device) -> dict:
+    """A host batch of numpy arrays as device tensors (blocking copies: the
+    pipeline never reuses a handed-out array, and nothing here writes it)."""
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def make_step_fn(train_step, device, profile_step: int = 0):
+    """(state, host batch) -> (state, {name: float}): one host transfer of
+    every metric per step.  profile_step: the call (1-based) that runs
+    under torch.profiler (0: none), which prints device time by kernel."""
+    calls = [0]
+
+    def step_fn(state, batch):
+        calls[0] += 1
+        if calls[0] == profile_step:
+            def timed():
+                t0 = time.perf_counter()
+                return run(state, batch), time.perf_counter() - t0
+            return serve.profiled(timed, device, "train")
+        return run(state, batch)
+
+    def run(state, batch):
+        params, opt_state = state
+        params, opt_state, metrics = train_step(params, opt_state, to_device(batch, device))
+        keys = sorted(metrics)
+        vals = torch.stack([metrics[k].float().reshape(()) for k in keys]).tolist()
+        return (params, opt_state), dict(zip(keys, vals))
+
+    return step_fn
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--mesh", default="1x1")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq-len", type=int, default=256)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--warmup", type=int, default=10)
+    ap.add_argument("--grad-accum", type=int, default=0)
+    ap.add_argument("--checkpoint-dir",
+                    default=os.path.join(tempfile.gettempdir(), "repro_torch_ckpt"))
+    ap.add_argument("--checkpoint-every", type=int, default=50)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--fail-at", type=int, default=None)  # failure injection
+    ap.add_argument("--profile-step", type=int, default=0,
+                    help="run this invocation's n-th step (1-based) under torch.profiler and "
+                         "print device time by kernel (0: off)")
+    args = ap.parse_args(argv)
+
+    device = torch.device(args.device)
+    cfg, train_step = build(args)
+    params = registry.materialize_params(cfg, args.seed, device=device)
+    opt_state = adamw_init(params)
+
+    dcfg = DataConfig(seq_len=args.seq_len, global_batch=args.batch, vocab=cfg.vocab,
+                      seed=args.seed, d_model=cfg.d_model)
+
+    ckpt = Checkpointer(args.checkpoint_dir, keep=3)
+    guard = PreemptionGuard()
+    loop = FaultTolerantLoop(
+        make_step_fn(train_step, device, args.profile_step), ckpt, checkpoint_every=args.checkpoint_every,
+        max_steps=args.steps,
+        straggler=StragglerDetector(),
+        on_straggler=lambda ev: print(f"[straggler] {ev}"),
+        fail_at_step=args.fail_at,
+        preemption_guard=guard,
+    )
+    state, start_step, data_state = loop.resume_or((params, opt_state))
+    pipe = (TokenPipeline.restore(dcfg, data_state) if data_state
+            else TokenPipeline(dcfg, start_step=start_step))
+    print(f"[train] {args.arch} start_step={start_step} mesh=none device={device}")
+
+    t0 = time.time()
+    try:
+        state, last, hist = loop.run(state, pipe, start_step, metrics_cb=_print_metrics)
+    finally:
+        pipe.close()
+        guard.restore()
+        ckpt.wait()   # an in-flight save lands before the process goes on or exits
+    print(f"[train] done at step {last} in {time.time()-t0:.1f}s; "
+          f"final loss={hist[-1]['loss']:.4f}" if hist else "[train] no steps run")
+    return state
+
+
+def _print_metrics(step, m):
+    if step % 10 == 0 or step <= 3:
+        print(f"  step {step:5d} loss={m['loss']:.4f} gnorm={m['grad_norm']:.3f}")
+
+
+if __name__ == "__main__":
+    main()

@@ -21,6 +21,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import quant
@@ -91,6 +92,9 @@ def blocked_attention(
     bf16 (the softmax statistics still reduce in f32): half the traffic of
     the f32 route, probabilities in [0, 1] within 1e-2.  The kernel route
     (`use_kernel`) takes precedence, as in the reference.
+
+    Under autograd (the training forward) each block runs under
+    `torch.utils.checkpoint`: the backward pass recomputes its logits.
     """
     if use_kernel:
         from repro_torch.kernels.probe_flash import ops as pf_ops
@@ -112,11 +116,11 @@ def blocked_attention(
     kf = k.to(mat)
     vf = v.to(mat).float()     # compact: V in bf16, its products accumulate in f32
     col = torch.arange(lkv, device=q.device)
-    colsum = torch.zeros((b, lkv), dtype=torch.float32, device=q.device)
-    outs = []
-    for i in range(nb):
+
+    def block(i: int, qi: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor):
+        """q block i's output (q's dtype) and its probe column sums (or None)."""
         row = i * q_block + torch.arange(q_block, device=q.device)
-        qb = (qp[:, :, :, i].float() * scale).to(mat)
+        qb = (qi.float() * scale).to(mat)
         logits = common.einsum("bhgqd,bhkd->bhgqk", qb, kf)    # in mat
         if causal:
             logits = logits.masked_fill(row[:, None] < col[None, :], NEG_INF)
@@ -129,10 +133,23 @@ def blocked_attention(
         else:
             probs = torch.softmax(logits, dim=-1)
             out = torch.einsum("bhgqk,bhkd->bhgqd", probs, vf)
-        outs.append(out.to(q.dtype))
+        part = None
         if probe_rows is not None:
             pr = probe_rows[i * q_block:(i + 1) * q_block]
-            colsum = colsum + quant.true_div(torch.einsum("bhgqk,q->bk", probs, pr), h)
+            part = quant.true_div(torch.einsum("bhgqk,q->bk", probs, pr), h)
+        return out.to(q.dtype), part
+
+    # under autograd each block is recomputed in the backward pass, as the
+    # reference's jax.checkpoint(block): no block's logits are kept
+    remat = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    colsum = torch.zeros((b, lkv), dtype=torch.float32, device=q.device)
+    outs = []
+    for i in range(nb):
+        args = (i, qp[:, :, :, i], kf, vf)
+        out, part = (checkpoint(block, *args, use_reentrant=False) if remat else block(*args))
+        outs.append(out)
+        if part is not None:
+            colsum = colsum + part
     dv = outs[0].shape[-1]
     out = torch.stack(outs, dim=3).reshape(b, h, nb * q_block, dv)[:, :, :lq]
     return out, (colsum if probe_rows is not None else None)

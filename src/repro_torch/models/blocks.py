@@ -106,29 +106,44 @@ class RunCtx:
 
 def _ffn(params: dict, x: torch.Tensor, cfg: ArchConfig, ffn: str,
          active: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x plus the layer's FFN of its post-attention norm (x: (b, s, e) or, at
-    decode, (b, e); `active`: the live rows, the only ones that take MoE
-    expert slots)."""
+    """x plus the layer's FFN of its post-attention norm at decode (x: (b,
+    e); `active`: the live rows, the only ones that take MoE expert
+    slots)."""
     if ffn == "none":
         return x
     h = common.rms_norm(x, params["ln2"], cfg.norm_eps)
     if ffn == "dense":
         return x + mlp_mod.dense_mlp(params["mlp"], h)
-    if x.dim() == 2:
-        return x + mlp_mod.moe_ffn(params["moe"], h[:, None, :], cfg, active=active)[:, 0]
-    return x + mlp_mod.moe_ffn(params["moe"], h, cfg)
+    return x + mlp_mod.moe_ffn(params["moe"], h[:, None, :], cfg, active=active)[:, 0]
+
+
+def _ffn_full(params: dict, x: torch.Tensor, cfg: ArchConfig, ffn: str
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (b, s, e) plus the layer's FFN, and its aux loss (the MoE router's
+    load balancing; zero for a dense FFN or none)."""
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    if ffn == "none":
+        return x, zero
+    h = common.rms_norm(x, params["ln2"], cfg.norm_eps)
+    if ffn == "dense":
+        return x + mlp_mod.dense_mlp(params["mlp"], h), zero
+    y, aux = mlp_mod.moe_ffn(params["moe"], h, cfg, with_aux=True)
+    return x + y, aux
 
 
 def apply_layer_full(params: dict, x: torch.Tensor, cfg: ArchConfig, mixer: str, ffn: str,
                      ctx: RunCtx, build_cache: bool, layer: int = 0
-                     ) -> Tuple[torch.Tensor, Any]:
-    """One layer over the full sequence. Returns (x, cache element | None).
-    `layer`: the absolute layer index, for the precision map.  An SSM layer's
-    element is its final state: no compression, no saliency."""
+                     ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
+    """One layer over the full sequence (the training forward under autograd,
+    or the serving prefill).  Returns (x, cache element | None, aux loss),
+    the aux loss f32 as the reference's.  `layer`: the absolute layer index,
+    for the precision map.  An SSM layer's element is its final state: no
+    compression, no saliency."""
     h = common.rms_norm(x, params["ln1"], cfg.norm_eps)
     if mixer == "ssm":
         y, state = ssm_mod.ssm_forward(params["ssm"], h, cfg)
-        return _ffn(params, x + y, cfg, ffn), state if build_cache else None
+        x, aux_loss = _ffn_full(params, x + y, cfg, ffn)
+        return x, state if build_cache else None, aux_loss
     fwd = attn.gqa_forward if mixer == "attn" else attn.mla_forward
     y, aux = fwd(params["attn"], h, cfg, probe=ctx.probe, q_block=ctx.q_block,
                  use_kernel=ctx.use_kernels, compact=ctx.compact_softmax)
@@ -137,7 +152,8 @@ def apply_layer_full(params: dict, x: torch.Tensor, cfg: ArchConfig, mixer: str,
         cache_el = ctx.backend.compress_prefill(
             aux.k, aux.v, aux.saliency, ctx.max_cache_len, probe_nnz=aux.probe_nnz,
             dtype=x.dtype, eff=ctx.layer_eff(layer, aux.k.shape[1], device=aux.k.device))
-    return _ffn(params, x + y, cfg, ffn), cache_el
+    x, aux_loss = _ffn_full(params, x + y, cfg, ffn)
+    return x, cache_el, aux_loss
 
 
 def apply_layer_decode(params: dict, x_t: torch.Tensor, cfg: ArchConfig, mixer: str, ffn: str,

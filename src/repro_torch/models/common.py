@@ -1,14 +1,18 @@
 """Shared model machinery (port of `repro.models.common`): parameter schema
-and seeded init, norms, rotary embeddings, SwiGLU, embedding lookup."""
+and seeded init, norms, rotary embeddings, SwiGLU, embedding lookup, the
+next-token cross entropy."""
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch import tree as tree_lib
+from repro_torch.core.quant import true_div
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,12 +77,59 @@ def materialize(schema, seed: int = 0, device="cuda"):
     return walk(schema)
 
 
+# each stacked weight's contracted axes after its leading layer axis
+_FAN_AXES = {"wq": 1, "wk": 1, "wv": 1, "wo": 2, "w_gate": 1, "w_up": 1, "w_down": 1}
+
+
+def fan_in_init(params):
+    """The same draws at std 1 / sqrt(fan-in): each stacked layer weight (L,
+    ...), drawn at the reference's 1 / sqrt(L), scaled by sqrt(L / fan-in),
+    the embedding (std 1) by 1 / sqrt(d_model); every other leaf as it is.
+    At the reference's init a wide model's bf16 gradients are rounding
+    noise; at this one they are not, so a card's gradients can be held to
+    another device's."""
+
+    def scale(name, t):
+        key = name.split("/")[-1]
+        if key == "embed":
+            return (t.float() / math.sqrt(t.shape[1])).to(t.dtype)
+        if key in _FAN_AXES:
+            fan = math.prod(t.shape[1:1 + _FAN_AXES[key]])
+            return (t.float() * math.sqrt(t.shape[0] / fan)).to(t.dtype)
+        return t
+
+    return tree_lib.unflatten(params, [scale(n, t) for n, t in tree_lib.named_leaves(params)])
+
+
 # ---------------------------------------------------------------------------
 # Numerics
 # ---------------------------------------------------------------------------
 
+class _EmbedLookup(torch.autograd.Function):
+    """The row gather whose backward sums each row's gradient in f32 and
+    rounds once, as the reference's one-hot matmul's does: the CPU's bf16
+    embedding backward adds in bf16, ~4% off for a token that repeats a few
+    hundred times.  On the card the f32 sum is the sort-based
+    `embedding_dense_backward`: no atomics, bitwise reproducible."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.n_rows = table.shape[0]
+        return F.embedding(tokens, table)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (tokens,) = ctx.saved_tensors
+        g = torch.ops.aten.embedding_dense_backward(grad.float(), tokens, ctx.n_rows, -1, False)
+        return g.to(grad.dtype), None
+
+
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """Row gather; equal to the reference's one-hot matmul bit for bit."""
+    """Row gather; equal to the reference's one-hot matmul bit for bit, its
+    gradient too (`_EmbedLookup`)."""
+    if torch.is_grad_enabled() and table.requires_grad:
+        return _EmbedLookup.apply(table, tokens.long())
     return F.embedding(tokens.long(), table)
 
 
@@ -154,3 +205,16 @@ def layer_slice(tree, i: int):
     if isinstance(tree, torch.Tensor):
         return tree[i]
     return {k: layer_slice(v, i) for k, v in tree.items()}
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token CE over the valid positions: the f32 logsumexp minus
+    the gold logit.  logits (..., vocab) in any float dtype."""
+    logits = logits.float()
+    nll = torch.logsumexp(logits, dim=-1) - torch.gather(
+        logits, -1, labels.long()[..., None])[..., 0]
+    if mask is not None:
+        m = mask.float()
+        return (nll * m).sum() / m.sum().clamp_min(1.0)
+    return true_div(nll.sum(), nll.numel())

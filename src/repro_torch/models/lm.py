@@ -17,10 +17,12 @@ and its prefill prepends the projected frontend embeddings to the text
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tree as tree_lib
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import precision as precision_lib
 from repro_torch.models import blocks, common
@@ -116,19 +118,88 @@ def unembed(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     return mask_padded_vocab(logits, cfg.vocab)
 
 
+class ForwardOut(NamedTuple):
+    logits: torch.Tensor
+    aux_loss: torch.Tensor
+    caches: Any            # None in the training forward
+
+
+def _group_slices(groups: dict, n: int) -> list:
+    """The stacked group weights as n per-group trees of views.  One `unbind`
+    per leaf: its backward stacks the n groups' gradients in one op."""
+    per_leaf = [t.unbind(0) for t in tree_lib.leaves(groups)]
+    return [tree_lib.unflatten(groups, [u[g] for u in per_leaf]) for g in range(n)]
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
+            ctx: Optional[blocks.RunCtx] = None,
+            frontend_embeds: Optional[torch.Tensor] = None, build_cache: bool = False,
+            remat: bool = True, last_only: bool = False) -> ForwardOut:
+    """Full-sequence forward: the train loss's, and with build_cache and
+    last_only the serving prefill's.  Returns the logits (b, l, vocab), or
+    the last position's with `last_only`, the summed aux loss (f32) and,
+    with build_cache, the cache tree.
+
+    remat: under autograd each scan group runs under `torch.utils.checkpoint`
+    and is recomputed in the backward pass, as the reference's
+    `jax.checkpoint(group_fn, policy=nothing_saveable)`: only each group's
+    input is kept.  It does not change a bit of the loss or the gradients."""
+    ctx = ctx or blocks.RunCtx()
+    x = embed_inputs(params, cfg, tokens, frontend_embeds)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    els = []
+    for i, (m, f) in enumerate(cfg.prefix_kinds()):
+        x, el, aux = blocks.apply_layer_full(params["prefix"][f"layer{i}"], x, cfg, m, f, ctx,
+                                             build_cache, layer=i)
+        aux_total = aux_total + aux
+        els.append(el)
+
+    kinds = cfg.layer_kinds()
+
+    def group_fn(x, gparams, g):
+        aux_g = torch.zeros((), dtype=torch.float32, device=x.device)
+        group_els = []
+        for j, (m, f) in enumerate(kinds):
+            x, el, aux = blocks.apply_layer_full(
+                gparams[f"sub{j}"], x, cfg, m, f, ctx, build_cache,
+                layer=cfg.first_dense_layers + g * cfg.scan_group + j)
+            aux_g = aux_g + aux
+            group_els.append(el)
+        return x, aux_g, group_els
+
+    use_ckpt = remat and not build_cache and torch.is_grad_enabled()
+    for g, gparams in enumerate(_group_slices(params["groups"], cfg.n_scan_groups)):
+        if use_ckpt:
+            x, aux, group_els = checkpoint(group_fn, x, gparams, g, use_reentrant=False)
+        else:
+            x, aux, group_els = group_fn(x, gparams, g)
+        aux_total = aux_total + aux
+        els.extend(group_els)
+
+    logits = unembed(params, cfg, x[:, -1:] if last_only else x)
+    return ForwardOut(logits, aux_total, _cache_tree(cfg, els) if build_cache else None)
+
+
+def loss_fn(params: dict, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
+            ctx: Optional[blocks.RunCtx] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token CE (+ the aux loss).  batch: tokens (b, l), labels (b, l),
+    optional mask; a frontend arch's labels cover the text only."""
+    out = forward(params, batch["tokens"], cfg, ctx,
+                  frontend_embeds=batch.get("frontend_embeds"))
+    lf = out.logits[:, -batch["labels"].shape[1]:]  # frontend tokens carry no labels
+    ce = common.cross_entropy_loss(lf, batch["labels"], batch.get("mask"))
+    return ce + out.aux_loss, {"ce": ce, "aux": out.aux_loss}
+
+
 def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig, ctx: blocks.RunCtx,
             frontend_embeds: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Any]:
     """Serving prefill: forward + per-layer ZipCache compression (Alg. 2).
     frontend_embeds: a frontend arch's embeddings, prepended to the text
     (`embed_inputs`); the query sequence, and so the probes, covers both.
     Returns (logits at the last position (b, vocab), caches)."""
-    x = embed_inputs(params, cfg, tokens, frontend_embeds)
-    els = []
-    for layer, mixer, ffn, where in layers(cfg):
-        x, el = blocks.apply_layer_full(layer_params(params, where), x, cfg, mixer, ffn, ctx,
-                                        build_cache=True, layer=layer)
-        els.append(el)
-    return unembed(params, cfg, x[:, -1]), _cache_tree(cfg, els)
+    out = forward(params, tokens, cfg, ctx, frontend_embeds, build_cache=True, remat=False,
+                  last_only=True)
+    return out.logits[:, 0], out.caches
 
 
 def decode_step(params: dict, token: torch.Tensor, caches: Any, cfg: ArchConfig,

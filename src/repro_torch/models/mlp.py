@@ -134,24 +134,22 @@ def route(params: dict, x: torch.Tensor, cfg: ArchConfig):
     return probs, gate_vals / gate_vals.sum(dim=-1, keepdim=True).clamp_min(1e-9), eidx
 
 
-def router_aux_loss(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """The reference's load-balancing aux loss (Switch-style: E * sum_e f_e
-    * P_e, times `router_aux_coef`), the second field of its `MoEOut`.  The
-    port serves and does not train, so `moe_ffn` does not compute it."""
-    probs, _, eidx = route(params, x, cfg)
+def _aux_loss(probs: torch.Tensor, eidx: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Switch-style load balancing from the router's probabilities and
+    top-k ids: E * sum_e f_e * P_e, times `router_aux_coef`."""
     me = probs.mean(dim=(0, 1))
     ce = torch.zeros_like(probs).scatter_(-1, eidx, 1.0).mean(dim=(0, 1))
     return cfg.n_experts * (me * ce).sum() * cfg.router_aux_coef
 
 
 def moe_ffn(params: dict, x: torch.Tensor, cfg: ArchConfig,
-            active: Optional[torch.Tensor] = None) -> torch.Tensor:
+            active: Optional[torch.Tensor] = None, with_aux: bool = False):
     """Fine-grained MoE FFN. x: (b, s, e) (s may be 1 for decode); active:
     optional (b,) bool, the rows whose tokens take expert slots.  Returns
-    the reference's `MoEOut.y`."""
+    the reference's `MoEOut.y`, or with `with_aux` the pair (y, aux loss)."""
     b, s, e = x.shape
     k = cfg.top_k
-    _, gate_vals, eidx = route(params, x, cfg)
+    probs, gate_vals, eidx = route(params, x, cfg)
     y = _dispatch_compute(x.reshape(b * s, e), gate_vals.reshape(b * s, k),
                           eidx.reshape(b * s, k), params["w_gate"], params["w_up"],
                           params["w_down"], capacity(cfg, b * s),
@@ -159,4 +157,4 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: ArchConfig,
                           ).reshape(b, s, e)
     if cfg.n_shared_experts:
         y = y + dense_mlp(params["shared"], x)
-    return y
+    return (y, _aux_loss(probs, eidx, cfg)) if with_aux else y

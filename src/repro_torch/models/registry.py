@@ -1,6 +1,7 @@
-"""Model API of the port (port of `repro.models.registry`): schema, prefill,
-decode, recompression and the cache-tree walks, over the decoder-only
-models (`lm`, frontend archs included) and the encoder-decoder (`encdec`).
+"""Model API of the port (port of `repro.models.registry`): schema, the
+training loss, prefill, decode, recompression and the cache-tree walks,
+over the decoder-only models (`lm`, frontend archs included) and the
+encoder-decoder (`encdec`).
 Both cache trees have one shape, {"prefix": [...], "groups": [{key:
 element}, ...]}, so every walk here takes either."""
 
@@ -22,6 +23,41 @@ def schema(cfg: ArchConfig) -> dict:
 
 def materialize_params(cfg: ArchConfig, seed: int = 0, device="cuda"):
     return common.materialize(schema(cfg), seed, device=device)
+
+
+def require_trainable(cfg: ArchConfig) -> None:
+    """Raise unless the port trains `cfg`: only the dense decoder (GQA
+    attention and a dense FFN in every layer) trains so far."""
+    why = ("the encoder-decoder's loss (encdec.loss_fn)" if cfg.encdec
+           else f"the {cfg.frontend} frontend" if cfg.frontend != "none"
+           else "the MoE aux loss" if cfg.n_experts
+           else "MLA" if cfg.mla
+           else "SSM layers" if cfg.ssm or any(m != "attn" for m, _ in cfg.layer_kinds())
+           else None)
+    if why is not None:
+        raise ValueError(f"{cfg.name}: training {why} is not ported yet (ROADMAP item 15b)")
+
+
+def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
+            ctx: Optional[blocks.RunCtx] = None):
+    """(loss, {"ce", "aux"}) of a training batch (`train_batch_spec`).  The
+    dense decoder only: every other family raises (`require_trainable`)."""
+    require_trainable(cfg)
+    return lm.loss_fn(params, batch, cfg, ctx)
+
+
+def train_batch_spec(cfg: ArchConfig, shape: ShapeConfig) -> Dict[str, Tuple[tuple, torch.dtype]]:
+    """{name: (shape, dtype)} of a training batch, the reference's spec
+    (frontend embeddings in bf16, tokens and labels int32)."""
+    b, l = shape.global_batch, shape.seq_len
+    if cfg.encdec:
+        return {"frontend_embeds": ((b, l, cfg.d_model), torch.bfloat16),
+                "tokens": ((b, l), torch.int32), "labels": ((b, l), torch.int32)}
+    if cfg.frontend != "none":
+        n_f = cfg.n_frontend_tokens
+        return {"frontend_embeds": ((b, n_f, cfg.d_model), torch.bfloat16),
+                "tokens": ((b, l - n_f), torch.int32), "labels": ((b, l - n_f), torch.int32)}
+    return {"tokens": ((b, l), torch.int32), "labels": ((b, l), torch.int32)}
 
 
 def prefill(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, ctx: blocks.RunCtx):

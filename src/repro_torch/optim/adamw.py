@@ -1,0 +1,90 @@
+"""AdamW with f32 master weights (port of `repro.optim.adamw`).
+
+The state mirrors the parameter tree: an f32 master copy, m and v, and an
+int32 step count.  `adamw_update` is functional, per leaf, in the
+reference's f32 arithmetic: the clip factor from the global norm, the bias
+corrections `1 - b ** count`, and the bf16 parameters rounded from the new
+master.  Divisions by a Python number are true divisions and the square
+root is correctly rounded (`core.quant`), as the reference computes them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch import tree as tree_lib
+from repro_torch.core.quant import correctly_rounded_sqrt
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    schedule: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+
+
+class AdamWState(NamedTuple):
+    master: Any   # f32 params
+    m: Any
+    v: Any
+    count: torch.Tensor
+
+
+def adamw_init(params) -> AdamWState:
+    leaves = tree_lib.leaves(params)
+    device = leaves[0].device if leaves else "cpu"
+    return AdamWState(
+        tree_lib.tree_map(lambda x: x.to(torch.float32, copy=True), params),
+        tree_lib.tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32, device=x.device),
+                          params),
+        tree_lib.tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32, device=x.device),
+                          params),
+        torch.zeros((), dtype=torch.int32, device=device))
+
+
+def global_norm(grads) -> torch.Tensor:
+    return correctly_rounded_sqrt(sum(torch.sum(torch.square(g.float()))
+                                      for g in tree_lib.leaves(grads)))
+
+
+def _scalar(x: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.full((), x, dtype=torch.float32, device=like.device)
+
+
+def adamw_update(cfg: AdamWConfig, grads, state: AdamWState, param_dtype=torch.bfloat16
+                 ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
+    """Returns (new params in `param_dtype`, new state, metrics)."""
+    count = state.count + 1
+    gnorm = global_norm(grads)
+    clip = (torch.clamp_max(_scalar(cfg.grad_clip, gnorm) / gnorm.clamp_min(1e-9), 1.0)
+            if cfg.grad_clip else 1.0)
+    lr = _scalar(cfg.lr, gnorm)
+    if cfg.schedule is not None:
+        lr = lr * cfg.schedule(count)
+    cf = count.float()
+    b1c = 1.0 - torch.pow(_scalar(cfg.b1, cf), cf)
+    b2c = 1.0 - torch.pow(_scalar(cfg.b2, cf), cf)
+
+    def upd(g, p32, m, v):
+        g = g.float() * clip
+        m = cfg.b1 * m + (1.0 - cfg.b1) * g
+        v = cfg.b2 * v + (1.0 - cfg.b2) * g * g
+        mh = m / b1c
+        vh = v / b2c
+        step = mh / (correctly_rounded_sqrt(vh) + cfg.eps) + cfg.weight_decay * p32
+        return p32 - lr * step, m, v
+
+    flat = [upd(*args) for args in zip(*(tree_lib.leaves(t) for t in
+                                         (grads, state.master, state.m, state.v)))]
+    new_p32 = tree_lib.unflatten(state.master, [t[0] for t in flat])
+    new_m = tree_lib.unflatten(state.m, [t[1] for t in flat])
+    new_v = tree_lib.unflatten(state.v, [t[2] for t in flat])
+    params = tree_lib.tree_map(lambda p: p.to(param_dtype), new_p32)
+    return params, AdamWState(new_p32, new_m, new_v, count), {"grad_norm": gnorm, "lr": lr}

@@ -183,7 +183,8 @@ def test_deepseek_moe_prefix_layer_matches_reference(refs, use_kernels):
         y, _ = attention.gqa_forward(p0["attn"], common.rms_norm(x, p0["ln1"], cfg.norm_eps),
                                      cfg, probe=eng.ctx.probe, q_block=eng.ctx.q_block,
                                      use_kernel=use_kernels)
-        x1, _ = blocks.apply_layer_full(p0, x, cfg, "attn", "dense", eng.ctx, build_cache=False)
+        x1, _, _ = blocks.apply_layer_full(p0, x, cfg, "attn", "dense", eng.ctx,
+                                           build_cache=False)
         _, caches = registry.prefill(eng.params, {"tokens": toks}, cfg, eng.ctx)
     _within_ulp(y, ref["layer0_attn"])
     _within_ulp(x1, ref["prefix_out"])
@@ -203,8 +204,8 @@ def test_deepseek_moe_routed_layers_give_reference_logits(refs):
     with torch.inference_mode():
         for layer, mixer, ffn, where in lm.layers(cfg)[1:]:
             assert ffn == "moe"
-            x, _ = blocks.apply_layer_full(lm.layer_params(eng.params, where), x, cfg, mixer, ffn,
-                                           eng.ctx, build_cache=False, layer=layer)
+            x, _, _ = blocks.apply_layer_full(lm.layer_params(eng.params, where), x, cfg, mixer,
+                                              ffn, eng.ctx, build_cache=False, layer=layer)
         logits = lm.unembed(eng.params, cfg, x[:, -1])
     np.testing.assert_array_equal(to_np(logits), ref["logits"])
 

@@ -1,5 +1,7 @@
 """The port stands alone: nothing under `src/repro_torch/`, nor
-`chip_smoke.py`, imports jax, jaxlib or the JAX package `repro`."""
+`chip_smoke.py`, imports jax, jaxlib or the JAX package `repro`, nor
+ml_dtypes, which the machine with the card does not have (bf16 crosses to
+numpy as raw 16-bit words)."""
 
 import ast
 from pathlib import Path
@@ -7,7 +9,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _files():

@@ -139,7 +139,8 @@ def test_moe_ffn_matches_reference(dtype, shape):
     x = jnp.asarray(rng.standard_normal((*shape, cfgs[0].d_model)), jdt)
     got, want = _moe_both(cfgs, params, x)
     _close(got, want.y, tol)
-    aux = mlp.router_aux_loss(jax.tree_util.tree_map(to_torch, params), to_torch(x), cfgs[1])
+    _, aux = mlp.moe_ffn(jax.tree_util.tree_map(to_torch, params), to_torch(x), cfgs[1],
+                         with_aux=True)
     np.testing.assert_allclose(float(aux), float(want.aux_loss), rtol=1e-5)
 
 
