@@ -156,9 +156,9 @@ continued:
      against f32 at batch 1 (out 2e-2).  Lockstep: `ServingEngine.generate`
      under fp16, h2o, mikv, gear and kivi at their preset defaults (phase
      4's batch, prompt and 128 new tokens: 16 probe steps, one fold) over
-     the first 8 of yi-6b's 32 layers at full width (cut from 32, as the
-     continuous runs below, to make room for phase 4l within the time
-     limit),
+     the first 4 of yi-6b's 32 layers at full width (cut from 32, as the
+     continuous runs below, to 8 and then to 4, to make room for phases 4l
+     and 4o within the time limit),
      captured and eager: every step's logits within one bf16 ulp of the
      eager step's, tokens equal; the prefill and first decode step's logits
      against the plain versions' within phase 4's bound; launches held to
@@ -173,8 +173,8 @@ continued:
      through paged_qattn, no gather) and kivi (every decode layer on the
      gather path, counted): every request ends with its budget, the
      allocator's invariants after every step, every page back;
-  4j. slice 12: DeepSeek-V2-Lite at full width over 9 of its 27 layers
-     (the MLA prefix layer with a dense FFN, then 8 layers of MLA and 64
+  4j. slice 12: DeepSeek-V2-Lite at full width over 5 of its 27 layers
+     (9 before phase 4o; the MLA prefix layer with a dense FFN, then 4 layers of MLA and 64
      routed + 2 shared experts, top 6; latent 512, q/k head dim 192, v 128;
      cut from 27 to keep the run within its time limit), random bf16
      weights from a seeded generator, after phase 4i's yi-6b model is freed.
@@ -194,7 +194,7 @@ continued:
      against the bf16 latent and rope-key streams, the expert-weight bytes
      a decode step reads;
   4k. slice 13: the SSM models, after phase 4j's model is freed.
-     mamba2-2.7b at full width over 16 of its 64 Mamba2 SSD layers (cut
+     mamba2-2.7b at full width over 8 of its 64 Mamba2 SSD layers (16 before phase 4o; cut
      from 64 to keep the run within its time limit; no attention layer,
      so no kernel and no KV cache): lockstep on phase 4's batch and 128 new
      tokens, captured against eager bit for bit; phase 4b's traffic on the
@@ -232,8 +232,8 @@ continued:
      phase 4's bound.  Logged: parameter bytes, peak memory, the encoder's
      and the decoder's prefill walls, non-probe and probe step walls,
      `cache_bytes` split into self and cross, the phase's seconds;
-  4m. slice 15: the remaining configs at full width, at full depth but
-     the 34B pair, after
+  4m. slice 15: the remaining configs at full width over their first 8
+     layers (cut from full depth to make room for phase 4o), after
      every earlier phase's weights and graph pools are released: qwen2-7b
      (g = 7, QKV biases drawn at random), smollm-360m (g = 3, d 64, tied
      embeddings) and deepseek-moe-16b (g = 1, a dense prefix layer, 64
@@ -241,7 +241,8 @@ continued:
      (LLaMA3-8B's shape) on the lockstep engine, llava-next-34b (576 patch
      embeddings before 448 text tokens) on the lockstep engine and yi-34b
      on the continuous one over the same tensors, the pair at full width
-     over 20 of its 60 layers (cut to make room for phase 4n);
+     over 10 of its 60 layers (cut from 60 to 20, then 10, to make room for
+     phases 4n and 4o);
      zipcache with the window and the fold cadence at 16 over 32 new
      tokens (phase 4's
      batch; five requests for four slots).  Each engine captured against
@@ -256,10 +257,11 @@ continued:
      earlier phase's weights are released.  (i) `launch.train.main` (the
      CLI's entry point) on smollm-360m at full size: random bf16 weights
      from a seed, AdamW at its defaults under a cosine schedule (warmup 2,
-     8 steps), the synthetic pipeline at 8 x 2048 tokens, grad_accum 4
-     (`pick_grad_accum`), q_block 512, through `FaultTolerantLoop` with a
-     checkpoint at step 8: every loss finite, step 8's below step 1's, the
-     checkpoint restored into a fresh device tree bitwise.  (ii) At full
+     4 steps; 8 before phase 4o), the synthetic pipeline at 8 x 2048 tokens,
+     grad_accum 4 (`pick_grad_accum`), q_block 512, through
+     `FaultTolerantLoop` with a checkpoint at step 4: every loss finite,
+     step 4's below step 1's, the checkpoint restored into a fresh device
+     tree bitwise.  (ii) At full
      width over the first 4 layers: 8 steps with checkpoints every 4, a
      failure injected at step 6, a restart from step 4: every parameter
      and optimizer leaf at step 8 bitwise the uninterrupted run's.  (iii)
@@ -272,6 +274,25 @@ continued:
      kernel (nor does the reference's): every count stays 0.  Logged: step
      walls, tokens/s, model FLOP/s against the bf16 dense peak, peak memory,
      checkpoint bytes, write and restore seconds, (iii)'s readings;
+  4o. slice 17: training of every other family on one card, after every
+     earlier phase's weights are released.  (i) `launch.train.main` on
+     DeepSeek-V2-Lite (MLA + MoE + the aux loss; its dense layer and 3 MoE
+     layers at full width), mamba2-2.7b (64 SSD layers), seamless-m4t-medium
+     (12 + 12 layers, f32 source frames) and llava-next-34b (2 of 60 layers
+     at full width, 576 patch embeddings before 448 text tokens): 4 steps
+     of 4 x 1024 positions, warmup 1, `pick_grad_accum`, q_block 512, the
+     step donating its state, one checkpoint at step 4 restored into a
+     fresh host tree: losses finite and falling, DeepSeek's aux finite and
+     positive, every restored leaf bitwise.  (ii) DeepSeek-V2-Lite over its
+     dense layer and one MoE layer: a failure at step 3, checkpoints every
+     2, resumed at 2 by a second `train.main`: every leaf at step 4 and the
+     resumed metrics bitwise the uninterrupted run's.  (iii) One 512-token
+     microbatch over one layer of each kind (DeepSeek's dense and one MoE
+     layer, mamba2's 2, seamless 1 + 1) at a fan-in init: the card's loss,
+     gradient norm and every leaf against the CPU's at (4n)'s tolerances,
+     the CPU routed to the card's experts, the share routed alike logged.
+     No kernel runs: every count stays 0.  Logged: step walls, tokens/s,
+     model FLOP/s, peak memory, checkpoint bytes, write and restore seconds;
   5. a `kernels` JSON line, then the last line:
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -1129,13 +1150,16 @@ def main() -> None:
     lap("4m")
     # ---- 4n. slice 16: single-card training of the dense decoder -----------
     by_path["train"] = training(torch, np, dev, kernels, card)
+    lap("4n")
+    # ---- 4o. slice 17: training of every other family ----------------------
+    by_path["train_families"] = families(torch, np, dev, kernels, card)
     rows["cst_quant"]["eff"]["launches"] = sum(
         p["cst_quant"] for name, p in by_path.items() if name.startswith("levers"))
     for name, row in rows.items():
         row["launches"] = sum(p.get(name, 0) for p in by_path.values())
         row["launches_by_path"] = {k: p.get(name, 0) for k, p in by_path.items()}
 
-    lap("4n")
+    lap("4o")
     # ---- 5. the kernels and the contract line ------------------------------
     log("kernels: " + ", ".join(f"{n} ok ({r['launches']} launches)" for n, r in rows.items()))
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
@@ -2061,8 +2085,8 @@ def baselines(torch, np, cfg, params, dev, kernels, rows, batch, scfg, cscfg,
         f"{cerr:.3g}, probe column sums by {levers['compact_colsum_err']:.3g}); plain routes")
     del cache, ref, alg, q1, k1, v1, oc, of, cc, cf
 
-    # -- (i) lockstep runs, at 8 of yi-6b's 32 layers (full width: the groups'
-    # leading axis cut to views of phase 4's first 8 layers) ---------------------
+    # -- (i) lockstep runs, at BASELINE_LAYERS of yi-6b's 32 layers (full width:
+    # the groups' leading axis cut to views of phase 4's first layers) ------------
     out_paths = {}
     lcfg = dataclasses.replace(cfg, n_layers=BASELINE_LAYERS)
     lparams = _first_layers(params, lcfg.n_scan_groups)
@@ -2176,7 +2200,7 @@ def baselines(torch, np, cfg, params, dev, kernels, rows, batch, scfg, cscfg,
         del runs, cap, eager
 
     # -- (ii) continuous runs: phase 4b's configuration and traffic, at the
-    # lockstep runs' 8 layers ------------------------------------------------------
+    # lockstep runs' layers --------------------------------------------------------
     for policy in CONTINUOUS_POLICIES:
         ccfg = CompressionConfig.preset(policy)
         eng = ContinuousEngine(lcfg, ccfg, cscfg, lparams, device=dev)
@@ -2224,7 +2248,7 @@ def baselines(torch, np, cfg, params, dev, kernels, rows, batch, scfg, cscfg,
     return out_paths
 
 
-BASELINE_LAYERS = 8   # phase 4i's lockstep runs: the first 8 of yi-6b's 32 layers
+BASELINE_LAYERS = 4   # phase 4i's runs: the first 4 of yi-6b's 32 layers (8 before phase 4o)
 
 
 def _first_layers(params, n: int):
@@ -2473,7 +2497,7 @@ def _leaves(tree):
 
 # phase 3's MLA rows and phase 4j: DeepSeek-V2-Lite (MLA + fine-grained MoE)
 MLA_ARCH = "deepseek-v2-lite-16b"
-DEEPSEEK_LAYERS = 9    # phase 4j: the MLA prefix layer and the first 8 MoE layers of 27
+DEEPSEEK_LAYERS = 5    # phase 4j: the MLA prefix layer and the first 4 MoE layers of 27 (9 before phase 4o)
 
 
 def _sdpa_timed(torch, q, k, v):
@@ -2629,7 +2653,7 @@ def mla_kernels(torch, np, dev, rows, record, ccfg, prompt, max_new):
 
 # phase 3's Jamba rows and phase 4k: Mamba2 and Jamba's hybrid group
 MAMBA_ARCH, JAMBA_ARCH = "mamba2-2.7b", "jamba-v0.1-52b"
-MAMBA_LAYERS = 16      # phase 4k: the first 16 of mamba2's 64 SSD layers
+MAMBA_LAYERS = 8       # phase 4k: the first 8 of mamba2's 64 SSD layers (16 before phase 4o)
 
 
 # phase 3's GQA rows, one model's attention layer each: (row tag, arch, g, d,
@@ -3713,7 +3737,8 @@ def seamless(torch, np, dev, kernels, rel_l2, yardstick, card):
 
 # phase 4m: the remaining configs at full size (each model's row tags in phase 3)
 REMAINING_NEW, REMAINING_INTERVAL = 32, 16   # decode budget; fold cadence (and window)
-LAYERS_34B = 20   # phase 4m's llava-next-34b / yi-34b: 20 of 60 layers (room for 4n)
+LAYERS_34B = 10   # phase 4m's llava-next-34b / yi-34b: 10 of 60 layers (20 before phase 4o)
+LAYERS_4M = 8     # phase 4m's other models: their first 8 layers (full depth before phase 4o)
 ROW_TAGS = {"qwen2-7b": ("qwen2",), "smollm-360m": ("smollm",),
             "llava-next-34b": ("yi34b",), "yi-34b": ("yi34b",),
             "deepseek-moe-16b": ("dsmoe",)}
@@ -3737,8 +3762,9 @@ def remaining_traffic(np, vocab, b, prompt):
 
 
 def remaining(torch, np, dev, kernels, rel_l2, yardstick, card):
-    """Phase 4m: the remaining configs at full width and full depth (the
-    34B pair over its first LAYERS_34B layers), random
+    """Phase 4m: the remaining configs at full width over their first
+    LAYERS_4M layers (full depth before phase 4o; the 34B pair over its first
+    LAYERS_34B), random
     bf16 weights from a seeded generator, after every earlier phase's
     weights and graph pools are released: qwen2-7b (28 / 4 heads, g = 7,
     QKV biases drawn at random), smollm-360m (15 / 5, g = 3, d 64, tied
@@ -3875,7 +3901,7 @@ def remaining(torch, np, dev, kernels, rel_l2, yardstick, card):
         log(f"remaining: {tag} took {walls[tag]:.1f} s")
 
     # -- smollm-360m: g = 3, d 64, tied embeddings --------------------------------
-    cfg = configs.get_arch("smollm-360m")
+    cfg = dataclasses.replace(configs.get_arch("smollm-360m"), n_layers=LAYERS_4M)
     check(cfg.tie_embeddings and "lm_head" not in registry.schema(cfg)
           and (cfg.n_heads // cfg.n_kv_heads, cfg.hd) == (3, 64), f"{cfg.name}'s shape")
     params = runs.materialize(cfg)
@@ -3887,7 +3913,7 @@ def remaining(torch, np, dev, kernels, rel_l2, yardstick, card):
     lap(cfg.name)
 
     # -- qwen2-7b: g = 7, QKV biases (zeros at initialization: drawn here) ------
-    cfg = configs.get_arch("qwen2-7b")
+    cfg = dataclasses.replace(configs.get_arch("qwen2-7b"), n_layers=LAYERS_4M)
     check(cfg.qkv_bias and (cfg.n_heads // cfg.n_kv_heads, cfg.hd) == (7, 128),
           f"{cfg.name}'s shape")
     params = runs.materialize(cfg)
@@ -3903,7 +3929,7 @@ def remaining(torch, np, dev, kernels, rel_l2, yardstick, card):
     lap(cfg.name)
 
     # -- zipcache-paper-8b: LLaMA3-8B's shape, g = 4, the lockstep engine --------
-    cfg = configs.get_arch("zipcache-paper-8b")
+    cfg = dataclasses.replace(configs.get_arch("zipcache-paper-8b"), n_layers=LAYERS_4M)
     params = runs.materialize(cfg)
     batch, _, _ = remaining_traffic(np, cfg.vocab, b, prompt)
     ctx = lockstep(cfg.name, cfg, params, batch)
@@ -3912,7 +3938,7 @@ def remaining(torch, np, dev, kernels, rel_l2, yardstick, card):
     lap(cfg.name)
 
     # -- deepseek-moe-16b: g = 1 (the walk's G = 1 at D = 128), a dense prefix --
-    cfg = configs.get_arch("deepseek-moe-16b")
+    cfg = dataclasses.replace(configs.get_arch("deepseek-moe-16b"), n_layers=LAYERS_4M)
     check(cfg.first_dense_layers == 1 and not cfg.mla and cfg.n_heads == cfg.n_kv_heads,
           f"{cfg.name}'s shape")
     params = runs.materialize(cfg)
@@ -3994,11 +4020,13 @@ def remaining(torch, np, dev, kernels, rel_l2, yardstick, card):
 # ---- 4n. slice 16: single-card training of the dense decoder --------------
 TRAIN_ARCH = "smollm-360m"
 TRAIN_BATCH, TRAIN_SEQ = 8, 2048
+TRAIN_STEPS = 4       # (i): 8 before phase 4o, cut to make room for it
 
 
 def train_argv():
-    return ["--arch", TRAIN_ARCH, "--seed", "0", "--steps", "8", "--warmup", "2",
-            "--batch", str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ), "--checkpoint-every", "8"]
+    return ["--arch", TRAIN_ARCH, "--seed", "0", "--steps", str(TRAIN_STEPS), "--warmup", "2",
+            "--batch", str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ),
+            "--checkpoint-every", str(TRAIN_STEPS)]
 
 
 CRASH_LAYERS = 4      # (ii): full width over the first 4 of smollm's 32 layers
@@ -4013,11 +4041,12 @@ def training(torch, np, dev, kernels, card):
 
     (i) `train.main` (the CLI's entry point) at full size: random bf16
     weights from `registry.materialize_params(cfg, 0)`, AdamW at its
-    defaults under a cosine schedule (warmup 2, 8 steps), the synthetic
-    pipeline at 8 x 2048 tokens, `grad_accum` from `pick_grad_accum` (4:
-    microbatches of 2), q_block 512, through `FaultTolerantLoop` with one
-    checkpoint at step 8, restored into a fresh tree: every loss finite,
-    step 8's below step 1's, every restored leaf bitwise the returned
+    defaults under a cosine schedule (warmup 2, TRAIN_STEPS = 4 steps), the
+    synthetic pipeline at 8 x 2048 tokens, `grad_accum` from
+    `pick_grad_accum` (4: microbatches of 2), q_block 512, through
+    `FaultTolerantLoop` with one checkpoint at the last step, restored into
+    a fresh tree: every loss finite, the last step's below step 1's, every
+    restored leaf bitwise the returned
     state's.  (ii) At full width over the first 4 layers, 8 steps with
     checkpoints every 4 and a failure injected at step 6, resumed from
     step 4: every parameter and optimizer leaf at step 8 bitwise the
@@ -4074,9 +4103,11 @@ def training(torch, np, dev, kernels, card):
         check(all(v == 0 for v in launches.values()),
               f"training: the train path launched kernels {launches}; it runs none")
         losses = [m["loss"] for _, _, m in seen]
-        check([s for _, s, _ in seen] == list(range(1, 9)), "training: 8 steps were not run")
+        check([s for _, s, _ in seen] == list(range(1, TRAIN_STEPS + 1)),
+              f"training: {TRAIN_STEPS} steps were not run")
         check(all(np.isfinite(losses)), f"training: a loss is not finite: {losses}")
-        check(losses[-1] < losses[0], f"training: step 8's loss {losses[-1]:.4f} is not below "
+        check(losses[-1] < losses[0], f"training: step {TRAIN_STEPS}'s loss {losses[-1]:.4f} "
+              f"is not below "
               f"step 1's {losses[0]:.4f}")
         stamps = [t0] + [t for t, _, _ in seen]
         step_s = np.diff(stamps)
@@ -4091,29 +4122,31 @@ def training(torch, np, dev, kernels, card):
             + ", ".join(f"{x:.4f}" for x in losses) + "; gradient norms "
             + ", ".join(f"{m['grad_norm']:.3f}" for _, _, m in seen))
         log("training (i): step walls " + ", ".join(f"{x * 1e3:.1f}" for x in step_s) + " ms (the "
-            f"first with its warm-up); median of steps 2-8 {med * 1e3:.1f} "
+            f"first with its warm-up); median of steps 2-{TRAIN_STEPS} {med * 1e3:.1f} "
             f"ms, {tokens / med:,.0f} tokens/s; model FLOPs (6 N tokens + 2 N_layers tokens of "
             f"the recompute forward, attention scores not counted) {flops / 1e12:.2f} TFLOP a "
             f"step, {flops / med / 1e12:.1f} TFLOP/s, {flops / med / PEAK_BF16_FLOPS:.1%} of the "
             f"bf16 dense peak ({card}); max memory allocated {peak / 2**30:.2f} GiB")
         ck = Checkpointer(f"{tmp}/full")
-        check(ck.all_steps() == [8], f"training: checkpoints {ck.all_steps()}, want [8]")
-        step_dir = Path(tmp) / "full" / f"step_{8:010d}"
+        check(ck.all_steps() == [TRAIN_STEPS],
+              f"training: checkpoints {ck.all_steps()}, want [{TRAIN_STEPS}]")
+        step_dir = Path(tmp) / "full" / f"step_{TRAIN_STEPS:010d}"
         ck_bytes = sum(p.stat().st_size for p in step_dir.iterdir())
         fresh = tree.tree_map(torch.empty_like, state)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        restored, meta = ck.restore(8, fresh)
+        restored, meta = ck.restore(TRAIN_STEPS, fresh)
         torch.cuda.synchronize()
         restore_s = time.perf_counter() - t1
-        check(meta["step"] == 8 and meta["data_state"] == {"step": 8, "seed": 0},
+        check(meta["step"] == TRAIN_STEPS
+              and meta["data_state"] == {"step": TRAIN_STEPS, "seed": 0},
               f"training: checkpoint metadata {meta}")
         bad = [n for (n, a), b in zip(tree.named_leaves(state), tree.leaves(restored))
                if a.dtype != b.dtype or a.device != b.device or not torch.equal(a, b)]
         check(not bad, f"training: restored leaves differ from the saved: {bad[:4]}")
-        log(f"training (i): checkpoint at step 8 {ck_bytes / 1e9:.3f} GB in "
-            f"{len(list(step_dir.iterdir())) - 1} leaves; snapshot and write "
-            f"{t_end - seen[-1][0]:.2f} s (step 8's metrics to the CLI's return, the final wait "
+        log(f"training (i): checkpoint at step {TRAIN_STEPS} {ck_bytes / 1e9:.3f} GB in "
+            f"{len(list(step_dir.iterdir())) - 1} leaves; write (blocking, from the card) "
+            f"{t_end - seen[-1][0]:.2f} s (the last step's metrics to the CLI's return, the final wait "
             f"included); restore into a fresh device tree {restore_s:.2f} s; every leaf bitwise")
         del state, params, opt, fresh, restored
         gc.collect()
@@ -4131,7 +4164,7 @@ def training(torch, np, dev, kernels, card):
         pipe = TokenPipeline(dcfg)
         ref_state, _, ref_hist = FaultTolerantLoop(
             step_fn, Checkpointer(f"{tmp}/ref"), checkpoint_every=4, max_steps=8).run(
-                state0, pipe, 0)
+                tree.tree_map(torch.clone, state0), pipe, 0)   # a step updates in place
         pipe.close()
         ck4 = Checkpointer(f"{tmp}/crash")
         pipe = TokenPipeline(dcfg)
@@ -4164,7 +4197,8 @@ def training(torch, np, dev, kernels, card):
             f"at 4: all {len(tree.leaves(state))} parameter and optimizer leaves at step 8 "
             "bitwise the uninterrupted run's, losses "
             + ", ".join(f"{h['loss']:.4f}" for h in ref_hist)
-            + f"; checkpoint {crash_bytes / 1e9:.3f} GB; {crash_s:.1f} s for the three runs")
+            + f"; checkpoint {crash_bytes / 1e9:.3f} GB; {crash_s:.1f} s for the three runs, "
+            f"{time.perf_counter() - t2:.1f} s with the checks")
         del state0, ref_state, state, params4
         gc.collect()
         torch.cuda.empty_cache()
@@ -4227,6 +4261,325 @@ def training(torch, np, dev, kernels, card):
     log(f"training: the phase took {time.perf_counter() - t_phase:.1f} s")
     return launches
 
+
+# ---- 4o. slice 17: training of every other family on one card ---------------
+# (arch, layers at full width): DeepSeek-V2-Lite's dense layer and 3 MoE
+# layers (MLA + MoE + the aux loss); mamba2, seamless at full depth; llava's
+# first 2 of 60 layers (576 patch embeddings before 448 text tokens)
+FAMILY_TRAIN = (("deepseek-v2-lite-16b", 4), ("mamba2-2.7b", 64),
+                ("seamless-m4t-medium", 12), ("llava-next-34b", 2))
+FAMILY_BATCH, FAMILY_SEQ, FAMILY_STEPS = 4, 1024, 4
+FAMILY_CRASH = ("deepseek-v2-lite-16b", 2)     # (ii): its dense layer and one MoE layer
+# (iii): one microbatch of 512 tokens over one layer of each kind
+FAMILY_CARD_CPU = (("deepseek-v2-lite-16b", 2), ("mamba2-2.7b", 2), ("seamless-m4t-medium", 1))
+FAMILY_CARD_CPU_SEQ = 512
+
+
+def cut_depth(cfg, layers: int):
+    """`cfg` over its first `layers` layers at full width (the encoder-decoder:
+    as many encoder as decoder layers)."""
+    import dataclasses
+    if cfg.encdec:
+        return dataclasses.replace(cfg, n_layers=layers, n_enc_layers=layers)
+    return dataclasses.replace(cfg, n_layers=layers)
+
+
+def family_argv(arch, steps, every, ckpt_dir, fail_at=None):
+    argv = ["--arch", arch, "--seed", "0", "--steps", str(steps), "--warmup", "1",
+            "--batch", str(FAMILY_BATCH), "--seq-len", str(FAMILY_SEQ),
+            "--checkpoint-every", str(every), "--checkpoint-dir", ckpt_dir]
+    return argv + (["--fail-at", str(fail_at)] if fail_at is not None else [])
+
+
+def run_train_cli(train, configs, argv, layers):
+    """`train.main(argv)` with the arch cut to `layers` layers at full width:
+    (the returned state, [(time, step, metrics)] of each step, start time)."""
+    seen = []
+    print_metrics, get_arch = train._print_metrics, configs.get_arch
+
+    def record(step, m):
+        seen.append((time.perf_counter(), step, m))
+        print_metrics(step, m)
+
+    train._print_metrics = record
+    configs.get_arch = lambda name, smoke=False: cut_depth(get_arch(name, smoke=smoke), layers)
+    try:
+        t0 = time.perf_counter()
+        state = train.main(argv)
+    finally:
+        train._print_metrics, configs.get_arch = print_metrics, get_arch
+    return state, seen, t0
+
+
+def model_flops(cfg, params, tokens: int, tree) -> float:
+    """6 x active parameters x tokens, plus 2 x the recomputed layers'
+    active parameters x tokens (the remat forward); an MoE expert weight
+    counts top_k / n_experts of itself; attention scores not counted."""
+    total = layers = 0
+    for name, t in tree.named_leaves(params):
+        n = t.numel()
+        path = name.split("/")
+        if path[-2:-1] == ["moe"]:
+            n = n * cfg.top_k // cfg.n_experts
+        total += n
+        if path[0] in ("groups", "enc_layers", "dec_layers"):
+            layers += n
+    return 6 * total * tokens + 2 * layers * tokens
+
+
+class PinnedRoutes:
+    """Patches `mlp.route` for the card-against-CPU step: `record` keeps the
+    expert ids of every call (the forward's and the recompute's), `replay`
+    routes each call to the recorded ids instead of its own top k (the
+    gates renormalized over the recorded experts' probabilities) and notes
+    the share of tokens whose own top-k set is the recorded one."""
+
+    def __init__(self, torch, mlp):
+        self.torch, self.mlp, self.route = torch, mlp, mlp.route
+        self.calls, self.same = [], []
+
+    def record(self):
+        def route(params, x, cfg):
+            probs, gates, eidx = self.route(params, x, cfg)
+            self.calls.append(eidx.cpu())
+            return probs, gates, eidx
+        self.mlp.route = route
+
+    def replay(self):
+        torch = self.torch
+        pending = list(self.calls)
+
+        def route(params, x, cfg):
+            probs, _, own = self.route(params, x, cfg)
+            eidx = pending.pop(0).to(own.device)
+            self.same.append((torch.sort(own, -1).values == torch.sort(eidx, -1).values)
+                             .all(-1).float().mean().item())
+            g = torch.gather(probs, -1, eidx)
+            return probs, g / g.sum(dim=-1, keepdim=True).clamp_min(1e-9), eidx
+        self.mlp.route = route
+
+    def restore(self):
+        self.mlp.route = self.route
+
+
+def families(torch, np, dev, kernels, card):
+    """Phase 4o: `launch.train` trains each other family at full width, a
+    crash and a restart bitwise on the MoE path, and the card's first step
+    against the CPU's.
+
+    (i) `train.main` (the CLI's entry point) on DeepSeek-V2-Lite (MLA + MoE
+    + the aux loss) over its dense layer and 3 MoE layers, mamba2-2.7b
+    (64 SSD layers), seamless-m4t-medium (12 + 12 layers, f32 source
+    frames) and llava-next-34b over 2 of its 60 layers (576 patch
+    embeddings before 448 text tokens): random bf16 weights from
+    `registry.materialize_params(cfg, 0)`, AdamW at its defaults under a
+    cosine schedule (warmup 1, 4 steps), the synthetic pipeline at 4 x
+    1024 positions, `grad_accum` from `pick_grad_accum`, q_block 512, one
+    checkpoint at step 4 restored into a fresh host tree (each leaf mapped
+    from its file) and compared on the card: every loss
+    finite, step 4's below step 1's, DeepSeek's aux finite and positive,
+    every restored leaf bitwise.  (ii) DeepSeek-V2-Lite over its dense
+    layer and one MoE layer through `train.main`: 4 steps, a failure
+    injected at step 3 with checkpoints every 2, a second invocation
+    resumed at 2: every parameter and optimizer leaf at step 4 and the
+    resumed losses bitwise the uninterrupted run's (a dispatch backward
+    with float atomics would show here).  (iii) One 512-token microbatch
+    over one layer of each kind (DeepSeek's dense and one MoE layer,
+    mamba2's 2 layers, seamless 1 + 1) at a fan-in init of the same draws:
+    the loss (1e-3), the gradient norm (1e-2) and every gradient leaf (2e-2
+    relative L2) on the card against the port on the CPU, the MoE layer's
+    experts pinned to the card's choices on the CPU (`PinnedRoutes`; the
+    share of tokens both devices route alike is logged).  Every kernel's
+    count stays 0: no training path runs one.  Returns the launch counts
+    of (i)."""
+    import shutil
+    import tempfile
+
+    from repro_torch import configs, tree
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train
+    from repro_torch.models import blocks, common, mlp, registry
+    from repro_torch.optim import global_norm
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    check(held < 2 * 2**30, f"families: {held / 2**30:.2f} GiB still held by earlier phases")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_families_")
+    launches = {n: 0 for n in kernels}
+    try:
+        # ---- (i) each family through the CLI's entry point ---------------
+        for arch, layers in FAMILY_TRAIN:
+            t_arch = time.perf_counter()
+            cfg = cut_depth(configs.get_arch(arch), layers)
+            accum = steps_lib.pick_grad_accum(
+                cfg, ShapeConfig("train", FAMILY_SEQ, FAMILY_BATCH, "train"))
+            for kern in kernels.values():
+                kern.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            ck_dir = f"{tmp}/{arch}"
+            state, seen, t0 = run_train_cli(
+                train, configs, family_argv(arch, FAMILY_STEPS, FAMILY_STEPS, ck_dir), layers)
+            t_end = time.perf_counter()
+            peak = torch.cuda.max_memory_allocated()
+            for n, kern in kernels.items():
+                launches[n] += kern.launches
+            check(all(kern.launches == 0 for kern in kernels.values()),
+                  f"families (i) {arch}: the train path launched kernels "
+                  f"{ {n: k.launches for n, k in kernels.items()} }; it runs none")
+            losses = [m["loss"] for _, _, m in seen]
+            auxes = [m["aux"] for _, _, m in seen]
+            check([s for _, s, _ in seen] == list(range(1, FAMILY_STEPS + 1)),
+                  f"families (i) {arch}: {FAMILY_STEPS} steps were not run")
+            check(all(np.isfinite(losses)), f"families (i) {arch}: a loss is not finite: {losses}")
+            check(losses[-1] < losses[0], f"families (i) {arch}: step {FAMILY_STEPS}'s loss "
+                  f"{losses[-1]:.4f} is not below step 1's {losses[0]:.4f}")
+            if cfg.n_experts:
+                check(all(np.isfinite(auxes)) and min(auxes) > 0,
+                      f"families (i) {arch}: the aux loss is not finite and positive: {auxes}")
+            step_s = np.diff([t0] + [t for t, _, _ in seen])
+            med = float(np.median(step_s[1:]))
+            params = state[0]
+            n_params = sum(t.numel() for t in tree.leaves(params))
+            tokens = FAMILY_BATCH * FAMILY_SEQ
+            flops = model_flops(cfg, params, tokens, tree)
+            log(f"families (i) {arch}: {layers} layers at full width, {n_params:,} parameters, "
+                f"batch {FAMILY_BATCH} x {FAMILY_SEQ}, grad_accum {accum}; losses "
+                + ", ".join(f"{x:.4f}" for x in losses) + "; aux "
+                + ", ".join(f"{x:.6f}" for x in auxes) + "; gradient norms "
+                + ", ".join(f"{m['grad_norm']:.3f}" for _, _, m in seen))
+            log(f"families (i) {arch}: step walls " + ", ".join(f"{x * 1e3:.1f}" for x in step_s)
+                + f" ms (the first with its warm-up); median of steps 2-{FAMILY_STEPS} "
+                f"{med * 1e3:.1f} ms, {tokens / med:,.0f} tokens/s; model FLOPs (6 N_active "
+                f"tokens + 2 N_layers tokens of the recompute) {flops / 1e12:.2f} TFLOP a step, "
+                f"{flops / med / 1e12:.1f} TFLOP/s, {flops / med / PEAK_BF16_FLOPS:.1%} of the "
+                f"bf16 dense peak ({card}); max memory allocated {peak / 2**30:.2f} GiB")
+            ck = Checkpointer(ck_dir)
+            check(ck.all_steps() == [FAMILY_STEPS],
+                  f"families (i) {arch}: checkpoints {ck.all_steps()}, want [{FAMILY_STEPS}]")
+            step_dir = Path(ck_dir) / f"step_{FAMILY_STEPS:010d}"
+            ck_bytes = sum(p.stat().st_size for p in step_dir.iterdir())
+            # a host tree (a second device copy of mamba2's state would not fit
+            # beside it): each restored leaf maps its file, and reads it once,
+            # straight to the card, when it is compared there
+            fresh = tree.tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype), state)
+            t1 = time.perf_counter()
+            restored, meta = ck.restore(FAMILY_STEPS, fresh)
+            check(meta["step"] == FAMILY_STEPS, f"families (i) {arch}: checkpoint metadata {meta}")
+            bad = [n for (n, a), b in zip(tree.named_leaves(state), tree.leaves(restored))
+                   if a.dtype != b.dtype or not torch.equal(a, b.to(a.device))]
+            restore_s = time.perf_counter() - t1
+            check(not bad, f"families (i) {arch}: restored leaves differ from the saved: {bad[:4]}")
+            log(f"families (i) {arch}: checkpoint at step {FAMILY_STEPS} {ck_bytes / 1e9:.3f} GB "
+                f"in {len(list(step_dir.iterdir())) - 1} leaves; write (blocking, from the card) "
+                f"{t_end - seen[-1][0]:.2f} s (the last step's metrics to the CLI's return); "
+                f"restore into a fresh host tree and compare on the card {restore_s:.2f} s; "
+                "every leaf bitwise")
+            del state, params, fresh, restored
+            shutil.rmtree(ck_dir, ignore_errors=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+            log(f"families (i) {arch}: {time.perf_counter() - t_arch:.1f} s in all")
+
+        # ---- (ii) crash and restart on the MoE path -----------------------
+        t2 = time.perf_counter()
+        arch, layers = FAMILY_CRASH
+        ref_state, ref_seen, _ = run_train_cli(
+            train, configs, family_argv(arch, 4, 100, f"{tmp}/ref"), layers)
+        try:
+            run_train_cli(train, configs, family_argv(arch, 4, 2, f"{tmp}/crash", fail_at=3),
+                          layers)
+            fail("families (ii): the injected failure at step 3 did not raise")
+        except RuntimeError as e:
+            check("injected failure at step 3" in str(e), f"families (ii): {e}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        state, seen, _ = run_train_cli(
+            train, configs, family_argv(arch, 4, 2, f"{tmp}/crash"), layers)
+        crash_s = time.perf_counter() - t2
+        check([s for _, s, _ in seen] == [3, 4],
+              f"families (ii): the resumed run took steps {[s for _, s, _ in seen]}, want 3, 4")
+        check([m for _, _, m in seen] == [m for _, _, m in ref_seen[2:]],
+              "families (ii): the resumed metrics differ from the uninterrupted run's")
+        bad = [n for (n, a), b in zip(tree.named_leaves(ref_state), tree.leaves(state))
+               if not torch.equal(a, b)]
+        check(not bad, f"families (ii): leaves at step 4 differ from the uninterrupted run's: "
+              f"{bad[:4]}")
+        crash_dir = Path(tmp) / "crash" / f"step_{4:010d}"
+        crash_bytes = sum(p.stat().st_size for p in crash_dir.iterdir())
+        log(f"families (ii): {arch} over {layers} layers at full width, failure at step 3, "
+            f"resumed at 2: all {len(tree.leaves(state))} parameter and optimizer leaves at "
+            "step 4 and the resumed metrics bitwise the uninterrupted run's, losses "
+            + ", ".join(f"{m['loss']:.4f}" for _, _, m in ref_seen)
+            + f"; checkpoint {crash_bytes / 1e9:.3f} GB; {crash_s:.1f} s for the three runs, "
+            f"{time.perf_counter() - t2:.1f} s with the checks")
+        del ref_state, state
+        shutil.rmtree(f"{tmp}/crash", ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- (iii) the card's first step against the CPU's ----------------
+        # at a fan-in init of the reference's draws: at the reference's init
+        # the bf16 gradients are rounding noise (phase 4n (iii))
+        t5 = time.perf_counter()
+        ctx = blocks.RunCtx(q_block=512)
+        for arch, layers in FAMILY_CARD_CPU:
+            cfg = cut_depth(configs.get_arch(arch), layers)
+            params = common.fan_in_init(registry.materialize_params(cfg, seed=2, device=dev))
+            pipe = TokenPipeline(train.data_config(cfg, FAMILY_CARD_CPU_SEQ, 1, seed=2))
+            host = next(pipe)
+            pipe.close()
+            on = {d: train.to_device(host, d) for d in (dev, "cpu")}
+            pins = PinnedRoutes(torch, mlp)
+            pins.record()
+            try:
+                t3 = time.perf_counter()
+                loss_c, met_c, g_c = steps_lib.loss_and_grads(params, on[dev], cfg, ctx)
+                torch.cuda.synchronize()
+                card_s = time.perf_counter() - t3
+                cpu_params = tree.tree_map(lambda t: t.cpu(), params)
+                pins.replay()
+                t4 = time.perf_counter()
+                loss_h, met_h, g_h = steps_lib.loss_and_grads(cpu_params, on["cpu"], cfg, ctx)
+                cpu_s = time.perf_counter() - t4
+            finally:
+                pins.restore()
+            loss_rel = abs(loss_c.item() - loss_h.item()) / abs(loss_h.item())
+            gn_c, gn_h = global_norm(g_c).item(), global_norm(g_h).item()
+            gn_rel = abs(gn_c - gn_h) / gn_h
+            leaf_rel = {n: ((a.cpu().float() - b.float()).norm()
+                            / b.float().norm().clamp_min(1e-30)).item()
+                        for (n, _), a, b in zip(tree.named_leaves(params), g_c, g_h)}
+            worst = max(leaf_rel, key=leaf_rel.get)
+            routed = (f"; the CPU's own top {cfg.top_k} is the card's for "
+                      + ", ".join(f"{x:.4f}" for x in pins.same[:len(pins.same) // 2])
+                      + " of the tokens (each MoE layer's forward), the CPU pinned to the card's"
+                      f" experts; aux {met_c['aux'].item():.6f} / {met_h['aux'].item():.6f}"
+                      if pins.same else "")
+            log(f"families (iii) {arch}: {layers} layer(s) at full width, a fan-in init, one "
+                f"{FAMILY_CARD_CPU_SEQ}-token microbatch: loss {loss_c.item():.6f} on the card, "
+                f"{loss_h.item():.6f} on the CPU ({loss_rel:.2e} relative, tolerance "
+                f"{CPU_LOSS_REL:g}); gradient norm {gn_c:.5f} / {gn_h:.5f} ({gn_rel:.2e}, "
+                f"tolerance {CPU_GNORM_REL:g}); worst leaf {worst} {leaf_rel[worst]:.2e} "
+                f"(tolerance {CPU_LEAF_REL_L2:g}) of {len(leaf_rel)}{routed}; card "
+                f"{card_s:.2f} s, CPU {cpu_s:.1f} s")
+            check(loss_rel <= CPU_LOSS_REL, f"families (iii) {arch}: loss {loss_rel:.2e} relative")
+            check(gn_rel <= CPU_GNORM_REL,
+                  f"families (iii) {arch}: gradient norm {gn_rel:.2e} relative")
+            check(leaf_rel[worst] <= CPU_LEAF_REL_L2,
+                  f"families (iii) {arch}: gradient {worst} at {leaf_rel[worst]:.2e} relative L2")
+            del params, cpu_params, g_c, g_h, on
+            gc.collect()
+            torch.cuda.empty_cache()
+        log(f"families (iii): {time.perf_counter() - t5:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"families: the phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 if __name__ == "__main__":
     main()

@@ -12,7 +12,8 @@ package restores in the other:
     then renamed, so a crash mid-write never leaves a partial checkpoint;
   * async save: `save()` copies the tree to host memory at once and writes
     it in a background thread; the thread's error surfaces at the next
-    `wait()` (or `save()`);
+    `wait()` (or `save()`).  A blocking save copies no whole tree: each
+    device leaf goes through one pinned buffer into its file;
   * keep-k GC and `latest()` resume discovery; metadata (the data
     pipeline's state, the step) as JSON.
 """
@@ -37,6 +38,25 @@ def _host_copy(x) -> Any:
     if isinstance(x, torch.Tensor):
         return x.detach().to("cpu", copy=True)
     return np.array(x)
+
+
+def _staging(tree) -> Optional[torch.Tensor]:
+    """A pinned host buffer as large as the tree's largest device leaf (None
+    without one): a blocking save copies each device leaf through it."""
+    sizes = [t.numel() * t.element_size() for t in tree_lib.leaves(tree)
+             if isinstance(t, torch.Tensor) and t.device.type != "cpu"]
+    return torch.empty(max(sizes), dtype=torch.uint8, pin_memory=True) if sizes else None
+
+
+def _on_host(x, staging: Optional[torch.Tensor]):
+    """A leaf readable on the host: a device tensor copied into `staging`
+    (valid until the next leaf's copy), anything else as it is."""
+    if not isinstance(x, torch.Tensor):
+        return x
+    if x.device.type == "cpu":
+        return x.detach()
+    out = staging[:x.numel() * x.element_size()].view(x.dtype).view(x.shape)
+    return out.copy_(x.detach())
 
 
 def _to_savable(x) -> Tuple[np.ndarray, str]:
@@ -64,16 +84,18 @@ class Checkpointer:
     # ------------------------------------------------------------------
     def save(self, step: int, tree: Any, metadata: Optional[Dict] = None,
              blocking: bool = False) -> None:
-        """Snapshot now, write asynchronously (unless blocking)."""
+        """Snapshot now, write asynchronously; or, blocking, write each leaf
+        straight from where it lies (a device leaf through one pinned
+        buffer): no host copy of the whole tree, which at tens of GB costs
+        as much again as the write."""
         self.wait()  # one in-flight save at a time
-        host_tree = tree_lib.tree_map(_host_copy, tree)
         if blocking:
-            self._write(step, host_tree, metadata or {})
-        else:
-            self._thread = threading.Thread(
-                target=self._write_guard, args=(step, host_tree, metadata or {}),
-                daemon=True)
-            self._thread.start()
+            self._write(step, tree, metadata or {})
+            return
+        host_tree = tree_lib.tree_map(_host_copy, tree)
+        self._thread = threading.Thread(
+            target=self._write_guard, args=(step, host_tree, metadata or {}), daemon=True)
+        self._thread.start()
 
     def _write_guard(self, step, tree, metadata):
         try:
@@ -88,9 +110,10 @@ class Checkpointer:
             shutil.rmtree(tmp)
         tmp.mkdir(parents=True)
         manifest = {"step": step, "time": time.time(), "metadata": metadata, "leaves": []}
+        staging = _staging(tree)
         for i, (name, leaf) in enumerate(tree_lib.named_leaves(tree)):
             fname = f"leaf_{i:05d}.npy"
-            raw, dtype_name = _to_savable(leaf)
+            raw, dtype_name = _to_savable(_on_host(leaf, staging))
             np.save(tmp / fname, raw)
             manifest["leaves"].append({"name": name, "file": fname,
                                        "shape": list(raw.shape), "dtype": dtype_name})
@@ -131,7 +154,16 @@ class Checkpointer:
 
     def restore(self, step: int, target_tree: Any) -> Tuple[Any, Dict]:
         """Restore into the structure of `target_tree`: each leaf takes the
-        dtype and device of the target's leaf at its place."""
+        device of the target's leaf at its place and its dtype, but for a
+        leaf saved in bf16 where the target holds f32, which keeps bf16.
+        (AdamW hands every parameter back in bf16, the f32 MoE router too,
+        so a fresh tree's router is f32 and a trained one's bf16.  The
+        reference casts to the target's dtype: a resumed MoE run then takes
+        f32 router gradients where the uninterrupted run took bf16 ones,
+        and is not bitwise that run.)  Any other dtype that differs from
+        the target's raises.  Each file is mapped copy-on-write: a host
+        target's leaf reads its pages when first used, and a device
+        target's copies from the mapping with no host copy between."""
         path = self.dir / f"step_{step:010d}"
         manifest = json.loads((path / "manifest.json").read_text())
         targets = tree_lib.named_leaves(target_tree)
@@ -143,6 +175,8 @@ class Checkpointer:
             if rec["name"] != name or list(rec["shape"]) != list(t.shape):
                 raise ValueError(f"checkpoint leaf {rec['name']} {rec['shape']} does not fit "
                                  f"the target's {name} {list(t.shape)}")
-            x = _from_savable(np.load(path / rec["file"]), rec["dtype"])
-            leaves.append(x.to(device=t.device, dtype=t.dtype))
+            x = _from_savable(np.load(path / rec["file"], mmap_mode="c"), rec["dtype"])
+            if x.dtype != t.dtype and (x.dtype, t.dtype) != (torch.bfloat16, torch.float32):
+                raise ValueError(f"checkpoint leaf {name} is {x.dtype}, the target's {t.dtype}")
+            leaves.append(x.to(device=t.device))
         return tree_lib.unflatten(target_tree, leaves), manifest["metadata"]

@@ -588,6 +588,11 @@ def make_train_step(cfg: ArchConfig, opt_cfg: Optional[adamw.AdamWConfig] = None
     """train_step(params, opt_state, batch) -> (params, opt_state, metrics),
     the batch a dict of device tensors.
 
+    The step gives up its params and opt_state and returns them updated in
+    place (`adamw.adamw_update`), as the reference's CLI jits its step with
+    donated buffers: a step holds one training state, not two.  A caller
+    that needs the state it passed in clones it first.
+
     grad_accum == 1 keeps the bf16 gradients.  Above it the batch splits into
     `grad_accum` microbatches along its first axis; each microbatch's
     gradients add into f32 accumulators in order, and the sums, the loss and
@@ -612,12 +617,12 @@ def make_train_step(cfg: ArchConfig, opt_cfg: Optional[adamw.AdamWConfig] = None
                 loss = loss + mb_loss
                 mets.append(mb_met)
                 del g
-            grads = [true_div(a, grad_accum) for a in acc]
+            grads = [a.copy_(true_div(a, grad_accum)) for a in acc]   # one leaf's temporary
             loss = true_div(loss, grad_accum)
             met = {k: true_div(torch.stack([m[k] for m in mets]).sum(0), grad_accum)
                    for k in mets[0]}
         params, opt_state, opt_met = adamw.adamw_update(
-            opt_cfg, tree_lib.unflatten(params, grads), opt_state)
+            opt_cfg, tree_lib.unflatten(params, grads), opt_state, params)
         return params, opt_state, {"loss": loss, **met, **opt_met}
 
     return train_step

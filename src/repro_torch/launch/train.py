@@ -3,14 +3,18 @@ end-to-end fault-tolerant training on one card.
 
 The reference's flags, plus `--device` (default `cuda`; `--device cpu` runs
 on the CPU).  `--mesh` takes `1x1` only: a mesh across cards is ROADMAP
-item 15c.  Only the dense decoder trains (`registry.require_trainable`; the
-other families are item 15b).  Each step's metrics reach the host once, as one
-stacked transfer.
+item 15c.  Every arch of the registry trains: the dense decoder, MoE (with
+its aux loss), MLA, the SSD and hybrid layers, the encoder-decoder (the
+pipeline's f32 source frames under its tokens) and the frontend archs (the
+pipeline's frontend embeddings before the text, the loss over the text).
+The step donates its state, as the reference's CLI jits it with donated
+buffers: one training state is live.  Each step's metrics reach the host
+once, as one stacked transfer.
 
 Example (CPU smoke):
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m --smoke \\
       --device cpu --steps 20 --batch 4 --seq-len 32
-On the card (smollm-360m at full size):
+On the card (smollm-360m at full size; any other `--arch` likewise):
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
       --steps 100 --batch 8 --seq-len 2048
 """
@@ -40,13 +44,21 @@ def build(args):
     if args.mesh != "1x1":
         raise ValueError(f"--mesh {args.mesh}: a mesh across cards is not ported yet, "
                          "only 1x1 (ROADMAP item 15c)")
-    registry.require_trainable(cfg)
     shape = ShapeConfig("train", args.seq_len, args.batch, "train")
     opt_cfg = AdamWConfig(lr=args.lr, schedule=cosine_schedule(args.warmup, args.steps))
     accum = args.grad_accum or steps_lib.pick_grad_accum(cfg, shape)
     train_step = steps_lib.make_train_step(
         cfg, opt_cfg, grad_accum=accum, q_block=min(512, args.seq_len))
     return cfg, train_step
+
+
+def data_config(cfg, seq_len: int, batch: int, seed: int) -> DataConfig:
+    """The pipeline's config for `cfg`, as the reference's CLI builds it: a
+    frontend arch's batches carry its frontend embeddings before a shorter
+    text, the encoder-decoder's its f32 source frames."""
+    return DataConfig(seq_len=seq_len, global_batch=batch, vocab=cfg.vocab, seed=seed,
+                      frontend_tokens=cfg.n_frontend_tokens if cfg.frontend != "none" else 0,
+                      d_model=cfg.d_model, encdec=cfg.encdec)
 
 
 def to_device(batch, device) -> dict:
@@ -107,8 +119,7 @@ def main(argv=None):
     params = registry.materialize_params(cfg, args.seed, device=device)
     opt_state = adamw_init(params)
 
-    dcfg = DataConfig(seq_len=args.seq_len, global_batch=args.batch, vocab=cfg.vocab,
-                      seed=args.seed, d_model=cfg.d_model)
+    dcfg = data_config(cfg, args.seq_len, args.batch, args.seed)
 
     ckpt = Checkpointer(args.checkpoint_dir, keep=3)
     guard = PreemptionGuard()
@@ -121,6 +132,7 @@ def main(argv=None):
         preemption_guard=guard,
     )
     state, start_step, data_state = loop.resume_or((params, opt_state))
+    del params, opt_state   # a restored state is a new tree: the first one is not kept
     pipe = (TokenPipeline.restore(dcfg, data_state) if data_state
             else TokenPipeline(dcfg, start_step=start_step))
     print(f"[train] {args.arch} start_step={start_step} mesh=none device={device}")

@@ -156,6 +156,22 @@ def apply_layer_full(params: dict, x: torch.Tensor, cfg: ArchConfig, mixer: str,
     return x, cache_el, aux_loss
 
 
+def apply_group_full(params: dict, x: torch.Tensor, cfg: ArchConfig, ctx: RunCtx,
+                     build_cache: bool, group: int = 0) -> Tuple[torch.Tensor, list, torch.Tensor]:
+    """One scan group's sub-layers over the full sequence: (x, the sub-layers'
+    cache elements (None each without build_cache), the group's summed aux
+    loss).  The absolute layer of sub-layer j is first_dense_layers + group
+    * scan_group + j."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    els = []
+    for j, (m, f) in enumerate(cfg.layer_kinds()):
+        x, el, aux = apply_layer_full(params[f"sub{j}"], x, cfg, m, f, ctx, build_cache,
+                                      layer=cfg.first_dense_layers + group * cfg.scan_group + j)
+        aux_total = aux_total + aux
+        els.append(el)
+    return x, els, aux_total
+
+
 def apply_layer_decode(params: dict, x_t: torch.Tensor, cfg: ArchConfig, mixer: str, ffn: str,
                        cache_el: Any, ctx: RunCtx, is_probe,
                        active: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Any]:

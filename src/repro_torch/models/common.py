@@ -77,24 +77,30 @@ def materialize(schema, seed: int = 0, device="cuda"):
     return walk(schema)
 
 
-# each stacked weight's contracted axes after its leading layer axis
-_FAN_AXES = {"wq": 1, "wk": 1, "wv": 1, "wo": 2, "w_gate": 1, "w_up": 1, "w_down": 1}
+# each layer weight's contracted axes, after its leading layer (and expert) axes
+_FAN_AXES = {"wq": 1, "wk": 1, "wv": 1, "wo": 2, "w_gate": 1, "w_up": 1, "w_down": 1,
+             "w_dkv": 1, "w_kpe": 1, "w_q_nope": 1, "w_q_pe": 1, "w_uk": 1, "w_uv": 1,
+             "w_z": 1, "w_x": 1, "w_B": 1, "w_C": 1, "w_dt": 1, "out_proj": 1}
+_STACKED = ("groups", "enc_layers", "dec_layers")   # trees with a leading layer axis
 
 
 def fan_in_init(params):
-    """The same draws at std 1 / sqrt(fan-in): each stacked layer weight (L,
-    ...), drawn at the reference's 1 / sqrt(L), scaled by sqrt(L / fan-in),
-    the embedding (std 1) by 1 / sqrt(d_model); every other leaf as it is.
-    At the reference's init a wide model's bf16 gradients are rounding
-    noise; at this one they are not, so a card's gradients can be held to
-    another device's."""
+    """The same draws at std 1 / sqrt(fan-in): each layer weight, drawn at
+    the reference's 1 / sqrt(its leading axis) (for a stacked weight (L,
+    ...) or an MoE expert weight (L, E, ...), the layer count), scaled by
+    sqrt(leading axis / fan-in), the embedding (std 1) by 1 / sqrt(d_model);
+    every other leaf as it is.  At the reference's init a wide model's bf16
+    gradients are rounding noise; at this one they are not, so a card's
+    gradients can be held to another device's."""
 
     def scale(name, t):
-        key = name.split("/")[-1]
+        path = name.split("/")
+        key = path[-1]
         if key == "embed":
             return (t.float() / math.sqrt(t.shape[1])).to(t.dtype)
         if key in _FAN_AXES:
-            fan = math.prod(t.shape[1:1 + _FAN_AXES[key]])
+            lead = (path[0] in _STACKED) + (path[-2] == "moe")
+            fan = math.prod(t.shape[lead:lead + _FAN_AXES[key]])
             return (t.float() * math.sqrt(t.shape[0] / fan)).to(t.dtype)
         return t
 
@@ -105,32 +111,41 @@ def fan_in_init(params):
 # Numerics
 # ---------------------------------------------------------------------------
 
-class _EmbedLookup(torch.autograd.Function):
-    """The row gather whose backward sums each row's gradient in f32 and
-    rounds once, as the reference's one-hot matmul's does: the CPU's bf16
-    embedding backward adds in bf16, ~4% off for a token that repeats a few
-    hundred times.  On the card the f32 sum is the sort-based
+class _RowGather(torch.autograd.Function):
+    """A row gather whose backward sums each row's gradient in f32, in the
+    order of the indices, and rounds once, as the reference's one-hot
+    matmul's does for the embedding: the CPU's bf16 embedding or index
+    backward adds in bf16, ~4% off for a token that repeats a few hundred
+    times.  On the card the f32 sum is the sort-based
     `embedding_dense_backward`: no atomics, bitwise reproducible."""
 
     @staticmethod
-    def forward(ctx, table, tokens):
-        ctx.save_for_backward(tokens)
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
         ctx.n_rows = table.shape[0]
-        return F.embedding(tokens, table)
+        return F.embedding(idx, table)
 
     @staticmethod
     def backward(ctx, grad):
-        (tokens,) = ctx.saved_tensors
-        g = torch.ops.aten.embedding_dense_backward(grad.float(), tokens, ctx.n_rows, -1, False)
+        (idx,) = ctx.saved_tensors
+        g = torch.ops.aten.embedding_dense_backward(grad.float(), idx, ctx.n_rows, -1, False)
         return g.to(grad.dtype), None
+
+
+def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table[idx] for a 2-D table and int indices of any shape; under
+    autograd its gradient sums each row's contributions in f32 and rounds
+    once (`_RowGather`): the embedding lookup and the MoE dispatch's token
+    and slot gathers."""
+    if torch.is_grad_enabled() and table.requires_grad:
+        return _RowGather.apply(table, idx.long())
+    return F.embedding(idx.long(), table)
 
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """Row gather; equal to the reference's one-hot matmul bit for bit, its
-    gradient too (`_EmbedLookup`)."""
-    if torch.is_grad_enabled() and table.requires_grad:
-        return _EmbedLookup.apply(table, tokens.long())
-    return F.embedding(tokens.long(), table)
+    gradient too (`gather_rows`)."""
+    return gather_rows(table, tokens)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

@@ -23,6 +23,8 @@ parameters are f32 beside a bf16 window (`common.einsum` promotes).
 Parameters keep the reference's layout: `embed`, `audio_proj`,
 `enc_layers` and `dec_layers` (stacked on a leading layer axis; a Python
 loop over it replaces `lax.scan`), `enc_norm`, `final_norm`, `lm_head`.
+The training loss (`loss_fn`) is the CE over every decoder position; each
+encoder and decoder layer is recomputed in its backward pass (`remat`).
 Caches are {"prefix": [], "groups": [{"self": element, "cross": element}
 per decoder layer]}: the decoder-only tree's shape, so every walk over a
 cache tree (`registry.cache_elements` / `map_caches`, `backend.cache_bytes`,
@@ -31,9 +33,10 @@ the captured step's `adopt`) takes both elements of every layer.
 
 from __future__ import annotations
 
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
@@ -82,17 +85,23 @@ def encdec_schema(cfg: ArchConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 def encode(params: dict, src_embeds: torch.Tensor, cfg: ArchConfig,
-           ctx: Optional[blocks.RunCtx] = None) -> torch.Tensor:
+           ctx: Optional[blocks.RunCtx] = None, remat: bool = True) -> torch.Tensor:
     """(b, l_src, e) frame embeddings -> the encoder memory (b, l_src, e), in
-    the embeddings' dtype (f32 embeddings promote the bf16 weights)."""
+    the embeddings' dtype (f32 embeddings promote the bf16 weights).
+    remat: under autograd each layer runs under `torch.utils.checkpoint`,
+    as the reference's `jax.checkpoint(layer)`."""
     q_block = ctx.q_block if ctx is not None else 512
     x = common.einsum("ble,ef->blf", src_embeds, params["audio_proj"])
-    for i in range(cfg.n_enc_layers):
-        p = common.layer_slice(params["enc_layers"], i)
+
+    def layer(x, p):
         h = common.rms_norm(x, p["ln1"], cfg.norm_eps)
         y, _ = attn.gqa_forward(p["attn"], h, cfg, causal=False, q_block=q_block)
         x = x + y
-        x = x + mlp_mod.dense_mlp(p["mlp"], common.rms_norm(x, p["ln2"], cfg.norm_eps))
+        return x + mlp_mod.dense_mlp(p["mlp"], common.rms_norm(x, p["ln2"], cfg.norm_eps))
+
+    use_ckpt = remat and torch.is_grad_enabled()
+    for p in lm.stacked_slices(params["enc_layers"], cfg.n_enc_layers):
+        x = checkpoint(layer, x, p, use_reentrant=False) if use_ckpt else layer(x, p)
     return common.rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -129,22 +138,42 @@ def _dec_layer_full(p: dict, x: torch.Tensor, enc_out: torch.Tensor, cfg: ArchCo
 
 
 def forward(params: dict, src_embeds: torch.Tensor, tokens: torch.Tensor, cfg: ArchConfig,
-            ctx: Optional[blocks.RunCtx] = None, build_cache: bool = False
+            ctx: Optional[blocks.RunCtx] = None, build_cache: bool = False, remat: bool = True
             ) -> Tuple[torch.Tensor, Any]:
     """Teacher-forced seq2seq forward.  Returns (logits, caches | None); with
     build_cache (prefill) only the last position's logits, (b, 1, vocab),
-    and the cache tree.  The vocabulary's padding columns are masked."""
+    and the cache tree.  The vocabulary's padding columns are masked.
+
+    remat: under autograd every encoder layer, and every decoder layer
+    unless build_cache, runs under `torch.utils.checkpoint` and is
+    recomputed in the backward pass, as the reference's `jax.checkpoint`s:
+    only each layer's input is kept.  It does not change a bit of the loss
+    or the gradients."""
     ctx = ctx or blocks.RunCtx()
-    enc_out = encode(params, src_embeds, cfg, ctx)
+    enc_out = encode(params, src_embeds, cfg, ctx, remat=remat)
     x = common.embed_lookup(params["embed"], tokens)
+
+    def layer(x, p):
+        return _dec_layer_full(p, x, enc_out, cfg, ctx, build_cache)
+
+    use_ckpt = remat and not build_cache and torch.is_grad_enabled()
     groups = []
-    for i in range(cfg.n_layers):
-        x, el = _dec_layer_full(common.layer_slice(params["dec_layers"], i), x, enc_out, cfg,
-                                ctx, build_cache)
+    for p in lm.stacked_slices(params["dec_layers"], cfg.n_layers):
+        x, el = checkpoint(layer, x, p, use_reentrant=False) if use_ckpt else layer(x, p)
         groups.append(el)
     if not build_cache:
         return lm.unembed(params, cfg, x), None
     return lm.unembed(params, cfg, x[:, -1:]), {"prefix": [], "groups": groups}
+
+
+def loss_fn(params: dict, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
+            ctx: Optional[blocks.RunCtx] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token CE over every decoder position (batch: frontend_embeds, the
+    source frames (b, l_src, e); tokens, labels (b, l); optional mask) and
+    a zero aux loss, as the reference's."""
+    logits, _ = forward(params, batch["frontend_embeds"], batch["tokens"], cfg, ctx)
+    ce = common.cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
+    return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32, device=ce.device)}
 
 
 # ---------------------------------------------------------------------------

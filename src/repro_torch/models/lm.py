@@ -124,11 +124,12 @@ class ForwardOut(NamedTuple):
     caches: Any            # None in the training forward
 
 
-def _group_slices(groups: dict, n: int) -> list:
-    """The stacked group weights as n per-group trees of views.  One `unbind`
-    per leaf: its backward stacks the n groups' gradients in one op."""
-    per_leaf = [t.unbind(0) for t in tree_lib.leaves(groups)]
-    return [tree_lib.unflatten(groups, [u[g] for u in per_leaf]) for g in range(n)]
+def stacked_slices(stacked: dict, n: int) -> list:
+    """Weights stacked on a leading layer (or group) axis as n per-layer
+    trees of views.  One `unbind` per leaf: its backward stacks the n
+    layers' gradients in one op."""
+    per_leaf = [t.unbind(0) for t in tree_lib.leaves(stacked)]
+    return [tree_lib.unflatten(stacked, [u[g] for u in per_leaf]) for g in range(n)]
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
@@ -154,25 +155,11 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
         aux_total = aux_total + aux
         els.append(el)
 
-    kinds = cfg.layer_kinds()
-
-    def group_fn(x, gparams, g):
-        aux_g = torch.zeros((), dtype=torch.float32, device=x.device)
-        group_els = []
-        for j, (m, f) in enumerate(kinds):
-            x, el, aux = blocks.apply_layer_full(
-                gparams[f"sub{j}"], x, cfg, m, f, ctx, build_cache,
-                layer=cfg.first_dense_layers + g * cfg.scan_group + j)
-            aux_g = aux_g + aux
-            group_els.append(el)
-        return x, aux_g, group_els
-
     use_ckpt = remat and not build_cache and torch.is_grad_enabled()
-    for g, gparams in enumerate(_group_slices(params["groups"], cfg.n_scan_groups)):
-        if use_ckpt:
-            x, aux, group_els = checkpoint(group_fn, x, gparams, g, use_reentrant=False)
-        else:
-            x, aux, group_els = group_fn(x, gparams, g)
+    for g, gparams in enumerate(stacked_slices(params["groups"], cfg.n_scan_groups)):
+        args = (gparams, x, cfg, ctx, build_cache, g)
+        x, group_els, aux = (checkpoint(blocks.apply_group_full, *args, use_reentrant=False)
+                             if use_ckpt else blocks.apply_group_full(*args))
         aux_total = aux_total + aux
         els.extend(group_els)
 

@@ -25,6 +25,13 @@ rounding: its contributions in expert order (the sorted order of the
 reference's `.at[token_of].add`), each addition rounded to h's dtype.  It
 is a gather and k elementwise adds, with no atomics: bitwise reproducible,
 on the card as on the CPU.
+
+Under autograd both gathers (the tokens into their slots, the slots back
+to their pairs) take `common.gather_rows`: a row's gradient sums its
+contributions in f32 and rounds once, with no atomics, so two identical
+steps are bitwise on the card.  The reference's scatter-add sums a
+token's k contributions in bf16, so `x`'s gradient, and everything
+upstream of it, is a rounding apart from the reference's.
 """
 
 from __future__ import annotations
@@ -102,7 +109,7 @@ def _dispatch_compute(x_flat: torch.Tensor, gates: torch.Tensor, eidx: torch.Ten
     filled = slot_c[None, :] < counts[:, None]                     # (E, C)
     src = (starts[:, None] + slot_c[None, :]).clamp_max(n * k - 1)
     token_of = sort_idx // k
-    rows = x_flat[token_of[src]]                                   # (E, C, e)
+    rows = common.gather_rows(x_flat, token_of[src])               # (E, C, e)
     buf = torch.where(filled[..., None], rows, torch.zeros((), dtype=x_flat.dtype, device=dev))
     h = _expert_ffn(buf, w_gate, w_up, w_down).reshape(n_exp * capacity, -1)
 
@@ -111,7 +118,7 @@ def _dispatch_compute(x_flat: torch.Tensor, gates: torch.Tensor, eidx: torch.Ten
     rank = torch.empty_like(rank_sorted).scatter_(0, sort_idx, rank_sorted).reshape(n, k)
     keep = (rank < capacity) & (flat_e.reshape(n, k) < n_exp)
     dest = (eidx.long() * capacity + rank.clamp_max(capacity - 1))
-    contrib = h[dest] * gates.to(h.dtype)[..., None]               # (N, k, e), h's rounding
+    contrib = common.gather_rows(h, dest) * gates.to(h.dtype)[..., None]   # (N, k, e)
     contrib = torch.where(keep[..., None], contrib, torch.zeros((), dtype=h.dtype, device=dev))
     # a token's pairs meet in expert order in the sorted list: add them so
     order = torch.sort(eidx.long(), dim=1).indices
@@ -126,7 +133,9 @@ def route(params: dict, x: torch.Tensor, cfg: ArchConfig):
     """The f32 router over x (b, s, e) -> (probs (b, s, E), gates (b, s, k)
     renormalized over the top k, expert ids (b, s, k))."""
     k = cfg.top_k
-    logits = torch.einsum("bse,en->bsn", x.float(), params["router"])
+    # the router is f32 until a training step: AdamW, as the reference's,
+    # hands back every parameter in bf16; the product promotes it
+    logits = torch.einsum("bse,en->bsn", x.float(), params["router"].float())
     probs = torch.softmax(logits, dim=-1)
     # jax.lax.top_k's order: descending, the lower expert first on ties
     gate_vals, eidx = torch.sort(probs, dim=-1, descending=True, stable=True)

@@ -25,24 +25,14 @@ def materialize_params(cfg: ArchConfig, seed: int = 0, device="cuda"):
     return common.materialize(schema(cfg), seed, device=device)
 
 
-def require_trainable(cfg: ArchConfig) -> None:
-    """Raise unless the port trains `cfg`: only the dense decoder (GQA
-    attention and a dense FFN in every layer) trains so far."""
-    why = ("the encoder-decoder's loss (encdec.loss_fn)" if cfg.encdec
-           else f"the {cfg.frontend} frontend" if cfg.frontend != "none"
-           else "the MoE aux loss" if cfg.n_experts
-           else "MLA" if cfg.mla
-           else "SSM layers" if cfg.ssm or any(m != "attn" for m, _ in cfg.layer_kinds())
-           else None)
-    if why is not None:
-        raise ValueError(f"{cfg.name}: training {why} is not ported yet (ROADMAP item 15b)")
-
-
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
             ctx: Optional[blocks.RunCtx] = None):
-    """(loss, {"ce", "aux"}) of a training batch (`train_batch_spec`).  The
-    dense decoder only: every other family raises (`require_trainable`)."""
-    require_trainable(cfg)
+    """(loss, {"ce", "aux"}) of a training batch (`train_batch_spec`), for
+    every family: the encoder-decoder's `encdec.loss_fn`, else the decoder's
+    `lm.loss_fn` (the MoE aux loss added, a frontend arch's labels over its
+    text only)."""
+    if cfg.encdec:
+        return encdec.loss_fn(params, batch, cfg, ctx)
     return lm.loss_fn(params, batch, cfg, ctx)
 
 

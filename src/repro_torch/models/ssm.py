@@ -101,8 +101,10 @@ def _silu_to(x: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
-    """log(1 + e^x) as `jax.nn.softplus` (`logaddexp(x, 0)`) computes it."""
-    return x.clamp_min(0.0) + torch.log1p(torch.exp(-x.abs()))
+    """log(1 + e^x) as `jax.nn.softplus` (`logaddexp(x, 0)`) computes it.
+    max(x, 0) is (x + |x|) / 2, the same value: its gradient at x = 0 is
+    1/2, as JAX's, where `clamp_min`'s is 1."""
+    return (x + x.abs()) * 0.5 + torch.log1p(torch.exp(-x.abs()))
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b_: torch.Tensor, tail: torch.Tensor):

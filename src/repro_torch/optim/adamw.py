@@ -1,11 +1,14 @@
 """AdamW with f32 master weights (port of `repro.optim.adamw`).
 
 The state mirrors the parameter tree: an f32 master copy, m and v, and an
-int32 step count.  `adamw_update` is functional, per leaf, in the
-reference's f32 arithmetic: the clip factor from the global norm, the bias
-corrections `1 - b ** count`, and the bf16 parameters rounded from the new
-master.  Divisions by a Python number are true divisions and the square
-root is correctly rounded (`core.quant`), as the reference computes them.
+int32 step count.  `adamw_update` updates in place, as the reference's CLI
+jits its step with donated buffers: the new master, m and v go into the
+state's tensors and each new parameter into its own leaf, so a step holds
+one training state, not two.  The arithmetic is the reference's f32 one,
+per leaf: the clip factor from the global norm, the bias corrections
+`1 - b ** count`, and the bf16 parameters rounded from the new master.
+Divisions by a Python number are true divisions and the square root is
+correctly rounded (`core.quant`), as the reference computes them.
 """
 
 from __future__ import annotations
@@ -58,9 +61,22 @@ def _scalar(x: float, like: torch.Tensor) -> torch.Tensor:
     return torch.full((), x, dtype=torch.float32, device=like.device)
 
 
-def adamw_update(cfg: AdamWConfig, grads, state: AdamWState, param_dtype=torch.bfloat16
-                 ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
-    """Returns (new params in `param_dtype`, new state, metrics)."""
+_CHUNK = 1 << 24   # elements of a leaf updated at once
+
+
+def adamw_update(cfg: AdamWConfig, grads, state: AdamWState, params,
+                 param_dtype=torch.bfloat16) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
+    """Returns (new params in `param_dtype`, new state, metrics); both trees
+    are the given ones, updated in place.
+
+    `params` and `state` are given up to the update.  A parameter leaf of
+    another dtype (the f32 router of a fresh MoE tree) is made anew in
+    `param_dtype`.  Each leaf updates in flat chunks of `_CHUNK` elements:
+    the update is elementwise, so the chunks change no bit, and its ~20 f32
+    temporaries of a chunk stay near 1.3 GB whatever the leaf's shape (a
+    whole stacked leaf, mamba2's w_x at 64 x 2560 x 5120, would take ~25 GB).
+    Master, m and v must be contiguous, as `adamw_init` and a restore make
+    them."""
     count = state.count + 1
     gnorm = global_norm(grads)
     clip = (torch.clamp_max(_scalar(cfg.grad_clip, gnorm) / gnorm.clamp_min(1e-9), 1.0)
@@ -81,10 +97,14 @@ def adamw_update(cfg: AdamWConfig, grads, state: AdamWState, param_dtype=torch.b
         step = mh / (correctly_rounded_sqrt(vh) + cfg.eps) + cfg.weight_decay * p32
         return p32 - lr * step, m, v
 
-    flat = [upd(*args) for args in zip(*(tree_lib.leaves(t) for t in
-                                         (grads, state.master, state.m, state.v)))]
-    new_p32 = tree_lib.unflatten(state.master, [t[0] for t in flat])
-    new_m = tree_lib.unflatten(state.m, [t[1] for t in flat])
-    new_v = tree_lib.unflatten(state.v, [t[2] for t in flat])
-    params = tree_lib.tree_map(lambda p: p.to(param_dtype), new_p32)
-    return params, AdamWState(new_p32, new_m, new_v, count), {"grad_norm": gnorm, "lr": lr}
+    out = []
+    for p, g, p32, m, v in zip(*(tree_lib.leaves(t) for t in (params, grads, state.master,
+                                                              state.m, state.v))):
+        chunks = zip(*(t.view(-1).split(_CHUNK) for t in (p32, m, v)),
+                     g.reshape(-1).split(_CHUNK))
+        for p32_c, m_c, v_c, g_c in chunks:
+            for old, new in zip((p32_c, m_c, v_c), upd(g_c, p32_c, m_c, v_c)):
+                old.copy_(new)
+        out.append(p.copy_(p32) if p.dtype == param_dtype else p32.to(param_dtype))
+    return (tree_lib.unflatten(params, out), AdamWState(state.master, state.m, state.v, count),
+            {"grad_norm": gnorm, "lr": lr})

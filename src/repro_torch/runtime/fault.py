@@ -2,7 +2,8 @@
 (port of `repro.runtime.fault`).
 
 `FaultTolerantLoop` wraps a step function with:
-  * periodic async checkpoints (+ data-pipeline state),
+  * periodic async checkpoints (+ data-pipeline state); the last step's
+    is blocking, as nothing is left to overlap it with,
   * auto-resume from the latest complete checkpoint,
   * SIGTERM/SIGINT preemption guard → final blocking checkpoint,
   * straggler observation + mitigation hook,
@@ -95,8 +96,11 @@ class FaultTolerantLoop:
             if metrics_cb:
                 metrics_cb(step, metrics)
             if step % self.every == 0:
+                # the last step's save has no step left to overlap: it writes
+                # straight from the device, with no host snapshot
                 self.ckpt.save(step, state,
-                               {"step": step, "data_state": _ds(data_iter)})
+                               {"step": step, "data_state": _ds(data_iter)},
+                               blocking=step == self.max_steps)
         self.ckpt.wait()
         return state, step, history
 

@@ -1849,9 +1849,30 @@ def test_train_step_twice_is_bitwise(dev, grad_accum):
     step = steps_lib.make_train_step(cfg, AdamWConfig(lr=1e-3), grad_accum=grad_accum,
                                      q_block=64)
     state = (params, adamw_init(params))
-    runs = [step(*state, train.to_device(host, dev)) for _ in range(2)]
+    # a step updates its state in place: each run starts from a copy
+    runs = [step(*tree.tree_map(torch.clone, state), train.to_device(host, dev))
+            for _ in range(2)]
     for a, b in zip(tree.leaves(runs[0]), tree.leaves(runs[1])):
         assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+def test_blocking_checkpoint_streams_device_tensors(dev, tmp_path):
+    """A blocking save writes each device leaf through one pinned buffer (no
+    host copy of the tree): the checkpoint restores bitwise, bf16 and f32
+    leaves of several sizes, the largest first."""
+    from repro_torch import tree
+    from repro_torch.checkpoint import Checkpointer
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    state = {"big": torch.randn(3, 1000, 700, generator=gen, device=dev),
+             "small": [torch.randn(77, generator=gen, device=dev).to(torch.bfloat16),
+                       torch.arange(5, device=dev, dtype=torch.int32)]}
+    ck = Checkpointer(tmp_path)
+    ck.save(2, state, {"step": 2}, blocking=True)
+    restored, meta = ck.restore(2, tree.tree_map(torch.empty_like, state))
+    assert meta == {"step": 2}
+    for a, b in zip(tree.leaves(state), tree.leaves(restored)):
+        assert b.device == a.device and b.dtype == a.dtype and torch.equal(a, b)
 
 
 def test_checkpoint_of_device_tensors_round_trips(dev, tmp_path):
@@ -1868,3 +1889,103 @@ def test_checkpoint_of_device_tensors_round_trips(dev, tmp_path):
     assert meta == {"step": 5}
     for a, b in zip(tree.leaves(state), tree.leaves(restored)):
         assert b.device == a.device and b.dtype == a.dtype and torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# Training of the other families on the card (slice 17): no kernel runs
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ("deepseek-v2-lite-16b", "deepseek-moe-16b", "mamba2-2.7b", "jamba-v0.1-52b",
+                "seamless-m4t-medium", "llava-next-34b")
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_train_step_twice_is_bitwise(dev, arch):
+    """The same step of each family's smoke config from one state twice, two
+    microbatches: bitwise equal parameters, optimizer state and metrics.
+    The MoE dispatch's backward, the SSD's chunk scan and the
+    encoder-decoder's f32 encoder run under autograd on the card with no
+    atomics."""
+    from repro_torch import tree
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import train
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = configs.get_arch(arch, smoke=True)
+    pipe = TokenPipeline(train.data_config(cfg, 128, 4, seed=3))
+    host = next(pipe)
+    pipe.close()
+    params = registry.materialize_params(cfg, seed=0, device=dev)
+    step = steps_lib.make_train_step(cfg, AdamWConfig(lr=1e-3), grad_accum=2, q_block=64)
+    state = (params, adamw_init(params))
+    # a step updates its state in place: each run starts from a copy
+    runs = [step(*tree.tree_map(torch.clone, state), train.to_device(host, dev))
+            for _ in range(2)]
+    assert np.isfinite(runs[0][2]["loss"].item())
+    for a, b in zip(tree.leaves(runs[0]), tree.leaves(runs[1])):
+        assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+def test_moe_dispatch_backward_is_the_f32_sum(dev):
+    """`common.gather_rows` at DeepSeek-V2-Lite's dispatch (1024 tokens, top
+    6 of 64 experts, d_model 2048, its capacity): the gradient of the
+    tokens' rows into the expert slots is each token's contributions summed
+    in f32 and rounded once, bitwise the CPU's ordered sum, and the same on
+    a second call."""
+    cfg = configs.get_arch("deepseek-v2-lite-16b")
+    n, k, e = 1024, cfg.top_k, cfg.d_model
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    eidx = torch.rand(n, cfg.n_experts, generator=gen).argsort(-1)[:, :k]
+    from repro_torch.models import mlp
+
+    cap = mlp.capacity(cfg, n)
+    flat = eidx.reshape(-1)
+    sort_idx = torch.sort(flat, stable=True).indices
+    starts = torch.searchsorted(flat[sort_idx], torch.arange(cfg.n_experts))
+    src = (starts[:, None] + torch.arange(cap)[None, :]).clamp_max(n * k - 1)
+    idx = (sort_idx // k)[src]                                    # (E, C) token of each slot
+    x = torch.randn(n, e, generator=gen).to(torch.bfloat16)
+    ct = torch.randn(*idx.shape, e, generator=gen).to(torch.bfloat16)
+    grads = []
+    for _ in range(2):
+        xd = x.to(dev).requires_grad_(True)
+        (g,) = torch.autograd.grad(common.gather_rows(xd, idx.to(dev)), xd, ct.to(dev))
+        grads.append(g.cpu())
+    want = torch.zeros(n, e).index_add_(0, idx.reshape(-1), ct.float().reshape(-1, e))
+    assert torch.equal(grads[0], grads[1])
+    assert torch.equal(grads[0], want.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("kind", ["mla", "ssm"])
+def test_mla_and_ssd_grads_on_card_match_cpu(dev, kind):
+    """The VJP of `mla_forward` (DeepSeek-V2-Lite's smoke prefix layer) and of
+    `ssm_forward` (mamba2's smoke layer 0) on the card against the CPU, at a
+    fan-in init of the same draws, a seeded input and cotangent: the output
+    and each gradient of a parameter or the input within 2e-2 relative L2
+    (`chip_smoke.py` phase 4o (iii)'s leaf tolerance)."""
+    from repro_torch import tree
+    from repro_torch.models import ssm
+
+    arch = "deepseek-v2-lite-16b" if kind == "mla" else "mamba2-2.7b"
+    cfg = configs.get_arch(arch, smoke=True)
+    full = common.fan_in_init(registry.materialize_params(cfg, seed=1, device="cpu"))
+    params = (full["prefix"]["layer0"]["attn"] if kind == "mla"
+              else common.layer_slice(full["groups"]["sub0"]["ssm"], 0))
+    gen = torch.Generator().manual_seed(9)
+    x = torch.randn(2, 128, cfg.d_model, generator=gen).to(torch.bfloat16)
+    ct = torch.randn(2, 128, cfg.d_model, generator=gen).to(torch.bfloat16)
+
+    def vjp(d):
+        leaves = [t.to(d).requires_grad_(True) for t in tree.leaves(params)]
+        xd = x.to(d).requires_grad_(True)
+        p = tree.unflatten(params, leaves)
+        y = (attention.mla_forward(p, xd, cfg, q_block=64)[0] if kind == "mla"
+             else ssm.ssm_forward(p, xd, cfg)[0])
+        return [y] + list(torch.autograd.grad(y, leaves + [xd], ct.to(d)))
+
+    worst = 0.0
+    for a, b in zip(vjp(dev), vjp("cpu")):
+        rel = ((a.cpu().float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+        worst = max(worst, rel)
+        assert a.dtype == b.dtype and rel <= 2e-2, rel
+    print(f"{kind}: worst relative L2 {worst:.2e}")

@@ -21,8 +21,10 @@ differ: its `materialize_params` is patched to carry the reference's in).
   * a run that fails at step 12 (`--fail-at`, checkpoints every 5) and a
     second invocation on the same checkpoint directory resume at step 10,
     and steps 11-20 equal the uninterrupted run's to the bit;
-  * `--mesh 2x1` and an arch outside the dense decoder raise the
-    ValueError naming their ROADMAP item (15c, 15b);
+  * `--mesh 2x1` raises the ValueError naming ROADMAP item 15c;
+  * every other family (MoE, MLA, SSM, Jamba, the encoder-decoder, llava's
+    frontend) trains two steps through `main`, its checkpoint restored
+    bitwise; an MoE run that fails at step 3 resumes bitwise;
   * `python -m repro_torch.launch.train --device cpu` runs as a process.
 """
 
@@ -104,12 +106,53 @@ def test_cli_resumes_at_the_saved_step(ref, port_run, tmp_path, monkeypatch, cap
     assert [m for _, m in resumed] == [m for _, m in port_run[10:]]
 
 
-def test_cli_refuses_a_mesh_and_other_families(tmp_path):
+def test_cli_refuses_a_mesh(tmp_path):
     base = ["--smoke", "--device", "cpu", "--checkpoint-dir", str(tmp_path)]
     with pytest.raises(ValueError, match="ROADMAP item 15c"):
         train.main(["--arch", "smollm-360m", "--mesh", "2x1"] + base)
-    with pytest.raises(ValueError, match="ROADMAP item 15b"):
-        train.main(["--arch", "mamba2-2.7b"] + base)
+
+
+@pytest.mark.parametrize("arch", tr.FAMILY_ARCHS)
+def test_cli_trains_every_family(arch, tmp_path, monkeypatch):
+    """Two steps of `main` on each other family's smoke config, a checkpoint
+    at step 2: the losses finite, the checkpoint's leaves named as the
+    state's, restored bitwise."""
+    from repro_torch import tree
+    from repro_torch.checkpoint import Checkpointer
+
+    seen = []
+    monkeypatch.setattr(train, "_print_metrics", lambda step, m: seen.append(m["loss"]))
+    state = train.main(["--arch", arch, "--smoke", "--device", "cpu", "--steps", "2",
+                        "--warmup", "1", "--batch", "2", "--seq-len", "32",
+                        "--checkpoint-every", "2", "--checkpoint-dir", str(tmp_path)])
+    assert len(seen) == 2 and all(torch.isfinite(torch.tensor(seen)))
+    restored, meta = Checkpointer(tmp_path).restore(2, tree.tree_map(torch.empty_like, state))
+    assert meta["step"] == 2
+    for a, b in zip(tree.leaves(state), tree.leaves(restored)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_cli_resumes_an_moe_run_bitwise(tmp_path, monkeypatch):
+    """DeepSeek-V2-Lite's smoke config (MLA + MoE): a run that fails at step 3
+    with checkpoints every 2, resumed by a second invocation, ends bitwise
+    where the uninterrupted run ends, its router in bf16 as AdamW left it
+    (the checkpointer restores the saved dtype, not the fresh tree's f32)."""
+    from repro_torch import tree
+
+    argv = ["--arch", "deepseek-v2-lite-16b", "--smoke", "--device", "cpu", "--steps", "4",
+            "--warmup", "1", "--batch", "2", "--seq-len", "32", "--checkpoint-every", "2"]
+    seen = []
+    monkeypatch.setattr(train, "_print_metrics", lambda step, m: seen.append((step, m)))
+    want = train.main(argv + ["--checkpoint-dir", str(tmp_path / "ref")])
+    ref_seen, seen[:] = list(seen), []
+    with pytest.raises(RuntimeError, match="injected failure at step 3"):
+        train.main(argv + ["--checkpoint-dir", str(tmp_path / "crash"), "--fail-at", "3"])
+    seen[:] = []
+    got = train.main(argv + ["--checkpoint-dir", str(tmp_path / "crash")])
+    assert [s for s, _ in seen] == [3, 4] and [m for _, m in seen] == [m for _, m in ref_seen[2:]]
+    assert got[0]["groups"]["sub0"]["moe"]["router"].dtype == torch.bfloat16
+    for (name, a), b in zip(tree.named_leaves(want), tree.leaves(got)):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
 
 
 def test_cli_runs_as_a_process(tmp_path):

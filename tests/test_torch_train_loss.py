@@ -36,9 +36,12 @@ layers under autograd).
     gradients to the CPU's at the fan-in init.  Readings (this image, smoke
     size, the worst leaf): 0.52 at the reference's init, 9.9e-3 at the
     fan-in one;
-  * every other family (MoE, MLA, SSM, the encoder-decoder, frontend
-    archs) raises the ValueError naming ROADMAP item 15b;
-    `train_batch_spec` equals the reference's for every config.
+  * one train step of every other family (MoE, MLA, SSM, Jamba's hybrid
+    group, the encoder-decoder, a frontend arch) on the training CLI's
+    pipeline batch moves every parameter's master, its loss finite
+    (`tests/test_torch_train_{families,ssm,layers}.py` hold those
+    families against the reference); `train_batch_spec` equals the
+    reference's for every config.
 """
 
 import jax
@@ -57,7 +60,8 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.core import saliency as sal
 from repro_torch.models import attention, blocks, common, lm, registry
 from tests import train_reference as tr
-from tests.torch_parity import to_np, torch_threads  # noqa: F401
+from tests.torch_parity import rel_l2, torch_threads  # noqa: F401
+from tests.train_parity import port_loss_and_grads
 
 pytestmark = pytest.mark.usefixtures("torch_threads")
 SUMMED = ("ln1", "ln2", "final_norm", "bq", "bk", "bv")   # reduced over every token
@@ -69,30 +73,13 @@ def refs(tmp_path_factory):
                   [f"loss:{a}" for a in tr.LOSS_ARCHS])
 
 
-def _loss_and_grads(params, batch, cfg, remat=True):
-    leaves = [t.detach().requires_grad_(True) for t in tree.leaves(params)]
-    p = tree.unflatten(params, leaves)
-    if remat:
-        loss, met = registry.loss_fn(p, batch, cfg)
-    else:
-        out = lm.forward(p, batch["tokens"], cfg, remat=False)
-        loss = common.cross_entropy_loss(out.logits, batch["labels"]) + out.aux_loss
-        met = None
-    return loss, met, torch.autograd.grad(loss, leaves)
-
-
-def _rel_l2(want, got) -> float:
-    want, got = to_np(want).astype(np.float64), to_np(got).astype(np.float64)
-    return float(np.linalg.norm(want - got) / max(np.linalg.norm(want), 1e-30))
-
-
 @pytest.mark.parametrize("arch", tr.LOSS_ARCHS)
 def test_loss_and_grads_match_reference(refs, arch):
     ref = refs[f"loss:{arch}"]
     cfg = configs.get_arch(arch, smoke=True)
     params = convert.from_jax_params(ref["params"], cfg, device="cpu")
     batch = {k: torch.from_numpy(v) for k, v in ref["batch"].items()}
-    loss, met, grads = _loss_and_grads(params, batch, cfg)
+    loss, met, grads = port_loss_and_grads(params, batch, cfg)
     assert abs(loss.item() - ref["loss"]) <= 1e-4 * abs(ref["loss"])
     assert abs(met["ce"].item() - ref["metrics"]["ce"]) <= 1e-4 * abs(ref["metrics"]["ce"])
     assert met["aux"].item() == ref["metrics"]["aux"] == 0.0
@@ -101,7 +88,7 @@ def test_loss_and_grads_match_reference(refs, arch):
     for name, g, want in zip(names, grads, ref["grads"]):
         assert g.dtype == torch.bfloat16 and want.dtype == ml_dtypes.bfloat16, name
         tol = 2e-2 if name.split("/")[-1] in SUMMED else 1e-2
-        assert _rel_l2(want, g) <= tol, (name, _rel_l2(want, g))
+        assert rel_l2(want, g) <= tol, (name, rel_l2(want, g))
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -129,11 +116,11 @@ def test_reference_sums_broadcast_grads_in_bf16():
     w = jnp.ones((64,), jnp.bfloat16)
     _, vjp = jax.vjp(lambda w: jnp.asarray(h) * w, w)
     exact = (h.astype(np.float64) * g.astype(np.float64)).sum((0, 1))
-    ref_err = _rel_l2(exact, vjp(jnp.asarray(g))[0])
+    ref_err = rel_l2(exact, vjp(jnp.asarray(g))[0])
     th, tg = (torch.from_numpy(a.view(np.int16)).view(torch.bfloat16) for a in (h, g))
     tw = torch.ones(64, dtype=torch.bfloat16, requires_grad=True)
     (gw,) = torch.autograd.grad(th * tw, tw, tg)
-    port_err = _rel_l2(exact, gw)
+    port_err = rel_l2(exact, gw)
     assert ref_err > 5e-3 and port_err < 3e-3, (ref_err, port_err)
 
 
@@ -144,9 +131,9 @@ def test_reference_init_leaves_bf16_gradients_to_rounding():
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     worst = {}
     for init, p in (("reference", params), ("fan-in", common.fan_in_init(params))):
-        _, _, g16 = _loss_and_grads(p, batch, cfg)
-        _, _, g64 = _loss_and_grads(tree.tree_map(torch.Tensor.double, p), batch, cfg)
-        worst[init] = max(_rel_l2(b, a) for a, b in zip(g16, g64))
+        _, _, g16 = port_loss_and_grads(p, batch, cfg)
+        _, _, g64 = port_loss_and_grads(tree.tree_map(torch.Tensor.double, p), batch, cfg)
+        worst[init] = max(rel_l2(b, a) for a, b in zip(g16, g64))
     assert worst["reference"] > 0.3 and worst["fan-in"] < 2e-2, worst
 
 
@@ -157,8 +144,8 @@ def test_remat_is_bitwise(arch):
     rng = np.random.default_rng(4)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 41)).astype(np.int32))
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
-    loss_r, _, g_r = _loss_and_grads(params, batch, cfg, remat=True)
-    loss_n, _, g_n = _loss_and_grads(params, batch, cfg, remat=False)
+    loss_r, _, g_r = port_loss_and_grads(params, batch, cfg, remat=True)
+    loss_n, _, g_n = port_loss_and_grads(params, batch, cfg, remat=False)
     assert torch.equal(loss_r, loss_n)
     for a, b in zip(g_r, g_n):
         assert torch.equal(a, b)
@@ -225,11 +212,34 @@ def test_forward_with_caches_equals_prefill():
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "deepseek-moe-16b", "mamba2-2.7b",
                                   "jamba-v0.1-52b", "seamless-m4t-medium", "llava-next-34b"])
-def test_other_families_raise(arch):
-    for dense in ("yi-6b", "qwen2-7b", "smollm-360m", "zipcache-paper-8b", "yi-34b"):
-        registry.require_trainable(configs.get_arch(dense))
-    with pytest.raises(ValueError, match="ROADMAP item 15b"):
-        registry.loss_fn(None, {}, configs.get_arch(arch, smoke=True))
+def test_every_family_trains(arch):
+    """One train step of each other family on the CPU, on the batch the
+    training CLI's pipeline gives it (`train.data_config`: a frontend arch's
+    embeddings before the text, the encoder-decoder's f32 frames): the loss
+    and the gradient norm finite, the aux loss positive exactly for the MoE
+    archs, and every parameter's f32 master moved."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import steps, train
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = configs.get_arch(arch, smoke=True)
+    pipe = TokenPipeline(train.data_config(cfg, 48, 2, seed=3))
+    batch = train.to_device(next(pipe), "cpu")
+    pipe.close()
+    assert ("frontend_embeds" in batch) == (cfg.encdec or cfg.frontend != "none")
+    if "frontend_embeds" in batch:
+        assert batch["frontend_embeds"].dtype == torch.float32
+    params = registry.materialize_params(cfg, seed=1, device="cpu")
+    before = [t.clone() for t in tree.leaves(params)]
+    step = steps.make_train_step(cfg, AdamWConfig(lr=1e-3), q_block=16)
+    params, opt, met = step(params, adamw_init(params), batch)
+    assert np.isfinite(met["loss"].item()) and np.isfinite(met["grad_norm"].item())
+    assert (met["aux"].item() > 0) == bool(cfg.n_experts)
+    # an update of ~lr leaves a weight near 1 (a norm's) where bf16 rounds it:
+    # the f32 master moves
+    moved = [not torch.equal(a.float(), b) for a, b in zip(before, tree.leaves(opt.master))]
+    assert all(moved), [n for (n, _), m in zip(tree.named_leaves(params), moved) if not m]
+    assert int(opt.count) == 1
 
 
 @pytest.mark.parametrize("arch", sorted(jconfigs.all_archs()))

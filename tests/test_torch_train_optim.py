@@ -16,7 +16,12 @@
     where the new master lies at a bf16 rounding tie (within 1e-6 relative
     of the midpoint of two bf16 neighbours), and there within one bf16
     ulp.  The reference runs op by op: each f32 operation rounds on its
-    own, as the port's do.
+    own, as the port's do.  The port's update is in place (the state and
+    parameters given up to it), as the CLI runs it;
+  * the in-place update's flat chunks change no bit: three updates of
+    DeepSeek-V2-Lite's smoke tree (its f32 router made anew in bf16) with
+    `_CHUNK` at 97 elements equal those with every leaf in one chunk
+    (master, m, v, parameters, count, metrics).
 
 Readings (this image): the schedules agree to the bit at every step;
 `grad_norm` within 1.7e-6 relative; the masters within 1e-6; no bf16
@@ -113,7 +118,8 @@ def test_adamw_update_matches_reference(smoke_tree, clip):
         g = _grads(jparams, scale, seed=k)
         jp, jstate, jmet = jadamw.adamw_update(jcfg_opt, g, jstate)
         p, state, met = adamw.adamw_update(tcfg_opt, jax.tree_util.tree_map(to_torch, g),
-                                           state)
+                                           state, params)
+        params = p
         gn = float(jmet["grad_norm"])
         assert (gn > 1.0) == (clip == "active")
         np.testing.assert_allclose(met["grad_norm"].item(), gn, rtol=1e-5)
@@ -149,3 +155,35 @@ def test_adamw_init_and_global_norm(smoke_tree):
     np.testing.assert_allclose(adamw.global_norm(jax.tree_util.tree_map(to_torch, g)).item(),
                                float(jadamw.global_norm(g)), rtol=1e-5)
     assert to_np(adamw.global_norm(params)).dtype == np.float32
+
+
+def test_chunked_update_is_bitwise_one_chunk(monkeypatch):
+    from repro_torch.models import registry
+    cfg = configs.get_arch("deepseek-v2-lite-16b", smoke=True)
+    params0 = registry.materialize_params(cfg, seed=0, device="cpu")
+    assert {t.dtype for t in tree.leaves(params0)} == {torch.bfloat16, torch.float32}
+    gen = torch.Generator().manual_seed(4)
+    grads = [tree.tree_map(lambda t: (torch.randn(t.shape, generator=gen) * 0.3).to(t.dtype),
+                           params0) for _ in range(3)]
+    opt_cfg = adamw.AdamWConfig(lr=1e-2, schedule=schedule.cosine_schedule(1, 3))
+    runs = {}
+    for chunk in (97, 1 << 40):
+        monkeypatch.setattr(adamw, "_CHUNK", chunk)
+        params = tree.tree_map(torch.clone, params0)
+        state = adamw.adamw_init(params)
+        mets = []
+        for g in grads:
+            params, state, met = adamw.adamw_update(opt_cfg, g, state, params)
+            mets.append(met)
+        runs[chunk] = (params, state, mets)
+    (p7, s7, m7), (p1, s1, m1) = runs.values()
+    assert int(s7.count) == int(s1.count) == 3
+    for field in ("master", "m", "v"):
+        for (name, a), b in zip(tree.named_leaves(getattr(s7, field)),
+                                tree.leaves(getattr(s1, field))):
+            assert a.dtype == b.dtype == torch.float32 and torch.equal(a, b), (field, name)
+    for (name, a), b in zip(tree.named_leaves(p7), tree.leaves(p1)):
+        assert a.dtype == b.dtype == torch.bfloat16 and torch.equal(a, b), name
+    for a, b in zip(m7, m1):
+        assert all(torch.equal(a[k], b[k]) for k in ("grad_norm", "lr"))
+    assert not torch.equal(s7.master["embed"], params0["embed"].float())

@@ -104,11 +104,14 @@ def test_grad_accum_splits_the_batch_in_order():
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 17)).astype(np.int32))
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     opt_cfg = AdamWConfig(lr=1e-3)
-    _, _, met2 = steps.make_train_step(cfg, opt_cfg, grad_accum=2)(
-        params, adamw_init(params), batch)
+    fresh = lambda: tree.tree_map(torch.clone, params)   # a step updates its state in place
+    p = fresh()
+    _, _, met2 = steps.make_train_step(cfg, opt_cfg, grad_accum=2)(p, adamw_init(p), batch)
     one = steps.make_train_step(cfg, opt_cfg, grad_accum=1)
-    halves = [one(params, adamw_init(params), {k: v[i * 2:(i + 1) * 2] for k, v in batch.items()})
-              for i in range(2)]
+    halves = []
+    for i in range(2):
+        p = fresh()
+        halves.append(one(p, adamw_init(p), {k: v[i * 2:(i + 1) * 2] for k, v in batch.items()}))
     mean_loss = (halves[0][2]["loss"] + halves[1][2]["loss"]) / 2
     assert abs(met2["loss"].item() - mean_loss.item()) <= 1e-6 * mean_loss.item()
 

@@ -10,9 +10,12 @@ fault-tolerant loop.
     tree written by the reference's `Checkpointer` restores in the port
     bitwise, with the same manifest (leaf names, files, shapes, dtypes,
     bf16 as its raw words), and the port's checkpoint restores in the
-    reference bitwise;
+    reference bitwise; so do DeepSeek-V2-Lite's (MLA + MoE, its f32
+    router), mamba2's, Jamba's and seamless's smoke trees;
   * atomic publish (a stray `.tmp` is never a step), keep-k GC, an async
-    save's error raised at the next `wait()`, metadata round trips;
+    save's error raised at the next `wait()`, metadata round trips; a
+    restore keeps a bf16 leaf over an f32 target and refuses any other
+    dtype that differs;
   * `StragglerDetector` flags the reference's steps on one seeded series;
   * the port's `FaultTolerantLoop`: a crash at step 6 and a restart from
     the step-4 checkpoint end bitwise where the uninterrupted run ends
@@ -140,6 +143,30 @@ def test_checkpoint_moves_between_packages(smoke_state, tmp_path):
         assert got.tobytes() == want.tobytes()
 
 
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "mamba2-2.7b", "jamba-v0.1-52b",
+                                  "seamless-m4t-medium"])
+def test_family_checkpoints_move_between_packages(arch, tmp_path):
+    """The MLA + MoE, SSD, hybrid and encoder-decoder smoke trees with their
+    AdamW state: the reference's checkpoint restores in the port bitwise,
+    the port's in the reference, with the same manifest."""
+    jcfg = jconfigs.get_arch(arch, smoke=True)
+    with jax.threefry_partitionable(True):
+        jparams = jax.device_get(jregistry.materialize_params(jcfg, seed=0))
+    jstate = jax.device_get((jparams, jadamw_init(jparams)))
+    params = convert.from_jax_params(jparams, configs.get_arch(arch, smoke=True), device="cpu")
+    state = (params, adamw_init(params))
+    JCheckpointer(tmp_path / "jax").save(2, jstate, {"step": 2}, blocking=True)
+    Checkpointer(tmp_path / "port").save(2, state, {"step": 2}, blocking=True)
+    assert _manifest(tmp_path / "jax", 2)["leaves"] == _manifest(tmp_path / "port", 2)["leaves"]
+    restored, _ = Checkpointer(tmp_path / "jax").restore(2, tree.tree_map(torch.zeros_like, state))
+    for (name, want), got in zip(tree.named_leaves(state), tree.leaves(restored)):
+        assert got.dtype == want.dtype and torch.equal(got, want), name
+    jrestored, _ = JCheckpointer(tmp_path / "port").restore(2, jstate)
+    for want, got in zip(jax.tree_util.tree_leaves(jstate), jax.tree_util.tree_leaves(jrestored)):
+        got, want = np.asarray(got), np.asarray(want)
+        assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
+
+
 def test_checkpoint_gc_atomic_and_metadata(tmp_path):
     t = {"a": torch.arange(12.0).reshape(3, 4),
          "b": [torch.ones(2, dtype=torch.int32), torch.zeros(5, dtype=torch.bfloat16)]}
@@ -155,6 +182,24 @@ def test_checkpoint_gc_atomic_and_metadata(tmp_path):
     assert torch.equal(restored["a"], t["a"]) and restored["b"][1].dtype == torch.bfloat16
     with pytest.raises(ValueError, match="leaves"):
         ck.restore(30, {"a": t["a"]})
+
+
+def test_restore_keeps_bf16_over_f32_and_refuses_other_dtypes(tmp_path):
+    """A leaf saved in bf16 where the target holds f32 (a trained MoE
+    router restored into a fresh tree) keeps bf16; any other dtype that
+    differs from the target's raises, naming the leaf."""
+    saved = {"router": torch.linspace(-2, 2, 6, dtype=torch.bfloat16), "w": torch.ones(3)}
+    ck = Checkpointer(tmp_path)
+    ck.save(1, saved, blocking=True)
+    restored, _ = ck.restore(1, {"router": torch.zeros(6), "w": torch.zeros(3)})
+    assert restored["router"].dtype == torch.bfloat16
+    assert torch.equal(restored["router"], saved["router"]) and torch.equal(restored["w"], saved["w"])
+    restored["w"].add_(1.0)   # a restored host leaf is writable, its file unchanged
+    assert torch.equal(ck.restore(1, saved)[0]["w"], torch.ones(3))
+    with pytest.raises(ValueError, match="leaf w is torch.float32, the target's torch.bfloat16"):
+        ck.restore(1, {"router": torch.zeros(6), "w": torch.zeros(3, dtype=torch.bfloat16)})
+    with pytest.raises(ValueError, match="leaf router is torch.bfloat16, the target's torch.int32"):
+        ck.restore(1, {"router": torch.zeros(6, dtype=torch.int32), "w": torch.zeros(3)})
 
 
 def test_checkpoint_snapshot_is_a_copy(tmp_path):
@@ -210,7 +255,7 @@ def test_crash_restart_bit_exact(tmp_path):
     pipe = TokenPipeline(dcfg)
     ref_state, _, ref_hist = FaultTolerantLoop(step_fn, Checkpointer(tmp_path / "ref"),
                                                checkpoint_every=4, max_steps=10).run(
-        state0, pipe, 0)
+        tree.tree_map(torch.clone, state0), pipe, 0)   # a step updates its state in place
     pipe.close()
 
     ck = Checkpointer(tmp_path / "crash")

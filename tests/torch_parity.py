@@ -35,3 +35,10 @@ def torch_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(before)
+
+
+def rel_l2(want, got) -> float:
+    """||got - want|| / ||want|| in float64 (torch tensors or arrays)."""
+    want, got = to_np(want).astype(np.float64), to_np(got).astype(np.float64)
+    return float(np.linalg.norm(want - got) / max(np.linalg.norm(want), 1e-30))
+
