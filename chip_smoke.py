@@ -56,7 +56,14 @@ continued:
      CTA, as llava-next-34b's prefill in phase 4m) and deepseek-moe-16b's
      (`<kernel>@dsmoe`: 16 over 16, g = 1, d 128), batch 4, prompt 1024,
      at the Jamba rows' tolerances (the walk's G = 7, G = 3 and G = 1 at
-     D = 128 instantiations); each with its launch sizing;
+     D = 128 instantiations); each with its launch sizing.  For phase 4p,
+     each of those rows' cst_quant stores again through the eff
+     instantiation under a downshift rung (bitwise), Jamba's (zipcache-
+     paper-8b's attention shape), qwen2's and smollm's paged_qattn layer
+     over fp16's raw pages (one bf16 ulp), and phase 4i's kernels at the
+     baselines' shapes at qwen2's and zipcache-paper-8b's attention layer
+     (probe_colsum with every row a probe, decode_qattn over fp16's raw
+     store before and after a fold);
   4. slice 1's main path: `ServingEngine.generate` on yi-6b at full width
      (32 layers, random bf16 weights from a seeded generator), zipcache
      defaults, batch 4, prompt 1024, 128 new tokens: prefill, probe steps,
@@ -292,7 +299,40 @@ continued:
      gradient norm and every leaf against the CPU's at (4n)'s tolerances,
      the CPU routed to the card's experts, the share routed alike logged.
      No kernel runs: every count stays 0.  Logged: step walls, tokens/s,
-     model FLOP/s, peak memory, checkpoint bytes, write and restore seconds;
+     model FLOP/s, peak memory, checkpoint bytes, write and restore seconds.
+     Since phase 4p, (i)'s checkpoint round trip is seamless-m4t-medium's
+     alone (the checkpointer does not depend on the tree; the other three
+     families' writes and restores took ~80 s of a fast host's run);
+  4p. slice 18: the serving levers and the baselines on every tree beyond
+     yi-6b, each run while its model is resident in an earlier phase
+     (`tree_levers`, through phases 4e-4i's helpers with the model and the
+     traffic as parameters; window and folds at 16 as phase 4m's): after
+     4j's runs, DeepSeek-V2-Lite (5 layers) under the precision map on the
+     lockstep engine, the swap-pressure and ladder-pressure runs under the
+     map, shared-prefix dedup and seeded sampling on the continuous one;
+     after 4k's, mamba2 (8 layers) under the map on the lockstep engine and
+     the mixed and paged static continuous layouts (tokens, cache_bytes
+     and every step's logits equal the runs without the map: it has no KV
+     element) and Jamba's group under swap, the ladder and the map, and
+     prefix dedup; after 4m's (8 layers each), qwen2-7b (G = 7) and
+     smollm-360m (G = 3) under swap, the ladder, prefix dedup, sampling and
+     the continuous baselines (fp16 through raw pages, kivi on the gather
+     path), qwen2-7b and zipcache-paper-8b under the lockstep baselines
+     (fp16, h2o, mikv, gear, kivi; the kernels at their shapes are phase
+     3's rows), zipcache-paper-8b under the
+     continuous baselines and swap and the ladder, deepseek-moe-16b under
+     swap and the ladder.  The swap and ladder runs and the lockstep map
+     run go captured and eager, dedup off eagerly and on captured, and
+     every captured step is bitwise the eager step of the same index, the
+     first replays after each swap-in, downshift fold, alias admission and
+     copy-on-write copy among them; sampled requests equal between captured
+     runs in forward and reverse submission order (on DeepSeek, whose
+     routed experts' capacity drops other rows' pairs when the requests
+     change rows, captured against eager in one order); launches held to
+     each path from 0, every cst_quant launch of a mapped or downshifted
+     run with the eff table; the allocator's invariants after every step,
+     every page and the host pool's bytes back.  Each model's part logs its
+     seconds as `phase 4p/<model>`, their sum at the end;
   5. a `kernels` JSON line, then the last line:
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -304,6 +344,7 @@ from __future__ import annotations
 import argparse
 import ast
 import asyncio
+import contextlib
 import gc
 import json
 import os
@@ -781,7 +822,13 @@ def main() -> None:
     # heads) and deepseek-moe-16b's (g = 1, 16 kv heads) attention layers
     for tag, arch, g, d, seed, which, hpc in GQA_ROWS:
         gqa_kernels(torch, np, dev, rows, record, ccfg, prompt, max_new, tag, arch, g, d, seed,
-                    which, hpc)
+                    which, hpc, fp16_pages=tag in FP16_PAGE_ROWS)
+    # phase 4p's lockstep baselines at qwen2-7b's attention layer (G = 7) and at
+    # zipcache-paper-8b's (Jamba's attention shape): probe_colsum with every
+    # row a probe, decode_qattn over fp16's raw store before and after a fold
+    for tag, arch in (("qwen2", "qwen2-7b"), ("jamba", "zipcache-paper-8b")):
+        _baseline_kernels(torch, np, configs.get_arch(arch), dev, rows, b, prompt, max_new,
+                          torch.Generator(device=dev).manual_seed(31), f"@{tag}", arch)
     # the four on seamless's path at its decoder layer (g = 1, 16 kv heads, d 64)
     seamless_kernels(torch, np, dev, rows, record, ccfg, max_new)
 
@@ -1137,16 +1184,17 @@ def main() -> None:
     torch.cuda.empty_cache()
     log(f"yi-6b freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated")
     by_path.update(deepseek(torch, np, dev, kernels, batch, cscfg, requests, budgets, rel_l2,
-                            yardstick, card))
+                            yardstick, card, rows))
     lap("4j")
     # ---- 4k. slice 13: mamba2 and Jamba's hybrid group (SSM + attention) ----
-    by_path.update(hybrid(torch, np, dev, kernels, b, prompt, cscfg, rel_l2, yardstick, card))
+    by_path.update(hybrid(torch, np, dev, kernels, b, prompt, cscfg, rel_l2, yardstick, card,
+                          rows))
     lap("4k")
     # ---- 4l. slice 14: seamless-m4t-medium (encoder-decoder) -----------------
     by_path.update(seamless(torch, np, dev, kernels, rel_l2, yardstick, card))
     lap("4l")
     # ---- 4m. slice 15: the remaining configs at full size -------------------
-    by_path.update(remaining(torch, np, dev, kernels, rel_l2, yardstick, card))
+    by_path.update(remaining(torch, np, dev, kernels, rel_l2, yardstick, card, rows))
     lap("4m")
     # ---- 4n. slice 16: single-card training of the dense decoder -----------
     by_path["train"] = training(torch, np, dev, kernels, card)
@@ -1155,6 +1203,25 @@ def main() -> None:
     by_path["train_families"] = families(torch, np, dev, kernels, card)
     rows["cst_quant"]["eff"]["launches"] = sum(
         p["cst_quant"] for name, p in by_path.items() if name.startswith("levers"))
+    # phase 4p's launches at the new shapes: cst_quant's eff instantiation
+    # (every store of the levers' runs under the map, the ladder's rungs
+    # too), fp16's raw pages, probe_colsum with every row a probe
+    for row, model in (("cst_quant@mla", MLA_ARCH), ("cst_quant@jamba", JAMBA_ARCH),
+                       ("cst_quant@qwen2", "qwen2-7b"), ("cst_quant@smollm", "smollm-360m"),
+                       ("cst_quant@dsmoe", "deepseek-moe-16b")):
+        rows[row]["eff"]["launches"] = sum(
+            p["cst_quant"] for name, p in by_path.items()
+            if name.startswith(f"4p/{model} levers") or name == f"4p/{model} map")
+    for row, model in (("paged_qattn@jamba", "zipcache-paper-8b"),
+                       ("paged_qattn@qwen2", "qwen2-7b"), ("paged_qattn@smollm", "smollm-360m")):
+        rows[row]["fp16_raw"]["launches"] = by_path[f"4p/{model}-continuous-fp16"]["paged_qattn"]
+    for tag, model in (("qwen2", "qwen2-7b"), ("jamba", "zipcache-paper-8b")):
+        rows[f"probe_colsum@{tag}"]["np1024"]["launches"] = sum(
+            by_path[f"4p/{model}-lockstep-{p}"]["probe_colsum"] for p in ("h2o", "mikv"))
+        rows[f"decode_qattn@{tag}"]["fp16_raw"]["launches"] = by_path[
+            f"4p/{model}-lockstep-fp16"]["decode_qattn"]
+    log(f"phase 4p: {sum(P_SECONDS.values()):.1f} s in all, within phases 4j, 4k and 4m ("
+        + ", ".join(f"{m} {t:.1f} s" for m, t in P_SECONDS.items()) + f"; {card})")
     for name, row in rows.items():
         row["launches"] = sum(p.get(name, 0) for p in by_path.values())
         row["launches_by_path"] = {k: p.get(name, 0) for k, p in by_path.items()}
@@ -1170,41 +1237,66 @@ def main() -> None:
 PRECISION_MAP = "default=k8v8;layer:1-=k3v3"   # tests/test_backend_conformance.py's
 
 
-def levers(torch, np, cfg, ccfg, params, dev, kernels, n_layers, prompt):
-    """Phase 4e: the swap-pressure and ladder-pressure runs of
-    tests/test_backend_conformance.py at yi-6b's full width (prompts of
-    1024, page 64), under the conformance precision map, captured.  Returns
-    each run's launch counts, read from 0."""
+def levers(torch, np, cfg, ccfg, params, dev, kernels, n_layers, prompt, tag="levers",
+           eager=False, recompute=True):
+    """Phase 4e (and each tree of phase 4p): the swap-pressure and
+    ladder-pressure runs of tests/test_backend_conformance.py at full width
+    (prompts of `prompt`, page 64), under the conformance precision map,
+    captured.  `n_layers`: the layers with a KV element (every store of an
+    admission and a fold through cst_quant's eff instantiation; a decode
+    step takes the page walk there, but on MLA, which decodes through the
+    plain route over the cache's dense view); `eager`: each run again
+    with `capture=False`, every step's logits bitwise, the first replays
+    after a swap-in and after a downshift fold among them; `recompute`:
+    the swap scenario under preemption by recompute too, tokens equal.
+    Returns each captured run's launch counts, read from 0."""
+    from repro_torch.kernels.cst_quant import kernel as cst_kernel
     from repro_torch.serving import (ContinuousEngine, DownshiftEvent, PreemptedEvent,
                                      Request, ServeConfig, SwappedEvent)
 
+    walk = not cfg.mla
     rng = np.random.default_rng(2)
     prompts = [rng.integers(2, cfg.vocab, size=(prompt,)).astype(np.int32) for _ in range(3)]
     timed = {"_swap_out": [], "_swap_in": [], "_downshift": []}
+    marked = {"_swap_in": "swap-in", "_downshift": "downshift"}
 
-    def engine(**kw):
+    def engine(capture=True, **kw):
         scfg = ServeConfig(batch_size=2, prompt_len=prompt, max_new_tokens=12, seed=0,
                            backend="paged", page_size=64, page_allocator="freelist",
                            paged_kernel=True, scheduler="priority",
                            precision_map=PRECISION_MAP, **kw)
-        eng = ContinuousEngine(cfg, ccfg, scfg, params, device=dev)
+        eng = ContinuousEngine(cfg, ccfg, scfg, params, device=dev, capture=capture)
+        pending, marks, folds = set(), {}, []
+        eng._decode_masked = MarkedLogits(eng._decode_masked, pending, marks)
         for name, ms in timed.items():   # wall time of each lever event, to a synchronize
-            def wrapped(*a, _fn=getattr(eng, name), _ms=ms):
+            def wrapped(*a, _fn=getattr(eng, name), _ms=ms, _name=name):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 out = _fn(*a)
                 torch.cuda.synchronize()
                 if out is not False:   # not a refused or ineligible victim
                     _ms.append(round((time.perf_counter() - t0) * 1e3, 3))
+                    if _name in marked:
+                        pending.add(marked[_name])
                 return out
             setattr(eng, name, wrapped)
-        return eng
+        fold = eng._fold
 
-    def drive(eng, scenario, label):
-        """Returns (tokens per request, events, pool stats, launches)."""
+        def counted_fold(due):
+            folds.append(len(due))
+            return fold(due)
+
+        eng._fold = counted_fold
+        return eng, marks, folds, capture
+
+    def drive(made, scenario, label):
+        """Returns (tokens per request, events, pool stats, launches, the
+        step's logits, the marks)."""
+        eng, marks, folds, capture = made
         torch.cuda.synchronize()
         for kern in kernels.values():
             kern.launches = 0
+        cst_kernel.EFF.launches = 0
         if scenario == "swap":
             rids = [eng.submit(Request(tokens=prompts[0])), eng.submit(Request(tokens=prompts[1]))]
         else:
@@ -1213,69 +1305,108 @@ def levers(torch, np, cfg, ccfg, params, dev, kernels, n_layers, prompt):
         events = []
         for _ in range(4):
             events += eng.step()
+            eng._alloc.check_invariants()
         if scenario == "swap":
             rids.append(eng.submit(Request(tokens=prompts[2], max_new_tokens=3, priority=2)))
         else:
             rids.append(eng.submit(Request(tokens=prompts[2])))
         while eng.pending:
             events += eng.step()
+            eng._alloc.check_invariants()
         torch.cuda.synchronize()
         launches = {n: kern.launches for n, kern in kernels.items()}
-        eng._alloc.check_invariants()
         st = eng.pool_stats()
         for seg in ("hi", "lo", "win"):
-            check(st[seg]["used"] == 0, f"levers ({label}): {seg} pages not all returned")
-        # every store of every admission and fold through cst_quant (here its
-        # eff instantiation: the map covers every layer), every decode step
-        # through the page walk, a recompute re-admission's replayed steps too
+            check(st[seg]["used"] == 0, f"{tag} ({label}): {seg} pages not all returned")
+        # every store of every admission and fold through cst_quant's eff
+        # instantiation (the map covers every layer; a fold call of more than
+        # half the batch is one full-batch store), every decode step through
+        # the page walk where the tree takes it, a recompute re-admission's
+        # replayed steps too
+        b = eng.scfg.batch_size
+        stores = sum(k if 2 * k <= b else 1 for k in folds) + st["folds"] - sum(folds)
         replayed = sum(e.n_generated - 1 for e in events if isinstance(e, PreemptedEvent))
-        want = {"cst_quant": 2 * n_layers * (st["admissions"] + st["folds"]),
+        want = {"cst_quant": 2 * n_layers * (st["admissions"] + stores),
                 "flash_fwd": n_layers * st["admissions"],
                 "probe_colsum": n_layers * st["admissions"],
-                "decode_qattn": 0, "paged_qattn": n_layers * (eng._step_no + replayed)}
+                "decode_qattn": 0,
+                "paged_qattn": n_layers * (eng._step_no + replayed) if walk else 0}
         for name, n in want.items():
-            check(launches[name] == n, f"levers ({label}): {name} {launches[name]} "
+            check(launches[name] == n, f"{tag} ({label}): {name} {launches[name]} "
                                        f"launches, the path implies {n}")
-            check(n > 0 or name == "decode_qattn", f"levers ({label}): {name} never launched")
+            check(n > 0 or name == "decode_qattn" or not walk,
+                  f"{tag} ({label}): {name} never launched")
+        check(cst_kernel.EFF.launches == launches["cst_quant"],
+              f"{tag} ({label}): {cst_kernel.EFF.launches} of {launches['cst_quant']} cst_quant "
+              "launches took the map's eff table")
         step = eng._decode_masked
-        check(step.captures == 1 and step.replays > 0,
-              f"levers ({label}): the decode step was built {step.captures} times")
-        return [eng.result(r).tokens.tolist() for r in rids], events, st, launches
+        if capture:
+            check(step.step.captures == 1 and step.step.replays > 0,
+                  f"{tag} ({label}): the decode step was built {step.step.captures} times")
+        return ([eng.result(r).tokens.tolist() for r in rids], events, st, launches,
+                step.logits, marks)
 
-    out_rc, ev_rc, _, _ = drive(engine(pool_fraction=1.0, preemption="recompute"), "swap",
-                                "recompute")
-    check(any(isinstance(e, PreemptedEvent) for e in ev_rc),
-          "levers: the swap scenario forced no victim under recompute")
+    def bitwise(label, captured, eager_run):
+        """Every captured step's logits bitwise the eager step's of the same
+        index; the first replays after the marked events among them."""
+        got, want, marks = captured[4], eager_run[4], captured[5]
+        check(captured[0] == eager_run[0], f"{tag} ({label}): captured tokens differ from eager")
+        check(len(got) == len(want) > 0, f"{tag} ({label}): {len(got)} captured steps against "
+                                         f"{len(want)} eager")
+        for i, (a, w) in enumerate(zip(got, want)):
+            check(torch.equal(a, w), f"{tag} ({label}): step {i}'s logits are not bitwise the "
+                                     "eager step's")
+        log(f"{tag} ({label}): {len(got)} captured steps bitwise the eager steps, the first "
+            f"replays after {', '.join(f'{k} (step {v})' for k, v in sorted(marks.items()))}")
+        return marks
+
+    out_rc = None
+    if recompute:
+        out_rc, ev_rc, _, _, _, _ = drive(engine(pool_fraction=1.0, preemption="recompute"),
+                                          "swap", "recompute")
+        check(any(isinstance(e, PreemptedEvent) for e in ev_rc),
+              f"{tag}: the swap scenario forced no victim under recompute")
     for ms in timed.values():
         ms.clear()
-    out_sw, ev_sw, st_sw, l_sw = drive(engine(pool_fraction=1.0, preemption="swap"), "swap", "swap")
+    sw_run = drive(engine(pool_fraction=1.0, preemption="swap"), "swap", "swap")
+    out_sw, ev_sw, st_sw, l_sw = sw_run[:4]
     dirs = [e.direction for e in ev_sw if isinstance(e, SwappedEvent)]
     sw = st_sw["swap"]
-    log(f"levers (swap): {dirs.count('out')} swap-outs, {dirs.count('in')} swap-ins; entry "
+    log(f"{tag} (swap): {dirs.count('out')} swap-outs, {dirs.count('in')} swap-ins; entry "
         f"{sw['entry_bytes']} bytes ({sw['entry_bytes'] / 2**20:.2f} MiB, {sw['capacity']} "
         f"pinned entries); swap-out {timed['_swap_out']} ms, swap-in {timed['_swap_in']} ms "
         f"(wall to a synchronize); host bytes after the run {sw['host_bytes']}")
-    check("out" in dirs and "in" in dirs, f"levers: no swap-out and swap-in: {dirs}")
+    check("out" in dirs and "in" in dirs, f"{tag}: no swap-out and swap-in: {dirs}")
     check(not any(isinstance(e, PreemptedEvent) for e in ev_sw),
-          "levers: a swap fell back to recompute")
-    check(sw["host_bytes"] == 0 and sw["resident"] == 0, f"levers: host bytes left: {sw}")
-    check(out_sw == out_rc, "levers: the swap run's tokens differ from the recompute run's")
-    log(f"levers (swap): tokens equal to the recompute run's; launches {l_sw}")
+          f"{tag}: a swap fell back to recompute")
+    check(sw["host_bytes"] == 0 and sw["resident"] == 0, f"{tag}: host bytes left: {sw}")
+    if recompute:
+        check(out_sw == out_rc, f"{tag}: the swap run's tokens differ from the recompute run's")
+    log(f"{tag} (swap): launches {l_sw}" + ("; tokens equal to the recompute run's"
+                                            if recompute else ""))
+    if eager:
+        check("swap-in" in bitwise("swap", sw_run, drive(engine(
+            capture=False, pool_fraction=1.0, preemption="swap"), "swap", "swap eager")),
+              f"{tag} (swap): no replay after the swap-in")
 
-    out_ds, ev_ds, st_ds, l_ds = drive(engine(pool_fraction=1.0, ladder_watermark=0.6), "ladder",
-                                      "ladder")
+    ds_run = drive(engine(pool_fraction=1.0, ladder_watermark=0.6), "ladder", "ladder")
+    out_ds, ev_ds, st_ds, l_ds = ds_run[:4]
     ds = st_ds["downshift"]
     rungs = [e.rung for e in ev_ds if isinstance(e, DownshiftEvent)]
-    log(f"levers (ladder): {ds['downshifts']} downshifts (rungs {rungs}) freed "
+    log(f"{tag} (ladder): {ds['downshifts']} downshifts (rungs {rungs}) freed "
         f"{ds['pages_freed']} window pages; downshift (fold at the rung, all layers) "
         f"{timed['_downshift']} ms; {st_ds['folds']} folds, {st_ds['deferrals']} deferrals; "
         f"launches {l_ds}")
-    check(ds["downshifts"] >= 1 and ds["pages_freed"] >= 1, f"levers: no downshift: {ds}")
+    check(ds["downshifts"] >= 1 and ds["pages_freed"] >= 1, f"{tag}: no downshift: {ds}")
     check(all(len(t) == m for t, m in zip(out_ds, (12, 6, 12))),
-          "levers (ladder): a request ended short of its budget")
+          f"{tag} (ladder): a request ended short of its budget")
     check(all(0 <= tok < cfg.vocab for t in out_ds + out_sw for tok in t),
-          "levers: token ids out of range")
-    return {"levers (swap)": l_sw, "levers (ladder)": l_ds}
+          f"{tag}: token ids out of range")
+    if eager:
+        check("downshift" in bitwise("ladder", ds_run, drive(engine(
+            capture=False, pool_fraction=1.0, ladder_watermark=0.6), "ladder", "ladder eager")),
+              f"{tag} (ladder): no replay after a downshift")
+    return {f"{tag} (swap)": l_sw, f"{tag} (ladder)": l_ds}
 
 
 # phase 4f's traffic: (prompt, budget) in submission order.  The first four
@@ -1287,20 +1418,25 @@ PREFIX_TRAFFIC = (("A", 128), ("C", 64), ("B", 48), ("D", 96),
 PREFIX_LENGTHS = {"A": 1024, "B": 640, "C": 300, "D": 900}
 
 
-def prefix_dedup(torch, np, cfg, ccfg, params, dev, kernels, n_layers, prompt, card, rel_l2):
-    """Phase 4f: the same traffic through a fresh captured engine with
-    `prefix_cache` off, then on, then an eager engine with it on.  Returns
-    the captured runs' launch counts, each read from 0."""
-    from repro_torch.core import alloc as alloc_lib
-    from repro_torch.models import registry
+def prefix_dedup(torch, np, cfg, ccfg, params, dev, kernels, n_layers, prompt, card, rel_l2,
+                 traffic=PREFIX_TRAFFIC, max_new=128, tag="prefix", off_eager=False):
+    """Phase 4f (and each tree of phase 4p): the same traffic through a
+    fresh captured engine with `prefix_cache` off, then on, then an eager
+    engine with it on; with `off_eager` (phase 4p), the run with dedup off
+    is the eager one and there is no third run: the captured run with dedup
+    on is held step by step to it.  `n_layers`: the layers with a KV
+    element (a decode step walks their pages but on MLA).  Returns the
+    runs' launch counts, each read from 0."""
+    from repro_torch.core import backend as backend_lib
     from repro_torch.serving import ContinuousEngine, Request, ServeConfig
 
+    walk = not cfg.mla
     rng = np.random.default_rng(3)
     texts = {k: rng.integers(2, cfg.vocab, size=(n,)).astype(np.int32)
              for k, n in PREFIX_LENGTHS.items()}
 
     def run(prefix_cache, capture):
-        scfg = ServeConfig(batch_size=4, prompt_len=prompt, max_new_tokens=128, seed=0,
+        scfg = ServeConfig(batch_size=4, prompt_len=prompt, max_new_tokens=max_new, seed=0,
                            backend="paged", page_size=64, page_allocator="freelist",
                            pool_fraction=1.5, paged_kernel=True, scheduler="fifo",
                            prefix_cache=prefix_cache)
@@ -1310,6 +1446,13 @@ def prefix_dedup(torch, np, cfg, ccfg, params, dev, kernels, n_layers, prompt, c
         rec = eng._decode_masked = MarkedLogits(eng._decode_masked, log_["pending"],
                                                 log_["marks"])
         admit_one, copy_pages = eng._admit_one, getattr(eng, "_copy_pages", None)
+        fold, log_["folds"] = eng._fold, []
+
+        def counted_fold(due):
+            log_["folds"].append(len(due))
+            return fold(due)
+
+        eng._fold = counted_fold
 
         def timed_admit(slot_id, req):
             hits = eng._alloc.prefix_hits
@@ -1340,8 +1483,7 @@ def prefix_dedup(torch, np, cfg, ccfg, params, dev, kernels, n_layers, prompt, c
         for kern in kernels.values():
             kern.launches = 0
         t0 = time.perf_counter()
-        rids = [eng.submit(Request(tokens=texts[k], max_new_tokens=m))
-                for k, m in PREFIX_TRAFFIC]
+        rids = [eng.submit(Request(tokens=texts[k], max_new_tokens=m)) for k, m in traffic]
         while eng.pending:
             eng.step()
             eng._alloc.check_invariants()
@@ -1352,91 +1494,101 @@ def prefix_dedup(torch, np, cfg, ccfg, params, dev, kernels, n_layers, prompt, c
         launches = {n: kern.launches for n, kern in kernels.items()}
         st = eng.pool_stats()
         outs = [(eng.result(r).tokens.tolist(), eng.result(r).finish_reason) for r in rids]
-        snap_bytes = [sum(el.nbytes_total() for el in registry.cache_elements(snap)) + nbytes(lg)
+        snap_bytes = [backend_lib.cache_bytes(snap)["total_bytes"] + nbytes(lg)
                       for snap, lg in eng._prefix_snap.values()]
         for key in eng._alloc.prefix_reclaim(min_pages=10**9):
             eng._prefix_snap.pop(key)
         eng._alloc.check_invariants()
         for name, seg in eng._alloc.segs.items():
             check(len(seg.free) == seg.pool_pages and not seg.refcount.any(),
-                  f"prefix (on={prefix_cache}): {name} pages not all back after the reclaim")
+                  f"{tag} (on={prefix_cache}): {name} pages not all back after the reclaim")
         return dict(eng=eng, rec=rec, wall=wall, launches=launches, stats=st, outs=outs,
                     snap_bytes=snap_bytes, **log_)
 
-    off = run(False, True)
+    off = run(False, not off_eager)
     on = run(True, True)
-    eager = run(True, False)
+    eager = off if off_eager else run(True, False)
     for i, ((a, ra), (w, rw)) in enumerate(zip(on["outs"], off["outs"])):
         if (a, ra) != (w, rw):
             step = next((j for j, (x, y) in enumerate(zip(a, w)) if x != y), min(len(a), len(w)))
-            fail(f"prefix: request {i} ({PREFIX_TRAFFIC[i][0]}, budget {PREFIX_TRAFFIC[i][1]}) "
+            fail(f"{tag}: request {i} ({traffic[i][0]}, budget {traffic[i][1]}) "
                  f"diverges at token {step}: on {a[step:step + 4]} ({ra}), off "
                  f"{w[step:step + 4]} ({rw})")
-    check(eager["outs"] == on["outs"], "prefix: the eager engine's tokens differ from the "
+    check(eager["outs"] == on["outs"], f"{tag}: the eager engine's tokens differ from the "
                                        "captured engine's")
-    check(all(len(t) == m and r == "length" for (t, r), (_, m) in zip(on["outs"], PREFIX_TRAFFIC)),
-          "prefix: a request ended short of its budget")
+    check(all(len(t) == m and r == "length" for (t, r), (_, m) in zip(on["outs"], traffic)),
+          f"{tag}: a request ended short of its budget")
     pf = on["stats"]["prefix"]
-    log(f"prefix: {card}; {pf['hits']} hits, {pf['misses']} misses, {pf['cow_copies']} CoW "
+    log(f"{tag}: {card}; {pf['hits']} hits, {pf['misses']} misses, {pf['cow_copies']} CoW "
         f"page copies ({len(on['cow_ms'])} copy steps), {pf['evictions']} evictions, "
         f"{on['shared_peak']} shared pages at peak, {pf['prefill_tokens_skipped']} prefill "
         f"tokens skipped")
-    check(pf["hits"] >= 1 and pf["cow_copies"] >= 1, f"prefix: no hit or no CoW copy: {pf}")
+    check(pf["hits"] >= 1 and pf["cow_copies"] >= 1, f"{tag}: no hit or no CoW copy: {pf}")
     check(pf["prefill_tokens_skipped"] == on["hit_buckets"],
-          f"prefix: {pf['prefill_tokens_skipped']} tokens skipped, the hits' buckets hold "
+          f"{tag}: {pf['prefill_tokens_skipped']} tokens skipped, the hits' buckets hold "
           f"{on['hit_buckets']}")
-    check(off["stats"]["prefix"]["hits"] == 0, "prefix: the run with dedup off hit")
-    log(f"prefix: admission wall to a synchronize: hit median {np.median(on['hit_ms']):.3f} ms "
+    check(off["stats"]["prefix"]["hits"] == 0, f"{tag}: the run with dedup off hit")
+    log(f"{tag}: admission wall to a synchronize: hit median {np.median(on['hit_ms']):.3f} ms "
         f"({len(on['hit_ms'])}: {[round(x, 3) for x in on['hit_ms']]}), miss median "
         f"{np.median(on['miss_ms']):.3f} ms ({len(on['miss_ms'])}); with dedup off, miss median "
         f"{np.median(off['miss_ms']):.3f} ms ({len(off['miss_ms'])})")
-    log(f"prefix: CoW copy (all layers' pools, one step) wall {on['cow_ms']} ms")
+    log(f"{tag}: CoW copy (all layers' pools, one step) wall {on['cow_ms']} ms")
     peaks = {k: (on["stats"][k]["peak_used"], off["stats"][k]["peak_used"],
                  on["stats"][k]["pool_pages"]) for k in ("hi", "lo", "win")}
-    log(f"prefix: peak pages used on / off / pool per segment {peaks}")
-    log(f"prefix: snapshot bytes per entry {on['snap_bytes']} "
+    log(f"{tag}: peak pages used on / off / pool per segment {peaks}")
+    log(f"{tag}: snapshot bytes per entry {on['snap_bytes']} "
         f"({[round(b / 2**20, 2) for b in on['snap_bytes']]} MiB)")
-    log(f"prefix: decode wall (submit to drained) off {off['wall']:.3f} s, on {on['wall']:.3f} s, "
-        f"on eager {eager['wall']:.3f} s")
-    log(f"prefix: launches off {off['launches']}, on {on['launches']}")
+    log(f"{tag}: decode wall (submit to drained) off {off['wall']:.3f} s"
+        f"{' (eager)' if off_eager else ''}, on {on['wall']:.3f} s"
+        + ("" if off_eager else f", on eager {eager['wall']:.3f} s"))
+    log(f"{tag}: launches off {off['launches']}, on {on['launches']}")
     for run_, label in ((off, "off"), (on, "on")):
         st, got = run_["stats"], run_["launches"]
-        want = {"cst_quant": 2 * n_layers * (st["admissions"] + st["folds"]),
+        b = run_["eng"].scfg.batch_size
+        stores = sum(k if 2 * k <= b else 1 for k in run_["folds"]) + st["folds"] - sum(
+            run_["folds"])
+        want = {"cst_quant": 2 * n_layers * (st["admissions"] + stores),
                 "flash_fwd": n_layers * st["admissions"],
                 "probe_colsum": n_layers * st["admissions"],
-                "decode_qattn": 0, "paged_qattn": n_layers * run_["eng"]._step_no}
+                "decode_qattn": 0,
+                "paged_qattn": n_layers * run_["eng"]._step_no if walk else 0}
         for name, n in want.items():
-            check(got[name] == n, f"prefix ({label}): {name} {got[name]} launches, the path "
+            check(got[name] == n, f"{tag} ({label}): {name} {got[name]} launches, the path "
                                   f"implies {n}")
-            check(n > 0 or name == "decode_qattn", f"prefix ({label}): {name} never launched")
+            check(n > 0 or name == "decode_qattn" or not walk,
+                  f"{tag} ({label}): {name} never launched")
     for name in ("flash_fwd", "probe_colsum"):
         saved = off["launches"][name] - on["launches"][name]
-        check(saved == n_layers * pf["hits"], f"prefix: {name} launched {saved} times fewer "
-                                              f"with dedup, 32 x hits is {n_layers * pf['hits']}")
+        check(saved == n_layers * pf["hits"], f"{tag}: {name} launched {saved} times fewer "
+                                              f"with dedup, layers x hits is "
+                                              f"{n_layers * pf['hits']}")
     step = on["rec"].step
     check(step.captures == 1 and step.replays > 0,
-          f"prefix: the captured step was built {step.captures} times")
+          f"{tag}: the captured step was built {step.captures} times")
     got, want = on["rec"].logits, eager["rec"].logits
-    check(len(got) == len(want) > 0, f"prefix: {len(got)} captured steps against {len(want)}")
+    check(len(got) == len(want) > 0, f"{tag}: {len(got)} captured steps against {len(want)}")
     n_equal, worst = 0, 0.0
     for i, (a, w) in enumerate(zip(got, want)):
         n_equal += bool(torch.equal(a, w))
         ulp = 2 ** -7 * max(w.float().abs().max().item(), 1.0)
         worst = max(worst, (a.float() - w.float()).abs().max().item() / ulp)
-    check(worst <= 1.0, f"prefix: a captured step's logits differ from the eager step's by "
+    check(worst <= 1.0, f"{tag}: a captured step's logits differ from the eager step's by "
                         f"{worst:.3g} bf16 ulps (tolerance 1)")
+    check(not off_eager or n_equal == len(got),
+          f"{tag}: {len(got) - n_equal} captured steps with dedup on are not bitwise the eager "
+          "steps with it off")
     marks = on["marks"]
-    check(set(marks) == {"alias", "cow"}, f"prefix: no replay after an alias admission and "
+    check(set(marks) == {"alias", "cow"}, f"{tag}: no replay after an alias admission and "
                                            f"after a CoW copy: {marks}")
     for what, i in sorted(marks.items()):
         check(torch.equal(got[i], want[i]),
-              f"prefix: the first replay after {what} (step {i}) is not bitwise the eager "
+              f"{tag}: the first replay after {what} (step {i}) is not bitwise the eager "
               f"step's: relative L2 {rel_l2(got[i], want[i]):.4g}")
-    log(f"prefix: captured step {step.captures} capture(s), {step.replays} replays; {len(got)} "
+    log(f"{tag}: captured step {step.captures} capture(s), {step.replays} replays; {len(got)} "
         f"steps vs eager: {n_equal} bitwise equal, largest difference {worst:.4g} bf16 ulps; "
         f"first replays after an alias admission (step {marks['alias']}) and after a CoW copy "
         f"(step {marks['cow']}) bitwise equal")
-    return {"prefix (off)": off["launches"], "prefix (on)": on["launches"]}
+    return {f"{tag} (off)": off["launches"], f"{tag} (on)": on["launches"]}
 
 
 # phase 4g: the requests of phase 4b's traffic that sample, by submission
@@ -1445,23 +1597,35 @@ SAMPLED = {1: (0.7, 11), 3: (1.0, 12), 5: (0.7, 13), 7: (1.0, 14)}
 
 
 def sampling(torch, np, cfg, ccfg, params, dev, kernels, n_layers, scfg, requests, budgets,
-             greedy_4d, lock_bytes, card):
-    """Phase 4g: phase 4d's traffic with the requests of `SAMPLED` sampled,
-    through a captured engine (run 1), an eager one (run 2) and a captured
-    one with the requests submitted in reverse order (run 3); then the draw
-    itself on the card against the host.  Returns run 1's launch counts,
-    read from 0, its tokens by submission index, decode wall and the
-    requests' first-token times."""
+             greedy_4d, lock_bytes, card, sampled=SAMPLED, runs=(1, 2, 3), draws=True,
+             tag="sampling"):
+    """Phase 4g (and trees of phase 4p): phase 4d's traffic (or `requests`)
+    with the requests of `sampled` sampled, through a captured engine (run
+    1), an eager one (run 2) and a captured one with the requests submitted
+    in reverse order (run 3), those of `runs`; with `draws`, then the draw
+    itself on the card against the host.  `greedy_4d`: the greedy tokens of
+    the same traffic, or None (the greedy requests are then held across
+    the runs alone).  `n_layers`: the layers with a KV element (a decode
+    step walks their pages but on MLA).  Returns run 1's
+    launch counts, read from 0, its tokens by submission index, decode wall
+    and the requests' first-token times."""
     from repro_torch.core import prng
     from repro_torch.core import saliency as sal
     from repro_torch.launch import steps as steps_lib
     from repro_torch.runtime import compile_guard
     from repro_torch.serving import ContinuousEngine, Request, SamplingParams, probe_flag
 
-    interval, n = ccfg.recompress_interval, len(requests)
+    interval, n, walk = ccfg.recompress_interval, len(requests), not cfg.mla
 
     def run(capture, order, account=False):
         eng = ContinuousEngine(cfg, ccfg, scfg, params, device=dev, capture=capture)
+        folds, fold = [], eng._fold
+
+        def counted_fold(due):
+            folds.append(len(due))
+            return fold(due)
+
+        eng._fold = counted_fold
         torch.cuda.synchronize()
         for kern in kernels.values():
             kern.launches = 0
@@ -1472,17 +1636,17 @@ def sampling(torch, np, cfg, ccfg, params, dev, kernels, n_layers, scfg, request
             t0 = time.perf_counter()
             rids = {i: eng.submit(Request(
                 tokens=requests[i], max_new_tokens=int(budgets[i]),
-                sampling=SamplingParams(*SAMPLED.get(i, (0.0, 0))))) for i in order}
+                sampling=SamplingParams(*sampled.get(i, (0.0, 0))))) for i in order}
             while eng.pending:
                 live = [sl for sl in eng.slots if sl is not None]
                 probe = any(probe_flag(sl.steps, interval, 0) for sl in live)
-                sampled = any(sl.request.sampling.temperature > 0 for sl in live)
+                with_sampled = any(sl.request.sampling.temperature > 0 for sl in live)
                 n_events = (eng._n_admissions, eng._n_folds, len(live))
                 ts = time.perf_counter()
                 eng.step()   # ends in the tokens' copy to the host
                 if live and not probe and n_events == (eng._n_admissions, eng._n_folds,
                                                        sum(sl is not None for sl in eng.slots)):
-                    ms[sampled].append((time.perf_counter() - ts) * 1e3)
+                    ms[with_sampled].append((time.perf_counter() - ts) * 1e3)
                 if account:
                     cb = eng.cache_bytes(eng.caches)
                     if cb["packed_bytes"] > peak_bytes.get("packed_bytes", -1):
@@ -1491,67 +1655,82 @@ def sampling(torch, np, cfg, ccfg, params, dev, kernels, n_layers, scfg, request
             wall = time.perf_counter() - t0
         st = eng.pool_stats()
         got = {name: kern.launches for name, kern in kernels.items()}
-        want = {"cst_quant": 2 * n_layers * (st["admissions"] + st["folds"]),
+        b = scfg.batch_size
+        stores = sum(k if 2 * k <= b else 1 for k in folds) + st["folds"] - sum(folds)
+        want = {"cst_quant": 2 * n_layers * (st["admissions"] + stores),
                 "flash_fwd": n_layers * st["admissions"],
                 "probe_colsum": n_layers * st["admissions"],
-                "decode_qattn": 0, "paged_qattn": n_layers * eng._step_no}
+                "decode_qattn": 0, "paged_qattn": n_layers * eng._step_no if walk else 0}
         for name, k in want.items():
-            check(got[name] == k, f"sampling (capture {capture}): {name} {got[name]} launches, "
+            check(got[name] == k, f"{tag} (capture {capture}): {name} {got[name]} launches, "
                                   f"the path implies {k}")
+        eng._alloc.check_invariants()
+        for seg in ("hi", "lo", "win"):
+            check(st[seg]["used"] == 0, f"{tag} (capture {capture}): {seg} pages not all back")
         tokens = [eng.result(rids[i]).tokens.tolist() for i in range(n)]
         for i, t in enumerate(tokens):
             check(len(t) == budgets[i] and all(0 <= x < cfg.vocab for x in t),
-                  f"sampling (capture {capture}): request {i} ended with {len(t)} of "
+                  f"{tag} (capture {capture}): request {i} ended with {len(t)} of "
                   f"{budgets[i]} tokens or out of range")
         return dict(eng=eng, rids=rids, tokens=tokens, wall=wall, ms=ms, builds=builds.count,
                     launches=got, draws=prng.SAMPLES.launches, peak_bytes=peak_bytes)
 
     r1 = run(True, range(n))
-    r2 = run(False, range(n))
-    r3 = run(True, range(n - 1, -1, -1), account=True)
+    r2 = run(False, range(n)) if 2 in runs else None
+    r3 = run(True, range(n - 1, -1, -1), account=True) if 3 in runs else None
 
     def first_diff(a, w):
         return next((j for j, (x, y) in enumerate(zip(a, w)) if x != y), min(len(a), len(w)))
 
-    for i in range(n):
+    for i in range(n if r2 else 0):
         a, w = r1["tokens"][i], r2["tokens"][i]
         if a != w:
             j = first_diff(a, w)
-            fail(f"sampling: request {i} {SAMPLED.get(i, 'greedy')} differs captured against "
+            fail(f"{tag}: request {i} {sampled.get(i, 'greedy')} differs captured against "
                  f"eager at step {j}: {a[j:j + 4]} against {w[j:j + 4]}")
     for i in range(n):
         a = r1["tokens"][i]
-        if i in SAMPLED:
-            if a != r3["tokens"][i]:
-                j = first_diff(a, r3["tokens"][i])
-                fail(f"sampling: sampled request {i} {SAMPLED[i]} differs in reverse submission "
-                     f"order at step {j}: {a[j:j + 4]} against {r3['tokens'][i][j:j + 4]}")
-            check(a != greedy_4d[i], f"sampling: sampled request {i} {SAMPLED[i]} equals its "
+        if r3 and (i in sampled or greedy_4d is None) and a != r3["tokens"][i]:
+            j = first_diff(a, r3["tokens"][i])
+            fail(f"{tag}: request {i} {sampled.get(i, 'greedy')} differs in reverse submission "
+                 f"order at step {j}: {a[j:j + 4]} against {r3['tokens'][i][j:j + 4]}")
+        if greedy_4d is None:
+            continue
+        if i in sampled:
+            check(a != greedy_4d[i], f"{tag}: sampled request {i} {sampled[i]} equals its "
                                      "greedy tokens of phase 4d")
         elif a != greedy_4d[i]:
             j = first_diff(a, greedy_4d[i])
-            fail(f"sampling: greedy request {i} differs from phase 4d at step {j}: "
+            fail(f"{tag}: greedy request {i} differs from phase 4d at step {j}: "
                  f"{a[j:j + 4]} against {greedy_4d[i][j:j + 4]}")
     step = r1["eng"]._decode_masked
     check(r1["builds"] <= 2 and step.captures <= 2 and step.sample_replays > 0,
-          f"sampling: run 1 built {r1['builds']} graphs ({step.captures} captures, "
+          f"{tag}: run 1 built {r1['builds']} graphs ({step.captures} captures, "
           f"{step.sample_replays} sampler replays)")
-    check(r2["builds"] == 0, f"sampling: the eager run built {r2['builds']} graphs")
-    n_sampled_tok = sum(len(r1["tokens"][i]) for i in SAMPLED)
-    log(f"sampling: {card}; requests {sorted(SAMPLED)} sampled at {list(SAMPLED.values())} "
-        f"((temperature, seed)); {n_sampled_tok} sampled tokens; captured and eager equal, "
-        f"greedy requests equal phase 4d, sampled requests equal in reverse submission order "
-        f"and differ from their greedy tokens")
-    log(f"sampling: run 1 built {r1['builds']} graphs (decode step and sampler), "
+    check(r2 is None or r2["builds"] == 0, f"{tag}: the eager run built {r2 and r2['builds']} "
+                                           "graphs")
+    n_sampled_tok = sum(len(r1["tokens"][i]) for i in sampled)
+    held = (["captured and eager equal"] if r2 else []) + (
+        ["greedy requests equal phase 4d"] if greedy_4d is not None else []) + (
+        [f"{'sampled' if greedy_4d is not None else 'all'} requests equal in reverse "
+         "submission order"] if r3 else []) + (
+        ["sampled requests differ from their greedy tokens"] if greedy_4d is not None else [])
+    log(f"{tag}: {card}; requests {sorted(sampled)} sampled at {list(sampled.values())} "
+        f"((temperature, seed)); {n_sampled_tok} sampled tokens; " + ", ".join(held))
+    log(f"{tag}: run 1 built {r1['builds']} graphs (decode step and sampler), "
         f"{step.replays} decode replays, {step.sample_replays} sampler replays, "
         f"{r1['draws']} sampler runs")
     def median(xs):
         return f"{np.median(xs):.3f} ms ({len(xs)} steps)" if xs else "none (0 steps)"
 
     for label, r in (("run 1 captured", r1), ("run 2 eager", r2), ("run 3 captured, reversed", r3)):
-        log(f"sampling: {label}: decode wall {r['wall']:.3f} s; median non-probe step with "
-            f"sampled rows {median(r['ms'][True])}, without {median(r['ms'][False])}")
-    log("sampling: run 3's wall includes a cache_bytes read after every step")
+        if r is not None:
+            log(f"{tag}: {label}: decode wall {r['wall']:.3f} s; median non-probe step with "
+                f"sampled rows {median(r['ms'][True])}, without {median(r['ms'][False])}")
+    if r3:
+        log(f"{tag}: run 3's wall includes a cache_bytes read after every step")
+    if not draws:
+        return {"launches": {tag: r1["launches"]}, "tokens": r1["tokens"], "wall": r1["wall"]}
 
     # the draw itself: 16 (seed, counter) pairs over the vocabulary
     seeds = [-5, 0, 7, 2**31 - 1, 11, 12, 13, 14, -2**31, 1, 2, 3, 99, 12345, -77, 5]
@@ -1924,19 +2103,215 @@ CONTINUOUS_POLICIES = ("fp16", "kivi")
 # store's f32 parameters, as in the reference): their lockstep step is
 # built again after the first fold
 PROMOTING = ("fp16", "h2o", "gear", "kivi")
+BASELINE_LAYERS = 4   # phase 4i's runs: the first 4 of yi-6b's 32 layers (8 before phase 4o)
 
 
 def baselines(torch, np, cfg, params, dev, kernels, rows, batch, scfg, cscfg,
-              requests, budgets, rel_l2, yardstick, card):
-    """Phase 4i: the baseline policies on both engines at full width over the
-    first BASELINE_LAYERS of yi-6b's 32 layers (cut from 32 to make room for
+              requests, budgets, rel_l2, yardstick, card, layers=BASELINE_LAYERS,
+              policies=LOCKSTEP_POLICIES, cpolicies=CONTINUOUS_POLICIES, ccfg_of=None,
+              tag="4i", full=True):
+    """Phase 4i (and trees of phase 4p): the baseline policies on both
+    engines at full width over the first `layers` of the model's layers
+    (phase 4i: BASELINE_LAYERS of yi-6b's 32, cut from 32 to make room for
     phase 4l in the time limit), the kernels at their shapes, and the
-    int8-algebra / compact-softmax levers.  Returns the launch counts of each run ({path: {kernel: n}})."""
+    int8-algebra / compact-softmax levers.  `policies` / `cpolicies`: the
+    lockstep and continuous runs; `ccfg_of`: each policy's configuration
+    (its preset by default); `full` (phase 4i): also the kernels at the
+    baselines' shapes, the int8-algebra / compact-softmax levers and the
+    lockstep steps timed alone.  Returns the launch counts of each run
+    ({path: {kernel: n}})."""
     import dataclasses
 
     from repro_torch.core import backend as backend_lib
-    from repro_torch.core import kvcache as kvc
     from repro_torch.core import paged
+    from repro_torch.core.policy import CompressionConfig
+    from repro_torch.models import registry
+    from repro_torch.serving import ContinuousEngine, Request, ServingEngine, probe_flag
+
+    t_phase = time.perf_counter()
+    ccfg_of = ccfg_of or CompressionConfig.preset
+    b, prompt = batch["tokens"].shape
+    max_new = scfg.max_new_tokens
+    hk, d = cfg.n_kv_heads, cfg.hd
+    max_len = prompt + max_new
+    gen = torch.Generator(device=dev).manual_seed(4)
+    if full:   # the kernels at the baselines' shapes; the int8-algebra and compact levers
+        _baseline_kernels(torch, np, cfg, dev, rows, b, prompt, max_new, gen, "", tag)
+        _baseline_levers(torch, cfg, dev, b, prompt, max_len, gen, card)
+
+    # -- (i) lockstep runs, at the first `layers` of the model's (full width:
+    # the groups' leading axis cut to views of phase 4's first layers) ------------
+    out_paths = {}
+    lcfg = dataclasses.replace(cfg, n_layers=layers)
+    lparams = _first_layers(params, lcfg.n_scan_groups)
+    n_lock = lcfg.n_layers
+    toks = torch.as_tensor(batch["tokens"], device=dev)
+    first, last = {}, {}
+    counters = dict(kernels, plain_decodes=backend_lib.PLAIN_DECODES)
+    for policy in policies:
+        ccfg = ccfg_of(policy)
+        interval = ccfg.recompress_interval
+        n_probe = sum(probe_flag(i, interval, scfg.seed) for i in range(max_new))
+        n_fold = max_new // interval
+        runs = {}
+        for capture in (True, False):
+            eng = ServingEngine(lcfg, ccfg, scfg, lparams, device=dev, capture=capture)
+            eng.generate(batch, max_new_tokens=2)   # warm-up
+            torch.cuda.synchronize()
+            for c in counters.values():
+                c.launches = 0
+            rec = eng._decode = StepLogits(eng._decode)
+            out = eng.generate(batch)
+            eng._decode = rec.step
+            got = {n: c.launches for n, c in counters.items()}
+            runs[capture] = dict(out=out, rec=rec, launches=got, step=rec.step,
+                                 captures=rec.step.captures,
+                                 bytes=eng.cache_bytes(eng.last_caches))
+            if capture:
+                plain_eng = ServingEngine(lcfg, ccfg, scfg, lparams, device=dev,
+                                          use_kernels=False)
+                with torch.inference_mode():
+                    lk, _ = registry.prefill(lparams, {"tokens": toks}, lcfg, eng.ctx)
+                    lp, cp = registry.prefill(lparams, {"tokens": toks}, lcfg, plain_eng.ctx)
+                    tok0 = torch.argmax(lp, dim=-1).to(torch.int32)
+                    dk, _ = registry.decode_step(lparams, tok0, cp, lcfg, eng.ctx, False)
+                    dp, _ = registry.decode_step(lparams, tok0, cp, lcfg, plain_eng.ctx, False)
+                for what, a, w in (("prefill", lk, lp), ("first decode step", dk, dp)):
+                    r = rel_l2(a, w)
+                    check(bool(torch.isfinite(a).all()) and r <= 0.2,
+                          f"{tag} {policy}: {what} logits vs plain: relative L2 {r:.4g} (tolerance "
+                          "0.2) or not finite")
+                    runs[capture][what] = r
+                del plain_eng, lk, lp, cp, dk, dp
+                if full:   # the step alone to a synchronize: median non-probe, probe step
+                    step_ms, probe_ms = [], []
+                    with torch.inference_mode():
+                        lg, caches = eng._prefill(lparams, {"tokens": toks})
+                        caches = eng._decode.adopt(caches)
+                        tok = torch.argmax(lg, dim=-1).to(torch.int32)
+                        for i in range(16):
+                            p = probe_flag(i, interval, scfg.seed)
+                            torch.cuda.synchronize()
+                            t0 = time.perf_counter()
+                            lg, caches = eng._decode(lparams, caches, tok, p)
+                            torch.cuda.synchronize()
+                            (probe_ms if p else step_ms).append((time.perf_counter() - t0) * 1e3)
+                            tok = eng._decode.token
+                    runs[capture].update(
+                        step_ms=float(np.median(step_ms)),
+                        probe_ms=float(np.median(probe_ms)) if probe_ms else None)
+                    del lg, caches
+            del eng
+        cap, eager = runs[True], runs[False]
+        uses_walk = policy in ("fp16", "h2o")
+        want = {"flash_fwd": n_lock, "cst_quant": 0, "paged_qattn": 0,
+                "probe_colsum": n_lock if ccfg.uses_saliency else 0,
+                "decode_qattn": n_lock * (max_new - n_probe) if uses_walk else 0,
+                "plain_decodes": n_lock * (n_probe if uses_walk else max_new)}
+        for name, n in want.items():
+            check(cap["launches"][name] == n, f"{tag} lockstep {policy}: {name} "
+                                              f"{cap['launches'][name]} launches, the route "
+                                              f"implies {n}")
+        # the warm-up run's capture, then one after the first fold where it promotes
+        builds = 1 + (policy in PROMOTING and n_fold > 0)
+        check(cap["captures"] == builds and eager["captures"] == 0,
+              f"{tag} lockstep {policy}: the captured step was built {cap['captures']} times, the "
+              f"route implies {builds}")
+        n_equal, worst = 0, 0.0
+        for i, (a, w) in enumerate(zip(cap["rec"].logits, eager["rec"].logits)):
+            check(bool(torch.isfinite(a).all()), f"{tag} lockstep {policy}: step {i} not finite")
+            n_equal += bool(torch.equal(a, w))
+            dev_ = (a.float() - w.float()).abs().max().item() / (
+                2 ** -7 * max(w.float().abs().max().item(), 1.0))
+            worst = max(worst, dev_)
+            check(dev_ <= 1.0, f"{tag} lockstep {policy}: step {i}'s logits differ from the eager "
+                               f"step's by {dev_:.3g} bf16 ulps of their largest value")
+        check(len(cap["rec"].logits) == len(eager["rec"].logits) == max_new,
+              f"{tag} lockstep {policy}: {len(cap['rec'].logits)} captured steps")
+        check(bool((cap["out"]["tokens"] == eager["out"]["tokens"]).all()),
+              f"{tag} lockstep {policy}: captured tokens differ from the eager engine's")
+        first[policy], last[policy] = (cap["rec"].logits[i].float() for i in (0, -1))
+        tm = cap["out"]["timings"]
+        packed = cap["bytes"]["packed_bytes"]
+        fp16_bytes = 2 * b * hk * max_len * d * 2 * n_lock
+        ratio = ccfg.compression_ratio(b, hk, max_len, d)
+        # the first decode step's logits (one prefill, the caches apart) as
+        # tests/test_serving.py compares policies; the last step's follow
+        # each policy's own greedy tokens
+        cos = [torch.nn.functional.cosine_similarity(x[policy].flatten(), x["fp16"].flatten(),
+                                                     dim=0).item() for x in (first, last)]
+        timed = (f"median non-probe step {cap['step_ms']:.3f} ms, probe step "
+                 f"{cap['probe_ms'] or 0:.3f} ms" if full else "steps not timed alone")
+        log(f"{tag} lockstep {policy} ({n_lock} layers, {card}): prefill {tm['prefill_s']:.3f} s, "
+            f"decode {tm['decode_s']:.3f} s (eager {eager['out']['timings']['decode_s']:.3f} s), "
+            f"{timed}; "
+            f"{n_probe} probe steps, {n_fold} fold; launches {cap['launches']}; captures "
+            f"{cap['captures']}; {n_equal} of {max_new} steps bitwise the eager step's, largest "
+            f"difference {worst:.3g} bf16 ulps; logits vs plain: prefill rel L2 "
+            f"{cap['prefill']:.4g}, first decode {cap['first decode step']:.4g} (yardstick "
+            f"{yardstick:.4g}); cache_bytes packed {packed} ({fp16_bytes / packed:.4f}x the "
+            f"bf16 bytes of {max_len} tokens; Appendix-A ratio {ratio:.4f}), total "
+            f"{cap['bytes']['total_bytes']}; logits cosine to fp16's: first decode step "
+            f"{cos[0]:.4f}, last step {cos[1]:.4f}")
+        out_paths[f"{tag}-lockstep-{policy}"] = {n: c for n, c in cap["launches"].items()
+                                              if n in kernels}
+        del runs, cap, eager
+
+    # -- (ii) continuous runs: phase 4b's configuration and traffic, at the
+    # lockstep runs' layers --------------------------------------------------------
+    for policy in cpolicies:
+        ccfg = ccfg_of(policy)
+        eng = ContinuousEngine(lcfg, ccfg, cscfg, lparams, device=dev)
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        paged.GATHER_DECODES.launches = 0
+        t0 = time.perf_counter()
+        rids = [eng.submit(Request(tokens=r, max_new_tokens=int(m)))
+                for r, m in zip(requests, budgets)]
+        while eng.pending:
+            eng.step()
+            eng._alloc.check_invariants()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {n: c.launches for n, c in kernels.items()}
+        gathers = paged.GATHER_DECODES.launches
+        st = eng.pool_stats()
+        res = {r: eng.result(r) for r in rids}
+        for i, r in enumerate(rids):
+            check(res[r].finish_reason == "length" and len(res[r].tokens) == budgets[i],
+                  f"{tag} continuous {policy}: {r} ended {res[r].finish_reason} with "
+                  f"{len(res[r].tokens)} of {budgets[i]} tokens")
+        for seg in ("hi", "lo", "win"):
+            check(st[seg]["used"] == 0 and st[seg]["free"] == st[seg]["pool_pages"],
+                  f"{tag} continuous {policy}: {seg} pages not all returned: {st[seg]}")
+        walk_ = policy == "fp16"
+        want = {"cst_quant": 0, "flash_fwd": n_lock * st["admissions"], "probe_colsum": 0,
+                "decode_qattn": 0, "paged_qattn": n_lock * eng._step_no if walk_ else 0}
+        for name, n in want.items():
+            check(got[name] == n, f"{tag} continuous {policy}: {name} {got[name]} launches, "
+                                  f"the route implies {n}")
+        n_gather = 0 if walk_ else n_lock * eng._step_no
+        check(gathers == n_gather, f"{tag} continuous {policy}: {gathers} gather-path decodes, the "
+                                   f"route implies {n_gather}")
+        n_tok = sum(len(x.tokens) for x in res.values())
+        peaks = {k: f"{st[k]['peak_used']}/{st[k]['pool_pages']}" for k in ("hi", "lo", "win")}
+        log(f"{tag} continuous {policy} ({n_lock} layers, {card}): {n_tok} tokens in "
+            f"{wall:.3f} s, {eng._step_no} steps, {st['admissions']} admissions, "
+            f"{st['deferrals']} deferrals, {st['folds']} folds; pages peak used / pool {peaks}; launches {got}, gather-path decodes "
+            f"{gathers}; allocator invariants held after every step, every page back")
+        out_paths[f"{tag}-continuous-{policy}"] = got
+        del eng, res
+    log(f"baselines: {tag} took {time.perf_counter() - t_phase:.1f} s")
+    return out_paths
+
+
+def _baseline_kernels(torch, np, cfg, dev, rows, b, prompt, max_new, gen, suffix, tag):
+    """Phase 4i's kernels at the baselines' shapes, at `cfg`'s attention
+    layer: probe_colsum with every row a probe, decode_qattn over fp16's raw
+    store before and after a fold.  Kept under `rows["probe_colsum" +
+    suffix]["np1024"]` and `rows["decode_qattn" + suffix]["fp16_raw"]`."""
+    from repro_torch.core import kvcache as kvc
     from repro_torch.core import saliency as sal
     from repro_torch.core.policy import CompressionConfig
     from repro_torch.kernels.decode_qattn import kernel as dq_kernel
@@ -1944,20 +2319,14 @@ def baselines(torch, np, cfg, params, dev, kernels, rows, batch, scfg, cscfg,
     from repro_torch.kernels.decode_qattn import ref as dq_ref
     from repro_torch.kernels.probe_flash import kernel as pf_kernel
     from repro_torch.kernels.probe_flash import ref as pf_ref
-    from repro_torch.models import attention, registry
-    from repro_torch.serving import ContinuousEngine, Request, ServingEngine, probe_flag
+    from repro_torch.models import attention
 
-    t_phase = time.perf_counter()
-    b, prompt = batch["tokens"].shape
-    max_new = scfg.max_new_tokens
     h, hk, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     max_len = prompt + max_new
-    gen = torch.Generator(device=dev).manual_seed(4)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
-    # -- the kernels at the baselines' shapes --------------------------------
     # probe_colsum with every row a probe (h2o, mikv: np = lq = 1024), batch 4
     # (lockstep) and 1 (an admission); sums in another order within 1e-4 of
     # the largest column sum (>= 1), two calls bitwise; the salient sets the
@@ -1972,7 +2341,9 @@ def baselines(torch, np, cfg, params, dev, kernels, rows, batch, scfg, cscfg,
     for nb in (b, 1):
         args = (q[:nb].contiguous(), lse[:nb].contiguous(), pos[None].expand(nb, -1).contiguous(),
                 k[:nb].contiguous())
+        pf_kernel.COLSUM.heads_per_cta = None
         col = pf_kernel.probe_colsum(*args, lq=prompt)
+        hpc = pf_kernel.COLSUM.heads_per_cta
         col_ref = pf_ref.probe_colsum_ref(*args, lq=prompt)
         again = pf_kernel.probe_colsum(*args, lq=prompt)
         torch.cuda.synchronize()
@@ -1990,12 +2361,14 @@ def baselines(torch, np, cfg, params, dev, kernels, rows, batch, scfg, cscfg,
                       "device_ms": device_ms(torch, fn),
                       "plain_ms": time_ms(torch, lambda: pf_ref.probe_colsum_ref(
                           *args, lq=prompt), iters=5),
-                      "bound_ms": bound_ms(2.0 * nb * h * pairs * d, nbytes(*args, col))[0]}
-        log(f"probe_colsum np {prompt} batch {nb}: max abs err {err:.3g} (tol {tol:.3g}); "
+                      "bound_ms": bound_ms(2.0 * nb * h * pairs * d, nbytes(*args, col))[0],
+                      "heads_per_cta": hpc}
+        log(f"probe_colsum np {prompt} batch {nb} ({h} / {hk} heads, {hpc} a CTA): max abs err "
+            f"{err:.3g} (tol {tol:.3g}); "
             f"kernel {np1024[nb]['ms']:.4f} ms (device {np1024[nb]['device_ms']:.4f} ms), "
             f"plain {np1024[nb]['plain_ms']:.4f} ms, bound {np1024[nb]['bound_ms']:.5f} ms")
-    rows["probe_colsum"]["np1024"] = np1024[b]
-    rows["probe_colsum"]["np1024"]["batch1"] = np1024[1]
+    np1024[b]["batch1"] = np1024[1]
+    rows["probe_colsum" + suffix]["np1024"] = np1024[b]
     del q, k, v, lse, args, col, col_ref, again
 
     # decode_qattn over fp16's raw store (1152 slots, 1024 filled) and a 100-slot
@@ -2049,10 +2422,24 @@ def baselines(torch, np, cfg, params, dev, kernels, rows, batch, scfg, cscfg,
             f"{raw[when]['splits']} splits per (row, kv head); kernel {raw[when]['ms']:.4f} ms "
             f"(device {raw[when]['device_ms']:.4f} ms), plain {raw[when]['plain_ms']:.4f} ms, "
             f"bound {raw[when]['bound_ms']:.5f} ms")
-    rows["decode_qattn"]["fp16_raw"] = raw
-    del cache, dsegs, got, want
+    rows["decode_qattn" + suffix]["fp16_raw"] = raw
+    log(f"{tag}: the kernels at the baselines' shapes ({h} / {hk} heads, d {d}) held")
 
-    # -- (iii) the levers: int8-algebra decode, compact softmax ----------------
+
+def _baseline_levers(torch, cfg, dev, b, prompt, max_len, gen, card):
+    """Phase 4i's levers on one full-width layer of `cfg`, each timed beside
+    its counterpart: the int8-algebra decode and the compact softmax."""
+    from repro_torch.core import kvcache as kvc
+    from repro_torch.core import saliency as sal
+    from repro_torch.core.policy import CompressionConfig
+    from repro_torch.models import attention
+
+    h, hk, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    qd = randn(b, h, d)
     zcfg = CompressionConfig.zipcache()
     cache = kvc.compress_prefill(zcfg, randn(b, hk, prompt, d), randn(b, hk, prompt, d),
                                  torch.rand((b, prompt), generator=gen, device=dev), max_len)
@@ -2084,171 +2471,6 @@ def baselines(torch, np, cfg, params, dev, kernels, rows, batch, scfg, cscfg,
         f"{levers['compact_ms']:.4f} ms against f32's {levers['f32_ms']:.4f} ms (output off by "
         f"{cerr:.3g}, probe column sums by {levers['compact_colsum_err']:.3g}); plain routes")
     del cache, ref, alg, q1, k1, v1, oc, of, cc, cf
-
-    # -- (i) lockstep runs, at BASELINE_LAYERS of yi-6b's 32 layers (full width:
-    # the groups' leading axis cut to views of phase 4's first layers) ------------
-    out_paths = {}
-    lcfg = dataclasses.replace(cfg, n_layers=BASELINE_LAYERS)
-    lparams = _first_layers(params, lcfg.n_scan_groups)
-    n_lock = lcfg.n_layers
-    toks = torch.as_tensor(batch["tokens"], device=dev)
-    first, last = {}, {}
-    counters = dict(kernels, plain_decodes=backend_lib.PLAIN_DECODES)
-    for policy in LOCKSTEP_POLICIES:
-        ccfg = CompressionConfig.preset(policy)
-        interval = ccfg.recompress_interval
-        n_probe = sum(probe_flag(i, interval, scfg.seed) for i in range(max_new))
-        n_fold = max_new // interval
-        runs = {}
-        for capture in (True, False):
-            eng = ServingEngine(lcfg, ccfg, scfg, lparams, device=dev, capture=capture)
-            eng.generate(batch, max_new_tokens=2)   # warm-up
-            torch.cuda.synchronize()
-            for c in counters.values():
-                c.launches = 0
-            rec = eng._decode = StepLogits(eng._decode)
-            out = eng.generate(batch)
-            eng._decode = rec.step
-            got = {n: c.launches for n, c in counters.items()}
-            runs[capture] = dict(out=out, rec=rec, launches=got, step=rec.step,
-                                 captures=rec.step.captures,
-                                 bytes=eng.cache_bytes(eng.last_caches))
-            if capture:
-                plain_eng = ServingEngine(lcfg, ccfg, scfg, lparams, device=dev,
-                                          use_kernels=False)
-                with torch.inference_mode():
-                    lk, _ = registry.prefill(lparams, {"tokens": toks}, lcfg, eng.ctx)
-                    lp, cp = registry.prefill(lparams, {"tokens": toks}, lcfg, plain_eng.ctx)
-                    tok0 = torch.argmax(lp, dim=-1).to(torch.int32)
-                    dk, _ = registry.decode_step(lparams, tok0, cp, lcfg, eng.ctx, False)
-                    dp, _ = registry.decode_step(lparams, tok0, cp, lcfg, plain_eng.ctx, False)
-                for what, a, w in (("prefill", lk, lp), ("first decode step", dk, dp)):
-                    r = rel_l2(a, w)
-                    check(bool(torch.isfinite(a).all()) and r <= 0.2,
-                          f"{policy}: {what} logits vs plain: relative L2 {r:.4g} (tolerance "
-                          "0.2) or not finite")
-                    runs[capture][what] = r
-                del plain_eng, lk, lp, cp, dk, dp
-                # the step alone to a synchronize: median non-probe and probe step
-                step_ms, probe_ms = [], []
-                with torch.inference_mode():
-                    lg, caches = eng._prefill(lparams, {"tokens": toks})
-                    caches = eng._decode.adopt(caches)
-                    tok = torch.argmax(lg, dim=-1).to(torch.int32)
-                    for i in range(16):
-                        p = probe_flag(i, interval, scfg.seed)
-                        torch.cuda.synchronize()
-                        t0 = time.perf_counter()
-                        lg, caches = eng._decode(lparams, caches, tok, p)
-                        torch.cuda.synchronize()
-                        (probe_ms if p else step_ms).append((time.perf_counter() - t0) * 1e3)
-                        tok = eng._decode.token
-                runs[capture].update(step_ms=float(np.median(step_ms)),
-                                     probe_ms=float(np.median(probe_ms)) if probe_ms else None)
-                del lg, caches
-            del eng
-        cap, eager = runs[True], runs[False]
-        uses_walk = policy in ("fp16", "h2o")
-        want = {"flash_fwd": n_lock, "cst_quant": 0, "paged_qattn": 0,
-                "probe_colsum": n_lock if CompressionConfig.preset(policy).uses_saliency else 0,
-                "decode_qattn": n_lock * (max_new - n_probe) if uses_walk else 0,
-                "plain_decodes": n_lock * (n_probe if uses_walk else max_new)}
-        for name, n in want.items():
-            check(cap["launches"][name] == n, f"lockstep {policy}: {name} {cap['launches'][name]} "
-                                              f"launches, the route implies {n}")
-        # the warm-up run's capture, then one after the first fold where it promotes
-        builds = 1 + (policy in PROMOTING and n_fold > 0)
-        check(cap["captures"] == builds and eager["captures"] == 0,
-              f"lockstep {policy}: the captured step was built {cap['captures']} times, the "
-              f"route implies {builds}")
-        n_equal, worst = 0, 0.0
-        for i, (a, w) in enumerate(zip(cap["rec"].logits, eager["rec"].logits)):
-            check(bool(torch.isfinite(a).all()), f"lockstep {policy}: step {i} not finite")
-            n_equal += bool(torch.equal(a, w))
-            dev_ = (a.float() - w.float()).abs().max().item() / (
-                2 ** -7 * max(w.float().abs().max().item(), 1.0))
-            worst = max(worst, dev_)
-            check(dev_ <= 1.0, f"lockstep {policy}: step {i}'s logits differ from the eager "
-                               f"step's by {dev_:.3g} bf16 ulps of their largest value")
-        check(len(cap["rec"].logits) == len(eager["rec"].logits) == max_new,
-              f"lockstep {policy}: {len(cap['rec'].logits)} captured steps")
-        check(bool((cap["out"]["tokens"] == eager["out"]["tokens"]).all()),
-              f"lockstep {policy}: captured tokens differ from the eager engine's")
-        first[policy], last[policy] = (cap["rec"].logits[i].float() for i in (0, -1))
-        tm = cap["out"]["timings"]
-        packed = cap["bytes"]["packed_bytes"]
-        fp16_bytes = 2 * b * hk * max_len * d * 2 * n_lock
-        ratio = ccfg.compression_ratio(b, hk, max_len, d)
-        # the first decode step's logits (one prefill, the caches apart) as
-        # tests/test_serving.py compares policies; the last step's follow
-        # each policy's own greedy tokens
-        cos = [torch.nn.functional.cosine_similarity(x[policy].flatten(), x["fp16"].flatten(),
-                                                     dim=0).item() for x in (first, last)]
-        log(f"lockstep {policy} ({n_lock} layers, {card}): prefill {tm['prefill_s']:.3f} s, decode "
-            f"{tm['decode_s']:.3f} s (eager {eager['out']['timings']['decode_s']:.3f} s), median "
-            f"non-probe step {cap['step_ms']:.3f} ms, probe step {cap['probe_ms'] or 0:.3f} ms; "
-            f"{n_probe} probe steps, {n_fold} fold; launches {cap['launches']}; captures "
-            f"{cap['captures']}; {n_equal} of {max_new} steps bitwise the eager step's, largest "
-            f"difference {worst:.3g} bf16 ulps; logits vs plain: prefill rel L2 "
-            f"{cap['prefill']:.4g}, first decode {cap['first decode step']:.4g} (yardstick "
-            f"{yardstick:.4g}); cache_bytes packed {packed} ({fp16_bytes / packed:.4f}x the "
-            f"bf16 bytes of {max_len} tokens; Appendix-A ratio {ratio:.4f}), total "
-            f"{cap['bytes']['total_bytes']}; logits cosine to fp16's: first decode step "
-            f"{cos[0]:.4f}, last step {cos[1]:.4f}")
-        out_paths[f"4i-lockstep-{policy}"] = {n: c for n, c in cap["launches"].items()
-                                              if n in kernels}
-        del runs, cap, eager
-
-    # -- (ii) continuous runs: phase 4b's configuration and traffic, at the
-    # lockstep runs' layers --------------------------------------------------------
-    for policy in CONTINUOUS_POLICIES:
-        ccfg = CompressionConfig.preset(policy)
-        eng = ContinuousEngine(lcfg, ccfg, cscfg, lparams, device=dev)
-        torch.cuda.synchronize()
-        for c in counters.values():
-            c.launches = 0
-        paged.GATHER_DECODES.launches = 0
-        t0 = time.perf_counter()
-        rids = [eng.submit(Request(tokens=r, max_new_tokens=int(m)))
-                for r, m in zip(requests, budgets)]
-        while eng.pending:
-            eng.step()
-            eng._alloc.check_invariants()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        got = {n: c.launches for n, c in kernels.items()}
-        gathers = paged.GATHER_DECODES.launches
-        st = eng.pool_stats()
-        res = {r: eng.result(r) for r in rids}
-        for i, r in enumerate(rids):
-            check(res[r].finish_reason == "length" and len(res[r].tokens) == budgets[i],
-                  f"continuous {policy}: {r} ended {res[r].finish_reason} with "
-                  f"{len(res[r].tokens)} of {budgets[i]} tokens")
-        for seg in ("hi", "lo", "win"):
-            check(st[seg]["used"] == 0 and st[seg]["free"] == st[seg]["pool_pages"],
-                  f"continuous {policy}: {seg} pages not all returned: {st[seg]}")
-        walk_ = policy == "fp16"
-        want = {"cst_quant": 0, "flash_fwd": n_lock * st["admissions"], "probe_colsum": 0,
-                "decode_qattn": 0, "paged_qattn": n_lock * eng._step_no if walk_ else 0}
-        for name, n in want.items():
-            check(got[name] == n, f"continuous {policy}: {name} {got[name]} launches, the route "
-                                  f"implies {n}")
-        n_gather = 0 if walk_ else n_lock * eng._step_no
-        check(gathers == n_gather, f"continuous {policy}: {gathers} gather-path decodes, the "
-                                   f"route implies {n_gather}")
-        n_tok = sum(len(x.tokens) for x in res.values())
-        peaks = {k: f"{st[k]['peak_used']}/{st[k]['pool_pages']}" for k in ("hi", "lo", "win")}
-        log(f"continuous {policy} ({n_lock} layers, {card}): {n_tok} tokens in {wall:.3f} s, {eng._step_no} "
-            f"steps, {st['admissions']} admissions, {st['deferrals']} deferrals, {st['folds']} "
-            f"folds; pages peak used / pool {peaks}; launches {got}, gather-path decodes "
-            f"{gathers}; allocator invariants held after every step, every page back")
-        out_paths[f"4i-continuous-{policy}"] = got
-        del eng, res
-    log(f"baselines: phase 4i took {time.perf_counter() - t_phase:.1f} s")
-    return out_paths
-
-
-BASELINE_LAYERS = 4   # phase 4i's runs: the first 4 of yi-6b's 32 layers (8 before phase 4o)
 
 
 def _first_layers(params, n: int):
@@ -2668,8 +2890,13 @@ GQA_ROWS = (("jamba", JAMBA_ARCH, 4, 128, 25, FIVE, 4),
             ("dsmoe", "deepseek-moe-16b", 1, 128, 30, FIVE, 1))
 
 
+# the rows whose paged_qattn also walks fp16's raw pages (phase 4p's continuous
+# fp16 runs: zipcache-paper-8b at Jamba's attention shape, qwen2-7b, smollm-360m)
+FP16_PAGE_ROWS = ("jamba", "qwen2", "smollm")
+
+
 def gqa_kernels(torch, np, dev, rows, record, ccfg, prompt, max_new, tag, arch, g, d, seed,
-                which, want_hpc):
+                which, want_hpc, fp16_pages=False):
     """Phase 3's rows `<kernel>@<tag>` at one model's attention layer (its
     query and kv heads: g query heads a kv head, head dim d), batch 4, prompt
     `prompt`, for the kernels in `which`: cst_quant's hi and lo stores of the
@@ -2679,8 +2906,11 @@ def gqa_kernels(torch, np, dev, rows, record, ccfg, prompt, max_new, tag, arch, 
     salient set the plain version's, at `want_hpc` query heads per CTA;
     decode_qattn's layer after 40 appends
     (the walk's G = g, D = d instantiation) and paged_qattn's layer over a
-    free-list cache, within one bf16 ulp of their largest value.  Each row
-    records its launch sizing."""
+    free-list cache, within one bf16 ulp of their largest value.  For phase
+    4p, cst_quant's stores again through its eff instantiation under a
+    downshift rung (bitwise, the lo store timed: the row's `eff`) and, with
+    `fp16_pages`, paged_qattn's layer over fp16's raw pages (its `fp16_raw`).
+    Each row records its launch sizing."""
     from repro_torch import configs
     from repro_torch.core import alloc as alloc_lib
     from repro_torch.core import backend as backend_lib
@@ -2745,9 +2975,39 @@ def gqa_kernels(torch, np, dev, rows, record, ccfg, prompt, max_new, tag, arch, 
         row = rows[f"cst_quant@{tag}"]
         row.update(split=split, hi={"ms": time_ms(torch, fh, iters=50),
                                     "device_ms": device_ms(torch, fh), "bound_ms": hbnd[0]})
-        log(f"cst_quant@{tag}: bitwise at the hi and lo stores ({hk} kv heads); {split} CTAs "
-            f"per slice; hi store {row['hi']['ms']:.4f} ms (device {row['hi']['device_ms']:.4f} "
-            f"ms, bound {hbnd[0]:.5f} ms)")
+        # the eff instantiation under a downshift rung (phase 4p's ladder
+        # folds): the lo store of slot i at max(1, bits - i), the hi store
+        # at its container width, the map's K ceiling at 3 on the last kv
+        # head; bitwise, one launch each
+        for name, (bits_, sidx_, _) in timed.items():
+            e = torch.full((b, hk, 2), float(bits_), device=dev)
+            if name == "lo":
+                e -= torch.arange(b, device=dev, dtype=torch.float32)[:, None, None]
+            e[:, -1, 0] = torch.clamp(e[:, -1, 0], max=3.0)
+            e.clamp_(min=1.0)
+            before = cst_kernel.KERNEL.launches
+            got = cst_kernel.quantize_store(kv_k, kv_v, sidx_, bits_, eff=e)
+            want = cst_ref.quantize_store_ref(kv_k, kv_v, sidx_, bits_, e)
+            torch.cuda.synchronize()
+            check(cst_kernel.KERNEL.launches == before + 1,
+                  f"cst_quant@{tag} eff: one launch per store")
+            for part, a, w in zip(("K codes", "K scale", "K zero", "V codes", "V scale",
+                                   "V zero", "V channel scale"), got, want):
+                check(a.dtype == w.dtype and torch.equal(a, w),
+                      f"cst_quant@{tag} {name} store (eff, a rung): {part} differ from the plain "
+                      "version")
+            if name == "lo":
+                fe = lambda: cst_kernel.quantize_store(  # noqa: E731
+                    kv_k, kv_v, sidx_, bits_, eff=e)
+                row["eff"] = {"max_abs_err": 0.0, "ms": time_ms(torch, fe, iters=50),
+                              "device_ms": device_ms(torch, fe),
+                              "plain_ms": time_ms(torch, lambda: cst_ref.quantize_store_ref(
+                                  kv_k, kv_v, sidx_, bits_, e)),
+                              "bound_ms": timed["lo"][2][0], "launches": 0}
+        log(f"cst_quant@{tag}: bitwise at the hi and lo stores ({hk} kv heads), static and with "
+            f"a rung's eff table; {split} CTAs per slice; hi store {row['hi']['ms']:.4f} ms "
+            f"(device {row['hi']['device_ms']:.4f} ms, bound {hbnd[0]:.5f} ms); lo store with "
+            f"eff {row['eff']['ms']:.4f} ms (device {row['eff']['device_ms']:.4f} ms)")
         sizing.append(f"cst_quant {split} CTAs per slice")
         del kv_k, kv_v
 
@@ -2852,6 +3112,33 @@ def gqa_kernels(torch, np, dev, rows, record, ccfg, prompt, max_new, tag, arch, 
         rows[f"paged_qattn@{tag}"]["splits"] = pq_kernel.KERNEL.splits
         sizing.append(f"paged_qattn {pq_kernel.KERNEL.splits} CTAs per (slot, kv head)")
         del pcache, segs
+        if fp16_pages:
+            # fp16's raw pages (phase 4p's continuous fp16 runs): the same
+            # layer over a free-list cache with no quantized store
+            from repro_torch.core.policy import CompressionConfig
+            pcache = _freelist_cache(torch, np, backend_lib, alloc_lib, paged,
+                                     CompressionConfig.fp16(), dev, gen, hk, d, max_len,
+                                     lengths=(1024, 700, 0, 333), n_append=40)
+            segs = pq_ops.layer_segments(pcache)
+            out_p, _, _, _, _ = pq_kernel.qattn_paged_layer(qd, segs, scale=scale)
+            rout, _, _, _ = pq_ref.paged_layer_ref(qd, segs, scale=scale)
+            torch.cuda.synchronize()
+            err = (out_p[live].float() - rout[live].float()).abs().max().item()
+            tol = 2 ** -7 * max(rout[live].float().abs().max().item(), 1.0)
+            check(err <= tol, f"paged_qattn@{tag} fp16 raw pages: max abs error {err:.3g} "
+                              f"exceeds {tol:.3g}")
+            fn = lambda: pq_kernel.qattn_paged_layer(qd, segs, scale=scale)  # noqa: E731
+            pq_kernel.KERNEL.splits = None
+            rows[f"paged_qattn@{tag}"]["fp16_raw"] = {
+                "max_abs_err": err, "ms": time_ms(torch, fn, iters=50),
+                "device_ms": device_ms(torch, fn),
+                "plain_ms": time_ms(torch, lambda: pq_ref.paged_layer_ref(qd, segs, scale=scale)),
+                "bound_ms": paged_layer_bound(torch, segs, qd)[0], "launches": 0,
+                "splits": pq_kernel.KERNEL.splits}
+            log(f"paged_qattn@{tag} over fp16's raw pages: max abs err {err:.3g} (tol {tol:.3g}); "
+                f"{rows[f'paged_qattn@{tag}']['fp16_raw']['ms']:.4f} ms (device "
+                f"{rows[f'paged_qattn@{tag}']['fp16_raw']['device_ms']:.4f} ms)")
+            del pcache, segs
     log(f"{arch}'s attention shapes ({h} / {hk} heads, g {g}, d {d}): {'; '.join(sizing)}")
     del qd
 
@@ -3060,7 +3347,8 @@ class TimedLogits(StepLogits):
         return out
 
 
-def deepseek(torch, np, dev, kernels, batch, cscfg, requests, budgets, rel_l2, yardstick, card):
+def deepseek(torch, np, dev, kernels, batch, cscfg, requests, budgets, rel_l2, yardstick, card,
+             rows):
     """Phase 4j: DeepSeek-V2-Lite at full width over DEEPSEEK_LAYERS of its
     27 layers (the MLA prefix layer with a dense FFN, then MLA + MoE layers
     of 64 routed and 2 shared experts, top 6; cut from 27 to keep the script
@@ -3243,6 +3531,10 @@ def deepseek(torch, np, dev, kernels, batch, cscfg, requests, budgets, rel_l2, y
         * cfg.moe_d_ff * 2
     log(f"deepseek: expert weights read per decode step {e_bytes / 1e9:.2f} GB, a bound of "
         f">= {e_bytes / PEAK_BYTES * 1e3:.2f} ms at {PEAK_BYTES / 1e12:.2f} TB/s ({card})")
+    # -- phase 4p on this tree: the map, swap, the ladder, prefix dedup, sampling
+    out_paths.update(tree_levers(torch, np, dev, kernels, rows, cfg, params,
+                                 ("map", "levers", "prefix", "sampling"), card, rel_l2,
+                                 yardstick))
     del params, leaves
     gc.collect()
     torch.cuda.empty_cache()
@@ -3355,6 +3647,7 @@ class PathRuns:
                 ctx = eng.ctx
             del eng
         summarize(f"{tag} lockstep", lock, self.torch, self.rel_l2, self.yardstick, bitwise=True)
+        self.tokens = lock[True]["tokens"]
         return ctx
 
     def continuous(self, tag, cfg, params, requests, budgets, layout, capture):
@@ -3400,7 +3693,7 @@ class PathRuns:
         return eng, run, fold_calls
 
 
-def hybrid(torch, np, dev, kernels, b, prompt, cscfg, rel_l2, yardstick, card):
+def hybrid(torch, np, dev, kernels, b, prompt, cscfg, rel_l2, yardstick, card, rows):
     """Phase 4k: mamba2-2.7b at full width over MAMBA_LAYERS of its 64 SSD
     layers (no attention layer; cut from 64 to keep the script within its
     time limit), then jamba-v0.1-52b at full width over one 8-layer group (layer
@@ -3450,7 +3743,10 @@ def hybrid(torch, np, dev, kernels, b, prompt, cscfg, rel_l2, yardstick, card):
     params = runs.materialize(cfg)
     batch_m, requests_m, budgets = traffic(np, cfg.vocab, b, prompt, max_new)
     none = {name: 0 for name in kernels}
-    lockstep("mamba2", cfg, params, batch_m, none)
+    lock_bytes = {}
+    runs.lockstep("mamba2", cfg, params, batch_m, none, on_engine=lambda eng: lock_bytes.update(
+        plain=split_bytes("mamba2", "lockstep", eng.last_caches)))
+    lock_tokens = runs.tokens
     chunk = cfg.ssm_chunk
     buckets = [min(-(-len(r) // cscfg.page_size) * cscfg.page_size, prompt) for r in requests_m]
     ragged = [n for n in buckets if n % chunk]
@@ -3461,14 +3757,14 @@ def hybrid(torch, np, dev, kernels, b, prompt, cscfg, rel_l2, yardstick, card):
     layouts = {"mixed": dataclasses.replace(cscfg, backend="mixed", paged_kernel=False,
                                             page_allocator="static", pool_fraction=1.0),
                "paged": dataclasses.replace(cscfg, page_allocator="static", pool_fraction=1.0)}
-    cont = {}
+    cont, cont_bytes = {}, {}
     for name, capture in (("mixed", True), ("paged", True), ("paged", False)):
         eng, run, _ = runs.continuous("mamba2", cfg, params, requests_m, budgets, layouts[name],
                                       capture)
         runs.counts("mamba2", f"continuous {name} {'captured' if capture else 'eager'}", none)
         if name == "paged" and capture:
             split_bytes("mamba2", "continuous", eng.caches)
-        cont[(name, capture)] = run
+        cont[(name, capture)], cont_bytes[name] = run, backend_lib.cache_bytes(eng.caches)
         del eng
     check(np.array_equal(cont[("mixed", True)]["tokens"], cont[("paged", True)]["tokens"]),
           "mamba2 continuous: the mixed layout's tokens differ from the paged layout's")
@@ -3481,6 +3777,39 @@ def hybrid(torch, np, dev, kernels, b, prompt, cscfg, rel_l2, yardstick, card):
     except ValueError as e:
         check("no attention layer" in str(e), f"mamba2 free list: {e}")
         log(f"mamba2 on the free list refused: {e}")
+
+    # -- phase 4p on this tree: the precision map, which has no KV element to
+    # act on: the lockstep run (captured and eager) and the continuous runs
+    # on both layouts (captured) take the runs' tokens and cache bytes
+    # without the map, and every step's logits bitwise
+    t_p = time.perf_counter()
+    mruns = PathRuns(torch, np, dev, kernels, ccfg, dataclasses.replace(
+        scfg, precision_map=PRECISION_MAP), rel_l2, yardstick, card, {})
+    mruns.lockstep("4p/mamba2 map", cfg, params, batch_m, none, on_engine=lambda eng: lock_bytes
+                   .update(mapped=backend_lib.cache_bytes(eng.last_caches)))
+    check(np.array_equal(mruns.tokens, lock_tokens) and lock_bytes["mapped"] == lock_bytes["plain"],
+          "4p/mamba2 map: the lockstep tokens or cache_bytes under the map differ from the run "
+          "without it")
+    for name in ("mixed", "paged"):
+        eng, run, _ = mruns.continuous("4p/mamba2 map", cfg, params, requests_m, budgets,
+                                       dataclasses.replace(layouts[name],
+                                                           precision_map=PRECISION_MAP), True)
+        mruns.counts("4p/mamba2", f"map continuous {name}", none)
+        want = cont[(name, name == "mixed")]
+        check(np.array_equal(run["tokens"], want["tokens"])
+              and backend_lib.cache_bytes(eng.caches) == cont_bytes[name],
+              f"4p/mamba2 map: the continuous {name} tokens or cache_bytes under the map differ "
+              "from the run without it")
+        got, ref = run["rec"].logits, want["rec"].logits
+        check(len(got) == len(ref) > 0 and all(torch.equal(a, w) for a, w in zip(got, ref)),
+              f"4p/mamba2 map: the continuous {name} steps under the map are not bitwise the "
+              f"{'captured' if name == 'mixed' else 'eager'} steps without it")
+        del eng
+    out_paths.update(mruns.out_paths)
+    P_SECONDS[MAMBA_ARCH] = time.perf_counter() - t_p
+    log(f"phase 4p/{MAMBA_ARCH}: {P_SECONDS[MAMBA_ARCH]:.1f} s (map: lockstep captured and "
+        f"eager, continuous mixed and paged static; tokens, cache_bytes and every step's "
+        f"logits equal the runs without the map; {card})")
     del params, cont
     gc.collect()
     torch.cuda.empty_cache()
@@ -3547,7 +3876,11 @@ def hybrid(torch, np, dev, kernels, b, prompt, cscfg, rel_l2, yardstick, card):
         cont[capture] = run
         del eng
     summarize("jamba continuous", cont, torch, rel_l2, yardstick, bitwise=True)
-    del params, cont, ctx
+    del cont, ctx
+    # -- phase 4p on this tree: swap and the ladder under the map, prefix dedup
+    out_paths.update(tree_levers(torch, np, dev, kernels, rows, cfg, params, ("levers", "prefix"),
+                                 card, rel_l2, yardstick))
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     log(f"hybrid: phase 4k took {time.perf_counter() - t_phase:.1f} s ({card})")
@@ -3761,7 +4094,7 @@ def remaining_traffic(np, vocab, b, prompt):
     return {"tokens": pack_requests(prompts, b, prompt)}, requests, budgets
 
 
-def remaining(torch, np, dev, kernels, rel_l2, yardstick, card):
+def remaining(torch, np, dev, kernels, rel_l2, yardstick, card, rows):
     """Phase 4m: the remaining configs at full width over their first
     LAYERS_4M layers (full depth before phase 4o; the 34B pair over its first
     LAYERS_34B), random
@@ -3909,6 +4242,9 @@ def remaining(torch, np, dev, kernels, rel_l2, yardstick, card):
     ctx = lockstep(cfg.name, cfg, params, batch)
     against_plain(cfg.name, cfg, params, batch, ctx)
     continuous(cfg.name, cfg, params, requests, budgets)
+    runs.out_paths.update(tree_levers(
+        torch, np, dev, kernels, rows, cfg, params,
+        ("levers", "prefix", "sampling", "baselines-continuous"), card, rel_l2, yardstick))
     del params, ctx
     lap(cfg.name)
 
@@ -3925,6 +4261,10 @@ def remaining(torch, np, dev, kernels, rel_l2, yardstick, card):
     ctx = lockstep(cfg.name, cfg, params, batch)
     against_plain(cfg.name, cfg, params, batch, ctx)
     continuous(cfg.name, cfg, params, requests, budgets)
+    runs.out_paths.update(tree_levers(
+        torch, np, dev, kernels, rows, cfg, params,
+        ("levers", "prefix", "sampling", "baselines-lockstep", "baselines-continuous"), card,
+        rel_l2, yardstick))
     del params, ctx, attn_p
     lap(cfg.name)
 
@@ -3934,6 +4274,9 @@ def remaining(torch, np, dev, kernels, rel_l2, yardstick, card):
     batch, _, _ = remaining_traffic(np, cfg.vocab, b, prompt)
     ctx = lockstep(cfg.name, cfg, params, batch)
     against_plain(cfg.name, cfg, params, batch, ctx)
+    runs.out_paths.update(tree_levers(
+        torch, np, dev, kernels, rows, cfg, params,
+        ("levers", "baselines-lockstep", "baselines-continuous"), card, rel_l2, yardstick))
     del params, ctx
     lap(cfg.name)
 
@@ -3975,6 +4318,8 @@ def remaining(torch, np, dev, kernels, rel_l2, yardstick, card):
         f"router turns bf16 noise into other experts; yardstick {yardstick:.4g})")
     del plain, outs, x, x1, h0, y, lk, lp, ck, p0
     continuous(cfg.name, cfg, params, requests, budgets)
+    runs.out_paths.update(tree_levers(torch, np, dev, kernels, rows, cfg, params, ("levers",),
+                                      card, rel_l2, yardstick))
     del params, ctx
     lap(cfg.name)
 
@@ -4015,6 +4360,144 @@ def remaining(torch, np, dev, kernels, rel_l2, yardstick, card):
     log(f"remaining: phase 4m took {time.perf_counter() - t_phase:.1f} s ({card}): "
         + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()))
     return runs.out_paths
+
+
+# ---- 4p. slice 18: the serving levers and baselines on every other tree ------
+# phase 4f's prompts with budgets that fold at REMAINING_INTERVAL: the first
+# four miss and register; 5-8 can hit as slots retire; #7 never folds
+P_PREFIX_TRAFFIC = (("A", 32), ("C", 24), ("B", 20), ("D", 28),
+                    ("A", 32), ("B", 30), ("A", 12), ("A", 30))
+P_SAMPLED = {1: (0.7, 11), 3: (1.0, 12)}   # phase 4m's traffic: requests 1 and 3 sampled
+P_SECONDS = {}   # each model's phase 4p seconds, logged in phases 4j, 4k and 4m
+
+
+def tree_levers(torch, np, dev, kernels, rows, cfg, params, parts, card, rel_l2, yardstick):
+    """Phase 4p on one model already resident at full width (its phase 4j,
+    4k or 4m depth): the levers of `parts`, through phases 4e-4i's helpers
+    with this model and phase 4m's fold cadence (window and fold every
+    REMAINING_INTERVAL tokens):
+
+      * "map": the lockstep engine under the conformance precision map on
+        phase 4's batch, REMAINING_NEW tokens, captured and eager: every
+        step bitwise, every store through cst_quant's eff instantiation;
+      * "levers": phase 4e's swap-pressure and ladder-pressure runs under
+        the map (2 slots, prompts of 1024, page 64), each captured and
+        eager: every step bitwise, the first replays after a swap-in and
+        after a downshift fold among them (no recompute run);
+      * "prefix": phase 4f's prompts with budgets of 12-32
+        (P_PREFIX_TRAFFIC), dedup off on an eager engine and on on a
+        captured one (no third run): tokens equal, every step bitwise, the
+        first replays after an alias admission and a CoW copy among them;
+      * "sampling": phase 4m's five requests for four slots with requests
+        1 and 3 sampled (P_SAMPLED), phase 4g's runs 1 (captured) and 3
+        (captured, reverse submission order): every request's tokens equal;
+        on a tree with routed experts runs 1 and 2 (eager) instead, since
+        the reverse order puts requests in other rows and an expert's
+        capacity then drops other rows' pairs;
+      * "baselines-lockstep" / "baselines-continuous": phase 4i's policies
+        (fp16, h2o, mikv, gear, kivi on the lockstep engine, captured and
+        eager; fp16 and kivi on the continuous one) at the model's depth
+        with the window and fold cadence at REMAINING_INTERVAL over
+        REMAINING_NEW tokens (phase 4i's kernels at the baselines' shapes
+        run at phase 3, at qwen2-7b's and zipcache-paper-8b's attention
+        layer).
+
+    Every run counts its launches from 0 and holds them to its path, the
+    allocator's invariants after every step, every page and the host swap
+    pool's bytes back.  Logs the seconds as `phase 4p/<model>`.  Returns the
+    runs' launch counts."""
+    import dataclasses
+
+    from repro_torch.core.policy import CompressionConfig
+    from repro_torch.kernels.cst_quant import kernel as cst_kernel
+    from repro_torch.models import lm
+    from repro_torch.serving import ServeConfig, ServingEngine, probe_flag
+
+    t0 = time.perf_counter()
+    model = cfg.name
+    tag = f"4p/{model}"
+    ccfg = dataclasses.replace(CompressionConfig.zipcache(), fp_window=REMAINING_INTERVAL,
+                               recompress_interval=REMAINING_INTERVAL)
+    n_kv = sum(mixer != "ssm" for _, mixer, _, _ in lm.layers(cfg))
+    walk = not cfg.mla
+    b, prompt, max_new = 4, 1024, REMAINING_NEW
+    batch, requests, budgets = remaining_traffic(np, cfg.vocab, b, prompt)
+    cscfg = ServeConfig(batch_size=b, prompt_len=prompt, max_new_tokens=max_new, seed=0,
+                        backend="paged", page_size=64, page_allocator="freelist",
+                        pool_fraction=0.75, paged_kernel=True, scheduler="fifo")
+    scfg = ServeConfig(batch_size=b, prompt_len=prompt, max_new_tokens=max_new, seed=0)
+    out = {}
+    if "map" in parts:
+        n_probe = sum(probe_flag(i, ccfg.recompress_interval, 0) for i in range(max_new))
+        n_fold = max_new // ccfg.recompress_interval
+        mscfg = dataclasses.replace(scfg, precision_map=PRECISION_MAP)
+        runs = {}
+        for capture in (True, False):
+            eng = ServingEngine(cfg, ccfg, mscfg, params, device=dev, capture=capture)
+            eng.generate(batch, max_new_tokens=2)   # warm-up (with capture: the capture)
+            torch.cuda.synchronize()
+            for kern in kernels.values():
+                kern.launches = 0
+            cst_kernel.EFF.launches = 0
+            rec = eng._decode = StepLogits(eng._decode)
+            res = eng.generate(batch)
+            torch.cuda.synchronize()
+            got = {n: kern.launches for n, kern in kernels.items()}
+            want = {"flash_fwd": n_kv, "probe_colsum": n_kv,
+                    "cst_quant": 2 * n_kv * (1 + n_fold),
+                    "decode_qattn": n_kv * (max_new - n_probe) if walk else 0, "paged_qattn": 0}
+            for name, n in want.items():
+                check(got[name] == n, f"{tag} map (capture {capture}): {name} {got[name]} "
+                                      f"launches, the path implies {n}")
+            check(cst_kernel.EFF.launches == got["cst_quant"],
+                  f"{tag} map: {cst_kernel.EFF.launches} of {got['cst_quant']} cst_quant "
+                  "launches took the map's eff table")
+            runs[capture] = dict(tokens=res["tokens"], rec=rec, launches=got,
+                                 bytes=eng.cache_bytes(eng.last_caches))
+            del eng
+        cap, eager = runs[True], runs[False]
+        check(cap["rec"].step.captures == 1 and cap["rec"].step.replays > 0,
+              f"{tag} map: the captured step was built {cap['rec'].step.captures} times")
+        check(bool((cap["tokens"] == eager["tokens"]).all()),
+              f"{tag} map: captured tokens differ from eager")
+        check(len(cap["rec"].logits) == len(eager["rec"].logits) == max_new,
+              f"{tag} map: {len(cap['rec'].logits)} captured steps")
+        for i, (a, w) in enumerate(zip(cap["rec"].logits, eager["rec"].logits)):
+            check(torch.equal(a, w), f"{tag} map: step {i}'s logits are not bitwise the eager "
+                                     "step's")
+        log(f"{tag} map (lockstep, {PRECISION_MAP}): {max_new} captured steps bitwise the eager "
+            f"steps, {n_probe} probe steps, {n_fold} folds; launches {cap['launches']}, every "
+            f"cst_quant launch with the eff table; cache_bytes {cap['bytes']}")
+        out[f"{tag} map"] = cap["launches"]
+        del runs, cap, eager
+    if "levers" in parts:
+        out.update(levers(torch, np, cfg, ccfg, params, dev, kernels, n_kv, prompt,
+                          tag=f"{tag} levers", eager=True, recompute=False))
+    if "prefix" in parts:
+        out.update(prefix_dedup(torch, np, cfg, ccfg, params, dev, kernels, n_kv, prompt, card,
+                                rel_l2, traffic=P_PREFIX_TRAFFIC, max_new=max_new,
+                                tag=f"{tag} prefix", off_eager=True))
+    if "sampling" in parts:
+        r = sampling(torch, np, cfg, ccfg, params, dev, kernels, n_kv, cscfg, requests, budgets,
+                     None, None, card, sampled=P_SAMPLED,
+                     runs=(1, 2) if cfg.n_experts else (1, 3), draws=False,
+                     tag=f"{tag} sampling")
+        out.update(r["launches"])
+    lock_p = ("fp16", "h2o", "mikv", "gear", "kivi") if "baselines-lockstep" in parts else ()
+    cont_p = ("fp16", "kivi") if "baselines-continuous" in parts else ()
+    if lock_p or cont_p:   # the kernels at the baselines' shapes are phase 3's rows
+        out.update(baselines(
+            torch, np, cfg, params, dev, kernels, rows, batch, scfg, cscfg, requests, budgets,
+            rel_l2, yardstick, card, layers=cfg.n_layers, policies=lock_p, cpolicies=cont_p,
+            ccfg_of=lambda p: dataclasses.replace(
+                CompressionConfig.preset(p), fp_window=REMAINING_INTERVAL,
+                recompress_interval=REMAINING_INTERVAL),
+            tag=tag, full=False))
+    gc.collect()
+    torch.cuda.empty_cache()
+    P_SECONDS[model] = time.perf_counter() - t0
+    log(f"phase {tag}: {P_SECONDS[model]:.1f} s ({', '.join(parts)}; {card})")
+    return out
 
 
 # ---- 4n. slice 16: single-card training of the dense decoder --------------
@@ -4269,6 +4752,9 @@ def training(torch, np, dev, kernels, card):
 FAMILY_TRAIN = (("deepseek-v2-lite-16b", 4), ("mamba2-2.7b", 64),
                 ("seamless-m4t-medium", 12), ("llava-next-34b", 2))
 FAMILY_BATCH, FAMILY_SEQ, FAMILY_STEPS = 4, 1024, 4
+# (i)'s checkpoint round trip: one dense family's (the checkpointer does not
+# depend on the tree); every family's until phase 4p needed the room
+FAMILY_ROUND_TRIP = "seamless-m4t-medium"
 FAMILY_CRASH = ("deepseek-v2-lite-16b", 2)     # (ii): its dense layer and one MoE layer
 # (iii): one microbatch of 512 tokens over one layer of each kind
 FAMILY_CARD_CPU = (("deepseek-v2-lite-16b", 2), ("mamba2-2.7b", 2), ("seamless-m4t-medium", 1))
@@ -4422,8 +4908,9 @@ def families(torch, np, dev, kernels, card):
                 kern.launches = 0
             torch.cuda.reset_peak_memory_stats()
             ck_dir = f"{tmp}/{arch}"
+            every = FAMILY_STEPS if arch == FAMILY_ROUND_TRIP else 100   # 100: no checkpoint
             state, seen, t0 = run_train_cli(
-                train, configs, family_argv(arch, FAMILY_STEPS, FAMILY_STEPS, ck_dir), layers)
+                train, configs, family_argv(arch, FAMILY_STEPS, every, ck_dir), layers)
             t_end = time.perf_counter()
             peak = torch.cuda.max_memory_allocated()
             for n, kern in kernels.items():
@@ -4458,28 +4945,36 @@ def families(torch, np, dev, kernels, card):
                 f"tokens + 2 N_layers tokens of the recompute) {flops / 1e12:.2f} TFLOP a step, "
                 f"{flops / med / 1e12:.1f} TFLOP/s, {flops / med / PEAK_BF16_FLOPS:.1%} of the "
                 f"bf16 dense peak ({card}); max memory allocated {peak / 2**30:.2f} GiB")
-            ck = Checkpointer(ck_dir)
-            check(ck.all_steps() == [FAMILY_STEPS],
-                  f"families (i) {arch}: checkpoints {ck.all_steps()}, want [{FAMILY_STEPS}]")
-            step_dir = Path(ck_dir) / f"step_{FAMILY_STEPS:010d}"
-            ck_bytes = sum(p.stat().st_size for p in step_dir.iterdir())
-            # a host tree (a second device copy of mamba2's state would not fit
-            # beside it): each restored leaf maps its file, and reads it once,
-            # straight to the card, when it is compared there
-            fresh = tree.tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype), state)
-            t1 = time.perf_counter()
-            restored, meta = ck.restore(FAMILY_STEPS, fresh)
-            check(meta["step"] == FAMILY_STEPS, f"families (i) {arch}: checkpoint metadata {meta}")
-            bad = [n for (n, a), b in zip(tree.named_leaves(state), tree.leaves(restored))
-                   if a.dtype != b.dtype or not torch.equal(a, b.to(a.device))]
-            restore_s = time.perf_counter() - t1
-            check(not bad, f"families (i) {arch}: restored leaves differ from the saved: {bad[:4]}")
-            log(f"families (i) {arch}: checkpoint at step {FAMILY_STEPS} {ck_bytes / 1e9:.3f} GB "
-                f"in {len(list(step_dir.iterdir())) - 1} leaves; write (blocking, from the card) "
-                f"{t_end - seen[-1][0]:.2f} s (the last step's metrics to the CLI's return); "
-                f"restore into a fresh host tree and compare on the card {restore_s:.2f} s; "
-                "every leaf bitwise")
-            del state, params, fresh, restored
+            if arch != FAMILY_ROUND_TRIP:
+                check(not Path(ck_dir).exists() or not any(Path(ck_dir).iterdir()),
+                      f"families (i) {arch}: a checkpoint was written")
+                log(f"families (i) {arch}: no checkpoint (the round trip is "
+                    f"{FAMILY_ROUND_TRIP}'s alone)")
+            else:
+                ck = Checkpointer(ck_dir)
+                check(ck.all_steps() == [FAMILY_STEPS],
+                      f"families (i) {arch}: checkpoints {ck.all_steps()}, want [{FAMILY_STEPS}]")
+                step_dir = Path(ck_dir) / f"step_{FAMILY_STEPS:010d}"
+                ck_bytes = sum(p.stat().st_size for p in step_dir.iterdir())
+                # a host tree (a second device copy of mamba2's state would not fit
+                # beside it): each restored leaf maps its file, and reads it once,
+                # straight to the card, when it is compared there
+                fresh = tree.tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype), state)
+                t1 = time.perf_counter()
+                restored, meta = ck.restore(FAMILY_STEPS, fresh)
+                check(meta["step"] == FAMILY_STEPS,
+                      f"families (i) {arch}: checkpoint metadata {meta}")
+                bad = [n for (n, a), b in zip(tree.named_leaves(state), tree.leaves(restored))
+                       if a.dtype != b.dtype or not torch.equal(a, b.to(a.device))]
+                restore_s = time.perf_counter() - t1
+                check(not bad,
+                      f"families (i) {arch}: restored leaves differ from the saved: {bad[:4]}")
+                log(f"families (i) {arch}: checkpoint at step {FAMILY_STEPS} "
+                    f"{ck_bytes / 1e9:.3f} GB in {len(list(step_dir.iterdir())) - 1} leaves; "
+                    f"write (blocking, from the card) {t_end - seen[-1][0]:.2f} s (the last "
+                    f"step's metrics to the CLI's return); restore into a fresh host tree and "
+                    f"compare on the card {restore_s:.2f} s; every leaf bitwise")
+            del state, params
             shutil.rmtree(ck_dir, ignore_errors=True)
             gc.collect()
             torch.cuda.empty_cache()

@@ -27,6 +27,8 @@ from repro_torch.kernels.cst_quant import ref
 
 LIB = build.CudaLibrary("cst_quant")
 KERNEL = build.CudaKernel(LIB, "cst_store_launch", [build.P] + [build.I] * 5 + [build.P])
+# the launches of KERNEL that took an eff table (a precision map or a rung)
+EFF = build.Counter()
 BITS = (2, 4, 8)
 FLOATS = (torch.bfloat16, torch.float32)
 THREADS, WARPS = 512, 16
@@ -137,6 +139,8 @@ def quantize_store(k: torch.Tensor, v: torch.Tensor, idx: torch.Tensor, bits: in
                       ksl, vsl, dk, dv, hk, s, 1, rpc,
                       _chunk(rpc, max(dk, dv), elem))
     KERNEL(desc, b, split, bits, int(k.dtype == torch.bfloat16), 0, build.stream_of(k))
+    if eff is not None:
+        EFF.launches += 1
     KERNEL.split = split
     return kc, ks, kz, vc, vs, vz, vcs
 
