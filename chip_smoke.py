@@ -402,25 +402,72 @@ def time_ms(torch, fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters: int = 20) -> float:
+DEVICE_MS_READINGS = []   # every device_ms reading: (label, attempts, events, launches, ms, event ms)
+
+
+def _launches() -> int:
+    """The kernel wrappers' launches so far (`kernels.build.COUNTERS`' kernels)."""
+    from repro_torch.kernels import build
+    return sum(c.launches for c in build.COUNTERS if isinstance(c, build.CudaKernel))
+
+
+def device_ms(torch, fn, iters: int = 20, label: str = "") -> float:
     """Device time of the kernels `fn` launches, per call, from torch.profiler.
     CUDA events around back-to-back calls also count the gaps in which the
-    card waits for the host to enqueue the next call; this does not."""
-    from torch.profiler import ProfilerActivity, profile
+    card waits for the host to enqueue the next call; this does not.
 
+    The profiler takes a warm-up window of `iters` calls before the
+    recorded one (`torch.profiler.schedule`).  A reading must pass two
+    checks, or it is taken again, up to 3 times, each after a longer pause
+    (the profiler loses kernels in bursts of consecutive sessions, PERF.md
+    §7), then the phase fails: the profiler recorded at least as many
+    device kernels as the calls launched (the wrappers' counts over the
+    same calls, or one a call for an op that counts none), and the device
+    time is no more than the CUDA-event time of the same calls."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    label = label or f"at chip_smoke.py:{sys._getframe(1).f_lineno}"
     fn()
     torch.cuda.synchronize()
-    for attempt in range(3):  # the profiler has come back empty once in a run; measure again
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    why = ""
+    for attempt in range(4):
+        if attempt:
+            time.sleep(0.5 * attempt)   # out of the burst that lost the last reading
+        traces = []
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=lambda p: traces.append(p.events())) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
-        if kernels:
-            break
-        log(f"torch.profiler recorded no device kernels (attempt {attempt + 1} of 3)")
-    check(bool(kernels), "torch.profiler recorded no device kernels")
-    return sum(e.device_time for e in kernels) / 1e3 / iters
+            prof.step()
+            before = _launches()
+            start.record()
+            for _ in range(iters):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            launched = _launches() - before
+            prof.step()
+        # the device ops of the recorded window (not its ProfilerStep range)
+        ops = [e for e in (traces[-1] if traces else []) if e.device_type.name == "CUDA"
+               and not e.name.startswith("ProfilerStep")]
+        kernels = [e for e in ops
+                   if "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
+        ms = sum(e.device_time for e in ops) / 1e3 / iters
+        event_ms = start.elapsed_time(end) / iters
+        need = launched if launched else iters
+        if len(kernels) >= need and ms <= event_ms:
+            DEVICE_MS_READINGS.append((label, attempt + 1, len(kernels), launched, ms, event_ms))
+            return ms
+        names = {}
+        for e in kernels:
+            names[e.name[:40]] = names.get(e.name[:40], 0) + 1
+        why = (f"{len(kernels)} device kernels for {need} launches, {ms:.5f} device ms against "
+               f"{event_ms:.5f} event ms; recorded {names}")
+        log(f"device_ms {label}: attempt {attempt + 1} of 4 rejected ({why})")
+    fail(f"device_ms {label}: no reading passed its checks in 4 attempts ({why})")
 
 
 def main() -> None:
@@ -1201,6 +1248,9 @@ def main() -> None:
     lap("4n")
     # ---- 4o. slice 17: training of every other family ----------------------
     by_path["train_families"] = families(torch, np, dev, kernels, card)
+    lap("4o")
+    # ---- 4q. slice 19: training on a mesh at world size 1 -------------------
+    by_path["train_mesh"] = mesh_training(torch, np, dev, kernels, card)
     rows["cst_quant"]["eff"]["launches"] = sum(
         p["cst_quant"] for name, p in by_path.items() if name.startswith("levers"))
     # phase 4p's launches at the new shapes: cst_quant's eff instantiation
@@ -1225,8 +1275,12 @@ def main() -> None:
     for name, row in rows.items():
         row["launches"] = sum(p.get(name, 0) for p in by_path.values())
         row["launches_by_path"] = {k: p.get(name, 0) for k, p in by_path.items()}
+    retried = [r for r in DEVICE_MS_READINGS if r[1] > 1]
+    log(f"device_ms: {len(DEVICE_MS_READINGS)} readings, each with at least as many device "
+        f"kernels as launches and its device ms within its event ms; {len(retried)} taken "
+        "again: " + ("; ".join(f"{r[0]} ({r[1]} attempts)" for r in retried) or "none"))
 
-    lap("4o")
+    lap("4q")
     # ---- 5. the kernels and the contract line ------------------------------
     log("kernels: " + ", ".join(f"{n} ok ({r['launches']} launches)" for n, r in rows.items()))
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
@@ -2847,8 +2901,10 @@ def mla_kernels(torch, np, dev, rows, record, ccfg, prompt, max_new):
                       f"cst_quant@mla {name} store (eff {e is not None}): {part} differ from "
                       "the plain version")
         n_live = int((sidx >= 0).sum())
-        timed[name] = (bits, sidx, eff, bound_ms(0.0, n_live * (p + r) * 2 + nbytes(sidx, *got)))
-    bits, sidx, eff, bnd = timed["lo"]
+        # the eff store's bound: the same bytes and its eff table, read once
+        timed[name] = (bits, sidx, eff, bound_ms(0.0, n_live * (p + r) * 2 + nbytes(sidx, *got)),
+                       bound_ms(0.0, n_live * (p + r) * 2 + nbytes(sidx, *got, eff)))
+    bits, sidx, eff, bnd, ebnd = timed["lo"]
     fn = lambda: cst_kernel.quantize_store(kpe, lat, sidx, bits)  # noqa: E731
     cst_kernel.KERNEL.split = None
     record("cst_quant@mla", "src/repro_torch/kernels/cst_quant/csrc/cst_quant.cu",
@@ -2858,15 +2914,18 @@ def mla_kernels(torch, np, dev, rows, record, ccfg, prompt, max_new):
     check(isinstance(split, int) and split >= 1,
           f"cst_quant@mla: the launch recorded no split ({split!r})")
     fe = lambda: cst_kernel.quantize_store(kpe, lat, sidx, bits, eff=eff)  # noqa: E731
-    hbits, hidx, _, hbnd = timed["hi"]
+    hbits, hidx, _, hbnd, _ = timed["hi"]
     fh = lambda: cst_kernel.quantize_store(kpe, lat, hidx, hbits)  # noqa: E731
     rows["cst_quant@mla"].update(
-        eff={"ms": time_ms(torch, fe, iters=50), "device_ms": device_ms(torch, fe)},
+        eff={"ms": time_ms(torch, fe, iters=50), "device_ms": device_ms(torch, fe),
+             "bound_ms": ebnd[0], "plain_ms": time_ms(
+                 torch, lambda: cst_ref.quantize_store_ref(kpe, lat, sidx, bits, eff))},
         hi={"ms": time_ms(torch, fh, iters=50), "device_ms": device_ms(torch, fh),
             "bound_ms": hbnd[0]}, split=split)
     log(f"cst_quant@mla: bitwise at the hi and lo stores, static and eff; lo store "
         f"({bits}-bit, {sidx.shape[1]} slots) with eff {rows['cst_quant@mla']['eff']['ms']:.4f} "
-        f"ms; hi store ({hbits}-bit, {hidx.shape[1]} slots) "
+        f"ms (plain {rows['cst_quant@mla']['eff']['plain_ms']:.4f} ms, bound {ebnd[0]:.5f} ms); "
+        f"hi store ({hbits}-bit, {hidx.shape[1]} slots) "
         f"{rows['cst_quant@mla']['hi']['ms']:.4f} ms (device "
         f"{rows['cst_quant@mla']['hi']['device_ms']:.4f} ms, bound {hbnd[0]:.5f} ms); "
         f"{rows['cst_quant@mla']['split']} CTAs per slice")
@@ -5075,6 +5134,170 @@ def families(torch, np, dev, kernels, card):
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"families: the phase took {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+# ---- 4q. slice 19: training on a mesh at world size 1 ----------------------
+MESH_TRAIN = (("deepseek-v2-lite-16b", 4, FAMILY_BATCH, FAMILY_SEQ),   # phase 4o's layers
+              ("smollm-360m", None, 4, 2048))                            # full size
+MESH_STEPS = 2
+
+
+def mesh_training(torch, np, dev, kernels, card):
+    """Phase 4q: `make_train_step(cfg, mesh=)` on a 1 x 1 ("data", "model")
+    mesh over NCCL (a world of one process, its store in memory), bitwise
+    the plain step.
+
+    (i) DeepSeek-V2-Lite over phase 4o's layers (its dense layer and 3 MoE
+    layers, full width) and smollm-360m at full size: from
+    `registry.materialize_params(cfg, 0)` (made twice: the generator on
+    the card gives the same bits), 2 steps of the synthetic pipeline's
+    batches through the plain step, the state kept on the host, then the
+    same through the mesh step (`shard_train_state`, `local_batch`): every
+    step's metrics and every parameter and optimizer leaf bitwise.  (ii) A
+    checkpoint of smollm's mesh state written by the mesh's checkpointer
+    and restored through `runtime.elastic.remesh_restore` onto a 1 x 1
+    mesh: every leaf bitwise.  (iii) `ef_compress_step` (axis None) and
+    `quantize_int8` on the card: the same codes, scales and residuals as
+    on the CPU for the same floats.  No kernel launches.  Logs the seconds
+    and the peak memory of each run.  Returns the launch counts."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch import configs, tree
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train
+    from repro_torch.models import registry
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim import grad_compress as gcomp
+    from repro_torch.runtime.elastic import remesh_restore
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(not dist.is_initialized(), "mesh_training: a process group is already up")
+    mesh = mesh_lib.make_mesh((1, 1), ("data", "model"), device_type="cuda")
+    check(dist.get_backend() == "nccl" and mesh.size == 1,
+          f"mesh_training: backend {dist.get_backend()}, mesh {mesh.shape}")
+    launches = {n: 0 for n in kernels}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        for arch, layers, batch, seq in MESH_TRAIN:
+            t_arch = time.perf_counter()
+            cfg = configs.get_arch(arch)
+            if layers is not None:
+                cfg = cut_depth(cfg, layers)
+            accum = steps_lib.pick_grad_accum(cfg, ShapeConfig("train", seq, batch, "train"),
+                                              mesh)
+            check(accum == steps_lib.pick_grad_accum(
+                cfg, ShapeConfig("train", seq, batch, "train")),
+                f"mesh_training {arch}: the 1 x 1 mesh's grad_accum differs from the plain one")
+            pipe = TokenPipeline(train.data_config(cfg, seq, batch, 0))
+            host = [next(pipe) for _ in range(MESH_STEPS)]
+            pipe.close()
+            kw = dict(grad_accum=accum, q_block=512)
+            runs = {}
+            for route in ("plain", "mesh"):
+                for kern in kernels.values():
+                    kern.launches = 0
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                params = registry.materialize_params(cfg, 0, device=dev)
+                if route == "plain":
+                    opt = adamw_init(params)
+                    step = steps_lib.make_train_step(cfg, AdamWConfig(), **kw)
+                    batches = [train.to_device(b, dev) for b in host]
+                else:
+                    params, opt = steps_lib.shard_train_state(params, cfg, mesh)
+                    step = steps_lib.make_train_step(cfg, AdamWConfig(), mesh=mesh, **kw)
+                    batches = [train.to_device(steps_lib.local_batch(b, mesh, accum), dev)
+                               for b in host]
+                mets = []
+                for bt in batches:
+                    params, opt, met = step(params, opt, bt)
+                    mets.append({k: v.item() for k, v in met.items()})
+                torch.cuda.synchronize()
+                secs, peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+                for n, kern in kernels.items():
+                    launches[n] += kern.launches
+                check(all(k.launches == 0 for k in kernels.values()),
+                      f"mesh_training {arch} {route}: the train path launched kernels")
+                state = (params, opt)
+                n_leaves = len(tree.leaves(state))
+                if route == "plain":
+                    # kept on the host: a second device state would not fit beside DeepSeek's
+                    t1 = time.perf_counter()
+                    runs[route] = (mets, [t.cpu() for t in tree.leaves(state)])
+                    host_s = time.perf_counter() - t1
+                    del state, params, opt, batches
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                else:
+                    runs[route] = (mets, state)
+                log(f"mesh_training {arch} {route}: {MESH_STEPS} steps of {batch} x {seq} "
+                    f"(grad_accum {accum}) {secs:.1f} s with the init; peak memory "
+                    f"{peak / 2**30:.2f} GiB; losses "
+                    + ", ".join(f"{m['loss']:.6f}" for m in mets) + f" ({card})")
+            (pm, plain_leaves), (mm, mesh_state) = runs["plain"], runs["mesh"]
+            check(pm == mm, f"mesh_training {arch}: the mesh step's metrics differ from the "
+                  f"plain step's: {mm} against {pm}")
+            bad = [n for (n, a), b in zip(tree.named_leaves(mesh_state), plain_leaves)
+                   if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b.to(dev))]
+            check(not bad, f"mesh_training {arch}: leaves differ from the plain step's: {bad[:4]}")
+            n_params = sum(t.numel() for t in tree.leaves(mesh_state[0]))
+            log(f"mesh_training {arch}: {n_params:,} parameters; the 1 x 1 mesh step's metrics "
+                f"and all {n_leaves} parameter and optimizer leaves bitwise the plain step's "
+                f"(the plain state to the host {host_s:.1f} s)")
+            if arch == "smollm-360m":
+                # (ii) a checkpoint under the mesh, restored through remesh_restore
+                specs = steps_lib.state_specs(cfg, mesh)
+                t2 = time.perf_counter()
+                Checkpointer(f"{tmp}/ck", mesh=mesh, specs=specs).save(
+                    MESH_STEPS, mesh_state, {"step": MESH_STEPS}, blocking=True)
+                fresh = tree.tree_map(torch.empty_like, mesh_state)
+                restored, meta, _ = remesh_restore(Checkpointer(f"{tmp}/ck"), cfg, fresh, (1, 1),
+                                                   ("data", "model"), device_type="cuda")
+                bad = [n for (n, a), b in zip(tree.named_leaves(mesh_state), tree.leaves(restored))
+                       if a.dtype != b.dtype or not torch.equal(a, b.to(a.device))]
+                check(not bad and meta == {"step": MESH_STEPS},
+                      f"mesh_training: the remesh_restore differs: {bad[:4]} {meta}")
+                log(f"mesh_training {arch}: checkpoint under the 1 x 1 mesh and remesh_restore "
+                    f"onto a 1 x 1 mesh: every leaf bitwise, {time.perf_counter() - t2:.1f} s")
+                del restored, fresh
+            del runs, mesh_state, plain_leaves, params, opt, state, batches
+            gc.collect()
+            torch.cuda.empty_cache()
+            log(f"mesh_training {arch}: {time.perf_counter() - t_arch:.1f} s in all")
+
+        # (iii) int8 compression with error feedback, card against CPU
+        rng = np.random.default_rng(7)
+        floats = [(rng.standard_normal((257, 129)) * s).astype(np.float32)
+                  for s in (1e-3, 1.0, 30.0)]
+        out = []
+        for d in (dev, torch.device("cpu")):
+            gs = [torch.from_numpy(f).to(d) for f in floats]
+            res = gcomp.init_residual(gs)
+            synced, res2 = gcomp.ef_compress_step(gs, res, None)
+            synced2, res3 = gcomp.ef_compress_step(gs, res2, None)
+            codes = [gcomp.quantize_int8(g) for g in gs]
+            out.append([t.cpu() for t in (*synced, *res2, *synced2, *res3,
+                                          *(c for q in codes for c in q))])
+        check(all(torch.equal(a, b) for a, b in zip(*out)),
+              "mesh_training: ef_compress_step / quantize_int8 differ between the card and the CPU")
+        log("mesh_training: ef_compress_step (two steps, axis None) and quantize_int8 on the "
+            "card bitwise the CPU's (codes, scales, residuals)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    log(f"mesh_training: the phase took {time.perf_counter() - t_phase:.1f} s ({card})")
+    return launches
+
 
 if __name__ == "__main__":
     main()

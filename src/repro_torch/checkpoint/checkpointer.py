@@ -15,7 +15,12 @@ package restores in the other:
     `wait()` (or `save()`).  A blocking save copies no whole tree: each
     device leaf goes through one pinned buffer into its file;
   * keep-k GC and `latest()` resume discovery; metadata (the data
-    pipeline's state, the step) as JSON.
+    pipeline's state, the step) as JSON;
+  * on a mesh (`mesh` and a tree of `launch.sharding` specs, given to the
+    constructor or to `restore`) the files stay the full logical leaves:
+    every rank takes part in gathering each leaf (`sharding.assemble`) and
+    rank 0 writes it; a restore maps each file and takes the rank's block.
+    So a checkpoint moves between world sizes and between the packages.
 """
 
 from __future__ import annotations
@@ -74,12 +79,17 @@ def _from_savable(x: np.ndarray, dtype_name: str) -> torch.Tensor:
 
 
 class Checkpointer:
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, mesh=None, specs=None):
         self.dir = Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
+        self.mesh, self.specs = mesh, specs
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+
+    def _writer(self) -> bool:
+        import torch.distributed as dist
+        return self.mesh is None or not dist.is_initialized() or dist.get_rank() == 0
 
     # ------------------------------------------------------------------
     def save(self, step: int, tree: Any, metadata: Optional[Dict] = None,
@@ -89,6 +99,11 @@ class Checkpointer:
         buffer): no host copy of the whole tree, which at tens of GB costs
         as much again as the write."""
         self.wait()  # one in-flight save at a time
+        if self.mesh is not None:
+            from repro_torch.launch import sharding as shd
+            tree = shd.assemble_tree(tree, self.specs, self.mesh)
+            if not self._writer():
+                return
         if blocking:
             self._write(step, tree, metadata or {})
             return
@@ -152,7 +167,8 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, target_tree: Any) -> Tuple[Any, Dict]:
+    def restore(self, step: int, target_tree: Any, specs=None, mesh=None
+                ) -> Tuple[Any, Dict]:
         """Restore into the structure of `target_tree`: each leaf takes the
         device of the target's leaf at its place and its dtype, but for a
         leaf saved in bf16 where the target holds f32, which keeps bf16.
@@ -163,7 +179,17 @@ class Checkpointer:
         and is not bitwise that run.)  Any other dtype that differs from
         the target's raises.  Each file is mapped copy-on-write: a host
         target's leaf reads its pages when first used, and a device
-        target's copies from the mapping with no host copy between."""
+        target's copies from the mapping with no host copy between.
+
+        On a mesh (`mesh` and `specs`, or the constructor's) each target
+        leaf is this rank's block of the saved leaf, or the whole leaf; the
+        restore takes the block (a contiguous copy where it splits)."""
+        from repro_torch.launch import sharding as shd
+
+        mesh = mesh if mesh is not None else self.mesh
+        specs = specs if specs is not None else self.specs
+        spec_list = (shd.spec_leaves(specs) if mesh is not None
+                     else [None] * len(tree_lib.leaves(target_tree)))
         path = self.dir / f"step_{step:010d}"
         manifest = json.loads((path / "manifest.json").read_text())
         targets = tree_lib.named_leaves(target_tree)
@@ -171,11 +197,16 @@ class Checkpointer:
         if len(targets) != len(records):
             raise ValueError(f"checkpoint has {len(records)} leaves, target {len(targets)}")
         leaves = []
-        for (name, t), rec in zip(targets, records):
-            if rec["name"] != name or list(rec["shape"]) != list(t.shape):
+        for (name, t), rec, spec in zip(targets, records, spec_list):
+            want = (list(rec["shape"]) if spec is None
+                    else list(shd.local_shape(rec["shape"], spec, mesh)))
+            if rec["name"] != name or list(t.shape) not in (want, list(rec["shape"])):
                 raise ValueError(f"checkpoint leaf {rec['name']} {rec['shape']} does not fit "
                                  f"the target's {name} {list(t.shape)}")
             x = _from_savable(np.load(path / rec["file"], mmap_mode="c"), rec["dtype"])
+            if spec is not None:
+                blk = shd.shard_of(x, spec, mesh)
+                x = blk if blk.shape == x.shape else blk.contiguous().clone()
             if x.dtype != t.dtype and (x.dtype, t.dtype) != (torch.bfloat16, torch.float32):
                 raise ValueError(f"checkpoint leaf {name} is {x.dtype}, the target's {t.dtype}")
             leaves.append(x.to(device=t.device))

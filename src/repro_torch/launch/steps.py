@@ -1,7 +1,9 @@
-"""Serving context and the engines' step factories, and the single-card
-train step (port of `repro.launch.steps`; the train half at its end).
+"""Serving context and the engines' step factories, and the train step on
+one card or on a mesh (port of `repro.launch.steps`; the train half at its
+end).
 
-Each factory returns `(fn, ctx)` as the reference's does, without `mesh`.
+Each serving factory returns `(fn, ctx)` as the reference's does, without
+`mesh` (serving on a mesh is ROADMAP item 15c-ii).
 The JAX package jits every engine program.  Here prefill, recompression,
 the folds and slot insertion run eagerly, and the two decode programs (the
 lockstep step and the continuous masked step) are step objects over static
@@ -50,6 +52,7 @@ buffers on the CPU) is reported to `runtime.compile_guard`.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -61,11 +64,13 @@ from repro_torch.core import backend as backend_lib
 from repro_torch.core import kvcache as kvc
 from repro_torch.core import precision as precision_lib
 from repro_torch.core import prng
-from repro_torch.core.quant import true_div
+from repro_torch.core.quant import correctly_rounded_sqrt, true_div
 from repro_torch.core import saliency as sal
 from repro_torch.core.policy import CompressionConfig
 from repro_torch.kernels import build
-from repro_torch.models import blocks, registry
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import sharding as shd
+from repro_torch.models import blocks, parallel, registry
 from repro_torch.optim import adamw
 from repro_torch.runtime import compile_guard
 
@@ -557,18 +562,29 @@ def make_swap_restore_step(cfg: ArchConfig, shape: ShapeConfig,
 
 
 # ---------------------------------------------------------------------------
-# Train (one card: the reference's mesh=None)
+# Train: one card (the reference's mesh=None) or a mesh
 # ---------------------------------------------------------------------------
 
+def _run_ctx(cfg: ArchConfig, mesh, q_block: int = 512, compact_softmax: bool = False
+             ) -> blocks.RunCtx:
+    data_axes = mesh_lib.data_axes_of(mesh) if mesh is not None else ("data",)
+    return blocks.RunCtx(mesh=mesh, data_axes=data_axes, q_block=q_block,
+                         compact_softmax=compact_softmax)
+
+
+def _data_parallel(mesh) -> int:
+    return math.prod(mesh.shape[a] for a in mesh_lib.data_axes_of(mesh)) if mesh else 1
+
+
 def pick_grad_accum(cfg: ArchConfig, shape: ShapeConfig, mesh=None) -> int:
-    """Microbatch count: ~1 sequence per microbatch for wide models
-    (d_model >= 2048), ~2 for small ones, dividing the batch."""
-    if mesh is not None:
-        raise ValueError("a device mesh is not ported yet: one card only (ROADMAP item 15c)")
-    per_dev = max(shape.global_batch, 1)
+    """Microbatch count: ~1 sequence per data-parallel rank per microbatch
+    for wide models (d_model >= 2048), ~2 for small ones, each microbatch
+    dividing the data axes (the reference's rule; mesh None is one rank)."""
+    dp = _data_parallel(mesh)
+    per_dev = max(shape.global_batch // max(dp, 1), 1)
     target = 1 if cfg.d_model >= 2048 else 2
     accum = max(per_dev // target, 1)
-    while shape.global_batch % accum:
+    while shape.global_batch % accum or (shape.global_batch // accum) % max(dp, 1):
         accum -= 1
     return max(accum, 1)
 
@@ -584,7 +600,8 @@ def loss_and_grads(params, batch, cfg: ArchConfig, ctx: blocks.RunCtx):
 
 
 def make_train_step(cfg: ArchConfig, opt_cfg: Optional[adamw.AdamWConfig] = None,
-                    grad_accum: int = 1, q_block: int = 512, compact_softmax: bool = False):
+                    grad_accum: int = 1, q_block: int = 512, compact_softmax: bool = False,
+                    *, mesh=None, param_dtype=torch.bfloat16):
     """train_step(params, opt_state, batch) -> (params, opt_state, metrics),
     the batch a dict of device tensors.
 
@@ -597,32 +614,226 @@ def make_train_step(cfg: ArchConfig, opt_cfg: Optional[adamw.AdamWConfig] = None
     `grad_accum` microbatches along its first axis; each microbatch's
     gradients add into f32 accumulators in order, and the sums, the loss and
     the metrics are divided by `grad_accum`.  The metrics stay on the
-    device: {"loss", "ce", "aux", "grad_norm", "lr"}."""
+    device: {"loss", "ce", "aux", "grad_norm", "lr"}.
+
+    mesh: a `launch.mesh.Mesh` trains on it (`_mesh_train_step`): the
+    params and opt_state are this rank's blocks (`shard_train_state`) and
+    the batch its rows (`local_batch`).  On a 1 x 1 mesh every collective
+    is the identity and the step computes the plain step's bits.
+
+    param_dtype: the dtype AdamW hands the parameters back in (bf16, as the
+    reference's; float32 trains in f32 throughout, given f32 parameters)."""
     opt_cfg = opt_cfg or adamw.AdamWConfig()
-    ctx = blocks.RunCtx(q_block=q_block, compact_softmax=compact_softmax)
+    ctx = _run_ctx(cfg, mesh, q_block=q_block, compact_softmax=compact_softmax)
+    if mesh is not None:
+        return _mesh_train_step(cfg, mesh, opt_cfg, grad_accum, ctx, param_dtype)
 
     def train_step(params, opt_state, batch):
-        if grad_accum == 1:
-            loss, met, grads = loss_and_grads(params, batch, cfg, ctx)
-        else:
-            acc = [torch.zeros(t.shape, dtype=torch.float32, device=t.device)
-                   for t in tree_lib.leaves(params)]
-            loss, mets = 0.0, []
-            for i in range(grad_accum):
-                mb = {k: v.reshape(grad_accum, v.shape[0] // grad_accum, *v.shape[1:])[i]
-                      for k, v in batch.items()}
-                mb_loss, mb_met, g = loss_and_grads(params, mb, cfg, ctx)
-                for a, gi in zip(acc, g):
-                    a.add_(gi)
-                loss = loss + mb_loss
-                mets.append(mb_met)
-                del g
-            grads = [a.copy_(true_div(a, grad_accum)) for a in acc]   # one leaf's temporary
-            loss = true_div(loss, grad_accum)
-            met = {k: true_div(torch.stack([m[k] for m in mets]).sum(0), grad_accum)
-                   for k in mets[0]}
+        loss, met, grads = _accumulate(batch, grad_accum,
+                                       lambda mb: loss_and_grads(params, mb, cfg, ctx),
+                                       tree_lib.leaves(params))
         params, opt_state, opt_met = adamw.adamw_update(
-            opt_cfg, tree_lib.unflatten(params, grads), opt_state, params)
+            opt_cfg, tree_lib.unflatten(params, grads), opt_state, params, param_dtype)
+        return params, opt_state, {"loss": loss, **met, **opt_met}
+
+    return train_step
+
+
+def _accumulate(batch, grad_accum: int, run, like: list):
+    """(loss, metrics, gradients) over `grad_accum` microbatches of batch:
+    run(microbatch) -> (loss, metrics, gradients); above one microbatch the
+    gradients add in order into f32 accumulators shaped as the tensors of
+    `like`, and the sums, the loss and the metrics are divided by
+    `grad_accum`."""
+    if grad_accum == 1:
+        return run(batch)
+    acc = [torch.zeros(t.shape, dtype=torch.float32, device=t.device) for t in like]
+    loss, mets = 0.0, []
+    for i in range(grad_accum):
+        mb = {k: v.reshape(grad_accum, v.shape[0] // grad_accum, *v.shape[1:])[i]
+              for k, v in batch.items()}
+        mb_loss, mb_met, g = run(mb)
+        for a, gi in zip(acc, g):
+            a.add_(gi)
+        loss = loss + mb_loss
+        mets.append(mb_met)
+        del g
+    grads = [a.copy_(true_div(a, grad_accum)) for a in acc]   # one leaf's temporary
+    loss = true_div(loss, grad_accum)
+    met = {k: true_div(torch.stack([m[k] for m in mets]).sum(0), grad_accum) for k in mets[0]}
+    return loss, met, grads
+
+
+# ---------------------------------------------------------------------------
+# Train on a mesh
+# ---------------------------------------------------------------------------
+
+def leaf_plans(cfg: ArchConfig, mesh) -> list:
+    """The `parallel.LeafPlan` of every parameter leaf, in flatten order:
+    its specs, and whether its layer computes it split over `model` (the
+    schema's `ParamDef.split`: the attention heads, the dense MLP's width,
+    the vocabulary, the routed experts; the SSD mixer, the cross-attention,
+    the router and the frontend projection are gathered whole)."""
+    defs = tree_lib.leaves(registry.schema(cfg))
+    pspecs = shd.spec_leaves(shd.param_pspecs(cfg, mesh))
+    zspecs = shd.spec_leaves(shd.zero1_pspecs(cfg, mesh))
+    return [parallel.LeafPlan(p, z, d.split) for d, p, z in zip(defs, pspecs, zspecs)]
+
+
+def state_specs(cfg: ArchConfig, mesh):
+    """The specs of a training state (params, AdamWState): the parameters'
+    `param_pspecs`, the master, m and v `zero1_pspecs`, the count ()."""
+    z = shd.zero1_pspecs(cfg, mesh)
+    return (shd.param_pspecs(cfg, mesh), adamw.AdamWState(z, z, z, ()))
+
+
+def train_placements(cfg: ArchConfig, shape: ShapeConfig, mesh) -> dict:
+    """What each rank holds of a training step's inputs (the port's form of
+    the reference's `train_lowering_inputs`): the specs of the parameters,
+    of the optimizer state and of the batch's leaves, and the local shapes
+    of the first two."""
+    params, opt = state_specs(cfg, mesh)
+    schema = registry.schema(cfg)
+    full = [d.shape for d in tree_lib.leaves(schema)]
+    return {"params": params, "opt_state": opt,
+            "batch": shd.batch_shardings(registry.train_batch_spec(cfg, shape), mesh),
+            "param_shapes": [shd.local_shape(s, p, mesh)
+                             for s, p in zip(full, shd.spec_leaves(params))],
+            "opt_shapes": [shd.local_shape(s, z, mesh)
+                           for s, z in zip(full, shd.spec_leaves(opt.master))]}
+
+
+def shard_train_state(params, cfg: ArchConfig, mesh):
+    """(this rank's parameter blocks, its optimizer state) from full
+    parameters: each leaf cut to its `param_pspecs` block (a copy where it
+    splits, the leaf itself where it does not), the f32 master its
+    `zero1_pspecs` block, m and v zeros of that shape."""
+    plans = leaf_plans(cfg, mesh)
+    leaves = tree_lib.leaves(params)
+
+    def block(t, spec):
+        b = shd.shard_of(t, spec, mesh)
+        return b if b.shape == t.shape else b.contiguous().clone()
+
+    p_blocks = [block(t, pl.pspec) for t, pl in zip(leaves, plans)]
+    master = [shd.shard_of(t, pl.zspec, mesh).to(torch.float32, copy=True).contiguous()
+              for t, pl in zip(leaves, plans)]
+    zeros = lambda: [torch.zeros(m.shape, dtype=torch.float32, device=m.device) for m in master]
+    count = torch.zeros((), dtype=torch.int32, device=leaves[0].device)
+    un = lambda xs: tree_lib.unflatten(params, xs)
+    return un(p_blocks), adamw.AdamWState(un(master), un(zeros()), un(zeros()), count)
+
+
+def local_batch(batch: dict, mesh, grad_accum: int = 1) -> dict:
+    """This rank's rows of a global batch, as the reference's step shards
+    it: the batch splits into `grad_accum` microbatches first, and each
+    microbatch's rows split over the data axes; the rank's rows of each
+    microbatch, in order (numpy arrays or tensors)."""
+    daxes = mesh_lib.data_axes_of(mesh)
+    idx, dp = shd.block_index(daxes, mesh)
+    if dp == 1:
+        return batch
+    out = {}
+    for k, v in batch.items():
+        b = v.shape[0]
+        if b % grad_accum or (b // grad_accum) % dp:
+            raise ValueError(f"batch {b} in {grad_accum} microbatches does not divide the "
+                             f"{dp} data-parallel ranks")
+        mb, rows = b // grad_accum, b // grad_accum // dp
+        parts = [v[i * mb + idx * rows:i * mb + (idx + 1) * rows] for i in range(grad_accum)]
+        out[k] = (np.concatenate(parts) if isinstance(v, np.ndarray) else torch.cat(parts))
+    return out
+
+
+def _mesh_train_step(cfg: ArchConfig, mesh, opt_cfg: adamw.AdamWConfig, grad_accum: int,
+                     ctx: blocks.RunCtx, param_dtype=torch.bfloat16):
+    """The train step on a mesh.  Each rank holds its blocks of the
+    parameters (`param_pspecs`) and of the f32 master, m and v
+    (`zero1_pspecs`), and runs its rows of each microbatch:
+
+      * the model gathers each parameter on use (`models.parallel`): over
+        `data` (FSDP), its gradient reduce-scattered back, summed in f32;
+        over `model` where the leaf computes whole.  The heads, MLP width,
+        vocabulary and experts compute split over `model`;
+      * each microbatch's gradients are reduced onto the ZeRO-1 blocks: a
+        leaf not split over `data` sums over it (reduce-scattered where its
+        ZeRO-1 block splits `data`), every leaf sums over `pod`, and a
+        block the ZeRO-1 spec splits over `model` is cut out (every model
+        rank computed the same gradient); above one microbatch they add
+        into f32 accumulators of the ZeRO-1 blocks' shapes;
+      * the loss, its metrics and the MoE aux statistics are global (their
+        parts summed over the data axes); the clip's global norm sums each
+        leaf's squares over its block once (the rank at coordinate 0 of
+        every axis the block is replicated over) in one all-reduce;
+      * AdamW updates the blocks in place, and each new bf16 parameter is
+        gathered from the ZeRO-1 blocks back into its parameter block."""
+    plans = leaf_plans(cfg, mesh)
+    dsize, psize = mesh.shape.get("data", 1), mesh.shape.get("pod", 1)
+    dp = dsize * psize
+
+    def f32_sum(g, axis):
+        return parallel.all_reduce(g.float(), mesh, axis).to(g.dtype)
+
+    def to_zero1(g, plan):
+        for j, (pp, zp) in enumerate(zip(plan.pspec, plan.zspec)):
+            if zp == "model" and pp is None:
+                g = parallel.block(g, j, mesh, "model")
+        if "data" not in plan.pspec and dsize > 1:
+            zd = plan.dim_of(plan.zspec, "data")
+            g = (parallel.reduce_scatter_dim(g, zd, mesh, "data") if zd is not None
+                 else f32_sum(g, "data"))
+        if psize > 1:
+            g = f32_sum(g, "pod")
+        return g
+
+    def run(params, mb):
+        leaves = []
+        for t, plan in zip(tree_lib.leaves(params), plans):
+            leaf = t.detach().requires_grad_(True)
+            leaf._plan = plan
+            leaves.append(leaf)
+        with torch.enable_grad():
+            loss, met = registry.loss_fn(tree_lib.unflatten(params, leaves), mb, cfg, ctx)
+            grads = torch.autograd.grad(loss, leaves)
+        grads = [to_zero1(g, plan) for g, plan in zip(grads, plans)]
+        met = {k: v.detach() for k, v in met.items()}
+        loss = loss.detach()
+        if dp > 1:       # the loss and ce are global; aux is already
+            for axis in reversed(ctx.data_axes):
+                met["ce"] = parallel.all_reduce(met["ce"], mesh, axis)
+            loss = met["ce"] + met["aux"]
+        return loss, met, grads
+
+    owned = [all(mesh.coord(a) == 0 for a in mesh.axis_names if a not in plan.zspec)
+             for plan in plans]
+
+    def global_norm(grads):
+        total = sum(torch.sum(torch.square(g.float()))
+                    for g, own in zip(tree_lib.leaves(grads), owned) if own)
+        if not torch.is_tensor(total):
+            total = torch.zeros((), dtype=torch.float32, device=tree_lib.leaves(grads)[0].device)
+        if mesh.size > 1:
+            total = total.contiguous()
+            torch.distributed.all_reduce(total)
+        return correctly_rounded_sqrt(total)
+
+    def put(i, p, p32, param_dtype):
+        plan = plans[i]
+        added = [(j, zp) for j, (pp, zp) in enumerate(zip(plan.pspec, plan.zspec))
+                 if pp is None and zp is not None]
+        if not added:
+            return p.copy_(p32) if p.dtype == param_dtype else p32.to(param_dtype)
+        new = p32.to(param_dtype)
+        for j, axis in added:
+            new = parallel.all_gather_dim(new, j, mesh, axis)
+        return p.copy_(new) if p.dtype == param_dtype else new
+
+    def train_step(params, opt_state, batch):
+        loss, met, grads = _accumulate(batch, grad_accum, lambda mb: run(params, mb),
+                                       tree_lib.leaves(opt_state.master))
+        params, opt_state, opt_met = adamw.adamw_update(
+            opt_cfg, tree_lib.unflatten(params, grads), opt_state, params, param_dtype,
+            norm_fn=global_norm, put=put)
         return params, opt_state, {"loss": loss, **met, **opt_met}
 
     return train_step

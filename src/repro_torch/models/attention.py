@@ -13,6 +13,13 @@ plain PyTorch over the cache's mixed-layout view (`backend.dense`): exact
 (`impl="ref"`) or with the dequantization folded into the algebra
 (`"int8_algebra"`, `kvcache.attend_decode_mla_int8`).
 Shapes: activations (b, l, e); heads (b, h, l, d).
+
+On a mesh (`models.parallel`) a weight split over `model` holds this
+rank's block of heads: q, k and v are column-parallel and `wo` row-parallel
+(its partial outputs summed over `model`).  Where the kv heads do not split
+(their count does not divide the axis) each rank computes every kv head and
+keeps those of its query heads (`_local_kv`).  Where the query heads do not
+split either, the layer runs whole on every rank.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import quant
 from repro_torch.core import saliency as sal
-from repro_torch.models import common
+from repro_torch.models import common, parallel
 from repro_torch.models.common import ParamDef
 
 NEG_INF = -1e30
@@ -34,32 +41,32 @@ NEG_INF = -1e30
 
 def gqa_schema(cfg: ArchConfig) -> dict:
     e, h, hk, d = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    s = {
-        "wq": ParamDef((e, h, d)),
-        "wk": ParamDef((e, hk, d)),
-        "wv": ParamDef((e, hk, d)),
-        "wo": ParamDef((h, d, e)),
+    s = {       # split: heads over `model` on a mesh
+        "wq": ParamDef((e, h, d), ("embed", "heads", "head_dim")),
+        "wk": ParamDef((e, hk, d), ("embed", "kv_heads", "head_dim")),
+        "wv": ParamDef((e, hk, d), ("embed", "kv_heads", "head_dim")),
+        "wo": ParamDef((h, d, e), ("heads", "head_dim", "embed")),
     }
     if cfg.qkv_bias:
-        s["bq"] = ParamDef((h, d), init="zeros")
-        s["bk"] = ParamDef((hk, d), init="zeros")
-        s["bv"] = ParamDef((hk, d), init="zeros")
-    return s
+        s["bq"] = ParamDef((h, d), ("heads", "head_dim"), init="zeros")
+        s["bk"] = ParamDef((hk, d), ("kv_heads", "head_dim"), init="zeros")
+        s["bv"] = ParamDef((hk, d), ("kv_heads", "head_dim"), init="zeros")
+    return common.computed_split(s)
 
 
 def mla_schema(cfg: ArchConfig) -> dict:
     e, h = cfg.d_model, cfg.n_heads
     r, p, nd, vd = cfg.kv_lora_rank, cfg.rope_head_dim, cfg.nope_head_dim, cfg.v_head_dim
-    return {
-        "w_dkv": ParamDef((e, r)),          # down-projection to the latent
-        "w_kpe": ParamDef((e, p)),          # the shared rope key
-        "w_q_nope": ParamDef((e, h, nd)),
-        "w_q_pe": ParamDef((e, h, p)),
-        "w_uk": ParamDef((r, h, nd)),       # up-projection of the keys
-        "w_uv": ParamDef((r, h, vd)),       # up-projection of the values
-        "wo": ParamDef((h, vd, e)),
-        "kv_norm": ParamDef((r,), init="ones"),
-    }
+    return common.computed_split({       # heads over `model` on a mesh
+        "w_dkv": ParamDef((e, r), ("embed", "latent")),          # down-projection to the latent
+        "w_kpe": ParamDef((e, p), ("embed", "rope_dim")),          # the shared rope key
+        "w_q_nope": ParamDef((e, h, nd), ("embed", "heads", "head_dim")),
+        "w_q_pe": ParamDef((e, h, p), ("embed", "heads", "rope_dim")),
+        "w_uk": ParamDef((r, h, nd), ("latent", "heads", "head_dim")),       # up-projection of the keys
+        "w_uv": ParamDef((r, h, vd), ("latent", "heads", "v_dim")),       # up-projection of the values
+        "wo": ParamDef((h, vd, e), ("heads", "v_dim", "embed")),
+        "kv_norm": ParamDef((r,), ("latent",), init="ones"),
+    })
 
 
 class AttnAux(NamedTuple):
@@ -175,20 +182,43 @@ def _qkv(params: dict, x: torch.Tensor, eq: str):
     return q, k, v
 
 
+def _local_kv(k: torch.Tensor, v: torch.Tensor, n_heads: int, h_loc: int, mesh):
+    """Every kv head's k / v (b, hk, l, d), computed alike on each model
+    rank -> the kv heads of this rank's h_loc query heads: a block of kv
+    heads where the local query heads cover whole groups, else one kv head
+    per query head."""
+    k, v = parallel.copy_in(k, mesh), parallel.copy_in(v, mesh)
+    g = n_heads // k.shape[1]
+    first = parallel.coord("model", mesh) * h_loc
+    if h_loc % g == 0:
+        return k[:, first // g:(first + h_loc) // g], v[:, first // g:(first + h_loc) // g]
+    idx = torch.div(torch.arange(first, first + h_loc, device=k.device), g,
+                    rounding_mode="floor")
+    return k.index_select(1, idx), v.index_select(1, idx)
+
+
 def gqa_forward(params: dict, x: torch.Tensor, cfg: ArchConfig, *, causal: bool = True,
                 probe: Optional[sal.ProbeSpec] = None, kv_x: Optional[torch.Tensor] = None,
-                q_block: int = 512, use_kernel: bool = False, compact: bool = False
-                ) -> Tuple[torch.Tensor, AttnAux]:
+                q_block: int = 512, use_kernel: bool = False, compact: bool = False,
+                mesh=None) -> Tuple[torch.Tensor, AttnAux]:
     """Full-sequence GQA (prefill, the encoder, cross-attention), with the
     probe saliency over the key positions.  kv_x: a separate K/V source
     (cross-attention), whose keys and queries take no rotary, as in the
     reference; self-attention, causal or not, is rotated.  compact:
-    `blocked_attention`'s bf16 logits and probabilities."""
+    `blocked_attention`'s bf16 logits and probabilities.  mesh: the
+    training mesh whose `model` blocks of heads the weights hold, where
+    they are split (`parallel.is_split`)."""
     src = x if kv_x is None else kv_x
     l, lkv = x.shape[1], src.shape[1]
-    q = common.einsum("ble,ehd->bhld", x, params["wq"])
-    k = common.einsum("ble,ehd->bhld", src, params["wk"])
-    v = common.einsum("ble,ehd->bhld", src, params["wv"])
+    split, kv_split = parallel.is_split(params["wq"]), parallel.is_split(params["wk"])
+    dt = x.dtype
+    if split:   # f32 entries: each head's product rounds once to dt, as the whole layer's
+        x = parallel.enter(x, mesh)
+        if kv_split:
+            src = x if kv_x is None else parallel.enter(kv_x, mesh)
+    q = common.einsum("ble,ehd->bhld", x, params["wq"]).to(dt)
+    k = common.einsum("ble,ehd->bhld", src, params["wk"]).to(src.dtype if not kv_split else dt)
+    v = common.einsum("ble,ehd->bhld", src, params["wv"]).to(k.dtype)
     if cfg.qkv_bias:
         q = q + params["bq"][None, :, None, :]
         k = k + params["bk"][None, :, None, :]
@@ -200,9 +230,14 @@ def gqa_forward(params: dict, x: torch.Tensor, cfg: ArchConfig, *, causal: bool 
                                              cfg.rope_theta)
         q = common.apply_rotary(q, cos_q[None, None], sin_q[None, None])
         k = common.apply_rotary(k, cos_k[None, None], sin_k[None, None])
+    if split and not kv_split:
+        k, v = _local_kv(k, v, cfg.n_heads, q.shape[1], mesh)
     out, colsum = blocked_attention(q, k, v, causal=causal, q_block=q_block, probe=probe,
                                     use_kernel=use_kernel, compact=compact)
-    y = common.out_proj(out.transpose(1, 2), params["wo"])  # heads beside d
+    if split:   # row-parallel: f32 partials summed over `model`, one rounding
+        y = parallel.leave(common.out_proj(out.transpose(1, 2).float(), params["wo"]), dt, mesh)
+    else:
+        y = common.out_proj(out.transpose(1, 2), params["wo"])  # heads beside d
     saliency = nnz = None
     if probe is not None and colsum is not None:
         saliency, nnz = probe_saliency_from_colsum(colsum, probe, lkv, causal=causal)
@@ -226,27 +261,35 @@ def gqa_decode_qkv(params: dict, x_t: torch.Tensor, cfg: ArchConfig, position: t
 
 def mla_forward(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
                 probe: Optional[sal.ProbeSpec] = None, q_block: int = 512,
-                use_kernel: bool = False, compact: bool = False
+                use_kernel: bool = False, compact: bool = False, mesh=None
                 ) -> Tuple[torch.Tensor, AttnAux]:
-    """Full-sequence MLA.  Returns the latent cache streams in AttnAux:
+    """Full-sequence MLA (mesh: as `gqa_forward`'s).  Returns the latent cache streams in AttnAux:
     aux.k = rope key (b, 1, l, p), aux.v = latent (b, 1, l, r).  The softmax
     scale 1/sqrt(nope + rope) is q's last dim; v's head dim is v_head_dim."""
     b, l, e = x.shape
-    h, p = cfg.n_heads, cfg.rope_head_dim
+    h, p = params["w_q_nope"].shape[1], cfg.rope_head_dim     # this rank's heads
+    split = parallel.is_split(params["w_q_nope"])
     cos, sin = common.rotary_cos_sin(torch.arange(l, device=x.device), p, cfg.rope_theta)
     latent = common.rms_norm(common.einsum("ble,er->blr", x, params["w_dkv"]),
                              params["kv_norm"], cfg.norm_eps)
     k_pe = common.apply_rotary(common.einsum("ble,ep->blp", x, params["w_kpe"]), cos, sin)
-    q_nope = common.einsum("ble,ehd->bhld", x, params["w_q_nope"])
-    q_pe = common.apply_rotary(common.einsum("ble,ehp->bhlp", x, params["w_q_pe"]),
+    # the head-split products take f32 copies whose gradients sum over `model`
+    dt = x.dtype
+    xh, lat_h, k_pe_h = ((parallel.enter(t, mesh) for t in (x, latent, k_pe)) if split
+                         else (x, latent, k_pe))
+    q_nope = common.einsum("ble,ehd->bhld", xh, params["w_q_nope"]).to(dt)
+    q_pe = common.apply_rotary(common.einsum("ble,ehp->bhlp", xh, params["w_q_pe"]).to(dt),
                                cos[None, None], sin[None, None])
-    k_nope = common.einsum("blr,rhd->bhld", latent, params["w_uk"])
-    val = common.einsum("blr,rhv->bhlv", latent, params["w_uv"])
+    k_nope = common.einsum("blr,rhd->bhld", lat_h, params["w_uk"]).to(dt)
+    val = common.einsum("blr,rhv->bhlv", lat_h, params["w_uv"]).to(dt)
     q_full = torch.cat([q_nope, q_pe], dim=-1)                      # (b, h, l, nd + p)
-    k_full = torch.cat([k_nope, k_pe[:, None].expand(b, h, l, p)], dim=-1)
+    k_full = torch.cat([k_nope, k_pe_h.to(dt)[:, None].expand(b, h, l, p)], dim=-1)
     out, colsum = blocked_attention(q_full, k_full, val, causal=True, q_block=q_block,
                                     probe=probe, use_kernel=use_kernel, compact=compact)
-    y = common.out_proj(out.transpose(1, 2), params["wo"])
+    if split:
+        y = parallel.leave(common.out_proj(out.transpose(1, 2).float(), params["wo"]), dt, mesh)
+    else:
+        y = common.out_proj(out.transpose(1, 2), params["wo"])
     saliency = nnz = None
     if probe is not None and colsum is not None:
         saliency, nnz = probe_saliency_from_colsum(colsum, probe, l)

@@ -21,7 +21,7 @@ from repro_torch.core import precision as precision_lib
 from repro_torch.core import saliency as sal
 from repro_torch.core.policy import CompressionConfig
 from repro_torch.models import attention as attn
-from repro_torch.models import common
+from repro_torch.models import common, parallel
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import ParamDef
@@ -29,7 +29,7 @@ from repro_torch.models.common import ParamDef
 
 def layer_schema(cfg: ArchConfig, mixer: str, ffn: str) -> dict:
     e = cfg.d_model
-    s = {"ln1": ParamDef((e,), init="ones")}
+    s = {"ln1": ParamDef((e,), ("embed",), init="ones")}
     if mixer == "attn":
         s["attn"] = attn.gqa_schema(cfg)
     elif mixer == "mla":
@@ -39,10 +39,10 @@ def layer_schema(cfg: ArchConfig, mixer: str, ffn: str) -> dict:
     else:
         raise ValueError(mixer)
     if ffn == "dense":
-        s["ln2"] = ParamDef((e,), init="ones")
+        s["ln2"] = ParamDef((e,), ("embed",), init="ones")
         s["mlp"] = mlp_mod.dense_mlp_schema(cfg)
     elif ffn == "moe":
-        s["ln2"] = ParamDef((e,), init="ones")
+        s["ln2"] = ParamDef((e,), ("embed",), init="ones")
         s["moe"] = mlp_mod.moe_schema(cfg)
     elif ffn != "none":
         raise ValueError(ffn)
@@ -69,13 +69,19 @@ class RunCtx:
     the algebra of the cache's plain decode attention (the gather route and
     the probe steps' exact slot weights), and `compact_softmax` gives the
     plain prefill attention bf16 logits and probabilities.
+
+    `mesh` (a `launch.mesh.Mesh`, None without one) and its `data_axes`, as
+    the reference's: the training mesh the model's layers hand to the
+    collectives of `models.parallel`.
     """
 
-    def __init__(self, ccfg: Optional[CompressionConfig] = None,
+    def __init__(self, mesh=None, data_axes=("data",), ccfg: Optional[CompressionConfig] = None,
                  probe: Optional[sal.ProbeSpec] = None, max_cache_len: int = 0,
                  q_block: int = 512, use_kernels: bool = False,
                  decode_impl: str = "ref", compact_softmax: bool = False,
                  backend=None, precision=None):
+        self.mesh = mesh
+        self.data_axes = tuple(data_axes)
         self.ccfg = ccfg
         self.probe = probe
         self.max_cache_len = max_cache_len
@@ -117,7 +123,7 @@ def _ffn(params: dict, x: torch.Tensor, cfg: ArchConfig, ffn: str,
     return x + mlp_mod.moe_ffn(params["moe"], h[:, None, :], cfg, active=active)[:, 0]
 
 
-def _ffn_full(params: dict, x: torch.Tensor, cfg: ArchConfig, ffn: str
+def _ffn_full(params: dict, x: torch.Tensor, cfg: ArchConfig, ffn: str, ctx: RunCtx
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (b, s, e) plus the layer's FFN, and its aux loss (the MoE router's
     load balancing; zero for a dense FFN or none)."""
@@ -126,8 +132,9 @@ def _ffn_full(params: dict, x: torch.Tensor, cfg: ArchConfig, ffn: str
         return x, zero
     h = common.rms_norm(x, params["ln2"], cfg.norm_eps)
     if ffn == "dense":
-        return x + mlp_mod.dense_mlp(params["mlp"], h), zero
-    y, aux = mlp_mod.moe_ffn(params["moe"], h, cfg, with_aux=True)
+        return x + mlp_mod.dense_mlp(params["mlp"], h, ctx.mesh), zero
+    y, aux = mlp_mod.moe_ffn(params["moe"], h, cfg, with_aux=True, mesh=ctx.mesh,
+                             data_axes=ctx.data_axes)
     return x + y, aux
 
 
@@ -138,21 +145,23 @@ def apply_layer_full(params: dict, x: torch.Tensor, cfg: ArchConfig, mixer: str,
     or the serving prefill).  Returns (x, cache element | None, aux loss),
     the aux loss f32 as the reference's.  `layer`: the absolute layer index,
     for the precision map.  An SSM layer's element is its final state: no
-    compression, no saliency."""
+    compression, no saliency.  On a mesh the layer's weights are gathered
+    here (`parallel.gather_tree`)."""
+    params = parallel.gather_tree(params, ctx.mesh)
     h = common.rms_norm(x, params["ln1"], cfg.norm_eps)
     if mixer == "ssm":
         y, state = ssm_mod.ssm_forward(params["ssm"], h, cfg)
-        x, aux_loss = _ffn_full(params, x + y, cfg, ffn)
+        x, aux_loss = _ffn_full(params, x + y, cfg, ffn, ctx)
         return x, state if build_cache else None, aux_loss
     fwd = attn.gqa_forward if mixer == "attn" else attn.mla_forward
     y, aux = fwd(params["attn"], h, cfg, probe=ctx.probe, q_block=ctx.q_block,
-                 use_kernel=ctx.use_kernels, compact=ctx.compact_softmax)
+                 use_kernel=ctx.use_kernels, compact=ctx.compact_softmax, mesh=ctx.mesh)
     cache_el = None
     if build_cache:
         cache_el = ctx.backend.compress_prefill(
             aux.k, aux.v, aux.saliency, ctx.max_cache_len, probe_nnz=aux.probe_nnz,
             dtype=x.dtype, eff=ctx.layer_eff(layer, aux.k.shape[1], device=aux.k.device))
-    x, aux_loss = _ffn_full(params, x + y, cfg, ffn)
+    x, aux_loss = _ffn_full(params, x + y, cfg, ffn, ctx)
     return x, cache_el, aux_loss
 
 

@@ -13,21 +13,42 @@ import torch.nn.functional as F
 
 from repro_torch import tree as tree_lib
 from repro_torch.core.quant import true_div
+from repro_torch.models import parallel
 
 
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
+    """A parameter leaf: its shape, the logical axis name of each dim (the
+    names `launch.sharding`'s rules map onto mesh axes), its init and dtype.
+    split: on a mesh the layer that takes the leaf computes with this
+    rank's block of its `model` dim (heads, MLP width, vocabulary, experts)
+    where the rules split one; otherwise the leaf is gathered whole
+    (`models.parallel`)."""
     shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
     init: str = "normal"        # normal | zeros | ones | embed | small
     scale: float = 1.0
     dtype: torch.dtype = torch.bfloat16
+    split: bool = False
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
 
 
-def stack_schema(schema, n: int):
-    """Add a leading stacked (layer) dimension to every leaf."""
+def computed_split(schema, split: bool = True):
+    """The schema with every leaf's `split` set (a layer that computes its
+    `model` blocks on its own), or cleared."""
     if isinstance(schema, ParamDef):
-        return dataclasses.replace(schema, shape=(n, *schema.shape))
-    return {k: stack_schema(v, n) for k, v in schema.items()}
+        return dataclasses.replace(schema, split=split)
+    return {k: computed_split(v, split) for k, v in schema.items()}
+
+
+def stack_schema(schema, n: int, axis_name: str = "layers"):
+    """Add a leading stacked (layer) dimension, named `axis_name`, to every leaf."""
+    if isinstance(schema, ParamDef):
+        return dataclasses.replace(schema, shape=(n, *schema.shape),
+                                   axes=(axis_name, *schema.axes))
+    return {k: stack_schema(v, n, axis_name) for k, v in schema.items()}
 
 
 _CHUNK = 1 << 26  # elements drawn per f32 chunk, to bound the init's transient memory
@@ -142,10 +163,21 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return F.embedding(idx.long(), table)
 
 
-def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, mesh=None) -> torch.Tensor:
     """Row gather; equal to the reference's one-hot matmul bit for bit, its
-    gradient too (`gather_rows`)."""
-    return gather_rows(table, tokens)
+    gradient too (`gather_rows`).  A table split over the mesh's `model`
+    axis (`parallel.is_split`) holds a slice of the vocabulary: each rank
+    looks up the tokens in its slice, zeros for the rest, and the ranks'
+    rows are summed (one nonzero term each: exact)."""
+    if not parallel.is_split(table):
+        return gather_rows(table, tokens)
+    off = parallel.coord("model", mesh) * table.shape[0]
+    local = tokens.long() - off
+    mine = (local >= 0) & (local < table.shape[0])
+    rows = gather_rows(table, torch.where(mine, local, 0))
+    rows = torch.where(mine[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                          device=rows.device))
+    return parallel.reduce_out(rows, mesh)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -222,14 +254,43 @@ def layer_slice(tree, i: int):
     return {k: layer_slice(v, i) for k, v in tree.items()}
 
 
+def _vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor, offset: int, mesh):
+    """The nll of f32 logits that hold vocabulary columns [offset, offset +
+    width) of every model rank's slice: the max and the sum of exponentials
+    reduced over `model`, the gold logit taken by the rank that holds it."""
+    from repro_torch.models.parallel import ReduceOp
+    m = parallel.all_reduce(logits.detach().amax(dim=-1), mesh, "model", op=ReduceOp.MAX)
+    sumexp = parallel.reduce_out(torch.exp(logits - m[..., None]).sum(dim=-1), mesh)
+    local = labels.long() - offset
+    mine = (local >= 0) & (local < logits.shape[-1])
+    gold = torch.gather(logits, -1, torch.where(mine, local, 0)[..., None])[..., 0]
+    gold = parallel.reduce_out(torch.where(mine, gold, torch.zeros((), device=gold.device)),
+                               mesh)
+    return m + torch.log(sumexp) - gold
+
+
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
-                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       mask: Optional[torch.Tensor] = None,
+                       vocab_offset: Optional[int] = None, mesh=None,
+                       data_axes=("data",)) -> torch.Tensor:
     """Mean next-token CE over the valid positions: the f32 logsumexp minus
-    the gold logit.  logits (..., vocab) in any float dtype."""
+    the gold logit.  logits (..., vocab) in any float dtype.
+
+    On a mesh (`mesh`, its `data_axes`): `vocab_offset` marks logits that hold one
+    model rank's slice of the vocabulary, starting there; and a rank that
+    holds some of the batch's rows returns its share of the global mean,
+    its rows' sum over the whole batch's count (summed over the data axes),
+    so the ranks' shares add up to the loss."""
     logits = logits.float()
-    nll = torch.logsumexp(logits, dim=-1) - torch.gather(
-        logits, -1, labels.long()[..., None])[..., 0]
+    if vocab_offset is None:
+        nll = torch.logsumexp(logits, dim=-1) - torch.gather(
+            logits, -1, labels.long()[..., None])[..., 0]
+    else:
+        nll = _vocab_parallel_nll(logits, labels, vocab_offset, mesh)
+    dp = parallel.data_size(mesh, data_axes)
     if mask is not None:
         m = mask.float()
-        return (nll * m).sum() / m.sum().clamp_min(1.0)
-    return true_div(nll.sum(), nll.numel())
+        count = m.sum() if dp == 1 else parallel.sum_over_data(m.sum().detach(), mesh,
+                                                                data_axes)
+        return (nll * m).sum() / count.clamp_min(1.0)
+    return true_div(nll.sum(), nll.numel() * dp)

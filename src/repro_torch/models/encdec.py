@@ -29,6 +29,11 @@ Caches are {"prefix": [], "groups": [{"self": element, "cross": element}
 per decoder layer]}: the decoder-only tree's shape, so every walk over a
 cache tree (`registry.cache_elements` / `map_caches`, `backend.cache_bytes`,
 the captured step's `adopt`) takes both elements of every layer.
+
+On a mesh (`models.parallel`) the encoder's self-attention, the decoder's
+self-attention and both MLPs split over `model` like the decoder-only
+layers; the cross-attention and the frame projection gather their `model`
+blocks on use and compute whole on every model rank (ROADMAP.md §3).
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
-from repro_torch.models import blocks, common, lm
+from repro_torch.models import blocks, common, lm, parallel
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import ParamDef
 
@@ -48,9 +53,9 @@ from repro_torch.models.common import ParamDef
 def enc_layer_schema(cfg: ArchConfig) -> dict:
     e = cfg.d_model
     return {
-        "ln1": ParamDef((e,), init="ones"),
+        "ln1": ParamDef((e,), ("embed",), init="ones"),
         "attn": attn.gqa_schema(cfg),
-        "ln2": ParamDef((e,), init="ones"),
+        "ln2": ParamDef((e,), ("embed",), init="ones"),
         "mlp": mlp_mod.dense_mlp_schema(cfg),
     }
 
@@ -58,11 +63,11 @@ def enc_layer_schema(cfg: ArchConfig) -> dict:
 def dec_layer_schema(cfg: ArchConfig) -> dict:
     e = cfg.d_model
     return {
-        "ln1": ParamDef((e,), init="ones"),
+        "ln1": ParamDef((e,), ("embed",), init="ones"),
         "self_attn": attn.gqa_schema(cfg),
-        "ln_x": ParamDef((e,), init="ones"),
-        "cross_attn": attn.gqa_schema(cfg),
-        "ln2": ParamDef((e,), init="ones"),
+        "ln_x": ParamDef((e,), ("embed",), init="ones"),
+        "cross_attn": common.computed_split(attn.gqa_schema(cfg), False),   # gathered whole
+        "ln2": ParamDef((e,), ("embed",), init="ones"),
         "mlp": mlp_mod.dense_mlp_schema(cfg),
     }
 
@@ -70,13 +75,13 @@ def dec_layer_schema(cfg: ArchConfig) -> dict:
 def encdec_schema(cfg: ArchConfig) -> dict:
     e, v = cfg.d_model, lm.padded_vocab(cfg)
     return {
-        "embed": ParamDef((v, e), init="embed"),
-        "audio_proj": ParamDef((e, e)),
+        "embed": ParamDef((v, e), ("vocab", "embed"), init="embed", split=True),
+        "audio_proj": ParamDef((e, e), ("embed", "embed_out")),
         "enc_layers": common.stack_schema(enc_layer_schema(cfg), cfg.n_enc_layers),
-        "enc_norm": ParamDef((e,), init="ones"),
+        "enc_norm": ParamDef((e,), ("embed",), init="ones"),
         "dec_layers": common.stack_schema(dec_layer_schema(cfg), cfg.n_layers),
-        "final_norm": ParamDef((e,), init="ones"),
-        "lm_head": ParamDef((e, v)),
+        "final_norm": ParamDef((e,), ("embed",), init="ones"),
+        "lm_head": ParamDef((e, v), ("embed", "vocab"), split=True),
     }
 
 
@@ -91,13 +96,15 @@ def encode(params: dict, src_embeds: torch.Tensor, cfg: ArchConfig,
     remat: under autograd each layer runs under `torch.utils.checkpoint`,
     as the reference's `jax.checkpoint(layer)`."""
     q_block = ctx.q_block if ctx is not None else 512
+    mesh = ctx.mesh if ctx is not None else None
     x = common.einsum("ble,ef->blf", src_embeds, params["audio_proj"])
 
     def layer(x, p):
+        p = parallel.gather_tree(p, mesh)
         h = common.rms_norm(x, p["ln1"], cfg.norm_eps)
-        y, _ = attn.gqa_forward(p["attn"], h, cfg, causal=False, q_block=q_block)
+        y, _ = attn.gqa_forward(p["attn"], h, cfg, causal=False, q_block=q_block, mesh=mesh)
         x = x + y
-        return x + mlp_mod.dense_mlp(p["mlp"], common.rms_norm(x, p["ln2"], cfg.norm_eps))
+        return x + mlp_mod.dense_mlp(p["mlp"], common.rms_norm(x, p["ln2"], cfg.norm_eps), mesh)
 
     use_ckpt = remat and torch.is_grad_enabled()
     for p in lm.stacked_slices(params["enc_layers"], cfg.n_enc_layers):
@@ -114,16 +121,17 @@ def _dec_layer_full(p: dict, x: torch.Tensor, enc_out: torch.Tensor, cfg: ArchCo
     """One decoder layer over the prompt.  Returns (x, {"self": cache,
     "cross": cache} | None); with build_cache, both caches are compressed,
     the cross cache over the whole source (its probe is the context's)."""
+    p = parallel.gather_tree(p, ctx.mesh)
     h = common.rms_norm(x, p["ln1"], cfg.norm_eps)
     y, aux_self = attn.gqa_forward(p["self_attn"], h, cfg, causal=True, probe=ctx.probe,
-                                   q_block=ctx.q_block, use_kernel=ctx.use_kernels)
+                                   q_block=ctx.q_block, use_kernel=ctx.use_kernels, mesh=ctx.mesh)
     x = x + y
     hx = common.rms_norm(x, p["ln_x"], cfg.norm_eps)
     cross_probe = ctx.probe if build_cache else None
     yx, aux_cross = attn.gqa_forward(p["cross_attn"], hx, cfg, causal=False, kv_x=enc_out,
                                      probe=cross_probe, q_block=ctx.q_block)
     x = x + yx
-    x = x + mlp_mod.dense_mlp(p["mlp"], common.rms_norm(x, p["ln2"], cfg.norm_eps))
+    x = x + mlp_mod.dense_mlp(p["mlp"], common.rms_norm(x, p["ln2"], cfg.norm_eps), ctx.mesh)
     if not build_cache:
         return x, None
     be = ctx.backend
@@ -150,8 +158,9 @@ def forward(params: dict, src_embeds: torch.Tensor, tokens: torch.Tensor, cfg: A
     only each layer's input is kept.  It does not change a bit of the loss
     or the gradients."""
     ctx = ctx or blocks.RunCtx()
+    params = lm.top_level(params, ctx.mesh)
     enc_out = encode(params, src_embeds, cfg, ctx, remat=remat)
-    x = common.embed_lookup(params["embed"], tokens)
+    x = common.embed_lookup(params["embed"], tokens, ctx.mesh)
 
     def layer(x, p):
         return _dec_layer_full(p, x, enc_out, cfg, ctx, build_cache)
@@ -162,8 +171,8 @@ def forward(params: dict, src_embeds: torch.Tensor, tokens: torch.Tensor, cfg: A
         x, el = checkpoint(layer, x, p, use_reentrant=False) if use_ckpt else layer(x, p)
         groups.append(el)
     if not build_cache:
-        return lm.unembed(params, cfg, x), None
-    return lm.unembed(params, cfg, x[:, -1:]), {"prefix": [], "groups": groups}
+        return lm.unembed(params, cfg, x, ctx.mesh), None
+    return lm.unembed(params, cfg, x[:, -1:], ctx.mesh), {"prefix": [], "groups": groups}
 
 
 def loss_fn(params: dict, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
@@ -171,8 +180,11 @@ def loss_fn(params: dict, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
     """Next-token CE over every decoder position (batch: frontend_embeds, the
     source frames (b, l_src, e); tokens, labels (b, l); optional mask) and
     a zero aux loss, as the reference's."""
+    ctx = ctx or blocks.RunCtx()
     logits, _ = forward(params, batch["frontend_embeds"], batch["tokens"], cfg, ctx)
-    ce = common.cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
+    ce = common.cross_entropy_loss(logits, batch["labels"], batch.get("mask"),
+                                   vocab_offset=lm.vocab_offset(cfg, logits.shape[-1], ctx.mesh),
+                                   mesh=ctx.mesh, data_axes=ctx.data_axes)
     return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32, device=ce.device)}
 
 

@@ -13,6 +13,12 @@ eight).  The absolute layer of group g's sub-layer j is first_dense_layers
 frontend arch (llava's vision stub) adds `vision_proj` or `audio_proj`,
 and its prefill prepends the projected frontend embeddings to the text
 (`embed_inputs`).
+
+On a mesh (`models.parallel`) the forward gathers each layer's weights as
+the layer starts (again in its recomputation) and the top-level leaves once;
+the logits are this model rank's slice of the vocabulary where the
+vocabulary splits, and `loss_fn` takes a cross entropy reduced over the
+slices.  The frontend projection is gathered whole.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import tree as tree_lib
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import precision as precision_lib
-from repro_torch.models import blocks, common
+from repro_torch.models import blocks, common, parallel
 from repro_torch.models.common import ParamDef
 
 
@@ -37,28 +43,28 @@ def padded_vocab(cfg: ArchConfig) -> int:
 def lm_schema(cfg: ArchConfig) -> dict:
     e, v = cfg.d_model, padded_vocab(cfg)
     s: Dict[str, Any] = {
-        "embed": ParamDef((v, e), init="embed"),
-        "final_norm": ParamDef((e,), init="ones"),
+        "embed": ParamDef((v, e), ("vocab", "embed"), init="embed", split=True),
+        "final_norm": ParamDef((e,), ("embed",), init="ones"),
     }
     if not cfg.tie_embeddings:
-        s["lm_head"] = ParamDef((e, v))
+        s["lm_head"] = ParamDef((e, v), ("embed", "vocab"), split=True)
     if cfg.first_dense_layers:
         s["prefix"] = {f"layer{i}": blocks.layer_schema(cfg, m, f)
                        for i, (m, f) in enumerate(cfg.prefix_kinds())}
     s["groups"] = common.stack_schema(blocks.group_schema(cfg), cfg.n_scan_groups)
     if cfg.frontend == "vision":
-        s["vision_proj"] = ParamDef((e, e))
+        s["vision_proj"] = ParamDef((e, e), ("embed", "embed_out"))
     elif cfg.frontend == "audio":
-        s["audio_proj"] = ParamDef((e, e))
+        s["audio_proj"] = ParamDef((e, e), ("embed", "embed_out"))
     return s
 
 
 def embed_inputs(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
-                 frontend_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 frontend_embeds: Optional[torch.Tensor] = None, mesh=None) -> torch.Tensor:
     """tokens (b, l_text) [+ frontend embeddings (b, l_front, e)] -> (b, l, e):
     the embeddings, cast to the token embeddings' dtype and projected
     (`vision_proj` or `audio_proj`), go before the text."""
-    x = common.embed_lookup(params["embed"], tokens)
+    x = common.embed_lookup(params["embed"], tokens, mesh)
     if frontend_embeds is None:
         return x
     proj = params["vision_proj"] if "vision_proj" in params else params["audio_proj"]
@@ -109,13 +115,40 @@ def mask_padded_vocab(logits: torch.Tensor, vocab: int) -> torch.Tensor:
     return logits.masked_fill(pad, -1e30)
 
 
-def unembed(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+def unembed(params: dict, cfg: ArchConfig, x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The logits; on a mesh whose `model` axis splits the vocabulary, this
+    rank's slice of them (`vocab_offset` says where it starts)."""
     x = common.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    w = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    dt, split = x.dtype, parallel.is_split(w)
+    if split:
+        x = parallel.enter(x, mesh)
     if cfg.tie_embeddings:
-        logits = common.matmul(x, params["embed"].T)
+        logits = common.matmul(x, w.T).to(dt)
     else:
-        logits = common.einsum("...e,ev->...v", x, params["lm_head"])
+        logits = common.einsum("...e,ev->...v", x, w).to(dt)
+    if split:
+        off = vocab_offset(cfg, logits.shape[-1], mesh)
+        pad = torch.arange(off, off + logits.shape[-1], device=logits.device) >= cfg.vocab
+        return logits.masked_fill(pad, -1e30)
     return mask_padded_vocab(logits, cfg.vocab)
+
+
+def vocab_offset(cfg: ArchConfig, width: int, mesh=None) -> Optional[int]:
+    """Where a logits slice `width` columns wide starts in the vocabulary:
+    None for the whole vocabulary, else this model rank's slice."""
+    if width == padded_vocab(cfg):
+        return None
+    return parallel.coord("model", mesh) * width
+
+
+def top_level(params: dict, mesh,
+              stacked=("prefix", "groups", "enc_layers", "dec_layers")) -> dict:
+    """The parameters with every top-level leaf gathered for use on a mesh
+    (the layer trees are gathered layer by layer as each runs)."""
+    if mesh is None:
+        return params
+    return {k: (v if k in stacked else parallel.gather_tree(v, mesh)) for k, v in params.items()}
 
 
 class ForwardOut(NamedTuple):
@@ -128,7 +161,7 @@ def stacked_slices(stacked: dict, n: int) -> list:
     """Weights stacked on a leading layer (or group) axis as n per-layer
     trees of views.  One `unbind` per leaf: its backward stacks the n
     layers' gradients in one op."""
-    per_leaf = [t.unbind(0) for t in tree_lib.leaves(stacked)]
+    per_leaf = [parallel.unbind(t) for t in tree_lib.leaves(stacked)]
     return [tree_lib.unflatten(stacked, [u[g] for u in per_leaf]) for g in range(n)]
 
 
@@ -146,7 +179,8 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     `jax.checkpoint(group_fn, policy=nothing_saveable)`: only each group's
     input is kept.  It does not change a bit of the loss or the gradients."""
     ctx = ctx or blocks.RunCtx()
-    x = embed_inputs(params, cfg, tokens, frontend_embeds)
+    params = top_level(params, ctx.mesh)
+    x = embed_inputs(params, cfg, tokens, frontend_embeds, ctx.mesh)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     els = []
     for i, (m, f) in enumerate(cfg.prefix_kinds()):
@@ -163,7 +197,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
         aux_total = aux_total + aux
         els.extend(group_els)
 
-    logits = unembed(params, cfg, x[:, -1:] if last_only else x)
+    logits = unembed(params, cfg, x[:, -1:] if last_only else x, ctx.mesh)
     return ForwardOut(logits, aux_total, _cache_tree(cfg, els) if build_cache else None)
 
 
@@ -171,10 +205,13 @@ def loss_fn(params: dict, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
             ctx: Optional[blocks.RunCtx] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token CE (+ the aux loss).  batch: tokens (b, l), labels (b, l),
     optional mask; a frontend arch's labels cover the text only."""
+    ctx = ctx or blocks.RunCtx()
     out = forward(params, batch["tokens"], cfg, ctx,
                   frontend_embeds=batch.get("frontend_embeds"))
     lf = out.logits[:, -batch["labels"].shape[1]:]  # frontend tokens carry no labels
-    ce = common.cross_entropy_loss(lf, batch["labels"], batch.get("mask"))
+    ce = common.cross_entropy_loss(lf, batch["labels"], batch.get("mask"),
+                                   vocab_offset=vocab_offset(cfg, lf.shape[-1], ctx.mesh),
+                                   mesh=ctx.mesh, data_axes=ctx.data_axes)
     return ce + out.aux_loss, {"ce": ce, "aux": out.aux_loss}
 
 

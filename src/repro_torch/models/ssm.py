@@ -56,22 +56,22 @@ def group_dim(cfg: ArchConfig) -> int:
 def ssm_schema(cfg: ArchConfig) -> dict:
     e, di, h, gd, dc = cfg.d_model, d_inner(cfg), n_ssm_heads(cfg), group_dim(cfg), cfg.ssm_d_conv
     return {
-        "w_z": ParamDef((e, di)),
-        "w_x": ParamDef((e, di)),
-        "w_B": ParamDef((e, gd)),
-        "w_C": ParamDef((e, gd)),
-        "w_dt": ParamDef((e, h)),
-        "conv_x_w": ParamDef((dc, di), init="small"),
-        "conv_x_b": ParamDef((di,), init="zeros"),
-        "conv_B_w": ParamDef((dc, gd), init="small"),
-        "conv_B_b": ParamDef((gd,), init="zeros"),
-        "conv_C_w": ParamDef((dc, gd), init="small"),
-        "conv_C_b": ParamDef((gd,), init="zeros"),
-        "A_log": ParamDef((h,), init="zeros"),     # A = -exp(A_log) = -1
-        "D": ParamDef((h,), init="ones"),
-        "dt_bias": ParamDef((h,), init="zeros"),
-        "norm_w": ParamDef((di,), init="ones"),
-        "out_proj": ParamDef((di, e)),
+        "w_z": ParamDef((e, di), ("embed", "ssm_inner")),
+        "w_x": ParamDef((e, di), ("embed", "ssm_inner")),
+        "w_B": ParamDef((e, gd), ("embed", "ssm_state_in")),
+        "w_C": ParamDef((e, gd), ("embed", "ssm_state_in")),
+        "w_dt": ParamDef((e, h), ("embed", "ssm_heads")),
+        "conv_x_w": ParamDef((dc, di), ("conv", "ssm_inner"), init="small"),
+        "conv_x_b": ParamDef((di,), ("ssm_inner",), init="zeros"),
+        "conv_B_w": ParamDef((dc, gd), ("conv", "ssm_state_in"), init="small"),
+        "conv_B_b": ParamDef((gd,), ("ssm_state_in",), init="zeros"),
+        "conv_C_w": ParamDef((dc, gd), ("conv", "ssm_state_in"), init="small"),
+        "conv_C_b": ParamDef((gd,), ("ssm_state_in",), init="zeros"),
+        "A_log": ParamDef((h,), ("ssm_heads",), init="zeros"),     # A = -exp(A_log) = -1
+        "D": ParamDef((h,), ("ssm_heads",), init="ones"),
+        "dt_bias": ParamDef((h,), ("ssm_heads",), init="zeros"),
+        "norm_w": ParamDef((di,), ("ssm_inner",), init="ones"),
+        "out_proj": ParamDef((di, e), ("ssm_inner", "embed")),
     }
 
 

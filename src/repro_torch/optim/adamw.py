@@ -65,7 +65,9 @@ _CHUNK = 1 << 24   # elements of a leaf updated at once
 
 
 def adamw_update(cfg: AdamWConfig, grads, state: AdamWState, params,
-                 param_dtype=torch.bfloat16) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
+                 param_dtype=torch.bfloat16, *, norm_fn: Callable = None,
+                 put: Optional[Callable] = None
+                 ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
     """Returns (new params in `param_dtype`, new state, metrics); both trees
     are the given ones, updated in place.
 
@@ -76,9 +78,15 @@ def adamw_update(cfg: AdamWConfig, grads, state: AdamWState, params,
     temporaries of a chunk stay near 1.3 GB whatever the leaf's shape (a
     whole stacked leaf, mamba2's w_x at 64 x 2560 x 5120, would take ~25 GB).
     Master, m and v must be contiguous, as `adamw_init` and a restore make
-    them."""
+    them.
+
+    On a mesh (`launch.steps`) the grads, master, m and v are this rank's
+    ZeRO-1 blocks and the params its parameter blocks: `norm_fn(grads)`
+    gives the global norm over every rank's blocks, and `put(i, p, p32,
+    param_dtype)` makes leaf i's new parameter block from its new master
+    block."""
     count = state.count + 1
-    gnorm = global_norm(grads)
+    gnorm = (norm_fn or global_norm)(grads)
     clip = (torch.clamp_max(_scalar(cfg.grad_clip, gnorm) / gnorm.clamp_min(1e-9), 1.0)
             if cfg.grad_clip else 1.0)
     lr = _scalar(cfg.lr, gnorm)
@@ -98,13 +106,16 @@ def adamw_update(cfg: AdamWConfig, grads, state: AdamWState, params,
         return p32 - lr * step, m, v
 
     out = []
-    for p, g, p32, m, v in zip(*(tree_lib.leaves(t) for t in (params, grads, state.master,
-                                                              state.m, state.v))):
+    for i, (p, g, p32, m, v) in enumerate(zip(*(tree_lib.leaves(t) for t in (
+            params, grads, state.master, state.m, state.v)))):
         chunks = zip(*(t.view(-1).split(_CHUNK) for t in (p32, m, v)),
                      g.reshape(-1).split(_CHUNK))
         for p32_c, m_c, v_c, g_c in chunks:
             for old, new in zip((p32_c, m_c, v_c), upd(g_c, p32_c, m_c, v_c)):
                 old.copy_(new)
-        out.append(p.copy_(p32) if p.dtype == param_dtype else p32.to(param_dtype))
+        if put is not None:
+            out.append(put(i, p, p32, param_dtype))
+        else:
+            out.append(p.copy_(p32) if p.dtype == param_dtype else p32.to(param_dtype))
     return (tree_lib.unflatten(params, out), AdamWState(state.master, state.m, state.v, count),
             {"grad_norm": gnorm, "lr": lr})

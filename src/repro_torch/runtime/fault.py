@@ -63,13 +63,15 @@ class FaultTolerantLoop:
         self.fail_at_step = fail_at_step
         self.guard = preemption_guard
 
-    def resume_or(self, init_state: Any):
+    def resume_or(self, init_state: Any, specs=None, mesh=None):
         """(state, start_step, data_state) from the latest checkpoint, else
-        init; restored leaves take the dtype and device of init_state's."""
+        init; restored leaves take the dtype and device of init_state's.
+        On a mesh (`specs` and `mesh`, or the checkpointer's) each rank
+        restores its blocks of the saved leaves."""
         latest = self.ckpt.latest()
         if latest is None:
             return init_state, 0, None
-        state, meta = self.ckpt.restore(latest, init_state)
+        state, meta = self.ckpt.restore(latest, init_state, specs=specs, mesh=mesh)
         return state, int(meta.get("step", latest)), meta.get("data_state")
 
     def run(self, state: Any, data_iter, start_step: int = 0,

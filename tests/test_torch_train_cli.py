@@ -106,9 +106,12 @@ def test_cli_resumes_at_the_saved_step(ref, port_run, tmp_path, monkeypatch, cap
     assert [m for _, m in resumed] == [m for _, m in port_run[10:]]
 
 
-def test_cli_refuses_a_mesh(tmp_path):
+def test_cli_refuses_a_mesh(tmp_path, monkeypatch):
+    """A mesh whose size is not the world size: the CLI raises, naming both
+    (`tests/test_torch_mesh_elastic.py` trains on one under torchrun)."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     base = ["--smoke", "--device", "cpu", "--checkpoint-dir", str(tmp_path)]
-    with pytest.raises(ValueError, match="ROADMAP item 15c"):
+    with pytest.raises(ValueError, match="needs 2 processes, but WORLD_SIZE is 1"):
         train.main(["--arch", "smollm-360m", "--mesh", "2x1"] + base)
 
 

@@ -127,7 +127,19 @@ def test_pick_grad_accum_matches_reference(arch):
 
 
 def test_pick_grad_accum_refuses_a_mesh():
-    cfg = configs.get_arch("smollm-360m")
+    """The mesh form (the name is the one-card port's, which refused a
+    mesh): over the data axes of a mesh it equals the reference's, pod
+    counted as data, and smollm-360m at 8 sequences takes 4 microbatches
+    without a mesh."""
+    class Mesh:
+        def __init__(self, shape, axes):
+            self.axis_names, self.shape = axes, dict(zip(axes, shape))
+
+    cfg, jcfg = configs.get_arch("smollm-360m"), jconfigs.get_arch("smollm-360m")
     assert steps.pick_grad_accum(cfg, ShapeConfig("t", 2048, 8, "train")) == 4
-    with pytest.raises(ValueError, match="ROADMAP item 15c"):
-        steps.pick_grad_accum(cfg, ShapeConfig("t", 2048, 8, "train"), mesh=object())
+    for mesh in (Mesh((2, 1), ("data", "model")), Mesh((4, 2), ("data", "model")),
+                 Mesh((2, 2, 2), ("pod", "data", "model"))):
+        for batch in (4, 8, 16, 48):
+            want = jsteps.pick_grad_accum(jcfg, JShapeConfig("t", 2048, batch, "train"), mesh)
+            assert steps.pick_grad_accum(cfg, ShapeConfig("t", 2048, batch, "train"),
+                                         mesh) == want, (mesh.shape, batch)
