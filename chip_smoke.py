@@ -333,6 +333,17 @@ continued:
      run with the eff table; the allocator's invariants after every step,
      every page and the host pool's bytes back.  Each model's part logs its
      seconds as `phase 4p/<model>`, their sum at the end;
+  4q. slice 19: training on a 1 x 1 mesh over NCCL, bitwise the plain step
+     (`mesh_training`);
+  4r. slice 20: serving on a 1 x 1 ("data", "model") mesh over NCCL
+     (`serving_mesh`): yi-6b over phase 4i's 4 layers at full width on
+     both engines (mixed layout), tokens, cache leaves and every step's
+     logits bitwise the no-mesh runs' and the mesh's eager runs'; then each
+     kernel's share of a split on the one card: decode_qattn on each half
+     of the kv heads bitwise the whole launch, on each half of the slots
+     with its (acc, m, l) output merged in rank order within phase 3's
+     bound (the output's row `decode_qattn.stats`), flash_fwd and
+     probe_colsum on each half of the heads;
   5. a `kernels` JSON line, then the last line:
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -1251,6 +1262,10 @@ def main() -> None:
     lap("4o")
     # ---- 4q. slice 19: training on a mesh at world size 1 -------------------
     by_path["train_mesh"] = mesh_training(torch, np, dev, kernels, card)
+    lap("4q")
+    # ---- 4r. slice 20: serving on a mesh at world size 1 --------------------
+    by_path["serve_mesh"] = serving_mesh(torch, np, dev, kernels, card, rows)
+    lap("4r")
     rows["cst_quant"]["eff"]["launches"] = sum(
         p["cst_quant"] for name, p in by_path.items() if name.startswith("levers"))
     # phase 4p's launches at the new shapes: cst_quant's eff instantiation
@@ -1280,7 +1295,6 @@ def main() -> None:
         f"kernels as launches and its device ms within its event ms; {len(retried)} taken "
         "again: " + ("; ".join(f"{r[0]} ({r[1]} attempts)" for r in retried) or "none"))
 
-    lap("4q")
     # ---- 5. the kernels and the contract line ------------------------------
     log("kernels: " + ", ".join(f"{n} ok ({r['launches']} launches)" for n, r in rows.items()))
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
@@ -5296,6 +5310,246 @@ def mesh_training(torch, np, dev, kernels, card):
         if dist.is_initialized():
             dist.destroy_process_group()
     log(f"mesh_training: the phase took {time.perf_counter() - t_phase:.1f} s ({card})")
+    return launches
+
+
+# ---- 4r. slice 20: serving on a mesh at world size 1 -----------------------
+MESH_SERVE_LAYERS = BASELINE_LAYERS      # phase 4i's cut: 4 of yi-6b's 32 layers
+MESH_SERVE = (4, 512, 24)                # batch, prompt, new tokens: probe steps, a fold at 16
+
+
+def serving_mesh(torch, np, dev, kernels, card, rows):
+    """Phase 4r: serving on a 1 x 1 ("data", "model") mesh over NCCL (a
+    world of one process, its store in memory), and each kernel's share of
+    a split on the one card.
+
+    (i) yi-6b at full width over phase 4i's 4 layers, zipcache at fp_window
+    = recompress_interval = 16: the lockstep engine (4 prompts of 512
+    tokens, 24 new) and the continuous engine (the same 4 requests) on the
+    mixed layout, each without a mesh (captured), on the mesh captured and
+    on the mesh eagerly: the tokens, every cache leaf at the end and every
+    step's logits of the mesh's captured run bitwise its eager run's and
+    the no-mesh run's; the mesh runs' launches of cst_quant, flash_fwd,
+    probe_colsum and decode_qattn (the main path's counts).  (ii) At phase
+    3's yi-6b layer (batch 4, 1024 + 128 tokens, 32 / 4 heads, d 128):
+    `decode_qattn` launched on each half of the kv heads with the whole
+    layer's split plan, concatenated, bitwise the whole launch; launched on
+    each half of the slots with the statistics output (acc, m, l), merged in
+    rank order, within phase 3's bound of the whole launch, its (m, l)
+    those of the plain version; `flash_fwd` on each half of the heads
+    bitwise the whole launch, `probe_colsum`'s halves averaged within 1e-5
+    of its largest column sum.  Logs the seconds; returns the launch
+    counts of (i)'s mesh runs."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.core import kvcache as kvc
+    from repro_torch.core import saliency as sal
+    from repro_torch.core.policy import CompressionConfig
+    from repro_torch.kernels.decode_qattn import kernel as dq_kernel
+    from repro_torch.kernels.decode_qattn import ops as dq_ops
+    from repro_torch.kernels.decode_qattn import ref as dq_ref
+    from repro_torch.kernels.probe_flash import kernel as pf_kernel
+    from repro_torch.kernels.probe_flash import ops as pf_ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import registry
+    from repro_torch.serving import (ContinuousEngine, Request, ServeConfig, ServingEngine,
+                                     pack_requests)
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(not dist.is_initialized(), "serving_mesh: a process group is already up")
+    mesh = mesh_lib.make_mesh((1, 1), ("data", "model"), device_type="cuda")
+    check(dist.get_backend() == "nccl" and mesh.size == 1,
+          f"serving_mesh: backend {dist.get_backend()}, mesh {mesh.shape}")
+    launches = {n: 0 for n in kernels}
+    try:
+        # ---- (i) both engines on the mesh against no mesh ------------------
+        cfg = cut_depth(configs.get_arch("yi-6b"), MESH_SERVE_LAYERS)
+        ccfg = dataclasses.replace(CompressionConfig.zipcache(), fp_window=16,
+                                   recompress_interval=16)
+        params = registry.materialize_params(cfg, 0, device=dev)
+        b, prompt, max_new = MESH_SERVE
+        scfg = ServeConfig(batch_size=b, prompt_len=prompt, max_new_tokens=max_new)
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(2, cfg.vocab, (prompt,)).astype(np.int32) for _ in range(b)]
+        batch = {"tokens": pack_requests(prompts, b, prompt)}
+        for engine in ("lockstep", "continuous"):
+            runs = {}
+            for name, m, capture in (("no mesh", None, True), ("mesh", mesh, True),
+                                     ("mesh eager", mesh, False)):
+                t0 = time.perf_counter()
+                if engine == "lockstep":
+                    eng = ServingEngine(cfg, ccfg, scfg, params, device=dev, capture=capture,
+                                        mesh=m)
+                    rec = eng._decode = StepLogits(eng._decode)
+                else:
+                    eng = ContinuousEngine(cfg, ccfg, scfg, params, device=dev,
+                                           capture=capture, mesh=m)
+                    rec = eng._decode_masked = StepLogits(eng._decode_masked)
+                for kern in kernels.values():
+                    kern.launches = 0
+                dq_kernel.STATS.launches = 0
+                if engine == "lockstep":
+                    tokens = eng.generate(batch)["tokens"]
+                    caches = eng.last_caches
+                else:
+                    rids = [eng.submit(Request(tokens=p)) for p in prompts]
+                    eng.run()
+                    tokens = np.stack([eng.result(r).tokens for r in rids])
+                    caches = eng.caches
+                torch.cuda.synchronize()
+                got = {n: k.launches for n, k in kernels.items()}
+                got["decode_qattn.stats"] = dq_kernel.STATS.launches
+                if m is not None and capture:
+                    for n, c in got.items():
+                        launches[n] = launches.get(n, 0) + c
+                leaves = [t.clone() for el in registry.cache_elements(caches)
+                          for t in kvc.tree_leaves(el)]
+                runs[name] = dict(tokens=tokens, logits=rec.logits, leaves=leaves,
+                                  captures=rec.step.captures, replays=rec.step.replays,
+                                  launches=got, bytes=eng.cache_bytes(caches),
+                                  secs=time.perf_counter() - t0)
+                del eng, rec, caches
+            base, mine, eager = runs["no mesh"], runs["mesh"], runs["mesh eager"]
+            for name, other in (("no mesh", base), ("mesh eager", eager)):
+                check(np.array_equal(mine["tokens"], other["tokens"]),
+                      f"serving_mesh {engine}: the mesh's tokens differ from the {name} run's")
+                check(len(mine["leaves"]) == len(other["leaves"]) and all(
+                    a.dtype == w.dtype and torch.equal(a, w)
+                    for a, w in zip(mine["leaves"], other["leaves"])),
+                      f"serving_mesh {engine}: a cache leaf differs from the {name} run's")
+                check(len(mine["logits"]) == len(other["logits"]) and all(
+                    torch.equal(a, w) for a, w in zip(mine["logits"], other["logits"])),
+                      f"serving_mesh {engine}: a step's logits differ from the {name} run's")
+            for name, r in (("mesh", mine), ("mesh eager", eager)):
+                check(r["bytes"]["total_bytes"] == base["bytes"]["total_bytes"]
+                      == r["bytes"]["mesh_total_bytes"],
+                      f"serving_mesh {engine}: the {name} run's cache bytes {r['bytes']}, "
+                      f"{base['bytes']['total_bytes']} without a mesh")
+            check(mine["captures"] >= 1 and mine["replays"] > 0,
+                  f"serving_mesh {engine}: the mesh's captured step was built "
+                  f"{mine['captures']} times and replayed {mine['replays']} times")
+            # a 1 x 1 mesh splits no slots: the statistics launch is not on it
+            check(mine["launches"]["decode_qattn.stats"] == 0,
+                  f"serving_mesh {engine}: {mine['launches']['decode_qattn.stats']} statistics "
+                  "launches on a 1 x 1 mesh")
+            path = {n: c for n, c in mine["launches"].items()
+                    if n not in ("paged_qattn", "decode_qattn.stats")}
+            check(all(c > 0 for c in path.values()),
+                  f"serving_mesh {engine}: a kernel of the mixed path did not launch: {path}")
+            check(mine["launches"] == base["launches"],
+                  f"serving_mesh {engine}: launches {mine['launches']} on the mesh, "
+                  f"{base['launches']} without")
+            log(f"serving_mesh (i) {engine}: yi-6b over {MESH_SERVE_LAYERS} layers at full "
+                f"width, {b} x {prompt} tokens, {max_new} new, on a 1 x 1 mesh over NCCL: "
+                f"tokens, all {len(mine['leaves'])} cache leaves, the cache bytes "
+                f"({mine['bytes']['total_bytes']}, mesh total "
+                f"{mine['bytes']['mesh_total_bytes']}) and all "
+                f"{len(mine['logits'])} steps' logits bitwise the no-mesh run's and the "
+                f"mesh's eager run's; {mine['captures']} capture(s), {mine['replays']} "
+                f"replays; launches {path}; "
+                + ", ".join(f"{n} {r['secs']:.2f} s" for n, r in runs.items()) + f" ({card})")
+            del runs, base, mine, eager
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- (ii) each kernel's share of a split on one card ---------------
+        t2 = time.perf_counter()
+        ycfg = configs.get_arch("yi-6b")
+        zc = CompressionConfig.zipcache()
+        b, prompt, max_new = 4, 1024, 128
+        h, hk, d = ycfg.n_heads, ycfg.n_kv_heads, ycfg.hd
+        gen = torch.Generator(device=dev).manual_seed(20)
+        randn = lambda *sh: torch.randn(sh, generator=gen, device=dev).to(torch.bfloat16)  # noqa: E731
+        k, v = randn(b, hk, prompt, d), randn(b, hk, prompt, d)
+        cache = kvc.compress_prefill(zc, k, v, torch.rand((b, prompt), generator=gen, device=dev),
+                                     prompt + max_new, use_kernel=True)
+        for _ in range(40):
+            cache = kvc.append_token(cache, randn(b, hk, d), randn(b, hk, d))
+        segs = dq_ops.mixed_segments(cache)
+        q = randn(b, h, d)
+        whole = dq_kernel.qattn_mixed_layer(q, segs)
+        share = dq_ops.segment_share
+        heads = torch.cat([dq_kernel.qattn_mixed_layer(
+            q.chunk(2, 1)[i].contiguous(), [share(o, 1, i, 2) for o in segs], plan=b * hk)
+            for i in range(2)], dim=1)
+        check(torch.equal(heads, whole),
+              "serving_mesh (ii): decode_qattn on each half of the kv heads differs from the "
+              "whole launch")
+        dq_kernel.STATS.launches = 0
+        halves = [dq_kernel.qattn_mixed_layer(q, [share(o, 2, i, 2) for o in segs], stats=True)
+                  for i in range(2)]
+        check(dq_kernel.STATS.launches == 2,
+              f"serving_mesh (ii): two statistics launches counted {dq_kernel.STATS.launches}")
+        plain = [dq_ref.mixed_layer_ref(q, [share(o, 2, i, 2) for o in segs], stats=True)
+                 for i in range(2)]
+        merged = dq_ref.merge_segments_ref(halves).to(q.dtype)
+        err = (merged.float() - whole.float()).abs().max().item()
+        tol = 2 ** -7 * max(whole.float().abs().max().item(), 1.0)
+        check(err <= tol, f"serving_mesh (ii): decode_qattn's slot halves merged differ from the "
+                          f"whole launch by {err:.3g} (tolerance {tol:.3g})")
+        ml_err = max(((a - w).abs() / w.abs().clamp_min(1.0)).max().item()
+                     for got, want in zip(halves, plain) for a, w in zip(got[1:], want[1:]))
+        check(ml_err <= 1e-5, f"serving_mesh (ii): decode_qattn's (m, l) differ from the plain "
+                              f"version's by {ml_err:.3g} (tolerance 1e-5)")
+        half = [share(o, 2, 0, 2) for o in segs]
+        fn = lambda: dq_kernel.qattn_mixed_layer(q, half, stats=True)  # noqa: E731
+        moved, flops = nbytes(q), 0.0
+        for o in half:
+            n_live = int((o["pos"] >= 0).sum())
+            moved += hk * n_live * nbytes(o["k_codes"][0, 0, 0], o["v_codes"][0, 0, 0])
+            moved += nbytes(o["pos"]) + 4 * b * h * (d + 2)
+            flops += 4.0 * h * n_live * d
+        # timed with CUDA events only: torch.profiler loses kernels in bursts
+        # (PERF.md §7), so the row has no device reading.  launches: (i)'s
+        # mesh runs' count (a 1 x 1 mesh splits no slots)
+        rows["decode_qattn"]["stats"] = {
+            "max_abs_err": ml_err, "merged_err": err, "ms": time_ms(torch, fn, iters=50),
+            "plain_ms": time_ms(torch, lambda: dq_ref.mixed_layer_ref(q, half, stats=True)),
+            "bound_ms": bound_ms(flops, moved)[0], "launches": launches["decode_qattn.stats"]}
+        st = rows["decode_qattn"]["stats"]
+        log(f"serving_mesh (ii) decode_qattn: each half of the {hk} kv heads (plan {b * hk} rows x "
+            f"kv heads) bitwise the whole launch; each half of the slots with (acc, m, l), "
+            f"merged in rank order: max abs err {err:.3g} (tol {tol:.3g}), (m, l) within "
+            f"{ml_err:.3g} of the plain version's; one half's launch {st['ms']:.4f} ms, plain "
+            f"{st['plain_ms']:.4f} ms, bound {st['bound_ms']:.5f} ms ({card})")
+        qf, kf, vf = randn(b, h, prompt, d), randn(b, hk, prompt, d), randn(b, hk, prompt, d)
+        out, lse = pf_kernel.flash_fwd(qf, kf, vf, causal=True)
+        parts = [pf_kernel.flash_fwd(qf.chunk(2, 1)[i].contiguous(),
+                                     kf.chunk(2, 1)[i].contiguous(),
+                                     vf.chunk(2, 1)[i].contiguous(), causal=True)
+                 for i in range(2)]
+        check(torch.equal(torch.cat([p[0] for p in parts], 1), out)
+              and torch.equal(torch.cat([p[1] for p in parts], 1), lse),
+              "serving_mesh (ii): flash_fwd on each half of the heads differs from the whole "
+              "launch")
+        pos = pf_ops.unique_probe_rows(sal.select_probes(prompt, device=dev).positions)
+        safe = pos.clamp(0, prompt - 1).long()
+        pos_b = pos[None].expand(b, -1).contiguous()
+        col = pf_kernel.probe_colsum(qf[:, :, safe].contiguous(), lse[:, :, safe].contiguous(),
+                                     pos_b, kf, lq=prompt)
+        cols = [pf_kernel.probe_colsum(qf.chunk(2, 1)[i][:, :, safe].contiguous(),
+                                       parts[i][1][:, :, safe].contiguous(), pos_b,
+                                       kf.chunk(2, 1)[i].contiguous(), lq=prompt)
+                for i in range(2)]
+        cerr = ((cols[0] + cols[1]) / 2 - col).abs().max().item() / col.abs().max().item()
+        check(cerr <= 1e-5, f"serving_mesh (ii): probe_colsum's head halves averaged differ "
+                            f"from the whole launch by {cerr:.3g} of its largest (tol 1e-5)")
+        log(f"serving_mesh (ii) flash_fwd / probe_colsum: each half of the {h} heads bitwise the "
+            f"whole flash_fwd launch (out and LSE); probe_colsum's halves averaged within "
+            f"{cerr:.3g} of its largest column sum; (ii) {time.perf_counter() - t2:.1f} s")
+        del cache, segs, k, v, qf, kf, vf
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"serving_mesh: the phase took {time.perf_counter() - t_phase:.1f} s ({card})")
     return launches
 
 

@@ -84,6 +84,17 @@ class MixedKVBackend:
         directly (MLA's absorbed decode): the identity here."""
         return cache
 
+    def place(self, el):
+        """The block of an element computed whole that this backend holds:
+        the element itself off a mesh (`core.sharded.ShardedBackend` cuts
+        a rank's block)."""
+        return el
+
+    def whole(self, el):
+        """An element as computed whole (an SSM state's decode): the
+        element itself off a mesh."""
+        return el
+
     def nbytes(self, cache) -> Tuple[int, int]:
         packed = cache.nbytes_packed()
         return packed, cache.nbytes_total() - packed

@@ -381,6 +381,14 @@ def attend_decode(q: torch.Tensor, cache: MixedKVCache, scale: Optional[float] =
         return attend_decode_int8(q, cache, scale)
     if impl != "ref":
         raise ValueError(f"unknown decode impl {impl!r}; one of ('ref', 'int8_algebra')")
+    out, w = attend_exact(q, cache, scale)
+    return DecodeAttnOut(out, w.mean(dim=(1, 2)))
+
+
+def attend_exact(q: torch.Tensor, cache: MixedKVCache, scale: Optional[float] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`attend_decode`'s exact route before the head pooling: (out (b, h_q,
+    dv) in q's dtype, the softmax weights (b, h_kv, g, S) f32)."""
     k, v, valid, _ = cache_keys_values(cache)
     b, h_kv, _, d = k.shape
     h_q = q.shape[1]
@@ -390,7 +398,7 @@ def attend_decode(q: torch.Tensor, cache: MixedKVCache, scale: Optional[float] =
     logits = logits.masked_fill(~valid[:, None, None, :], NEG_INF)
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgs,bhsd->bhgd", w, v.float()).reshape(b, h_q, -1).to(q.dtype)
-    return DecodeAttnOut(out, w.mean(dim=(1, 2)))
+    return out, w
 
 
 def _int8_store(store: TokenStore) -> None:

@@ -582,6 +582,13 @@ class PagedKVBackend:
     def append(self, cache, k_t, v_t, active=None):
         return append_token(cache, k_t, v_t, active=active)
 
+    def place(self, el):
+        """The identity: the paged layout is served off a mesh only."""
+        return el
+
+    def whole(self, el):
+        return el
+
     def attend(self, q, cache, is_probe=False, impl: str = "ref") -> kvc.DecodeAttnOut:
         """The page walk where `kernel_supported` allows it, its slot
         weights on a probe step from the gather path; else the gather path.

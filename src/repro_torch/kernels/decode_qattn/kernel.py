@@ -31,6 +31,9 @@ LIB = build.CudaLibrary("decode_qattn")
 KERNEL = build.CudaKernel(LIB, "decode_qattn_launch", walk.ARGTYPES)
 TARGET_CTAS = 528      # four per SM of an H100, as paged_qattn's walk
 _PARAM_KEYS = ("k_scale", "k_zero", "v_cscale", "v_tscale", "v_tzero")
+# layer launches that returned the merged statistics (a slot split's
+# partials over a mesh) instead of the normalized output
+STATS = build.Counter()
 
 
 def _describe(q: torch.Tensor, seg: dict):
@@ -44,7 +47,7 @@ def _describe(q: torch.Tensor, seg: dict):
                          seg["k_bits"], seg["v_bits"], kc.shape[1])
 
 
-def _launch(q: torch.Tensor, segments: Sequence[dict], normalized: bool):
+def _launch(q: torch.Tensor, segments: Sequence[dict], normalized: bool, plan=None):
     if not segments:
         raise ValueError("decode_qattn: one to three segments")
     hk = segments[0]["k_codes"].shape[1]
@@ -52,10 +55,11 @@ def _launch(q: torch.Tensor, segments: Sequence[dict], normalized: bool):
         raise ValueError("decode_qattn: every segment has the same kv heads")
     descs, _operands = zip(*(_describe(q, s) for s in segments))  # alive through the launch
     return walk.launch(KERNEL, "decode_qattn", q, descs, hk, 1.0 / (q.shape[-1] ** 0.5),
-                       TARGET_CTAS, want_weights=False, normalized=normalized)
+                       TARGET_CTAS, want_weights=False, normalized=normalized, plan_bh=plan)
 
 
-def qattn_mixed_layer(q: torch.Tensor, segments: Sequence[dict]) -> torch.Tensor:
+def qattn_mixed_layer(q: torch.Tensor, segments: Sequence[dict], stats: bool = False,
+                      plan=None):
     """One-token attention over a decode layer's mixed-cache segments, one launch.
 
     q (b,h,d) | segments: one to three dicts in walk order (hi, lo,
@@ -65,12 +69,21 @@ def qattn_mixed_layer(q: torch.Tensor, segments: Sequence[dict]) -> torch.Tensor
     segment, in its store dtype (absent or None for a raw one); pos (b,S)
     int32 (< 0 = empty).  Scale d^-1/2.
 
-    Returns out (b,h,d) in q's dtype, normalized over every segment.  CPU
-    tensors take `ref.mixed_layer_ref`.
+    Returns out (b,h,d) in q's dtype, normalized over every segment; with
+    `stats`, the merged softmax statistics instead, (acc (b,h,d) f32
+    unnormalized, m (b,h), l (b,h)), which partials over other slots merge
+    with (a slot split over a mesh).  plan: the (rows x kv heads) the
+    walk's split plan is made for (default b * hk): a share of a layer's
+    heads launched with the whole layer's plan sums each head as the whole
+    launch does.  CPU tensors take `ref.mixed_layer_ref`.
     """
     if q.device.type == "cpu":
-        return ref.mixed_layer_ref(q, segments)
-    return _launch(q, segments, normalized=True)[0]
+        return ref.mixed_layer_ref(q, segments, stats=stats)
+    if stats:
+        acc, m, l, _, _ = _launch(q, segments, normalized=False, plan=plan)
+        STATS.launches += 1
+        return acc, m, l
+    return _launch(q, segments, normalized=True, plan=plan)[0]
 
 
 def qattn_segment(q, k_codes, k_scale, k_zero, v_codes, v_cscale, v_tscale, v_tzero, pos,

@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.kernels import qattn_walk as walk
 from repro_torch.kernels.decode_qattn import kernel as K
+from repro_torch.kernels.decode_qattn import ref
 
 
 def kernel_supported(cache) -> bool:
@@ -23,12 +24,14 @@ def kernel_supported(cache) -> bool:
     return all(walk.store_supported(s.k, s.v) for s in (cache.hi, cache.lo) if s.capacity)
 
 
-def mixed_segments(cache) -> list:
+def mixed_segments(cache, taken=None) -> list:
     """The non-empty segments of a `MixedKVCache` in walk order (hi, lo,
-    window), as `kernel.qattn_mixed_layer` takes them."""
+    window), as `kernel.qattn_mixed_layer` takes them; taken: (hi, lo,
+    window) flags, the segments to keep (default: all)."""
+    taken = taken or (True, True, True)
     segs = []
-    for store in (cache.hi, cache.lo):
-        if store.capacity == 0:
+    for store, keep in zip((cache.hi, cache.lo), taken):
+        if store.capacity == 0 or not keep:
             continue
         kq, vq = store.k, store.v
         seg = dict(k_codes=kq.codes, v_codes=vq.codes, pos=store.pos, k_bits=kq.bits,
@@ -37,12 +40,38 @@ def mixed_segments(cache) -> list:
             seg.update(k_scale=kq.scale, k_zero=kq.zero, v_cscale=vq.channel_scale,
                        v_tscale=vq.scale, v_tzero=vq.zero)
         segs.append(seg)
-    if cache.window:
+    if cache.window and taken[2]:
         segs.append(dict(k_codes=cache.k_win, v_codes=cache.v_win, pos=cache.win_pos,
                          k_bits=16, v_bits=16))
     return segs
 
 
-def decode_attend_mixed(q: torch.Tensor, cache) -> torch.Tensor:
-    """q (b, h, d) over a `MixedKVCache` -> out (b, h, dv) in q's dtype."""
-    return K.qattn_mixed_layer(q, mixed_segments(cache))
+def segment_share(seg: dict, dim: int, i: int, n: int) -> dict:
+    """Block i of n of a segment's operands along `dim` (1: kv heads, 2:
+    slots), each a contiguous copy: the channelwise K and CST channel
+    scales hold no slot dim, the positions (b, S) no head dim.  What a rank
+    of a head or slot split holds of `mixed_segments`' segment."""
+    out = dict(seg)
+    for key, t in seg.items():
+        if not hasattr(t, "shape"):
+            continue
+        if key == "pos":
+            d_ = None if dim == 1 else 1
+        else:
+            d_ = None if dim == 2 and t.shape[2] == 1 else dim
+        if d_ is not None:
+            out[key] = t.chunk(n, d_)[i].contiguous()
+    return out
+
+
+def decode_attend_mixed(q: torch.Tensor, cache, stats: bool = False, plan=None, taken=None):
+    """q (b, h, d) over a `MixedKVCache` -> out (b, h, dv) in q's dtype, or
+    with `stats` the merged (acc, m, l) (`kernel.qattn_mixed_layer`).
+    taken: (hi, lo, window) flags, the segments this call reads (a slot
+    split reads a segment held whole on one rank only); none taken gives
+    an empty partial, and no launch.  plan: the walk's split plan's (rows x
+    kv heads)."""
+    segs = mixed_segments(cache, taken)
+    if not segs:
+        return ref.empty_stats(q, cache.v_win.shape[-1])
+    return K.qattn_mixed_layer(q, segs, stats=stats, plan=plan)

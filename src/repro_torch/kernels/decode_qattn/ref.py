@@ -71,13 +71,34 @@ def qattn_segment_ref(q, k_codes, k_scale, k_zero, v_codes, v_cscale, v_tscale, 
     return segment_attend_ref(q, k, v, pos >= 0, 1.0 / (q.shape[-1] ** 0.5))
 
 
-def mixed_layer_ref(q: torch.Tensor, segments) -> torch.Tensor:
+def empty_stats(q: torch.Tensor, dv: int):
+    """The (acc, m, l) of no slot at all: a partial that weighs nothing in a
+    merge."""
+    b, h = q.shape[:2]
+    z = torch.zeros((b, h), dtype=torch.float32, device=q.device)
+    return torch.zeros((b, h, dv), dtype=torch.float32, device=q.device), z + NEG_INF, z
+
+
+def merged_stats_ref(stats: Sequence[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]):
+    """[(acc, m, l), ...] -> their merge (acc unnormalized, m, l), as the
+    layer kernel's merge writes them."""
+    m_all = torch.stack([s[1] for s in stats], 0).amax(dim=0)
+    acc_all = l_all = 0.0
+    for acc, mi, li in stats:
+        w = torch.exp(mi - m_all)
+        acc_all = acc_all + acc * w[..., None]
+        l_all = l_all + li * w
+    return acc_all, m_all, l_all
+
+
+def mixed_layer_ref(q: torch.Tensor, segments, stats: bool = False):
     """The layer kernel's function over one to three segments in walk order
     (the operands of `kernel.qattn_mixed_layer`): raw segments (bits >= 16)
     pass their values through, quantized ones dequantize as the store does.
-    Returns out (b, h, dv) in q's dtype."""
+    Returns out (b, h, dv) in q's dtype, or with `stats` the merged (acc,
+    m, l) f32 (`merged_stats_ref`)."""
     scale = 1.0 / (q.shape[-1] ** 0.5)
-    stats = []
+    parts = []
     for sg in segments:
         if sg["k_bits"] >= 16:
             k, v = sg["k_codes"].float(), sg["v_codes"].float()
@@ -85,5 +106,7 @@ def mixed_layer_ref(q: torch.Tensor, segments) -> torch.Tensor:
             k = dequant_k_ref(sg["k_codes"], sg["k_scale"], sg["k_zero"], sg["k_bits"])
             v = dequant_v_ref(sg["v_codes"], sg["v_cscale"], sg["v_tscale"], sg["v_tzero"],
                               sg["v_bits"])
-        stats.append(segment_attend_ref(q, k, v, sg["pos"] >= 0, scale))
-    return merge_segments_ref(stats).to(q.dtype)
+        parts.append(segment_attend_ref(q, k, v, sg["pos"] >= 0, scale))
+    if stats:
+        return merged_stats_ref(parts)
+    return merge_segments_ref(parts).to(q.dtype)

@@ -12,7 +12,7 @@ unnormalized f32 `acc` with its (m, l).
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -99,16 +99,22 @@ def describe(name: str, q: torch.Tensor, k_data: torch.Tensor, v_data: torch.Ten
     return desc, ts
 
 
-def split_plan(descs: Sequence[SegDesc], b: int, hk: int, target_ctas: int):
+def split_plan(descs: Sequence[SegDesc], b: int, hk: int, target_ctas: int,
+               plan_bh: Optional[int] = None):
     """(blocks per CTA, splits per (row, kv head)) for a walk over `descs`:
-    about `target_ctas` CTAs in all, at most MAX_SPLITS splits."""
+    about `target_ctas` CTAs in all, at most MAX_SPLITS splits.  plan_bh:
+    the (rows x kv heads) the plan is made for, where it is not b * hk (a
+    rank's share of a layer split over a mesh takes the whole layer's plan,
+    so each of its heads sums as the whole launch's does)."""
     n_blk = sum(-(-dd.s_seg // SLOT_BLOCK) for dd in descs)
-    bpc = max(1, -(-n_blk * b * hk // target_ctas), -(-n_blk // MAX_SPLITS))
+    bh = b * hk if plan_bh is None else plan_bh
+    bpc = max(1, -(-n_blk * bh // target_ctas), -(-n_blk // MAX_SPLITS))
     return bpc, -(-n_blk // bpc)
 
 
 def launch(kernel: build.CudaKernel, name: str, q: torch.Tensor, descs: Sequence[SegDesc],
-           hk: int, scale: float, target_ctas: int, want_weights: bool, normalized: bool):
+           hk: int, scale: float, target_ctas: int, want_weights: bool, normalized: bool,
+           plan_bh: Optional[int] = None):
     """One launch of `kernel` over the described segments (whose tensors the
     caller keeps alive through the call).  Returns (out in q's dtype if
     `normalized` else acc f32, m, l, p or None, m_run or None).  The split
@@ -121,7 +127,7 @@ def launch(kernel: build.CudaKernel, name: str, q: torch.Tensor, descs: Sequence
                          f"hk {hk}, {len(descs)} segments")
     arr = (SegDesc * len(descs))(*descs)
     s_total = sum(dd.s_seg for dd in descs)
-    bpc, nsplit = split_plan(descs, b, hk, target_ctas)
+    bpc, nsplit = split_plan(descs, b, hk, target_ctas, plan_bh)
     q = q.contiguous()
     f32 = dict(dtype=torch.float32, device=q.device)
     n_part, n_bh = b * h * nsplit, b * h

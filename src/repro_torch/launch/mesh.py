@@ -99,6 +99,31 @@ def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda") 
     return make_mesh(*PRODUCTION["multi" if multi_pod else "single"], device_type)
 
 
+def parse_mesh(spec: str):
+    """A CLI's --mesh -> (shape, axes), None for 1x1: `DxM` over ("data",
+    "model"), or a production mesh by name (`single`, `multi`)."""
+    if spec == "1x1":
+        return None
+    if spec in PRODUCTION:
+        return PRODUCTION[spec]
+    d, m = (int(t) for t in spec.split("x"))
+    return (d, m), ("data", "model")
+
+
+def mesh_of_flag(spec: str, device_type: str):
+    """The mesh of a CLI's --mesh (None for 1x1) over torchrun's processes;
+    its size must be WORLD_SIZE."""
+    layout = parse_mesh(spec)
+    if layout is None:
+        return None
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if math.prod(layout[0]) != world:
+        raise ValueError(f"--mesh {spec} needs {math.prod(layout[0])} processes, but "
+                         f"WORLD_SIZE is {world} (start them with torchrun "
+                         f"--nproc-per-node {math.prod(layout[0])})")
+    return make_mesh(*layout, device_type=device_type)
+
+
 def data_axes_of(mesh) -> tuple:
     """Mesh axes that carry pure data parallelism (pod extends data)."""
     return tuple(a for a in mesh.axis_names if a in ("pod", "data"))

@@ -35,12 +35,25 @@ and fails past 128); llava takes n_frontend_tokens patch embeddings before
 The flags are those of `repro.launch.serve` that the port runs, plus
 --requests (how many requests the continuous engine serves) and --device
 (default cuda; --device cpu runs the plain PyTorch versions of the kernels).
+
+--mesh serves on a ("data", "model") mesh of torchrun's processes, as the
+reference's: `1x1` (the default, no mesh), `DxM`, or `single` (16 x 16).
+Each rank holds its rows of the batch and its block of the caches and the
+parameters (`launch.steps`); rank 0 prints.  The mixed layout only (a
+paged backend on a mesh raises).  Over gloo on the CPU:
+
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \
+      -m repro_torch.launch.serve --mesh 1x2 --device cpu --arch yi-6b --smoke
+
+and over NCCL on the cards, one process per card, without --device cpu.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import subprocess
 import time
 
@@ -54,6 +67,7 @@ from repro_torch.kernels.cst_quant import kernel as cst_kernel
 from repro_torch.kernels.decode_qattn import kernel as dq_kernel
 from repro_torch.kernels.paged_qattn import kernel as pq_kernel
 from repro_torch.kernels.probe_flash import kernel as pf_kernel
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import registry
 from repro_torch.serving import (ContinuousEngine, Request, ServeConfig, ServingEngine,
                                  pack_requests)
@@ -207,8 +221,8 @@ def build_compression_config(args) -> CompressionConfig:
     return dataclasses.replace(ccfg, fp_window=16, recompress_interval=16) if args.smoke else ccfg
 
 
-def _serve_continuous(args, cfg, ccfg, scfg, params, device, prompts):
-    eng = ContinuousEngine(cfg, ccfg, scfg, params, device=device)
+def _serve_continuous(args, cfg, ccfg, scfg, params, device, prompts, mesh=None):
+    eng = ContinuousEngine(cfg, ccfg, scfg, params, device=device, mesh=mesh)
 
     def serve_all():
         # under the priority scheduler, stagger priorities so the policy shows
@@ -264,6 +278,9 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=None,
                     help="--continuous only: requests to serve (default: --batch)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default="1x1",
+                    help="1x1 (no mesh), DxM or single: serve on a (data, model) mesh of "
+                         "torchrun's processes (mixed layout only)")
     ap.add_argument("--profile", action="store_true",
                     help="after a warm-up run, trace one run (a generate, or serving every "
                          "request) with torch.profiler and print device time by kernel and "
@@ -273,7 +290,22 @@ def main(argv=None):
     if args.requests is not None and not args.continuous:
         ap.error("--requests requires --continuous")
 
+    import torch.distributed as dist
+    owns_group = args.mesh != "1x1" and not dist.is_initialized()
+    mesh = mesh_lib.mesh_of_flag(args.mesh, "cuda" if args.device.startswith("cuda") else "cpu")
     device = torch.device(args.device)
+    if mesh is not None and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    quiet = mesh is not None and dist.get_rank() != 0
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) if quiet else contextlib.nullcontext():
+            return _serve(args, ap, device, mesh)
+    finally:
+        if owns_group:
+            dist.destroy_process_group()
+
+
+def _serve(args, ap, device, mesh):
     cfg = configs.get_arch(args.arch, smoke=args.smoke)
     if args.continuous and (cfg.encdec or cfg.frontend != "none"):
         ap.error(f"--continuous: {args.arch} runs on the lockstep engine only")
@@ -287,9 +319,9 @@ def main(argv=None):
     for k in KERNELS.values():
         k.launches = 0
     if args.continuous:
-        return _serve_continuous(args, cfg, ccfg, scfg, params, device, prompts)
+        return _serve_continuous(args, cfg, ccfg, scfg, params, device, prompts, mesh)
 
-    engine = ServingEngine(cfg, ccfg, scfg, params, device=device)
+    engine = ServingEngine(cfg, ccfg, scfg, params, device=device, mesh=mesh)
     batch = {"tokens": pack_requests(prompts, args.batch, args.prompt_len)}
     if cfg.encdec or cfg.frontend != "none":
         n = args.prompt_len if cfg.encdec else cfg.n_frontend_tokens

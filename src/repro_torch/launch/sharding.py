@@ -1,5 +1,4 @@
-"""Logical-axis sharding rules of the port (port of `repro.launch.sharding`,
-its training half).
+"""Logical-axis sharding rules of the port (port of `repro.launch.sharding`).
 
 Parameters carry logical axis names (`models.common.ParamDef.axes`);
 `DEFAULT_RULES` maps them to mesh axes.  A spec is a tuple with one entry
@@ -10,9 +9,20 @@ already took, is replicated (`spec_from_axes`).  `shard_of` cuts a full
 tensor down to this rank's block of a spec, `assemble` gathers the blocks
 of every rank back into the full tensor.
 
-The cache specs (`cache_pspecs`, `full_cache_pspecs`) and the serving
-meshes that use `SERVE_OVERRIDES` / `PREFILL_OVERRIDES` wait for serving
-on a mesh (ROADMAP item 15c-ii).
+The cache half: `cache_pspecs` gives each leaf of one cache element (a
+`MixedKVCache` or an `ssm.SSMState`) its spec by the reference's
+size-matching rule -- rows over the data axes, then a kv-head, SSM-head or
+`d_inner` dim over `model` where it divides, else a slot dim of 128 or
+more (the split-KV).  `full_cache_pspecs` walks a whole cache tree
+(`registry.map_caches`: the prefix layers, the groups, the SSM states);
+the port's groups are a list of per-group elements, so its specs lack the
+reference's leading (replicated) stack dim.  `cache_shardings` places a
+full cache tree: each leaf cut to this rank's block.  Serving holds every
+parameter as its `SERVE_OVERRIDES` block (`serve_plans`, `shard_serve_params`);
+the prefill keeps that one placement too (the reference lowers it with
+`PREFILL_OVERRIDES`, which only moves memory).  The decode step computes
+the heads, the MLP width and the vocabulary on each rank's block; the
+prefill gathers them on use.
 """
 
 from __future__ import annotations
@@ -22,6 +32,8 @@ from typing import Optional, Tuple
 
 from repro_torch import tree as tree_lib
 from repro_torch.configs.base import ArchConfig
+
+SLOT_SPLIT_MIN = 128    # the smallest slot dim `cache_pspecs` splits over `model`
 
 # logical axis -> mesh axis (None = replicated).  "embed" -> data is the
 # FSDP / ZeRO axis: weights and optimizer state shard over data, gathered
@@ -230,3 +242,155 @@ def spec_leaves(specs) -> list:
 def assemble_tree(tree, specs, mesh):
     return tree_lib.unflatten(tree, [assemble(t, s, mesh) for t, s in
                                      zip(tree_lib.leaves(tree), spec_leaves(specs))])
+
+
+# ---------------------------------------------------------------------------
+# Caches: the reference's size-matching rule over a cache tree
+# ---------------------------------------------------------------------------
+
+def _leaf_spec(shape, global_batch: int, daxes: tuple, dp: int, mp: int, heads) -> tuple:
+    """One cache leaf's spec: the batch-sized dim over the data axes (if it
+    divides); after it, a head-sized dim (kv heads, SSM heads, d_inner)
+    over `model` where it divides, else a slot dim of at least 128 slots
+    that divides and is not the last of three or more."""
+    parts: list = [None] * len(shape)
+    batch_done = model_done = False
+    for i, n in enumerate(shape):
+        if not batch_done and n == global_batch and global_batch % dp == 0:
+            parts[i] = daxes
+            batch_done = True
+            continue
+        if batch_done and not model_done and mp > 1 and n % mp == 0 and (
+                n in heads or (n >= SLOT_SPLIT_MIN and (i < len(shape) - 1 or len(shape) == 2))):
+            parts[i] = "model"
+            model_done = True
+    return tuple(parts)
+
+
+def cache_pspecs(cache_el, cfg: ArchConfig, mesh, global_batch: int, local_rows: bool = False):
+    """The specs of one cache element's leaves: the element's dataclass tree
+    with a spec tuple in place of each tensor (`kvcache.tree_map`).
+    local_rows: the element holds one data rank's rows of the global batch
+    (every leaf's first dim), read as the global batch."""
+    from repro_torch.core import kvcache as kvc
+    from repro_torch.launch.mesh import data_axes_of
+    from repro_torch.models import ssm as ssm_mod
+
+    daxes = data_axes_of(mesh)
+    dp = axis_size(mesh, daxes)
+    mp = mesh.shape.get("model", 1)
+    heads = {max(cfg.n_kv_heads, 0)}
+    if cfg.ssm or cfg.attn_layer_period:
+        heads |= {ssm_mod.n_ssm_heads(cfg), ssm_mod.d_inner(cfg)}
+
+    def shape(t):
+        return (global_batch,) + tuple(t.shape[1:]) if local_rows else tuple(t.shape)
+
+    return kvc.tree_map(lambda t: _leaf_spec(shape(t), global_batch, daxes, dp, mp, heads),
+                        cache_el)
+
+
+def full_cache_pspecs(caches, cfg: ArchConfig, mesh, global_batch: int):
+    """The specs of a whole cache tree, element by element (the prefix
+    layers, every group's sub-layers, SSM states alike)."""
+    from repro_torch.models import registry
+    return registry.map_caches(lambda el: cache_pspecs(el, cfg, mesh, global_batch), caches)
+
+
+def cache_leaf_specs(cache_el, specs) -> list:
+    """[(leaf, spec)] of one element and its spec tree, in field order."""
+    from repro_torch.core import kvcache as kvc
+    pairs = []
+    kvc.tree_map(lambda t, s: pairs.append((t, s)) or t, cache_el, specs)
+    return pairs
+
+
+def shard_cache_element(el, specs, mesh, axes=None):
+    """This rank's block of one cache element (its specs from `cache_pspecs`),
+    each split leaf copied: a QuantizedTensor's logical shape follows its
+    codes.  axes: only those mesh axes cut (None: all)."""
+    from repro_torch.core import kvcache as kvc
+
+    def keep(spec):
+        if axes is None:
+            return spec
+        return tuple(p if p is not None and set((p,) if isinstance(p, str) else p) <= set(axes)
+                     else None for p in spec)
+
+    def cut(t, spec):
+        out = shard_of(t, keep(spec), mesh)
+        return out.clone() if out is not t else t
+
+    return fix_logical_shapes(kvc.tree_map(cut, el, specs))
+
+
+def fix_logical_shapes(el):
+    """A cache element whose every QuantizedTensor takes its logical shape
+    from its codes (the last dim unpacked; raw 16-bit codes are the
+    values): what a block or a gathered element needs to dequantize."""
+    import dataclasses
+
+    from repro_torch.core import quant
+
+    if isinstance(el, quant.QuantizedTensor):
+        shape = tuple(el.codes.shape[:-1]) + (el.shape[-1],)
+        return dataclasses.replace(el, shape=shape) if shape != tuple(el.shape) else el
+    if dataclasses.is_dataclass(el):
+        return dataclasses.replace(el, **{
+            f.name: fix_logical_shapes(getattr(el, f.name))
+            for f in dataclasses.fields(el) if dataclasses.is_dataclass(getattr(el, f.name))})
+    return el
+
+
+def cache_shardings(caches, cfg: ArchConfig, mesh, global_batch: int):
+    """A full cache tree placed on the mesh: every element cut to this
+    rank's block of `full_cache_pspecs` (the port's form of the reference's
+    NamedShardings: what a `device_put` with them leaves on a device)."""
+    from repro_torch.models import registry
+    return registry.map_caches(
+        lambda el: shard_cache_element(el, cache_pspecs(el, cfg, mesh, global_batch), mesh),
+        caches)
+
+
+# ---------------------------------------------------------------------------
+# Serving: the parameters' placement
+# ---------------------------------------------------------------------------
+
+# the axes whose `model` blocks the decode step computes on their own
+DECODE_SPLIT_AXES = ("heads", "kv_heads", "mlp", "vocab")
+
+
+def serve_plans(cfg: ArchConfig, mesh) -> list:
+    """The `parallel.LeafPlan` of every parameter leaf for serving, in
+    flatten order: the `SERVE_OVERRIDES` spec (no FSDP; heads, or head_dim
+    where the heads do not divide, over `model`).  The routed experts
+    compute split in every program (the MoE's mesh semantics).  The decode
+    step also computes split the leaves whose `model` block is heads, MLP
+    width or vocabulary (`keep_decode`), the attention heads only where the
+    cache splits by heads too (GQA's kv heads divide `model`; MLA's heads,
+    its cache being whole).  Every other leaf, and every leaf in the
+    prefill, is gathered whole on use."""
+    from repro_torch.models import parallel
+    defs = tree_lib.leaves(_schema(cfg))
+    specs = spec_leaves(param_pspecs(cfg, mesh, SERVE_OVERRIDES))
+    heads_ok = (cfg.n_heads if cfg.mla else cfg.n_kv_heads) % mesh.shape.get("model", 1) == 0
+
+    def keep_decode(d, p) -> bool:
+        axis = d.axes[p.index("model")] if "model" in p else None
+        return d.split and axis in DECODE_SPLIT_AXES and (
+            heads_ok or axis not in ("heads", "kv_heads"))
+
+    return [parallel.LeafPlan(p, p, d.split and "experts" in d.axes, keep_decode(d, p))
+            for d, p in zip(defs, specs)]
+
+
+def shard_serve_params(params, cfg: ArchConfig, mesh):
+    """This rank's serving blocks of full parameters (a copy where a leaf
+    splits), each tagged with its plan for `parallel.gather` on use."""
+    out = []
+    for t, plan in zip(tree_lib.leaves(params), serve_plans(cfg, mesh)):
+        blk = shard_of(t, plan.pspec, mesh)
+        blk = blk.clone() if blk is not t else t.view_as(t)
+        blk._plan = plan
+        out.append(blk)
+    return tree_lib.unflatten(params, out)

@@ -2,8 +2,14 @@
 one card or on a mesh (port of `repro.launch.steps`; the train half at its
 end).
 
-Each serving factory returns `(fn, ctx)` as the reference's does, without
-`mesh` (serving on a mesh is ROADMAP item 15c-ii).
+Each serving factory returns `(fn, ctx)` as the reference's does.  With
+`mesh=` (or a ctx made with one) it serves this rank's block: its rows of
+the batch over the data axes, its `model` block of every cache element
+(`core.sharded.ShardedBackend`), the parameters as their serving blocks
+gathered on use (`sharding.shard_serve_params`).  The prefill takes its
+rows of a batch (a batch-1 admission runs whole on every rank), the
+continuous step its columns of the staged rows, insert and the row folds
+their slots; the host loop around them is the same on every rank.
 The JAX package jits every engine program.  Here prefill, recompression,
 the folds and slot insertion run eagerly, and the two decode programs (the
 lockstep step and the continuous masked step) are step objects over static
@@ -79,10 +85,16 @@ from repro_torch.runtime import compile_guard
 ROW_TOK, ROW_PROBE, ROW_ACT, ROW_TEMP, ROW_SEED, ROW_CTR = range(6)
 
 
+# the reference's cause (`repro.launch.steps.serve_ctx`), its roadmap pointer left out
+PAGED_ON_A_MESH = ("the paged cache backend is single-host today: its pools index physical "
+                   "pages, which need a page-axis partitioning story before they can shard "
+                   "over a mesh \u2014 use cache_backend='mixed' with a mesh")
+
+
 def serve_ctx(cfg: ArchConfig, shape: ShapeConfig, ccfg: Optional[CompressionConfig] = None,
               decode_budget: int = 512, q_block: int = 512, device="cuda",
               use_kernels: bool = True, decode_impl: str = "ref",
-              compact_softmax: bool = False) -> blocks.RunCtx:
+              compact_softmax: bool = False, mesh=None) -> blocks.RunCtx:
     """RunCtx + probes for a serving shape; max cache = the query length
     (`registry.prefill_lengths`: seq_len, or the encoder-decoder's decoder
     prompt) + decode budget.
@@ -95,8 +107,19 @@ def serve_ctx(cfg: ArchConfig, shape: ShapeConfig, ccfg: Optional[CompressionCon
     use_kernels: the port's CUDA kernels on the path (the default), or their
     plain PyTorch versions throughout.  decode_impl / compact_softmax: the
     reference's levers on the plain routes (`blocks.RunCtx`).
+
+    mesh: a serving mesh (`launch.mesh`): the backend becomes a
+    `core.sharded.ShardedBackend` over `shape.global_batch` rows.  As the
+    reference's, it refuses the paged backend (and so the swap tier, prefix
+    dedup and `paged_qattn`); the port also refuses the int8 decode algebra
+    on a mesh.
     """
     ccfg = ccfg or CompressionConfig.zipcache()
+    if mesh is not None:
+        if shape.cache_backend == "paged":
+            raise NotImplementedError(PAGED_ON_A_MESH)
+        if decode_impl != "ref":
+            raise NotImplementedError(f"decode_impl={decode_impl!r} is not served on a mesh")
     if cfg.encdec and shape.precision_map:
         raise ValueError(f"{cfg.name}: a precision map has no effect on an encoder-decoder "
                          "arch (its prefill, decode and folds never read the table), so it "
@@ -115,9 +138,38 @@ def serve_ctx(cfg: ArchConfig, shape: ShapeConfig, ccfg: Optional[CompressionCon
     pmap = precision_lib.parse_precision_map(shape.precision_map)
     table = pmap.resolve(cfg.n_layers, cfg.n_kv_heads) if pmap else None
     max_cache_len = (qlen if cfg.encdec else shape.seq_len) + decode_budget
-    return blocks.RunCtx(ccfg=ccfg, probe=probe, max_cache_len=max_cache_len,
-                         q_block=q_block, use_kernels=use_kernels, decode_impl=decode_impl,
-                         compact_softmax=compact_softmax, backend=backend, precision=table)
+    data_axes = ("data",)
+    if mesh is not None:
+        from repro_torch.core import sharded
+        backend = sharded.ShardedBackend(backend, cfg, mesh, shape.global_batch)
+        data_axes = mesh_lib.data_axes_of(mesh)
+    return blocks.RunCtx(mesh=mesh, data_axes=data_axes, ccfg=ccfg, probe=probe,
+                         max_cache_len=max_cache_len, q_block=q_block, use_kernels=use_kernels,
+                         decode_impl=decode_impl, compact_softmax=compact_softmax,
+                         backend=backend, precision=table)
+
+
+def local_rows(ctx: blocks.RunCtx):
+    """[start, stop) of this rank's rows of the serving batch (None off a
+    mesh)."""
+    return None if ctx.mesh is None else ctx.backend.rows()
+
+
+def local_slot(ctx: blocks.RunCtx, slot: int) -> Optional[int]:
+    """The row of global slot `slot` in this rank's block, None where
+    another data rank holds it (the slot itself off a mesh)."""
+    rows = local_rows(ctx)
+    if rows is None:
+        return slot
+    return slot - rows[0] if rows[0] <= slot < rows[1] else None
+
+
+def gather_rows(x: torch.Tensor, ctx: blocks.RunCtx) -> torch.Tensor:
+    """The whole batch's rows of x (this rank's rows on dim 0), gathered over
+    the data axes; x itself off a mesh."""
+    if ctx.mesh is None:
+        return x
+    return shd.assemble(x, (ctx.data_axes,), ctx.mesh)
 
 
 def stage_rows(rows: Dict[int, Tuple], b: int) -> np.ndarray:
@@ -369,6 +421,9 @@ class ContinuousDecodeStep(_DecodeStep):
         self._sample_deltas: Tuple = ()
 
     def __call__(self, params, caches: Any, staged: np.ndarray):
+        rows = local_rows(self.ctx)
+        if rows is not None:
+            staged = np.ascontiguousarray(staged[:, rows[0]:rows[1]])
         probe = bool(staged[ROW_PROBE].any())
         if not self.capture:
             self.staged = dev = torch.from_numpy(staged).to(self.device)
@@ -410,22 +465,29 @@ class ContinuousDecodeStep(_DecodeStep):
 
 
 def _ctx(cfg, shape, ccfg, ctx, q_block, device, decode_impl: str = "ref",
-         compact_softmax: bool = False) -> blocks.RunCtx:
-    """`ctx`, else the serving context of `shape` with the port's kernels on
-    the path and the given levers.  A caller that wants the plain versions
-    passes `serve_ctx(..., use_kernels=False)` as `ctx`, as the engines do."""
+         compact_softmax: bool = False, mesh=None) -> blocks.RunCtx:
+    """`ctx`, else the serving context of `shape` (on `mesh`) with the port's
+    kernels on the path and the given levers.  A caller that wants the
+    plain versions passes `serve_ctx(..., use_kernels=False)` as `ctx`, as
+    the engines do."""
     return ctx or serve_ctx(cfg, shape, ccfg, q_block=q_block, device=device,
-                            decode_impl=decode_impl, compact_softmax=compact_softmax)
+                            decode_impl=decode_impl, compact_softmax=compact_softmax, mesh=mesh)
 
 
 def make_prefill_step(cfg: ArchConfig, shape: ShapeConfig, ccfg: Optional[CompressionConfig] = None,
                       q_block: int = 512, *, ctx=None, device="cuda",
-                      compact_softmax: bool = False):
+                      compact_softmax: bool = False, mesh=None):
     """prefill(params, batch) -> (logits at the last position, caches).
-    compact_softmax: bf16 logits and probabilities on the plain route."""
-    ctx = _ctx(cfg, shape, ccfg, ctx, q_block, device, compact_softmax=compact_softmax)
+    compact_softmax: bf16 logits and probabilities on the plain route.  On
+    a mesh a batch of the serving batch's rows is cut to this rank's; any
+    other (an admission's one row) runs whole on every rank."""
+    ctx = _ctx(cfg, shape, ccfg, ctx, q_block, device, compact_softmax=compact_softmax,
+               mesh=mesh)
 
     def prefill_step(params, batch):
+        rows = local_rows(ctx)
+        if rows is not None and batch["tokens"].shape[0] == ctx.backend.global_batch:
+            batch = {k: v[rows[0]:rows[1]] for k, v in batch.items()}
         return registry.prefill(params, batch, cfg, ctx)
 
     return prefill_step, ctx
@@ -433,18 +495,20 @@ def make_prefill_step(cfg: ArchConfig, shape: ShapeConfig, ccfg: Optional[Compre
 
 def make_serve_step(cfg: ArchConfig, shape: ShapeConfig, ccfg: Optional[CompressionConfig] = None,
                     q_block: int = 512, *, ctx=None, device="cuda", capture: bool = True,
-                    decode_impl: str = "ref"):
+                    decode_impl: str = "ref", mesh=None):
     """The lockstep decode step, a `ServeStep`: serve_step(params, caches,
     token, is_probe) -> (logits, caches).  decode_impl: the algebra of the
-    plain decode attention ("ref" or "int8_algebra")."""
-    ctx = _ctx(cfg, shape, ccfg, ctx, q_block, device, decode_impl=decode_impl)
+    plain decode attention ("ref" or "int8_algebra").  On a mesh: this
+    rank's rows (tokens, caches, logits)."""
+    ctx = _ctx(cfg, shape, ccfg, ctx, q_block, device, decode_impl=decode_impl, mesh=mesh)
     return ServeStep(cfg, ctx, device, capture), ctx
 
 
 def make_recompress_step(cfg: ArchConfig, shape: ShapeConfig,
-                         ccfg: Optional[CompressionConfig] = None, *, ctx=None, device="cuda"):
+                         ccfg: Optional[CompressionConfig] = None, *, ctx=None, device="cuda",
+                         mesh=None):
     """recompress_step(caches) -> caches: every slot's window folded."""
-    ctx = _ctx(cfg, shape, ccfg, ctx, 512, device)
+    ctx = _ctx(cfg, shape, ccfg, ctx, 512, device, mesh=mesh)
 
     def recompress_step(caches):
         return registry.recompress(caches, cfg, ctx)
@@ -454,46 +518,54 @@ def make_recompress_step(cfg: ArchConfig, shape: ShapeConfig,
 
 def make_continuous_decode_step(cfg: ArchConfig, shape: ShapeConfig,
                                 ccfg: Optional[CompressionConfig] = None, q_block: int = 512,
-                                ctx=None, *, device="cuda", capture: bool = True):
+                                ctx=None, *, device="cuda", capture: bool = True, mesh=None):
     """The continuous masked decode step, a `ContinuousDecodeStep`:
     decode(params, caches, staged (6, b) host int32) -> (logits, caches),
     and `sample(logits)` for the steps on which a row samples.  Pass `ctx` to share one serving context across the program
-    family (the engines do)."""
-    ctx = _ctx(cfg, shape, ccfg, ctx, q_block, device)
+    family (the engines do).  On a mesh the step takes this rank's columns
+    of the staged rows: logits and tokens of its rows."""
+    ctx = _ctx(cfg, shape, ccfg, ctx, q_block, device, mesh=mesh)
     return ContinuousDecodeStep(cfg, ctx, device, capture), ctx
 
 
 def make_insert_step(cfg: ArchConfig, shape: ShapeConfig, ccfg: Optional[CompressionConfig] = None,
-                     ctx=None, *, device="cuda"):
+                     ctx=None, *, device="cuda", mesh=None):
     """insert(caches, slice_caches, slot): write a batch-1 prefill cache slice
-    into decode-batch row `slot`."""
-    ctx = _ctx(cfg, shape, ccfg, ctx, 512, device)
+    into decode-batch row `slot` (on a mesh: only on the data rank that
+    holds the slot; every other rank's caches come back as they were)."""
+    ctx = _ctx(cfg, shape, ccfg, ctx, 512, device, mesh=mesh)
 
     def insert(caches, slice_caches, slot: int):
-        return registry.insert_caches(caches, slice_caches, slot)
+        row = local_slot(ctx, slot)
+        return caches if row is None else registry.insert_caches(caches, slice_caches, row)
 
     return insert, ctx
 
 
 def make_recompress_rows_step(cfg: ArchConfig, shape: ShapeConfig,
                               ccfg: Optional[CompressionConfig] = None, ctx=None, *,
-                              device="cuda", ladder: bool = False):
+                              device="cuda", ladder: bool = False, mesh=None):
     """recompress_rows(caches, rows (b,) bool): fold the staging windows of
     the masked slots only (per-request cadence, paper Alg. 3).  Recompresses
-    the whole batch and selects rows.
+    the whole batch and selects rows (on a mesh: this rank's rows of the
+    mask).
 
     ladder=True arms the downshift ladder: the step takes a third operand,
     the (b,) int32 rungs, lowering each folded slot's lo-store effective
     bits (one routine serves every rung)."""
-    ctx = _ctx(cfg, shape, ccfg, ctx, 512, device)
+    ctx = _ctx(cfg, shape, ccfg, ctx, 512, device, mesh=mesh)
+
+    def mine(t: torch.Tensor) -> torch.Tensor:
+        rows = local_rows(ctx)
+        return t if rows is None else t[rows[0]:rows[1]]
 
     if ladder:
         def recompress_rows_rung(caches, rows: torch.Tensor, rung: torch.Tensor):
-            return registry.recompress(caches, cfg, ctx, rows=rows, rung=rung)
+            return registry.recompress(caches, cfg, ctx, rows=mine(rows), rung=mine(rung))
         return recompress_rows_rung, ctx
 
     def recompress_rows(caches, rows: torch.Tensor):
-        return registry.recompress(caches, cfg, ctx, rows=rows)
+        return registry.recompress(caches, cfg, ctx, rows=mine(rows))
 
     return recompress_rows, ctx
 

@@ -36,7 +36,6 @@ and over NCCL on 8 cards of one host (data 4 x model 2):
 from __future__ import annotations
 
 import argparse
-import math
 import os
 import tempfile
 import time
@@ -53,30 +52,6 @@ from repro_torch.launch import steps as steps_lib
 from repro_torch.models import registry
 from repro_torch.optim import AdamWConfig, adamw_init, cosine_schedule
 from repro_torch.runtime import FaultTolerantLoop, PreemptionGuard, StragglerDetector
-
-
-def parse_mesh(spec: str):
-    """--mesh -> (shape, axes), None for 1x1."""
-    if spec == "1x1":
-        return None
-    if spec in mesh_lib.PRODUCTION:
-        return mesh_lib.PRODUCTION[spec]
-    d, m = (int(t) for t in spec.split("x"))
-    return (d, m), ("data", "model")
-
-
-def make_mesh(spec: str, device_type: str):
-    """The mesh of --mesh (None for 1x1) over torchrun's processes; its size
-    must be WORLD_SIZE."""
-    layout = parse_mesh(spec)
-    if layout is None:
-        return None
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    if math.prod(layout[0]) != world:
-        raise ValueError(f"--mesh {spec} needs {math.prod(layout[0])} processes, but "
-                         f"WORLD_SIZE is {world} (start them with torchrun "
-                         f"--nproc-per-node {math.prod(layout[0])})")
-    return mesh_lib.make_mesh(*layout, device_type=device_type)
 
 
 def build(args, mesh=None):
@@ -156,7 +131,7 @@ def main(argv=None):
 
     import torch.distributed as dist
     owns_group = args.mesh != "1x1" and not dist.is_initialized()
-    mesh = make_mesh(args.mesh, "cuda" if args.device.startswith("cuda") else "cpu")
+    mesh = mesh_lib.mesh_of_flag(args.mesh, "cuda" if args.device.startswith("cuda") else "cpu")
     device = torch.device(args.device)
     if mesh is not None and device.type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())

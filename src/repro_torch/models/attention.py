@@ -244,15 +244,31 @@ def gqa_forward(params: dict, x: torch.Tensor, cfg: ArchConfig, *, causal: bool 
     return y, AttnAux(k=k, v=v, saliency=saliency, probe_nnz=nnz)
 
 
-def gqa_decode_qkv(params: dict, x_t: torch.Tensor, cfg: ArchConfig, position: torch.Tensor):
-    """x_t: (b, e), position: (b,) -> q_t (b,h,d), k_t/v_t (b,hk,d)."""
-    q, k, v = _qkv(params, x_t, "be,ehd->bhd")
+def gqa_decode_qkv(params: dict, x_t: torch.Tensor, cfg: ArchConfig, position: torch.Tensor,
+                   mesh=None):
+    """x_t: (b, e), position: (b,) -> q_t (b,h,d), k_t/v_t (b,hk,d).  With
+    weights split over `model` (`parallel.is_split`): this rank's heads,
+    each product of an f32 entry rounded once to x_t's dtype."""
+    if parallel.is_split(params["wq"]):
+        q, k, v = (t.to(x_t.dtype) for t in _qkv(params, parallel.enter(x_t, mesh),
+                                                  "be,ehd->bhd"))
+    else:
+        q, k, v = _qkv(params, x_t, "be,ehd->bhd")
     if cfg.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
     cos, sin = common.rotary_cos_sin(position, cfg.hd, cfg.rope_theta)  # (b, d/2)
     q = common.apply_rotary(q, cos[:, None], sin[:, None])
     k = common.apply_rotary(k, cos[:, None], sin[:, None])
     return q, k, v
+
+
+def decode_out_proj(out: torch.Tensor, wo: torch.Tensor, mesh=None) -> torch.Tensor:
+    """One token's attention output (b, h, d) through wo; with wo split
+    over `model` (this rank's heads), row-parallel: the f32 partials summed
+    over `model` and rounded once."""
+    if not parallel.is_split(wo):
+        return common.out_proj(out, wo)
+    return parallel.leave(common.out_proj(out.float(), wo), out.dtype, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -306,18 +322,25 @@ def mla_kv_t(params: dict, x_t: torch.Tensor, cfg: ArchConfig, position: torch.T
 
 
 def mla_decode(params: dict, x_t: torch.Tensor, cache, cfg: ArchConfig,
-               position: torch.Tensor, impl: str = "ref"):
+               position: torch.Tensor, impl: str = "ref", mesh=None):
     """Absorbed-matmul MLA decode (one token) against the latent cache, a
     `MixedKVCache` holding k = rope key (b, 1, S, p), v = latent (b, 1, S, r).
     impl: "ref" (exact, dequantized streams) or "int8_algebra".
     Returns (y_t (b, e), slot_weights (b, S)): the reference's first and last
-    outputs (its middle two are `mla_kv_t`'s)."""
+    outputs (its middle two are `mla_kv_t`'s).  With the heads split over
+    `model` (`parallel.is_split`; the cache whole): this rank's heads, f32
+    entries rounded once per product, the slot weights averaged over every
+    head gathered, wo row-parallel."""
     from repro_torch.core import kvcache as kvc
 
     p, nd = cfg.rope_head_dim, cfg.nope_head_dim
+    split = parallel.is_split(params["w_q_nope"])
+    dt = x_t.dtype
+    xh = parallel.enter(x_t, mesh) if split else x_t
+    cast = (lambda t: t.to(dt)) if split else (lambda t: t)  # noqa: E731
     cos, sin = common.rotary_cos_sin(position, p, cfg.rope_theta)
-    q_nope = common.einsum("be,ehd->bhd", x_t, params["w_q_nope"])
-    q_pe = common.apply_rotary(common.einsum("be,ehp->bhp", x_t, params["w_q_pe"]),
+    q_nope = cast(common.einsum("be,ehd->bhd", xh, params["w_q_nope"]))
+    q_pe = common.apply_rotary(cast(common.einsum("be,ehp->bhp", xh, params["w_q_pe"])),
                                cos[:, None], sin[:, None])
     q_abs = common.einsum("bhd,rhd->bhr", q_nope, params["w_uk"])   # absorb W_uk
     scale = 1.0 / ((nd + p) ** 0.5)
@@ -330,9 +353,8 @@ def mla_decode(params: dict, x_t: torch.Tensor, cache, cfg: ArchConfig,
                   + torch.einsum("bhp,bsp->bhs", q_pe.float(), k_pe_all)) * scale
         w = torch.softmax(logits.masked_fill(~valid[:, None, :], NEG_INF), dim=-1)
         out_latent = torch.einsum("bhs,bsr->bhr", w, latent_all)
-        slot_w = w.mean(dim=1)
+        slot_w = (parallel.all_gather_dim(w, 1, mesh, "model") if split else w).mean(dim=1)
     else:
         raise ValueError(f"unknown decode impl {impl!r}; one of ('ref', 'int8_algebra')")
     out = common.einsum("bhr,rhv->bhv", out_latent.to(x_t.dtype), params["w_uv"])
-    y = common.out_proj(out, params["wo"])
-    return y, slot_w
+    return decode_out_proj(out, params["wo"], mesh), slot_w

@@ -71,8 +71,10 @@ class RunCtx:
     plain prefill attention bf16 logits and probabilities.
 
     `mesh` (a `launch.mesh.Mesh`, None without one) and its `data_axes`, as
-    the reference's: the training mesh the model's layers hand to the
-    collectives of `models.parallel`.
+    the reference's: the training or serving mesh the model's layers hand
+    to the collectives of `models.parallel`.  On a serving mesh the backend
+    is a `core.sharded.ShardedBackend`, whose elements are this rank's
+    blocks.
     """
 
     def __init__(self, mesh=None, data_axes=("data",), ccfg: Optional[CompressionConfig] = None,
@@ -110,17 +112,18 @@ class RunCtx:
         return eff
 
 
-def _ffn(params: dict, x: torch.Tensor, cfg: ArchConfig, ffn: str,
+def _ffn(params: dict, x: torch.Tensor, cfg: ArchConfig, ffn: str, ctx: RunCtx,
          active: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x plus the layer's FFN of its post-attention norm at decode (x: (b,
     e); `active`: the live rows, the only ones that take MoE expert
-    slots)."""
+    slots; on a serving mesh the experts split as in training)."""
     if ffn == "none":
         return x
     h = common.rms_norm(x, params["ln2"], cfg.norm_eps)
     if ffn == "dense":
-        return x + mlp_mod.dense_mlp(params["mlp"], h)
-    return x + mlp_mod.moe_ffn(params["moe"], h[:, None, :], cfg, active=active)[:, 0]
+        return x + mlp_mod.dense_mlp(params["mlp"], h, ctx.mesh)
+    return x + mlp_mod.moe_ffn(params["moe"], h[:, None, :], cfg, active=active, mesh=ctx.mesh,
+                               data_axes=ctx.data_axes)[:, 0]
 
 
 def _ffn_full(params: dict, x: torch.Tensor, cfg: ArchConfig, ffn: str, ctx: RunCtx
@@ -152,7 +155,7 @@ def apply_layer_full(params: dict, x: torch.Tensor, cfg: ArchConfig, mixer: str,
     if mixer == "ssm":
         y, state = ssm_mod.ssm_forward(params["ssm"], h, cfg)
         x, aux_loss = _ffn_full(params, x + y, cfg, ffn, ctx)
-        return x, state if build_cache else None, aux_loss
+        return x, ctx.backend.place(state) if build_cache else None, aux_loss
     fwd = attn.gqa_forward if mixer == "attn" else attn.mla_forward
     y, aux = fwd(params["attn"], h, cfg, probe=ctx.probe, q_block=ctx.q_block,
                  use_kernel=ctx.use_kernels, compact=ctx.compact_softmax, mesh=ctx.mesh)
@@ -191,26 +194,28 @@ def apply_layer_decode(params: dict, x_t: torch.Tensor, cfg: ArchConfig, mixer: 
     reads the cache's mixed-layout view.  An SSM layer advances its state;
     inactive rows keep their old state."""
     be = ctx.backend
+    params = parallel.gather_tree(params, ctx.mesh, decode=True)
     h = common.rms_norm(x_t, params["ln1"], cfg.norm_eps)
     if mixer == "ssm":
-        y, new_el = ssm_mod.ssm_decode(params["ssm"], h, cfg, cache_el)
+        y, new_el = ssm_mod.ssm_decode(params["ssm"], h, cfg, be.whole(cache_el))
+        new_el = be.place(new_el)
         if active is not None:
             new_el = kvc.tree_select_rows(active, new_el, cache_el)
-        return _ffn(params, x_t + y, cfg, ffn, active), new_el
+        return _ffn(params, x_t + y, cfg, ffn, ctx, active), new_el
     position = cache_el.length
     if mixer == "attn":
-        q_t, k_t, v_t = attn.gqa_decode_qkv(params["attn"], h, cfg, position)
+        q_t, k_t, v_t = attn.gqa_decode_qkv(params["attn"], h, cfg, position, ctx.mesh)
         cache_el = be.append(cache_el, k_t, v_t, active=active)
         dec = be.attend(q_t, cache_el, is_probe, impl=ctx.decode_impl)
         cache_el = be.update_probe(cache_el, dec.slot_weights, is_probe)
-        y = common.out_proj(dec.out, params["attn"]["wo"])
+        y = attn.decode_out_proj(dec.out, params["attn"]["wo"], ctx.mesh)
     else:
         k_pe_t, latent_t = attn.mla_kv_t(params["attn"], h, cfg, position)
         cache_el = be.append(cache_el, k_pe_t[:, None], latent_t[:, None], active=active)
         y, slot_w = attn.mla_decode(params["attn"], h, be.dense(cache_el), cfg, position,
-                                    impl=ctx.decode_impl)
+                                    impl=ctx.decode_impl, mesh=ctx.mesh)
         cache_el = be.update_probe(cache_el, slot_w, is_probe)
-    return _ffn(params, x_t + y, cfg, ffn, active), cache_el
+    return _ffn(params, x_t + y, cfg, ffn, ctx, active), cache_el
 
 
 def init_mla_cache(cfg: ArchConfig, ctx: RunCtx, b: int, dtype=torch.bfloat16, device=None):
@@ -226,7 +231,7 @@ def init_layer_cache(cfg: ArchConfig, ctx: RunCtx, mixer: str, b: int, dtype=tor
     """An empty cache element of a layer of kind `mixer` (an SSM layer's: a
     zero state, its conv tails in `dtype`)."""
     if mixer == "ssm":
-        return ssm_mod.init_state(cfg, b, dtype, device=device)
+        return ctx.backend.place(ssm_mod.init_state(cfg, b, dtype, device=device))
     if mixer == "mla":
         return init_mla_cache(cfg, ctx, b, dtype, device=device)
     return ctx.backend.init_cache(b, cfg.n_kv_heads, cfg.hd, ctx.max_cache_len, dtype,

@@ -248,9 +248,14 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
 
 
 def layer_slice(tree, i: int):
-    """Layer i of a tree of stacked (leading layer axis) tensors."""
+    """Layer i of a tree of stacked (leading layer axis) tensors; a leaf's
+    mesh plan (`parallel.LeafPlan`) passes to its layer's view."""
     if isinstance(tree, torch.Tensor):
-        return tree[i]
+        plan = getattr(tree, "_plan", None)
+        out = tree[i]
+        if plan is not None:
+            out._plan = plan.drop_leading()
+        return out
     return {k: layer_slice(v, i) for k, v in tree.items()}
 
 

@@ -199,19 +199,24 @@ def decode_step(params: dict, token: torch.Tensor, caches: Any, cfg: ArchConfig,
     rows of `active` append nothing); the cross cache is read, with no
     rotary on its query, and only its probe state moves.  Both take the
     exact decode algebra on the plain route, as the reference's (which
-    passes no `decode_impl`).  Returns (logits (b, vocab), caches)."""
-    x_t = common.embed_lookup(params["embed"], token)
+    passes no `decode_impl`).  Returns (logits (b, vocab), caches).  On a
+    serving mesh the self-attention heads, the MLP width and the vocabulary
+    compute on each rank's block where they split (`lm.decode_step`'s
+    rule); the cross-attention's weights are gathered on use."""
+    params = lm.top_level(params, ctx.mesh, decode=True)
+    x_t = common.embed_lookup(params["embed"], token, ctx.mesh)
     be = ctx.backend
     groups = []
     for i, gc in enumerate(caches["groups"]):
-        p = common.layer_slice(params["dec_layers"], i)
+        p = parallel.gather_tree(common.layer_slice(params["dec_layers"], i), ctx.mesh,
+                                 decode=True)
         self_cache, cross_cache = gc["self"], gc["cross"]
         h = common.rms_norm(x_t, p["ln1"], cfg.norm_eps)
-        q_t, k_t, v_t = attn.gqa_decode_qkv(p["self_attn"], h, cfg, self_cache.length)
+        q_t, k_t, v_t = attn.gqa_decode_qkv(p["self_attn"], h, cfg, self_cache.length, ctx.mesh)
         self_cache = be.append(self_cache, k_t, v_t, active=active)
         dec = be.attend(q_t, self_cache, is_probe)
         self_cache = be.update_probe(self_cache, dec.slot_weights, is_probe)
-        x_t = x_t + common.out_proj(dec.out, p["self_attn"]["wo"])
+        x_t = x_t + attn.decode_out_proj(dec.out, p["self_attn"]["wo"], ctx.mesh)
 
         hx = common.rms_norm(x_t, p["ln_x"], cfg.norm_eps)
         qx = common.einsum("be,ehd->bhd", hx, p["cross_attn"]["wq"])
@@ -219,9 +224,10 @@ def decode_step(params: dict, token: torch.Tensor, caches: Any, cfg: ArchConfig,
         cross_cache = be.update_probe(cross_cache, decx.slot_weights, is_probe)
         x_t = x_t + common.out_proj(decx.out, p["cross_attn"]["wo"])
 
-        x_t = x_t + mlp_mod.dense_mlp(p["mlp"], common.rms_norm(x_t, p["ln2"], cfg.norm_eps))
+        x_t = x_t + mlp_mod.dense_mlp(p["mlp"], common.rms_norm(x_t, p["ln2"], cfg.norm_eps),
+                                      ctx.mesh)
         groups.append({"self": self_cache, "cross": cross_cache})
-    return lm.unembed(params, cfg, x_t), {"prefix": [], "groups": groups}
+    return lm.decode_logits(params, cfg, x_t, ctx.mesh), {"prefix": [], "groups": groups}
 
 
 def recompress(caches: Any, ctx: blocks.RunCtx, rows: Optional[torch.Tensor] = None) -> Any:

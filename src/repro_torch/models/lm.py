@@ -143,12 +143,24 @@ def vocab_offset(cfg: ArchConfig, width: int, mesh=None) -> Optional[int]:
 
 
 def top_level(params: dict, mesh,
-              stacked=("prefix", "groups", "enc_layers", "dec_layers")) -> dict:
+              stacked=("prefix", "groups", "enc_layers", "dec_layers"),
+              decode: bool = False) -> dict:
     """The parameters with every top-level leaf gathered for use on a mesh
-    (the layer trees are gathered layer by layer as each runs)."""
+    (the layer trees are gathered layer by layer as each runs); decode: as
+    the serving decode step uses them (`parallel.gather`)."""
     if mesh is None:
         return params
-    return {k: (v if k in stacked else parallel.gather_tree(v, mesh)) for k, v in params.items()}
+    return {k: (v if k in stacked else parallel.gather_tree(v, mesh, decode))
+            for k, v in params.items()}
+
+
+def decode_logits(params: dict, cfg: ArchConfig, x_t: torch.Tensor, mesh=None) -> torch.Tensor:
+    """A decode step's logits over the whole (padded) vocabulary: a
+    vocabulary split over `model` gathers its slices."""
+    logits = unembed(params, cfg, x_t, mesh)
+    if vocab_offset(cfg, logits.shape[-1], mesh) is None:
+        return logits
+    return parallel.all_gather_dim(logits, logits.dim() - 1, mesh, "model")
 
 
 class ForwardOut(NamedTuple):
@@ -236,14 +248,15 @@ def decode_step(params: dict, token: torch.Tensor, caches: Any, cfg: ArchConfig,
     token counter), passed only when some row probes.  active: optional
     (b,) bool device tensor of live slots; inactive rows neither append nor
     advance their counters."""
-    x_t = common.embed_lookup(params["embed"], token)
+    params = top_level(params, ctx.mesh, decode=True)
+    x_t = common.embed_lookup(params["embed"], token, ctx.mesh)
     els = []
     for _, mixer, ffn, where in layers(cfg):
         x_t, el = blocks.apply_layer_decode(layer_params(params, where), x_t, cfg, mixer, ffn,
                                             cache_element(caches, where), ctx, is_probe,
                                             active)
         els.append(el)
-    return unembed(params, cfg, x_t), _cache_tree(cfg, els)
+    return decode_logits(params, cfg, x_t, ctx.mesh), _cache_tree(cfg, els)
 
 
 def recompress_caches(caches: Any, cfg: ArchConfig, ctx: blocks.RunCtx,

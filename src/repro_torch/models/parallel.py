@@ -169,16 +169,18 @@ class LeafPlan:
     parameter's spec; zspec: the optimizer state's (ZeRO-1); keep_model:
     the model computes the leaf's `model` block on its own (heads, MLP
     width, vocabulary, experts) instead of gathering it (the schema's
-    `ParamDef.split`)."""
+    `ParamDef.split`); keep_decode: so does the serving decode step, where
+    the prefill gathers the leaf (`launch.sharding.serve_plans`)."""
     pspec: tuple
     zspec: tuple
     keep_model: bool
+    keep_decode: bool = False
 
     def dim_of(self, spec, axis) -> Optional[int]:
         return spec.index(axis) if axis in spec else None
 
     def drop_leading(self) -> "LeafPlan":
-        return LeafPlan(self.pspec[1:], self.zspec[1:], self.keep_model)
+        return LeafPlan(self.pspec[1:], self.zspec[1:], self.keep_model, self.keep_decode)
 
 
 class _Gather(torch.autograd.Function):
@@ -200,15 +202,16 @@ class _Gather(torch.autograd.Function):
         return g, None, None, None
 
 
-def gather(t: torch.Tensor, mesh) -> torch.Tensor:
+def gather(t: torch.Tensor, mesh, decode: bool = False) -> torch.Tensor:
     """A parameter leaf as the model computes with it: gathered over `data`
-    and (unless kept) `model`; marked split where a `model` block stays."""
+    and (unless kept) `model`; marked split where a `model` block stays.
+    decode: the serving decode step's use (`LeafPlan.keep_decode` keeps)."""
     plan = getattr(t, "_plan", None)
     if plan is None or mesh is None:
         return t
     ddim = plan.dim_of(plan.pspec, "data") if size("data", mesh) > 1 else None
     mdim = plan.dim_of(plan.pspec, "model") if size("model", mesh) > 1 else None
-    keep = plan.keep_model and mdim is not None
+    keep = (plan.keep_model or (decode and plan.keep_decode)) and mdim is not None
     if keep:
         mdim = None
     out = _Gather.apply(t, mesh, ddim, mdim) if (ddim is not None or mdim is not None) else t
@@ -218,14 +221,14 @@ def gather(t: torch.Tensor, mesh) -> torch.Tensor:
     return out
 
 
-def gather_tree(tree, mesh):
+def gather_tree(tree, mesh, decode: bool = False):
     """Every leaf of a parameter tree gathered (`gather`); the tree itself
     without a mesh."""
     if mesh is None:
         return tree
     if isinstance(tree, dict):
-        return {k: gather_tree(v, mesh) for k, v in tree.items()}
-    return gather(tree, mesh)
+        return {k: gather_tree(v, mesh, decode) for k, v in tree.items()}
+    return gather(tree, mesh, decode)
 
 
 def is_split(t: torch.Tensor) -> bool:

@@ -73,8 +73,9 @@ from repro_torch.core import paged as paged_lib
 from repro_torch.core import swap as swap_lib
 from repro_torch.core.policy import CompressionConfig
 from repro_torch.core.prng import sample_tokens
+from repro_torch.launch import sharding as shd
 from repro_torch.launch import steps as steps_lib
-from repro_torch.models import registry
+from repro_torch.models import parallel, registry
 from repro_torch.serving import events as events_lib
 from repro_torch.serving import scheduler as scheduler_lib
 
@@ -220,12 +221,19 @@ def pack_requests(requests: Sequence[np.ndarray], batch_size: int,
 
 
 class _EngineBase:
+    """The program family both engines share.  mesh: a serving mesh
+    (`launch.mesh`, None for one device): the full `params` are cut to
+    this rank's serving blocks, every step serves this rank's rows and its
+    block of the caches (`launch.steps`), and the host loop runs alike on
+    every rank."""
+
     def __init__(self, cfg: ArchConfig, ccfg: CompressionConfig, scfg: ServeConfig, params,
-                 device="cuda", use_kernels: bool = True, capture: bool = True):
+                 device="cuda", use_kernels: bool = True, capture: bool = True, mesh=None):
         self.cfg = cfg
         self.ccfg = ccfg
         self.scfg = scfg
-        self.params = params
+        self.mesh = mesh
+        self.params = params if mesh is None else shd.shard_serve_params(params, cfg, mesh)
         self.device = torch.device(device)
         self.use_kernels = use_kernels
         shape = ShapeConfig("serve", scfg.prompt_len, scfg.batch_size, "prefill",
@@ -236,7 +244,7 @@ class _EngineBase:
         self.ctx = steps_lib.serve_ctx(cfg, shape, ccfg,
                                        decode_budget=scfg.max_new_tokens,
                                        q_block=min(512, scfg.prompt_len), device=self.device,
-                                       use_kernels=use_kernels)
+                                       use_kernels=use_kernels, mesh=mesh)
         # the lockstep program family, built from the shared step factories
         # over one serving ctx (ragged admission buckets get their prefill
         # lazily); `EngineCore` adds the continuous one
@@ -266,7 +274,8 @@ class _EngineBase:
             ctx = steps_lib.serve_ctx(
                 self.cfg, bshape, self.ccfg,
                 decode_budget=self.scfg.max_new_tokens + self.scfg.prompt_len - bucket_len,
-                q_block=min(512, bucket_len), device=self.device, use_kernels=self.use_kernels)
+                q_block=min(512, bucket_len), device=self.device, use_kernels=self.use_kernels,
+                mesh=self.mesh)
             fn = steps_lib.make_prefill_step(self.cfg, bshape, self.ccfg, ctx=ctx)[0]
             self._prefill_buckets[bucket_len] = fn
         return fn
@@ -278,8 +287,16 @@ class _EngineBase:
     def cache_bytes(self, caches) -> Dict[str, int]:
         """Packed KV payload against bookkeeping overhead (and, for the free
         list, the unallocated pool pages within it) over a cache tree, as
-        `core.backend.cache_bytes` counts them."""
-        return backend_lib.cache_bytes(caches)
+        `core.backend.cache_bytes` counts them.  On a mesh: this rank's
+        block, and `mesh_total_bytes`, every rank's total summed."""
+        out = backend_lib.cache_bytes(caches)
+        if self.mesh is not None:
+            # on the engine's device: NCCL takes no CPU tensor
+            total = torch.tensor([out["total_bytes"]], dtype=torch.int64, device=self.device)
+            for axis in self.mesh.shape:
+                total = parallel.all_reduce(total, self.mesh, axis)
+            out["mesh_total_bytes"] = int(total[0])
+        return out
 
 
 class ServingEngine(_EngineBase):
@@ -289,9 +306,9 @@ class ServingEngine(_EngineBase):
     the device."""
 
     def __init__(self, cfg: ArchConfig, ccfg: CompressionConfig, scfg: ServeConfig, params,
-                 device="cuda", use_kernels: bool = True, capture: bool = True):
+                 device="cuda", use_kernels: bool = True, capture: bool = True, mesh=None):
         super().__init__(cfg, ccfg, scfg, params, device=device, use_kernels=use_kernels,
-                         capture=capture)
+                         capture=capture, mesh=mesh)
         self.last_caches = None
 
     def _is_probe(self, i: int) -> bool:
@@ -311,14 +328,13 @@ class ServingEngine(_EngineBase):
         t0 = time.perf_counter()
         inputs = {k: torch.as_tensor(batch[k], device=self.device)
                   for k in ("tokens", "frontend_embeds") if k in batch}
-        tokens = inputs["tokens"]
         logits, caches = self._prefill(self.params, inputs)
         caches = self._decode.adopt(caches)
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
         self._sync()
         t_prefill = time.perf_counter() - t0
 
-        outs = torch.empty((tokens.shape[0], n_new), dtype=torch.int32, device=self.device)
+        outs = torch.empty((tok.shape[0], n_new), dtype=torch.int32, device=self.device)
         t1 = time.perf_counter()
         since_recompress = 0
         for i in range(n_new):
@@ -333,7 +349,7 @@ class ServingEngine(_EngineBase):
         t_decode = time.perf_counter() - t1
         self.last_caches = caches
         return {
-            "tokens": outs.cpu().numpy(),
+            "tokens": steps_lib.gather_rows(outs, self.ctx).cpu().numpy(),
             "timings": {"prefill_s": t_prefill, "decode_s": t_decode,
                         "tok_per_s": n_new * self.scfg.batch_size / max(t_decode, 1e-9)},
         }
@@ -357,7 +373,7 @@ class EngineCore(_EngineBase):
 
     def __init__(self, cfg: ArchConfig, ccfg: CompressionConfig, scfg: ServeConfig, params,
                  scheduler: scheduler_lib.Scheduler, device="cuda", use_kernels: bool = True,
-                 capture: bool = True):
+                 capture: bool = True, mesh=None):
         if scfg.backpressure not in ("defer", "error"):
             raise ValueError(f"ServeConfig.backpressure must be 'defer' or 'error', got "
                              f"{scfg.backpressure!r}")
@@ -369,7 +385,7 @@ class EngineCore(_EngineBase):
                 "ContinuousEngine currently serves decoder-only text models; "
                 "use the lockstep ServingEngine for encdec/frontend archs")
         super().__init__(cfg, ccfg, scfg, params, device=device, use_kernels=use_kernels,
-                         capture=capture)
+                         capture=capture, mesh=mesh)
         shape, mk = self._shape, dict(ctx=self.ctx, device=self.device)
         self._decode_masked = steps_lib.make_continuous_decode_step(
             cfg, shape, ccfg, capture=capture, **mk)[0]
@@ -690,7 +706,9 @@ class EngineCore(_EngineBase):
         if self._alloc is not None:
             self._alloc.free(slot_id)
             self._sync_tables()
-        self._set_caches(registry.free_caches(self.caches, slot_id))
+        row = steps_lib.local_slot(self.ctx, slot_id)
+        if row is not None:
+            self._set_caches(registry.free_caches(self.caches, row))
         self.slots[slot_id] = None
         self._rungs[slot_id] = 0   # the ladder rung dies with the slot
 
@@ -1147,8 +1165,8 @@ class EngineCore(_EngineBase):
         logits = self._decode_rows(rows)
         # one copy to the host; an all-greedy step launches no sampler op
         sampled = any(r[2] > 0 for r in rows.values())
-        nxt = (self._decode_masked.sample(logits) if sampled
-               else torch.argmax(logits, dim=-1)).cpu().numpy()
+        nxt = steps_lib.gather_rows(self._decode_masked.sample(logits) if sampled
+                                    else torch.argmax(logits, dim=-1), self.ctx).cpu().numpy()
 
         due = []
         for i in active_ids:
@@ -1176,7 +1194,8 @@ class ContinuousEngine(EngineCore):
 
     def __init__(self, cfg: ArchConfig, ccfg: CompressionConfig, scfg: ServeConfig, params,
                  device="cuda", use_kernels: bool = True,
-                 scheduler: Optional[scheduler_lib.Scheduler] = None, capture: bool = True):
+                 scheduler: Optional[scheduler_lib.Scheduler] = None, capture: bool = True,
+                 mesh=None):
         super().__init__(cfg, ccfg, scfg, params,
                          scheduler or scheduler_lib.make_scheduler(scfg.scheduler),
-                         device=device, use_kernels=use_kernels, capture=capture)
+                         device=device, use_kernels=use_kernels, capture=capture, mesh=mesh)

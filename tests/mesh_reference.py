@@ -21,6 +21,18 @@ Jobs:
     its loss and metrics, and the parameters, master, m, v and count after
     it (numpy f32, in flatten order).
 
+  * `serve_yi` -- the JAX lockstep engine on the 4 x 2 mesh and without
+    one: yi-6b smoke, zipcache at fp_window = recompress_interval = 8,
+    `ServeConfig(batch_size=4, prompt_len=24, max_new_tokens=12)`,
+    `materialize_params(cfg, 0)`, prompts from `default_rng(0).integers(2,
+    vocab, (24,))`: its tokens and logits (the prefill's, then every
+    step's, f32);
+  * `serve_ds` -- `tests/test_sharding.py`'s decode step on
+    DeepSeek-V2-Lite smoke: `make_serve_step(cfg, ShapeConfig("d", 128, 8,
+    "decode"), mesh, zipcache, q_block=32)` jitted with
+    `decode_lowering_inputs`' shardings, from `materialize_params(cfg, 0)`
+    over empty caches, tokens 0 and a probe step: its logits.
+
     python -m tests.mesh_reference OUT.pkl JOB [JOB ...]   (run() sets the flags)
 """
 
@@ -122,6 +134,81 @@ def _ds_step(f32: bool = False):
     return {"metrics": {k: float(v) for k, v in met.items()}, "state": state}
 
 
+SERVE_B, SERVE_PROMPT, SERVE_NEW = 4, 24, 12
+
+
+def serve_params(arch: str):
+    """`materialize_params(smoke cfg, 0)` of the JAX package as numpy, bf16
+    leaves as uint16 words (what `_serve_yi` / `_serve_ds` draw)."""
+    import jax
+    import jax.numpy as jnp
+    from repro import configs
+    from repro.models import registry
+    with jax.threefry_partitionable(True):
+        params = registry.materialize_params(configs.get_arch(arch, smoke=True), 0)
+    return jax.tree_util.tree_map(
+        lambda x: np.asarray(x).view(np.uint16) if x.dtype == jnp.bfloat16 else np.asarray(x),
+        params)
+
+
+def _serve_yi():
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    from repro import configs
+    from repro.core.policy import CompressionConfig
+    from repro.models import registry
+    from repro.serving.engine import ServeConfig, ServingEngine, pack_requests
+
+    cfg = configs.get_arch("yi-6b", smoke=True)
+    ccfg = dataclasses.replace(CompressionConfig.zipcache(), fp_window=8, recompress_interval=8)
+    scfg = ServeConfig(batch_size=SERVE_B, prompt_len=SERVE_PROMPT, max_new_tokens=SERVE_NEW)
+    params = registry.materialize_params(cfg, 0)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, cfg.vocab, (SERVE_PROMPT,)).astype(np.int32)
+               for _ in range(SERVE_B)]
+    batch = {"tokens": pack_requests(prompts, SERVE_B, SERVE_PROMPT)}
+    mesh = _mesh(jax, (4, 2), ("data", "model"))
+    logits = []
+
+    def recorded(fn):
+        def run(*a):
+            out = fn(*a)
+            logits.append(np.asarray(out[0].astype(jnp.float32)))
+            return out
+        return run
+
+    with mesh:
+        eng = ServingEngine(cfg, ccfg, scfg, params, mesh=mesh)
+        eng._prefill, eng._decode = recorded(eng._prefill), recorded(eng._decode)
+        tokens = np.asarray(eng.generate(batch)["tokens"])
+    return {"tokens": tokens, "logits": np.stack(logits)}
+
+
+def _serve_ds():
+    import jax
+    import jax.numpy as jnp
+    from repro import configs
+    from repro.configs.base import ShapeConfig
+    from repro.core.policy import CompressionConfig
+    from repro.launch import steps as S
+    from repro.models import registry
+
+    cfg = configs.get_arch("deepseek-v2-lite-16b", smoke=True)
+    mesh = _mesh(jax, (4, 2), ("data", "model"))
+    shp = ShapeConfig("d", 128, 8, "decode")
+    fn, ctx = S.make_serve_step(cfg, shp, mesh, CompressionConfig.zipcache(), q_block=32)
+    args, in_sh, out_sh = S.decode_lowering_inputs(cfg, shp, mesh, ctx)
+    params = registry.materialize_params(cfg, 0)
+    with mesh:
+        step = jax.jit(fn, in_shardings=in_sh, out_shardings=out_sh)
+        caches = registry.init_caches(cfg, ctx, 8)
+        logits, _ = step(jax.device_put(params, in_sh[0]), caches, jnp.zeros((8,), jnp.int32),
+                         jnp.asarray(True))
+    return {"logits": np.asarray(logits.astype(jnp.float32))}
+
+
 def run(path: Path, jobs) -> dict:
     """The jobs' results from one child process on 8 fake devices."""
     env = dict(os.environ)
@@ -149,7 +236,8 @@ def run(path: Path, jobs) -> dict:
 if __name__ == "__main__":
     if "device_count=8" not in os.environ.get("XLA_FLAGS", ""):
         sys.exit("run through tests.mesh_reference.run: XLA_FLAGS must give 8 fake devices")
-    out = {"moe": _moe, "ds_step": _ds_step, "ds_step_f32": lambda: _ds_step(f32=True)}
+    out = {"moe": _moe, "ds_step": _ds_step, "ds_step_f32": lambda: _ds_step(f32=True),
+           "serve_yi": _serve_yi, "serve_ds": _serve_ds}
     res = {job: out[job]() for job in sys.argv[2:]}
     with open(sys.argv[1], "wb") as f:
         pickle.dump(res, f)

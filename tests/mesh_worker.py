@@ -331,17 +331,18 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def launch(world: int, path: Path, jobs, timeout: int = 600) -> dict:
+def launch(world: int, path: Path, jobs, timeout: int = 600,
+           module: str = "tests.mesh_worker") -> dict:
     """Run the jobs on `world` gloo ranks (`torch.distributed.run` as a
-    child, one torch thread a rank, a free port from the OS) and load rank
-    0's results."""
+    child running `module`, one torch thread a rank, a free port from the
+    OS) and load rank 0's results."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT / "src"), str(ROOT)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
     env["OMP_NUM_THREADS"] = "1"
     cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(world),
            "--master-addr", "127.0.0.1", "--master-port", str(free_port()),
-           "-m", "tests.mesh_worker", str(path), *jobs]
+           "-m", module, str(path), *jobs]
     proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
                           timeout=timeout)
     if proc.returncode:

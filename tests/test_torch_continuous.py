@@ -11,37 +11,28 @@ The free-list variant runs at pool_fraction 0.75, where the pools hold one
 request's worst case at a time, so admissions defer.  Requests are drained
 through `stream()`.  Greedy tokens must equal the reference exactly.
 
-The JAX engines run op by op (`jax.disable_jit()`), as in
-tests/test_torch_slice.py, and only the gather path: JAX's own tests hold
-its Pallas kernel to that path token for token.
+The JAX engines run jitted in a child process (`tests/serving_reference.py`:
+excess precision and the algebraic simplifier off, so they take the
+op-by-op run's tokens), and only the gather path: JAX's own tests hold its
+Pallas kernel to that path token for token.
 """
 
 import dataclasses
 
-import jax
 import numpy as np
 import pytest
 
-from repro import configs as jconfigs
-from repro.core.policy import CompressionConfig as JCompression
-from repro.models import registry as jregistry
-from repro.serving import ContinuousEngine as JContinuousEngine
-from repro.serving import Request as JRequest
-from repro.serving import ServeConfig as JServeConfig
 from repro_torch import configs, convert
 from repro_torch.core.policy import CompressionConfig
 from repro_torch.launch import serve
 from repro_torch.serving import (CancelledEvent, ContinuousEngine, PreemptedEvent, Request,
                                  ServeConfig, ServingEngine, pack_requests)
+from tests import serving_reference as sr
 from tests.torch_parity import torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("torch_threads")
-PROMPTS = (48, 30, 41)
-LAYOUTS = {
-    "mixed": dict(backend="mixed"),
-    "paged": dict(backend="paged"),
-    "paged-freelist": dict(backend="paged", page_allocator="freelist", pool_fraction=0.75),
-}
+PROMPTS = sr.CONTINUOUS_PROMPTS
+LAYOUTS = sr.CONTINUOUS_LAYOUTS
 # the port's variants, and the reference layout each is held to
 VARIANTS = {**{k: (v, k) for k, v in LAYOUTS.items()},
             "paged-kernel": (dict(LAYOUTS["paged-freelist"], paged_kernel=True),
@@ -49,34 +40,16 @@ VARIANTS = {**{k: (v, k) for k, v in LAYOUTS.items()},
 
 
 def _prompts(vocab):
-    rng = np.random.default_rng(0)
-    return [rng.integers(2, vocab, size=(n,)).astype(np.int32) for n in PROMPTS]
+    return sr.continuous_prompts(vocab)
 
 
 def _scenario(eng, request, prompts):
-    """Submit, drive, drain through streams -> (outputs, streams, pool stats)."""
-    r0 = eng.submit(request(tokens=prompts[0]))
-    r1 = eng.submit(request(tokens=prompts[1], max_new_tokens=6))
-    for _ in range(4):
-        eng.step()
-    r2 = eng.submit(request(tokens=prompts[2]))   # mid-run: waits for r1's slot
-    streams = {r: list(eng.stream(r)) for r in (r0, r1, r2)}
-    res = eng.run()
-    return [res[r] for r in (r0, r1, r2)], [streams[r] for r in (r0, r1, r2)], eng.pool_stats()
+    return sr.continuous_scenario(eng, request, prompts)
 
 
 @pytest.fixture(scope="module")
-def reference():
-    cfg = jconfigs.get_arch("yi-6b", smoke=True)
-    ccfg = dataclasses.replace(JCompression.zipcache(), fp_window=8, recompress_interval=8)
-    params = jregistry.materialize_params(cfg, seed=0)
-    out = {"params": jax.device_get(params)}
-    with jax.disable_jit():
-        for name, kw in LAYOUTS.items():
-            scfg = JServeConfig(batch_size=2, prompt_len=48, max_new_tokens=12, page_size=8, **kw)
-            eng = JContinuousEngine(cfg, ccfg, scfg, params)
-            out[name] = _scenario(eng, JRequest, _prompts(cfg.vocab))
-    return out
+def reference(tmp_path_factory):
+    return sr.run(tmp_path_factory.mktemp("continuous") / "ref.pkl", "continuous")
 
 
 @pytest.fixture(scope="module")

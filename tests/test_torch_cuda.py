@@ -303,6 +303,47 @@ def test_mixed_layer_matches_plain(dev, g, d, dtype, hi):
                                atol=tol * max(want.float().abs().max().item(), 1.0), rtol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mixed_layer_shares_of_a_split(dev, dtype):
+    """The launches a mesh split makes (`core.sharded`): each half of the kv
+    heads with the whole layer's split plan, concatenated, bitwise the
+    whole launch (and `plan=b * hk` bitwise no plan); each half of the
+    slots with the statistics output, (m, l) within 1e-5 of the plain
+    version's and merged in order within one bf16 ulp (1e-4 in f32) of the
+    whole launch; acc / l is the normalized output's launch."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    cfg = CompressionConfig.zipcache()
+    b, hk, g, d, l = 4, 4, 8, 128, 600
+    k, v = _randn(gen, b, hk, l, d, dtype=dtype), _randn(gen, b, hk, l, d, dtype=dtype)
+    cache = kvc.compress_prefill(cfg, k, v, torch.rand((b, l), generator=gen, device=dev), 700,
+                                 dtype=dtype)
+    for _ in range(9):
+        cache = kvc.append_token(cache, _randn(gen, b, hk, d, dtype=dtype),
+                                 _randn(gen, b, hk, d, dtype=dtype))
+    q = _randn(gen, b, hk * g, d, dtype=dtype)
+    segs = dq_ops.mixed_segments(cache)
+    whole = dq_kernel.qattn_mixed_layer(q, segs)
+    assert torch.equal(dq_kernel.qattn_mixed_layer(q, segs, plan=b * hk), whole)
+    heads = torch.cat([dq_kernel.qattn_mixed_layer(
+        q.chunk(2, 1)[i].contiguous(), [dq_ops.segment_share(o, 1, i, 2) for o in segs],
+        plan=b * hk) for i in range(2)], dim=1)
+    assert torch.equal(heads, whole)
+    acc, m, l_ = dq_kernel.qattn_mixed_layer(q, segs, stats=True)
+    assert torch.equal((acc / l_.clamp_min(1e-30)[..., None]).to(dtype), whole)
+    halves = []
+    for i in range(2):
+        share = [dq_ops.segment_share(o, 2, i, 2) for o in segs]
+        got = dq_kernel.qattn_mixed_layer(q, share, stats=True)
+        want = dq_ref.mixed_layer_ref(q, share, stats=True)
+        for a, w in zip(got[1:], want[1:]):
+            torch.testing.assert_close(a, w, atol=1e-5, rtol=1e-5)
+        halves.append(got)
+    merged = dq_ref.merge_segments_ref(halves).to(dtype)
+    tol = 2 ** -7 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(merged.float(), whole.float(),
+                               atol=tol * max(whole.float().abs().max().item(), 1.0), rtol=0)
+
+
 def test_engine_runs_every_kernel(dev):
     """Smoke-width lockstep run on the card: every kernel launches, and the
     prefill logits agree with the plain path's within bf16 noise."""

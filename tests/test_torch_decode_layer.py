@@ -118,6 +118,41 @@ def test_layer_descriptors(dtype, rng):
     assert n_blk == -(-tc.hi.capacity // 32) + -(-tc.lo.capacity // 32) + 1
 
 
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_mixed_layer_stats_merge_to_the_output(dtype, rng):
+    """The layer's statistics output (`stats=True`, what a slot split over a
+    mesh merges): acc / l is the normalized output bit for bit; (m, l) are
+    the row's softmax max and sum over every segment (1e-5); each half of
+    every segment's slots, merged in order, is the whole layer's output
+    within 1e-5 (f32) or one bf16 ulp; none taken is an empty partial."""
+    _, tc, q = _caches(rng, dtype, 5)
+    tq = to_torch(q)
+    segs = dq_ops.mixed_segments(tc)
+    out = dq_kernel.qattn_mixed_layer(tq, segs)
+    acc, m, l = dq_kernel.qattn_mixed_layer(tq, segs, stats=True)
+    assert acc.dtype == m.dtype == l.dtype == torch.float32 and acc.shape == tq.shape
+    assert torch.equal((acc / l.clamp_min(1e-30)[..., None]).to(tq.dtype), out)
+    scale = 1.0 / (tq.shape[-1] ** 0.5)
+    k, _, valid, _ = kvc.cache_keys_values(tc)
+    b, hk = k.shape[:2]
+    s = torch.einsum("bhgd,bhsd->bhgs", tq.reshape(b, hk, -1, tq.shape[-1]).float() * scale,
+                     k.float()).masked_fill(~valid[:, None, None, :], dq_ref.NEG_INF)
+    want_m = s.amax(-1).reshape(m.shape)
+    np.testing.assert_allclose(to_np(m), to_np(want_m), atol=TOL)
+    np.testing.assert_allclose(to_np(l), to_np(torch.exp(s - s.amax(-1, keepdim=True))
+                                              .sum(-1).reshape(l.shape)), rtol=TOL)
+
+    parts = [dq_kernel.qattn_mixed_layer(tq, [dq_ops.segment_share(o, 2, i, 2) for o in segs],
+                                         stats=True) for i in range(2)]
+    merged = dq_ref.merge_segments_ref(parts).to(tq.dtype)
+    tol = TOL if dtype == jnp.float32 else 2 ** -7 * max(to_np(out).max(), 1.0)
+    np.testing.assert_allclose(to_np(merged).astype(np.float32),
+                               to_np(out).astype(np.float32), atol=tol)
+    empty = dq_ops.decode_attend_mixed(tq, tc, stats=True, taken=(False, False, False))
+    assert float(empty[0].abs().max()) == 0 and float(empty[2].max()) == 0
+    assert torch.equal(dq_ops.decode_attend_mixed(tq, tc, stats=True, taken=(True,) * 3)[0], acc)
+
+
 def test_split_plan():
     """The walk's split sizing, which every launch records on its kernel:
     every block in one split, no split empty, at most MAX_SPLITS; fp16's
@@ -125,6 +160,9 @@ def test_split_plan():
     walks 20 splits of 2 blocks."""
     segs = lambda *lens: [walk.SegDesc(s_seg=n) for n in lens]  # noqa: E731
     assert walk.split_plan(segs(1152, 100), 4, 4, 528) == (2, 20)
+    # a share of a layer's kv heads (or rows) planned as the whole layer
+    assert walk.split_plan(segs(1152, 100), 4, 2, 528, plan_bh=16) == (2, 20)
+    assert walk.split_plan(segs(1152, 100), 4, 2, 528) != (2, 20)
     for lens, b, hk in [((461, 691, 100), 4, 4), ((64,), 1, 1), ((5, 33), 2, 1),
                         ((1 << 20,), 1, 1)]:
         bpc, nsplit = walk.split_plan(segs(*lens), b, hk, 528)

@@ -12,7 +12,9 @@ smoke model on the lockstep engine, against the JAX package.
     bf16 ulp of the largest value;
   * the smoke model (an MLA prefix layer with a dense FFN, then MLA + MoE
     layers) on the lockstep engine: greedy tokens equal the JAX engine's
-    (op by op, `jax.disable_jit()`) with fp_window 8 and recompress
+    (jitted in a child process, `tests/serving_reference.py`, excess
+    precision and the algebraic simplifier off: the op-by-op run's tokens)
+    with fp_window 8 and recompress
     interval 8, across probe steps and a fold, on the kernel route (the
     main path's: `flash_fwd` / `probe_colsum` / `cst_quant`, their plain
     versions on the CPU); the prefill logits within one bf16 ulp of the
@@ -37,19 +39,18 @@ from repro.core import saliency as jsal
 from repro.core.policy import CompressionConfig as JCompression
 from repro.models import attention as jattn
 from repro.models import registry as jregistry
-from repro.serving import ServeConfig as JServeConfig
-from repro.serving import ServingEngine as JServingEngine
 from repro_torch import configs, convert
 from repro_torch.core import kvcache as kvc
 from repro_torch.core import saliency as sal
 from repro_torch.core.policy import CompressionConfig
 from repro_torch.models import attention, registry
 from repro_torch.serving import ServeConfig, ServingEngine, pack_requests
+from tests import serving_reference as sr
 from tests.torch_parity import to_np, to_torch, torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("torch_threads")
 ARCH = "deepseek-v2-lite-16b"
-BATCH, PROMPT, MAX_NEW = 2, 48, 12
+BATCH, PROMPT, MAX_NEW = sr.MLA_BATCH, sr.MLA_PROMPT, sr.MLA_NEW
 
 
 def _ccfgs():
@@ -171,25 +172,14 @@ def test_mla_decode_matches_reference(layer, dtype, impl):
 # ---- the smoke model on the lockstep engine -----------------------------------
 
 def _batch(vocab):
-    rng = np.random.default_rng(3)
-    prompts = [rng.integers(2, vocab, size=(PROMPT,)).astype(np.int32) for _ in range(BATCH)]
-    return {"tokens": pack_requests(prompts, BATCH, PROMPT)}
+    return sr.mla_batch(vocab, pack_requests)
 
 
 @pytest.fixture(scope="module")
-def reference():
-    cfg = jconfigs.get_arch(ARCH, smoke=True)
-    ccfg = dataclasses.replace(JCompression.zipcache(), fp_window=8, recompress_interval=8)
-    with jax.threefry_partitionable(True):
-        params = jregistry.materialize_params(cfg, seed=0)
-    batch = _batch(cfg.vocab)
-    with jax.disable_jit():
-        eng = JServingEngine(cfg, ccfg, JServeConfig(BATCH, PROMPT, MAX_NEW), params)
-        logits, _ = jregistry.prefill(params, {"tokens": jnp.asarray(batch["tokens"])}, cfg,
-                                      eng.ctx)
-        tokens = eng.generate(batch)["tokens"]
-    return {"params": jax.device_get(params), "batch": batch, "tokens": tokens,
-            "logits": to_np(logits)}
+def reference(tmp_path_factory):
+    """The JAX engine's prefill logits and tokens, jitted in a child process
+    (`tests/serving_reference.py`)."""
+    return sr.run(tmp_path_factory.mktemp("mla_lockstep") / "ref.pkl", "mla_lockstep")
 
 
 def _engine(reference, use_kernels):

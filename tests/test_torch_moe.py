@@ -13,8 +13,10 @@ DeepSeek-V2-Lite smoke model on the continuous engine.
   * `active`: a decode batch's empty rows take no expert slot, so the live
     rows' outputs are those of the batch without them;
   * the smoke model on the continuous engine over the paged free list:
-    greedy tokens equal the JAX engine's on the same layout (op by op,
-    `jax.disable_jit()`), across admissions, probe steps and folds; and the
+    greedy tokens equal the JAX engine's on the same layout (jitted in a
+    child process, `tests/serving_reference.py`, excess precision and the
+    algebraic simplifier off: the op-by-op run's tokens), across
+    admissions, probe steps and folds; and the
     port's mixed layout equal to its paged one.  The JAX package's
     ContinuousEngine refuses MoE archs (its dispatch lets empty slots take
     expert slots); its one check is hidden while the reference engine is
@@ -23,8 +25,6 @@ DeepSeek-V2-Lite smoke model on the continuous engine.
     port's masked dispatch and the reference's agree there.
 """
 
-import builtins
-import contextlib
 import dataclasses
 
 import jax
@@ -34,17 +34,12 @@ import pytest
 import torch
 
 from repro import configs as jconfigs
-from repro.core.policy import CompressionConfig as JCompression
 from repro.models import mlp as jmlp
-from repro.models import registry as jregistry
-from repro.serving import ContinuousEngine as JContinuousEngine
-from repro.serving import Request as JRequest
-from repro.serving import ServeConfig as JServeConfig
-from repro.serving import engine as jengine
 from repro_torch import configs, convert
 from repro_torch.core.policy import CompressionConfig
 from repro_torch.models import mlp
 from repro_torch.serving import ContinuousEngine, Request, ServeConfig
+from tests import serving_reference as sr
 from tests.torch_parity import to_np, to_torch, torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("torch_threads")
@@ -220,57 +215,22 @@ def test_capacity_at_full_width():
 
 # ---- the smoke model on the continuous engine --------------------------------
 
-PROMPTS = (24, 16, 20)
-PROMPT_LEN, MAX_NEW = 24, 10
+PROMPT_LEN, MAX_NEW = sr.MOE_PROMPT_LEN, sr.MOE_NEW
+FREELIST = sr.MOE_FREELIST
 
 
 def _prompts(vocab):
-    rng = np.random.default_rng(5)
-    return [rng.integers(2, vocab, size=(n,)).astype(np.int32) for n in PROMPTS]
+    return sr.moe_prompts(vocab)
 
 
 def _scenario(eng, request, prompts):
-    """Two slots; a short request retires after 3 tokens and a third,
-    submitted mid-run, takes its slot."""
-    r0 = eng.submit(request(tokens=prompts[0]))
-    r1 = eng.submit(request(tokens=prompts[1], max_new_tokens=3))
-    eng.step()
-    r2 = eng.submit(request(tokens=prompts[2]))
-    res = eng.run()
-    return [(res[r].tokens.tolist(), res[r].finish_reason) for r in (r0, r1, r2)]
-
-
-FREELIST = dict(backend="paged", page_size=8, page_allocator="freelist", pool_fraction=0.75)
-
-
-@contextlib.contextmanager
-def _moe_admitted():
-    """Hide `n_experts` from the reference EngineCore's MoE check (its only
-    `getattr` of that name) while a JAX ContinuousEngine is built."""
-    def shim(obj, name, *default):
-        return 0 if name == "n_experts" else builtins.getattr(obj, name, *default)
-
-    jengine.getattr = shim
-    try:
-        yield
-    finally:
-        del jengine.getattr
+    return sr.moe_scenario(eng, request, prompts)
 
 
 @pytest.fixture(scope="module")
-def continuous_reference():
-    cfg = jconfigs.get_arch(ARCH, smoke=True)
-    ccfg = dataclasses.replace(JCompression.zipcache(), fp_window=8, recompress_interval=8)
-    with jax.threefry_partitionable(True):
-        params = jregistry.materialize_params(cfg, seed=0)
-    with jax.disable_jit():
-        with _moe_admitted():
-            eng = JContinuousEngine(cfg, ccfg, JServeConfig(batch_size=2, prompt_len=PROMPT_LEN,
-                                                            max_new_tokens=MAX_NEW, **FREELIST),
-                                    params)
-        out = _scenario(eng, JRequest, _prompts(cfg.vocab))
-        stats = eng.pool_stats()
-    return {"params": jax.device_get(params), "tokens": out, "stats": stats}
+def continuous_reference(tmp_path_factory):
+    """The JAX engine's run, jitted in a child process (`tests/serving_reference.py`)."""
+    return sr.run(tmp_path_factory.mktemp("moe_continuous") / "ref.pkl", "moe_continuous")
 
 
 def _port_run(reference, **layout):

@@ -7,51 +7,36 @@ with its static-buffer step (whose tree a baseline's first fold promotes
 to f32, so it is built again, as the reference's jitted step retraces) and
 with `capture=False`.
 
-The JAX engine runs op by op (`jax.disable_jit()`), as in
-tests/test_torch_slice.py, which says why.
+The JAX engine runs jitted in a child process (`tests/serving_reference.py`:
+excess precision and the algebraic simplifier off, so it takes the op-by-op
+run's tokens).  The ported examples print the JAX examples' lines.
 """
 
 import dataclasses
 
-import jax
 import numpy as np
 import pytest
 import torch
 
-from repro import configs as jconfigs
-from repro.core.policy import CompressionConfig as JCompression
-from repro.models import registry as jregistry
-from repro.serving import ServeConfig as JServeConfig
-from repro.serving import ServingEngine as JServingEngine
 from repro_torch import configs, convert
 from repro_torch.core.policy import CompressionConfig
 from repro_torch.serving import ServeConfig, ServingEngine, pack_requests
+from tests import serving_reference as sr
 from tests.torch_parity import torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("torch_threads")
-POLICIES = ["mikv", "h2o", "fp16", "gear", "kivi"]
-BATCH, PROMPT, MAX_NEW = 2, 24, 10
+POLICIES = list(sr.LOCKSTEP_POLICIES)
+BATCH, PROMPT, MAX_NEW = sr.LOCK_BATCH, sr.LOCK_PROMPT, sr.LOCK_NEW
 
 
 def _batch(vocab):
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(2, vocab, size=(PROMPT,)).astype(np.int32) for _ in range(BATCH)]
-    return {"tokens": pack_requests(prompts, BATCH, PROMPT)}
+    return sr.lockstep_batch(vocab, pack_requests)
 
 
 @pytest.fixture(scope="module")
-def reference():
+def reference(tmp_path_factory):
     """The JAX engine's greedy tokens under each policy."""
-    cfg = jconfigs.get_arch("yi-6b", smoke=True)
-    params = jregistry.materialize_params(cfg, seed=0)
-    out = {"params": jax.device_get(params)}
-    with jax.disable_jit():
-        for policy in POLICIES:
-            ccfg = dataclasses.replace(JCompression.preset(policy), fp_window=8,
-                                       recompress_interval=8)
-            eng = JServingEngine(cfg, ccfg, JServeConfig(BATCH, PROMPT, MAX_NEW), params)
-            out[policy] = eng.generate(_batch(cfg.vocab))["tokens"]
-    return out
+    return sr.run(tmp_path_factory.mktemp("lockstep_policies") / "ref.pkl", "lockstep_policies")
 
 
 @pytest.mark.parametrize("capture", [True, False], ids=["static-buffers", "eager"])
@@ -111,6 +96,42 @@ def test_example_runs_on_cpu(capsys):
     assert lock["fp16"]["ratio"] == 1.0 < lock["gear"]["ratio"] < lock["zipcache"]["ratio"]
     assert lock["fp16"]["packed_bytes"] > lock["gear"]["packed_bytes"] \
         > lock["zipcache"]["packed_bytes"]
+
+
+def _jax_example_output(script: str, call: str, capsys) -> str:
+    """What the JAX package's example prints (`examples/<script>`, its
+    module body run, then `call`, op by op)."""
+    import runpy
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "examples" / script
+    capsys.readouterr()
+    ns = runpy.run_path(str(path), run_name="example")
+    if call:
+        eval(call, ns)
+    return capsys.readouterr().out
+
+
+def test_quickstart_example_prints_the_reference_figures(capsys):
+    """`python -m repro_torch.examples.quickstart --device cpu`: every line
+    the JAX example prints (CSTQuant bytes and MSE, the top probe token,
+    the packed bytes of the 4/2 cache, the fold's step and live tokens, the
+    output shape), character for character."""
+    from repro_torch.examples import quickstart
+    want = _jax_example_output("quickstart.py", "", capsys)
+    out = quickstart.main(["--device", "cpu"])
+    assert capsys.readouterr().out == want
+    assert out["folds"] == [(15, 272)]
+
+
+def test_longcontext_example_prints_the_reference_figures(capsys):
+    """`python -m repro_torch.examples.longcontext_retrieval --device cpu` at
+    a 256-token cache and 2 trials: the JAX example's recall, value error
+    and compression per policy, line for line."""
+    from repro_torch.examples import longcontext_retrieval
+    want = _jax_example_output("longcontext_retrieval.py", "main(l=256, trials=2)", capsys)
+    figures = longcontext_retrieval.main(["--device", "cpu", "--length", "256", "--trials", "2"])
+    assert capsys.readouterr().out == want
+    assert figures["zipcache(4/2)"][2] > figures["h2o(evict 60%)"][2] >= 1.0
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal without a card")
