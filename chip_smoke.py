@@ -344,6 +344,12 @@ continued:
      with its (acc, m, l) output merged in rank order within phase 3's
      bound (the output's row `decode_qattn.stats`), flash_fwd and
      probe_colsum on each half of the heads;
+  4s. slice 21: pipeline parallelism on one-stage meshes over NCCL
+     (`pipeline_training`): smollm-360m at full size on ("stage",),
+     `pp_forward` against `lm.forward` and 2 pipelined steps against 2
+     plain steps; yi-6b over 4i's 4 layers on a 1 x 1 x 1 ("stage",
+     "data", "model") mesh, one step each; step seconds and peak memory
+     logged.  No kernel launches;
   5. a `kernels` JSON line, then the last line:
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -1266,6 +1272,9 @@ def main() -> None:
     # ---- 4r. slice 20: serving on a mesh at world size 1 --------------------
     by_path["serve_mesh"] = serving_mesh(torch, np, dev, kernels, card, rows)
     lap("4r")
+    # ---- 4s. slice 21: pipeline parallelism at world size 1 -----------------
+    by_path["train_pp"] = pipeline_training(torch, np, dev, kernels, card)
+    lap("4s")
     rows["cst_quant"]["eff"]["launches"] = sum(
         p["cst_quant"] for name, p in by_path.items() if name.startswith("levers"))
     # phase 4p's launches at the new shapes: cst_quant's eff instantiation
@@ -5552,6 +5561,162 @@ def serving_mesh(torch, np, dev, kernels, card, rows):
     log(f"serving_mesh: the phase took {time.perf_counter() - t_phase:.1f} s ({card})")
     return launches
 
+
+
+# ---- 4s. slice 21: pipeline parallelism at world size 1 ---------------------
+PP_MICRO = 4
+PP_SMOLLM = (4, 2048)           # (i): smollm-360m at full size, batch x sequence
+PP_YI = (4, 4, 1024)            # (ii): yi-6b's first 4 layers (4i's cut), batch x sequence
+# the pipelined run against the plain one on the card: the mesh step's bf16
+# bounds (tests/test_torch_mesh_step.py) for the steps (readings: metrics
+# 1.72e-3, the worst leaf 5.07e-3 relative L2 on an H100 80GB HBM3 at 700 W); the
+# logits were bitwise there, and cuBLAS may tile another M otherwise, so they are
+# held to one bf16 ulp of the largest
+PP_LOGITS_OF_MAX = 2 ** -8
+PP_METRIC_REL, PP_LEAF_REL_L2 = 2e-3, 1.5e-2
+
+
+def pipeline_training(torch, np, dev, kernels, card):
+    """Phase 4s: the pipeline (`launch.pipeline`) on one-stage meshes over
+    NCCL (a world of one process, its store in memory): the stage hop is the
+    identity, and the one stage's work runs on the one card.
+
+    (i) smollm-360m at full size (32 layers, d 960, vocab 49152, tied
+    embeddings) on a ("stage",) mesh of 1, from `common.fan_in_init` of
+    `materialize_params(cfg, 0)` (at the reference's init the bf16
+    gradients are rounding noise, which two summation orders round apart:
+    ROADMAP.md §3) and the synthetic pipeline's 4 x 2048 batches: `pp_forward` with 4
+    microbatches against `lm.forward` (no remat), the logits within
+    PP_LOGITS_OF_MAX of the largest (and how many are bitwise); then 2
+    steps of `make_pp_train_step` against 2 steps of the plain
+    `make_train_step` (no mesh), each from its own copy of the state: the
+    loss, grad norm and lr within PP_METRIC_REL relative and every
+    parameter, master, m and v leaf within PP_LEAF_REL_L2 relative L2.
+    (ii) yi-6b at full width over its first 4 layers on a 1 x 1 x 1
+    ("stage", "data", "model") mesh: one pipelined step against one plain
+    step at 4 x 1024, the same bounds.  Logs each step's seconds, each
+    run's peak memory above the state it starts from (GPipe keeps every
+    microbatch's activations, no remat; the plain step recomputes each
+    layer) and the phase's seconds.  No kernel launches; returns the launch
+    counts."""
+    import torch.distributed as dist
+
+    from repro_torch import configs, tree
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import pipeline as pp
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train
+    from repro_torch.models import common, lm, registry
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(not dist.is_initialized(), "pipeline_training: a process group is already up")
+    launches = {n: 0 for n in kernels}
+
+    def batches_of(cfg, b, seq, n):
+        pipe = TokenPipeline(train.data_config(cfg, seq, b, 0))
+        try:
+            return [train.to_device(next(pipe), dev) for _ in range(n)]
+        finally:
+            pipe.close()
+
+    def run(tag, step, state, batches):
+        for kern in kernels.values():
+            kern.launches = 0
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        mets, secs = [], []
+        for bt in batches:
+            t0 = time.perf_counter()
+            *state, met = step(*state, bt)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            mets.append({k: met[k].item() for k in ("loss", "grad_norm", "lr")})
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        for n, kern in kernels.items():
+            launches[n] += kern.launches
+        check(all(k.launches == 0 for k in kernels.values()),
+              f"pipeline_training {tag}: the train path launched kernels")
+        log(f"pipeline_training {tag}: step seconds " + ", ".join(f"{t:.3f}" for t in secs)
+            + f"; peak memory {peak:.2f} GiB above the state; losses "
+            + ", ".join(f"{m['loss']:.6f}" for m in mets) + f" ({card})")
+        return tuple(state), mets
+
+    def compare(tag, plain, piped):
+        (p_state, p_mets), (q_state, q_mets) = plain, piped
+        m_errs = {f"{k} of step {i + 1}": abs(q[k] - p[k]) / abs(p[k])
+                  for i, (p, q) in enumerate(zip(p_mets, q_mets)) for k in p}
+        worst_m = max(m_errs, key=m_errs.get)
+        errs = {n: ((b.float() - a.float()).norm() / a.float().norm().clamp_min(1e-30)).item()
+                for (n, a), b in zip(tree.named_leaves(p_state), tree.leaves(q_state))
+                if a.is_floating_point()}
+        same = sum(torch.equal(a, b) for a, b in zip(tree.leaves(p_state), tree.leaves(q_state)))
+        worst = max(errs, key=errs.get)
+        log(f"pipeline_training {tag}: metrics within {m_errs[worst_m]:.3g} relative of the "
+            f"plain step's ({worst_m}); worst leaf {worst} {errs[worst]:.3g} relative L2; "
+            f"{same} of {len(tree.leaves(p_state))} state leaves bitwise")
+        check(m_errs[worst_m] <= PP_METRIC_REL and errs[worst] <= PP_LEAF_REL_L2,
+              f"pipeline_training {tag}: the pipelined step differs from the plain step: "
+              f"{worst_m} {m_errs[worst_m]:.3g} (tol {PP_METRIC_REL}), {worst} "
+              f"{errs[worst]:.3g} (tol {PP_LEAF_REL_L2})")
+
+    try:
+        # ---- (i) smollm-360m at full size on ("stage",) ------------------------
+        t_i = time.perf_counter()
+        cfg = configs.get_arch("smollm-360m")
+        check(pp.supports_pp(cfg) and cfg.tie_embeddings, "pipeline_training: smollm's config")
+        mesh = pp.make_pp_mesh(1, 1, 1)
+        check(dist.get_backend() == "nccl" and mesh.axis_names == ("stage",),
+              f"pipeline_training: backend {dist.get_backend()}, mesh {mesh.shape}")
+        batches = batches_of(cfg, *PP_SMOLLM, 2)
+        params = common.fan_in_init(registry.materialize_params(cfg, 0, device=dev))
+        with torch.no_grad():
+            want = lm.forward(params, batches[0]["tokens"], cfg, steps_lib._run_ctx(cfg, None),
+                              remat=False).logits
+            got = pp.pp_forward(params, batches[0]["tokens"], cfg, mesh, PP_MICRO)
+        err = (got.float() - want.float()).abs().max().item() / want.float().abs().max().item()
+        n_diff = int((got != want).sum())
+        log(f"pipeline_training (i) pp_forward: {n_diff:,} of {want.numel():,} logits differ "
+            f"from lm.forward's, the largest by {err:.3g} of the largest logit")
+        check(err <= PP_LOGITS_OF_MAX, f"pipeline_training (i): pp_forward's logits differ "
+              f"by {err:.3g} of the largest (tol {PP_LOGITS_OF_MAX})")
+        del got, want
+        plain = run("(i) plain", steps_lib.make_train_step(cfg, AdamWConfig()),
+                    (tree.tree_map(torch.clone, params), adamw_init(params)), batches)
+        piped = run("(i) pipelined", pp.make_pp_train_step(cfg, mesh, PP_MICRO),
+                    steps_lib.shard_train_state(params, cfg, mesh, pp.PP_OVERRIDES), batches)
+        compare("(i) smollm-360m", plain, piped)
+        del plain, piped, params, batches
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"pipeline_training (i): {time.perf_counter() - t_i:.1f} s")
+
+        # ---- (ii) yi-6b at full width over 4 layers on 1 x 1 x 1 -----------------
+        t_ii = time.perf_counter()
+        layers, b, seq = PP_YI
+        cfg = cut_depth(configs.get_arch("yi-6b"), layers)
+        mesh = mesh_lib.make_mesh((1, 1, 1), ("stage", "data", "model"))
+        batches = batches_of(cfg, b, seq, 1)
+        params = common.fan_in_init(registry.materialize_params(cfg, 0, device=dev))
+        plain = run("(ii) plain", steps_lib.make_train_step(cfg, AdamWConfig()),
+                    (tree.tree_map(torch.clone, params), adamw_init(params)), batches)
+        piped = run("(ii) pipelined", pp.make_pp_train_step(cfg, mesh, PP_MICRO),
+                    steps_lib.shard_train_state(params, cfg, mesh, pp.PP_OVERRIDES), batches)
+        compare("(ii) yi-6b 4 layers", plain, piped)
+        del plain, piped, params, batches
+        log(f"pipeline_training (ii): {time.perf_counter() - t_ii:.1f} s")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"pipeline_training: the phase took {time.perf_counter() - t_phase:.1f} s ({card})")
+    return launches
 
 if __name__ == "__main__":
     main()

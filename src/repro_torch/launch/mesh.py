@@ -99,6 +99,15 @@ def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda") 
     return make_mesh(*PRODUCTION["multi" if multi_pod else "single"], device_type)
 
 
+def make_pp_mesh(stages: int = 4, data: int = 8, model: int = 8,
+                 device_type: str = "cuda") -> Mesh:
+    """The pipeline's mesh (`launch.pipeline`): a one-axis ("stage",) mesh
+    when data = model = 1, else ("stage", "data", "model")."""
+    if data == 1 and model == 1:
+        return make_mesh((stages,), ("stage",), device_type)
+    return make_mesh((stages, data, model), ("stage", "data", "model"), device_type)
+
+
 def parse_mesh(spec: str):
     """A CLI's --mesh -> (shape, axes), None for 1x1: `DxM` over ("data",
     "model"), or a production mesh by name (`single`, `multi`)."""
@@ -125,7 +134,8 @@ def mesh_of_flag(spec: str, device_type: str):
 
 
 def data_axes_of(mesh) -> tuple:
-    """Mesh axes that carry pure data parallelism (pod extends data)."""
+    """Mesh axes that carry pure data parallelism (pod extends data; a
+    pipeline's `stage` is none)."""
     return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
 
 

@@ -149,8 +149,10 @@ def zero1_pspecs(cfg: ArchConfig, mesh, overrides: Optional[dict] = None):
 
 
 def batch_pspec(mesh) -> tuple:
+    """The batch's spec: dim 0 over the data axes (None on a mesh with none,
+    a pipeline's ("stage",), as the reference's `P(())` reads)."""
     from repro_torch.launch.mesh import data_axes_of
-    return (data_axes_of(mesh),)
+    return (data_axes_of(mesh) or None,)
 
 
 def batch_shardings(spec_tree, mesh):
@@ -158,7 +160,7 @@ def batch_shardings(spec_tree, mesh):
     over the data axes, replicated where the batch does not divide them."""
     from repro_torch.launch.mesh import data_axes_of
 
-    daxes = data_axes_of(mesh)
+    daxes = data_axes_of(mesh) or None
     dp = axis_size(mesh, daxes)
 
     def one(s):

@@ -740,31 +740,34 @@ def _accumulate(batch, grad_accum: int, run, like: list):
 # Train on a mesh
 # ---------------------------------------------------------------------------
 
-def leaf_plans(cfg: ArchConfig, mesh) -> list:
+def leaf_plans(cfg: ArchConfig, mesh, overrides: Optional[dict] = None) -> list:
     """The `parallel.LeafPlan` of every parameter leaf, in flatten order:
     its specs, and whether its layer computes it split over `model` (the
     schema's `ParamDef.split`: the attention heads, the dense MLP's width,
     the vocabulary, the routed experts; the SSD mixer, the cross-attention,
-    the router and the frontend projection are gathered whole)."""
+    the router and the frontend projection are gathered whole).
+    overrides: rules over `sharding.DEFAULT_RULES` (the pipeline's
+    {"layers": "stage"}), for both specs."""
     defs = tree_lib.leaves(registry.schema(cfg))
-    pspecs = shd.spec_leaves(shd.param_pspecs(cfg, mesh))
-    zspecs = shd.spec_leaves(shd.zero1_pspecs(cfg, mesh))
+    pspecs = shd.spec_leaves(shd.param_pspecs(cfg, mesh, overrides))
+    zspecs = shd.spec_leaves(shd.zero1_pspecs(cfg, mesh, overrides))
     return [parallel.LeafPlan(p, z, d.split) for d, p, z in zip(defs, pspecs, zspecs)]
 
 
-def state_specs(cfg: ArchConfig, mesh):
+def state_specs(cfg: ArchConfig, mesh, overrides: Optional[dict] = None):
     """The specs of a training state (params, AdamWState): the parameters'
     `param_pspecs`, the master, m and v `zero1_pspecs`, the count ()."""
-    z = shd.zero1_pspecs(cfg, mesh)
-    return (shd.param_pspecs(cfg, mesh), adamw.AdamWState(z, z, z, ()))
+    z = shd.zero1_pspecs(cfg, mesh, overrides)
+    return (shd.param_pspecs(cfg, mesh, overrides), adamw.AdamWState(z, z, z, ()))
 
 
-def train_placements(cfg: ArchConfig, shape: ShapeConfig, mesh) -> dict:
+def train_placements(cfg: ArchConfig, shape: ShapeConfig, mesh,
+                     overrides: Optional[dict] = None) -> dict:
     """What each rank holds of a training step's inputs (the port's form of
     the reference's `train_lowering_inputs`): the specs of the parameters,
     of the optimizer state and of the batch's leaves, and the local shapes
     of the first two."""
-    params, opt = state_specs(cfg, mesh)
+    params, opt = state_specs(cfg, mesh, overrides)
     schema = registry.schema(cfg)
     full = [d.shape for d in tree_lib.leaves(schema)]
     return {"params": params, "opt_state": opt,
@@ -775,12 +778,12 @@ def train_placements(cfg: ArchConfig, shape: ShapeConfig, mesh) -> dict:
                            for s, z in zip(full, shd.spec_leaves(opt.master))]}
 
 
-def shard_train_state(params, cfg: ArchConfig, mesh):
+def shard_train_state(params, cfg: ArchConfig, mesh, overrides: Optional[dict] = None):
     """(this rank's parameter blocks, its optimizer state) from full
     parameters: each leaf cut to its `param_pspecs` block (a copy where it
     splits, the leaf itself where it does not), the f32 master its
     `zero1_pspecs` block, m and v zeros of that shape."""
-    plans = leaf_plans(cfg, mesh)
+    plans = leaf_plans(cfg, mesh, overrides)
     leaves = tree_lib.leaves(params)
 
     def block(t, spec):
@@ -827,36 +830,15 @@ def _mesh_train_step(cfg: ArchConfig, mesh, opt_cfg: adamw.AdamWConfig, grad_acc
         `data` (FSDP), its gradient reduce-scattered back, summed in f32;
         over `model` where the leaf computes whole.  The heads, MLP width,
         vocabulary and experts compute split over `model`;
-      * each microbatch's gradients are reduced onto the ZeRO-1 blocks: a
-        leaf not split over `data` sums over it (reduce-scattered where its
-        ZeRO-1 block splits `data`), every leaf sums over `pod`, and a
-        block the ZeRO-1 spec splits over `model` is cut out (every model
-        rank computed the same gradient); above one microbatch they add
-        into f32 accumulators of the ZeRO-1 blocks' shapes;
+      * each microbatch's gradients are reduced onto the ZeRO-1 blocks
+        (`mesh_update`'s `to_zero1`); above one microbatch they add into
+        f32 accumulators of the ZeRO-1 blocks' shapes;
       * the loss, its metrics and the MoE aux statistics are global (their
-        parts summed over the data axes); the clip's global norm sums each
-        leaf's squares over its block once (the rank at coordinate 0 of
-        every axis the block is replicated over) in one all-reduce;
-      * AdamW updates the blocks in place, and each new bf16 parameter is
-        gathered from the ZeRO-1 blocks back into its parameter block."""
+        parts summed over the data axes);
+      * AdamW updates the blocks in place (`mesh_update`)."""
     plans = leaf_plans(cfg, mesh)
-    dsize, psize = mesh.shape.get("data", 1), mesh.shape.get("pod", 1)
-    dp = dsize * psize
-
-    def f32_sum(g, axis):
-        return parallel.all_reduce(g.float(), mesh, axis).to(g.dtype)
-
-    def to_zero1(g, plan):
-        for j, (pp, zp) in enumerate(zip(plan.pspec, plan.zspec)):
-            if zp == "model" and pp is None:
-                g = parallel.block(g, j, mesh, "model")
-        if "data" not in plan.pspec and dsize > 1:
-            zd = plan.dim_of(plan.zspec, "data")
-            g = (parallel.reduce_scatter_dim(g, zd, mesh, "data") if zd is not None
-                 else f32_sum(g, "data"))
-        if psize > 1:
-            g = f32_sum(g, "pod")
-        return g
+    to_zero1, update = mesh_update(mesh, opt_cfg, plans, param_dtype)
+    dp = mesh.shape.get("data", 1) * mesh.shape.get("pod", 1)
 
     def run(params, mb):
         leaves = []
@@ -875,6 +857,56 @@ def _mesh_train_step(cfg: ArchConfig, mesh, opt_cfg: adamw.AdamWConfig, grad_acc
                 met["ce"] = parallel.all_reduce(met["ce"], mesh, axis)
             loss = met["ce"] + met["aux"]
         return loss, met, grads
+
+    def train_step(params, opt_state, batch):
+        loss, met, grads = _accumulate(batch, grad_accum, lambda mb: run(params, mb),
+                                       tree_lib.leaves(opt_state.master))
+        params, opt_state, opt_met = update(params, opt_state, grads)
+        return params, opt_state, {"loss": loss, **met, **opt_met}
+
+    return train_step
+
+
+def mesh_update(mesh, opt_cfg: adamw.AdamWConfig, plans: list, param_dtype=torch.bfloat16):
+    """The ZeRO-1 half of a step on a mesh, for the leaves' `plans`:
+    (to_zero1(gradient, plan), update(params, opt_state, grads in flatten
+    order) -> (params, opt_state, {"grad_norm", "lr"})).
+
+      * `to_zero1` reduces a rank's gradient of a parameter block onto its
+        ZeRO-1 block: where the plans split the layer stack over `stage`
+        (the pipeline, whose stages compute disjoint parts of the model), a
+        leaf not split over it (the embedding, the final norm, the
+        unembedding) sums its stages' parts over `stage` in f32 first
+        (without such a split every stage computes the same gradient); a
+        leaf not split over `data` sums
+        over it (reduce-scattered where its ZeRO-1 block splits `data`),
+        every leaf sums over `pod`, and a block the ZeRO-1 spec splits over
+        `model` is cut out (every model rank computed the same gradient);
+      * `update` is AdamW on the blocks in place: the clip's global norm
+        sums each leaf's squares over its block once (the rank at
+        coordinate 0 of every axis the block is replicated over) in one
+        all-reduce, and each new parameter is gathered from the ZeRO-1
+        blocks back into its parameter block."""
+    dsize, psize = mesh.shape.get("data", 1), mesh.shape.get("pod", 1)
+    staged = any("stage" in plan.pspec for plan in plans)
+    ssize = mesh.shape.get("stage", 1) if staged else 1
+
+    def f32_sum(g, axis):
+        return parallel.all_reduce(g.float(), mesh, axis).to(g.dtype)
+
+    def to_zero1(g, plan):
+        if ssize > 1 and "stage" not in plan.pspec:
+            g = f32_sum(g, "stage")
+        for j, (pp, zp) in enumerate(zip(plan.pspec, plan.zspec)):
+            if zp == "model" and pp is None:
+                g = parallel.block(g, j, mesh, "model")
+        if "data" not in plan.pspec and dsize > 1:
+            zd = plan.dim_of(plan.zspec, "data")
+            g = (parallel.reduce_scatter_dim(g, zd, mesh, "data") if zd is not None
+                 else f32_sum(g, "data"))
+        if psize > 1:
+            g = f32_sum(g, "pod")
+        return g
 
     owned = [all(mesh.coord(a) == 0 for a in mesh.axis_names if a not in plan.zspec)
              for plan in plans]
@@ -900,12 +932,8 @@ def _mesh_train_step(cfg: ArchConfig, mesh, opt_cfg: adamw.AdamWConfig, grad_acc
             new = parallel.all_gather_dim(new, j, mesh, axis)
         return p.copy_(new) if p.dtype == param_dtype else new
 
-    def train_step(params, opt_state, batch):
-        loss, met, grads = _accumulate(batch, grad_accum, lambda mb: run(params, mb),
-                                       tree_lib.leaves(opt_state.master))
-        params, opt_state, opt_met = adamw.adamw_update(
-            opt_cfg, tree_lib.unflatten(params, grads), opt_state, params, param_dtype,
-            norm_fn=global_norm, put=put)
-        return params, opt_state, {"loss": loss, **met, **opt_met}
+    def update(params, opt_state, grads):
+        return adamw.adamw_update(opt_cfg, tree_lib.unflatten(params, grads), opt_state,
+                                  params, param_dtype, norm_fn=global_norm, put=put)
 
-    return train_step
+    return to_zero1, update

@@ -20,7 +20,11 @@ The model code passes that mesh to:
     bf16 partial sums would round twice (the experts keep the reference's
     bf16 sum);
   * `sum_over_data` for the global statistics (the loss's token count, the
-    MoE aux statistics).
+    MoE aux statistics);
+  * `stage_shift` / `stage_hop` and `from_last_stage`, the pipeline's
+    (`launch.pipeline`) moves between the stages of a `stage` axis: the
+    reference's `ppermute` to the next stage and its masked `psum` of the
+    last stage's result.
 
 Which leaves compute split is the schema's word (`ParamDef.split`, read
 into `LeafPlan.keep_model`); a gathered leaf that keeps its `model` block
@@ -160,6 +164,64 @@ def sum_over_data(x: torch.Tensor, mesh, data_axes) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Pipeline stages
+# ---------------------------------------------------------------------------
+
+def stage_shift(x: torch.Tensor, mesh, reverse: bool = False) -> torch.Tensor:
+    """x sent to the next stage of the `stage` axis and the previous stage's
+    x received, on a ring (the reference's `ppermute(perm=[(i, (i + 1) %
+    S)])`); reverse: the inverse permute, to the previous stage.  Every
+    stage of the line must call it with a tensor of one shape and dtype.
+    The identity at one stage: no send to self."""
+    n = size("stage", mesh)
+    if n == 1:
+        return x
+    group = mesh.group("stage")
+    ranks = dist.get_process_group_ranks(group)
+    s = mesh.coord("stage")
+    nxt, prv = ranks[(s + 1) % n], ranks[(s - 1) % n]
+    dst, src = (prv, nxt) if reverse else (nxt, prv)
+    x = x.detach().contiguous()
+    out = torch.empty_like(x)
+    for req in dist.batch_isend_irecv([dist.P2POp(dist.isend, x, dst, group),
+                                       dist.P2POp(dist.irecv, out, src, group)]):
+        req.wait()
+    return out
+
+
+class _StageHop(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return stage_shift(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return stage_shift(g, ctx.mesh, reverse=True), None
+
+
+def stage_hop(x: torch.Tensor, mesh) -> torch.Tensor:
+    """`stage_shift` under autograd: the gradient goes back to the stage
+    that sent x.  A backward through it is a collective too: every stage
+    must run its hops' backwards in the same order."""
+    if size("stage", mesh) == 1:
+        return x
+    return _StageHop.apply(x, mesh)
+
+
+def from_last_stage(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The last stage's x on every stage, as a new tensor (the reference's
+    `psum` of x masked to the last stage: an add of zeros, exact).  The
+    identity at one stage."""
+    if size("stage", mesh) == 1:
+        return x
+    group = mesh.group("stage")
+    y = x.detach().clone().contiguous()
+    dist.broadcast(y, dist.get_process_group_ranks(group)[-1], group=group)
+    return y
+
+
+# ---------------------------------------------------------------------------
 # Parameters: the plan of a leaf and its gather on use
 # ---------------------------------------------------------------------------
 
@@ -205,7 +267,9 @@ class _Gather(torch.autograd.Function):
 def gather(t: torch.Tensor, mesh, decode: bool = False) -> torch.Tensor:
     """A parameter leaf as the model computes with it: gathered over `data`
     and (unless kept) `model`; marked split where a `model` block stays.
-    decode: the serving decode step's use (`LeafPlan.keep_decode` keeps)."""
+    decode: the serving decode step's use (`LeafPlan.keep_decode` keeps).
+    A layer stack's `stage` block (the pipeline's) is this stage's layer
+    groups and is never gathered."""
     plan = getattr(t, "_plan", None)
     if plan is None or mesh is None:
         return t

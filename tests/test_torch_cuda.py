@@ -2030,3 +2030,72 @@ def test_mla_and_ssd_grads_on_card_match_cpu(dev, kind):
         worst = max(worst, rel)
         assert a.dtype == b.dtype and rel <= 2e-2, rel
     print(f"{kind}: worst relative L2 {worst:.2e}")
+
+
+# ---------------------------------------------------------------------------
+# The pipeline on one stage (slice 21): no kernel runs
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch,axes", [("yi-6b", ("stage",)),
+                                       ("smollm-360m", ("stage", "data", "model"))])
+def test_one_stage_pipeline_matches_plain_step(dev, arch, axes):
+    """`make_pp_train_step` on a one-stage mesh over NCCL (a world of one
+    process) against the plain step on the card: the smoke config at
+    `common.fan_in_init` of its seed-0 draws, 3 steps of the pipeline's 8 x
+    32 batches, 4 microbatches, AdamW at lr 1e-3; `pp_forward`'s logits of
+    the first batch against `lm.forward`'s.  Within
+    tests/test_torch_mesh_step.py's bf16 bounds: the metrics 2e-3 relative,
+    parameters and master 1.5e-2 relative L2 per leaf, m and v 2.5e-2; the
+    logits within one bf16 ulp of the largest.  smollm ties its
+    embeddings: the lookup's and the unembedding's gradients meet in one
+    leaf."""
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import pipeline as pp
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = configs.get_arch(arch, smoke=True)
+    params = common.fan_in_init(registry.materialize_params(cfg, 0, device=dev))
+    pipe = TokenPipeline(train.data_config(cfg, 32, 8, 0))
+    batches = [train.to_device(next(pipe), dev) for _ in range(3)]
+    pipe.close()
+    try:
+        mesh = mesh_lib.make_mesh((1,) * len(axes), axes)
+        assert dist.get_backend() == "nccl"
+        with torch.no_grad():
+            got = pp.pp_forward(params, batches[0]["tokens"], cfg, mesh, 4)
+            want = lm.forward(params, batches[0]["tokens"], cfg, blocks.RunCtx(q_block=64),
+                              remat=False).logits
+        runs = []
+        for step, state in (
+                (steps_lib.make_train_step(cfg, AdamWConfig(lr=1e-3), q_block=64),
+                 (tree.tree_map(torch.clone, params), adamw_init(params))),
+                (pp.make_pp_train_step(cfg, mesh, 4, AdamWConfig(lr=1e-3), q_block=64),
+                 steps_lib.shard_train_state(params, cfg, mesh, pp.PP_OVERRIDES))):
+            mets = []
+            for bt in batches:
+                *state, met = step(*state, bt)
+                mets.append({k: met[k].item() for k in ("loss", "grad_norm", "lr")})
+            runs.append((mets, state))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    logits = (got.float() - want.float()).abs().max().item() / want.float().abs().max().item()
+    (p_mets, p_state), (q_mets, q_state) = runs
+    metric = max(abs(q[k] - p[k]) / abs(p[k]) for p, q in zip(p_mets, q_mets) for k in p)
+    worst = {}
+    for (name, a), b in zip(tree.named_leaves(p_state), tree.leaves(q_state)):
+        if a.is_floating_point():
+            rel = ((b.float() - a.float()).norm() / a.float().norm().clamp_min(1e-30)).item()
+            tol = 2.5e-2 if name.split("/")[1] in ("m", "v") else 1.5e-2
+            assert b.device.type == "cuda" and rel <= tol, (name, rel)
+            worst[name] = rel
+    name = max(worst, key=worst.get)
+    print(f"{arch} {axes}: logits {logits:.3g} of the largest; metrics {metric:.3g}; "
+          f"worst leaf {name} {worst[name]:.3g}")
+    assert logits <= 2 ** -8 and metric <= 2e-3
